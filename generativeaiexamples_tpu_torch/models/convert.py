@@ -1,0 +1,44 @@
+"""Weights carried across between the JAX package and the port.
+
+Both packages keep the same Llama parameter tree (stacked `[L, ...]`
+layer weights, `[in, out]` projections), so conversion is a leaf-by-leaf
+copy. The JAX side hands over `jax.tree.map(np.asarray, params)`; bf16
+leaves arrive as `ml_dtypes.bfloat16` numpy arrays, which torch cannot
+read directly, so they pass through float32 (exact for bf16).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
+
+
+def _leaf_to_torch(a: Any, device: torch.device, dtype) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    # A copy: JAX hands over read-only views of its buffers.
+    return torch.from_numpy(np.array(arr, copy=True)).to(device=device,
+                                                        dtype=dtype)
+
+
+def llama_params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
+                            dtype=torch.bfloat16) -> Dict[str, Any]:
+    """JAX-package Llama params (numpy leaves) -> the port's params."""
+    dev = resolve_device(device)
+    return {k: (llama_params_from_numpy(v, dev, dtype) if isinstance(v, dict)
+                else _leaf_to_torch(v, dev, dtype))
+            for k, v in tree.items()}
+
+
+def llama_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's params -> numpy leaves (bf16 as float32), ready for
+    `jax.tree.map(jnp.asarray, ...)` on the JAX side."""
+    return {k: (llama_params_to_numpy(v) if isinstance(v, dict)
+                else (v.float() if v.dtype == torch.bfloat16 else v)
+                .detach().cpu().numpy())
+            for k, v in params.items()}

@@ -1,0 +1,759 @@
+"""Continuous-batching LLM engine over one CUDA device (or the CPU).
+
+Counterpart of the core scheduler of
+generativeaiexamples_tpu/serving/engine.py: paged KV cache, batched
+bucketed prefill, slot-based continuous batching, per-request sampling
+parameters and token streams for SSE.
+
+Scheduling model (one scheduler thread, the only writer of slot, page
+and device state):
+
+  submit() -> waiting deque
+  loop:  admit waiting requests (same-bucket admissions prefill in ONE
+         batched dispatch, first tokens sampled on the device); keep up
+         to pipeline_depth K-step decode blocks in flight over all
+         active slots (fixed batch shape, inactive slots masked to the
+         page-0 sink, sampling on the device, tokens chained on the
+         device); land the OLDEST block: wait for its CUDA event, then
+         emit / retire from the host copy.
+
+Every device result the host reads (a decode block, a prefill group's
+first tokens) is copied to pinned host memory with a non-blocking copy
+and a CUDA event recorded behind it; the host reads it only once the
+event has completed, admitting new arrivals while it waits.
+
+Not ported yet, and refused at construction or submit (see
+config/schema.py): chunked prefill of prompts longer than the largest
+bucket (ROADMAP A.7/A.8), speculation, step plans, fused prefill, prefix
+cache, pager, QoS, multi-host, emission pacing and the flight recorder.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from generativeaiexamples_tpu_torch import kernels
+from generativeaiexamples_tpu_torch.config.schema import EngineConfig
+from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
+from generativeaiexamples_tpu_torch.models.llama import LlamaConfig
+from generativeaiexamples_tpu_torch.serving import engine_model
+from generativeaiexamples_tpu_torch.serving.kv_cache import (
+    PageAllocator, PagePool, SequencePages)
+from generativeaiexamples_tpu_torch.utils.tokenizer import StreamDetokenizer
+
+_LOG = logging.getLogger(__name__)
+
+# Failed admissions (page exhaustion) a request may retry while nothing
+# in flight could free pages, before it is failed with an error event.
+MAX_ADMISSION_RETRIES = 64
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _pow2_floor(n: int) -> int:
+    """Largest power of two <= max(n, 1): decode block lengths."""
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+class PromptTooLongError(ValueError):
+    """Prompt longer than the largest prefill bucket. Chunked prefill of
+    longer prompts (`prefill_chunk_step`, `_advance_long_prefills`) is the
+    next slice of the port (ROADMAP A.7/A.8); until then such prompts are
+    refused at submit() so callers reject them at the API boundary."""
+
+
+@dataclasses.dataclass
+class GenRequest:
+    prompt_ids: List[int]
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    stop_ids: Sequence[int] = ()
+    stream: "queue.Queue[Dict[str, Any]]" = dataclasses.field(
+        default_factory=queue.Queue)
+    submit_time: float = dataclasses.field(default_factory=time.perf_counter)
+    request_id: str = ""
+    admission_attempts: int = 0
+    cancelled: bool = False  # set by the server on disconnect / stop string
+    truncate_prompt: bool = False  # opt-in: keep the tail instead of refusing
+
+
+class _Slot:
+    def __init__(self, req: GenRequest, seq: SequencePages, detok):
+        self.req = req
+        self.seq = seq
+        self.detok = detok
+        self.generated = 0
+        # Tokens DISPATCHED (prefill token + K per decode block joined),
+        # in flight included: caps K so no block runs past max_new_tokens.
+        self.scheduled = 1
+        self.prompt_len = len(req.prompt_ids)
+        self.awaiting_first = True   # until the slot joins a decode block
+        self.first_emitted = False   # first token reached the stream
+        self.no_capacity = False     # starved; finished after the drain
+
+
+class _HostCopy:
+    """A device tensor on its way to pinned host memory: the copy and an
+    event recorded behind it are queued on the current stream. On the
+    CPU the tensor is already there."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = t, None
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class _InFlight:
+    """One dispatched-but-unprocessed decode block."""
+
+    __slots__ = ("copy", "metas", "K", "releases")
+
+    def __init__(self, block: torch.Tensor, metas, K: int):
+        self.copy = _HostCopy(block)   # [B, K + 1]
+        self.metas = metas             # [(slot_idx, slot, first_col)]
+        self.K = K
+        self.releases: List[SequencePages] = []  # freed once this lands
+
+
+class EngineMetrics:
+    """Serving metrics: TTFT, tokens/s, batch occupancy, kernel launches.
+    Written by the scheduler thread; read by scrapes."""
+
+    RATE_WINDOW_S = 30.0
+    TTFT_SAMPLES = 4096
+
+    def __init__(self):
+        self.tokens_out = 0
+        self.decode_steps = 0
+        self.busy_slots_acc = 0
+        self.prefill_tokens = 0
+        self.fused_sample_dispatches = 0
+        self.admission_failures = 0
+        self.stuck_thread_joins = 0
+        self._ttft: deque = deque(maxlen=self.TTFT_SAMPLES)
+        self._token_events: deque = deque(maxlen=8192)
+        self._lock = threading.Lock()
+
+    def record_ttft(self, ms: float) -> None:
+        with self._lock:
+            self._ttft.append(ms)
+
+    def record_tokens(self, n: int) -> None:
+        if n > 0:
+            with self._lock:
+                self._token_events.append((time.perf_counter(), n))
+
+    def tokens_per_sec(self, window_s: Optional[float] = None) -> float:
+        """Tokens emitted per second over a sliding window (default 30 s),
+        from the oldest in-window emission to now."""
+        now = time.perf_counter()
+        cutoff = now - (window_s or self.RATE_WINDOW_S)
+        with self._lock:
+            events = [(t, n) for t, n in self._token_events if t >= cutoff]
+        if not events:
+            return 0.0
+        return sum(n for _, n in events) / max(now - events[0][0], 1e-3)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            ttft = sorted(self._ttft)
+
+        def pct(p):
+            return ttft[min(len(ttft) - 1, int(p * len(ttft)))] if ttft \
+                else None
+
+        out = {
+            "ttft_p50_ms": pct(0.50), "ttft_p95_ms": pct(0.95),
+            "tokens_generated": self.tokens_out,
+            "decode_steps": self.decode_steps,
+            "mean_batch_occupancy": (self.busy_slots_acc / self.decode_steps
+                                     if self.decode_steps else 0.0),
+            "tokens_per_sec": self.tokens_per_sec(),
+            "prefill_tokens": self.prefill_tokens,
+            "fused_sample_dispatches": self.fused_sample_dispatches,
+            "admission_failures": self.admission_failures,
+            "stuck_thread_joins": self.stuck_thread_joins,
+        }
+        out.update({f"kernel_launches_{k}": n
+                    for k, n in kernels.LAUNCHES.items()})
+        return out
+
+
+class LLMEngine:
+    """Single-device engine. `params` must already live on `device`
+    (CUDA unless the caller passes device="cpu")."""
+
+    def __init__(self, params, cfg: LlamaConfig, tokenizer,
+                 engine_cfg: Any = None, n_pages: Optional[int] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if params["tok_emb"].device.type != self.device.type:
+            raise ValueError(f"params on {params['tok_emb'].device}, engine "
+                             f"on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.ecfg = EngineConfig.coerce(engine_cfg)
+        ps = self.ecfg.page_size
+        if self.device.type == "cuda" and (
+                cfg.dtype != torch.bfloat16
+                or self.ecfg.kv_dtype != "bfloat16"
+                or ps % 8 or ps > 128):
+            raise ValueError(
+                f"on CUDA the K1/K2 kernels take bf16 and pages of a "
+                f"multiple of 8 up to 128 tokens: model dtype {cfg.dtype}, "
+                f"engine.kv_dtype {self.ecfg.kv_dtype!r}, page_size {ps}")
+        if self.ecfg.max_seq_len < ps:
+            raise ValueError(f"engine.max_seq_len {self.ecfg.max_seq_len} "
+                             f"< page_size {ps}")
+        self.max_pages = self.ecfg.max_seq_len // ps
+        if n_pages is None:
+            n_pages = self.ecfg.max_batch_size * self.max_pages + 1
+        self.pool = PagePool.zeros(cfg, n_pages, ps,
+                                   dtype=_DTYPES[self.ecfg.kv_dtype],
+                                   device=self.device)
+        self.allocator = PageAllocator(n_pages)
+        self.slots: List[Optional[_Slot]] = [None] * self.ecfg.max_batch_size
+        self.waiting: deque = deque()
+        self.metrics = EngineMetrics()
+        # Buckets are positive multiples of page_size within max_seq_len.
+        max_bucket = self.max_pages * ps
+        rounded = {min(-(-b // ps) * ps, max_bucket)
+                   for b in self.ecfg.prefill_buckets if b > 0}
+        self.buckets = sorted(rounded) or [min(-(-512 // ps) * ps,
+                                               max_bucket)]
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        # Device-resident current token per slot (decode blocks chain
+        # through it; the host reads tokens only when a block lands).
+        self._last_tokens = torch.zeros((self.ecfg.max_batch_size,),
+                                        dtype=torch.int32, device=self.device)
+        self._inflight: deque = deque()
+        # Prefill-sampled first tokens on their way to the host:
+        # [(_HostCopy, [(slot_idx, slot), ...])], emitted once landed.
+        self._pending_first: List = []
+        self.pipeline_depth = max(1, self.ecfg.pipeline_depth)
+        self._admit_debounce_s = 0.008
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def warmup(self, buckets=None, group_sizes=None) -> "LLMEngine":
+        """Run every prefill (bucket, group) shape and one decode step
+        before serving, all against the page-0 sink, so the first live
+        burst does not pay first-call costs (kernel builds, cuBLAS
+        heuristics, allocator growth). Eager decode launches the same
+        shapes at every K, so one step covers every block length. Call
+        before start()."""
+        if self._running:
+            raise RuntimeError("warmup() must run before start()")
+        ps = self.pool.page_size
+        if group_sizes is None:
+            group_sizes, n = [], 1
+            bound = min(self.ecfg.max_batch_size, self._prefill_cap)
+            while n < bound:
+                group_sizes.append(n)
+                n *= 2
+            group_sizes.append(n)
+        for bucket in (buckets or self.buckets):
+            for n in group_sizes:
+                toks = engine_model.prefill_batch_step(
+                    self.params, self.cfg, self.pool,
+                    self._put(np.zeros((n, bucket), np.int32)),
+                    self._put(np.ones((n,), np.int32)),
+                    self._put(np.zeros((n, bucket // ps), np.int32)),
+                    self._put(np.zeros((n,), np.float32)),
+                    self._put(np.ones((n,), np.float32)),
+                    self._put(np.zeros((n,), np.int32)),
+                    self._generator, sampling_flags=(True, False, False))
+                engine_model.set_last_tokens(
+                    self._last_tokens, np.full((n,), len(self.slots)), toks)
+        B = self.ecfg.max_batch_size
+        _, self._last_tokens = engine_model.decode_multi_step(
+            self.params, self.cfg, self.pool, self._last_tokens,
+            self._put(np.zeros((B, self.max_pages), np.int32)),
+            self._put(np.ones((B,), np.int32)),
+            self._put(np.zeros((B,), bool)),
+            self._put(np.zeros((B,), np.float32)),
+            self._put(np.ones((B,), np.float32)),
+            self._put(np.zeros((B,), np.int32)),
+            self._generator, 1, sampling_flags=(True, False, False))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def start(self) -> "LLMEngine":
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="llm-engine")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._running = False
+        self._wake.set()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=10)
+            if t.is_alive():
+                _LOG.warning("engine stop: scheduler thread still alive "
+                             "after the join timeout")
+                self.metrics.stuck_thread_joins += 1
+
+    # -- public API --------------------------------------------------------
+
+    def submit(self, req: GenRequest) -> GenRequest:
+        max_prompt = self.buckets[-1]
+        if len(req.prompt_ids) > max_prompt:
+            if not req.truncate_prompt:
+                raise PromptTooLongError(
+                    f"prompt is {len(req.prompt_ids)} tokens; this engine "
+                    f"prefills at most {max_prompt} (its largest bucket). "
+                    f"Longer prompts need chunked prefill "
+                    f"(prefill_chunk_step / _advance_long_prefills), the "
+                    f"next slice of the PyTorch port (ROADMAP A.7/A.8)")
+            req.prompt_ids = req.prompt_ids[-max_prompt:]
+        with self._lock:
+            self.waiting.append(req)
+        self._wake.set()
+        return req
+
+    def generate_stream(self, prompt_ids: Sequence[int],
+                        **kw) -> Iterator[Dict]:
+        """Blocking iterator of {text, token_id, finished, ...} events."""
+        req = GenRequest(prompt_ids=list(prompt_ids), **kw)
+        self.submit(req)
+        while True:
+            ev = req.stream.get()
+            yield ev
+            if ev["finished"]:
+                return
+
+    def generate(self, prompt_ids: Sequence[int], **kw) -> str:
+        return "".join(ev["text"] for ev in self.generate_stream(prompt_ids,
+                                                                 **kw))
+
+    # -- scheduler ---------------------------------------------------------
+
+    def _put(self, x) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(x)).to(self.device)
+
+    @property
+    def _prefill_cap(self) -> int:
+        cap = self.ecfg.max_prefill_group
+        return cap if cap > 0 else self.ecfg.max_batch_size
+
+    def _free_slot_index(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def _loop(self) -> None:
+        """Admissions and decode dispatches are asynchronous; the only
+        wait is for the OLDEST in-flight block, during which newer blocks
+        keep the device busy and new arrivals are admitted."""
+        while self._running:
+            did_work = self._admit_waiting()
+            self._emit_ready_first_tokens()
+            while (len(self._inflight) < self.pipeline_depth
+                   and any(s is not None for s in self.slots)):
+                try:
+                    if not self._dispatch_decode():
+                        break
+                    did_work = True
+                except Exception:
+                    # A failed decode leaves the pool state unknown: fail
+                    # the active slots, keep serving new requests.
+                    _LOG.exception("decode dispatch failed; failing batch")
+                    self._fail_active()
+                    break
+            if self._inflight:
+                self._land_next_block()
+                did_work = True
+            elif self._pending_first:
+                self._wake.wait(timeout=0.001)
+                self._wake.clear()
+                continue
+            if not did_work:
+                self._wake.wait(timeout=0.02)
+                self._wake.clear()
+
+    def _land_next_block(self) -> None:
+        """Land the oldest in-flight block: wait for it, emit / retire,
+        release the pages parked on it."""
+        fl = self._inflight.popleft()
+        try:
+            self._process_block_host(fl, self._fetch_block_host(fl))
+        except Exception:
+            _LOG.exception("decode block failed; failing batch")
+            self._fail_active()
+        finally:
+            for seq in fl.releases:
+                seq.release()
+            fl.releases = []
+        self._reap_starved()
+
+    def _fetch_block_host(self, fl: _InFlight) -> np.ndarray:
+        """Wait for a block's host copy. While the device works, emit
+        first tokens that have landed and admit arrivals older than a
+        short debounce (a burst batches into few prefill groups)."""
+        while not fl.copy.ready():
+            self._emit_ready_first_tokens()
+            with self._lock:
+                oldest = self.waiting[0].submit_time if self.waiting else None
+            if oldest is not None and \
+                    time.perf_counter() - oldest >= self._admit_debounce_s:
+                self._admit_waiting()
+            time.sleep(0.0002)
+        return fl.copy.numpy()
+
+    def _emit_ready_first_tokens(self) -> None:
+        for item in list(self._pending_first):
+            copy, metas = item
+            if all(slot.first_emitted or self.slots[i] is not slot
+                   for i, slot in metas):
+                self._pending_first.remove(item)
+                continue
+            if not copy.ready():
+                continue
+            self._pending_first.remove(item)
+            self._emit_first_values(copy.numpy().reshape(-1), metas)
+
+    def _admit_waiting(self) -> bool:
+        """Admit every waiting request with a free slot, grouped by
+        prefill bucket into batched prefill dispatches (at most
+        max_prefill_group each)."""
+        groups: Dict[int, List] = {}
+        while True:
+            with self._lock:
+                if not self.waiting:
+                    break
+                slot_idx = self._free_slot_index()
+                if slot_idx is None:
+                    break
+                req = self.waiting.popleft()
+            ids = req.prompt_ids or [0]
+            seq = SequencePages(self.allocator, self.pool.page_size,
+                                self.max_pages)
+            try:
+                seq.ensure(len(ids))
+            except MemoryError as e:
+                seq.release()
+                self.metrics.admission_failures += 1
+                ps = self.pool.page_size
+                never_fits = -(-(len(ids) + 1) // ps) \
+                    > self.allocator.n_pages - 1
+                if not never_fits and not any(
+                        s is not None for s in self.slots) \
+                        and not self._inflight:
+                    req.admission_attempts += 1
+                if never_fits \
+                        or req.admission_attempts >= MAX_ADMISSION_RETRIES:
+                    _LOG.warning("admission failed terminally (%s); failing "
+                                 "request", e)
+                    req.stream.put({"text": "", "token_id": -1,
+                                    "finished": True,
+                                    "finish_reason": "error"})
+                    continue
+                with self._lock:
+                    self.waiting.appendleft(req)
+                break
+            # Reserve the slot; the real _Slot replaces it at dispatch.
+            self.slots[slot_idx] = _Slot(req, seq, None)
+            groups.setdefault(self._bucket_for(len(ids)), []).append(
+                (req, slot_idx, seq, ids))
+        did = False
+        cap = self._prefill_cap
+        for bucket, entries in groups.items():
+            for start in range(0, len(entries), cap):
+                part = entries[start:start + cap]
+                try:
+                    self._prefill_group(bucket, part)
+                    did = True
+                except Exception:
+                    _LOG.exception("prefill failed; failing %d requests",
+                                   len(part))
+                    for req, slot_idx, seq, _ in part:
+                        self._fail_request(req, slot_idx, seq)
+        return did
+
+    def _fail_request(self, req: GenRequest, slot_idx: int,
+                      seq: SequencePages) -> None:
+        self.slots[slot_idx] = None
+        seq.release()
+        req.stream.put({"text": "", "token_id": -1, "finished": True,
+                        "finish_reason": "error"})
+
+    def _fail_active(self) -> None:
+        for fl in self._inflight:
+            for seq in fl.releases:
+                seq.release()
+        self._inflight.clear()
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                self._finish(i, "error")
+
+    def _prefill_group(self, bucket: int, entries: List) -> None:
+        """One batched prefill dispatch for a same-bucket group: forward,
+        first-token sampling on the device and the scatter into the
+        device token buffer. No host wait: the first tokens' host copy is
+        emitted when it lands."""
+        ps = self.pool.page_size
+        n = len(entries)
+        N = 1  # pad the group to a power of two
+        while N < n:
+            N *= 2
+        tokens = np.zeros((N, bucket), np.int32)
+        lengths = np.ones((N,), np.int32)
+        rows = np.zeros((N, bucket // ps), np.int32)
+        temps = np.zeros((N,), np.float32)
+        top_ps = np.ones((N,), np.float32)
+        top_ks = np.zeros((N,), np.int32)
+        idxs = np.full((N,), len(self.slots), np.int32)  # padding: dropped
+        for j, (req, slot_idx, seq, ids) in enumerate(entries):
+            tokens[j, :len(ids)] = ids
+            lengths[j] = len(ids)
+            rows[j, :len(seq.pages)] = seq.pages
+            temps[j] = req.temperature
+            top_ps[j] = req.top_p
+            top_ks[j] = req.top_k
+            idxs[j] = slot_idx
+        all_greedy = bool(all(temps[:n] <= 0.0))
+        flags = (True, False, False) if all_greedy else (False, True, True)
+        toks = engine_model.prefill_batch_step(
+            self.params, self.cfg, self.pool, self._put(tokens),
+            self._put(lengths), self._put(rows), self._put(temps),
+            self._put(top_ps), self._put(top_ks), self._generator,
+            sampling_flags=flags)
+        engine_model.set_last_tokens(self._last_tokens, idxs, toks)
+        self.metrics.fused_sample_dispatches += 1
+        metas = []
+        for req, slot_idx, seq, ids in entries:
+            slot = _Slot(req, seq, StreamDetokenizer(self.tokenizer))
+            self.slots[slot_idx] = slot
+            metas.append((slot_idx, slot))
+            self.metrics.prefill_tokens += len(ids)
+        self._pending_first.append((_HostCopy(toks), metas))
+
+    def _dispatch_decode(self) -> bool:
+        """Dispatch ONE K-step decode block over the slot batch (device
+        sampling, device-chained tokens, no host wait)."""
+        B = len(self.slots)
+        K = max(1, self.ecfg.decode_steps_per_dispatch)
+        lengths = np.ones((B,), np.int32)
+        tables = np.zeros((B, self.max_pages), np.int32)
+        temps = np.zeros((B,), np.float32)
+        top_ps = np.ones((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        active_mask = np.zeros((B,), bool)
+        live: List[int] = []
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            if s.req.cancelled:
+                self._finish(i, "cancelled")
+                continue
+            if self._advance_capacity(s, s.seq.length)[0] < 1:
+                self._starve(i)
+                continue
+            if s.req.max_new_tokens - s.scheduled <= 0:
+                continue  # everything asked for is emitted or in flight
+            live.append(i)
+        if not live:
+            return False
+        if len(live) * 4 <= B:
+            # Low occupancy: short blocks keep the device queue shallow
+            # so an arrival's prefill never waits behind K steps.
+            K = min(K, 2)
+        cap_min = min(self._advance_capacity(
+            self.slots[i], self.slots[i].seq.length)[0] for i in live)
+        max_rem = max(self.slots[i].req.max_new_tokens
+                      - self.slots[i].scheduled for i in live)
+        K = _pow2_floor(min(K, max(1, cap_min)))
+        if max_rem < K:
+            # The smallest power of two that finishes every live slot in
+            # this block (overshoot is discarded on the host).
+            K = min(K, 1 << (max_rem - 1).bit_length())
+        base_lens = {i: self.slots[i].seq.length for i in live}
+        while True:
+            shrink_to = None
+            active: List[int] = []
+            active_mask[:] = False
+            for i in live:
+                s = self.slots[i]
+                if s is None:
+                    continue
+                base = base_lens[i]
+                try:
+                    s.seq.ensure(base + K)
+                except MemoryError:
+                    # The pool cannot cover K steps: shrink K to what this
+                    # slot's pages plus the free pages hold; starve only
+                    # when not even one step fits.
+                    _, avail = self._advance_capacity(s, base)
+                    if avail >= 1 and K > 1:
+                        shrink_to = avail
+                        break
+                    if avail < 1:
+                        self._starve(i)
+                    continue
+                active.append(i)
+                active_mask[i] = True
+                s.no_capacity = False
+                tables[i] = s.seq.table_row()
+                lengths[i] = base + 1  # incl. the incoming token
+                temps[i] = s.req.temperature
+                top_ps[i] = s.req.top_p
+                top_ks[i] = s.req.top_k
+            if shrink_to is None:
+                break
+            K = _pow2_floor(shrink_to)
+        if not active:
+            return False
+        all_greedy = bool(all(temps[i] <= 0.0 for i in active))
+        flags = (True, False, False) if all_greedy else (False, True, True)
+        block, self._last_tokens = engine_model.decode_multi_step(
+            self.params, self.cfg, self.pool, self._last_tokens,
+            self._put(tables), self._put(lengths), self._put(active_mask),
+            self._put(temps), self._put(top_ps), self._put(top_ks),
+            self._generator, K, sampling_flags=flags)
+        self.metrics.decode_steps += K
+        self.metrics.busy_slots_acc += len(active) * K
+        metas = []
+        for i in active:
+            s = self.slots[i]
+            metas.append((i, s, 0 if s.awaiting_first else 1))
+            s.awaiting_first = False
+            s.scheduled += K
+        self._inflight.append(_InFlight(block, metas, K))
+        return True
+
+    def _advance_capacity(self, slot: _Slot, used: int):
+        """(table_cap, avail): tokens the slot can still store against its
+        page-table limit, and against its pages plus the free pages."""
+        ps = self.pool.page_size
+        table_cap = self.max_pages * ps - used
+        in_page = len(slot.seq.pages) * ps - used
+        return table_cap, in_page + self.allocator.n_free * ps
+
+    def _starve(self, slot_idx: int) -> None:
+        """The slot cannot advance. With blocks still in flight for it,
+        defer (they may finish it legitimately); else finish 'length'."""
+        slot = self.slots[slot_idx]
+        if slot is None:
+            return
+        if any(s is slot for fl in self._inflight for _, s, _ in fl.metas):
+            slot.no_capacity = True
+        else:
+            self._finish(slot_idx, "length")
+
+    def _reap_starved(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot is None or not slot.no_capacity:
+                continue
+            if any(s is slot for fl in self._inflight
+                   for _, s, _ in fl.metas):
+                continue
+            table_cap, avail = self._advance_capacity(slot, slot.seq.length)
+            if table_cap >= 1 and avail >= 1:
+                slot.no_capacity = False
+                continue
+            self._finish(i, "length")
+
+    def _process_block_host(self, fl: _InFlight, block: np.ndarray) -> None:
+        """Emit / finish slots from a landed block ([B, K + 1])."""
+        now = time.perf_counter()
+        tokens_before = self.metrics.tokens_out
+        for i, slot, first_col in fl.metas:
+            if self.slots[i] is not slot:
+                continue  # retired while this block was in flight
+            if first_col == 0:
+                if slot.first_emitted:
+                    first_col = 1  # the prefill copy already emitted it
+                else:
+                    slot.first_emitted = True
+                    self.metrics.record_ttft(
+                        (now - slot.req.submit_time) * 1e3)
+            for j in range(first_col, fl.K + 1):
+                self._emit(slot, int(block[i, j]), slot_idx=i)
+                if self.slots[i] is not slot:
+                    break  # finished mid-block; the rest is overshoot
+        self.metrics.record_tokens(self.metrics.tokens_out - tokens_before)
+
+    def _emit_first_values(self, vals: np.ndarray, metas) -> None:
+        now = time.perf_counter()
+        for j, (slot_idx, slot) in enumerate(metas):
+            if self.slots[slot_idx] is not slot or slot.first_emitted:
+                continue
+            slot.first_emitted = True
+            self.metrics.record_ttft((now - slot.req.submit_time) * 1e3)
+            self._emit(slot, int(vals[j]), slot_idx=slot_idx)
+            self.metrics.record_tokens(1)
+
+    def _emit(self, slot: _Slot, tok: int, slot_idx: int) -> None:
+        self.metrics.tokens_out += 1
+        slot.generated += 1
+        eos_ids = getattr(self.tokenizer, "eos_ids", None) or \
+            {getattr(self.tokenizer, "eos_id", None)}
+        eos = tok in eos_ids or tok in slot.req.stop_ids
+        text = "" if eos else slot.detok.push(tok)
+        done = slot.generated >= slot.req.max_new_tokens
+        reason = "stop" if eos else "length" if done else None
+        slot.req.stream.put({"text": text, "token_id": tok,
+                             "finished": eos or done,
+                             "finish_reason": reason})
+        if eos or done:
+            self._finish(slot_idx, reason, emit=False)
+
+    def _release_seq(self, seq: SequencePages) -> None:
+        """Free a retired sequence's pages once the newest in-flight block
+        (which may still write them for the retired slot) has landed."""
+        if self._inflight:
+            self._inflight[-1].releases.append(seq)
+        else:
+            seq.release()
+
+    def _finish(self, slot_idx: int, reason: str, emit: bool = True) -> None:
+        slot = self.slots[slot_idx]
+        if slot is None:
+            return
+        if emit:
+            slot.req.stream.put({"text": "", "token_id": -1,
+                                 "finished": True, "finish_reason": reason})
+        self._release_seq(slot.seq)
+        self.slots[slot_idx] = None
+        self._wake.set()

@@ -1,0 +1,95 @@
+"""Paged decode attention: the gather reference and the K2 CUDA kernel.
+
+Counterpart of generativeaiexamples_tpu/serving/paged_attention.py.
+Layouts (one layer):
+
+  q          [B, H, Hd]          one token per sequence
+  k_pages    [KH, P, ps, Hd]     the layer's slice of the page pool
+  page_table [B, maxp] int32     page ids per sequence (0 = sink page)
+  lengths    [B] int32           valid tokens, including the new one
+
+`paged_attention` wraps `csrc/paged_attention.cu`, which replaces both
+TPU routes (the in-repo `_paged_kernel` and JAX's bundled JetStream
+kernel). A CUDA tensor launches the kernel or raises; a CPU tensor runs
+`paged_attention_reference`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from generativeaiexamples_tpu_torch import kernels
+from generativeaiexamples_tpu_torch.ops.attention import (
+    _check_cuda_operand, mha_reference)
+
+
+def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, page_table: torch.Tensor,
+                              lengths: torch.Tensor, *,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Gather-based paged attention in plain torch (the numerics oracle)."""
+    B, H, Hd = q.shape
+    KH, _, ps, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    table = page_table.long()
+    # [KH, B, maxp, ps, Hd] -> [B, KH, maxp * ps, Hd]
+    k = k_pages[:, table].permute(1, 0, 2, 3, 4).reshape(B, KH, maxp * ps, Hd)
+    v = v_pages[:, table].permute(1, 0, 2, 3, 4).reshape(B, KH, maxp * ps, Hd)
+    out = mha_reference(q[:, :, None, :], k, v, causal=False,
+                        lengths=lengths, scale=scale)
+    return out[:, :, 0, :]
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """K2: paged decode attention. bf16 q [B,H,Hd] and pages
+    [KH,P,ps,Hd] (Hd in {64, 128}, ps a multiple of 8 up to 128),
+    int32 page_table [B, maxp] and lengths [B]; all contiguous."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                         lengths, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    B, H, Hd = q.shape
+    KH, P, ps, Hk = k_pages.shape
+    maxp = page_table.shape[1] if page_table.dim() == 2 else -1
+    if (v_pages.shape != k_pages.shape or Hk != Hd or Hd not in (64, 128)
+            or H % KH or (H // KH) * Hd > 1024 or ps % 8 or not 0 < ps <= 128
+            or page_table.shape != (B, maxp) or lengths.shape != (B,)):
+        raise ValueError(
+            f"unsupported shapes q {tuple(q.shape)} pages "
+            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} table "
+            f"{tuple(page_table.shape)} lengths {tuple(lengths.shape)}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _check_cuda_operand(name, t, q.device)
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("page_table", page_table), ("lengths", lengths)):
+        if t.dtype != torch.int32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int32 on {q.device}")
+    out = torch.empty_like(q)
+    kernels.launch(
+        "paged_attention", q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), out.data_ptr(), page_table.data_ptr(),
+        lengths.data_ptr(), B, H, KH, P, ps, maxp, Hd,
+        float(scale if scale is not None else Hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def paged_attention_dispatch(q, k_pages, v_pages, page_table, lengths, *,
+                             scale=None, k_scales=None, layer=None):
+    """The engine's entry point. `lengths` INCLUDES the current token,
+    whose k/v must already be in the pool (write-then-attend). Only the
+    bf16/f32 pool form exists in this port so far."""
+    if k_scales is not None or layer is not None:
+        raise NotImplementedError(
+            "the quantized (int8 fused) pool form of paged attention is not "
+            "ported yet (ROADMAP A.12, kernel B.4)")
+    return paged_attention(q, k_pages, v_pages, page_table, lengths,
+                           scale=scale)
