@@ -8,28 +8,49 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printing one JSON line; any failure exits non-zero:
 
   1. env      the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build    nvcc builds every kernel of the serving path from csrc/
+  2. build    nvcc builds every kernel (K1, K2, K3) from csrc/, one
+              process per source, all in parallel
   3. flash    K1 (csrc/flash_attention.cu) against `mha_reference` run in
               f32 on the same bf16 inputs, at Llama-3-8B prefill shapes
-              plus ragged / q_offset / fully-masked / head_dim 64 cases
+              (and the chunked lane's q_offset shape) plus ragged /
+              q_offset / fully-masked / head_dim 64 cases
   4. paged    K2 (csrc/paged_attention.cu) against
               `paged_attention_reference`, at 8B decode shapes plus
               head_dim 64 and a small page size
-  5. model    a 2-layer bf16 model with 8B head geometry, run through the
+  5. encoder  K3 (csrc/encoder_attention.cu) against
+              `encoder_attention_reference` at arctic-embed-l (B=16,
+              H=16, S=128/512) and reranker-base (B=8, H=12, S=256/512)
+              shapes through the fused-QKV views bert.forward passes,
+              ragged lengths with a lengths-0 row (must average V), and
+              contiguous q/k/v; SDPA with a key-padding mask timed
+              beside it
+  6. model    a 2-layer bf16 model with 8B head geometry, run through the
               engine's prefill and decode steps on the card, against the
               plain f32 forward on the CPU over the same weights
-  6. serving  LLMEngine at Llama-3-8B geometry (random weights from a
+  7. serving  LLMEngine at Llama-3-8B geometry (random weights from a
               seed, bf16, default engine config) behind the port's
               OpenAI server on a local port: one streaming chat
               completion, one non-streaming completion, 4 concurrent
               64-token completions (one of them sampled with temperature,
-              top-k and top-p); both kernels' launch counts must rise.
+              top-k and top-p); K1's and K2's launch counts must rise.
               Then, outside the counted window, torch.profiler over one
               more 64-token completion: device idle share and device
               time by kernel name
-  7. kernels  one line {"kernels": [...]} with each kernel's parity,
-              launches in the serving phase, times and bound
-  8. the card's name and power limit, then the last line
+  8. chunked  a ~6,000-token completion through the same server (chunked
+              prefill beyond the 4096 bucket; K1 must launch), and the
+              chunk steps' first-token logits against a one-shot forward
+  9. rag      the chain server (developer_rag, device store, ranked
+              hybrid retrieval) over the same 8B engine with
+              arctic-embed-l and BERT-base reranker encoders: ingest of
+              ~2,000 chunks of the repository's prose, /search and a
+              1M-row device store against exact host MIPS, two
+              knowledge-base /generate answers (tokens generated, no
+              error frame); K3's launches must equal encoder layers x
+              forwards, K1 and K2 must launch
+  10. kernels one line {"kernels": [...]} with each kernel's parity,
+              launches on its path (K1, K2: serving; K3: rag), times and
+              bound
+  11. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
 It imports neither jax nor the JAX package. Without CUDA, or without the
@@ -56,9 +77,16 @@ BF16_FLOPS_PER_S = 989e12
 # masking fault (those give O(1) errors).
 BF16_ATOL = 2e-2
 
+# First-token logits of the chunked lane against the one-shot forward
+# (phase_chunked): both sides bf16 on the card, same weights and kernels;
+# see phase_chunked for why they can differ at all.
+CHUNK_LOGIT_ATOL = 5e-2
+
 K1_REPLACES = "generativeaiexamples_tpu/ops/attention.py:233 (_flash_kernel)"
 K2_REPLACES = ("generativeaiexamples_tpu/serving/paged_attention.py:266 "
                "(_paged_kernel)")
+K3_REPLACES = ("generativeaiexamples_tpu/ops/encoder_attention.py:96 "
+               "(_encoder_kernel)")
 
 
 def emit(obj) -> None:
@@ -179,6 +207,11 @@ def phase_flash():
                    seed=1, timed=True),
         flash_case("8b_s2048", 4, 32, 8, 2048, 2048, 128, [2048] * 4,
                    [0] * 4, seed=2, timed=True),
+        # The chunked lane's second chunk of a 6,000-token prompt: 1,904
+        # valid queries in a 2,048-wide chunk at q_offset 4,096 over an
+        # 8,192-row scratch cache.
+        flash_case("8b_chunk_q_offset", 1, 32, 8, 2048, 8192, 128, [6000],
+                   [4096], seed=9, timed=True),
         flash_case("ragged", 4, 32, 8, 200, 200, 128, [200, 137, 1, 64],
                    [0] * 4, seed=3),
         flash_case("q_offset", 4, 32, 8, 128, 512, 128, [512, 128, 228, 328],
@@ -285,7 +318,97 @@ def phase_paged():
     return cases
 
 
-# -- phase 5: model steps on the card vs the plain forward ------------------
+# -- phase 5: K3 ------------------------------------------------------------
+
+
+def encoder_case(name, B, H, S, lengths, seed=0, fused=False, timed=False):
+    """K3 against `encoder_attention_reference` on the same bf16 inputs
+    (the plain version rounds P and the output to bf16 where the kernel
+    does). A lengths-0 row must average V like the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from generativeaiexamples_tpu_torch.ops import encoder_attention as ea
+
+    D = 64
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if fused:  # the q/k/v views bert.forward hands the kernel
+        qkv = torch.randn((B, S, 3, H, D), generator=g, device=dev).bfloat16()
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (torch.randn((B, H, S, D), generator=g,
+                               device=dev).bfloat16() for _ in range(3))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = ea.encoder_attention(q, k, v, ln)
+    want = ea.encoder_attention_reference(q, k, v, ln)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    zero_rows = [b for b, n in enumerate(lengths) if n <= 0]
+    zero_err = max((float((got[b].float() - v[b].float().mean(
+        dim=1, keepdim=True)).abs().max()) for b in zero_rows), default=None)
+    finite = bool(torch.isfinite(got.float()).all())
+    ok = finite and err <= BF16_ATOL and (zero_err is None
+                                          or zero_err <= BF16_ATOL)
+    rec = {"phase": "encoder", "case": name, "B": B, "H": H, "S": S,
+           "D": D, "fused_qkv_view": fused, "max_abs_err": err,
+           "zero_length_rows": zero_rows, "zero_row_vs_v_mean": zero_err,
+           "tol": BF16_ATOL, "finite": finite, "ok": ok}
+    if timed:
+        # Work this input needs: every query row against the keys below
+        # its lengths (all S for a lengths-0 row); q and the output once,
+        # k/v rows below lengths once.
+        keys = [S if n <= 0 else min(n, S) for n in lengths]
+        flops = 4.0 * D * H * S * sum(keys)
+        n_bytes = 2.0 * (2 * q.numel() + 2 * H * D * sum(keys)) + 4.0 * B
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
+        rec["ms"] = time_ms(lambda: ea.encoder_attention(q, k, v, ln))
+        rec["plain_ms"] = time_ms(
+            lambda: ea.encoder_attention_reference(q, k, v, ln), iters=5)
+        mask = (torch.arange(S, device=dev)[None, :]
+                < ln[:, None])[:, None, None, :]
+        rec["library_ms"] = (None if zero_rows else time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
+        rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    del got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_encoder():
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    ragged = rng.integers(1, 513, 16).tolist()
+    ragged[3] = 0
+    # The reranker's pairs: a query plus a ~508-approx-token chunk mostly
+    # fill the 512 bucket, shorter tails do not.
+    rerank_lengths = [512] * 5 + rng.integers(1, 512, 3).tolist()
+    cases = [
+        # The shapes the RAG path gives K3, through the fused-QKV views
+        # bert.forward passes. arctic-embed-l (B=16, H=16): the ingest
+        # shape and a short one.
+        encoder_case("arctic_s512", 16, 16, 512, [512] * 16, seed=1,
+                     fused=True, timed=True),
+        encoder_case("arctic_s128", 16, 16, 128, [128] * 16, seed=2,
+                     fused=True, timed=True),
+        # reranker-base (B=8, H=12): its RAG shape and a shorter bucket.
+        encoder_case("reranker_s512", 8, 12, 512, rerank_lengths, seed=7,
+                     fused=True, timed=True),
+        encoder_case("reranker_s256", 8, 12, 256, [256] * 8, seed=3,
+                     fused=True, timed=True),
+        # Contiguous q/k/v (the wrapper takes any strides).
+        encoder_case("ragged_zero_row", 16, 16, 512, ragged, seed=4),
+        encoder_case("fused_qkv_view", 8, 12, 256,
+                     [256, 0, 1, 100, 17, 255, 64, 200], seed=5, fused=True),
+        encoder_case("odd_s", 2, 2, 33, [0, 20], seed=6),
+    ]
+    for c in cases:
+        emit(c)
+    return cases
+
+
+# -- phase 6: model steps on the card vs the plain forward ------------------
 
 
 def phase_model():
@@ -344,7 +467,7 @@ def phase_model():
     return rec
 
 
-# -- phase 6: serving ------------------------------------------------------
+# -- phase 7: serving ------------------------------------------------------
 
 
 def _post(url, body, timeout=600):
@@ -423,59 +546,74 @@ def _profile_window(base):
                     for ms, n, k in rows[:10]]}
 
 
-def phase_serving(card: str):
+class ServedEngine:
+    """The 8B engine behind the port's OpenAI server on a local port,
+    shared by the serving, chunked-prefill and RAG phases. `model_size`
+    and `device` exist so the phases can be rehearsed on the CPU at tiny
+    size; the check runs them at 8b on cuda."""
+
+    def __init__(self, model_size: str = "8b", device: str = "cuda"):
+        from generativeaiexamples_tpu_torch.serving.__main__ import (
+            build_engine)
+        from generativeaiexamples_tpu_torch.serving.openai_server import (
+            OpenAIServer, make_http_server)
+
+        t0 = time.perf_counter()
+        self.engine = build_engine(model_size, device=device, seed=0,
+                                   warmup=False)
+        self.build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.engine.warmup()
+        self.warm_s = time.perf_counter() - t0
+        self.engine.start()
+        self.httpd = make_http_server(
+            OpenAIServer(self.engine, model_name="llama3-8b-random"),
+            "127.0.0.1", 0)
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=30)
+        self.engine.stop()
+
+
+def phase_serving(card: str, served: ServedEngine):
     import torch
 
     from generativeaiexamples_tpu_torch import kernels
-    from generativeaiexamples_tpu_torch.serving.__main__ import build_engine
-    from generativeaiexamples_tpu_torch.serving.openai_server import (
-        OpenAIServer, make_http_server)
 
-    t0 = time.perf_counter()
-    engine = build_engine("8b", device="cuda", seed=0, warmup=False)
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    engine.warmup()
-    warm_s = time.perf_counter() - t0
-    engine.start()
-    server = OpenAIServer(engine, model_name="llama3-8b-random")
-    httpd = make_http_server(server, "127.0.0.1", 0)
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
-    th = threading.Thread(target=httpd.serve_forever, daemon=True)
-    th.start()
-    try:
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        stream = _stream_chat(base, 32)
-        single = _complete(base, "The quick brown fox", 32)
-        results = [None] * 4
+    base, engine = served.base, served.engine
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    stream = _stream_chat(base, 32)
+    single = _complete(base, "The quick brown fox", 32)
+    results = [None] * 4
 
-        def run(i):
-            # The last one samples (temperature, top-k, top-p on the
-            # device), so the batch takes the masked-sampling path.
-            sampling = ({"temperature": 0.7, "top_p": 0.9, "top_k": 40}
-                        if i == 3 else {})
-            results[i] = _complete(base, f"Request number {i}:", 64,
-                                   **sampling)
+    def run(i):
+        # The last one samples (temperature, top-k, top-p on the device),
+        # so the batch takes the masked-sampling path.
+        sampling = ({"temperature": 0.7, "top_p": 0.9, "top_k": 40}
+                    if i == 3 else {})
+        results[i] = _complete(base, f"Request number {i}:", 64, **sampling)
 
-        t1 = time.perf_counter()
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t1
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
-        with urllib.request.urlopen(base + "/health", timeout=30) as r:
-            health = json.loads(r.read())
-        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
-            metrics = json.loads(r.read())
-        profile = _profile_window(base)
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        engine.stop()
+    t1 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    with urllib.request.urlopen(base + "/health", timeout=30) as r:
+        health = json.loads(r.read())
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        metrics = json.loads(r.read())
+    profile = _profile_window(base)
     conc_tokens = sum(r["completion_tokens"] for r in results if r)
 
     def finished_ok(r, want):
@@ -487,10 +625,11 @@ def phase_serving(card: str):
           and finished_ok(single, 32)
           and all(finished_ok(r, 64) for r in results)
           and health.get("status") == "healthy"
-          and all(n > 0 for n in launches.values()))
+          and launches["flash_attention"] > 0
+          and launches["paged_attention"] > 0)
     rec = {"phase": "serving", "model": "llama3_8b random bf16",
            "layers": engine.cfg.n_layers, "card": card,
-           "engine_build_s": build_s, "warmup_s": warm_s,
+           "engine_build_s": served.build_s, "warmup_s": served.warm_s,
            "stream": stream, "single": single,
            "concurrent": results, "concurrent_wall_s": wall,
            "concurrent_tokens_per_s": conc_tokens / wall if wall else None,
@@ -501,6 +640,316 @@ def phase_serving(card: str):
            "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
            "profile": profile, "ok": ok}
+    emit(rec)
+    return rec
+
+
+# -- phase 8: chunked long prefill at 8B ----------------------------------
+
+
+def phase_chunked(served: ServedEngine, prompt_len: int = 6000):
+    """A ~6k-token prompt (beyond the 4096 bucket) through the server:
+    the engine's chunked lane must launch K1 (with q_offset > 0 on the
+    second chunk). Then the first-token logits of the engine's chunk
+    steps over the same prompt against the port's one-shot forward.
+    Tolerance CHUNK_LOGIT_ATOL: both sides are bf16 on the card through
+    32 layers; they differ only where cuBLAS tiles the two matmul shapes
+    differently, and each such bf16 rounding flip (2^-8 relative) feeds
+    the residual stream of every later layer."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.serving import engine_model
+
+    engine = served.engine
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, 256, (prompt_len,), generator=g).tolist()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    served_rec = _complete(served.base, prompt, 8)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+
+    # The engine's chunk steps (what _advance_long_prefills dispatches)
+    # against one forward over the whole prompt, same weights.
+    dev = engine.device
+    chunk = engine.buckets[-1]
+    s_total = -(-prompt_len // chunk) * chunk
+    cache = llama.KVCache.zeros(engine.cfg, 1, max_len=s_total, device=dev)
+    t0 = time.perf_counter()
+    for pos in range(0, prompt_len, chunk):
+        part = prompt[pos:pos + chunk]
+        width = engine._pick_chunk_width(len(part), chunk)
+        tok = torch.zeros((1, width), dtype=torch.int32)
+        tok[0, :len(part)] = torch.tensor(part)
+        chunked, cache = engine_model.prefill_chunk_step(
+            engine.params, engine.cfg, cache, tok.to(dev), len(part))
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    with torch.no_grad():
+        x, _ = llama.forward_hidden(engine.params, engine.cfg,
+                                    torch.tensor([prompt], device=dev))
+        oneshot = llama.logits_from_hidden(engine.cfg, engine.params,
+                                           x[:, -1:])[0, 0]
+    torch.cuda.synchronize()
+    err = float((chunked.float() - oneshot.float()).abs().max())
+    del cache, x
+    ok = (served_rec["completion_tokens"] >= 1
+          and launches["flash_attention"] >= 2 * engine.cfg.n_layers
+          and err <= CHUNK_LOGIT_ATOL and bool(torch.isfinite(chunked).all()))
+    rec = {"phase": "chunked", "prompt_tokens": prompt_len, "chunk": chunk,
+           "served": served_rec, "launches": launches,
+           "chunk_steps_s": chunked_s,
+           "logit_scale": float(oneshot.float().abs().max()),
+           "first_token_logit_max_abs_err": err, "tol": CHUNK_LOGIT_ATOL,
+           "argmax_equal": int(chunked.argmax()) == int(oneshot.argmax()),
+           "ok": ok}
+    emit(rec)
+    return rec
+
+
+# -- phase 9: the developer_rag chain at full width -----------------------
+
+
+def _rag_corpus(seed: int, n_chunks: int) -> str:
+    """English prose from the repository's own documents (docs/*.md and
+    README.md): its prose paragraphs (no code, tables or headings),
+    sampled with a seed until the default splitter (508 approx-tokens a
+    chunk, 200 overlap) gives about n_chunks chunks."""
+    import glob
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.rag.splitter import ApproxTokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(root, "docs", "*.md"))) + [
+        os.path.join(root, "README.md")]
+    paras = []
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            for p in fh.read().split("\n\n"):
+                p = p.strip()
+                if (len(p.split()) >= 8
+                        and not p.startswith(("```", "|", "    ", "<", "#"))
+                        and sum(c.isalpha() or c.isspace() for c in p)
+                        > 0.8 * len(p)):
+                    paras.append(p)
+    counts = [len(ApproxTokenizer().encode(p)) for p in paras]
+    want = (n_chunks - 1) * (508 - 200) + 508
+    rng = np.random.default_rng(seed)
+    out, n = [], 0
+    while n < want:
+        i = int(rng.integers(len(paras)))
+        out.append(paras[i])
+        n += counts[i]
+    return "\n\n".join(out)
+
+
+def _multipart(filename: str, text: str):
+    boundary = "gaieboundary7a3f"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: text/plain\r\n\r\n"
+            ).encode() + text.encode() + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def _chain_generate(base: str, query: str, max_tokens: int):
+    """One knowledge-base /generate: frames, the [DONE] sentinel, the
+    time to the first frame and to the end (host clock)."""
+    t0 = time.perf_counter()
+    frames, first_s = [], None
+    with _post(base + "/generate", {
+            "messages": [{"role": "user", "content": query}],
+            "use_knowledge_base": True, "max_tokens": max_tokens}) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                first_s = first_s or time.perf_counter() - t0
+                frames.append(json.loads(line[6:]))
+    last = frames[-1]["choices"][0] if frames else {}
+    texts = [f["choices"][0]["message"]["content"] for f in frames]
+    return {"frames": len(frames), "done_frame": last.get(
+                "finish_reason") == "[DONE]",
+            "error_frames": sum("Error from chain server" in t
+                                for t in texts),
+            "chars": sum(len(t) for t in texts),
+            "first_frame_s": first_s, "seconds": time.perf_counter() - t0}
+
+
+def _exact_topk_check(rows, queries, got_ids, got_scores, k):
+    """Hold device-store results against an exact float64 MIPS on the
+    host. Ids must be equal; a swap is accepted only between rows whose
+    exact scores tie within 1e-6 (f32 accumulation order)."""
+    import numpy as np
+
+    exact = queries.astype(np.float64) @ rows.astype(np.float64).T
+    part = np.argpartition(-exact, k, axis=1)[:, :k]
+    order = np.argsort(-np.take_along_axis(exact, part, axis=1), axis=1)
+    want = np.take_along_axis(part, order, axis=1)
+    want_scores = np.take_along_axis(exact, want, axis=1)
+    swaps = 0
+    for r in range(len(queries)):
+        for j in range(k):
+            if got_ids[r][j] != want[r, j]:
+                swaps += 1
+                if abs(exact[r, got_ids[r][j]] - want_scores[r, j]) > 1e-6:
+                    return False, swaps, None
+    err = float(np.abs(np.asarray(got_scores) - want_scores).max())
+    return err <= 1e-4, swaps, err
+
+
+def phase_rag(card: str, served: ServedEngine, device: str = "cuda",
+              n_chunks: int = 2000, store_rows: int = 1_000_000,
+              store_dim: int = 1024, max_tokens: int = 32):
+    """The port's ChainServer with developer_rag over the device store,
+    the served 8B engine, and arctic-embed-l / BERT-base reranker
+    encoders (bf16, random from seeds): ingest the repository's prose
+    sampled with a seed (~2,000 chunks at the default splitter, all at
+    S=512), /search against exact host MIPS, a 1M-row device store
+    searched with 64 queries against exact host MIPS, and two
+    knowledge-base /generate answers whose prompts exceed the 4096
+    bucket. Each answer must generate its tokens with no error frame
+    (an engine failure becomes one); K3's launches must equal the
+    encoder layers times the forwards made, and K1 and K2 must launch."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.api.server import (
+        ChainServer, make_http_server)
+    from generativeaiexamples_tpu_torch.config.schema import load_config
+    from generativeaiexamples_tpu_torch.connectors.factory import EngineHub
+    from generativeaiexamples_tpu_torch.rag.vectorstore import (
+        DeviceVectorStore)
+    from generativeaiexamples_tpu_torch.serving.__main__ import (
+        build_encoders)
+
+    emb, rr = build_encoders(device, seed=1)
+    config = load_config(env={}, overrides={
+        "vector_store": {"name": "tpu"}, "reranker": {"enabled": True},
+        "embeddings": {"dimensions": emb.dim}})
+    hub = EngineHub(config, llm=served.engine, embed=emb, rerank=rr,
+                    device=device)
+    app = ChainServer(config, hub=hub)
+    httpd = make_http_server(app, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    store = app.example.res.store
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        emb.forwards = rr.forwards = 0
+        corpus = _rag_corpus(0, n_chunks)
+        body, ctype = _multipart("corpus.txt", corpus)
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + "/documents", data=body,
+                                     headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=900) as r:
+            upload = json.loads(r.read())
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        stored = len(store)
+
+        query = "Which scheduler keeps the decode batch full of tokens?"
+        with _post(base + "/search", {"query": query, "top_k": 5}) as r:
+            chunks = json.loads(r.read())["chunks"]
+
+        # Two knowledge-base answers (prompts beyond the 4096 bucket).
+        gens = []
+        m = served.engine.metrics
+        for q in ("How does the prefill scheduler use the page cache?",
+                  "What bounds the attention kernel on the device?"):
+            prefill0, tokens0 = m.prefill_tokens, m.tokens_out
+            g = _chain_generate(base, q, max_tokens)
+            g["prompt_tokens"] = m.prefill_tokens - prefill0
+            g["tokens_generated"] = m.tokens_out - tokens0
+            g["engine_ttft_ms"] = m.last_ttft_ms
+            gens.append(g)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        forwards = {"embed": emb.forwards, "rerank": rr.forwards}
+        want_k3 = (emb.forwards * emb.cfg.n_layers
+                   + rr.forwards * rr.cfg.n_layers)
+
+        # /search against exact host MIPS over the store's rows (the
+        # query's embedding is recomputed after the counts were read).
+        qv = emb.embed_query(query)
+        texts = [d["text"] for d in store.snapshot_docs()]
+        ids = [texts.index(c["content"]) for c in chunks]
+        search_ok, search_swaps, search_err = _exact_topk_check(
+            store.rows().cpu().numpy(), qv[None, :], [ids],
+            [[c["score"] for c in chunks]], 5)
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+        app.close()
+
+    # A second device store of seed-made unit rows, searched in batch.
+    g = torch.Generator(device=device).manual_seed(2)
+    big = DeviceVectorStore(store_dim, device=device)
+    vecs = torch.randn((store_rows, store_dim), generator=g, device=device)
+    vecs /= torch.linalg.vector_norm(vecs, dim=1, keepdim=True)
+    big.add([str(i) for i in range(store_rows)], vecs)
+    del vecs
+    qs = torch.randn((64, store_dim), generator=g, device=device)
+    qs = (qs / torch.linalg.vector_norm(qs, dim=1, keepdim=True)).cpu()
+    big.search(qs[0].numpy(), top_k=10)  # folds the rows in (not timed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = big.search(qs[0].numpy(), top_k=10)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = big.search_batch(qs.numpy(), top_k=10)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    store_gb = big.rows().numel() * 4 / 1e9
+    big_ok, big_swaps, big_err = _exact_topk_check(
+        big.rows().cpu().numpy(), qs.numpy(),
+        [[int(h.text) for h in hits] for hits in batch],
+        [[h.score for h in hits] for hits in batch], 10)
+    big_ok = big_ok and [int(h.text) for h in one] == [
+        int(h.text) for h in batch[0]]
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del big
+
+    # An answer generates max_tokens tokens, or fewer when it ends on an
+    # end-of-sequence token; a request the engine fails streams the error
+    # frame (the connector raises on an "error" finish).
+    ok = (upload.get("message", "").endswith("uploaded successfully")
+          and search_ok and big_ok
+          and all(g["done_frame"] and g["error_frames"] == 0
+                  and 1 <= g["tokens_generated"] <= max_tokens
+                  and g["prompt_tokens"] > served.engine.buckets[-1]
+                  for g in gens)
+          and launches["encoder_attention"] == want_k3 > 0
+          and launches["flash_attention"] > 0
+          and launches["paged_attention"] > 0
+          and health.get("message") == "Service is up.")
+    rec = {"phase": "rag", "card": card, "example": "developer_rag",
+           "store": "DeviceVectorStore", "embedder": "arctic_embed_l bf16",
+           "reranker": "reranker_base bf16", "nr_pipeline": "ranked_hybrid",
+           "corpus": "docs/*.md + README.md prose, seed 0",
+           "corpus_bytes": len(corpus), "chunks": stored,
+           "ingest_s": ingest_s, "ingest_chunks_per_s": stored / ingest_s,
+           "search": {"ok": search_ok, "swaps": search_swaps,
+                      "max_score_err": search_err, "top": chunks[:1]},
+           "store_1m": {"rows": store_rows, "dim": store_dim,
+                        "gb": store_gb, "ok": big_ok, "swaps": big_swaps,
+                        "max_score_err": big_err,
+                        "search_1_query_ms": one_ms,
+                        "search_64_queries_ms": batch_ms},
+           "generate": gens, "forwards": forwards,
+           "launches": launches, "want_encoder_launches": want_k3,
+           "store_metrics": metrics.get("vector_store"),
+           "peak_mem_gb": peak_gb, "ok": ok}
     emit(rec)
     return rec
 
@@ -538,30 +987,37 @@ def main() -> int:
 
     flash = phase_flash()
     paged = phase_paged()
+    encoder = phase_encoder()
     model = phase_model()
-    serving = phase_serving(card)
+    served = ServedEngine("8b", "cuda")
+    try:
+        serving = phase_serving(card, served)
+        chunked = phase_chunked(served)
+        rag = phase_rag(card, served)
+    finally:
+        served.close()
 
-    k1 = next(c for c in flash if c["case"] == "8b_s2048")
-    k2 = next(c for c in paged if c["case"] == "8b_decode")
     line = []
-    for name, src, rep, main_case, cases in (
-            ("flash_attention", "generativeaiexamples_tpu_torch/csrc/"
-             "flash_attention.cu", K1_REPLACES, k1, flash),
-            ("paged_attention", "generativeaiexamples_tpu_torch/csrc/"
-             "paged_attention.cu", K2_REPLACES, k2, paged)):
+    for name, rep, cases, main_case, launches in (
+            ("flash_attention", K1_REPLACES, flash, "8b_s2048",
+             serving["launches"]),
+            ("paged_attention", K2_REPLACES, paged, "8b_decode",
+             serving["launches"]),
+            ("encoder_attention", K3_REPLACES, encoder, "arctic_s512",
+             rag["launches"])):
+        c = next(c for c in cases if c["case"] == main_case)
         line.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": serving["launches"][name],
+            "name": name, "route": "cuda",
+            "source": f"generativeaiexamples_tpu_torch/csrc/{name}.cu",
+            "replaces": rep, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tol": BF16_ATOL, "parity_ok": all(c["ok"] for c in cases),
-            "case": main_case["case"], "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"]})
+            "case": main_case, "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]})
     emit({"kernels": line})
-    ok = (all(c["ok"] for c in flash + paged) and model["ok"]
-          and serving["ok"])
+    ok = (all(c["ok"] for c in flash + paged + encoder) and model["ok"]
+          and serving["ok"] and chunked["ok"] and rag["ok"])
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

@@ -1,17 +1,32 @@
-"""Engine configuration for the port's serving slice.
+"""Configuration of the port: the engine and the RAG chain.
 
 The port's own copy of the slice of generativeaiexamples_tpu's
-`EngineConfig` (config/schema.py) that this package honours, with the
-same defaults. Flags of the JAX engine that the port does not have yet
-are listed in `UNSUPPORTED` with the ROADMAP item that brings them;
-`EngineConfig.coerce` refuses any of them set away from its default.
+config/schema.py that this package honours, with the same names and
+defaults:
+
+- `EngineConfig`: the serving engine. Flags of the JAX engine that the
+  port does not have yet are listed in `UNSUPPORTED` with the ROADMAP
+  item that brings them; `EngineConfig.coerce` refuses any of them set
+  away from its default.
+- `AppConfig`: the sections the developer_rag chain reads (llm,
+  embeddings, reranker, retriever, prompts, text_splitter, vector_store,
+  serving, engine). `load_config()` overlays `APP_<SECTION>_<FIELD>`
+  environment variables (the JAX config wizard's contract) and refuses
+  fields that name unported features when they are set away from their
+  defaults (`check_supported`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Mapping, Tuple
+import json
+import logging
+import os
+import typing
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+_LOG = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -28,9 +43,13 @@ class EngineConfig:
     decode_steps_per_dispatch: int = 8
     # Decode blocks kept in flight ahead of the host's read of the oldest.
     pipeline_depth: int = 2
-    # First tokens are sampled inside the prefill dispatch. The port has
-    # only that form (the chunked-prefill finish tails it also covers in
-    # the JAX engine are not ported yet), so False is refused.
+    # Chunked long-prompt prefill: chunks dispatched per LANDED decode
+    # block while other streams decode (idle engines run chunks at full
+    # dispatch speed).
+    prefill_chunks_per_block: int = 2
+    # First tokens are sampled inside the prefill dispatch (bucketed
+    # groups and the chunk that completes a long prompt). The port has
+    # only that form, so False is refused.
     fused_sampling: bool = True
 
     @staticmethod
@@ -69,8 +88,8 @@ class EngineConfig:
                              f"float32")
         if not out.fused_sampling:
             raise ValueError("engine.fused_sampling=False (the unfused "
-                             "finish tails) is not ported; they come with "
-                             "chunked prefill (ROADMAP A.7)")
+                             "two-dispatch finish, an A/B knob of the JAX "
+                             "engine) is not ported (ROADMAP A.7)")
         return out
 
 
@@ -89,3 +108,207 @@ UNSUPPORTED = {
     "multihost": (False, "ROADMAP A.17: multi-host"),
     "auto_pool_pages": (False, "ROADMAP A.17: memory planner"),
 }
+
+
+# -- the chain's sections ------------------------------------------------
+
+
+@dataclass(frozen=True)
+class VectorStoreConfig:
+    name: str = "memory"  # memory | tpu | native (tpu/native: device store)
+    url: str = ""
+    nlist: int = 64
+    nprobe: int = 16
+    index_type: str = "flat"  # ivf: ROADMAP A.18
+    quantize_int8: bool = False  # ROADMAP A.18
+    tiered: bool = False  # ROADMAP A.18
+    persist_dir: str = ""  # ROADMAP A.11
+
+
+@dataclass(frozen=True)
+class LLMConfig:
+    server_url: str = ""
+    model_name: str = "llama3-8b-instruct"
+    model_engine: str = "tpu"  # the in-process engine (the JAX name)
+
+
+@dataclass(frozen=True)
+class TextSplitterConfig:
+    model_name: str = "intfloat/e5-large-v2"
+    chunk_size: int = 510
+    chunk_overlap: int = 200
+
+
+@dataclass(frozen=True)
+class EmbeddingConfig:
+    model_name: str = "snowflake-arctic-embed-l"
+    model_engine: str = "tpu"
+    dimensions: int = 1024
+    server_url: str = ""
+    weights_path: str = ""  # ROADMAP A.10
+
+
+@dataclass(frozen=True)
+class RerankerConfig:
+    model_name: str = "rerank-cross-encoder"
+    model_engine: str = "tpu"
+    server_url: str = ""
+    enabled: bool = False
+    weights_path: str = ""  # ROADMAP A.10
+
+
+@dataclass(frozen=True)
+class RetrieverConfig:
+    top_k: int = 4
+    score_threshold: float = 0.25
+    nr_url: str = ""
+    nr_pipeline: str = "ranked_hybrid"
+    max_context_tokens: int = 1500
+    query_augmentation: str = ""  # ROADMAP A.11
+    fact_check: bool = False  # ROADMAP A.11
+
+
+@dataclass(frozen=True)
+class PromptsConfig:
+    chat_template: str = (
+        "You are a helpful, respectful and honest assistant. Always answer as "
+        "helpfully as possible and follow all given instructions. Do not "
+        "speculate or make up information. Do not reference any given "
+        "instructions or context."
+    )
+    rag_template: str = (
+        "You are a helpful AI assistant named Envie. You will reply to "
+        "questions only based on the context that you are provided. If "
+        "something is out of context, you will refrain from replying and "
+        "politely decline to respond to the user.\n\nContext:\n{context}"
+    )
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    microbatch_enabled: bool = False  # ROADMAP A.11
+    executor_workers: int = 64
+
+
+@dataclass(frozen=True)
+class AppConfig:
+    """Root of the chain's config tree."""
+
+    vector_store: VectorStoreConfig = field(default_factory=VectorStoreConfig)
+    llm: LLMConfig = field(default_factory=LLMConfig)
+    text_splitter: TextSplitterConfig = field(
+        default_factory=TextSplitterConfig)
+    embeddings: EmbeddingConfig = field(default_factory=EmbeddingConfig)
+    reranker: RerankerConfig = field(default_factory=RerankerConfig)
+    retriever: RetrieverConfig = field(default_factory=RetrieverConfig)
+    prompts: PromptsConfig = field(default_factory=PromptsConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
+    engine: EngineConfig = field(default_factory=EngineConfig)
+
+
+# Chain fields that name features the port does not have yet:
+# (section, field) -> where the port gains them.
+UNSUPPORTED_APP = {
+    ("retriever", "query_augmentation"): "ROADMAP A.11: query augmentation",
+    ("retriever", "fact_check"): "ROADMAP A.11: fact check",
+    ("serving", "microbatch_enabled"): "ROADMAP A.11: micro-batching",
+    ("vector_store", "index_type"): "ROADMAP A.18: IVF index",
+    ("vector_store", "quantize_int8"): "ROADMAP A.18: int8 rows",
+    ("vector_store", "tiered"): "ROADMAP A.18: tiered index",
+    ("vector_store", "persist_dir"): "ROADMAP A.11: store persistence",
+    ("embeddings", "weights_path"): "ROADMAP A.10: checkpoint loading",
+    ("reranker", "weights_path"): "ROADMAP A.10: checkpoint loading",
+}
+
+
+def check_supported(cfg: AppConfig) -> AppConfig:
+    """Raise ValueError naming the ROADMAP item for any field of an
+    unported feature set away from its default; returns cfg."""
+    for (section, name), item in UNSUPPORTED_APP.items():
+        node = getattr(cfg, section)
+        default = getattr(type(node)(), name)
+        value = getattr(node, name)
+        if value != default:
+            raise ValueError(f"{section}.{name}={value!r} is not supported "
+                             f"by the PyTorch port yet ({item})")
+    EngineConfig.coerce(cfg.engine)
+    return cfg
+
+
+def env_var_name(section: str, field_name: str) -> str:
+    """APP_<SECTION>_<FIELD>, underscores dropped inside each part."""
+    return (f"APP_{section.replace('_', '').upper()}_"
+            f"{field_name.replace('_', '').upper()}")
+
+
+def _coerce_env(value: str, default: Any, env_name: str) -> Any:
+    """An env string as the field's type (known from its default)."""
+    if isinstance(default, str):
+        return value
+    if isinstance(default, bool):
+        lowered = value.strip().lower()
+        if lowered in ("1", "true", "yes", "on"):
+            return True
+        if lowered in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"bad config value from env {env_name}: expected "
+                         f"bool, got {value!r}")
+    try:
+        if isinstance(default, int):
+            return int(value)
+        if isinstance(default, float):
+            return float(value)
+        if isinstance(default, tuple):
+            parsed = json.loads(value)
+            if not isinstance(parsed, list):
+                raise ValueError("not a JSON array")
+            return tuple(parsed)
+    except ValueError as err:
+        raise ValueError(f"bad config value from env {env_name}: expected "
+                         f"{type(default).__name__}, got {value!r} "
+                         f"({err})") from err
+    return value
+
+
+def load_config(env: Optional[Mapping[str, str]] = None,
+                overrides: Optional[Mapping[str, Mapping[str, Any]]] = None
+                ) -> AppConfig:
+    """Defaults, then `overrides` ({section: {field: value}}), then the
+    `APP_<SECTION>_<FIELD>` environment variables (default: os.environ),
+    checked with `check_supported`. Unknown sections or fields in
+    `overrides` raise; unknown APP_* variables are logged and ignored
+    (other services may share the namespace)."""
+    env = dict(os.environ if env is None else env)
+    overrides = dict(overrides or {})
+    hints = typing.get_type_hints(AppConfig)
+    unknown = set(overrides) - set(hints)
+    if unknown:
+        raise ValueError(f"unknown config sections {sorted(unknown)}")
+    known_env = {"APP_CONFIG_FILE"}
+    sections: Dict[str, Any] = {}
+    for sec, cls in hints.items():
+        node = cls()
+        given = dict(overrides.get(sec, {}))
+        names = {f.name for f in dataclasses.fields(cls)}
+        if set(given) - names:
+            raise ValueError(f"unknown config keys in [{sec}]: "
+                             f"{sorted(set(given) - names)}")
+        for name in names:
+            env_name = env_var_name(sec, name)
+            known_env.add(env_name)
+            if env_name in env:
+                given[name] = _coerce_env(env[env_name],
+                                          getattr(node, name), env_name)
+        sections[sec] = dataclasses.replace(node, **given)
+    for name, (default, item) in UNSUPPORTED.items():
+        env_name = env_var_name("engine", name)
+        known_env.add(env_name)
+        if env_name in env and _coerce_env(env[env_name], default,
+                                           env_name) != default:
+            raise ValueError(f"{env_name}: engine.{name} is not supported "
+                             f"by the PyTorch port yet ({item})")
+    for key in env:
+        if key.startswith("APP_") and key not in known_env:
+            _LOG.warning("env var %s matches no config field of the port "
+                         "and is ignored", key)
+    return check_supported(AppConfig(**sections))

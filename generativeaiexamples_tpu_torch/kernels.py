@@ -4,7 +4,8 @@ Each source under `csrc/` is one kernel with a plain C entry point. It is
 compiled with `nvcc` for `sm_90a` into its own shared library under
 `build/torch_kernels/` at first use, and loaded with `ctypes`; pointers
 and the CUDA stream cross as `c_void_p`. A library is rebuilt when the
-hash of its source (and of the compiler flags) changes, and several
+hash of its source, of the shared `csrc/*.cuh` headers or of the
+compiler flags changes, and several
 sources compile in parallel (one `nvcc` each, all started together).
 
 Every entry point returns the launch's `cudaError_t`; `launch` raises on
@@ -48,6 +49,9 @@ SIGNATURES = {
     # Hd, scale, stream
     "paged_attention": ("gaie_paged_attention_bf16",
                         [_P] * 6 + [_I] * 7 + [_F, _P]),
+    # q, k, v, o, lengths, B, H, S, D, strides[12], scale, stream
+    "encoder_attention": ("gaie_encoder_attention_bf16",
+                          [_P] * 5 + [_I] * 4 + [_STRIDES, _F, _P]),
 }
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
@@ -71,9 +75,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where kernel `name`'s library lives: keyed by the hash of its
+    source, of every shared header under csrc/ (any source may include
+    any of them) and of the compiler flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

@@ -1,8 +1,8 @@
 """Weights carried across between the JAX package and the port.
 
-Both packages keep the same Llama parameter tree (stacked `[L, ...]`
-layer weights, `[in, out]` projections), so conversion is a leaf-by-leaf
-copy. The JAX side hands over `jax.tree.map(np.asarray, params)`; bf16
+Both packages keep the same Llama and BERT parameter trees (stacked
+`[L, ...]` layer weights, `[in, out]` projections), so conversion is a
+leaf-by-leaf copy. The JAX side hands over `jax.tree.map(np.asarray, params)`; bf16
 leaves arrive as `ml_dtypes.bfloat16` numpy arrays, which torch cannot
 read directly, so they pass through float32 (exact for bf16).
 """
@@ -33,6 +33,13 @@ def llama_params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
     return {k: (llama_params_from_numpy(v, dev, dtype) if isinstance(v, dict)
                 else _leaf_to_torch(v, dev, dtype))
             for k, v in tree.items()}
+
+
+def bert_params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
+                           dtype=torch.bfloat16) -> Dict[str, Any]:
+    """JAX-package BERT params (numpy leaves, split or fused QKV) -> the
+    port's params: the same leaf-by-leaf copy as the Llama tree."""
+    return llama_params_from_numpy(tree, device, dtype)
 
 
 def llama_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

@@ -253,6 +253,20 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
     3. Decode: new k/v appended after the cached prefix.
     Unlike the JAX version, the cache's k/v tensors are updated IN PLACE;
     the returned KVCache shares them and carries the new lengths."""
+    x, new_cache = forward_hidden(params, cfg, tokens, positions=positions,
+                                  kv_cache=kv_cache, lengths=lengths)
+    return logits_from_hidden(cfg, params, x), new_cache
+
+
+def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
+                   positions: Optional[torch.Tensor] = None,
+                   kv_cache: Optional[KVCache] = None,
+                   lengths: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """`forward` up to the last block: (hidden [B, S, D] before the final
+    norm, cache or None). Callers that need the logits of a few positions
+    (a prefill chunk's last valid token) take them from here instead of
+    materialising [B, S, V]."""
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -289,11 +303,10 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
                                      lengths=attn_lengths, q_offset=q_offset)
         x = finish_block(cfg, x, out, w)
 
-    logits = logits_from_hidden(cfg, params, x)
     new_cache = None
     if kv_cache is not None:
         new_cache = dataclasses.replace(kv_cache, lengths=attn_lengths)
-    return logits, new_cache
+    return x, new_cache
 
 
 @torch.no_grad()

@@ -1,0 +1,73 @@
+"""Canonical QA pipeline: the port's copy of
+generativeaiexamples_tpu/pipelines/developer_rag.py.
+
+Ingest: load file -> token split -> embed -> vector store. RAG: retrieve
+(threshold + fallback, or ranked_hybrid), token-budget trim, prompt from
+config, stream. llm_chain: plain chat with the config chat template.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Generator, List
+
+from generativeaiexamples_tpu_torch.pipelines.base import BaseExample, register_example
+
+_LOG = logging.getLogger(__name__)
+
+
+@register_example("developer_rag")
+class QAChatbot(BaseExample):
+    def ingest_docs(self, filepath: str, filename: str) -> None:
+        from generativeaiexamples_tpu_torch.rag.documents import load_document
+
+        docs = load_document(filepath, filename)
+        if not docs:
+            raise ValueError(f"no extractable text in {filename}")
+        chunks: List[str] = []
+        metas: List[Dict] = []
+        for d in docs:
+            for c in self.res.splitter.split(d.text):
+                chunks.append(c)
+                metas.append({**d.metadata, "filename": filename})
+        if not chunks:
+            raise ValueError(f"document {filename} produced no chunks")
+        embs = self.res.embedder.embed_documents(chunks)
+        self.res.store.add(chunks, embs, metas)
+        _LOG.info("ingested %s: %d chunks", filename, len(chunks))
+
+    def llm_chain(self, query: str, chat_history, **llm_settings
+                  ) -> Generator[str, None, None]:
+        system = self.res.config.prompts.chat_template
+        messages = ([{"role": "system", "content": system}]
+                    + list(chat_history) + [{"role": "user", "content": query}])
+        yield from self.res.llm.stream_chat(messages, **llm_settings)
+
+    def rag_chain(self, query: str, chat_history, **llm_settings
+                  ) -> Generator[str, None, None]:
+        query, results = self.retrieve_with_augmentation(query, chat_history)
+        if not results:
+            # Short-circuit when retrieval is empty.
+            yield ("No response generated from LLM, make sure your query is "
+                   "relevant to the ingested document.")
+            return
+        results = self.res.retriever.limit_tokens(results)
+        context = "\n\n".join(r.text for r in results)
+        system = self.res.config.prompts.rag_template.format(context=context)
+        messages = [{"role": "system", "content": system},
+                    {"role": "user", "content": query}]
+        yield from self.answer_with_fact_check(
+            query, context, self.res.llm.stream_chat(messages, **llm_settings))
+
+    def document_search(self, content: str, num_docs: int) -> List[Dict]:
+        results = self.res.retriever.retrieve(content, top_k=num_docs,
+                                              with_threshold=False)
+        return [{"content": r.text,
+                 "filename": r.metadata.get("filename", ""),
+                 "score": r.score} for r in results]
+
+    def get_documents(self) -> List[str]:
+        return self.res.store.list_documents()
+
+    def delete_documents(self, filenames: List[str]) -> bool:
+        return self.res.store.delete_documents(filenames) > 0

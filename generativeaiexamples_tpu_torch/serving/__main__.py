@@ -1,28 +1,35 @@
 """Engine server launcher: `python -m generativeaiexamples_tpu_torch.serving`.
 
 Counterpart of generativeaiexamples_tpu/serving/__main__.py without
-encoders, fleet or multi-host. There are no checkpoints to load yet
-(ROADMAP A.10), so the model is random-init at the chosen published
-geometry, from seed 0, with the hermetic byte tokenizer — what the JAX
-launcher does when `engine.weights_path` is empty.
+fleet or multi-host. There are no checkpoints to load yet (ROADMAP
+A.10), so the models are random-init at the chosen published geometry,
+from a seed, with the hermetic byte tokenizer -- what the JAX launcher
+does when `engine.weights_path` is empty. The encoders are the JAX
+launcher's hermetic tiny ones (f32, CPU), or at full width
+(arctic-embed-l embedder, BERT-base reranker, bf16) on the card, where
+the K3 kernel takes head_dim 64 only.
 
     python -m generativeaiexamples_tpu_torch.serving --model-size 8b
     python -m generativeaiexamples_tpu_torch.serving --model-size tiny \\
         --device cpu --port 8099
 
-Serves /v1/chat/completions, /v1/completions, /v1/models, /health and
-/metrics on one port (/v1/embeddings and /v1/ranking answer 503).
+Serves /v1/chat/completions, /v1/completions, /v1/embeddings,
+/v1/ranking, /v1/models, /health and /metrics on one port.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
+from typing import Tuple
 
 import torch
 
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
-from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.models import bert, llama
+from generativeaiexamples_tpu_torch.serving.encoders import (
+    EmbeddingEngine, RerankEngine)
 from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
 from generativeaiexamples_tpu_torch.utils.tokenizer import (
     ByteTokenizer, load_tokenizer)
@@ -52,6 +59,46 @@ def build_engine(model_size: str = "8b", device: DeviceLike = None,
     return engine.warmup() if warmup else engine
 
 
+ENCODER_GEOMETRIES = {
+    # The JAX launcher's hermetic encoders (vocabulary 512 covers the
+    # byte tokenizer's ids).
+    "tiny": (lambda: bert.BertConfig.tiny(vocab_size=512),
+             lambda: bert.BertConfig(vocab_size=512, dim=32, n_layers=2,
+                                     n_heads=2, mlp_dim=64, max_position=64,
+                                     n_labels=1)),
+    "full": (lambda: _bf16(bert.BertConfig.arctic_embed_l()),
+             lambda: _bf16(bert.BertConfig.reranker_base())),
+}
+
+
+def _bf16(cfg: bert.BertConfig) -> bert.BertConfig:
+    return dataclasses.replace(cfg, dtype=torch.bfloat16)
+
+
+def default_encoder_size(device: DeviceLike = None) -> str:
+    """Full width on the card, the hermetic tiny encoders on the CPU."""
+    return "full" if resolve_device(device).type == "cuda" else "tiny"
+
+
+def build_encoders(device: DeviceLike = None, seed: int = 1
+                   ) -> Tuple[EmbeddingEngine, RerankEngine]:
+    """Random-init embedder (seed) and reranker (seed + 1) on `device`
+    (CUDA unless asked otherwise) at `default_encoder_size(device)`, with
+    the byte tokenizer."""
+    dev = resolve_device(device)
+    ecfg, rcfg = (make() for make in
+                  ENCODER_GEOMETRIES[default_encoder_size(dev)])
+    tk = load_tokenizer("byte")
+    emb = EmbeddingEngine(
+        bert.init_params(ecfg, dev, torch.Generator(dev).manual_seed(seed)),
+        ecfg, tk, device=dev)
+    rr = RerankEngine(
+        bert.init_params(rcfg, dev,
+                         torch.Generator(dev).manual_seed(seed + 1)),
+        rcfg, tk, device=dev)
+    return emb, rr
+
+
 def main() -> None:
     from generativeaiexamples_tpu_torch.serving.openai_server import (
         OpenAIServer, run_server)
@@ -67,11 +114,12 @@ def main() -> None:
                     help="served model id")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
+    emb, rr = build_encoders(args.device)
     engine = build_engine(args.model_size, args.device).start()
     logging.info("engine server on %s:%d (device %s)", args.host, args.port,
                  engine.device)
     try:
-        run_server(OpenAIServer(engine, model_name=args.model_name),
+        run_server(OpenAIServer(engine, emb, rr, model_name=args.model_name),
                    args.host, args.port)
     finally:
         engine.stop()

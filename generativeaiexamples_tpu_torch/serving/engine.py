@@ -10,7 +10,11 @@ and device state):
 
   submit() -> waiting deque
   loop:  admit waiting requests (same-bucket admissions prefill in ONE
-         batched dispatch, first tokens sampled on the device); keep up
+         batched dispatch, first tokens sampled on the device; a prompt
+         longer than the largest bucket starts a chunked prefill);
+         advance chunked prefills (at most prefill_chunks_per_block
+         chunks per landed decode block while streams decode, one per
+         iteration when idle); keep up
          to pipeline_depth K-step decode blocks in flight over all
          active slots (fixed batch shape, inactive slots masked to the
          page-0 sink, sampling on the device, tokens chained on the
@@ -22,10 +26,14 @@ first tokens) is copied to pinned host memory with a non-blocking copy
 and a CUDA event recorded behind it; the host reads it only once the
 event has completed, admitting new arrivals while it waits.
 
-Not ported yet, and refused at construction or submit (see
-config/schema.py): chunked prefill of prompts longer than the largest
-bucket (ROADMAP A.7/A.8), speculation, step plans, fused prefill, prefix
-cache, pager, QoS, multi-host, emission pacing and the flight recorder.
+Chunked prefill (the JAX engine's plain lane): a long prompt's chunks
+run through a contiguous scratch KVCache with offset queries; the chunk
+that completes the prompt samples the first token inside the same
+dispatch, and ONE scatter moves the cache into the sequence's pages.
+
+Not ported yet, and refused at construction (see config/schema.py):
+speculation, step plans, the fused prefill rider, prefix cache, pager,
+QoS, multi-host, emission pacing and the flight recorder.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import torch
 from generativeaiexamples_tpu_torch import kernels
 from generativeaiexamples_tpu_torch.config.schema import EngineConfig
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
-from generativeaiexamples_tpu_torch.models.llama import LlamaConfig
+from generativeaiexamples_tpu_torch.models.llama import KVCache, LlamaConfig
 from generativeaiexamples_tpu_torch.serving import engine_model
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
     PageAllocator, PagePool, SequencePages)
@@ -65,10 +73,10 @@ def _pow2_floor(n: int) -> int:
 
 
 class PromptTooLongError(ValueError):
-    """Prompt longer than the largest prefill bucket. Chunked prefill of
-    longer prompts (`prefill_chunk_step`, `_advance_long_prefills`) is the
-    next slice of the port (ROADMAP A.7/A.8); until then such prompts are
-    refused at submit() so callers reject them at the API boundary."""
+    """Prompt longer than the engine's page capacity minus one generated
+    token; refused at submit() so callers reject it at the API boundary.
+    Prompts beyond the largest prefill bucket but within that capacity
+    go through chunked prefill."""
 
 
 @dataclasses.dataclass
@@ -101,9 +109,34 @@ class _Slot:
         self.awaiting_first = True   # until the slot joins a decode block
         self.first_emitted = False   # first token reached the stream
         self.no_capacity = False     # starved; finished after the drain
+        self.prefilling = False      # placeholder of a chunked prefill
 
 
-class _HostCopy:
+class _LongPrefill:
+    """In-progress chunked prefill for one long prompt. While other
+    streams are decoding, the scheduler advances it at most
+    prefill_chunks_per_block chunks per LANDED decode block (the `beat`
+    counter), so chunk dispatches interleave with decode blocks on the
+    device queue; with no live decode traffic chunks run at full
+    dispatch speed. The scratch cache lives in
+    engine._scratch_caches[slot_idx] from the first chunk on."""
+
+    __slots__ = ("req", "slot_idx", "seq", "ids", "s_total", "pos", "slot",
+                 "beat", "chunk")
+
+    def __init__(self, req, slot_idx, seq, ids, s_total, slot, chunk):
+        self.req = req
+        self.slot_idx = slot_idx
+        self.seq = seq
+        self.ids = ids
+        self.s_total = s_total  # scratch-cache length (chunk multiple)
+        self.pos = 0            # next prompt offset to feed
+        self.slot = slot        # the placeholder occupying slots[slot_idx]
+        self.beat = -1          # beat at which the last chunk dispatched
+        self.chunk = chunk      # chunk width: the largest bucket
+
+
+class HostCopy:
     """A device tensor on its way to pinned host memory: the copy and an
     event recorded behind it are queued on the current stream. On the
     CPU the tensor is already there."""
@@ -134,7 +167,7 @@ class _InFlight:
     __slots__ = ("copy", "metas", "K", "releases")
 
     def __init__(self, block: torch.Tensor, metas, K: int):
-        self.copy = _HostCopy(block)   # [B, K + 1]
+        self.copy = HostCopy(block)    # [B, K + 1]
         self.metas = metas             # [(slot_idx, slot, first_col)]
         self.K = K
         self.releases: List[SequencePages] = []  # freed once this lands
@@ -162,6 +195,13 @@ class EngineMetrics:
     def record_ttft(self, ms: float) -> None:
         with self._lock:
             self._ttft.append(ms)
+
+    @property
+    def last_ttft_ms(self) -> Optional[float]:
+        """The most recent request's time to first token (None before
+        any)."""
+        with self._lock:
+            return self._ttft[-1] if self._ttft else None
 
     def record_tokens(self, n: int) -> None:
         if n > 0:
@@ -258,10 +298,17 @@ class LLMEngine:
                                         dtype=torch.int32, device=self.device)
         self._inflight: deque = deque()
         # Prefill-sampled first tokens on their way to the host:
-        # [(_HostCopy, [(slot_idx, slot), ...])], emitted once landed.
+        # [(HostCopy, [(slot_idx, slot), ...])], emitted once landed.
         self._pending_first: List = []
         self.pipeline_depth = max(1, self.ecfg.pipeline_depth)
         self._admit_debounce_s = 0.008
+        # Chunked prefill lane: at most one long prompt in flight (each
+        # holds a scratch cache); landed decode blocks count beats.
+        self._long_prefills: List[_LongPrefill] = []
+        self._max_long_prefills = 1
+        self._scratch_caches: Dict[int, KVCache] = {}
+        self._chunk_res: Dict[int, torch.Tensor] = {}  # slot -> tok0 [1]
+        self._beat = 0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -330,15 +377,15 @@ class LLMEngine:
     # -- public API --------------------------------------------------------
 
     def submit(self, req: GenRequest) -> GenRequest:
-        max_prompt = self.buckets[-1]
+        # Prompts beyond the largest bucket go through chunked prefill,
+        # so the ceiling is the page capacity minus one generated token.
+        max_prompt = self.max_pages * self.ecfg.page_size - 1
         if len(req.prompt_ids) > max_prompt:
             if not req.truncate_prompt:
                 raise PromptTooLongError(
-                    f"prompt is {len(req.prompt_ids)} tokens; this engine "
-                    f"prefills at most {max_prompt} (its largest bucket). "
-                    f"Longer prompts need chunked prefill "
-                    f"(prefill_chunk_step / _advance_long_prefills), the "
-                    f"next slice of the PyTorch port (ROADMAP A.7/A.8)")
+                    f"prompt is {len(req.prompt_ids)} tokens; engine max is "
+                    f"{max_prompt} (page capacity minus one generated "
+                    f"token)")
             req.prompt_ids = req.prompt_ids[-max_prompt:]
         with self._lock:
             self.waiting.append(req)
@@ -388,6 +435,9 @@ class LLMEngine:
         keep the device busy and new arrivals are admitted."""
         while self._running:
             did_work = self._admit_waiting()
+            # Chunk forwards interleave with decode dispatches (paced by
+            # the landed-block beat) instead of monopolizing the device.
+            did_work = self._advance_long_prefills() or did_work
             self._emit_ready_first_tokens()
             while (len(self._inflight) < self.pipeline_depth
                    and any(s is not None for s in self.slots)):
@@ -426,6 +476,7 @@ class LLMEngine:
                 seq.release()
             fl.releases = []
         self._reap_starved()
+        self._beat += 1
 
     def _fetch_block_host(self, fl: _InFlight) -> np.ndarray:
         """Wait for a block's host copy. While the device works, emit
@@ -458,6 +509,7 @@ class LLMEngine:
         prefill bucket into batched prefill dispatches (at most
         max_prefill_group each)."""
         groups: Dict[int, List] = {}
+        deferred_long: List[GenRequest] = []
         while True:
             with self._lock:
                 if not self.waiting:
@@ -467,6 +519,12 @@ class LLMEngine:
                     break
                 req = self.waiting.popleft()
             ids = req.prompt_ids or [0]
+            long = len(ids) > self.buckets[-1]
+            if long and len(self._long_prefills) >= self._max_long_prefills:
+                # One scratch cache at a time: the next long prompt waits
+                # (at the head of the queue) for the lane.
+                deferred_long.append(req)
+                continue
             seq = SequencePages(self.allocator, self.pool.page_size,
                                 self.max_pages)
             try:
@@ -493,9 +551,17 @@ class LLMEngine:
                     self.waiting.appendleft(req)
                 break
             # Reserve the slot; the real _Slot replaces it at dispatch.
-            self.slots[slot_idx] = _Slot(req, seq, None)
+            placeholder = _Slot(req, seq, None)
+            self.slots[slot_idx] = placeholder
+            if long:
+                self._begin_long_prefill(req, slot_idx, seq, ids,
+                                         placeholder)
+                continue
             groups.setdefault(self._bucket_for(len(ids)), []).append(
                 (req, slot_idx, seq, ids))
+        if deferred_long:
+            with self._lock:
+                self.waiting.extendleft(reversed(deferred_long))
         did = False
         cap = self._prefill_cap
         for bucket, entries in groups.items():
@@ -510,6 +576,126 @@ class LLMEngine:
                     for req, slot_idx, seq, _ in part:
                         self._fail_request(req, slot_idx, seq)
         return did
+
+    def _begin_long_prefill(self, req: GenRequest, slot_idx: int,
+                            seq: SequencePages, ids: List[int],
+                            placeholder: _Slot) -> None:
+        """Queue a chunked prefill for a prompt beyond the largest bucket:
+        chunks of the largest bucket's width run through a contiguous
+        scratch KVCache (created with the first chunk) in
+        _advance_long_prefills; _finish_long_prefill scatters it into the
+        sequence's pages."""
+        chunk = self.buckets[-1]
+        s_total = -(-len(ids) // chunk) * chunk
+        placeholder.prefilling = True
+        self._long_prefills.append(
+            _LongPrefill(req, slot_idx, seq, ids, s_total, placeholder,
+                         chunk))
+
+    def _advance_long_prefills(self) -> bool:
+        """Dispatch the next chunk(s) of each in-progress long prefill
+        (paced by the landed-block beat while decode traffic is live);
+        finish those whose prompt is fully fed. The chunk that completes
+        a prompt samples its first token in the same dispatch. Returns
+        True if any advanced."""
+        did = False
+        decoding = any(s is not None and not s.prefilling
+                       for s in self.slots)
+        for lp in list(self._long_prefills):
+            if self.slots[lp.slot_idx] is not lp.slot:
+                # Failed or retired while prefilling (_finish released
+                # the pages).
+                self._long_prefills.remove(lp)
+                self._drop_scratch(lp.slot_idx)
+                continue
+            if lp.req.cancelled:
+                self._long_prefills.remove(lp)
+                self._drop_scratch(lp.slot_idx)
+                self._finish(lp.slot_idx, "cancelled")
+                continue
+            if decoding and lp.beat == self._beat:
+                continue  # this beat's chunks already went out
+            lp.beat = self._beat
+            n_chunks = max(1, self.ecfg.prefill_chunks_per_block) \
+                if decoding else 1
+            try:
+                for _ in range(n_chunks):
+                    if self._dispatch_chunk(lp):
+                        self._long_prefills.remove(lp)
+                        self._finish_long_prefill(lp)
+                        break
+            except Exception:
+                _LOG.exception("chunked prefill failed")
+                self._long_prefills.remove(lp)
+                self._drop_scratch(lp.slot_idx)
+                self._fail_request(lp.req, lp.slot_idx, lp.seq)
+            did = True
+        return did
+
+    def _dispatch_chunk(self, lp: _LongPrefill) -> bool:
+        """Dispatch the next chunk of `lp`; True when it completed the
+        prompt (its first token is then in _chunk_res and last_tokens)."""
+        part = lp.ids[lp.pos:lp.pos + lp.chunk]
+        width = self._pick_chunk_width(len(part), lp.chunk)
+        tok = np.zeros((1, width), np.int32)
+        tok[0, :len(part)] = part
+        if lp.pos == 0:
+            self._scratch_caches[lp.slot_idx] = KVCache.zeros(
+                self.cfg, 1, max_len=lp.s_total,
+                dtype=_DTYPES[self.ecfg.kv_dtype], device=self.device)
+        cache = self._scratch_caches[lp.slot_idx]
+        final = lp.pos + len(part) >= len(lp.ids)
+        if final:
+            req = lp.req
+            flags = ((True, False, False) if req.temperature <= 0.0
+                     else (False, True, True))
+            tok0, self._last_tokens, cache = \
+                engine_model.prefill_chunk_sample_step(
+                    self.params, self.cfg, cache, self._put(tok), len(part),
+                    self._last_tokens, lp.slot_idx, req.temperature,
+                    req.top_p, req.top_k, self._generator,
+                    sampling_flags=flags)
+            self._chunk_res[lp.slot_idx] = tok0
+            self.metrics.fused_sample_dispatches += 1
+        else:
+            _, cache = engine_model.prefill_chunk_step(
+                self.params, self.cfg, cache, self._put(tok), len(part))
+        self._scratch_caches[lp.slot_idx] = cache
+        lp.pos += len(part)
+        self.metrics.prefill_tokens += len(part)
+        return final
+
+    @staticmethod
+    def _pick_chunk_width(n: int, chunk: int) -> int:
+        """Dispatch width for a chunk of n valid tokens: the smallest
+        power of two >= n, capped at the full chunk (eager torch has no
+        compiled-variant set to restrict it to)."""
+        w = 1
+        while w < n:
+            w *= 2
+        return min(w, chunk)
+
+    def _drop_scratch(self, slot_idx: int) -> None:
+        """Free the scratch cache of a long prefill that ended without a
+        finish (cancel, slot failure)."""
+        self._scratch_caches.pop(slot_idx, None)
+        self._chunk_res.pop(slot_idx, None)
+
+    def _finish_long_prefill(self, lp: _LongPrefill) -> None:
+        """Last chunk fed: scatter the scratch cache into the sequence's
+        pages (padding rows to the sink), then open the slot for decode;
+        the first token sampled by the final chunk reaches the host like
+        a bucketed prefill's."""
+        ps = self.pool.page_size
+        row = np.zeros((lp.s_total // ps,), np.int32)
+        row[:len(lp.seq.pages)] = lp.seq.pages
+        cache = self._scratch_caches.pop(lp.slot_idx)
+        engine_model.cache_to_pool(self.pool, cache, self.cfg,
+                                   self._put(row))
+        tok0 = self._chunk_res.pop(lp.slot_idx)
+        slot = _Slot(lp.req, lp.seq, StreamDetokenizer(self.tokenizer))
+        self.slots[lp.slot_idx] = slot
+        self._pending_first.append((HostCopy(tok0), [(lp.slot_idx, slot)]))
 
     def _fail_request(self, req: GenRequest, slot_idx: int,
                       seq: SequencePages) -> None:
@@ -567,7 +753,7 @@ class LLMEngine:
             self.slots[slot_idx] = slot
             metas.append((slot_idx, slot))
             self.metrics.prefill_tokens += len(ids)
-        self._pending_first.append((_HostCopy(toks), metas))
+        self._pending_first.append((HostCopy(toks), metas))
 
     def _dispatch_decode(self) -> bool:
         """Dispatch ONE K-step decode block over the slot batch (device
@@ -582,7 +768,7 @@ class LLMEngine:
         active_mask = np.zeros((B,), bool)
         live: List[int] = []
         for i, s in enumerate(self.slots):
-            if s is None:
+            if s is None or s.prefilling:
                 continue
             if s.req.cancelled:
                 self._finish(i, "cancelled")

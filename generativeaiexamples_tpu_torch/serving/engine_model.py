@@ -13,6 +13,13 @@ that k/v live in the serving PagePool:
 - `decode_multi_step`: K fused iterations over the whole slot batch,
   write-then-attend paged decode attention (K2 on CUDA) and on-device
   sampling, tokens chained on the device.
+- Chunked prefill of prompts longer than the largest bucket:
+  `prefill_chunk_step` / `prefill_chunk_sample_step` run one chunk
+  through a contiguous scratch `KVCache` with `q_offset = cache.lengths`
+  (K1's shifted causal diagonal on CUDA), and `cache_to_pool` scatters
+  the finished cache into the page pool once. The prompt-completing
+  chunk samples its first token and writes it to `last_tokens` in the
+  same call.
 
 The JAX steps donate the pool and return a new one; these update the
 pool IN PLACE (`index_put_` per layer) and never copy it.
@@ -26,8 +33,8 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.models.llama import (
-    LlamaConfig, Params, finish_block, layer_weights, logits_from_hidden,
-    project_qkv, rms_norm, rope_cos_sin)
+    KVCache, LlamaConfig, Params, finish_block, forward_hidden,
+    layer_weights, logits_from_hidden, project_qkv, rms_norm, rope_cos_sin)
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
 from generativeaiexamples_tpu_torch.serving.kv_cache import PagePool
 from generativeaiexamples_tpu_torch.serving.paged_attention import (
@@ -208,3 +215,62 @@ def decode_multi_step(params: Params, cfg: LlamaConfig, pool: PagePool,
         out.append(tokens)
         lengths = torch.where(active, lengths + 1, lengths)
     return torch.stack(out, dim=1), tokens
+
+
+@torch.no_grad()
+def prefill_chunk_step(params: Params, cfg: LlamaConfig, cache: KVCache,
+                       tokens: torch.Tensor,   # [1, C] (padded chunk)
+                       valid: int):
+    """One chunk of a long prompt through the scratch cache: k/v written
+    in place at absolute positions cache.lengths + i, queries at
+    q_offset = cache.lengths. Returns (logits of the last valid token
+    [V], cache); only that row goes through the final norm and head."""
+    dev = tokens.device
+    new_len = torch.full((1,), valid, dtype=torch.int32, device=dev)
+    x, cache = forward_hidden(params, cfg, tokens.long(), kv_cache=cache,
+                              lengths=new_len)
+    last = x[:, valid - 1:valid]                       # [1, 1, D]
+    return logits_from_hidden(cfg, params, last)[0, 0], cache
+
+
+@torch.no_grad()
+def prefill_chunk_sample_step(params: Params, cfg: LlamaConfig,
+                              cache: KVCache,
+                              tokens: torch.Tensor,       # [1, C] final chunk
+                              valid: int,
+                              last_tokens: torch.Tensor,  # [B] device tokens
+                              slot_idx: int,
+                              temperature: float, top_p: float, top_k: int,
+                              generator: Optional[torch.Generator] = None,
+                              sampling_flags: Tuple[bool, bool, bool] = (
+                                  True, False, False)):
+    """The chunk that COMPLETES a prompt, its first-token sample and the
+    last_tokens write, with no host read between them (the
+    fused_sampling tail). Returns (tok0 [1], last_tokens, cache)."""
+    logits, cache = prefill_chunk_step(params, cfg, cache, tokens, valid)
+    all_greedy, any_top_k, any_top_p = sampling_flags
+    sp = SamplingParams.make(1, temperature, top_p, top_k,
+                             device=logits.device)
+    tok0 = sample(logits[None, :], sp, generator, all_greedy=all_greedy,
+                  any_top_k=any_top_k, any_top_p=any_top_p)   # [1] int32
+    last_tokens[slot_idx:slot_idx + 1] = tok0.to(last_tokens.dtype)
+    return tok0, last_tokens, cache
+
+
+@torch.no_grad()
+def cache_to_pool(pool: PagePool, cache: KVCache, cfg: LlamaConfig,
+                  table_row: torch.Tensor) -> PagePool:
+    """Scatter a finished scratch cache (batch 1, S_total a multiple of
+    the page size) into the pool pages named by table_row
+    [S_total // page_size], in place; entries 0 land in the sink."""
+    ps = pool.page_size
+    L, _, KH, S, Hd = cache.k.shape
+    if S % ps:
+        raise ValueError(f"scratch cache length {S} not a multiple of "
+                         f"page_size {ps}")
+    rows = table_row.long()
+    pool.k[:, :, rows] = cache.k[:, 0].reshape(L, KH, S // ps, ps, Hd).to(
+        pool.k.dtype)
+    pool.v[:, :, rows] = cache.v[:, 0].reshape(L, KH, S // ps, ps, Hd).to(
+        pool.v.dtype)
+    return pool

@@ -6,8 +6,8 @@ stream parks its thread on the request's event queue):
 
   POST /v1/chat/completions   (stream=SSE chunks or one JSON body)
   POST /v1/completions
-  POST /v1/embeddings, /v1/ranking   503 until the encoders are ported
-                                     (ROADMAP A.11)
+  POST /v1/embeddings          (EmbeddingEngine; 503 without one)
+  POST /v1/ranking             (RerankEngine; 503 without one)
   GET  /v1/models, /health, /metrics
 
 Response bodies have the same JSON shapes as the JAX server's.
@@ -28,6 +28,9 @@ from generativeaiexamples_tpu_torch.serving.engine import (
     GenRequest, PromptTooLongError)
 
 _LOG = logging.getLogger(__name__)
+
+# /v1/embeddings' model id when the request names none.
+EMBED_MODEL_NAME = "snowflake-arctic-embed-l"
 
 
 class StopStream:
@@ -88,8 +91,11 @@ class OpenAIServer:
     """Request handling, independent of the transport. `make_http_server`
     puts it behind a ThreadingHTTPServer."""
 
-    def __init__(self, llm_engine=None, model_name: str = "llama3-8b-instruct"):
+    def __init__(self, llm_engine=None, embed_engine=None, rerank_engine=None,
+                 model_name: str = "llama3-8b-instruct"):
         self.llm = llm_engine
+        self.embed = embed_engine
+        self.rerank = rerank_engine
         self.model_name = model_name
 
     # -- helpers -----------------------------------------------------------
@@ -138,10 +144,12 @@ class OpenAIServer:
     def health(self) -> Tuple[int, Dict]:
         """Device liveness, not just process liveness: a CUDA runtime
         query (free memory) on the engine's device."""
-        dev = getattr(self.llm, "device", None)
+        dev = next((e.device for e in (self.llm, self.embed, self.rerank)
+                    if e is not None), None)
         payload = {"status": "healthy",
                    "engines": {"llm": self.llm is not None,
-                               "embedding": False, "reranking": False}}
+                               "embedding": self.embed is not None,
+                               "reranking": self.rerank is not None}}
         try:
             if dev is not None and dev.type == "cuda":
                 free, total = torch.cuda.mem_get_info(dev)
@@ -163,6 +171,35 @@ class OpenAIServer:
 
     def metrics(self) -> Tuple[int, Dict]:
         return 200, (self.llm.metrics.snapshot() if self.llm else {})
+
+    def embeddings(self, body: Dict) -> Tuple[int, Dict]:
+        if self.embed is None:
+            return 503, {"error": "no embedding engine"}
+        inputs = body.get("input", [])
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        is_query = body.get("input_type") == "query"  # NIM extension
+        vecs = self.embed.embed(inputs, is_query=is_query)
+        return 200, {
+            "object": "list",
+            "model": body.get("model", EMBED_MODEL_NAME),
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": v.tolist()} for i, v in enumerate(vecs)],
+            "usage": {"prompt_tokens": 0, "total_tokens": 0},
+        }
+
+    def ranking(self, body: Dict) -> Tuple[int, Dict]:
+        if self.rerank is None:
+            return 503, {"error": "no reranking engine"}
+        query = body["query"]["text"] if isinstance(body.get("query"), dict) \
+            else body.get("query", "")
+        passages = [p["text"] if isinstance(p, dict) else p
+                    for p in body.get("passages", [])]
+        scores = self.rerank.score(query, passages)
+        rankings = sorted(
+            ({"index": i, "logit": float(s)} for i, s in enumerate(scores)),
+            key=lambda r: -r["logit"])
+        return 200, {"rankings": rankings}
 
     def submit(self, body: Dict, chat: bool) -> GenRequest:
         """Build and submit the engine request; HTTPError on refusal."""
@@ -277,11 +314,13 @@ class _Handler(BaseHTTPRequestHandler):
             body = json.loads(self.rfile.read(n) or b"{}")
         except ValueError:
             return self._json(400, {"error": "body is not valid JSON"})
-        if path in ("/v1/embeddings", "/v1/ranking"):
-            return self._json(503, {"error": {
-                "message": "the embedding / reranking encoders are not "
-                           "ported yet (ROADMAP A.11)",
-                "type": "service_unavailable", "code": "not_ported"}})
+        encoders = {"/v1/embeddings": self.app.embeddings,
+                    "/v1/ranking": self.app.ranking}
+        if path in encoders:
+            try:
+                return self._json(*encoders[path](body))
+            except (KeyError, TypeError, ValueError) as e:
+                return self._json(422, {"detail": f"bad request: {e}"})
         if path not in ("/v1/chat/completions", "/v1/completions"):
             return self._json(404, {"error": f"no route {self.path}"})
         chat = path == "/v1/chat/completions"

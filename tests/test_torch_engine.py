@@ -109,9 +109,15 @@ def test_metrics_snapshot_keys_always_present(engines):
 
 
 def test_prompt_longer_than_largest_bucket_is_refused(engines):
-    _, teng = engines
-    with pytest.raises(PromptTooLongError, match="chunked prefill"):
-        teng.submit(GenRequest(prompt_ids=[5] * 33))
+    """Beyond the largest bucket a prompt takes chunked prefill
+    (tests/test_torch_chunked_prefill.py); it is refused once it also
+    passes the page capacity minus one generated token, here on an
+    engine whose capacity (31) sits below its largest bucket (32)."""
+    cfg = tl.LlamaConfig.tiny()
+    small = LLMEngine(tl.init_params(cfg, "cpu"), cfg, ByteTokenizer(),
+                      {**ECFG, "max_seq_len": 32}, device="cpu")
+    with pytest.raises(PromptTooLongError, match="page capacity"):
+        small.submit(GenRequest(prompt_ids=[5] * 33))
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -235,7 +241,7 @@ def test_server_completion_and_side_routes(server):
         assert "tokens_generated" in json.loads(r.read())
     for path, body, status in (
             ("/v1/embeddings", {"input": ["x"]}, 503),
-            ("/v1/completions", {"prompt": [5] * 40}, 422)):
+            ("/v1/completions", {"prompt": [5] * 64}, 422)):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(base + path, body)
         assert e.value.code == status

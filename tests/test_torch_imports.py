@@ -42,8 +42,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "    importlib.import_module(m)",
         "import chip_smoke",
         "for name in ('emit', 'nvidia_smi', 'time_ms', 'bound', "
-        "'phase_flash', 'phase_paged', 'phase_model', 'phase_serving', "
-        "'main'):",
+        "'phase_flash', 'phase_paged', 'phase_encoder', 'phase_model', "
+        "'phase_serving', 'phase_chunked', 'phase_rag', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
@@ -84,6 +84,74 @@ def test_entry_points_raise_without_cuda_or_explicit_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_rag_entry_points_raise_without_cuda_or_explicit_device(
+        monkeypatch):
+    """The encoders, the device store, the engine hub behind the chain
+    server, and both launchers resolve to CUDA unless given the CPU."""
+    from generativeaiexamples_tpu_torch.api import server as api
+    from generativeaiexamples_tpu_torch.config.schema import load_config
+    from generativeaiexamples_tpu_torch.connectors.factory import EngineHub
+    from generativeaiexamples_tpu_torch.models import bert
+    from generativeaiexamples_tpu_torch.rag.vectorstore import (
+        DeviceVectorStore)
+    from generativeaiexamples_tpu_torch.serving import __main__ as launcher
+    from generativeaiexamples_tpu_torch.serving.encoders import (
+        EmbeddingEngine, RerankEngine)
+    from generativeaiexamples_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = bert.BertConfig.tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bert.init_params(cfg)
+    params = bert.init_params(cfg, "cpu")
+    rcfg = bert.BertConfig(**{**cfg.__dict__, "n_labels": 1})
+    for make in (lambda: EmbeddingEngine(params, cfg, ByteTokenizer()),
+                 lambda: RerankEngine(bert.init_params(rcfg, "cpu"), rcfg,
+                                      ByteTokenizer()),
+                 lambda: DeviceVectorStore(8),
+                 lambda: EngineHub(load_config(env={})),
+                 lambda: api.ChainServer(load_config(env={})),
+                 lambda: launcher.build_encoders(),
+                 lambda: launcher.default_encoder_size()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    monkeypatch.setattr("sys.argv", ["api", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.main()
+    monkeypatch.setattr("sys.argv", ["serving", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main()
+    # Asked for the CPU, they build.
+    assert DeviceVectorStore(8, device="cpu").device.type == "cpu"
+    assert launcher.default_encoder_size("cpu") == "tiny"
+    emb, rr = launcher.build_encoders("cpu")
+    assert emb.device.type == rr.device.type == "cpu"
+    assert emb.cfg.dim == 32 and rr.cfg.n_labels == 1
+
+
+def test_library_path_rebuilds_when_a_shared_header_changes(
+        tmp_path, monkeypatch):
+    """Each kernel's library is keyed by its source AND every csrc/*.cuh
+    header (sources include the shared mma helpers), so editing a header
+    gives every kernel a new library path, i.e. a rebuild."""
+    from generativeaiexamples_tpu_torch import kernels
+
+    for src in kernels.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
+    header = tmp_path / "mma_bf16.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
+    assert all(before[n] != after[n] for n in kernels.SIGNATURES)
+    (tmp_path / "encoder_attention.cu").write_text("// edited source")
+    assert kernels.library_path("encoder_attention") != \
+        after["encoder_attention"]
+    assert kernels.library_path("flash_attention") == after["flash_attention"]
+    assert '#include "mma_bf16.cuh"' in (
+        kernels.CSRC / "flash_attention.cu").read_text()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
