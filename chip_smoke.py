@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printing one JSON line; any failure exits non-zero:
 
   1. env      the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build    nvcc builds every kernel (K1, K2, K3) from csrc/, one
-              process per source, all in parallel
+  2. build    nvcc builds every kernel (K1, K2, K3, K4, K6) from csrc/,
+              one process per source, all in parallel
   3. flash    K1 (csrc/flash_attention.cu) against `mha_reference` run in
               f32 on the same bf16 inputs, at Llama-3-8B prefill shapes
               (and the chunked lane's q_offset shape) plus ragged /
@@ -24,10 +24,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
               ragged lengths with a lengths-0 row (must average V), and
               contiguous q/k/v; SDPA with a key-padding mask timed
               beside it
-  6. model    a 2-layer bf16 model with 8B head geometry, run through the
+  6. paged_int8  K4 (csrc/paged_attention_int8.cu) against
+              `paged_attention_int8_reference_fused` in f32 on the same
+              codes and scales, row by row relative to each row's output,
+              over a 2-layer fused pool read at layer 1: the 8B decode
+              shape at B=8 and B=128, head_dim 64, a small page size, and
+              rows whose largest score sits on their last page (the online
+              softmax must rescale the earlier pages); NaN-poisoned scales
+              in the sink page and in the table slots past each row's
+              pages must not change it
+  7. int8_matmul  K6 (csrc/int8_matmul.cu) against
+              `int8_matmul_reference` in f32 at every 8B projection shape
+              (K, M) and R = 8, 128, 4096, plus a ragged R and a ragged M;
+              torch.matmul over a pre-dequantized bf16 weight timed beside
+              it as a yardstick
+  8. model    a 2-layer bf16 model with 8B head geometry, run through the
               engine's prefill and decode steps on the card, against the
-              plain f32 forward on the CPU over the same weights
-  7. serving  LLMEngine at Llama-3-8B geometry (random weights from a
+              plain f32 forward on the CPU over the same weights; then
+              its int8 variant (int8 weights, int8 pool: K6, K4) against
+              the same steps in f32 on the CPU over the same codes
+  9. serving  LLMEngine at Llama-3-8B geometry (random weights from a
               seed, bf16, default engine config) behind the port's
               OpenAI server on a local port: one streaming chat
               completion, one non-streaming completion, 4 concurrent
@@ -36,10 +52,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               Then, outside the counted window, torch.profiler over one
               more 64-token completion: device idle share and device
               time by kernel name
-  8. chunked  a ~6,000-token completion through the same server (chunked
+  10. chunked a ~6,000-token completion through the same server (chunked
               prefill beyond the 4096 bucket; K1 must launch), and the
               chunk steps' first-token logits against a one-shot forward
-  9. rag      the chain server (developer_rag, device store, ranked
+  11. rag     the chain server (developer_rag, device store, ranked
               hybrid retrieval) over the same 8B engine with
               arctic-embed-l and BERT-base reranker encoders: ingest of
               ~2,000 chunks of the repository's prose, /search and a
@@ -47,10 +63,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               knowledge-base /generate answers (tokens generated, no
               error frame); K3's launches must equal encoder layers x
               forwards, K1 and K2 must launch
-  10. kernels one line {"kernels": [...]} with each kernel's parity,
-              launches on its path (K1, K2: serving; K3: rag), times and
-              bound
-  11. the card's name and power limit, then the last line
+  12. serving_int8  after the bf16 engine and the stores are released:
+              an LLMEngine at Llama-3-8B geometry, random weights from
+              seed 0 quantized at load, in the documented int8 deployment
+              (int8 weights and KV, batch 128, page 128, max_seq 8192),
+              with one cut (4,097 pool pages); 128 concurrent greedy
+              64-token completions and one ~6,000-token chunked prompt
+              behind the OpenAI server. K6, K4 and K1 must launch, K2 not
+  13. kernels one line {"kernels": [...]} with each kernel's parity,
+              launches on its path (K1, K2: serving; K3: rag; K4, K6:
+              serving_int8), times and bound
+  14. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
 It imports neither jax nor the JAX package. Without CUDA, or without the
@@ -59,6 +82,7 @@ port's package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -87,6 +111,35 @@ K2_REPLACES = ("generativeaiexamples_tpu/serving/paged_attention.py:266 "
                "(_paged_kernel)")
 K3_REPLACES = ("generativeaiexamples_tpu/ops/encoder_attention.py:96 "
                "(_encoder_kernel)")
+K4_REPLACES = ("generativeaiexamples_tpu/serving/paged_attention_int8.py:386 "
+               "(_int8_kernel)")
+K6_REPLACES = ("generativeaiexamples_tpu/ops/int8_matmul.py:91,109 "
+               "(_kernel_fullk, _kernel)")
+
+# K6 parity, relative to max |y| of the case: the kernel rounds its output
+# to bf16 once (half an ulp is at most 2^-8 ~ 3.9e-3 of |y|) and sums in
+# another order than the f32 reference; 1e-2 leaves a 2.5x margin while
+# an indexing or scale fault gives O(1).
+INT8_MM_RTOL = 1e-2
+
+# K4 parity, per batch row and relative to that row's max |out|: the
+# kernel rounds its output to bf16 once (half an ulp is at most 2^-8 ~
+# 3.9e-3 of the value) and sums in another order than the f32 reference;
+# 1e-2 leaves a 2.5x margin, while a wrong rescale of earlier pages by the
+# online softmax is off by O(1) of the row. A fixed absolute tolerance
+# would not do: under flat scores a long row's output is a mean over
+# thousands of values, as small as 1e-2, and such a fault hides in it.
+PAGED_INT8_RTOL = 1e-2
+# q is scaled up so that the scores are sharp (std ~5 over the keys) and
+# each row's output stays O(1) at every length, not a near-uniform mean.
+PAGED_INT8_Q_SCALE = 8.0
+
+# The int8 model's logits on the card (bf16 activations) against the same
+# steps in f32 on the CPU over the same codes: the bf16 budget of phase
+# model (5e-2), plus int8 KV codes that move by one where a bf16 k or v
+# differs by a bf16 ulp from the f32 one and crosses a rounding boundary
+# (one quantization step, amax / 127 of that row, in one element).
+INT8_MODEL_ATOL = 1e-1
 
 
 def emit(obj) -> None:
@@ -408,7 +461,246 @@ def phase_encoder():
     return cases
 
 
-# -- phase 6: model steps on the card vs the plain forward ------------------
+# -- phase 6: K4 ------------------------------------------------------------
+
+
+def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
+                    seed=0, timed=False, late_max=False):
+    """K4 against `paged_attention_int8_reference_fused` in f32 on the same
+    codes and scales, over the full L-layer fused pool read at `layer`,
+    row by row (PAGED_INT8_RTOL of each row's max |out|). Tail table slots
+    point at an unused page; after the parity check the scales of that
+    page and of sink page 0 are poisoned with NaN and the kernel's result
+    must not change (it never reads them). `late_max` gives each row's
+    last token a k that matches its query group, so the running max rises
+    on the row's last page and the earlier pages' sums must be rescaled."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_int8 as pa8)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = B * maxp + 2              # page P - 1: never assigned, poisoned
+    q = (torch.randn((B, H, Hd), generator=g, device=dev)
+         * PAGED_INT8_Q_SCALE).bfloat16()
+    kv = torch.randint(-127, 128, (2, L, KH, P, ps, Hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    sc = (torch.rand((2, L, KH, P, ps), generator=g, device=dev) + 0.5) / 127
+    perm = torch.randperm(P - 2, generator=g, device=dev) + 1
+    table = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(lengths):
+        need = -(-max(n, 1) // ps)
+        table[b, :need] = perm[used:used + need].int()
+        used += need
+    if late_max:
+        group_q = q.float().reshape(B, KH, H // KH, Hd).sum(2)  # [B, KH, Hd]
+        for b, n in enumerate(lengths):
+            t = max(n, 1) - 1
+            page = int(table[b, t // ps])
+            kv[0, layer, :, page, t % ps] = (
+                torch.sign(group_q[b]) * 127).to(torch.int8)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = pa8.paged_attention_int8(q, kv, sc, table, ln, layer)
+    want = pa8.paged_attention_int8_reference_fused(
+        q.float(), kv[:, layer], sc[:, layer], table, ln.clamp(min=1))
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs().reshape(B, -1).amax(1)
+    row_max = want.abs().reshape(B, -1).amax(1)
+    err = float(diff.max())
+    row_rel = float((diff / row_max).max())
+    out_min = float(row_max.min())
+    del want
+    saved = sc[:, :, :, [0, P - 1]].clone()
+    sc[:, :, :, [0, P - 1]] = float("nan")
+    poisoned = pa8.paged_attention_int8(q, kv, sc, table, ln, layer)
+    sc[:, :, :, [0, P - 1]] = saved
+    torch.cuda.synchronize()
+    unread = bool(torch.equal(poisoned, got))
+    finite = bool(torch.isfinite(got.float()).all())
+    ok = finite and unread and row_rel <= PAGED_INT8_RTOL
+    rec = {"phase": "paged_int8", "case": name, "B": B, "H": H, "KH": KH,
+           "Hd": Hd, "ps": ps, "maxp": maxp, "L": L, "layer": layer,
+           "lengths": lengths if len(lengths) <= 16 else
+           {"n": len(lengths), "min": min(lengths), "max": max(lengths),
+            "sum": sum(lengths)},
+           "late_max": late_max, "max_abs_err": err,
+           "max_row_rel_err": row_rel, "rtol": PAGED_INT8_RTOL,
+           "min_row_max_abs_out": out_min,
+           "sink_and_tail_unread": unread, "finite": finite, "ok": ok}
+    if timed:
+        tokens = float(sum(max(n, 1) for n in lengths))
+        # Codes and scales of the tokens attended (k and v: 2 Hd bytes +
+        # 2 f32 a token and kv head), q and the output once (bf16), the
+        # table and lengths.
+        n_bytes = tokens * KH * (2 * Hd + 8) + 2.0 * 2 * q.numel() \
+            + 4.0 * (table.numel() + B)
+        flops = 4.0 * Hd * H * tokens
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
+        # Alternate the two layers so that one call's pages are not in L2
+        # for the next (the decode path reads another layer every call).
+        turn = [0]
+
+        def kernel():
+            turn[0] ^= 1
+            pa8.paged_attention_int8(q, kv, sc, table, ln, turn[0])
+
+        rec["ms"] = time_ms(kernel)
+        rec["plain_ms"] = time_ms(
+            lambda: pa8.paged_attention_int8_reference_fused(
+                q, kv[:, layer], sc[:, layer], table, ln.clamp(min=1)),
+            iters=3, warmup=1)
+        # No single torch call takes a page table and int8 pages.
+        rec["library_ms"] = None
+        rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
+    del kv, sc, got, poisoned
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_paged_int8():
+    import numpy as np
+
+    b128 = np.linspace(1, 4096, 128).astype(int).tolist()
+    cases = [
+        # K2's 8B decode case, on the int8 pool.
+        paged_int8_case("8b_decode", 8, 32, 8, 128, 128, 64,
+                        [1, 17, 128, 129, 1000, 4096, 7000, 8191], seed=21,
+                        timed=True),
+        # The documented int8 deployment's batch.
+        paged_int8_case("8b_b128", 128, 32, 8, 128, 128, 32, b128, seed=22,
+                        timed=True),
+        paged_int8_case("hd64", 4, 32, 8, 64, 128, 16, [1, 300, 1024, 2047],
+                        seed=23),
+        # A small page, G = 4, and a length-0 row (clamped to 1).
+        paged_int8_case("ps16", 3, 8, 2, 128, 16, 32, [0, 16, 511], seed=24),
+        # Each row's largest score on its last page: the earlier pages'
+        # sums must be rescaled by the online softmax.
+        paged_int8_case("late_max", 8, 32, 8, 128, 128, 64,
+                        [129, 700, 1500, 2048, 3000, 4097, 6000, 8191],
+                        seed=25, late_max=True),
+    ]
+    for c in cases:
+        emit(c)
+    return cases
+
+
+# -- phase 7: K6 ------------------------------------------------------------
+
+# Every quantized projection of Llama-3-8B as (K, M): wq and wo, wk/wv,
+# w_gate/w_up, w_down, the lm head.
+K6_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+             "w_gate_up": (4096, 14336), "w_down": (14336, 4096),
+             "lm_head": (4096, 128256)}
+
+
+def int8_mm_case(name, R, K, M, seed=0):
+    """K6 against `int8_matmul_reference` in f32 (INT8_MM_RTOL of max |y|),
+    then timed with enough copies of the weight in rotation that none is
+    in L2 when it is read (the path reads each weight once per forward):
+    the kernel, the plain version, and torch.matmul over a pre-dequantized
+    bf16 copy (a yardstick that moves twice the weight bytes; the port
+    never calls it)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_reference)
+    from generativeaiexamples_tpu_torch.ops.quant import quantize_tensor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((R, K), generator=g, device=dev).bfloat16()
+    qt = quantize_tensor(torch.randn((K, M), generator=g, device=dev)
+                         * K ** -0.5)
+    got = int8_matmul(x, qt.q, qt.s)
+    want = int8_matmul_reference(x, qt.q, qt.s, torch.float32)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got.float() - want).abs().max())
+    finite = bool(torch.isfinite(got.float()).all())
+    del want
+    ok = finite and err <= INT8_MM_RTOL * scale
+    n_bytes = 2.0 * R * K + K * M + 4.0 * M + 2.0 * R * M
+    flops = 2.0 * R * K * M
+    rec = {"phase": "int8_matmul", "case": name, "R": R, "K": K, "M": M,
+           "max_abs_err": err, "y_max_abs": scale,
+           "rel_err": err / scale, "tol_rel": INT8_MM_RTOL,
+           "finite": finite, "ok": ok}
+    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
+    copies = [qt.q] + [qt.q.clone() for _ in range(
+        min(15, int(150e6 // (K * M))))]
+    turn = [0]
+
+    def kernel():
+        turn[0] = (turn[0] + 1) % len(copies)
+        int8_matmul(x, copies[turn[0]], qt.s)
+
+    rec["ms"] = time_ms(kernel)
+    rec["weight_copies"] = len(copies)
+    rec["plain_ms"] = time_ms(lambda: int8_matmul_reference(x, qt.q, qt.s),
+                              iters=3, warmup=1)
+    del copies
+    dense = [(qt.q.bfloat16() * qt.s.bfloat16())]
+    dense += [dense[0].clone() for _ in range(
+        min(15, int(150e6 // (2 * K * M))))]
+
+    def library():
+        turn[0] = (turn[0] + 1) % len(dense)
+        torch.matmul(x, dense[turn[0]])
+
+    rec["library_ms"] = time_ms(library)
+    rec["library"] = "torch.matmul over a pre-dequantized bf16 weight"
+    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
+    del dense, got, qt, x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_int8_matmul():
+    cases = []
+    for wname, (K, M) in K6_SHAPES.items():
+        for i, R in enumerate((8, 128, 4096)):
+            cases.append(int8_mm_case(f"{wname}_r{R}", R, K, M, seed=31 + i))
+            emit(cases[-1])
+    for name, R, K, M in (("ragged_r37", 37, 4096, 4096),
+                          ("ragged_m1000", 128, 4096, 1000)):
+        cases.append(int8_mm_case(name, R, K, M, seed=40))
+        emit(cases[-1])
+    return cases
+
+
+# -- phase 8: model steps on the card vs the plain forward ------------------
+
+
+def _paged_steps(params, cfg, pool, toks, prompt_len, n_decode, dev,
+                 bucket=256, ps=128):
+    """The engine's prefill step over the first prompt_len tokens, then
+    n_decode decode steps, on `dev`; returns each step's logits (f32 on
+    the CPU)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import engine_model
+    from generativeaiexamples_tpu_torch.serving.kv_cache import (
+        PageAllocator, SequencePages)
+
+    seq = SequencePages(PageAllocator(pool.n_pages), ps, 4)
+    seq.ensure(prompt_len)
+    padded = torch.zeros((1, bucket), dtype=torch.int64)
+    padded[0, :prompt_len] = toks[0, :prompt_len]
+    row = torch.zeros((bucket // ps,), dtype=torch.int32)
+    row[:len(seq.pages)] = torch.tensor(seq.pages)
+    out = [engine_model.prefill_step(params, cfg, pool, padded.to(dev),
+                                     prompt_len, row.to(dev)).float().cpu()]
+    for t in range(prompt_len, prompt_len + n_decode):
+        seq.ensure(t + 1)
+        table = torch.tensor(seq.table_row()[None, :], device=dev)
+        out.append(engine_model.decode_step(
+            params, cfg, pool, toks[:, t].to(dev), table,
+            torch.tensor([t + 1], dtype=torch.int32, device=dev))[0]
+            .float().cpu())
+    return out
 
 
 def phase_model():
@@ -416,15 +708,20 @@ def phase_model():
     the contiguous forward in f32 on the CPU over the same (bf16-rounded)
     weights. Tolerance 5e-2 on logits of scale ~1: the card path rounds
     every activation to bf16 through two layers (each rounding ~2^-9
-    relative), the CPU path does not."""
+    relative), the CPU path does not.
+
+    Then the int8 variant: the same weights quantized on the card
+    (int8 weights through K6, an int8 pool through K4), against the same
+    engine steps in f32 on the CPU over the same codes and scales, with
+    an int8 pool there too (tolerance INT8_MODEL_ATOL)."""
     import dataclasses
 
     import torch
 
     from generativeaiexamples_tpu_torch.models import llama
-    from generativeaiexamples_tpu_torch.serving import engine_model
-    from generativeaiexamples_tpu_torch.serving.kv_cache import (
-        PageAllocator, PagePool, SequencePages)
+    from generativeaiexamples_tpu_torch.ops.quant import (
+        QuantizedTensor, quantize_llama_params)
+    from generativeaiexamples_tpu_torch.serving.kv_cache import PagePool
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(
@@ -434,40 +731,58 @@ def phase_model():
     params = llama.init_params(cfg, dev, torch.Generator(dev).manual_seed(0))
     cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
     cpu_params = llama.map_params(params, lambda t: t.float().cpu())
-    prompt_len, n_decode, ps, bucket = 150, 6, 128, 256
+    prompt_len, n_decode = 150, 6
     g = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (1, prompt_len + n_decode),
                          generator=g)
     full, _ = llama.forward(cpu_params, cpu_cfg, toks)          # [1, S, V]
+    want = [full[0, t] for t in range(prompt_len - 1, prompt_len + n_decode)]
 
-    pool = PagePool.zeros(cfg, 8, ps, dtype=torch.bfloat16, device=dev)
-    seq = SequencePages(PageAllocator(8), ps, 4)
-    seq.ensure(prompt_len)
-    padded = torch.zeros((1, bucket), dtype=torch.int64)
-    padded[0, :prompt_len] = toks[0, :prompt_len]
-    row = torch.zeros((bucket // ps,), dtype=torch.int32)
-    row[:len(seq.pages)] = torch.tensor(seq.pages)
-    logits = engine_model.prefill_step(params, cfg, pool, padded.to(dev),
-                                       prompt_len, row.to(dev))
-    errs = [float((logits.float().cpu() - full[0, prompt_len - 1]).abs().max())]
-    for t in range(prompt_len, prompt_len + n_decode):
-        seq.ensure(t + 1)
-        table = torch.tensor(seq.table_row()[None, :], device=dev)
-        lg = engine_model.decode_step(
-            params, cfg, pool, toks[:, t].to(dev), table,
-            torch.tensor([t + 1], dtype=torch.int32, device=dev))
-        errs.append(float((lg[0].float().cpu() - full[0, t]).abs().max()))
+    pool = PagePool.zeros(cfg, 8, 128, dtype=torch.bfloat16, device=dev)
+    got = _paged_steps(params, cfg, pool, toks, prompt_len, n_decode, dev)
     torch.cuda.synchronize()
-    err = max(errs)
-    rec = {"phase": "model", "layers": cfg.n_layers, "dim": cfg.dim,
-           "head_dim": cfg.head_dim, "prompt": prompt_len,
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    rec = {"phase": "model", "variant": "bf16", "layers": cfg.n_layers,
+           "dim": cfg.dim, "head_dim": cfg.head_dim, "prompt": prompt_len,
            "decode_steps": n_decode, "logit_scale": float(full.abs().max()),
            "max_abs_err": err, "tol": 5e-2, "ok": err <= 5e-2}
     emit(rec)
+
+    qparams = quantize_llama_params(params, dev)
+    cpu_qparams = llama.map_params(qparams, lambda t: QuantizedTensor(
+        t.q.cpu(), t.s.cpu()) if isinstance(t, QuantizedTensor)
+        else t.float().cpu())
+    qpool = PagePool.zeros(cfg, 8, 128, dtype=torch.int8, device=dev)
+    cpu_qpool = PagePool.zeros(cpu_cfg, 8, 128, dtype=torch.int8,
+                               device="cpu")
+    got = _paged_steps(qparams, cfg, qpool, toks, prompt_len, n_decode, dev)
+    want = _paged_steps(cpu_qparams, cpu_cfg, cpu_qpool, toks, prompt_len,
+                        n_decode, "cpu")
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    used = slice(1, None)  # page 0 is the sink
+    code_diff = (qpool.kv[:, :, :, used].cpu().int()
+                 - cpu_qpool.kv[:, :, :, used].int()).abs()
+    irec = {"phase": "model", "variant": "int8 weights + int8 KV",
+            "layers": cfg.n_layers, "prompt": prompt_len,
+            "decode_steps": n_decode,
+            "logit_scale": float(max(w.abs().max() for w in want)),
+            "max_abs_err": err, "tol": INT8_MODEL_ATOL,
+            "kv_codes_moved": int((code_diff > 0).sum()),
+            # k and v codes of every layer, kv head and token written
+            "kv_codes_written": 2 * cfg.n_layers * cfg.n_kv_heads
+            * (prompt_len + n_decode) * cfg.head_dim,
+            "kv_code_max_move": int(code_diff.max()),
+            "argmax_equal": all(int(a.argmax()) == int(b.argmax())
+                                for a, b in zip(got, want)),
+            "ok": err <= INT8_MODEL_ATOL}
+    emit(irec)
+    rec["ok"] = rec["ok"] and irec["ok"]
+    rec["int8"] = irec
     return rec
 
 
-# -- phase 7: serving ------------------------------------------------------
+# -- phase 9: serving ------------------------------------------------------
 
 
 def _post(url, body, timeout=600):
@@ -513,19 +828,28 @@ def _complete(base, prompt, max_tokens, **sampling):
             "seconds": time.perf_counter() - t0}
 
 
-def _profile_window(base):
-    """Where one served completion's time goes: torch.profiler over one
-    64-token completion after the main path's counts were read. Device
-    busy time is the sum of every device activity's self time (one
-    stream, so activities do not overlap); the idle share is the rest of
-    the window's wall time."""
+# Device function names of the port's kernels, for the profile windows.
+KERNEL_FUNCTIONS = {"flash_attention": "flash_fwd_kernel",
+                    "paged_attention": "paged_decode_kernel",
+                    "encoder_attention": "encoder_attention_kernel",
+                    "paged_attention_int8": "paged_int8_kernel",
+                    "int8_matmul": "int8_matmul_kernel"}
+
+
+def _profile_window(run):
+    """Where served time goes: torch.profiler around `run()` (which
+    returns the completion tokens it produced), after the main path's
+    counts were read. Device busy time is the sum of every device
+    activity's self time (one stream, so activities do not overlap); the
+    idle share is the rest of the window's wall time. `port_kernels_ms`
+    sums the device time of each port kernel's instantiations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        done = _complete(base, "Profile window", 64)
+        tokens = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -537,22 +861,27 @@ def _profile_window(base):
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in rows)
-    return {"wall_ms": wall_ms, "completion_tokens": done[
-                "completion_tokens"],
+    return {"wall_ms": wall_ms, "completion_tokens": tokens,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if rows else None,
             "device_activities": sum(n for _, n, _ in rows),
+            "port_kernels_ms": {
+                name: sum(ms for ms, _, k in rows if fn in k)
+                for name, fn in KERNEL_FUNCTIONS.items()},
             "top": [{"name": k[:90], "ms": ms, "count": n}
                     for ms, n, k in rows[:10]]}
 
 
 class ServedEngine:
     """The 8B engine behind the port's OpenAI server on a local port,
-    shared by the serving, chunked-prefill and RAG phases. `model_size`
-    and `device` exist so the phases can be rehearsed on the CPU at tiny
+    shared by the serving, chunked-prefill and RAG phases (bf16, default
+    engine config) and, on its own, by serving_int8 (`engine_cfg`,
+    `n_pages`, warmed at `warmup_buckets` only). `model_size` and
+    `device` exist so the phases can be rehearsed on the CPU at tiny
     size; the check runs them at 8b on cuda."""
 
-    def __init__(self, model_size: str = "8b", device: str = "cuda"):
+    def __init__(self, model_size: str = "8b", device: str = "cuda",
+                 engine_cfg=None, n_pages=None, warmup_buckets=None):
         from generativeaiexamples_tpu_torch.serving.__main__ import (
             build_engine)
         from generativeaiexamples_tpu_torch.serving.openai_server import (
@@ -560,10 +889,11 @@ class ServedEngine:
 
         t0 = time.perf_counter()
         self.engine = build_engine(model_size, device=device, seed=0,
-                                   warmup=False)
+                                   warmup=False, engine_cfg=engine_cfg,
+                                   n_pages=n_pages)
         self.build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self.engine.warmup()
+        self.engine.warmup(buckets=warmup_buckets)
         self.warm_s = time.perf_counter() - t0
         self.engine.start()
         self.httpd = make_http_server(
@@ -613,7 +943,8 @@ def phase_serving(card: str, served: ServedEngine):
         health = json.loads(r.read())
     with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
         metrics = json.loads(r.read())
-    profile = _profile_window(base)
+    profile = _profile_window(lambda: _complete(
+        base, "Profile window", 64)["completion_tokens"])
     conc_tokens = sum(r["completion_tokens"] for r in results if r)
 
     def finished_ok(r, want):
@@ -644,7 +975,7 @@ def phase_serving(card: str, served: ServedEngine):
     return rec
 
 
-# -- phase 8: chunked long prefill at 8B ----------------------------------
+# -- phase 10: chunked long prefill at 8B ---------------------------------
 
 
 def phase_chunked(served: ServedEngine, prompt_len: int = 6000):
@@ -709,7 +1040,7 @@ def phase_chunked(served: ServedEngine, prompt_len: int = 6000):
     return rec
 
 
-# -- phase 9: the developer_rag chain at full width -----------------------
+# -- phase 11: the developer_rag chain at full width ----------------------
 
 
 def _rag_corpus(seed: int, n_chunks: int) -> str:
@@ -954,6 +1285,118 @@ def phase_rag(card: str, served: ServedEngine, device: str = "cuda",
     return rec
 
 
+# -- phase 12: the int8 deployment at 8B ---------------------------------
+
+# The JAX package's documented int8 deployment (docs/deployment.md):
+# llama3-8b, int8 weights + int8 KV, max_batch_size 128, page_size 128.
+INT8_DEPLOYMENT = {"quantize_weights": "int8", "kv_dtype": "int8",
+                   "max_batch_size": 128, "page_size": 128,
+                   "max_seq_len": 8192}
+# The one cut: 4,097 pool pages (a 35 GB pool at 8.65 MB a page) in place
+# of the engine's default 128 x 64 + 64 + 1 (~71 GB), so the pool, the
+# weights and the activations fit one 80 GB card beside each other.
+INT8_POOL_PAGES = 4097
+
+
+def phase_serving_int8(card: str, model_size: str = "8b",
+                       device: str = "cuda", n_requests: int = 128,
+                       max_tokens: int = 64, long_prompt: int = 6000,
+                       n_pages: int = INT8_POOL_PAGES,
+                       engine_cfg=None):
+    """The int8 engine behind the OpenAI server: n_requests concurrent
+    greedy completions of max_tokens with prompts of 20-400 bytes (seed
+    3), then one long_prompt-token prompt through the chunked lane into
+    the int8 pool. Every request must finish ("length" or "stop", never
+    "error") with tokens; K6, K4 and K1 must launch in the window, K2
+    not. Tokens/s, TTFT and memory are printed for information, and the
+    same burst runs again under the profiler (outside the counted
+    window) for the device's busy time and idle share."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+
+    ecfg = dict(engine_cfg or INT8_DEPLOYMENT)
+    served = ServedEngine(model_size, device, engine_cfg=ecfg,
+                          n_pages=n_pages, warmup_buckets=[128, 512])
+    engine = served.engine
+    try:
+        rng = np.random.default_rng(3)
+        prompts = ["".join(chr(c) for c in rng.integers(97, 123, n))
+                   for n in rng.integers(20, 401, n_requests)]
+
+        def burst():
+            results = [None] * n_requests
+
+            def run(i):
+                results[i] = _complete(served.base, prompts[i], max_tokens)
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(n_requests)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            return results
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results = burst()
+        wall = time.perf_counter() - t0
+        metrics = engine.metrics.snapshot()
+        g = torch.Generator().manual_seed(7)
+        ids = torch.randint(0, 256, (long_prompt,), generator=g).tolist()
+        long_rec = _complete(served.base, ids, 8)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        pool = engine.pool
+        # Outside the counted window: the same burst again under the
+        # profiler, for where its time goes.
+        profile = _profile_window(lambda: sum(
+            r["completion_tokens"] for r in burst() if r))
+    finally:
+        served.close()
+    tokens = sum(r["completion_tokens"] for r in results if r)
+    finished = all(r is not None and r["finish_reason"] in ("length", "stop")
+                   and r["completion_tokens"] >= 1 for r in results)
+    ok = (finished and long_rec["finish_reason"] in ("length", "stop")
+          and long_rec["completion_tokens"] >= 1
+          and launches["int8_matmul"] > 0
+          and launches["paged_attention_int8"] > 0
+          and launches["flash_attention"] > 0
+          and launches["paged_attention"] == 0)
+    max_pages = ecfg["max_seq_len"] // ecfg["page_size"]
+    default_pages = ecfg["max_batch_size"] * max_pages + max_pages + 1
+    rec = {"phase": "serving_int8", "card": card,
+           "model": f"llama3_{model_size} random (seed 0), int8 weights "
+                    f"quantized at load, int8 KV",
+           "engine": ecfg, "layers": engine.cfg.n_layers,
+           "reduced": {"n_pages": n_pages, "default_n_pages": default_pages,
+                       "pool_gb": pool.nbytes / 1e9,
+                       "default_pool_gb": pool.nbytes / n_pages
+                       * default_pages / 1e9},
+           "engine_build_s": served.build_s, "warmup_s": served.warm_s,
+           "requests": n_requests, "max_tokens": max_tokens,
+           "prompt_bytes": [int(min(len(p) for p in prompts)),
+                            int(max(len(p) for p in prompts))],
+           "completion_tokens": tokens,
+           "finish_reasons": sorted({r["finish_reason"] for r in results
+                                     if r}),
+           "wall_s": wall, "tokens_per_s": tokens / wall if wall else None,
+           "ttft_p50_ms": metrics["ttft_p50_ms"],
+           "ttft_p95_ms": metrics["ttft_p95_ms"],
+           "decode_steps": metrics["decode_steps"],
+           "mean_batch_occupancy": metrics["mean_batch_occupancy"],
+           "long_prompt": {"tokens": long_prompt, **long_rec},
+           "launches": launches, "peak_mem_gb": peak_gb,
+           "profile": profile, "ok": ok}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -988,6 +1431,8 @@ def main() -> int:
     flash = phase_flash()
     paged = phase_paged()
     encoder = phase_encoder()
+    paged_int8 = phase_paged_int8()
+    int8_mm = phase_int8_matmul()
     model = phase_model()
     served = ServedEngine("8b", "cuda")
     try:
@@ -996,28 +1441,39 @@ def main() -> int:
         rag = phase_rag(card, served)
     finally:
         served.close()
+    # The bf16 engine and the RAG stores go before the int8 engine comes.
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_int8 = phase_serving_int8(card)
 
     line = []
-    for name, rep, cases, main_case, launches in (
+    for name, rep, cases, main_case, launches, tol in (
             ("flash_attention", K1_REPLACES, flash, "8b_s2048",
-             serving["launches"]),
+             serving["launches"], BF16_ATOL),
             ("paged_attention", K2_REPLACES, paged, "8b_decode",
-             serving["launches"]),
+             serving["launches"], BF16_ATOL),
             ("encoder_attention", K3_REPLACES, encoder, "arctic_s512",
-             rag["launches"])):
+             rag["launches"], BF16_ATOL),
+            ("paged_attention_int8", K4_REPLACES, paged_int8, "8b_decode",
+             serving_int8["launches"],
+             f"{PAGED_INT8_RTOL} x max|out| of each row"),
+            ("int8_matmul", K6_REPLACES, int8_mm, "w_gate_up_r8",
+             serving_int8["launches"], f"{INT8_MM_RTOL} x max|y|")):
         c = next(c for c in cases if c["case"] == main_case)
         line.append({
             "name": name, "route": "cuda",
             "source": f"generativeaiexamples_tpu_torch/csrc/{name}.cu",
             "replaces": rep, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "tol": BF16_ATOL, "parity_ok": all(c["ok"] for c in cases),
+            "tol": tol, "parity_ok": all(c["ok"] for c in cases),
             "case": main_case, "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
     emit({"kernels": line})
-    ok = (all(c["ok"] for c in flash + paged + encoder) and model["ok"]
-          and serving["ok"] and chunked["ok"] and rag["ok"])
+    ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8
+              + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]
+          and rag["ok"] and serving_int8["ok"])
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

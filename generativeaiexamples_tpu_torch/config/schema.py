@@ -32,7 +32,8 @@ _LOG = logging.getLogger(__name__)
 @dataclass(frozen=True)
 class EngineConfig:
     dtype: str = "bfloat16"       # model weights / activations
-    kv_dtype: str = "bfloat16"    # page pool; int8 waits for ROADMAP A.12
+    kv_dtype: str = "bfloat16"    # bfloat16 | float32 | int8 (fused pool)
+    quantize_weights: str = "none"  # none | int8 (weight-only, per column)
     max_batch_size: int = 8
     max_seq_len: int = 8192
     page_size: int = 128          # tokens per KV page
@@ -79,10 +80,12 @@ class EngineConfig:
             if "prefill_buckets" in kw:
                 kw["prefill_buckets"] = tuple(kw["prefill_buckets"])
             out = EngineConfig(**kw)
-        if out.kv_dtype not in ("bfloat16", "float32"):
-            raise ValueError(f"engine.kv_dtype={out.kv_dtype!r}: only "
-                             f"bfloat16/float32 pools are ported (int8 KV "
-                             f"is ROADMAP A.12)")
+        if out.kv_dtype not in ("bfloat16", "float32", "int8"):
+            raise ValueError(f"engine.kv_dtype={out.kv_dtype!r}: "
+                             f"bfloat16, float32 or int8")
+        if out.quantize_weights not in ("none", "int8"):
+            raise ValueError(f"engine.quantize_weights="
+                             f"{out.quantize_weights!r}: none or int8")
         if out.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"engine.dtype={out.dtype!r}: bfloat16 or "
                              f"float32")
@@ -97,7 +100,6 @@ class EngineConfig:
 # port will gain it).
 UNSUPPORTED = {
     "weights_path": ("", "ROADMAP A.10: HF checkpoint loading"),
-    "quantize_weights": ("none", "ROADMAP A.12: int8 weights"),
     "speculative_k": (0, "ROADMAP A.13: speculation"),
     "speculative_tree_branches": (0, "ROADMAP A.13: speculation"),
     "step_plans": (False, "ROADMAP A.14: step plans"),

@@ -42,7 +42,8 @@ class EngineHub:
 
                 size = self.model_size or (
                     "8b" if self.device.type == "cuda" else "tiny")
-                self._llm = build_engine(size, self.device).start()
+                self._llm = build_engine(size, self.device,
+                                         engine_cfg=self.config.engine).start()
             return self._llm
 
     def _encoders(self):

@@ -52,6 +52,12 @@ SIGNATURES = {
     # q, k, v, o, lengths, B, H, S, D, strides[12], scale, stream
     "encoder_attention": ("gaie_encoder_attention_bf16",
                           [_P] * 5 + [_I] * 4 + [_STRIDES, _F, _P]),
+    # q, kv, scales, o, page_table, lengths, B, H, KH, L, P, ps, maxp, Hd,
+    # layer, stream
+    "paged_attention_int8": ("gaie_paged_attention_int8",
+                             [_P] * 6 + [_I] * 9 + [_P]),
+    # x, q, scale, y, R, K, M, stream
+    "int8_matmul": ("gaie_int8_matmul_bf16", [_P] * 4 + [_I] * 3 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)

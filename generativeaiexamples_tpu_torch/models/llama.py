@@ -9,7 +9,9 @@ through ops.attention: the K1 CUDA kernel for CUDA tensors, the plain
 reference for CPU tensors.
 
 RMSNorm, RoPE (optionally llama3-scaled), GQA, SwiGLU MLP, optional tied
-embeddings.
+embeddings. Projections go through `ops.quant.mm`, so the same code runs
+a weight-only int8 tree (`ops.quant.quantize_llama_params`): K6 on CUDA,
+the plain route on the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
+from generativeaiexamples_tpu_torch.ops.quant import mm
 
 Params = Dict[str, Any]
 
@@ -135,8 +138,9 @@ def map_params(params: Params, fn: Callable[[torch.Tensor], Any]) -> Params:
             for k, v in params.items()}
 
 
-def layer_weights(params: Params, layer: int) -> Dict[str, torch.Tensor]:
-    """One layer's weights: views into the stacked [L, ...] tensors."""
+def layer_weights(params: Params, layer: int) -> Dict[str, Any]:
+    """One layer's weights: views into the stacked [L, ...] tensors (a
+    stacked QuantizedTensor gives QuantizedTensor(q[l], s[l]))."""
     return {k: v[layer] for k, v in params["layers"].items()}
 
 
@@ -218,9 +222,9 @@ def project_qkv(cfg: LlamaConfig, h: torch.Tensor, w: Dict[str, torch.Tensor],
     [B, KH, S, Hd] (views in head-major order)."""
     B, S, _ = h.shape
     H, KH, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ w["wq"]).view(B, S, H, Hd).transpose(1, 2)
-    k = (h @ w["wk"]).view(B, S, KH, Hd).transpose(1, 2)
-    v = (h @ w["wv"]).view(B, S, KH, Hd).transpose(1, 2)
+    q = mm(h, w["wq"]).view(B, S, H, Hd).transpose(1, 2)
+    k = mm(h, w["wk"]).view(B, S, KH, Hd).transpose(1, 2)
+    v = mm(h, w["wv"]).view(B, S, KH, Hd).transpose(1, 2)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -228,9 +232,9 @@ def finish_block(cfg: LlamaConfig, x: torch.Tensor, out: torch.Tensor,
                  w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Attention output projection + residual, then the SwiGLU MLP."""
     B, S, _ = x.shape
-    x = x + out.transpose(1, 2).reshape(B, S, -1) @ w["wo"]
+    x = x + mm(out.transpose(1, 2).reshape(B, S, -1), w["wo"])
     h = rms_norm(x, w["ln2"], cfg.rms_eps)
-    return x + (F.silu(h @ w["w_gate"]) * (h @ w["w_up"])) @ w["w_down"]
+    return x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
 
 
 def logits_from_hidden(cfg: LlamaConfig, params: Params,
@@ -238,7 +242,7 @@ def logits_from_hidden(cfg: LlamaConfig, params: Params,
     x = rms_norm(x, params["ln_f"], cfg.rms_eps)
     if cfg.tie_embeddings:
         return (x @ params["tok_emb"].T.to(x.dtype)).float()
-    return (x @ params["lm_head"]).float()
+    return mm(x, params["lm_head"]).float()
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,

@@ -13,6 +13,13 @@ the K3 kernel takes head_dim 64 only.
     python -m generativeaiexamples_tpu_torch.serving --model-size tiny \\
         --device cpu --port 8099
 
+The engine's config comes from the APP_ENGINE_* environment variables
+(config/schema.py load_config). The int8 deployment (weight-only int8,
+quantized at load, and the fused int8 KV pool):
+
+    APP_ENGINE_QUANTIZEWEIGHTS=int8 APP_ENGINE_KVDTYPE=int8 \\
+        python -m generativeaiexamples_tpu_torch.serving --model-size 8b
+
 Serves /v1/chat/completions, /v1/completions, /v1/embeddings,
 /v1/ranking, /v1/models, /health and /metrics on one port.
 """
@@ -22,12 +29,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
+from generativeaiexamples_tpu_torch.config.schema import EngineConfig
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models import bert, llama
+from generativeaiexamples_tpu_torch.ops.quant import quantize_llama_params
 from generativeaiexamples_tpu_torch.serving.encoders import (
     EmbeddingEngine, RerankEngine)
 from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
@@ -44,18 +53,26 @@ GEOMETRIES = {
 
 
 def build_engine(model_size: str = "8b", device: DeviceLike = None,
-                 seed: int = 0, warmup: bool = True) -> LLMEngine:
+                 seed: int = 0, warmup: bool = True, engine_cfg: Any = None,
+                 n_pages: Optional[int] = None) -> LLMEngine:
     """Random-init model of the named geometry (in its own dtype: f32
     for tiny, bf16 otherwise), drawn from `seed`, on `device` (CUDA
-    unless asked otherwise), wrapped in an LLMEngine at the default
-    engine config and warmed up (not started)."""
+    unless asked otherwise), quantized to weight-only int8 when
+    `engine_cfg.quantize_weights` is "int8" (as the JAX launcher does
+    with no checkpoint), wrapped in an LLMEngine at `engine_cfg`
+    (default: the default EngineConfig) with `n_pages` pool pages
+    (default: the engine's sizing) and warmed up (not started)."""
     dev = resolve_device(device)
+    ecfg = EngineConfig.coerce(engine_cfg)
     cfg = GEOMETRIES[model_size]()
     logging.warning("no checkpoint loading yet (ROADMAP A.10): random-init "
                     "%s model, seed %d, on %s", model_size, seed, dev)
     params = llama.init_params(
         cfg, dev, torch.Generator(device=dev).manual_seed(seed))
-    engine = LLMEngine(params, cfg, load_tokenizer("byte"), device=dev)
+    if ecfg.quantize_weights == "int8":
+        params = quantize_llama_params(params, dev)
+    engine = LLMEngine(params, cfg, load_tokenizer("byte"), ecfg,
+                       n_pages=n_pages, device=dev)
     return engine.warmup() if warmup else engine
 
 
@@ -100,6 +117,7 @@ def build_encoders(device: DeviceLike = None, seed: int = 1
 
 
 def main() -> None:
+    from generativeaiexamples_tpu_torch.config.schema import load_config
     from generativeaiexamples_tpu_torch.serving.openai_server import (
         OpenAIServer, run_server)
 
@@ -114,8 +132,10 @@ def main() -> None:
                     help="served model id")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
+    engine_cfg = load_config().engine
     emb, rr = build_encoders(args.device)
-    engine = build_engine(args.model_size, args.device).start()
+    engine = build_engine(args.model_size, args.device,
+                          engine_cfg=engine_cfg).start()
     logging.info("engine server on %s:%d (device %s)", args.host, args.port,
                  engine.device)
     try:

@@ -31,6 +31,12 @@ run through a contiguous scratch KVCache with offset queries; the chunk
 that completes the prompt samples the first token inside the same
 dispatch, and ONE scatter moves the cache into the sequence's pages.
 
+int8 serving (`kv_dtype="int8"`, `quantize_weights="int8"`): the pool is
+the fused `QuantPagePool` (decode attention through K4) and the params
+must come quantized (`ops.quant.quantize_llama_params`; every projection
+through K6); the chunked lane's scratch cache stays in the model dtype
+and is quantized as it is scattered into the pool.
+
 Not ported yet, and refused at construction (see config/schema.py):
 speculation, step plans, the fused prefill rider, prefix cache, pager,
 QoS, multi-host, emission pacing and the flight recorder.
@@ -53,6 +59,7 @@ from generativeaiexamples_tpu_torch import kernels
 from generativeaiexamples_tpu_torch.config.schema import EngineConfig
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models.llama import KVCache, LlamaConfig
+from generativeaiexamples_tpu_torch.ops.quant import is_quantized
 from generativeaiexamples_tpu_torch.serving import engine_model
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
     PageAllocator, PagePool, SequencePages)
@@ -64,7 +71,8 @@ _LOG = logging.getLogger(__name__)
 # in flight could free pages, before it is failed with an error event.
 MAX_ADMISSION_RETRIES = 64
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8}
 
 
 def _pow2_floor(n: int) -> int:
@@ -260,20 +268,32 @@ class LLMEngine:
         self.tokenizer = tokenizer
         self.ecfg = EngineConfig.coerce(engine_cfg)
         ps = self.ecfg.page_size
+        kv_int8 = self.ecfg.kv_dtype == "int8"
         if self.device.type == "cuda" and (
                 cfg.dtype != torch.bfloat16
-                or self.ecfg.kv_dtype != "bfloat16"
-                or ps % 8 or ps > 128):
+                or self.ecfg.kv_dtype not in ("bfloat16", "int8")
+                or ps % (16 if kv_int8 else 8) or ps > 128):
             raise ValueError(
-                f"on CUDA the K1/K2 kernels take bf16 and pages of a "
-                f"multiple of 8 up to 128 tokens: model dtype {cfg.dtype}, "
-                f"engine.kv_dtype {self.ecfg.kv_dtype!r}, page_size {ps}")
+                f"on CUDA the K1/K2/K4 kernels take bf16 and pages of a "
+                f"multiple of 8 (int8 pool: 16) up to 128 tokens: model "
+                f"dtype {cfg.dtype}, engine.kv_dtype "
+                f"{self.ecfg.kv_dtype!r}, page_size {ps}")
+        if is_quantized(params) != (self.ecfg.quantize_weights == "int8"):
+            raise ValueError(
+                f"engine.quantize_weights={self.ecfg.quantize_weights!r} "
+                f"but the params are "
+                f"{'' if is_quantized(params) else 'not '}quantized "
+                f"(ops.quant.quantize_llama_params)")
         if self.ecfg.max_seq_len < ps:
             raise ValueError(f"engine.max_seq_len {self.ecfg.max_seq_len} "
                              f"< page_size {ps}")
         self.max_pages = self.ecfg.max_seq_len // ps
         if n_pages is None:
-            n_pages = self.ecfg.max_batch_size * self.max_pages + 1
+            # An int8 pool gets one sequence of slack, as the JAX engine
+            # gives it: retired slots free their pages only when their
+            # parked in-flight block lands.
+            slack = self.max_pages if kv_int8 else 0
+            n_pages = self.ecfg.max_batch_size * self.max_pages + slack + 1
         self.pool = PagePool.zeros(cfg, n_pages, ps,
                                    dtype=_DTYPES[self.ecfg.kv_dtype],
                                    device=self.device)
@@ -309,6 +329,11 @@ class LLMEngine:
         self._scratch_caches: Dict[int, KVCache] = {}
         self._chunk_res: Dict[int, torch.Tensor] = {}  # slot -> tok0 [1]
         self._beat = 0
+        # The chunked lane's scratch cache: the pool dtype, or the model
+        # dtype for an int8 pool (cache_to_pool quantizes it), as the JAX
+        # engine does.
+        self._scratch_dtype = (cfg.dtype if kv_int8
+                               else _DTYPES[self.ecfg.kv_dtype])
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -641,8 +666,8 @@ class LLMEngine:
         tok[0, :len(part)] = part
         if lp.pos == 0:
             self._scratch_caches[lp.slot_idx] = KVCache.zeros(
-                self.cfg, 1, max_len=lp.s_total,
-                dtype=_DTYPES[self.ecfg.kv_dtype], device=self.device)
+                self.cfg, 1, max_len=lp.s_total, dtype=self._scratch_dtype,
+                device=self.device)
         cache = self._scratch_caches[lp.slot_idx]
         final = lp.pos + len(part) >= len(lp.ids)
         if final:

@@ -21,13 +21,18 @@ that k/v live in the serving PagePool:
   chunk samples its first token and writes it to `last_tokens` in the
   same call.
 
+With an int8 pool (`QuantPagePool`) every k/v row is quantized as it is
+written (`paged_attention_int8.quantize_kv`: one f32 scale per kv head
+and token), prefill layer by layer as each layer finishes, and decode
+attends through K4 over the fused pool.
+
 The JAX steps donate the pool and return a new one; these update the
 pool IN PLACE (`index_put_` per layer) and never copy it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,11 +41,16 @@ from generativeaiexamples_tpu_torch.models.llama import (
     KVCache, LlamaConfig, Params, finish_block, forward_hidden,
     layer_weights, logits_from_hidden, project_qkv, rms_norm, rope_cos_sin)
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
-from generativeaiexamples_tpu_torch.serving.kv_cache import PagePool
+from generativeaiexamples_tpu_torch.serving.kv_cache import (
+    PagePool, QuantPagePool)
 from generativeaiexamples_tpu_torch.serving.paged_attention import (
     paged_attention_dispatch)
+from generativeaiexamples_tpu_torch.serving.paged_attention_int8 import (
+    paged_attention_int8, quantize_kv)
 from generativeaiexamples_tpu_torch.serving.sampling import (
     SamplingParams, sample)
+
+Pool = Union[PagePool, QuantPagePool]
 
 
 # The block pieces live in models/llama.py, shared with the contiguous
@@ -51,23 +61,42 @@ _finish_block = finish_block
 _logits = logits_from_hidden
 
 
-def _write_prefill_pages(pool: PagePool, layer: int, k: torch.Tensor,
+def _write_prefill_pages(pool: Pool, layer: int, k: torch.Tensor,
                          v: torch.Tensor, table_flat: torch.Tensor) -> None:
     """Scatter one layer's prefill k/v [N, KH, S, Hd] into the pool pages
     named by table_flat [N * S // ps] (row-major over the group), in
-    place. Page-0 entries (padding) all land in the sink."""
+    place. Page-0 entries (padding) all land in the sink. An int8 pool
+    takes the rows quantized (_write_quant_pages)."""
     N, KH, S, Hd = k.shape
     ps = pool.page_size
 
-    def paged(t):  # [N, KH, S, Hd] -> [KH, N * S/ps, ps, Hd]
-        t = t.reshape(N, KH, S // ps, ps, Hd).transpose(0, 1)
-        return t.reshape(KH, N * (S // ps), ps, Hd).to(pool.k.dtype)
+    def paged(t):  # [N, KH, S, ...] -> [KH, N * S/ps, ps, ...]
+        rest = t.shape[3:]
+        t = t.reshape(N, KH, S // ps, ps, *rest).transpose(0, 1)
+        return t.reshape(KH, N * (S // ps), ps, *rest)
 
-    pool.k[layer][:, table_flat] = paged(k)
-    pool.v[layer][:, table_flat] = paged(v)
+    if pool.quantized:
+        kq, ks = quantize_kv(k, scale_dtype=pool.s.dtype)
+        vq, vs = quantize_kv(v, scale_dtype=pool.s.dtype)
+        _write_quant_pages(pool, layer, paged(kq), paged(ks), paged(vq),
+                           paged(vs), table_flat)
+        return
+    pool.k[layer][:, table_flat] = paged(k).to(pool.k.dtype)
+    pool.v[layer][:, table_flat] = paged(v).to(pool.v.dtype)
 
 
-def _prefill_logits(params: Params, cfg: LlamaConfig, pool: PagePool,
+def _write_quant_pages(pool: QuantPagePool, layer: int, kq, ks, vq, vs,
+                       table_flat: torch.Tensor) -> None:
+    """Scatter one layer's page-shaped codes ([KH, M, ps, Hd]) and scales
+    ([KH, M, ps]) into the fused pool pages named by table_flat [M], in
+    place: k then v, codes then scales."""
+    pool.kv[0, layer][:, table_flat] = kq
+    pool.kv[1, layer][:, table_flat] = vq
+    pool.s[0, layer][:, table_flat] = ks
+    pool.s[1, layer][:, table_flat] = vs
+
+
+def _prefill_logits(params: Params, cfg: LlamaConfig, pool: Pool,
                     tokens: torch.Tensor, lengths: torch.Tensor,
                     table_rows: torch.Tensor) -> torch.Tensor:
     """Forward N bucketed prompts, writing their k/v into the pool;
@@ -94,7 +123,7 @@ def _prefill_logits(params: Params, cfg: LlamaConfig, pool: PagePool,
 
 
 @torch.no_grad()
-def prefill_step(params: Params, cfg: LlamaConfig, pool: PagePool,
+def prefill_step(params: Params, cfg: LlamaConfig, pool: Pool,
                  tokens: torch.Tensor, length, table_row: torch.Tensor
                  ) -> torch.Tensor:
     """Prefill one sequence ([1, S_bucket] tokens, `length` valid, pages
@@ -108,7 +137,7 @@ def prefill_step(params: Params, cfg: LlamaConfig, pool: PagePool,
 
 
 @torch.no_grad()
-def prefill_batch_step(params: Params, cfg: LlamaConfig, pool: PagePool,
+def prefill_batch_step(params: Params, cfg: LlamaConfig, pool: Pool,
                        tokens: torch.Tensor,       # [N, S_bucket]
                        lengths: torch.Tensor,      # [N] int32 (padding: 1)
                        table_rows: torch.Tensor,   # [N, S_bucket // ps]
@@ -146,12 +175,14 @@ def set_last_tokens(last_tokens: torch.Tensor, idxs: Sequence[int],
     return last_tokens
 
 
-def _decode_once(params: Params, cfg: LlamaConfig, pool: PagePool,
+def _decode_once(params: Params, cfg: LlamaConfig, pool: Pool,
                  tokens: torch.Tensor, page_tables: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
     """One decode iteration, write-then-attend: each layer writes the
-    current token's k/v into its pool slice, then paged attention runs
-    with `lengths` INCLUDING the current token. Returns logits [B, V]."""
+    current token's k/v into its pool slice (quantized, for an int8
+    pool), then paged attention runs with `lengths` INCLUDING the current
+    token (K2 over a bf16 pool, K4 over the fused int8 one). Returns
+    logits [B, V]."""
     B = tokens.shape[0]
     ps = pool.page_size
     dev = tokens.device
@@ -165,17 +196,30 @@ def _decode_once(params: Params, cfg: LlamaConfig, pool: PagePool,
         w = layer_weights(params, layer)
         h = rms_norm(x, w["ln1"], cfg.rms_eps)
         q, k, v = _project_qkv(cfg, h, w, cos, sin)  # [B, *, 1, Hd]
-        kp, vp = pool.k[layer], pool.v[layer]        # [KH, P, ps, Hd]
-        kp[:, page_idx, offset] = k[:, :, 0, :].transpose(0, 1).to(kp.dtype)
-        vp[:, page_idx, offset] = v[:, :, 0, :].transpose(0, 1).to(vp.dtype)
-        out = paged_attention_dispatch(q[:, :, 0, :].contiguous(), kp, vp,
-                                       page_tables, lengths)
+        k_new = k[:, :, 0, :].transpose(0, 1)        # [KH, B, Hd]
+        v_new = v[:, :, 0, :].transpose(0, 1)
+        q_new = q[:, :, 0, :].contiguous()
+        if pool.quantized:
+            kq, ksc = quantize_kv(k_new, scale_dtype=pool.s.dtype)
+            vq, vsc = quantize_kv(v_new, scale_dtype=pool.s.dtype)
+            pool.kv[0, layer][:, page_idx, offset] = kq
+            pool.kv[1, layer][:, page_idx, offset] = vq
+            pool.s[0, layer][:, page_idx, offset] = ksc
+            pool.s[1, layer][:, page_idx, offset] = vsc
+            out = paged_attention_int8(q_new, pool.kv, pool.s, page_tables,
+                                       lengths, layer)
+        else:
+            kp, vp = pool.k[layer], pool.v[layer]    # [KH, P, ps, Hd]
+            kp[:, page_idx, offset] = k_new.to(kp.dtype)
+            vp[:, page_idx, offset] = v_new.to(vp.dtype)
+            out = paged_attention_dispatch(q_new, kp, vp, page_tables,
+                                           lengths)
         x = _finish_block(cfg, x, out[:, :, None, :], w)
     return _logits(cfg, params, x)[:, 0]
 
 
 @torch.no_grad()
-def decode_step(params: Params, cfg: LlamaConfig, pool: PagePool,
+def decode_step(params: Params, cfg: LlamaConfig, pool: Pool,
                 tokens: torch.Tensor, page_tables: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:
     """One decode step for the whole slot batch -> logits [B, V]."""
@@ -183,7 +227,7 @@ def decode_step(params: Params, cfg: LlamaConfig, pool: PagePool,
 
 
 @torch.no_grad()
-def decode_multi_step(params: Params, cfg: LlamaConfig, pool: PagePool,
+def decode_multi_step(params: Params, cfg: LlamaConfig, pool: Pool,
                       last_tokens: torch.Tensor,  # [B] device tokens
                       page_tables: torch.Tensor,  # [B, maxp] int32
                       lengths: torch.Tensor,      # [B] int32 incl. current
@@ -258,17 +302,23 @@ def prefill_chunk_sample_step(params: Params, cfg: LlamaConfig,
 
 
 @torch.no_grad()
-def cache_to_pool(pool: PagePool, cache: KVCache, cfg: LlamaConfig,
-                  table_row: torch.Tensor) -> PagePool:
+def cache_to_pool(pool: Pool, cache: KVCache, cfg: LlamaConfig,
+                  table_row: torch.Tensor) -> Pool:
     """Scatter a finished scratch cache (batch 1, S_total a multiple of
     the page size) into the pool pages named by table_row
-    [S_total // page_size], in place; entries 0 land in the sink."""
+    [S_total // page_size], in place; entries 0 land in the sink. An int8
+    pool takes each layer's rows quantized, one layer at a time."""
     ps = pool.page_size
     L, _, KH, S, Hd = cache.k.shape
     if S % ps:
         raise ValueError(f"scratch cache length {S} not a multiple of "
                          f"page_size {ps}")
     rows = table_row.long()
+    if pool.quantized:
+        for layer in range(L):
+            _write_prefill_pages(pool, layer, cache.k[layer],
+                                 cache.v[layer], rows)
+        return pool
     pool.k[:, :, rows] = cache.k[:, 0].reshape(L, KH, S // ps, ps, Hd).to(
         pool.k.dtype)
     pool.v[:, :, rows] = cache.v[:, 0].reshape(L, KH, S // ps, ps, Hd).to(

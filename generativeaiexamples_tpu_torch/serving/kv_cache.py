@@ -1,12 +1,15 @@
 """Paged KV cache: host-side page allocator + device page pool.
 
-Counterpart of generativeaiexamples_tpu/serving/kv_cache.py (the bf16 /
-f32 pool; the fused int8 `QuantPagePool` waits for ROADMAP A.12).
+Counterpart of generativeaiexamples_tpu/serving/kv_cache.py.
 
-- Device: k/v tensors [L, KH, P, page_size, Hd]; `pool.k[l]` is the
-  contiguous [KH, P, ps, Hd] slice the K2 kernel reads. Page 0 is a
-  reserved sink: padding positions and unused page-table slots point at
-  it, so scatters never need dynamic shapes.
+- Device, bf16 / f32: `PagePool`, k/v tensors [L, KH, P, page_size, Hd];
+  `pool.k[l]` is the contiguous [KH, P, ps, Hd] slice the K2 kernel reads.
+- Device, int8: `QuantPagePool`, the FUSED pool: codes
+  [2, L, KH, P, page_size, Hd] ([0] = k, [1] = v) and one f32 scale per
+  (k|v, layer, kv head, token) [2, L, KH, P, page_size]. The K4 kernel
+  reads the whole pool and indexes the layer itself.
+- Page 0 is a reserved sink in both: padding positions and unused
+  page-table slots point at it, so scatters never need dynamic shapes.
 - Host: PageAllocator hands out page ids from a plain free list in the
   same order as the JAX allocator (page ids feed identical streams).
 
@@ -35,19 +38,59 @@ class PagePool:
     def n_pages(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return False
+
     @staticmethod
     def zeros(cfg, n_pages: int, page_size: int = 64, dtype=None,
-              device: DeviceLike = None) -> "PagePool":
+              device: DeviceLike = None):
+        """A zeroed pool on `device` (CUDA unless the caller asks for the
+        CPU); dtype torch.int8 gives a QuantPagePool."""
         dtype = dtype or cfg.dtype
         if dtype == torch.int8:
-            raise NotImplementedError("int8 page pools (QuantPagePool) are "
-                                      "not ported yet (ROADMAP A.12)")
+            return QuantPagePool.zeros(cfg, n_pages, page_size, device)
         dev = resolve_device(device)
         shape = (cfg.n_layers, cfg.n_kv_heads, n_pages, page_size,
                  cfg.head_dim)
         return PagePool(torch.zeros(shape, dtype=dtype, device=dev),
                         torch.zeros(shape, dtype=dtype, device=dev),
                         page_size)
+
+
+@dataclasses.dataclass
+class QuantPagePool:
+    """int8 page pool with fused k/v codes and narrow scales. The k|v axis
+    leads, so a decode write indexes [0 | 1, layer, :, page, offset] and
+    stays an in-place scatter."""
+
+    kv: torch.Tensor  # int8 [2, L, KH, P, page_size, Hd]; [0] = k, [1] = v
+    s: torch.Tensor   # f32  [2, L, KH, P, page_size] (amax / 127)
+    page_size: int
+
+    @property
+    def n_pages(self) -> int:
+        return self.kv.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return True
+
+    @property
+    def nbytes(self) -> int:
+        return (self.kv.numel() * self.kv.element_size()
+                + self.s.numel() * self.s.element_size())
+
+    @staticmethod
+    def zeros(cfg, n_pages: int, page_size: int = 64,
+              device: DeviceLike = None) -> "QuantPagePool":
+        dev = resolve_device(device)
+        shape = (2, cfg.n_layers, cfg.n_kv_heads, n_pages, page_size,
+                 cfg.head_dim)
+        return QuantPagePool(torch.zeros(shape, dtype=torch.int8, device=dev),
+                             torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=dev),
+                             page_size)
 
 
 class PageAllocator:

@@ -11,7 +11,8 @@ Layouts (one layer):
 `paged_attention` wraps `csrc/paged_attention.cu`, which replaces both
 TPU routes (the in-repo `_paged_kernel` and JAX's bundled JetStream
 kernel). A CUDA tensor launches the kernel or raises; a CPU tensor runs
-`paged_attention_reference`.
+`paged_attention_reference`. The fused int8 pool goes to K4
+(serving/paged_attention_int8.py).
 """
 
 from __future__ import annotations
@@ -83,13 +84,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def paged_attention_dispatch(q, k_pages, v_pages, page_table, lengths, *,
-                             scale=None, k_scales=None, layer=None):
-    """The engine's entry point. `lengths` INCLUDES the current token,
-    whose k/v must already be in the pool (write-then-attend). Only the
-    bf16/f32 pool form exists in this port so far."""
-    if k_scales is not None or layer is not None:
-        raise NotImplementedError(
-            "the quantized (int8 fused) pool form of paged attention is not "
-            "ported yet (ROADMAP A.12, kernel B.4)")
+                             scale=None):
+    """The engine's entry point over a bf16/f32 pool. `lengths` INCLUDES
+    the current token, whose k/v must already be in the pool
+    (write-then-attend). The fused int8 pool has its own entry point,
+    `paged_attention_int8.paged_attention_int8` (K4), which the engine
+    calls directly."""
     return paged_attention(q, k_pages, v_pages, page_table, lengths,
                            scale=scale)

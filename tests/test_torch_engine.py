@@ -121,8 +121,8 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("kv_dtype", "int8"), ("speculative_k", 2), ("prefix_cache", True),
-    ("multihost", True), ("quantize_weights", "int8")])
+    ("speculative_tree_branches", 2), ("speculative_k", 2),
+    ("prefix_cache", True), ("multihost", True), ("step_plans", True)])
 def test_unported_engine_flags_are_refused(flag, value):
     cfg = tl.LlamaConfig.tiny()
     params = tl.init_params(cfg, "cpu")

@@ -43,7 +43,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "import chip_smoke",
         "for name in ('emit', 'nvidia_smi', 'time_ms', 'bound', "
         "'phase_flash', 'phase_paged', 'phase_encoder', 'phase_model', "
-        "'phase_serving', 'phase_chunked', 'phase_rag', 'main'):",
+        "'phase_serving', 'phase_chunked', 'phase_rag', 'phase_paged_int8', "
+        "'phase_int8_matmul', 'phase_serving_int8', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
@@ -84,6 +85,46 @@ def test_entry_points_raise_without_cuda_or_explicit_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_int8_entry_points_raise_without_cuda_or_explicit_device(
+        monkeypatch):
+    """quantize_llama_params, the int8 pool and an int8 engine (and its
+    launcher) resolve to CUDA unless given the CPU."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.ops.quant import (
+        quantize_llama_params)
+    from generativeaiexamples_tpu_torch.serving.__main__ import build_engine
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+    from generativeaiexamples_tpu_torch.serving.kv_cache import (
+        PagePool, QuantPagePool)
+    from generativeaiexamples_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, "cpu")
+    int8 = {"kv_dtype": "int8", "quantize_weights": "int8"}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize_llama_params(params)
+    for make in (lambda: QuantPagePool.zeros(cfg, 4, 8),
+                 lambda: PagePool.zeros(cfg, 4, 8, dtype=torch.int8),
+                 lambda: build_engine("tiny", warmup=False, engine_cfg=int8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    qparams = quantize_llama_params(params, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(qparams, cfg, ByteTokenizer(), int8)
+    monkeypatch.setenv("APP_ENGINE_QUANTIZEWEIGHTS", "int8")
+    monkeypatch.setenv("APP_ENGINE_KVDTYPE", "int8")
+    monkeypatch.setattr("sys.argv", ["serving", "--port", "0"])
+    from generativeaiexamples_tpu_torch.serving import __main__ as launcher
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main()
+    # Asked for the CPU, they build.
+    assert QuantPagePool.zeros(cfg, 4, 8, "cpu").quantized
+    eng = build_engine("tiny", "cpu", warmup=False, engine_cfg=int8)
+    assert eng.pool.quantized and eng.params["layers"]["wq"].q.dtype \
+        == torch.int8
 
 
 def test_rag_entry_points_raise_without_cuda_or_explicit_device(

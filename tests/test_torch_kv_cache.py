@@ -72,6 +72,15 @@ def test_page_pool_layout_matches_jax():
 
 
 def test_int8_pool_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tkv.PagePool.zeros(tl.LlamaConfig.tiny(), 4, 8, dtype=torch.int8,
-                           device="cpu")
+    """Kept under its first name: the int8 pool was this module's unported
+    part and is ported now. dtype int8 gives the fused QuantPagePool, in
+    the JAX package's layout and dtypes, zeroed."""
+    pool = tkv.PagePool.zeros(tl.LlamaConfig.tiny(), 4, 8, dtype=torch.int8,
+                              device="cpu")
+    want = jkv.QuantPagePool.zeros(jl.LlamaConfig.tiny(), 4, 8)
+    assert isinstance(pool, tkv.QuantPagePool) and pool.quantized
+    assert pool.kv.shape == want.kv.shape and pool.s.shape == want.s.shape
+    assert str(pool.kv.dtype).endswith(str(want.kv.dtype))
+    assert str(pool.s.dtype).endswith(str(want.s.dtype))
+    assert pool.n_pages == want.n_pages and pool.page_size == 8
+    assert not pool.kv.any() and not pool.s.any()

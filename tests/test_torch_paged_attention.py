@@ -71,11 +71,26 @@ def test_sink_page_contents_do_not_change_the_result():
 
 
 def test_quantized_form_is_not_ported_yet():
+    """Kept under its first name: of the quantized (fused int8) form only
+    the speculative variants are still to port (ROADMAP A.13). The fused
+    pool goes to K4's wrapper, whose plain version equals the dequantized
+    pages through the dispatcher's bf16/f32 form."""
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_int8 as tpa8)
+
     q, kp, vp, table, lengths = (torch.from_numpy(a) for a in _inputs(
         1, 2, 1, 16, 8, 2, [3], seed=0))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tpa.paged_attention_dispatch(q, kp, None, table, lengths,
-                                     k_scales=kp, layer=0)
+    (kq, ks), (vq, vs) = tpa8.quantize_kv(kp), tpa8.quantize_kv(vp)
+    kv, scales = tpa8.fuse_kv(kq, ks, vq, vs)
+    got = tpa8.paged_attention_int8(q, kv[:, None], scales[:, None], table,
+                                    lengths, 0)
+    want = tpa.paged_attention_dispatch(
+        q, tpa8.dequantize_pages(kq, ks), tpa8.dequantize_pages(vq, vs),
+        table, lengths)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        tpa8.paged_attention_int8(q, kv[:, None], scales[:, None], table,
+                                  lengths, 0, q_rep=2)
 
 
 def test_paged_wrapper_refuses_other_devices():

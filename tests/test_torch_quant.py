@@ -1,0 +1,154 @@
+"""Port parity: ops/quant.py and ops/int8_matmul.py (K6's plain version).
+
+The same numpy weights go through the JAX package's `quantize_tensor` /
+`quantize_llama_params` and the port's: codes and scales must be
+bit-identical (the same f32 arithmetic, round half to even). The port's
+`mm` (CPU route) and `int8_matmul_reference` are held against the JAX
+`mm` on its XLA route and against the Pallas `int8_matmul` in interpret
+mode, within f32 atol 1e-4 (only summation order differs; outputs are
+O(10) at K = 256, where f32 sums carry ~1e-5 of rounding).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from generativeaiexamples_tpu.models import llama as jl
+from generativeaiexamples_tpu.ops import quant as jq
+from generativeaiexamples_tpu.ops.int8_matmul import int8_matmul as jmatmul
+from generativeaiexamples_tpu_torch.models import convert
+from generativeaiexamples_tpu_torch.ops import quant as tq
+from generativeaiexamples_tpu_torch.ops.int8_matmul import (
+    int8_matmul, int8_matmul_reference)
+
+ATOL = 1e-4
+
+
+def _w(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("shape,axis", [((256, 384), -2), ((3, 64, 48), -2),
+                                        ((40, 24), -1)])
+def test_quantize_tensor_bit_identical(shape, axis):
+    w = _w(shape, 0)
+    w[..., 0, :] = 0.0  # an all-zero input row: the 1e-8 clip
+    want = jq.quantize_tensor(jnp.asarray(w), contract_axis=axis)
+    got = tq.quantize_tensor(torch.from_numpy(w), contract_axis=axis)
+    assert got.q.dtype == torch.int8 and got.s.dtype == torch.float32
+    np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+    np.testing.assert_array_equal(got.s.numpy(), np.asarray(want.s))
+
+
+def test_quantize_llama_params_bit_identical_and_in_place():
+    cfg = jl.LlamaConfig.tiny()
+    jparams = jl.init_params(cfg, jax.random.PRNGKey(0))
+    want = jq.quantize_llama_params(jparams)
+    tparams = convert.llama_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu", torch.float32)
+    emb = tparams["tok_emb"]
+    got = tq.quantize_llama_params(tparams, "cpu")
+    assert got is tparams and got["tok_emb"] is emb  # in place; lookup kept
+    assert tq.is_quantized(got)
+    for key in tq.LLAMA_QUANT_KEYS + ("lm_head",):
+        g = got["layers"][key] if key != "lm_head" else got["lm_head"]
+        w = want["layers"][key] if key != "lm_head" else want["lm_head"]
+        np.testing.assert_array_equal(g.q.numpy(), np.asarray(w.q), key)
+        np.testing.assert_array_equal(g.s.numpy(), np.asarray(w.s), key)
+    for key in ("ln1", "ln2"):
+        assert not isinstance(got["layers"][key], tq.QuantizedTensor)
+
+
+def test_converter_carries_quantized_leaves_both_ways():
+    cfg = jl.LlamaConfig.tiny()
+    jparams = jq.quantize_llama_params(
+        jl.init_params(cfg, jax.random.PRNGKey(1)))
+    tparams = convert.llama_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu", torch.float32)
+    wq = tparams["layers"]["wq"]
+    assert isinstance(wq, tq.QuantizedTensor)
+    assert wq.q.dtype == torch.int8 and wq.s.dtype == torch.float32
+    assert tparams["layers"]["ln1"].dtype == torch.float32
+    # A quantized leaf comes back as a (q, s) pair, wrapped here.
+    back = jax.tree.map(
+        lambda v: jq.QuantizedTensor(*map(jnp.asarray, v))
+        if isinstance(v, tuple) else jnp.asarray(v),
+        convert.llama_params_to_numpy(tparams),
+        is_leaf=lambda v: isinstance(v, tuple))
+    assert isinstance(back["lm_head"], jq.QuantizedTensor)
+    for key in tq.LLAMA_QUANT_KEYS:
+        for part in ("q", "s"):
+            a = getattr(back["layers"][key], part)
+            b = getattr(jparams["layers"][key], part)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("R", [16, 13])
+def test_mm_and_plain_version_match_jax(R):
+    """R = 13 is a ragged row count (the JAX kernel needs a multiple of 8
+    and gets padded rows; the port takes any)."""
+    x = _w((R, 256), 2)
+    qt = jq.quantize_tensor(jnp.asarray(_w((256, 384), 3)))
+    q, s = np.array(qt.q), np.array(qt.s)  # writable copies
+    xla = np.asarray(jq.mm(jnp.asarray(x), qt))
+    pad = (-R) % 8
+    pallas = np.asarray(jmatmul(jnp.asarray(np.pad(x, ((0, pad), (0, 0)))),
+                                qt.q, qt.s, interpret=True))[:R]
+    tw = tq.QuantizedTensor(torch.from_numpy(q), torch.from_numpy(s))
+    got_mm = tq.mm(torch.from_numpy(x), tw).numpy()
+    got_ref = int8_matmul(torch.from_numpy(x), tw.q, tw.s).numpy()
+    np.testing.assert_array_equal(
+        got_ref, int8_matmul_reference(torch.from_numpy(x), tw.q,
+                                       tw.s).numpy())
+    for got in (got_mm, got_ref):
+        np.testing.assert_allclose(got, xla, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
+
+
+def test_mm_stacked_and_batched_shapes():
+    """A [B, S, K] activation against a 2-D weight keeps its leading axes;
+    a stacked [L, K, M] QuantizedTensor slices to one layer."""
+    x = torch.from_numpy(_w((2, 5, 64), 4))
+    qt = tq.quantize_tensor(torch.from_numpy(_w((3, 64, 32), 5)))
+    layer = qt[1]
+    assert layer.q.shape == (64, 32) and layer.s.shape == (32,)
+    y = tq.mm(x, layer)
+    assert y.shape == (2, 5, 32)
+    want = int8_matmul_reference(x.reshape(10, 64), layer.q, layer.s)
+    np.testing.assert_allclose(y.reshape(10, 32).numpy(), want.numpy(),
+                               atol=ATOL, rtol=0)
+    plain = torch.from_numpy(_w((64, 32), 6))
+    assert torch.equal(tq.mm(x, plain), x @ plain)
+
+
+def test_quantize_llama_params_raises_without_cuda(monkeypatch):
+    from generativeaiexamples_tpu_torch.models import llama as tl
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = tl.init_params(tl.LlamaConfig.tiny(), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tq.quantize_llama_params(params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tq.quantize_llama_params(params, "cuda")
+    assert tq.is_quantized(tq.quantize_llama_params(params, "cpu"))
+
+
+def test_int8_matmul_kernel_matches_plain_version_on_cuda():
+    """K6 on the card (skips without one): ragged R and M, against the
+    plain version in f32, within 1e-2 of max |y| (the bf16 output's
+    rounding grows with K)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K6 is a CUDA kernel")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for R, K, M in ((8, 4096, 1024), (37, 512, 1000), (300, 1024, 384)):
+        x = torch.randn((R, K), generator=g, device="cuda").bfloat16()
+        qt = tq.quantize_tensor(torch.randn((K, M), generator=g,
+                                            device="cuda"))
+        got = int8_matmul(x, qt.q, qt.s).float()
+        want = int8_matmul_reference(x, qt.q, qt.s, torch.float32)
+        assert float((got - want).abs().max()) <= 1e-2 * float(
+            want.abs().max())
