@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printing one JSON line; any failure exits non-zero:
 
   1. env      the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build    nvcc builds every kernel (K1, K2, K3, K4, K6) from csrc/,
-              one process per source, all in parallel
+  2. build    nvcc builds every kernel (K1-K6) from csrc/, one process
+              per source, all in parallel
   3. flash    K1 (csrc/flash_attention.cu) against `mha_reference` run in
               f32 on the same bf16 inputs, at Llama-3-8B prefill shapes
               (and the chunked lane's q_offset shape) plus ragged /
@@ -32,7 +32,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
               rows whose largest score sits on their last page (the online
               softmax must rescale the earlier pages); NaN-poisoned scales
               in the sink page and in the table slots past each row's
-              pages must not change it
+              pages must not change it. Then its verify forms against
+              `paged_attention_int8_rep_reference`, query by query: q_rep
+              2 and 4 (linear k = 1, 3) and the (3, 4) tree at B = 8 and
+              B = 128, the (2, 8) tree, a late_max tree and a head_dim 64
+              / page 16 tree
+  6b. tree    K5 (csrc/paged_attention_tree.cu) against
+              `paged_tree_attention_reference` in f32, node by node: the
+              8B shape (B=8, lengths 1…8191, (3, 4)), (2, 8) at head_dim
+              64 / page 16 (with a length-1 row) and at 8B, and a
+              late_max case, with a NaN-poisoned sink page and tail
+              slots; SDPA with a boolean mask over pre-gathered K/V
+              timed beside it
   7. int8_matmul  K6 (csrc/int8_matmul.cu) against
               `int8_matmul_reference` in f32 at every 8B projection shape
               (K, M) and R = 8, 128, 4096, plus a ragged R and a ragged M;
@@ -42,7 +53,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               engine's prefill and decode steps on the card, against the
               plain f32 forward on the CPU over the same weights; then
               its int8 variant (int8 weights, int8 pool: K6, K4) against
-              the same steps in f32 on the CPU over the same codes
+              the same steps in f32 on the CPU over the same codes. In
+              both, a linear (k = 3) and a tree ((3, 4)) verify step
+              against the same step in f32 on the CPU: logits within the
+              tolerance, targets equal wherever the f32 top-2 margin
+              exceeds twice it
   9. serving  LLMEngine at Llama-3-8B geometry (random weights from a
               seed, bf16, default engine config) behind the port's
               OpenAI server on a local port: one streaming chat
@@ -70,10 +85,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
               with one cut (4,097 pool pages); 128 concurrent greedy
               64-token completions and one ~6,000-token chunked prompt
               behind the OpenAI server. K6, K4 and K1 must launch, K2 not
-  13. kernels one line {"kernels": [...]} with each kernel's parity,
+  11b. spec_bf16  (before the bf16 engine goes) a tree engine (k = 3,
+              M = 4, batch 8) over the same bf16 weights: 8 concurrent
+              64-token completions, one sampled, so dispatches fall back
+              to plain decode while it is live; K5 must launch, K2 only
+              through the fallback
+  13. spec_int8  over serving_int8's quantized weights, two speculative
+              engines in turn in the same deployment: k = 3, M = 4 (tree)
+              and k = 1 (linear), each with serving_int8's 128-request
+              burst; every request must finish with its tokens; K4 and
+              K6 must launch, K2 and K5 not; spec_tokens_per_step,
+              tokens/s, TTFT, peak memory and the share of streams equal
+              to serving_int8's are printed
+  14. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
-              serving_int8), times and bound
-  14. the card's name and power limit, then the last line
+              serving_int8; K5: spec_bf16), times and bound; K4's entry
+              also carries its verify cases and its spec_int8 launches
+  15. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
 It imports neither jax nor the JAX package. Without CUDA, or without the
@@ -113,6 +141,8 @@ K3_REPLACES = ("generativeaiexamples_tpu/ops/encoder_attention.py:96 "
                "(_encoder_kernel)")
 K4_REPLACES = ("generativeaiexamples_tpu/serving/paged_attention_int8.py:386 "
                "(_int8_kernel)")
+K5_REPLACES = ("generativeaiexamples_tpu/serving/paged_attention_tree.py:283 "
+               "(_tree_kernel)")
 K6_REPLACES = ("generativeaiexamples_tpu/ops/int8_matmul.py:91,109 "
                "(_kernel_fullk, _kernel)")
 
@@ -464,16 +494,36 @@ def phase_encoder():
 # -- phase 6: K4 ------------------------------------------------------------
 
 
+def _verify_pairs(lengths, R, tree, cap):
+    """(query row, visible kv slot) pairs per query head, and kv slots
+    read, of a verify form over these lengths: query j of row b sees
+    len - 1 prefix slots plus its ancestor-or-self nodes (j + 1 of them
+    for the linear form); the span read is min(len + R - 1, cap)."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.serving.paged_attention_tree import (
+        _canonical_tree)
+
+    seen = (_canonical_tree(*tree).sum(1) if tree is not None
+            else np.arange(1, R + 1))
+    pairs = sum(R * (max(n, 1) - 1) + int(seen.sum()) for n in lengths)
+    slots = sum(min(max(n, 1) + R - 1, cap) for n in lengths)
+    return float(pairs), float(slots)
+
+
 def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
-                    seed=0, timed=False, late_max=False):
-    """K4 against `paged_attention_int8_reference_fused` in f32 on the same
-    codes and scales, over the full L-layer fused pool read at `layer`,
-    row by row (PAGED_INT8_RTOL of each row's max |out|). Tail table slots
-    point at an unused page; after the parity check the scales of that
-    page and of sink page 0 are poisoned with NaN and the kernel's result
-    must not change (it never reads them). `late_max` gives each row's
-    last token a k that matches its query group, so the running max rises
-    on the row's last page and the earlier pages' sums must be rescaled."""
+                    seed=0, timed=False, late_max=False, q_rep=1, tree=None):
+    """K4 against its plain version in f32 on the same codes and scales,
+    over the full L-layer fused pool read at `layer`, query by query
+    (PAGED_INT8_RTOL of each (row, verify position)'s max |out|). With
+    q_rep = R > 1 the R verify positions of each row (the packed nodes
+    of `tree`) go through the kernel at once. Tail table slots point at
+    an unused page; after the parity check the scales of that page and
+    of sink page 0 are poisoned with NaN and the kernel's result must not
+    change (it never reads them). `late_max` gives the slot every
+    position sees last (the root, len - 1) a k that matches its query
+    group, so the running max rises on the row's last page and the
+    earlier pages' sums must be rescaled."""
     import torch
 
     from generativeaiexamples_tpu_torch.serving import (
@@ -482,8 +532,11 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     P = B * maxp + 2              # page P - 1: never assigned, poisoned
-    q = (torch.randn((B, H, Hd), generator=g, device=dev)
+    R = q_rep
+    q = (torch.randn((B, R, H, Hd), generator=g, device=dev)
          * PAGED_INT8_Q_SCALE).bfloat16()
+    if R == 1:
+        q = q[:, 0]
     kv = torch.randint(-127, 128, (2, L, KH, P, ps, Hd), generator=g,
                        device=dev, dtype=torch.int8)
     sc = (torch.rand((2, L, KH, P, ps), generator=g, device=dev) + 0.5) / 127
@@ -491,30 +544,42 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
     table = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
     used = 0
     for b, n in enumerate(lengths):
-        need = -(-max(n, 1) // ps)
+        need = min(-(-(max(n, 1) + R - 1) // ps), maxp)
         table[b, :need] = perm[used:used + need].int()
         used += need
     if late_max:
-        group_q = q.float().reshape(B, KH, H // KH, Hd).sum(2)  # [B, KH, Hd]
+        group_q = q.float().reshape(B, R, KH, H // KH, Hd).sum((1, 3))
         for b, n in enumerate(lengths):
             t = max(n, 1) - 1
             page = int(table[b, t // ps])
             kv[0, layer, :, page, t % ps] = (
                 torch.sign(group_q[b]) * 127).to(torch.int8)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    got = pa8.paged_attention_int8(q, kv, sc, table, ln, layer)
-    want = pa8.paged_attention_int8_reference_fused(
-        q.float(), kv[:, layer], sc[:, layer], table, ln.clamp(min=1))
+
+    def kernel(lay=layer):
+        return pa8.paged_attention_int8(q, kv, sc, table, ln, lay, q_rep=R,
+                                        tree=tree)
+
+    def plain(qq):
+        if R == 1:
+            return pa8.paged_attention_int8_reference_fused(
+                qq, kv[:, layer], sc[:, layer], table, ln.clamp(min=1))
+        return pa8.paged_attention_int8_rep_reference(
+            qq, kv[:, layer], sc[:, layer], table, ln.clamp(min=1),
+            tree=tree)
+
+    got = kernel()
+    want = plain(q.float())
     torch.cuda.synchronize()
-    diff = (got.float() - want).abs().reshape(B, -1).amax(1)
-    row_max = want.abs().reshape(B, -1).amax(1)
+    diff = (got.float() - want).abs().reshape(B * R, -1).amax(1)
+    row_max = want.abs().reshape(B * R, -1).amax(1)
     err = float(diff.max())
     row_rel = float((diff / row_max).max())
     out_min = float(row_max.min())
     del want
     saved = sc[:, :, :, [0, P - 1]].clone()
     sc[:, :, :, [0, P - 1]] = float("nan")
-    poisoned = pa8.paged_attention_int8(q, kv, sc, table, ln, layer)
+    poisoned = kernel()
     sc[:, :, :, [0, P - 1]] = saved
     torch.cuda.synchronize()
     unread = bool(torch.equal(poisoned, got))
@@ -522,6 +587,7 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
     ok = finite and unread and row_rel <= PAGED_INT8_RTOL
     rec = {"phase": "paged_int8", "case": name, "B": B, "H": H, "KH": KH,
            "Hd": Hd, "ps": ps, "maxp": maxp, "L": L, "layer": layer,
+           "q_rep": R, "tree": list(tree) if tree else None,
            "lengths": lengths if len(lengths) <= 16 else
            {"n": len(lengths), "min": min(lengths), "max": max(lengths),
             "sum": sum(lengths)},
@@ -530,27 +596,24 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
            "min_row_max_abs_out": out_min,
            "sink_and_tail_unread": unread, "finite": finite, "ok": ok}
     if timed:
-        tokens = float(sum(max(n, 1) for n in lengths))
-        # Codes and scales of the tokens attended (k and v: 2 Hd bytes +
-        # 2 f32 a token and kv head), q and the output once (bf16), the
-        # table and lengths.
-        n_bytes = tokens * KH * (2 * Hd + 8) + 2.0 * 2 * q.numel() \
+        pairs, slots = _verify_pairs(lengths, R, tree, maxp * ps)
+        # Codes and scales of the slots read (k and v: 2 Hd bytes + 2 f32
+        # a token and kv head), q and the output once (bf16), the table
+        # and lengths.
+        n_bytes = slots * KH * (2 * Hd + 8) + 2.0 * 2 * q.numel() \
             + 4.0 * (table.numel() + B)
-        flops = 4.0 * Hd * H * tokens
+        flops = 4.0 * Hd * H * pairs
         rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
         # Alternate the two layers so that one call's pages are not in L2
         # for the next (the decode path reads another layer every call).
         turn = [0]
 
-        def kernel():
+        def alternating():
             turn[0] ^= 1
-            pa8.paged_attention_int8(q, kv, sc, table, ln, turn[0])
+            kernel(turn[0])
 
-        rec["ms"] = time_ms(kernel)
-        rec["plain_ms"] = time_ms(
-            lambda: pa8.paged_attention_int8_reference_fused(
-                q, kv[:, layer], sc[:, layer], table, ln.clamp(min=1)),
-            iters=3, warmup=1)
+        rec["ms"] = time_ms(alternating)
+        rec["plain_ms"] = time_ms(lambda: plain(q), iters=3, warmup=1)
         # No single torch call takes a page table and int8 pages.
         rec["library_ms"] = None
         rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
@@ -563,10 +626,10 @@ def phase_paged_int8():
     import numpy as np
 
     b128 = np.linspace(1, 4096, 128).astype(int).tolist()
+    b8 = [1, 17, 128, 129, 1000, 4096, 7000, 8191]
     cases = [
         # K2's 8B decode case, on the int8 pool.
-        paged_int8_case("8b_decode", 8, 32, 8, 128, 128, 64,
-                        [1, 17, 128, 129, 1000, 4096, 7000, 8191], seed=21,
+        paged_int8_case("8b_decode", 8, 32, 8, 128, 128, 64, b8, seed=21,
                         timed=True),
         # The documented int8 deployment's batch.
         paged_int8_case("8b_b128", 128, 32, 8, 128, 128, 32, b128, seed=22,
@@ -580,6 +643,152 @@ def phase_paged_int8():
         paged_int8_case("late_max", 8, 32, 8, 128, 128, 64,
                         [129, 700, 1500, 2048, 3000, 4097, 6000, 8191],
                         seed=25, late_max=True),
+    ]
+    # The verify forms at the 8B shapes: linear k = 1 (R = 2, the r05
+    # config) and k = 3 (R = 4), and the (3, 4) tree (R = 13), at B = 8
+    # (one more page of table so the deepest node fits) and B = 128.
+    for tag, R, tree in (("qrep2", 2, None), ("qrep4", 4, None),
+                         ("tree34", 13, (3, 4))):
+        cases.append(paged_int8_case(f"{tag}_b8", 8, 32, 8, 128, 128, 65, b8,
+                                     seed=26, timed=True, q_rep=R,
+                                     tree=tree))
+        cases.append(paged_int8_case(f"{tag}_b128", 128, 32, 8, 128, 128, 33,
+                                     b128, seed=27, timed=True, q_rep=R,
+                                     tree=tree))
+    cases += [
+        paged_int8_case("tree28", 8, 32, 8, 128, 128, 65, b8, seed=28,
+                        q_rep=17, tree=(2, 8)),
+        paged_int8_case("tree34_late_max", 8, 32, 8, 128, 128, 65,
+                        [129, 700, 1500, 2048, 3000, 4097, 6000, 8180],
+                        seed=29, late_max=True, q_rep=13, tree=(3, 4)),
+        paged_int8_case("tree28_hd64_ps16", 4, 8, 2, 64, 16, 64,
+                        [1, 50, 300, 1000], seed=30, q_rep=17, tree=(2, 8)),
+    ]
+    for c in cases:
+        emit(c)
+    return cases
+
+
+# -- phase 6b: K5 -----------------------------------------------------------
+
+# K5 parity, per (row, node) and relative to that node's max |out|: the
+# kernel rounds the probabilities to bf16 before P.V (as K1 does) and its
+# output once, each at most 2^-9 relative, and sums in another order than
+# the f32 reference; 1e-2 leaves a 2.5x margin, while a wrong ancestor or
+# a wrong rescale of earlier chunks is off by O(1) of the node's output.
+TREE_RTOL = 1e-2
+
+
+def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
+              timed=False, late_max=False):
+    """K5 against `paged_tree_attention_reference` in f32 on the same bf16
+    inputs, node by node (TREE_RTOL of each (row, node)'s max |out|). q
+    is scaled up as in the K4 cases so the scores are sharp. Tail table
+    slots point at an unused page; after the parity check that page and
+    sink page 0 are poisoned with NaN and the kernel's result must not
+    change. `late_max` puts each row's largest score at its root slot."""
+    import torch
+    import torch.nn.functional as F
+
+    from generativeaiexamples_tpu_torch.serving import paged_attention as pa
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_tree as pt)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = 1 + tree[0] * tree[1]
+    P = B * maxp + 2
+    q = (torch.randn((B, H, r, Hd), generator=g, device=dev)
+         * PAGED_INT8_Q_SCALE).bfloat16()
+    kp = torch.randn((KH, P, ps, Hd), generator=g, device=dev).bfloat16()
+    vp = torch.randn((KH, P, ps, Hd), generator=g, device=dev).bfloat16()
+    perm = torch.randperm(P - 2, generator=g, device=dev) + 1
+    table = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(lengths):
+        need = min(-(-(max(n, 1) + r - 1) // ps), maxp)
+        table[b, :need] = perm[used:used + need].int()
+        used += need
+    if late_max:
+        group_q = q.float().reshape(B, KH, H // KH, r, Hd).sum((2, 3))
+        for b, n in enumerate(lengths):
+            t = max(n, 1) - 1
+            page = int(table[b, t // ps])
+            kp[:, page, t % ps] = (torch.sign(group_q[b]) * 4).bfloat16()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    anc = pt._canonical_tree(*tree)
+    got = pt.paged_tree_attention(q, kp, vp, table, ln, tree)
+    want = pa.paged_tree_attention_reference(
+        q.float(), kp.float(), vp.float(), table, ln.clamp(min=1), anc)
+    torch.cuda.synchronize()
+    per_node = lambda t: t.transpose(1, 2).reshape(B * r, -1)  # noqa: E731
+    diff = per_node(got.float() - want).abs().amax(1)
+    node_max = per_node(want).abs().amax(1)
+    err = float(diff.max())
+    node_rel = float((diff / node_max).max())
+    del want
+    saved = (kp[:, [0, P - 1]].clone(), vp[:, [0, P - 1]].clone())
+    kp[:, [0, P - 1]] = float("nan")
+    vp[:, [0, P - 1]] = float("nan")
+    poisoned = pt.paged_tree_attention(q, kp, vp, table, ln, tree)
+    kp[:, [0, P - 1]], vp[:, [0, P - 1]] = saved
+    torch.cuda.synchronize()
+    unread = bool(torch.equal(poisoned, got))
+    finite = bool(torch.isfinite(got.float()).all())
+    ok = finite and unread and node_rel <= TREE_RTOL
+    rec = {"phase": "tree", "case": name, "B": B, "H": H, "KH": KH,
+           "Hd": Hd, "ps": ps, "maxp": maxp, "tree": list(tree), "r": r,
+           "lengths": lengths, "late_max": late_max, "max_abs_err": err,
+           "max_node_rel_err": node_rel, "rtol": TREE_RTOL,
+           "min_node_max_abs_out": float(node_max.min()),
+           "sink_and_tail_unread": unread, "finite": finite, "ok": ok}
+    if timed:
+        pairs, slots = _verify_pairs(lengths, r, tree, maxp * ps)
+        # K/V of the slots read (bf16), q and the output once, the table
+        # and lengths.
+        n_bytes = 2.0 * 2 * slots * KH * Hd + 2.0 * 2 * q.numel() \
+            + 4.0 * (table.numel() + B)
+        flops = 4.0 * Hd * H * pairs
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
+        rec["ms"] = time_ms(lambda: pt.paged_tree_attention(
+            q, kp, vp, table, ln, tree))
+        rec["plain_ms"] = time_ms(lambda: pa.paged_tree_attention_reference(
+            q, kp, vp, table, ln.clamp(min=1), anc), iters=3, warmup=1)
+        # SDPA with a boolean mask over K/V gathered beforehand (the
+        # gather is not timed), as a dense yardstick.
+        S = maxp * ps
+        k = pa._gather_pages(kp, table)
+        v = pa._gather_pages(vp, table)
+        rel = (torch.arange(S, device=dev)[None, :]
+               - (ln.long().clamp(min=1) - 1)[:, None])         # [B, S]
+        anc_t = torch.as_tensor(anc, device=dev)
+        mask = (rel < 0)[:, None, :] | (
+            ((rel >= 0) & (rel < r))[:, None, :]
+            & anc_t[:, rel.clamp(0, r - 1)].transpose(0, 1))   # [B, r, S]
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None], enable_gqa=True))
+        rec["library"] = ("scaled_dot_product_attention, boolean mask, "
+                          "K/V gathered beforehand (not timed)")
+        rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
+        del k, v, mask
+    del kp, vp, got, poisoned
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_tree():
+    b8 = [1, 17, 128, 129, 1000, 4096, 7000, 8191]
+    cases = [
+        # The bf16 tree engine's shape: 8B heads, batch 8, the (3, 4)
+        # lattice, lengths up to 8191 (one more table page for the tree).
+        tree_case("8b_tree34", 8, 32, 8, 128, 128, 65, b8, (3, 4), seed=51,
+                  timed=True),
+        tree_case("tree28_hd64_ps16", 4, 8, 2, 64, 16, 64,
+                  [1, 50, 300, 1000], (2, 8), seed=52),
+        tree_case("tree28_8b", 8, 32, 8, 128, 128, 65, b8, (2, 8), seed=53),
+        tree_case("late_max", 8, 32, 8, 128, 128, 65,
+                  [129, 700, 1500, 2048, 3000, 4097, 6000, 8180], (3, 4),
+                  seed=54, late_max=True),
     ]
     for c in cases:
         emit(c)
@@ -674,11 +883,18 @@ def phase_int8_matmul():
 # -- phase 8: model steps on the card vs the plain forward ------------------
 
 
+# The verify steps of phase model: linear k = 3 (r = 4 positions) and the
+# (3, 4) tree (r = 13 nodes), both at the length the decode steps reach.
+VERIFY_K, VERIFY_TREE = 3, (3, 4)
+
+
 def _paged_steps(params, cfg, pool, toks, prompt_len, n_decode, dev,
                  bucket=256, ps=128):
     """The engine's prefill step over the first prompt_len tokens, then
-    n_decode decode steps, on `dev`; returns each step's logits (f32 on
-    the CPU)."""
+    n_decode decode steps, then one linear and one tree verify step over
+    the next tokens of `toks` (t0 and its drafts), on `dev`. Returns (the
+    prefill and decode logits [V] each, the linear verify logits [r, V],
+    the tree verify logits [r, V]), f32 on the CPU."""
     import torch
 
     from generativeaiexamples_tpu_torch.serving import engine_model
@@ -700,7 +916,30 @@ def _paged_steps(params, cfg, pool, toks, prompt_len, n_decode, dev,
             params, cfg, pool, toks[:, t].to(dev), table,
             torch.tensor([t + 1], dtype=torch.int32, device=dev))[0]
             .float().cpu())
-    return out
+    # Verify at length L: the committed prefix is the L - 1 tokens above.
+    L = prompt_len + n_decode + 1
+    k, m = VERIFY_TREE
+    seq.ensure(L + k * m)
+    table = torch.tensor(seq.table_row()[None, :], device=dev)
+    length = torch.tensor([L], dtype=torch.int32, device=dev)
+    lin = engine_model._decode_verify_once(
+        params, cfg, pool, toks[:, L - 1:L + VERIFY_K].to(dev), table, length)
+    depth, anc = engine_model._tree_layout(k, m)
+    tree = engine_model._tree_verify_once(
+        params, cfg, pool, toks[:, L - 1:L + k * m].to(dev), table, length,
+        depth, anc, k, m)
+    return out, lin[0].float().cpu(), tree[0].float().cpu()
+
+
+def _verify_check(got, want, tol):
+    """(max |logit diff|, targets equal on every position whose f32 top-2
+    margin exceeds 2 tol, positions so checked) for verify logits [r, V]:
+    a smaller margin may flip under the card's bf16 rounding."""
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = got.argmax(-1) == want.argmax(-1)
+    return (float((got - want).abs().max()), bool(same[sure].all()),
+            int(sure.sum()))
 
 
 def phase_model():
@@ -733,19 +972,35 @@ def phase_model():
     cpu_params = llama.map_params(params, lambda t: t.float().cpu())
     prompt_len, n_decode = 150, 6
     g = torch.Generator().manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (1, prompt_len + n_decode),
-                         generator=g)
-    full, _ = llama.forward(cpu_params, cpu_cfg, toks)          # [1, S, V]
+    n_verify = 1 + VERIFY_TREE[0] * VERIFY_TREE[1]
+    toks = torch.randint(0, cfg.vocab_size,
+                         (1, prompt_len + n_decode + n_verify), generator=g)
+    full, _ = llama.forward(cpu_params, cpu_cfg, toks[:, :prompt_len
+                                                         + n_decode])
     want = [full[0, t] for t in range(prompt_len - 1, prompt_len + n_decode)]
+    # The same verify steps in f32 on the CPU over the same weights.
+    _, want_lin, want_tree = _paged_steps(
+        cpu_params, cpu_cfg,
+        PagePool.zeros(cpu_cfg, 8, 128, dtype=torch.float32, device="cpu"),
+        toks, prompt_len, n_decode, "cpu")
 
     pool = PagePool.zeros(cfg, 8, 128, dtype=torch.bfloat16, device=dev)
-    got = _paged_steps(params, cfg, pool, toks, prompt_len, n_decode, dev)
+    got, lin, tree = _paged_steps(params, cfg, pool, toks, prompt_len,
+                                  n_decode, dev)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    verify = {name: dict(zip(("max_abs_err", "targets_equal",
+                              "positions_checked"),
+                             _verify_check(a, b, 5e-2)))
+              for name, a, b in (("linear", lin, want_lin),
+                                 ("tree", tree, want_tree))}
     rec = {"phase": "model", "variant": "bf16", "layers": cfg.n_layers,
            "dim": cfg.dim, "head_dim": cfg.head_dim, "prompt": prompt_len,
            "decode_steps": n_decode, "logit_scale": float(full.abs().max()),
-           "max_abs_err": err, "tol": 5e-2, "ok": err <= 5e-2}
+           "max_abs_err": err, "tol": 5e-2, "verify": verify,
+           "ok": err <= 5e-2 and all(
+               v["max_abs_err"] <= 5e-2 and v["targets_equal"]
+               for v in verify.values())}
     emit(rec)
 
     qparams = quantize_llama_params(params, dev)
@@ -755,11 +1010,17 @@ def phase_model():
     qpool = PagePool.zeros(cfg, 8, 128, dtype=torch.int8, device=dev)
     cpu_qpool = PagePool.zeros(cpu_cfg, 8, 128, dtype=torch.int8,
                                device="cpu")
-    got = _paged_steps(qparams, cfg, qpool, toks, prompt_len, n_decode, dev)
-    want = _paged_steps(cpu_qparams, cpu_cfg, cpu_qpool, toks, prompt_len,
-                        n_decode, "cpu")
+    got, lin, tree = _paged_steps(qparams, cfg, qpool, toks, prompt_len,
+                                  n_decode, dev)
+    want, want_lin, want_tree = _paged_steps(
+        cpu_qparams, cpu_cfg, cpu_qpool, toks, prompt_len, n_decode, "cpu")
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    verify = {name: dict(zip(("max_abs_err", "targets_equal",
+                              "positions_checked"),
+                             _verify_check(a, b, INT8_MODEL_ATOL)))
+              for name, a, b in (("linear", lin, want_lin),
+                                 ("tree", tree, want_tree))}
     used = slice(1, None)  # page 0 is the sink
     code_diff = (qpool.kv[:, :, :, used].cpu().int()
                  - cpu_qpool.kv[:, :, :, used].int()).abs()
@@ -771,11 +1032,14 @@ def phase_model():
             "kv_codes_moved": int((code_diff > 0).sum()),
             # k and v codes of every layer, kv head and token written
             "kv_codes_written": 2 * cfg.n_layers * cfg.n_kv_heads
-            * (prompt_len + n_decode) * cfg.head_dim,
+            * (prompt_len + n_decode + n_verify) * cfg.head_dim,
             "kv_code_max_move": int(code_diff.max()),
             "argmax_equal": all(int(a.argmax()) == int(b.argmax())
                                 for a, b in zip(got, want)),
-            "ok": err <= INT8_MODEL_ATOL}
+            "verify": verify,
+            "ok": err <= INT8_MODEL_ATOL and all(
+                v["max_abs_err"] <= INT8_MODEL_ATOL and v["targets_equal"]
+                for v in verify.values())}
     emit(irec)
     rec["ok"] = rec["ok"] and irec["ok"]
     rec["int8"] = irec
@@ -872,33 +1136,57 @@ def _profile_window(run):
                     for ms, n, k in rows[:10]]}
 
 
+def _recording_server(engine):
+    """The port's OpenAIServer over `engine`, which also keeps the last
+    request's generated token ids under its prompt ids (`streams`): random
+    weights rarely emit text, so streams are compared by token."""
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        OpenAIServer)
+
+    class RecordingServer(OpenAIServer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.streams = {}
+
+        def _events(self, req):
+            ids = self.streams[tuple(req.prompt_ids)] = []
+            for ev in OpenAIServer._events(req):
+                if ev["token_id"] >= 0:
+                    ids.append(ev["token_id"])
+                yield ev
+
+    return RecordingServer(engine, model_name="llama3-8b-random")
+
+
 class ServedEngine:
     """The 8B engine behind the port's OpenAI server on a local port,
     shared by the serving, chunked-prefill and RAG phases (bf16, default
     engine config) and, on its own, by serving_int8 (`engine_cfg`,
-    `n_pages`, warmed at `warmup_buckets` only). `model_size` and
-    `device` exist so the phases can be rehearsed on the CPU at tiny
-    size; the check runs them at 8b on cuda."""
+    `n_pages`, warmed at `warmup_buckets` only); the speculative phases
+    hand in an `engine` built over weights already on the card. The
+    server records each request's token ids (`app.streams`).
+    `model_size` and `device` exist so the phases can be rehearsed on
+    the CPU at tiny size; the check runs them at 8b on cuda."""
 
     def __init__(self, model_size: str = "8b", device: str = "cuda",
-                 engine_cfg=None, n_pages=None, warmup_buckets=None):
+                 engine_cfg=None, n_pages=None, warmup_buckets=None,
+                 engine=None):
         from generativeaiexamples_tpu_torch.serving.__main__ import (
             build_engine)
         from generativeaiexamples_tpu_torch.serving.openai_server import (
-            OpenAIServer, make_http_server)
+            make_http_server)
 
         t0 = time.perf_counter()
-        self.engine = build_engine(model_size, device=device, seed=0,
-                                   warmup=False, engine_cfg=engine_cfg,
-                                   n_pages=n_pages)
+        self.engine = engine or build_engine(
+            model_size, device=device, seed=0, warmup=False,
+            engine_cfg=engine_cfg, n_pages=n_pages)
         self.build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.engine.warmup(buckets=warmup_buckets)
         self.warm_s = time.perf_counter() - t0
         self.engine.start()
-        self.httpd = make_http_server(
-            OpenAIServer(self.engine, model_name="llama3-8b-random"),
-            "127.0.0.1", 0)
+        self.app = _recording_server(self.engine)
+        self.httpd = make_http_server(self.app, "127.0.0.1", 0)
         self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True)
@@ -1298,6 +1586,31 @@ INT8_DEPLOYMENT = {"quantize_weights": "int8", "kv_dtype": "int8",
 INT8_POOL_PAGES = 4097
 
 
+def _int8_prompts(n_requests: int):
+    """The int8 phases' prompts: 20-400 random letters each (seed 3)."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    return ["".join(chr(c) for c in rng.integers(97, 123, n))
+            for n in rng.integers(20, 401, n_requests)]
+
+
+def _burst(base, prompts, max_tokens):
+    """All prompts as concurrent greedy completions; their results."""
+    results = [None] * len(prompts)
+
+    def run(i):
+        results[i] = _complete(base, prompts[i], max_tokens)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results
+
+
 def phase_serving_int8(card: str, model_size: str = "8b",
                        device: str = "cuda", n_requests: int = 128,
                        max_tokens: int = 64, long_prompt: int = 6000,
@@ -1310,8 +1623,9 @@ def phase_serving_int8(card: str, model_size: str = "8b",
     "error") with tokens; K6, K4 and K1 must launch in the window, K2
     not. Tokens/s, TTFT and memory are printed for information, and the
     same burst runs again under the profiler (outside the counted
-    window) for the device's busy time and idle share."""
-    import numpy as np
+    window) for the device's busy time and idle share. Returns (the
+    record, the closed ServedEngine), whose weights and token streams
+    the speculative phase reuses."""
     import torch
 
     from generativeaiexamples_tpu_torch import kernels
@@ -1321,23 +1635,10 @@ def phase_serving_int8(card: str, model_size: str = "8b",
                           n_pages=n_pages, warmup_buckets=[128, 512])
     engine = served.engine
     try:
-        rng = np.random.default_rng(3)
-        prompts = ["".join(chr(c) for c in rng.integers(97, 123, n))
-                   for n in rng.integers(20, 401, n_requests)]
+        prompts = _int8_prompts(n_requests)
 
         def burst():
-            results = [None] * n_requests
-
-            def run(i):
-                results[i] = _complete(served.base, prompts[i], max_tokens)
-
-            threads = [threading.Thread(target=run, args=(i,))
-                       for i in range(n_requests)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            return results
+            return _burst(served.base, prompts, max_tokens)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1394,6 +1695,203 @@ def phase_serving_int8(card: str, model_size: str = "8b",
            "launches": launches, "peak_mem_gb": peak_gb,
            "profile": profile, "ok": ok}
     emit(rec)
+    return rec, served
+
+
+# -- phase 13: greedy self-speculation at 8B ------------------------------
+
+# bench.py's default lattice (k = 3, M = 4, its step plans left off) and
+# the r05 official config (k = 1, bench.py:59), on the int8 deployment.
+SPEC_INT8_CONFIGS = (("tree_k3_m4", {"speculative_k": 3,
+                                     "speculative_tree_branches": 4}),
+                     ("linear_k1", {"speculative_k": 1}))
+
+
+def _first_divergence(got, want):
+    """Index of the first token where two streams differ (None if equal)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def phase_spec_int8(card: str, int8_served, device: str = "cuda",
+                    n_requests: int = 128, max_tokens: int = 64,
+                    n_pages: int = INT8_POOL_PAGES, engine_cfg=None,
+                    configs=SPEC_INT8_CONFIGS):
+    """Speculative engines on the int8 deployment, over serving_int8's
+    quantized weights (its engine and pool are released first), each
+    behind the OpenAI server in turn: serving_int8's burst of n_requests
+    concurrent greedy max_tokens completions. Every request must finish
+    with its tokens; K6 and K4 must launch, K2 and K5 not. The share of
+    streams equal token for token to serving_int8's non-speculative
+    streams is printed for information: verify projections at B * r
+    rows round differently from one-row decode in bf16."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+
+    old = int8_served.engine
+    params, cfg, tokenizer = old.params, old.cfg, old.tokenizer
+    base_streams = int8_served.app.streams
+    old.pool = None
+    del old, int8_served
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = _int8_prompts(n_requests)
+    recs = []
+    for name, spec in configs:
+        ecfg = {**(engine_cfg or INT8_DEPLOYMENT), **spec}
+        engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
+                           device=device)
+        served = ServedEngine(engine=engine, warmup_buckets=[128, 512])
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            results = _burst(served.base, prompts, max_tokens)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            metrics = engine.metrics.snapshot()
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            served.close()
+        tokenize = tokenizer.encode
+        equal, first = 0, None
+        for p in prompts:
+            ids = tuple(tokenize(p, add_bos=True))
+            got = served.app.streams.get(ids, [])
+            div = _first_divergence(got, base_streams.get(ids, []))
+            if div is None:
+                equal += 1
+            elif first is None or div < first["token"]:
+                first = {"prompt_chars": len(p), "token": div}
+        tokens = sum(r["completion_tokens"] for r in results if r)
+        finished = all(r is not None and (
+            r["completion_tokens"] == max_tokens
+            or r["finish_reason"] == "stop") for r in results)
+        ok = (finished and launches["int8_matmul"] > 0
+              and launches["paged_attention_int8"] > 0
+              and launches["paged_attention"] == 0
+              and launches["paged_attention_tree"] == 0)
+        rec = {"phase": "spec_int8", "config": name, "card": card,
+               "engine": ecfg, "layers": cfg.n_layers,
+               "reduced": {"n_pages": n_pages},
+               "engine_build_s": served.build_s, "warmup_s": served.warm_s,
+               "requests": n_requests, "max_tokens": max_tokens,
+               "completion_tokens": tokens,
+               "finish_reasons": sorted({r["finish_reason"] for r in results
+                                         if r}),
+               "wall_s": wall, "tokens_per_s": tokens / wall if wall else None,
+               "spec_tokens_per_step": metrics["spec_tokens_per_step"],
+               "spec_committed": metrics["spec_committed"],
+               "spec_slot_steps": metrics["spec_slot_steps"],
+               "spec_fallback_steps": metrics["spec_fallback_steps"],
+               "decode_steps": metrics["decode_steps"],
+               "mean_batch_occupancy": metrics["mean_batch_occupancy"],
+               "ttft_p50_ms": metrics["ttft_p50_ms"],
+               "ttft_p95_ms": metrics["ttft_p95_ms"],
+               "peak_mem_gb": peak_gb,
+               "streams_equal_to_serving_int8": equal / len(prompts),
+               "first_divergence": first,
+               "launches": launches, "ok": ok}
+        emit(rec)
+        recs.append(rec)
+        engine.pool = None
+        del engine, served
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
+                    n_requests: int = 8, max_tokens: int = 64,
+                    spec=(3, 4)):
+    """A tree engine (k = 3, M = 4, default batch 8) over the bf16 8B
+    weights the serving phases used, behind the OpenAI server:
+    n_requests concurrent max_tokens completions, the last of them
+    sampled and sent once the greedy ones have run a verify step, so
+    dispatches fall back to plain decode while it is live. Every request
+    must finish with its tokens; K5 must launch, and K2 only through the
+    fallback (at most fallback dispatches x decode_steps_per_dispatch x
+    layers launches)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+
+    src = bf16_served.engine
+    engine = LLMEngine(src.params, src.cfg, src.tokenizer,
+                       {"speculative_k": spec[0],
+                        "speculative_tree_branches": spec[1]},
+                       device=device)
+    served = ServedEngine(engine=engine)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        results = [None] * n_requests
+
+        def run(i, sampling):
+            results[i] = _complete(served.base, f"Speculative request {i}:",
+                                   max_tokens, **sampling)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i, {}))
+                   for i in range(n_requests - 1)]
+        for t in threads:
+            t.start()
+        while engine.metrics.spec_slot_steps == 0 and any(
+                t.is_alive() for t in threads):
+            time.sleep(0.005)
+        threads.append(threading.Thread(target=run, args=(
+            n_requests - 1, {"temperature": 0.7, "top_p": 0.9, "top_k": 40})))
+        threads[-1].start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        metrics = engine.metrics.snapshot()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        served.close()
+    engine.pool = None
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = sum(r["completion_tokens"] for r in results if r)
+    finished = all(r is not None and (r["completion_tokens"] == max_tokens
+                                      or r["finish_reason"] == "stop")
+                   for r in results)
+    k2_cap = (metrics["spec_fallback_steps"]
+              * src.ecfg.decode_steps_per_dispatch * src.cfg.n_layers)
+    ok = (finished and launches["paged_attention_tree"] > 0
+          and launches["flash_attention"] > 0
+          and metrics["spec_fallback_steps"] > 0
+          and 0 < launches["paged_attention"] <= k2_cap
+          and launches["paged_attention_int8"] == 0)
+    rec = {"phase": "spec_bf16", "card": card,
+           "engine": {"speculative_k": spec[0],
+                      "speculative_tree_branches": spec[1],
+                      "max_batch_size": src.ecfg.max_batch_size},
+           "requests": n_requests, "sampled_requests": 1,
+           "max_tokens": max_tokens, "completion_tokens": tokens,
+           "finish_reasons": sorted({r["finish_reason"] for r in results
+                                     if r}),
+           "wall_s": wall, "tokens_per_s": tokens / wall if wall else None,
+           "spec_tokens_per_step": metrics["spec_tokens_per_step"],
+           "spec_committed": metrics["spec_committed"],
+           "spec_slot_steps": metrics["spec_slot_steps"],
+           "spec_fallback_steps": metrics["spec_fallback_steps"],
+           "ttft_p50_ms": metrics["ttft_p50_ms"],
+           "ttft_p95_ms": metrics["ttft_p95_ms"],
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "k2_launch_cap": k2_cap, "ok": ok}
+    emit(rec)
     return rec
 
 
@@ -1432,6 +1930,7 @@ def main() -> int:
     paged = phase_paged()
     encoder = phase_encoder()
     paged_int8 = phase_paged_int8()
+    tree = phase_tree()
     int8_mm = phase_int8_matmul()
     model = phase_model()
     served = ServedEngine("8b", "cuda")
@@ -1439,13 +1938,16 @@ def main() -> int:
         serving = phase_serving(card, served)
         chunked = phase_chunked(served)
         rag = phase_rag(card, served)
+        spec_bf16 = phase_spec_bf16(card, served)
     finally:
         served.close()
     # The bf16 engine and the RAG stores go before the int8 engine comes.
     del served
     gc.collect()
     torch.cuda.empty_cache()
-    serving_int8 = phase_serving_int8(card)
+    serving_int8, int8_served = phase_serving_int8(card)
+    spec_int8 = phase_spec_int8(card, int8_served)
+    del int8_served
 
     line = []
     for name, rep, cases, main_case, launches, tol in (
@@ -1458,6 +1960,9 @@ def main() -> int:
             ("paged_attention_int8", K4_REPLACES, paged_int8, "8b_decode",
              serving_int8["launches"],
              f"{PAGED_INT8_RTOL} x max|out| of each row"),
+            ("paged_attention_tree", K5_REPLACES, tree, "8b_tree34",
+             spec_bf16["launches"],
+             f"{TREE_RTOL} x max|out| of each (row, node)"),
             ("int8_matmul", K6_REPLACES, int8_mm, "w_gate_up_r8",
              serving_int8["launches"], f"{INT8_MM_RTOL} x max|y|")):
         c = next(c for c in cases if c["case"] == main_case)
@@ -1470,10 +1975,19 @@ def main() -> int:
             "case": main_case, "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
+    # K4's verify forms (launched on spec_int8's path).
+    k4 = next(e for e in line if e["name"] == "paged_attention_int8")
+    k4["spec_launches"] = {r["config"]: r["launches"]["paged_attention_int8"]
+                           for r in spec_int8}
+    k4["verify_cases"] = {
+        c["case"]: {k: c[k] for k in ("q_rep", "tree", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
+        for c in paged_int8 if c["q_rep"] > 1 and "ms" in c}
     emit({"kernels": line})
-    ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8
+    ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]
-          and rag["ok"] and serving_int8["ok"])
+          and rag["ok"] and serving_int8["ok"] and spec_bf16["ok"]
+          and all(r["ok"] for r in spec_int8))
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

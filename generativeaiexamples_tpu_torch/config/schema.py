@@ -4,8 +4,10 @@ The port's own copy of the slice of generativeaiexamples_tpu's
 config/schema.py that this package honours, with the same names and
 defaults:
 
-- `EngineConfig`: the serving engine. Flags of the JAX engine that the
-  port does not have yet are listed in `UNSUPPORTED` with the ROADMAP
+- `EngineConfig`: the serving engine, speculation included
+  (`speculative_k`, `speculative_tree_branches`). Flags of the JAX
+  engine that the port does not have yet (step plans, the fused prefill
+  rider, prefix cache, ...) are listed in `UNSUPPORTED` with the ROADMAP
   item that brings them; `EngineConfig.coerce` refuses any of them set
   away from its default.
 - `AppConfig`: the sections the developer_rag chain reads (llm,
@@ -48,6 +50,14 @@ class EngineConfig:
     # block while other streams decode (idle engines run chunks at full
     # dispatch speed).
     prefill_chunks_per_block: int = 2
+    # Greedy self-speculation: k n-gram draft tokens per verify step from
+    # the device token history, verified in one forward (0 = off).
+    # Sampled requests fall back to plain decode on the same engine.
+    speculative_k: int = 0
+    # Tree verify: this many k-deep draft branches per step, verified as
+    # one packed tree (0 or 1 = the linear chain). Inert without
+    # speculative_k, as in the JAX engine.
+    speculative_tree_branches: int = 0
     # First tokens are sampled inside the prefill dispatch (bucketed
     # groups and the chunk that completes a long prompt). The port has
     # only that form, so False is refused.
@@ -100,8 +110,6 @@ class EngineConfig:
 # port will gain it).
 UNSUPPORTED = {
     "weights_path": ("", "ROADMAP A.10: HF checkpoint loading"),
-    "speculative_k": (0, "ROADMAP A.13: speculation"),
-    "speculative_tree_branches": (0, "ROADMAP A.13: speculation"),
     "step_plans": (False, "ROADMAP A.14: step plans"),
     "fused_prefill": (False, "ROADMAP A.14: fused prefill"),
     "prefix_cache": (False, "ROADMAP A.15: prefix cache"),

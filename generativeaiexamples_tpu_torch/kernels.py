@@ -53,9 +53,13 @@ SIGNATURES = {
     "encoder_attention": ("gaie_encoder_attention_bf16",
                           [_P] * 5 + [_I] * 4 + [_STRIDES, _F, _P]),
     # q, kv, scales, o, page_table, lengths, B, H, KH, L, P, ps, maxp, Hd,
-    # layer, stream
+    # layer, q_rep, tree_k, tree_m, stream
     "paged_attention_int8": ("gaie_paged_attention_int8",
-                             [_P] * 6 + [_I] * 9 + [_P]),
+                             [_P] * 6 + [_I] * 12 + [_P]),
+    # q, k_pages, v_pages, o, page_table, lengths, B, H, KH, P, ps, maxp,
+    # Hd, tree_k, tree_m, scale, stream
+    "paged_attention_tree": ("gaie_paged_tree_attention_bf16",
+                             [_P] * 6 + [_I] * 9 + [_F, _P]),
     # x, q, scale, y, R, K, M, stream
     "int8_matmul": ("gaie_int8_matmul_bf16", [_P] * 4 + [_I] * 3 + [_P]),
 }

@@ -37,9 +37,21 @@ must come quantized (`ops.quant.quantize_llama_params`; every projection
 through K6); the chunked lane's scratch cache stays in the model dtype
 and is quantized as it is scattered into the pool.
 
+Greedy self-speculation (`speculative_k > 0`, tree verify with
+`speculative_tree_branches > 1`): decode blocks become verify blocks
+(`engine_model.decode_spec_multi_step`) that draft from a device token
+history (`_history`, seeded at admission) and commit a variable number
+of tokens per step, so lengths are device-authoritative
+(`_dev_lengths`). The host reserves pages for the worst case
+(`_Slot.kv_len + kv_worst`) and reconciles when a block lands. While a
+sampled request is live, dispatches fall back to the plain block over
+the same device state (`decode_plain_spec_state_multi_step`). As in the
+JAX engine with `step_plans` off, the spec programs are called
+directly.
+
 Not ported yet, and refused at construction (see config/schema.py):
-speculation, step plans, the fused prefill rider, prefix cache, pager,
-QoS, multi-host, emission pacing and the flight recorder.
+step plans, the fused prefill rider, prefix cache, pager, QoS,
+multi-host, emission pacing and the flight recorder.
 """
 
 from __future__ import annotations
@@ -118,6 +130,11 @@ class _Slot:
         self.first_emitted = False   # first token reached the stream
         self.no_capacity = False     # starved; finished after the drain
         self.prefilling = False      # placeholder of a chunked prefill
+        # Speculative engines: tokens whose KV is known stored (moved at
+        # landing) and the worst-case tokens of blocks still in flight;
+        # pages must cover kv_len + kv_worst.
+        self.kv_len = self.prompt_len
+        self.kv_worst = 0
 
 
 class _LongPrefill:
@@ -172,12 +189,22 @@ class HostCopy:
 class _InFlight:
     """One dispatched-but-unprocessed decode block."""
 
-    __slots__ = ("copy", "metas", "K", "releases")
+    __slots__ = ("copy", "metas", "K", "releases", "spec_worst",
+                 "plain_spec")
 
-    def __init__(self, block: torch.Tensor, metas, K: int):
-        self.copy = HostCopy(block)    # [B, K + 1]
-        self.metas = metas             # [(slot_idx, slot, first_col)]
+    def __init__(self, block: torch.Tensor, metas, K: int,
+                 spec_worst: int = 0, plain_spec: bool = False):
+        # Plain blocks: [B, K + 1] tokens. Speculative blocks: [B, K,
+        # k + 2], the targets of each step with its count appended.
+        self.copy = HostCopy(block)
+        self.metas = metas             # [(slot_idx, slot, first_col | base)]
         self.K = K
+        # > 0 marks a speculative block: the worst-case tokens per slot
+        # (K * (k + 1)), refunded down to the accepted ones at landing.
+        self.spec_worst = spec_worst
+        # A plain block on a speculative engine (the sampled fallback):
+        # landing advances each slot's kv_len by exactly K.
+        self.plain_spec = plain_spec
         self.releases: List[SequencePages] = []  # freed once this lands
 
 
@@ -196,6 +223,12 @@ class EngineMetrics:
         self.fused_sample_dispatches = 0
         self.admission_failures = 0
         self.stuck_thread_joins = 0
+        # Speculation: committed tokens over slot-steps (the tokens-per-
+        # step gauge: 1.0 = no draft accepted, k + 1 = all), and plain
+        # fallback dispatches while a sampled request was live.
+        self.spec_committed = 0
+        self.spec_slot_steps = 0
+        self.spec_fallback_steps = 0
         self._ttft: deque = deque(maxlen=self.TTFT_SAMPLES)
         self._token_events: deque = deque(maxlen=8192)
         self._lock = threading.Lock()
@@ -246,6 +279,13 @@ class EngineMetrics:
             "fused_sample_dispatches": self.fused_sample_dispatches,
             "admission_failures": self.admission_failures,
             "stuck_thread_joins": self.stuck_thread_joins,
+            # Always present, 0 when speculation is off.
+            "spec_tokens_per_step": (self.spec_committed
+                                     / self.spec_slot_steps
+                                     if self.spec_slot_steps else 0.0),
+            "spec_fallback_steps": self.spec_fallback_steps,
+            "spec_committed": self.spec_committed,
+            "spec_slot_steps": self.spec_slot_steps,
         }
         out.update({f"kernel_launches_{k}": n
                     for k, n in kernels.LAUNCHES.items()})
@@ -334,6 +374,21 @@ class LLMEngine:
         # engine does.
         self._scratch_dtype = (cfg.dtype if kv_int8
                                else _DTYPES[self.ecfg.kv_dtype])
+        # Speculation. A verify step commits at most _spec_r = k + 1
+        # tokens but writes k/v for every packed tree node, so pages are
+        # reserved at _spec_tree_nodes a step (== _spec_r for linear).
+        self._spec_k = max(0, self.ecfg.speculative_k)
+        self._tree_branches = (max(0, self.ecfg.speculative_tree_branches)
+                               if self._spec_k else 0)
+        self._spec_r = self._spec_k + 1
+        self._spec_tree_nodes = (1 + max(1, self._tree_branches)
+                                 * self._spec_k if self._spec_k else 1)
+        if self._spec_k:
+            B = self.ecfg.max_batch_size
+            self._history = torch.zeros((B, self.ecfg.max_seq_len),
+                                        dtype=torch.int32, device=self.device)
+            self._dev_lengths = torch.ones((B,), dtype=torch.int32,
+                                           device=self.device)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -368,15 +423,29 @@ class LLMEngine:
                 engine_model.set_last_tokens(
                     self._last_tokens, np.full((n,), len(self.slots)), toks)
         B = self.ecfg.max_batch_size
-        _, self._last_tokens = engine_model.decode_multi_step(
-            self.params, self.cfg, self.pool, self._last_tokens,
-            self._put(np.zeros((B, self.max_pages), np.int32)),
-            self._put(np.ones((B,), np.int32)),
-            self._put(np.zeros((B,), bool)),
-            self._put(np.zeros((B,), np.float32)),
-            self._put(np.ones((B,), np.float32)),
-            self._put(np.zeros((B,), np.int32)),
-            self._generator, 1, sampling_flags=(True, False, False))
+        tables = self._put(np.zeros((B, self.max_pages), np.int32))
+        inactive = self._put(np.zeros((B,), bool))
+        sampling = (self._put(np.zeros((B,), np.float32)),
+                    self._put(np.ones((B,), np.float32)),
+                    self._put(np.zeros((B,), np.int32)), self._generator)
+        if self._spec_k:
+            # A verify step and the sampled fallback's plain step over
+            # inactive rows (sink page 0); the device state is unchanged.
+            (_, _, self._last_tokens, self._dev_lengths,
+             self._history) = engine_model.decode_spec_multi_step(
+                self.params, self.cfg, self.pool, self._history,
+                self._last_tokens, self._dev_lengths, tables, inactive, 1,
+                self._spec_k, self._tree_branches)
+            (_, self._last_tokens, self._dev_lengths, self._history) = \
+                engine_model.decode_plain_spec_state_multi_step(
+                    self.params, self.cfg, self.pool, self._history,
+                    self._last_tokens, self._dev_lengths, tables, inactive,
+                    *sampling, 1)
+        else:
+            _, self._last_tokens = engine_model.decode_multi_step(
+                self.params, self.cfg, self.pool, self._last_tokens, tables,
+                self._put(np.ones((B,), np.int32)), inactive, *sampling, 1,
+                sampling_flags=(True, False, False))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -718,6 +787,13 @@ class LLMEngine:
         engine_model.cache_to_pool(self.pool, cache, self.cfg,
                                    self._put(row))
         tok0 = self._chunk_res.pop(lp.slot_idx)
+        if self._spec_k:
+            hist = np.zeros((1, self.ecfg.max_seq_len), np.int32)
+            hist[0, :len(lp.ids)] = lp.ids
+            engine_model.set_history_rows(
+                self._history, self._dev_lengths, [lp.slot_idx],
+                self._put(hist), self._put(np.asarray([len(lp.ids)],
+                                                      np.int32)), tok0)
         slot = _Slot(lp.req, lp.seq, StreamDetokenizer(self.tokenizer))
         self.slots[lp.slot_idx] = slot
         self._pending_first.append((HostCopy(tok0), [(lp.slot_idx, slot)]))
@@ -765,12 +841,15 @@ class LLMEngine:
             idxs[j] = slot_idx
         all_greedy = bool(all(temps[:n] <= 0.0))
         flags = (True, False, False) if all_greedy else (False, True, True)
+        d_tokens, d_lengths = self._put(tokens), self._put(lengths)
         toks = engine_model.prefill_batch_step(
-            self.params, self.cfg, self.pool, self._put(tokens),
-            self._put(lengths), self._put(rows), self._put(temps),
-            self._put(top_ps), self._put(top_ks), self._generator,
-            sampling_flags=flags)
+            self.params, self.cfg, self.pool, d_tokens, d_lengths,
+            self._put(rows), self._put(temps), self._put(top_ps),
+            self._put(top_ks), self._generator, sampling_flags=flags)
         engine_model.set_last_tokens(self._last_tokens, idxs, toks)
+        if self._spec_k:
+            engine_model.set_history_rows(self._history, self._dev_lengths,
+                                          idxs, d_tokens, d_lengths, toks)
         self.metrics.fused_sample_dispatches += 1
         metas = []
         for req, slot_idx, seq, ids in entries:
@@ -780,10 +859,39 @@ class LLMEngine:
             self.metrics.prefill_tokens += len(ids)
         self._pending_first.append((HostCopy(toks), metas))
 
+    def _slot_used(self, slot: _Slot) -> int:
+        """Tokens the slot's pages must already cover: the host-exact
+        length on a plain engine; on a speculative one, where lengths are
+        device-authoritative, the reconciled length plus the worst case
+        of the blocks in flight."""
+        return (slot.kv_len + slot.kv_worst) if self._spec_k \
+            else slot.seq.length
+
+    def _sampled_live(self) -> bool:
+        """A live, dispatchable slot wants sampling (temperature > 0): on
+        a speculative engine the next dispatch then runs the plain
+        fallback block, since greedy verification cannot honour it. A
+        sampled slot without page capacity for one token does not count
+        (the live filter starves it anyway)."""
+        return any(
+            s is not None and not s.prefilling and not s.req.cancelled
+            and s.req.temperature > 0.0
+            and s.req.max_new_tokens - s.scheduled > 0
+            and self._advance_capacity(s, self._slot_used(s))[0] >= 1
+            for s in self.slots)
+
     def _dispatch_decode(self) -> bool:
-        """Dispatch ONE K-step decode block over the slot batch (device
-        sampling, device-chained tokens, no host wait)."""
+        """Dispatch ONE K-step block over the slot batch (device sampling
+        or verification, device-chained tokens, no host wait): a verify
+        block on a speculative engine unless a sampled request is live,
+        else a plain decode block."""
         B = len(self.slots)
+        spec_mode = self._spec_k > 0 and not self._sampled_live()
+        # Per step: r tokens may commit (the budget and bookkeeping
+        # reserve), r_nodes k/v rows are written (tree verify writes one
+        # per packed node, accepted or not). Both 1 for a plain block.
+        r = self._spec_r if spec_mode else 1
+        r_nodes = self._spec_tree_nodes if spec_mode else 1
         K = max(1, self.ecfg.decode_steps_per_dispatch)
         lengths = np.ones((B,), np.int32)
         tables = np.zeros((B, self.max_pages), np.int32)
@@ -798,7 +906,7 @@ class LLMEngine:
             if s.req.cancelled:
                 self._finish(i, "cancelled")
                 continue
-            if self._advance_capacity(s, s.seq.length)[0] < 1:
+            if self._advance_capacity(s, self._slot_used(s))[0] < r_nodes:
                 self._starve(i)
                 continue
             if s.req.max_new_tokens - s.scheduled <= 0:
@@ -811,18 +919,23 @@ class LLMEngine:
             # so an arrival's prefill never waits behind K steps.
             K = min(K, 2)
         cap_min = min(self._advance_capacity(
-            self.slots[i], self.slots[i].seq.length)[0] for i in live)
+            self.slots[i], self._slot_used(self.slots[i]))[0] for i in live)
         max_rem = max(self.slots[i].req.max_new_tokens
                       - self.slots[i].scheduled for i in live)
-        K = _pow2_floor(min(K, max(1, cap_min)))
+        K = _pow2_floor(min(K, max(1, (cap_min - (r_nodes - r)) // r)))
         if max_rem < K:
             # The smallest power of two that finishes every live slot in
             # this block (overshoot is discarded on the host).
             K = min(K, 1 << (max_rem - 1).bit_length())
-        base_lens = {i: self.slots[i].seq.length for i in live}
+        worst = K * r                    # commit / token-budget bound
+        alloc = (K - 1) * r + r_nodes    # page-write bound
+        # ensure() moves seq.length, so take each base once: a shrink
+        # pass re-ensures from the same starting point.
+        base_lens = {i: self._slot_used(self.slots[i]) for i in live}
         while True:
             shrink_to = None
             active: List[int] = []
+            metas: List = []
             active_mask[:] = False
             for i in live:
                 s = self.slots[i]
@@ -830,47 +943,82 @@ class LLMEngine:
                     continue
                 base = base_lens[i]
                 try:
-                    s.seq.ensure(base + K)
+                    s.seq.ensure(base + alloc)
                 except MemoryError:
                     # The pool cannot cover K steps: shrink K to what this
                     # slot's pages plus the free pages hold; starve only
                     # when not even one step fits.
                     _, avail = self._advance_capacity(s, base)
-                    if avail >= 1 and K > 1:
-                        shrink_to = avail
+                    if avail >= r_nodes and K > 1:
+                        shrink_to = max(1, (avail - (r_nodes - r)) // r)
                         break
-                    if avail < 1:
+                    if avail < r_nodes:
                         self._starve(i)
                     continue
                 active.append(i)
                 active_mask[i] = True
                 s.no_capacity = False
                 tables[i] = s.seq.table_row()
-                lengths[i] = base + 1  # incl. the incoming token
-                temps[i] = s.req.temperature
-                top_ps[i] = s.req.top_p
-                top_ks[i] = s.req.top_k
+                if spec_mode:
+                    metas.append((i, s, base))
+                else:
+                    lengths[i] = base + 1  # incl. the incoming token
+                    temps[i] = s.req.temperature
+                    top_ps[i] = s.req.top_p
+                    top_ks[i] = s.req.top_k
             if shrink_to is None:
                 break
             K = _pow2_floor(shrink_to)
+            worst = K * r
+            alloc = (K - 1) * r + r_nodes
         if not active:
             return False
-        all_greedy = bool(all(temps[i] <= 0.0 for i in active))
-        flags = (True, False, False) if all_greedy else (False, True, True)
-        block, self._last_tokens = engine_model.decode_multi_step(
-            self.params, self.cfg, self.pool, self._last_tokens,
-            self._put(tables), self._put(lengths), self._put(active_mask),
-            self._put(temps), self._put(top_ps), self._put(top_ks),
-            self._generator, K, sampling_flags=flags)
         self.metrics.decode_steps += K
         self.metrics.busy_slots_acc += len(active) * K
-        metas = []
+        if spec_mode:
+            targets, counts, self._last_tokens, self._dev_lengths, \
+                self._history = engine_model.decode_spec_multi_step(
+                    self.params, self.cfg, self.pool, self._history,
+                    self._last_tokens, self._dev_lengths, self._put(tables),
+                    self._put(active_mask), K, self._spec_k,
+                    self._tree_branches)
+            for i in active:
+                s = self.slots[i]
+                s.awaiting_first = False
+                s.scheduled += worst
+                s.kv_worst += worst
+            self._inflight.append(_InFlight(
+                torch.cat([targets, counts[..., None]], dim=-1), metas, K,
+                spec_worst=worst))
+            return True
+        all_greedy = bool(all(temps[i] <= 0.0 for i in active))
+        flags = (True, False, False) if all_greedy else (False, True, True)
+        sampling = (self._put(temps), self._put(top_ps), self._put(top_ks),
+                    self._generator)
+        if self._spec_k:
+            block, self._last_tokens, self._dev_lengths, self._history = \
+                engine_model.decode_plain_spec_state_multi_step(
+                    self.params, self.cfg, self.pool, self._history,
+                    self._last_tokens, self._dev_lengths, self._put(tables),
+                    self._put(active_mask), *sampling, K,
+                    sampling_flags=flags)
+            self.metrics.spec_fallback_steps += 1
+        else:
+            block, self._last_tokens = engine_model.decode_multi_step(
+                self.params, self.cfg, self.pool, self._last_tokens,
+                self._put(tables), self._put(lengths),
+                self._put(active_mask), *sampling, K, sampling_flags=flags)
         for i in active:
             s = self.slots[i]
             metas.append((i, s, 0 if s.awaiting_first else 1))
             s.awaiting_first = False
             s.scheduled += K
-        self._inflight.append(_InFlight(block, metas, K))
+            if self._spec_k:
+                # kv_len moves only at landing: reserve this block's K
+                # writes so a sibling dispatch ensures pages past them.
+                s.kv_worst += K
+        self._inflight.append(_InFlight(block, metas, K,
+                                        plain_spec=bool(self._spec_k)))
         return True
 
     def _advance_capacity(self, slot: _Slot, used: int):
@@ -893,20 +1041,30 @@ class LLMEngine:
             self._finish(slot_idx, "length")
 
     def _reap_starved(self) -> None:
+        """Finish slots starved of page capacity that still cannot advance
+        once their in-flight blocks drained (a speculative landing refunds
+        its reservation, retiring slots free pages). The floor is the
+        k/v rows one step writes: every packed node of a tree step."""
+        need = self._spec_tree_nodes if self._spec_k else 1
         for i, slot in enumerate(self.slots):
             if slot is None or not slot.no_capacity:
                 continue
             if any(s is slot for fl in self._inflight
                    for _, s, _ in fl.metas):
                 continue
-            table_cap, avail = self._advance_capacity(slot, slot.seq.length)
-            if table_cap >= 1 and avail >= 1:
+            table_cap, avail = self._advance_capacity(slot,
+                                                      self._slot_used(slot))
+            if table_cap >= need and avail >= need:
                 slot.no_capacity = False
                 continue
             self._finish(i, "length")
 
     def _process_block_host(self, fl: _InFlight, block: np.ndarray) -> None:
-        """Emit / finish slots from a landed block ([B, K + 1])."""
+        """Emit / finish slots from a landed block ([B, K + 1], or [B, K,
+        k + 2] for a speculative one)."""
+        if fl.spec_worst:
+            self._process_spec_block(fl, block)
+            return
         now = time.perf_counter()
         tokens_before = self.metrics.tokens_out
         for i, slot, first_col in fl.metas:
@@ -923,7 +1081,57 @@ class LLMEngine:
                 self._emit(slot, int(block[i, j]), slot_idx=i)
                 if self.slots[i] is not slot:
                     break  # finished mid-block; the rest is overshoot
+            if fl.plain_spec:
+                # Every step of a plain block advances: the reconciled
+                # length moves K and the reservation is released.
+                slot.kv_len += fl.K
+                slot.kv_worst -= fl.K
         self.metrics.record_tokens(self.metrics.tokens_out - tokens_before)
+
+    def _process_spec_block(self, fl: _InFlight, block: np.ndarray) -> None:
+        """Emit a landed verify block: for each slot and step, the first
+        counts[i, s] targets are committed greedy tokens. Reconciles the
+        worst-case page and budget reservations with the acceptance."""
+        targets, counts = block[..., :-1], block[..., -1]
+        emitted_all = 0
+        for i, slot, _ in fl.metas:
+            if self.slots[i] is not slot:
+                continue  # retired while in flight
+            if not slot.first_emitted:
+                # The prefill-sampled first token goes out first.
+                self._flush_first_for(slot)
+                if self.slots[i] is not slot:
+                    continue  # it ended the stream
+            emitted = 0
+            for step in range(fl.K):
+                for j in range(int(counts[i, step])):
+                    self._emit(slot, int(targets[i, step, j]), slot_idx=i)
+                    emitted += 1
+                    if self.slots[i] is not slot:
+                        break
+                if self.slots[i] is not slot:
+                    break
+            if self.slots[i] is slot:
+                # Refund the unaccepted worst case; kv_len / kv_worst
+                # follow the acceptance while still covering any sibling
+                # block in flight.
+                slot.scheduled -= fl.spec_worst - emitted
+                slot.kv_len += emitted
+                slot.kv_worst -= fl.spec_worst
+            emitted_all += emitted
+            self.metrics.spec_slot_steps += fl.K
+        self.metrics.spec_committed += emitted_all
+        self.metrics.record_tokens(emitted_all)
+
+    def _flush_first_for(self, slot: _Slot) -> None:
+        """Emit one slot's pending first token now (waiting for its host
+        copy, which began at prefill)."""
+        for item in list(self._pending_first):
+            copy, metas = item
+            if any(s is slot for _, s in metas):
+                self._pending_first.remove(item)
+                self._emit_first_values(copy.numpy().reshape(-1), metas)
+                return
 
     def _emit_first_values(self, vals: np.ndarray, metas) -> None:
         now = time.perf_counter()

@@ -13,6 +13,12 @@ TPU routes (the in-repo `_paged_kernel` and JAX's bundled JetStream
 kernel). A CUDA tensor launches the kernel or raises; a CPU tensor runs
 `paged_attention_reference`. The fused int8 pool goes to K4
 (serving/paged_attention_int8.py).
+
+Tree verify (speculation) has its plain versions here, as in the JAX
+package: `paged_tree_attention_reference` over a bf16/f32 pool and
+`paged_tree_attention_int8_reference_fused` over one layer of the fused
+int8 pool. They are the oracles of K5 (serving/paged_attention_tree.py)
+and of K4's tree form, and the route a CPU tensor takes.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 from generativeaiexamples_tpu_torch import kernels
 from generativeaiexamples_tpu_torch.ops.attention import (
-    _check_cuda_operand, mha_reference)
+    NEG_INF, _check_cuda_operand, _gqa_expand, mha_reference)
 
 
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
@@ -41,6 +47,71 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     out = mha_reference(q[:, :, None, :], k, v, causal=False,
                         lengths=lengths, scale=scale)
     return out[:, :, 0, :]
+
+
+def _gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[KH, P, ps, ...] pages gathered through table [B, maxp] ->
+    [B, KH, maxp * ps, ...]."""
+    KH, _, ps = pages.shape[:3]
+    B, maxp = table.shape
+    g = pages[:, table.long()]                 # [KH, B, maxp, ps, ...]
+    return g.transpose(0, 1).reshape(B, KH, maxp * ps, *pages.shape[3:])
+
+
+def _tree_attention_core(q, k, v, lengths, anc_mask, scale):
+    """Tree-verify attention over gathered pool rows. q [B, H, r, Hd]:
+    r packed tree nodes whose k/v were just written at pool slots
+    lengths-1 .. lengths-2+r; k/v [B, KH, S, Hd]. Node j attends the
+    committed prefix (slots < lengths-1) plus its ancestor-or-self chain
+    (anc_mask [r, r], row j marks j's ancestors). f32 softmax, output in
+    q's dtype."""
+    B, H, r, Hd = q.shape
+    S = k.shape[2]
+    dev = q.device
+    k = _gqa_expand(k, H)
+    v = _gqa_expand(v, H)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    rel = (torch.arange(S, device=dev)[None, :]
+           - (lengths.to(dev).long() - 1)[:, None])          # [B, S]
+    prefix_ok = rel < 0
+    in_tree = (rel >= 0) & (rel < r)
+    anc = torch.as_tensor(anc_mask, dtype=torch.bool, device=dev)  # [r, r]
+    anc_cols = anc[:, rel.clamp(0, r - 1)]                   # [r, B, S]
+    tree_ok = in_tree[:, None, :] & anc_cols.transpose(0, 1)  # [B, r, S]
+    mask = (prefix_ok[:, None, :] | tree_ok)[:, None]         # [B, 1, r, S]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def paged_tree_attention_reference(q, k_pages, v_pages, page_table, lengths,
+                                   anc_mask, *, scale=None):
+    """Tree-verify attention over one layer's bf16/f32 pool ([KH, P, ps,
+    Hd]), gather-based: the oracle of K5. q [B, H, r, Hd]; lengths [B]
+    count the committed prefix plus the tree root (node 0)."""
+    Hd = q.shape[-1]
+    return _tree_attention_core(
+        q, _gather_pages(k_pages, page_table),
+        _gather_pages(v_pages, page_table), lengths, anc_mask,
+        scale if scale is not None else Hd ** -0.5)
+
+
+def paged_tree_attention_int8_reference_fused(q, kv_pages, kv_scales,
+                                              page_table, lengths, anc_mask,
+                                              *, scale=None):
+    """The tree-verify twin over ONE layer of the fused int8 pool ([2, KH,
+    P, ps, Hd] codes, [2, KH, P, ps] scales): gather, then dequantize
+    only the gathered pages. The oracle of K4's tree form."""
+    Hd = q.shape[-1]
+
+    def deq(i):
+        codes = _gather_pages(kv_pages[i], page_table)     # [B, KH, S, Hd]
+        s = _gather_pages(kv_scales[i], page_table)        # [B, KH, S]
+        return codes.float() * s.float()[..., None]
+
+    return _tree_attention_core(q, deq(0), deq(1), lengths, anc_mask,
+                                scale if scale is not None else Hd ** -0.5)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -121,7 +121,7 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("speculative_tree_branches", 2), ("speculative_k", 2),
+    ("fused_prefill", True), ("kv_pager", True),
     ("prefix_cache", True), ("multihost", True), ("step_plans", True)])
 def test_unported_engine_flags_are_refused(flag, value):
     cfg = tl.LlamaConfig.tiny()

@@ -44,7 +44,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "for name in ('emit', 'nvidia_smi', 'time_ms', 'bound', "
         "'phase_flash', 'phase_paged', 'phase_encoder', 'phase_model', "
         "'phase_serving', 'phase_chunked', 'phase_rag', 'phase_paged_int8', "
-        "'phase_int8_matmul', 'phase_serving_int8', 'main'):",
+        "'phase_int8_matmul', 'phase_serving_int8', 'phase_tree', "
+        "'phase_spec_int8', 'phase_spec_bf16', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
@@ -125,6 +126,42 @@ def test_int8_entry_points_raise_without_cuda_or_explicit_device(
     eng = build_engine("tiny", "cpu", warmup=False, engine_cfg=int8)
     assert eng.pool.quantized and eng.params["layers"]["wq"].q.dtype \
         == torch.int8
+
+
+def test_spec_entry_points_raise_without_cuda_or_explicit_device(
+        monkeypatch):
+    """A speculative engine (linear and tree, bf16 and int8 pools) and the
+    launcher with APP_ENGINE_SPECULATIVE* resolve to CUDA unless given
+    the CPU."""
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.serving import __main__ as launcher
+    from generativeaiexamples_tpu_torch.serving.__main__ import build_engine
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+    from generativeaiexamples_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, "cpu")
+    specs = ({"speculative_k": 3},
+             {"speculative_k": 3, "speculative_tree_branches": 4},
+             {"speculative_k": 1, "kv_dtype": "int8"})
+    for spec in specs:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LLMEngine(params, cfg, ByteTokenizer(), spec)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_engine("tiny", warmup=False, engine_cfg=spec)
+    monkeypatch.setenv("APP_ENGINE_SPECULATIVEK", "3")
+    monkeypatch.setenv("APP_ENGINE_SPECULATIVETREEBRANCHES", "4")
+    monkeypatch.setattr("sys.argv", ["serving", "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main()
+    # Asked for the CPU, they build, with the device state speculation
+    # needs.
+    for spec in specs:
+        eng = LLMEngine(params, cfg, ByteTokenizer(), spec, device="cpu")
+        assert eng._spec_k == spec["speculative_k"]
+        assert eng._history.shape == (eng.ecfg.max_batch_size,
+                                      eng.ecfg.max_seq_len)
 
 
 def test_rag_entry_points_raise_without_cuda_or_explicit_device(

@@ -71,10 +71,11 @@ def test_sink_page_contents_do_not_change_the_result():
 
 
 def test_quantized_form_is_not_ported_yet():
-    """Kept under its first name: of the quantized (fused int8) form only
-    the speculative variants are still to port (ROADMAP A.13). The fused
-    pool goes to K4's wrapper, whose plain version equals the dequantized
-    pages through the dispatcher's bf16/f32 form."""
+    """Kept under its first name, though every form is ported now: the
+    fused int8 pool goes to K4's wrapper, whose plain version equals the
+    dequantized pages through the dispatcher's bf16/f32 form, and whose
+    verify forms take q as [B, R, H, Hd] (a [B, H, Hd] q with q_rep > 1
+    is refused)."""
     from generativeaiexamples_tpu_torch.serving import (
         paged_attention_int8 as tpa8)
 
@@ -88,7 +89,7 @@ def test_quantized_form_is_not_ported_yet():
         q, tpa8.dequantize_pages(kq, ks), tpa8.dequantize_pages(vq, vs),
         table, lengths)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(ValueError, match="q_rep"):
         tpa8.paged_attention_int8(q, kv[:, None], scales[:, None], table,
                                   lengths, 0, q_rep=2)
 

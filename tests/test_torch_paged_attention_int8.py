@@ -106,11 +106,19 @@ def test_layer_is_indexed_inside_the_wrapper():
 
 
 def test_unported_speculative_forms_raise():
+    """Kept under its first name: the verify forms are ported
+    (tests/test_torch_paged_attention_tree.py), and what they refuse is a
+    q that is not [B, q_rep, H, Hd] or a tree whose node count is not
+    q_rep."""
     q, kv, sc, table, ln = _t(*_inputs(2, 8, 2, 128, 16, 3, [20, 41]))
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(ValueError, match="q_rep"):
         tpa8.paged_attention_int8(q, kv, sc, table, ln, 0, q_rep=2)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(ValueError, match="q_rep"):
         tpa8.paged_attention_int8(q, kv, sc, table, ln, 0, tree=(2, 2))
+    q4 = q[:, None].expand(2, 3, 8, 128).contiguous()
+    with pytest.raises(ValueError, match="q_rep"):
+        tpa8.paged_attention_int8(q4, kv, sc, table, ln, 0, q_rep=5,
+                                  tree=(2, 2))
 
 
 def test_paged_int8_kernel_matches_plain_version_on_cuda():

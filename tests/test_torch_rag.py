@@ -332,9 +332,9 @@ def test_app_config_defaults_and_env_overlay_match_jax():
     for var, item in (("APP_RETRIEVER_QUERYAUGMENTATION", "A.11"),
                       ("APP_SERVING_MICROBATCHENABLED", "A.11"),
                       ("APP_VECTORSTORE_INDEXTYPE", "A.18"),
-                      ("APP_ENGINE_SPECULATIVEK", "A.13")):
+                      ("APP_ENGINE_STEPPLANS", "A.14")):
         value = "ivf" if "INDEX" in var else (
-            "rewrite" if "AUG" in var else "1")
+            "rewrite" if "AUG" in var else "true" if "PLANS" in var else "1")
         with pytest.raises(ValueError, match=item):
             load_config(env={var: value})
     with pytest.raises(ValueError, match="unknown config"):
