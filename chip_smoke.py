@@ -13,7 +13,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   3. flash    K1 (csrc/flash_attention.cu) against `mha_reference` run in
               f32 on the same bf16 inputs, at Llama-3-8B prefill shapes
               (and the chunked lane's q_offset shape) plus ragged /
-              q_offset / fully-masked / head_dim 64 cases
+              q_offset / fully-masked / head_dim 64 cases; a second
+              launch must give the same bits; SDPA (is_causal, or a
+              boolean mask for lengths and q_offset) timed beside it
   4. paged    K2 (csrc/paged_attention.cu) against
               `paged_attention_reference`, at 8B decode shapes plus
               head_dim 64 and a small page size
@@ -46,9 +48,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               timed beside it
   7. int8_matmul  K6 (csrc/int8_matmul.cu) against
               `int8_matmul_reference` in f32 at every 8B projection shape
-              (K, M) and R = 8, 128, 4096, plus a ragged R and a ragged M;
-              torch.matmul over a pre-dequantized bf16 weight timed beside
-              it as a yardstick
+              (K, M) and R = 8, 128 (decode), 256, 1664 (linear and tree
+              verify at batch 128), 4096 (prefill), plus a ragged R and a
+              ragged M; a second launch must give the same bits (split-K
+              included); torch.matmul over a pre-dequantized bf16 weight
+              timed beside it as a yardstick
   8. model    a 2-layer bf16 model with 8B head geometry, run through the
               engine's prefill and decode steps on the card, against the
               plain f32 forward on the CPU over the same weights; then
@@ -106,6 +110,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 It imports neither jax nor the JAX package. Without CUDA, or without the
 port's package beside it, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --compare-parent DIR
+
+times K1 and K6 (AB_FLASH and every K6 case) through the public wrappers
+of the tree at DIR and of this one, in turns (DIR, this, this, DIR), each
+in its own process on the same card, and prints the four times per case.
 """
 
 from __future__ import annotations
@@ -204,6 +214,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel_function: str = "", iters: int = 10) -> float:
+    """Device time of one call of `fn`, from torch.profiler: the self
+    device time of the activities whose name holds `kernel_function`
+    (all of them by default), over `iters` calls. Unlike time_ms it does
+    not count host gaps between launches, so the two differ when the
+    host, not the card, sets the pace of a launch loop."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if kernel_function in e.key:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+    return us / 1e3 / iters
+
+
 def bound(n_bytes: float, flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -228,6 +261,9 @@ def flash_case(name, B, H, KH, Sq, Sk, D, lengths, q_offset, causal=True,
     off = torch.tensor(q_offset, dtype=torch.int32, device=dev)
     got = attn.flash_attention(q, k, v, causal=causal, lengths=ln,
                                q_offset=off)
+    # A second launch on the same inputs must give the same bits.
+    repeat_identical = bool(torch.equal(got, attn.flash_attention(
+        q, k, v, causal=causal, lengths=ln, q_offset=off)))
     want = attn.mha_reference(q.float(), k.float(), v.float(), causal=causal,
                               lengths=ln, q_offset=off)
     torch.cuda.synchronize()
@@ -244,10 +280,12 @@ def flash_case(name, B, H, KH, Sq, Sk, D, lengths, q_offset, causal=True,
     masked_nonzero = float(torch.where(has_key, torch.zeros_like(diff),
                                        got.float().abs()).max())
     finite = bool(torch.isfinite(got.float()).all())
-    ok = finite and err <= BF16_ATOL and masked_nonzero == 0.0
+    ok = (finite and err <= BF16_ATOL and masked_nonzero == 0.0
+          and repeat_identical)
     rec = {"phase": "flash", "case": name, "B": B, "H": H, "KH": KH,
            "Sq": Sq, "Sk": Sk, "D": D, "max_abs_err": err, "tol": BF16_ATOL,
-           "masked_rows_max_abs": masked_nonzero, "finite": finite, "ok": ok}
+           "masked_rows_max_abs": masked_nonzero, "finite": finite,
+           "repeat_identical": repeat_identical, "ok": ok}
     if timed:
         # Work this input needs: every (query row, visible key) pair costs
         # 4 * D flops per head (QK^T and PV); q read once, the output
@@ -259,25 +297,45 @@ def flash_case(name, B, H, KH, Sq, Sk, D, lengths, q_offset, causal=True,
         rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
         rec["ms"] = time_ms(lambda: attn.flash_attention(
             q, k, v, causal=causal, lengths=ln, q_offset=off))
+        rec["device_ms"] = device_ms(lambda: attn.flash_attention(
+            q, k, v, causal=causal, lengths=ln, q_offset=off),
+            "flash_fwd_kernel")
         rec["plain_ms"] = time_ms(lambda: attn.mha_reference(
             q, k, v, causal=causal, lengths=ln, q_offset=off), iters=5)
-        rec["library_ms"] = flash_library_ms(q, k, v, causal, lengths,
-                                             q_offset, Sk)
+        rec["library_ms"], rec["library"] = flash_library_ms(
+            q, k, v, causal, ln, off)
         rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
     del got, want, diff
     torch.cuda.empty_cache()
     return rec
 
 
-def flash_library_ms(q, k, v, causal, lengths, q_offset, Sk):
-    """SDPA on the same inputs, where one call computes the same
-    function: full lengths and no offset (plain causal attention)."""
+def flash_library_ms(q, k, v, causal, lengths, q_offset):
+    """(ms, call) of one SDPA call computing the same function on the
+    same inputs: `is_causal` where lengths are full and there is no
+    offset, else a boolean attn_mask [B, 1, Sq, Sk] holding lengths and
+    the q_offset-shifted diagonal (built once, outside the timing). A row
+    with no visible key differs (SDPA gives NaN there, K1 zeros), which
+    does not change the work."""
+    import torch
     import torch.nn.functional as F
 
-    if not causal or any(n != Sk for n in lengths) or any(q_offset):
-        return None
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+    B, _, Sq, _ = q.shape
+    Sk = k.shape[2]
+    if causal and bool((lengths == Sk).all()) and not bool(q_offset.any()):
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)), \
+            "SDPA is_causal"
+    kv_pos = torch.arange(Sk, device=q.device)[None, None, None, :]
+    mask = kv_pos < lengths.long()[:, None, None, None]
+    if causal:
+        q_pos = (torch.arange(Sq, device=q.device)[None, None, :, None]
+                 + q_offset.long()[:, None, None, None])
+        mask = mask & (kv_pos <= q_pos)
+    ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    del mask
+    return ms, "SDPA with a boolean attn_mask"
 
 
 def phase_flash():
@@ -765,10 +823,12 @@ def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
         mask = (rel < 0)[:, None, :] | (
             ((rel >= 0) & (rel < r))[:, None, :]
             & anc_t[:, rel.clamp(0, r - 1)].transpose(0, 1))   # [B, r, S]
-        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask[:, None], enable_gqa=True))
-        rec["library"] = ("scaled_dot_product_attention, boolean mask, "
-                          "K/V gathered beforehand (not timed)")
+        # No single torch call takes a page table (as for K2): the SDPA
+        # time over K/V gathered beforehand is a dense yardstick only.
+        rec["library_ms"] = None
+        rec["sdpa_gathered_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None], enable_gqa=True))
         rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
         del k, v, mask
     del kp, vp, got, poisoned
@@ -802,6 +862,9 @@ def phase_tree():
 K6_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
              "w_gate_up": (4096, 14336), "w_down": (14336, 4096),
              "lm_head": (4096, 128256)}
+# Rows K6 meets on the int8 paths: decode at batch 8 and 128, the linear
+# (k = 1) and tree ((3, 4)) verify steps at batch 128, a 4096 prefill.
+K6_ROWS = (8, 128, 256, 1664, 4096)
 
 
 def int8_mm_case(name, R, K, M, seed=0):
@@ -814,7 +877,7 @@ def int8_mm_case(name, R, K, M, seed=0):
     import torch
 
     from generativeaiexamples_tpu_torch.ops.int8_matmul import (
-        int8_matmul, int8_matmul_reference)
+        int8_matmul, int8_matmul_plan, int8_matmul_reference)
     from generativeaiexamples_tpu_torch.ops.quant import quantize_tensor
 
     dev = torch.device("cuda")
@@ -823,19 +886,26 @@ def int8_mm_case(name, R, K, M, seed=0):
     qt = quantize_tensor(torch.randn((K, M), generator=g, device=dev)
                          * K ** -0.5)
     got = int8_matmul(x, qt.q, qt.s)
+    # A second launch on the same inputs must give the same bits (the
+    # split-K slices are summed in a fixed order).
+    repeat_identical = bool(torch.equal(got, int8_matmul(x, qt.q, qt.s)))
     want = int8_matmul_reference(x, qt.q, qt.s, torch.float32)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     err = float((got.float() - want).abs().max())
     finite = bool(torch.isfinite(got.float()).all())
     del want
-    ok = finite and err <= INT8_MM_RTOL * scale
+    ok = finite and err <= INT8_MM_RTOL * scale and repeat_identical
+    plan = int8_matmul_plan(R, K, M)
     n_bytes = 2.0 * R * K + K * M + 4.0 * M + 2.0 * R * M
     flops = 2.0 * R * K * M
     rec = {"phase": "int8_matmul", "case": name, "R": R, "K": K, "M": M,
            "max_abs_err": err, "y_max_abs": scale,
            "rel_err": err / scale, "tol_rel": INT8_MM_RTOL,
-           "finite": finite, "ok": ok}
+           "finite": finite, "repeat_identical": repeat_identical,
+           "regime": plan.regime, "row_tile": plan.row_tile,
+           "splits": plan.splits, "ctas": plan.tiles * plan.splits,
+           "ok": ok}
     rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
     copies = [qt.q] + [qt.q.clone() for _ in range(
         min(15, int(150e6 // (K * M))))]
@@ -846,6 +916,7 @@ def int8_mm_case(name, R, K, M, seed=0):
         int8_matmul(x, copies[turn[0]], qt.s)
 
     rec["ms"] = time_ms(kernel)
+    rec["device_ms"] = device_ms(kernel)
     rec["weight_copies"] = len(copies)
     rec["plain_ms"] = time_ms(lambda: int8_matmul_reference(x, qt.q, qt.s),
                               iters=3, warmup=1)
@@ -859,6 +930,7 @@ def int8_mm_case(name, R, K, M, seed=0):
         torch.matmul(x, dense[turn[0]])
 
     rec["library_ms"] = time_ms(library)
+    rec["library_device_ms"] = device_ms(library)
     rec["library"] = "torch.matmul over a pre-dequantized bf16 weight"
     rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
     rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
@@ -870,7 +942,7 @@ def int8_mm_case(name, R, K, M, seed=0):
 def phase_int8_matmul():
     cases = []
     for wname, (K, M) in K6_SHAPES.items():
-        for i, R in enumerate((8, 128, 4096)):
+        for i, R in enumerate(K6_ROWS):
             cases.append(int8_mm_case(f"{wname}_r{R}", R, K, M, seed=31 + i))
             emit(cases[-1])
     for name, R, K, M in (("ragged_r37", 37, 4096, 4096),
@@ -1131,6 +1203,10 @@ def _profile_window(run):
             "device_activities": sum(n for _, n, _ in rows),
             "port_kernels_ms": {
                 name: sum(ms for ms, _, k in rows if fn in k)
+                for name, fn in KERNEL_FUNCTIONS.items()},
+            "port_kernel_instances": {
+                name: [{"name": k[:120], "ms": ms, "count": n}
+                       for ms, n, k in rows if fn in k]
                 for name, fn in KERNEL_FUNCTIONS.items()},
             "top": [{"name": k[:90], "ms": ms, "count": n}
                     for ms, n, k in rows[:10]]}
@@ -1895,6 +1971,74 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
     return rec
 
 
+# -- K1 and K6 against another tree (--compare-parent) ---------------------
+
+# (name, B, H, KH, Sq, Sk, lengths, q_offset) at head_dim 128, causal.
+AB_FLASH = (("8b_s2048", 4, 32, 8, 2048, 2048, [2048] * 4, [0] * 4),
+            ("8b_chunk_q_offset", 1, 32, 8, 2048, 8192, [6000], [4096]))
+
+
+def time_kernels() -> dict:
+    """K1 and K6 times through the public wrappers of whichever port
+    package is first on sys.path, at AB_FLASH and every K6_SHAPES x
+    K6_ROWS case (the weights rotated through copies as in
+    int8_mm_case)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.ops import attention as attn
+    from generativeaiexamples_tpu_torch.ops.int8_matmul import int8_matmul
+    from generativeaiexamples_tpu_torch.ops.quant import quantize_tensor
+
+    kernels.build(["flash_attention", "int8_matmul"])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    ms = {}
+    for name, B, H, KH, Sq, Sk, lengths, q_offset in AB_FLASH:
+        q = torch.randn((B, H, Sq, 128), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, KH, Sk, 128), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, KH, Sk, 128), generator=g, device=dev).bfloat16()
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        off = torch.tensor(q_offset, dtype=torch.int32, device=dev)
+        ms[name] = time_ms(lambda: attn.flash_attention(
+            q, k, v, causal=True, lengths=ln, q_offset=off))
+    for wname, (K, M) in K6_SHAPES.items():
+        qt = quantize_tensor(torch.randn((K, M), generator=g, device=dev)
+                             * K ** -0.5)
+        copies = [qt.q] + [qt.q.clone() for _ in range(
+            min(15, int(150e6 // (K * M))))]
+        for R in K6_ROWS:
+            x = torch.randn((R, K), generator=g, device=dev).bfloat16()
+            turn = [0]
+
+            def kernel():
+                turn[0] = (turn[0] + 1) % len(copies)
+                int8_matmul(x, copies[turn[0]], qt.s)
+
+            ms[f"{wname}_r{R}"] = time_ms(kernel)
+        del copies, qt
+        torch.cuda.empty_cache()
+    return ms
+
+
+def compare_parent(parent: str) -> dict:
+    """time_kernels of the tree at `parent` and of this one in turns
+    (parent, change, change, parent), each in its own process on the
+    same card; {case: [four ms]}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for root in (parent, here, here, parent):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-kernels",
+             os.path.abspath(root)], capture_output=True, text=True,
+            timeout=900)
+        if out.returncode != 0:
+            raise RuntimeError(f"--time-kernels {root} failed "
+                               f"(rc {out.returncode}):\n{out.stderr[-4000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    return {case: [r[case] for r in runs] for case in runs[0]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1905,7 +2049,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
               file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] == "--time-kernels":
+        # The port package of another tree (e.g. an unpacked parent).
+        sys.path.insert(0, args[1])
+        emit(time_kernels())
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if len(args) == 2 and args[0] == "--compare-parent":
+        emit({"card": nvidia_smi(), "order": "parent, change, change, parent",
+              "compare_parent_ms": compare_parent(args[1])})
+        return 0
+    if args:
+        print("usage: chip_smoke.py [--compare-parent DIR | "
+              "--time-kernels DIR]", file=sys.stderr)
+        return 2
     try:
         from generativeaiexamples_tpu_torch import kernels
     except ImportError as e:
@@ -1972,7 +2130,8 @@ def main() -> int:
             "replaces": rep, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tol": tol, "parity_ok": all(c["ok"] for c in cases),
-            "case": main_case, "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "case": main_case, "ms": c["ms"], "device_ms": c.get("device_ms"),
+            "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
     # K4's verify forms (launched on spec_int8's path).

@@ -1,8 +1,8 @@
 // Weight-only int8 GEMM for Hopper (sm_90a):
 //   y[R, M] = (x[R, K] @ q[K, M]) * scale[M]
 // x bf16 row-major, q int8 row-major (the [in, out] layout of the
-// parameter tree), scale f32, y bf16. The f32 accumulator is multiplied
-// by the f32 scale and rounded once to bf16.
+// parameter tree, not re-laid-out), scale f32, y bf16. The f32
+// accumulator is multiplied by the f32 scale and rounded once to bf16.
 //
 // Replaces the Pallas TPU kernels `_kernel` (K-blocked) and
 // `_kernel_fullk` behind `int8_matmul` in
@@ -11,253 +11,418 @@
 // the dot's weight read and eager PyTorch cannot.
 //
 // What bounds it on an H100: at decode (R = batch, 8 to 128) the work is
-// 2 R flops per weight byte, far below the ~295 flops a byte the card
-// needs before its tensor cores are the limit, so it is bound by reading
-// the int8 codes from device memory -- half the bytes of the bf16 model,
-// which is why the weights must cross memory as int8 and be widened on
-// chip. At prefill (R in the thousands) it is bound by operations.
-// The design, one kernel for both:
-//   - tiles of x (bf16) and of the codes (int8) are staged in shared
-//     memory with cp.async, STAGES deep, so the next tiles' loads are in
-//     flight while the current one is multiplied;
-//   - each staged code tile is widened to bf16 in shared memory (an int8
-//     code in +-127 is exact in bf16), and both operands feed bf16
-//     tensor cores through ldmatrix and mma.sync.m16n8k16 with f32
-//     accumulation, so the product equals the XLA route's up to
-//     summation order and no dequantized weight reaches device memory;
-//   - the tile shape is chosen from R: a 16-row tile with deep K tiles
-//     for small decode batches, 128 x 64 for decode batches up to 128
-//     (more column blocks for the narrow projections), 128 x 128 for
-//     prefill; ragged rows and columns are masked (K must be a multiple
-//     of 16; a column count that is not a multiple of 16 takes a byte
-//     load path for the codes).
-// Not done yet (later work): wgmma and TMA, and split-K for the narrow
-// M = 1024 projections, whose 16 column blocks leave most SMs idle.
+// 2 R flops per weight byte, below the ~295 flops a byte the card needs
+// before its tensor cores are the limit, so it is bound by reading the
+// int8 codes (half the bytes of the bf16 model); at R = 128 it sits near
+// the ridge, so the tensor cores must keep up too. At prefill and at the
+// speculative verify shapes (R in the hundreds and thousands) it is bound
+// by operations. The design, one warp-specialised kernel for both:
+//   - the product is computed transposed, y^T = q^T x^T: the codes are
+//     wgmma's A operand, widened from int8 to bf16 straight into the
+//     registers of the A fragment (ldmatrix.trans of the staged bytes,
+//     then a byte permute and one f32 add per code, exact for +-127), and
+//     x is the B operand read from shared memory by descriptor. No
+//     widened tile is written back to shared memory and no block-wide
+//     barrier sits between the copy and the product: one warpgroup
+//     widens its next tile while the other's wgmmas run. A warpgroup
+//     retires its own wgmmas before it rewrites their A registers
+//     (widening the next tile while they ran made ptxas serialise every
+//     wgmma, warning C7513, and measured 7-10% slower at prefill shapes
+//     in one call). The ldmatrix of byte pairs puts output columns 2i
+//     and 2i + 1 on fragment rows i and i + 8, which the epilogue
+//     undoes;
+//   - a CTA computes 128 output columns (two consumer warpgroups of 64)
+//     by `row_tile` rows of x (the wgmma's N: 8 to 128 at decode, 256
+//     above); one producer warp streams 64-deep code tiles (8 KB) and x
+//     tiles through a ring of up to 8 stages by TMA (128-byte swizzle,
+//     mbarriers), so 40-64 KB of codes are in flight per SM;
+//   - split-K: the Python wrapper's plan (ops/int8_matmul.py) cuts K into
+//     `splits` slices so that tiles x splits fill the 132 SMs in one wave
+//     even for the narrow projections (w_down and wk_wv at decode). Each slice
+//     writes its f32 partial to a workspace; the last CTA to arrive for
+//     an output tile (an atomic ticket it resets itself) sums the slices
+//     in slice order, scales and writes bf16, so the result does not
+//     depend on the order in which CTAs finish;
+//   - ragged rows of x and ragged columns are zero-filled by TMA and
+//     masked in the epilogue; K only needs to be a multiple of 16.
+// A column count that is not a multiple of 16 leaves the codes' rows
+// without the 16-byte alignment TMA needs; such a matrix (on no Llama-3-8B
+// path) takes a simple mma.sync kernel that stages the codes with byte
+// loads and widens them in shared memory. It is slow and only there to
+// keep the contract.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using gaie::cp_async16;
-using gaie::cp_async_commit;
-using gaie::cp_async_wait;
-using gaie::ldmatrix_x4;
-using gaie::ldmatrix_x4_trans;
-using gaie::mma_16816;
-using gaie::pack_f32;
+using namespace gaie::hopper;
 
-constexpr int STAGES = 3;
+// ---- the TMA / wgmma kernel (M % 16 == 0) ----------------------------------
 
-__device__ __forceinline__ float code(uint32_t word, int byte) {
-  return static_cast<float>(static_cast<int8_t>((word >> (8 * byte)) & 0xffu));
-}
+constexpr int BM = 128;  // output columns per CTA (64 per consumer warpgroup)
+constexpr int BK = 64;   // reduction depth of one staged tile
+constexpr int THREADS = 384;
+constexpr int CODE_BYTES = BK * BM;  // one staged code tile, [BK][128] bytes
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N>
-struct Tile {
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int XSTR = BK + 8;       // bf16 elements per staged x row
-  static constexpr int QSTR = BN + 16;      // bytes per staged code row
-  static constexpr int WSTR = BN + 8;       // bf16 elements per widened row
-  static constexpr int WTM = BM / WARPS_M;  // rows of one warp's tile
-  static constexpr int WTN = BN / WARPS_N;  // columns of one warp's tile
-  static constexpr int MI = WTM / 16;
-  static constexpr int NI = WTN / 8;
-  static constexpr int X_BYTES = BM * XSTR * 2;
-  static constexpr int Q_BYTES = BK * QSTR;
-  static constexpr int SMEM = STAGES * (X_BYTES + Q_BYTES) + BK * WSTR * 2;
-  static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK % 16 == 0 && BN % 16 == 0, "tile");
+template <int BN>
+struct Ring {
+  static constexpr int X_BYTES = BN * BK * 2;  // one staged x tile, [BN][64] bf16
+  static constexpr int STAGES = (200 * 1024) / (CODE_BYTES + X_BYTES) < 8
+                                    ? (200 * 1024) / (CODE_BYTES + X_BYTES)
+                                    : 8;
+  static constexpr int BAR_OFF = STAGES * (CODE_BYTES + X_BYTES);
+  static constexpr int SMEM = BAR_OFF + 256 + 1024;  // barriers, flag, alignment slack
 };
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool VEC>
-__global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
-int8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
-                   int R, int K, int M) {
-  using T = Tile<BM, BN, BK, WARPS_M, WARPS_N>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [STAGES][BM][XSTR]
-  int8_t* qs = reinterpret_cast<int8_t*>(smem + STAGES * T::X_BYTES);  // [STAGES][BK][QSTR]
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(
-      smem + STAGES * (T::X_BYTES + T::Q_BYTES));  // [BK][WSTR], the widened codes
+// Two codes (bytes lo and hi of `u`, which holds codes + 128) as bf16x2:
+// 2^23 + u is an exact f32; subtracting 2^23 + 128 leaves the code, whose
+// f32 has a zero low half, so its bf16 is the high half.
+__device__ __forceinline__ uint32_t widen2(uint32_t u, int lo, int hi) {
+  const float flo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | lo)) - 8388736.f;
+  const float fhi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | hi)) - 8388736.f;
+  return __byte_perm(__float_as_uint(flo), __float_as_uint(fhi), 0x7632);
+}
 
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+int8_matmul_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tq,
+                   const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+                   float* __restrict__ ws, int* __restrict__ tickets, int R, int M, int nk,
+                   int kt_per_split) {
+  using T = Ring<BN>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = smem;                        // [STAGES] code tiles
+  unsigned char* xs = smem + STAGES * CODE_BYTES;  // [STAGES] x tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  int* last_flag = reinterpret_cast<int*>(empty + STAGES);
+
+  const int m0 = blockIdx.x * BM;  // first output column
+  const int r0 = blockIdx.y * BN;  // first row of x / y
+  const int split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int kt0 = split * kt_per_split;
+  const int kt1 = min(nk, kt0 + kt_per_split);
+  const int nt = kt1 - kt0;  // >= 1 (the plan guarantees it)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) + 1) & 1);
+        mbar_arrive_expect_tx(&full[s], CODE_BYTES + T::X_BYTES);
+        const int k = (kt0 + t) * BK;
+        tma_load_2d(qs + s * CODE_BYTES, &tq, &full[s], m0, k);
+        tma_load_2d(xs + s * T::X_BYTES, &tx, &full[s], k, r0);
+      }
+    }
+    return;
+  }
+
+  regs_inc<232>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x - 128;  // 0 .. 255 over both consumer warpgroups
+  const int warp = (tid >> 5) & 3;    // warp within the warpgroup
+  const int lane = tid & 31;
+  const int chunk = 4 * cw + warp;    // this warp's 16 output columns: bytes 16 chunk ..
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  // Per staged tile: widen its codes into `af` (the A fragments of its
+  // four k16 steps) and issue its four wgmmas, accumulating into acc.
+  uint32_t af[4][4];
+  for (int t = 0; t < nt; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    // The previous tile's wgmmas read af: retire them, and release
+    // their stage, before af is rewritten.
+    wgmma_wait<0>();
+    if (t > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
+    }
+    const unsigned char* qt = qs + s * CODE_BYTES;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t w[4];  // k rows 32 p + (0-7, 8-15, 16-23, 24-31)
+      gaie::ldmatrix_x4_trans(w, qt + sw128(32 * p + lane, chunk));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t lo = w[2 * h] ^ 0x80808080u;      // k rows 0-7 of the step
+        const uint32_t hi = w[2 * h + 1] ^ 0x80808080u;  // k rows 8-15
+        uint32_t* a = af[2 * p + h];
+        a[0] = widen2(lo, 0, 2);  // column 2i (fragment row i), k 2t, 2t + 1
+        a[1] = widen2(lo, 1, 3);  // column 2i + 1 (fragment row i + 8)
+        a[2] = widen2(hi, 0, 2);
+        a[3] = widen2(hi, 1, 3);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_sw128(xs + s * T::X_BYTES + kk * 32, 0, 1024);
+      Wgmma<BN>::template rs<0>(acc, af[kk], db, 1);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Epilogue. This thread holds rows r0 + 8 j + 2 (lane % 4) + c and the
+  // column pair m + (0, 1) (fragment rows i and i + 8).
+  const int m = m0 + 16 * chunk + 2 * (lane >> 2);
+  const int rt = 2 * (lane & 3);
+  const bool col_ok = m < M;  // M is even, so m + 1 < M too
+  if (splits == 1) {
+    if (!col_ok) return;
+    const float2 sc = *reinterpret_cast<const float2*>(scale + m);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = r0 + 8 * j + rt + c;
+        if (r < R) {
+          *reinterpret_cast<__nv_bfloat162*>(y + static_cast<long long>(r) * M + m) =
+              __floats2bfloat162_rn(acc[4 * j + c] * sc.x, acc[4 * j + 2 + c] * sc.y);
+        }
+      }
+    }
+    return;
+  }
+
+  // Split-K: this slice's partial to ws[split], then the last CTA of the
+  // output tile sums ws[0 .. splits - 1] in that order.
+  if (col_ok) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = r0 + 8 * j + rt + c;
+        if (r < R) {
+          __stcg(reinterpret_cast<float2*>(ws + (static_cast<long long>(split) * R + r) * M + m),
+                 make_float2(acc[4 * j + c], acc[4 * j + 2 + c]));
+        }
+      }
+    }
+  }
+  __threadfence();
+  named_sync(1, 256);
+  const int tile_id = blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) {
+    const int ticket = atomicAdd(&tickets[tile_id], 1);
+    const int last = ticket == splits - 1;
+    if (last) tickets[tile_id] = 0;  // ready for the next launch
+    *last_flag = last;
+  }
+  named_sync(1, 256);
+  if (!*last_flag) return;
+  __threadfence();
+  // The tile's 128 columns by BN rows, coalesced: 32 threads a row, four
+  // columns a thread, 8 rows a pass; each sum runs over the slices in
+  // slice order whichever CTA arrived last.
+  const int col = m0 + 4 * (tid & 31);
+  if (col >= M) return;  // M % 16 == 0: the four columns are in or out together
+  const float4 sc4 = *reinterpret_cast<const float4*>(scale + col);
+  const long long slice = static_cast<long long>(R) * M;
+  for (int rr = tid >> 5; rr < BN; rr += 8) {
+    const int r = r0 + rr;
+    if (r >= R) break;
+    const float* src = ws + static_cast<long long>(r) * M + col;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    int sp = 0;
+    for (; sp + 4 <= splits; sp += 4) {
+      float4 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = __ldcg(reinterpret_cast<const float4*>(src + (sp + i) * slice));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sum.x += v[i].x;
+        sum.y += v[i].y;
+        sum.z += v[i].z;
+        sum.w += v[i].w;
+      }
+    }
+    for (; sp < splits; ++sp) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(src + sp * slice));
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    __nv_bfloat162 out[2] = {__floats2bfloat162_rn(sum.x * sc4.x, sum.y * sc4.y),
+                             __floats2bfloat162_rn(sum.z * sc4.z, sum.w * sc4.w)};
+    *reinterpret_cast<uint2*>(y + static_cast<long long>(r) * M + col) =
+        *reinterpret_cast<const uint2*>(out);
+  }
+}
+
+template <int BN>
+int run(const void* x, const void* q, const void* scale, void* y, void* ws, void* tickets, int R,
+        int K, int M, int splits, int kt_per_split, cudaStream_t stream) {
+  CUtensorMap tx, tq;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(R)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t x_box[2] = {BK, BN};
+  const uint64_t q_dims[2] = {static_cast<uint64_t>(M), static_cast<uint64_t>(K)};
+  const uint64_t q_strides[1] = {static_cast<uint64_t>(M)};
+  const uint32_t q_box[2] = {BM, BK};
+  if (!encode_tiled_sw128(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, x_dims, x_strides, x_box) ||
+      !encode_tiled_sw128(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, q, q_dims, q_strides, q_box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = int8_matmul_kernel<BN>;
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::SMEM);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  dim3 grid((M + BM - 1) / BM, (R + BN - 1) / BN, splits);
+  kernel<<<grid, THREADS, Ring<BN>::SMEM, stream>>>(
+      tx, tq, static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y),
+      static_cast<float*>(ws), static_cast<int*>(tickets), R, M, (K + BK - 1) / BK, kt_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the simple kernel for M % 16 != 0 ------------------------------------
+// A 128 x 64 output tile per block of 8 warps; x staged with cp.async, the
+// codes with byte loads, widened to bf16 in shared memory, mma.sync.
+
+constexpr int U_BM = 128, U_BN = 64, U_BK = 64;
+constexpr int U_THREADS = 256;
+constexpr int U_XSTR = U_BK + 8;  // bf16 elements per staged x row
+constexpr int U_WSTR = U_BN + 8;  // bf16 elements per widened code row
+
+__global__ void __launch_bounds__(U_THREADS)
+int8_matmul_kernel_unaligned(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+                             const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+                             int R, int K, int M) {
+  __shared__ __align__(16) __nv_bfloat16 xs[U_BM * U_XSTR];
+  __shared__ __align__(16) __nv_bfloat16 wsm[U_BK * U_WSTR];
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int wm = warp / WARPS_N;
-  const int wn = warp % WARPS_N;
-  const int c0 = blockIdx.x * BN;  // first output column of the block
-  const int r0 = blockIdx.y * BM;  // first output row of the block
-  const int nk = (K + BK - 1) / BK;
+  const int wm = warp / 2;  // 4 x 2 warps, each 32 rows x 32 columns
+  const int wn = warp % 2;
+  const int c0 = blockIdx.x * U_BN;
+  const int r0 = blockIdx.y * U_BM;
 
-  auto load_stage = [&](int buf, int kt) {
-    const int k0 = kt * BK;
-    __nv_bfloat16* xb = xs + buf * BM * T::XSTR;
-    for (int c = tid; c < BM * (BK / 8); c += T::THREADS) {
-      const int row = c / (BK / 8);
-      const int col = (c % (BK / 8)) * 8;
+  float acc[2][4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += U_BK) {
+    __syncthreads();  // the previous tile has been consumed
+    for (int c = tid; c < U_BM * (U_BK / 8); c += U_THREADS) {
+      const int row = c / (U_BK / 8);
+      const int col = (c % (U_BK / 8)) * 8;
       // K % 16 == 0: an 8-wide chunk lies wholly inside or outside K.
       const bool ok = r0 + row < R && k0 + col < K;
       const __nv_bfloat16* src = ok ? x + static_cast<long long>(r0 + row) * K + k0 + col : x;
-      cp_async16(xb + row * T::XSTR + col, src, ok ? 16 : 0);
+      gaie::cp_async16(xs + row * U_XSTR + col, src, ok ? 16 : 0);
     }
-    int8_t* qb = qs + buf * T::Q_BYTES;
-    if (VEC) {  // M % 16 == 0: 16-byte chunks, aligned, wholly in or out
-      for (int c = tid; c < BK * (BN / 16); c += T::THREADS) {
-        const int row = c / (BN / 16);
-        const int col = (c % (BN / 16)) * 16;
-        const bool ok = k0 + row < K && c0 + col < M;
-        const int8_t* src = ok ? q + static_cast<long long>(k0 + row) * M + c0 + col : q;
-        cp_async16(qb + row * T::QSTR + col, src, ok ? 16 : 0);
-      }
-    } else {  // rows not 16-byte aligned: plain byte loads
-      for (int c = tid; c < BK * BN; c += T::THREADS) {
-        const int row = c / BN;
-        const int col = c % BN;
-        qb[row * T::QSTR + col] = (k0 + row < K && c0 + col < M)
-                                      ? q[static_cast<long long>(k0 + row) * M + c0 + col]
-                                      : static_cast<int8_t>(0);
-      }
+    gaie::cp_async_commit();
+    for (int c = tid; c < U_BK * U_BN; c += U_THREADS) {
+      const int row = c / U_BN;
+      const int col = c % U_BN;
+      const bool ok = k0 + row < K && c0 + col < M;
+      const float v = ok ? static_cast<float>(q[static_cast<long long>(k0 + row) * M + c0 + col]) : 0.f;
+      wsm[row * U_WSTR + col] = __float2bfloat16(v);  // exact for +-127
     }
-  };
-
-  float acc[T::MI][T::NI][4];
-#pragma unroll
-  for (int mi = 0; mi < T::MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < T::NI; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt % STAGES;
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt landed
-    __syncthreads();  // everyone's did; everyone finished tile kt - 1
-    if (kt + STAGES - 1 < nk) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    cp_async_commit();
-
-    // Widen the staged codes to bf16, 16 codes a thread.
-    const int8_t* qb = qs + buf * T::Q_BYTES;
-    for (int c = tid; c < BK * (BN / 16); c += T::THREADS) {
-      const int row = c / (BN / 16);
-      const int col = (c % (BN / 16)) * 16;
-      const uint4 raw = *reinterpret_cast<const uint4*>(qb + row * T::QSTR + col);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      uint32_t w[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w[2 * i] = pack_f32(code(words[i], 0), code(words[i], 1));
-        w[2 * i + 1] = pack_f32(code(words[i], 2), code(words[i], 3));
-      }
-      uint4* dst = reinterpret_cast<uint4*>(ws + row * T::WSTR + col);
-      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-    }
+    gaie::cp_async_wait<0>();
     __syncthreads();
-
-    const __nv_bfloat16* xb = xs + buf * BM * T::XSTR;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A (x) fragments: rows (lane % 16) of each 16-row tile, columns
-      // 8 (lane / 16) .. + 7 of the 16-deep chunk.
-      uint32_t af[T::MI][4];
+    for (int kk = 0; kk < U_BK; kk += 16) {
+      uint32_t af[2][4];
 #pragma unroll
-      for (int mi = 0; mi < T::MI; ++mi) {
-        ldmatrix_x4(af[mi], xb + (wm * T::WTM + mi * 16 + (lane & 15)) * T::XSTR + kk +
-                                (lane >> 4) * 8);
+      for (int mi = 0; mi < 2; ++mi) {
+        gaie::ldmatrix_x4(af[mi], xs + (wm * 32 + mi * 16 + (lane & 15)) * U_XSTR + kk +
+                                      (lane >> 4) * 8);
       }
-      // B (widened codes, [k][n] row-major) fragments, transposed: rows
-      // (lane % 8) + 8 ((lane / 8) % 2) of the 16-deep chunk, columns
-      // 8 (lane / 16) .. + 7; the four matrices are two 8-wide n-tiles.
 #pragma unroll
-      for (int ni = 0; ni < T::NI; ni += 2) {
+      for (int ni = 0; ni < 4; ni += 2) {
         uint32_t bf[4];
-        ldmatrix_x4_trans(bf, ws + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * T::WSTR +
-                                  wn * T::WTN + ni * 8 + (lane >> 4) * 8);
+        gaie::ldmatrix_x4_trans(bf, wsm + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * U_WSTR +
+                                        wn * 32 + ni * 8 + (lane >> 4) * 8);
 #pragma unroll
-        for (int mi = 0; mi < T::MI; ++mi) {
-          mma_16816(acc[mi][ni], af[mi], bf);
-          mma_16816(acc[mi][ni + 1], af[mi], bf + 2);
+        for (int mi = 0; mi < 2; ++mi) {
+          gaie::mma_16816(acc[mi][ni], af[mi], bf);
+          gaie::mma_16816(acc[mi][ni + 1], af[mi], bf + 2);
         }
       }
     }
   }
-
-  // Epilogue: f32 accumulator times f32 scale, one rounding to bf16.
 #pragma unroll
-  for (int ni = 0; ni < T::NI; ++ni) {
-    const int col = c0 + wn * T::WTN + ni * 8 + t4 * 2;
-    const float s0 = col < M ? scale[col] : 0.f;
-    const float s1 = col + 1 < M ? scale[col + 1] : 0.f;
+  for (int ni = 0; ni < 4; ++ni) {
+    const int col = c0 + wn * 32 + ni * 8 + t4 * 2;
 #pragma unroll
-    for (int mi = 0; mi < T::MI; ++mi) {
+    for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = r0 + wm * T::WTM + mi * 16 + g + 8 * half;
-        if (row >= R || col >= M) continue;
-        const float v0 = acc[mi][ni][2 * half] * s0;
-        const float v1 = acc[mi][ni][2 * half + 1] * s1;
+        const int row = r0 + wm * 32 + mi * 16 + g + 8 * half;
+        if (row >= R) continue;
         __nv_bfloat16* dst = y + static_cast<long long>(row) * M + col;
-        if (VEC) {  // M even: col + 1 < M and a 4-byte aligned pair
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          dst[0] = __float2bfloat16(v0);
-          if (col + 1 < M) dst[1] = __float2bfloat16(v1);
-        }
+        if (col < M) dst[0] = __float2bfloat16(acc[mi][ni][2 * half] * scale[col]);
+        if (col + 1 < M) dst[1] = __float2bfloat16(acc[mi][ni][2 * half + 1] * scale[col + 1]);
       }
     }
   }
-}
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool VEC>
-int run(const void* x, const void* q, const void* scale, void* y, int R, int K, int M,
-        cudaStream_t stream) {
-  using T = Tile<BM, BN, BK, WARPS_M, WARPS_N>;
-  auto kernel = int8_matmul_kernel<BM, BN, BK, WARPS_M, WARPS_N, VEC>;
-  // Above 48 KB of shared memory needs the opt-in, once per instantiation.
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
-  dim3 grid((M + BN - 1) / BN, (R + BM - 1) / BM);
-  kernel<<<grid, T::THREADS, T::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), R, K, M);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool VEC>
-int dispatch(const void* x, const void* q, const void* scale, void* y, int R, int K, int M,
-             cudaStream_t s) {
-  if (R <= 16) return run<16, 64, 128, 1, 4, VEC>(x, q, scale, y, R, K, M, s);
-  if (R <= 128) return run<128, 64, 64, 4, 2, VEC>(x, q, scale, y, R, K, M, s);
-  return run<128, 128, 32, 2, 4, VEC>(x, q, scale, y, R, K, M, s);
 }
 
 }  // namespace
 
 // x [R, K] bf16, q [K, M] int8 (both contiguous, 16-byte aligned),
 // scale [M] f32, y [R, M] bf16 on the device; R >= 1, K a positive
-// multiple of 16, any M >= 1. Returns the launch's cudaError_t.
+// multiple of 16, any M >= 1. The plan (ops/int8_matmul.py's
+// int8_matmul_plan) gives row_tile (8, 16, 32, 64, 128 or 256), splits
+// and the 64-deep K tiles of each split; with splits > 1, ws is an f32
+// [splits, R, M] workspace and tickets a zeroed int32 array of one entry
+// per output tile, which the kernel leaves zeroed. With M % 16 != 0 the
+// plan is ignored. Returns the launch's cudaError_t.
 extern "C" int gaie_int8_matmul_bf16(const void* x, const void* q, const void* scale, void* y,
-                                     int R, int K, int M, void* stream) {
-  if (R < 1 || M < 1 || K < 16 || K % 16 != 0 || R > 65535 * 128) {
+                                     void* ws, void* tickets, int R, int K, int M, int row_tile,
+                                     int splits, int kt_per_split, void* stream) {
+  if (R < 1 || M < 1 || K < 16 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M % 16 != 0) {
+    if ((R + U_BM - 1) / U_BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid((M + U_BN - 1) / U_BN, (R + U_BM - 1) / U_BM);
+    int8_matmul_kernel_unaligned<<<grid, U_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(y), R, K, M);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int nk = (K + BK - 1) / BK;
+  if (splits < 1 || splits > 65535 || kt_per_split < 1 || (splits - 1) * kt_per_split >= nk ||
+      splits * kt_per_split < nk || (splits > 1 && (ws == nullptr || tickets == nullptr)) ||
+      (R + row_tile - 1) / row_tile > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M % 16 == 0) return dispatch<true>(x, q, scale, y, R, K, M, s);
-  return dispatch<false>(x, q, scale, y, R, K, M, s);
+  switch (row_tile) {
+    case 8: return run<8>(x, q, scale, y, ws, tickets, R, K, M, splits, kt_per_split, s);
+    case 16: return run<16>(x, q, scale, y, ws, tickets, R, K, M, splits, kt_per_split, s);
+    case 32: return run<32>(x, q, scale, y, ws, tickets, R, K, M, splits, kt_per_split, s);
+    case 64: return run<64>(x, q, scale, y, ws, tickets, R, K, M, splits, kt_per_split, s);
+    case 128: return run<128>(x, q, scale, y, ws, tickets, R, K, M, splits, kt_per_split, s);
+    case 256: return run<256>(x, q, scale, y, ws, tickets, R, K, M, splits, kt_per_split, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -60,8 +60,9 @@ SIGNATURES = {
     # Hd, tree_k, tree_m, scale, stream
     "paged_attention_tree": ("gaie_paged_tree_attention_bf16",
                              [_P] * 6 + [_I] * 9 + [_F, _P]),
-    # x, q, scale, y, R, K, M, stream
-    "int8_matmul": ("gaie_int8_matmul_bf16", [_P] * 4 + [_I] * 3 + [_P]),
+    # x, q, scale, y, workspace, tickets, R, K, M, row_tile, splits,
+    # k_tiles_per_split, stream
+    "int8_matmul": ("gaie_int8_matmul_bf16", [_P] * 6 + [_I] * 6 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)

@@ -9,15 +9,87 @@ f32 and rounded once to the output dtype, the TPU kernel's order.
 kernel or raises; a CPU tensor runs `int8_matmul_reference`. Unlike the
 JAX wrapper it takes any row count (no padding to a multiple of 8) and
 any column count; K must be a multiple of 16.
+
+`int8_matmul_plan` is the kernel's launch plan, pure Python so the CPU
+tests can check it: the row tile, and how K is split so that output
+tiles x splits fill the card's SMs (split-K; the slices' f32 partials go
+to a workspace the wrapper allocates and are summed in slice order, so
+the result is the same on every run).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from generativeaiexamples_tpu_torch import kernels
+
+N_SMS = 132        # streaming multiprocessors of an H100 SXM
+COL_TILE = 128     # output columns per CTA
+K_TILE = 64        # reduction depth of one staged tile
+ROW_TILES = (8, 16, 32, 64, 128)  # decode row tiles; 256 above 128 rows
+CTA_COST = 2       # a CTA's fixed cost (ring fill, epilogue) in K tiles
+
+
+class Int8MatmulPlan(NamedTuple):
+    regime: str             # "decode" (R <= 128), "prefill", or "unaligned"
+    row_tile: int           # rows of x per CTA (the wgmma's N)
+    tiles: int              # output tiles (CTAs of one split)
+    splits: int             # K slices; each CTA computes one
+    k_tiles_per_split: int  # K_TILE-deep tiles in each slice (the last may
+                            # hold fewer)
+    workspace_bytes: int    # f32 partials, splits x R x M (0 unsplit)
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_matmul_plan(R: int, K: int, M: int) -> Int8MatmulPlan:
+    """The K6 launch plan for x [R, K] @ q [K, M].
+
+    M % 16 != 0 cannot be read by TMA and takes the simple kernel, unsplit.
+    Otherwise the row tile is the smallest of ROW_TILES that holds R
+    (decode) or 256. With fewer than N_SMS output tiles, K is split:
+    the split count is the one that minimises the critical path, waves
+    x (K tiles + CTA_COST) per CTA, the smaller on a tie. A CTA holds a
+    whole SM, so this fills one wave as fully as the tiles allow (w_down
+    at decode: 32 tiles x 4 splits) rather than asking for two waves,
+    which measured slower on an H100 (PERF.md, §6); with N_SMS tiles
+    or more, splitting would only add partials to write and read.
+    Cached: the engine asks for the same few shapes on every step."""
+    if M % 16:
+        return Int8MatmulPlan("unaligned", 0, 0, 1, math.ceil(K / K_TILE), 0)
+    row_tile = next((t for t in ROW_TILES if t >= R), 256)
+    tiles = math.ceil(M / COL_TILE) * math.ceil(R / row_tile)
+    nk = math.ceil(K / K_TILE)
+    best = None
+    for want in range(1, nk + 1 if tiles < N_SMS else 2):
+        per = math.ceil(nk / want)
+        splits = math.ceil(nk / per)
+        cost = (math.ceil(tiles * splits / N_SMS) * (per + CTA_COST), splits)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    _, splits, per = best
+    return Int8MatmulPlan("decode" if R <= 128 else "prefill", row_tile,
+                          tiles, splits, per,
+                          4 * splits * R * M if splits > 1 else 0)
+
+
+# Split-K arrival tickets, one int32 per output tile, zeroed once per
+# device and left zeroed by every launch (the last CTA of a tile resets
+# its ticket). Launches on one stream run in order, so they share it.
+_TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.type, device.index if device.index is not None
+           else torch.cuda.current_device())
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
@@ -55,13 +127,24 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"int8_matmul: {name} must be contiguous {dtype} "
                              f"on {x.device}, got {t.dtype} on {t.device}")
-    if x.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError("int8_matmul: x and q must be 16-byte aligned")
+    if x.data_ptr() % 16 or q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("int8_matmul: x, q and scale must be 16-byte "
+                         "aligned")
     if out_dtype != torch.bfloat16:
         raise ValueError(f"int8_matmul: the kernel writes bfloat16, "
                          f"not {out_dtype}")
+    plan = int8_matmul_plan(R, K, M)
     out = torch.empty((R, M), dtype=torch.bfloat16, device=x.device)
+    ws = tickets = None
+    if plan.splits > 1:
+        ws = torch.empty((plan.splits, R, M), dtype=torch.float32,
+                         device=x.device)
+        tickets = _tickets(x.device, plan.tiles)
     kernels.launch("int8_matmul", x.data_ptr(), q.data_ptr(),
-                   scale.data_ptr(), out.data_ptr(), R, K, M,
+                   scale.data_ptr(), out.data_ptr(),
+                   ws.data_ptr() if ws is not None else None,
+                   tickets.data_ptr() if tickets is not None else None,
+                   R, K, M, plan.row_tile, plan.splits,
+                   plan.k_tiles_per_split,
                    torch.cuda.current_stream(x.device).cuda_stream)
     return out

@@ -106,15 +106,36 @@ def test_flash_wrapper_refuses_other_devices():
 def test_flash_kernel_matches_reference_on_cuda():
     """K1 on the card against the plain version (bf16 inputs, reference
     in f32). Tolerance 2e-2: the kernel rounds P to bf16 before P.V and
-    rounds its output to bf16; indexing or masking faults give O(1)."""
+    rounds its output to bf16; indexing or masking faults give O(1).
+    Cases: ragged lengths; a chunk at q_offset (the chunked-prefill
+    shape, cut down); head_dim 64; non-causal; a zero-length row, whose
+    output the kernel writes as zeros. A second launch gives the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K1 is a CUDA kernel")
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((2, 8, 200, 128), generator=g, device="cuda").bfloat16()
-    k = torch.randn((2, 2, 200, 128), generator=g, device="cuda").bfloat16()
-    v = torch.randn((2, 2, 200, 128), generator=g, device="cuda").bfloat16()
-    lengths = torch.tensor([200, 77], dtype=torch.int32, device="cuda")
-    got = tattn.attention(q, k, v, causal=True, lengths=lengths)
-    want = tattn.mha_reference(q.float(), k.float(), v.float(), causal=True,
-                               lengths=lengths)
-    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=0)
+    # (B, H, KH, Sq, Sk, D, lengths, q_offset, causal)
+    cases = ((2, 8, 2, 200, 200, 128, [200, 77], None, True),
+             (1, 8, 2, 256, 1024, 128, [700], [444], True),
+             (2, 8, 2, 300, 300, 64, [300, 129], None, True),
+             (2, 4, 4, 96, 160, 128, [160, 33], None, False),
+             (2, 8, 2, 128, 128, 128, [0, 100], None, True))
+    for B, H, KH, Sq, Sk, D, ln, off, causal in cases:
+        q = torch.randn((B, H, Sq, D), generator=g, device="cuda").bfloat16()
+        k = torch.randn((B, KH, Sk, D), generator=g, device="cuda").bfloat16()
+        v = torch.randn((B, KH, Sk, D), generator=g, device="cuda").bfloat16()
+        lengths = torch.tensor(ln, dtype=torch.int32, device="cuda")
+        q_offset = (torch.tensor(off, dtype=torch.int32, device="cuda")
+                    if off is not None else None)
+        got = tattn.attention(q, k, v, causal=causal, lengths=lengths,
+                              q_offset=q_offset)
+        again = tattn.attention(q, k, v, causal=causal, lengths=lengths,
+                                q_offset=q_offset)
+        assert torch.equal(got, again)
+        want = tattn.mha_reference(q.float(), k.float(), v.float(),
+                                   causal=causal, lengths=lengths,
+                                   q_offset=q_offset)
+        empty = lengths == 0  # rows with no key: zeros, not the mean of V
+        assert float(got[empty].float().abs().sum()) == 0.0
+        torch.testing.assert_close(got[~empty].float(), want[~empty],
+                                   atol=2e-2, rtol=0)

@@ -21,7 +21,7 @@ from generativeaiexamples_tpu.ops.int8_matmul import int8_matmul as jmatmul
 from generativeaiexamples_tpu_torch.models import convert
 from generativeaiexamples_tpu_torch.ops import quant as tq
 from generativeaiexamples_tpu_torch.ops.int8_matmul import (
-    int8_matmul, int8_matmul_reference)
+    int8_matmul, int8_matmul_plan, int8_matmul_reference)
 
 ATOL = 1e-4
 
@@ -144,11 +144,62 @@ def test_int8_matmul_kernel_matches_plain_version_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K6 is a CUDA kernel")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for R, K, M in ((8, 4096, 1024), (37, 512, 1000), (300, 1024, 384)):
+    # Split-K decode shapes (wk_wv and w_down at R = 8 and 128), the
+    # linear (256) and tree (1,664) verify rows, a ragged R above 128, a
+    # K that is not a multiple of the 64-deep tile, and M % 16 != 0 (the
+    # simple kernel).
+    for R, K, M in ((8, 4096, 1024), (128, 14336, 4096), (256, 4096, 1024),
+                    (1664, 1024, 2048), (300, 1024, 384), (37, 528, 256),
+                    (37, 512, 1000)):
+        assert int8_matmul_plan(R, K, M).splits > 1 or R > 128 or M % 16
         x = torch.randn((R, K), generator=g, device="cuda").bfloat16()
         qt = tq.quantize_tensor(torch.randn((K, M), generator=g,
                                             device="cuda"))
-        got = int8_matmul(x, qt.q, qt.s).float()
+        got = int8_matmul(x, qt.q, qt.s)
+        assert torch.equal(got, int8_matmul(x, qt.q, qt.s))
         want = int8_matmul_reference(x, qt.q, qt.s, torch.float32)
-        assert float((got - want).abs().max()) <= 1e-2 * float(
+        assert float((got.float() - want).abs().max()) <= 1e-2 * float(
             want.abs().max())
+
+
+# Every quantized projection of Llama-3-8B as (K, M), as chip_smoke.K6_SHAPES.
+K6_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+             "w_gate_up": (4096, 14336), "w_down": (14336, 4096),
+             "lm_head": (4096, 128256)}
+
+
+@pytest.mark.parametrize("name", sorted(K6_SHAPES))
+def test_int8_matmul_plan_fills_the_card(name):
+    """K6's launch plan at every 8B projection and the row counts the
+    int8 paths meet: CTAs for at least 80% of the 132 SMs, in one wave
+    when the output tiles alone do not fill the card (a CTA holds a whole
+    SM, and a second wave measured slower than a partly idle first), K
+    slices that are positive multiples of the 64-deep tile and cover K in
+    order, and a workspace of splits x R x M f32 exactly when K is
+    split."""
+    K, M = K6_SHAPES[name]
+    for R in (1, 8, 37, 128, 129, 256, 1664, 4096):
+        plan = int8_matmul_plan(R, K, M)
+        assert plan.regime == ("decode" if R <= 128 else "prefill")
+        assert plan.row_tile >= min(R, 256)
+        assert plan.tiles == -(-M // 128) * -(-R // plan.row_tile)
+        ctas = plan.tiles * plan.splits
+        assert ctas >= 0.8 * 132
+        assert plan.tiles >= 132 or ctas <= 132
+        step = 64 * plan.k_tiles_per_split  # split i covers [i step, (i+1) step)
+        slices = [(i * step, min(K, (i + 1) * step))
+                  for i in range(plan.splits)]
+        assert len(slices) == plan.splits
+        assert slices[0][0] == 0 and slices[-1][1] == K
+        for (b0, e0), (b1, _) in zip(slices, slices[1:]):
+            assert e0 == b1
+        assert all(e > b and (e - b) % 64 == 0 for b, e in slices)
+        assert plan.workspace_bytes == (4 * plan.splits * R * M
+                                        if plan.splits > 1 else 0)
+
+
+def test_int8_matmul_plan_unaligned_columns():
+    """M % 16 != 0 cannot be read by TMA: the simple kernel, unsplit."""
+    plan = int8_matmul_plan(128, 4096, 1000)
+    assert plan.regime == "unaligned" and plan.splits == 1
+    assert plan.workspace_bytes == 0
