@@ -23,9 +23,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               `encoder_attention_reference` at arctic-embed-l (B=16,
               H=16, S=128/512) and reranker-base (B=8, H=12, S=256/512)
               shapes through the fused-QKV views bert.forward passes,
-              ragged lengths with a lengths-0 row (must average V), and
-              contiguous q/k/v; SDPA with a key-padding mask timed
-              beside it
+              ragged lengths with a lengths-0 row (must average V),
+              contiguous q/k/v, and sharp scores whose maxima sit in
+              each row's last 64 keys (the online softmax must
+              rescale); a second launch must give the same bits;
+              SDPA with a key-padding mask and K1's head_dim 64
+              non-causal form timed beside it (loop and device time)
   6. paged_int8  K4 (csrc/paged_attention_int8.cu) against
               `paged_attention_int8_reference_fused` in f32 on the same
               codes and scales, row by row relative to each row's output,
@@ -37,8 +40,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               pages must not change it. Then its verify forms against
               `paged_attention_int8_rep_reference`, query by query: q_rep
               2 and 4 (linear k = 1, 3) and the (3, 4) tree at B = 8 and
-              B = 128, the (2, 8) tree, a late_max tree and a head_dim 64
-              / page 16 tree
+              B = 128, the (3, 4) tree and q_rep 2 at the spec_int8
+              burst's lengths, the (2, 8) tree, a late_max tree and a
+              head_dim 64 / page 16 tree. A second launch must give the
+              same bits (the B = 8 cases split the page axis and merge);
+              loop and device time beside the byte bound
   6b. tree    K5 (csrc/paged_attention_tree.cu) against
               `paged_tree_attention_reference` in f32, node by node: the
               8B shape (B=8, lengths 1…8191, (3, 4)), (2, 8) at head_dim
@@ -100,7 +106,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               burst; every request must finish with its tokens; K4 and
               K6 must launch, K2 and K5 not; spec_tokens_per_step,
               tokens/s, TTFT, peak memory and the share of streams equal
-              to serving_int8's are printed
+              to serving_int8's are printed; the tree engine's burst
+              runs again under the profiler (outside the counted window)
+              for the split of a verify step between K4, K6, the other
+              device work and the host
   14. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
               serving_int8; K5: spec_bf16), times and bound; K4's entry
@@ -113,9 +122,16 @@ port's package beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --compare-parent DIR
 
-times K1 and K6 (AB_FLASH and every K6 case) through the public wrappers
-of the tree at DIR and of this one, in turns (DIR, this, this, DIR), each
-in its own process on the same card, and prints the four times per case.
+times K1, K3, K4 and K6 (AB_FLASH, K3's and K4's timed cases, every K6
+case) through the public wrappers of the tree at DIR and of this one, in
+turns (DIR, this, this, DIR), each in its own process on the same card,
+and prints the four times per case.
+
+    python3 chip_smoke.py --variants
+
+times K4 under other launch plans (key slices, pages per split) beside
+the shipped plan, each checked against its plain version, in one
+process.
 """
 
 from __future__ import annotations
@@ -196,6 +212,13 @@ def nvidia_smi() -> str:
             else f"nvidia-smi rc {out.returncode}"
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi unavailable: {e}"
+
+
+def n_sms() -> int:
+    """The card's SM count, as K4's wrapper passes it to its plan."""
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -462,14 +485,17 @@ def phase_paged():
 # -- phase 5: K3 ------------------------------------------------------------
 
 
-def encoder_case(name, B, H, S, lengths, seed=0, fused=False, timed=False):
-    """K3 against `encoder_attention_reference` on the same bf16 inputs
-    (the plain version rounds P and the output to bf16 where the kernel
-    does). A lengths-0 row must average V like the plain version."""
+def _encoder_inputs(B, H, S, lengths, seed, fused, sharp=False):
+    """K3's bf16 q, k, v [B, H, S, 64] (views of one [B, S, 3, H, 64]
+    buffer when `fused`, as bert.forward passes them) and lengths.
+    `sharp`: q and each row's last 64 keys below its length x 4 (exact
+    in bf16), so scores there have std ~16 against ~4 before them: every
+    query row's largest score lies in its last one or two key tiles,
+    ~25 above the earlier tiles' running max, and the online softmax
+    must rescale everything it has summed. V x 1/4 keeps the output, a
+    mix of a few V rows, under 2 in magnitude, where a bf16 ulp (2^-7)
+    stays well inside the absolute tolerance."""
     import torch
-    import torch.nn.functional as F
-
-    from generativeaiexamples_tpu_torch.ops import encoder_attention as ea
 
     D = 64
     dev = torch.device("cuda")
@@ -480,21 +506,46 @@ def encoder_case(name, B, H, S, lengths, seed=0, fused=False, timed=False):
     else:
         q, k, v = (torch.randn((B, H, S, D), generator=g,
                                device=dev).bfloat16() for _ in range(3))
-    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if sharp:
+        q.mul_(4)
+        v.mul_(0.25)
+        for b, n in enumerate(lengths):
+            n = min(max(n, 1), S)
+            k[b, :, max(n - 64, 0):n].mul_(4)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def encoder_case(name, B, H, S, lengths, seed=0, fused=False, timed=False,
+                 sharp=False):
+    """K3 against `encoder_attention_reference` on the same bf16 inputs
+    (the plain version rounds P and the output to bf16 where the kernel
+    does). A lengths-0 row must average V like the plain version, and a
+    second launch must give the same bits. `sharp`: see _encoder_inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from generativeaiexamples_tpu_torch.ops import attention as attn
+    from generativeaiexamples_tpu_torch.ops import encoder_attention as ea
+
+    D = 64
+    q, k, v, ln = _encoder_inputs(B, H, S, lengths, seed, fused, sharp)
     got = ea.encoder_attention(q, k, v, ln)
     want = ea.encoder_attention_reference(q, k, v, ln)
+    repeat = bool(torch.equal(got, ea.encoder_attention(q, k, v, ln)))
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     zero_rows = [b for b, n in enumerate(lengths) if n <= 0]
     zero_err = max((float((got[b].float() - v[b].float().mean(
         dim=1, keepdim=True)).abs().max()) for b in zero_rows), default=None)
     finite = bool(torch.isfinite(got.float()).all())
-    ok = finite and err <= BF16_ATOL and (zero_err is None
-                                          or zero_err <= BF16_ATOL)
+    ok = finite and repeat and err <= BF16_ATOL and (
+        zero_err is None or zero_err <= BF16_ATOL)
     rec = {"phase": "encoder", "case": name, "B": B, "H": H, "S": S,
-           "D": D, "fused_qkv_view": fused, "max_abs_err": err,
+           "D": D, "fused_qkv_view": fused, "sharp": sharp,
+           "max_abs_out": float(want.float().abs().max()), "max_abs_err": err,
            "zero_length_rows": zero_rows, "zero_row_vs_v_mean": zero_err,
-           "tol": BF16_ATOL, "finite": finite, "ok": ok}
+           "tol": BF16_ATOL, "repeat_identical": repeat, "finite": finite,
+           "ok": ok}
     if timed:
         # Work this input needs: every query row against the keys below
         # its lengths (all S for a lengths-0 row); q and the output once,
@@ -503,17 +554,48 @@ def encoder_case(name, B, H, S, lengths, seed=0, fused=False, timed=False):
         flops = 4.0 * D * H * S * sum(keys)
         n_bytes = 2.0 * (2 * q.numel() + 2 * H * D * sum(keys)) + 4.0 * B
         rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
-        rec["ms"] = time_ms(lambda: ea.encoder_attention(q, k, v, ln))
+
+        def kernel():
+            ea.encoder_attention(q, k, v, ln)
+
+        rec["ms"] = time_ms(kernel)
+        rec["device_ms"] = device_ms(kernel, KERNEL_FUNCTIONS[
+            "encoder_attention"])
         rec["plain_ms"] = time_ms(
             lambda: ea.encoder_attention_reference(q, k, v, ln), iters=5)
-        mask = (torch.arange(S, device=dev)[None, :]
+        mask = (torch.arange(S, device=q.device)[None, :]
                 < ln[:, None])[:, None, None, :]
-        rec["library_ms"] = (None if zero_rows else time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
+
+        def library():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        rec["library_ms"] = None if zero_rows else time_ms(library)
+        rec["library_device_ms"] = None if zero_rows else device_ms(library)
+        # K1's head_dim 64 non-causal form with lengths, for information
+        # (it writes zeros on a lengths-0 row, so it is no substitute).
+        rec["k1_d64_ms"] = time_ms(lambda: attn.flash_attention(
+            q, k, v, causal=False, lengths=ln))
         rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
     del got, want
     torch.cuda.empty_cache()
     return rec
+
+
+# K3's timed cases: (name, B, H, S, lengths, seed), all through the
+# fused-QKV views. arctic-embed-l (B=16, H=16): the ingest shape and a
+# short one; reranker-base (B=8, H=12): its RAG shape (a query plus a
+# ~508-token chunk mostly fill the 512 bucket, shorter tails do not) and
+# a shorter bucket.
+def _encoder_timed_cases():
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    rng.integers(1, 513, 16)  # the ragged case's draw comes first
+    rerank_lengths = [512] * 5 + rng.integers(1, 512, 3).tolist()
+    return (("arctic_s512", 16, 16, 512, [512] * 16, 1),
+            ("arctic_s128", 16, 16, 128, [128] * 16, 2),
+            ("reranker_s512", 8, 12, 512, rerank_lengths, 7),
+            ("reranker_s256", 8, 12, 256, [256] * 8, 3))
 
 
 def phase_encoder():
@@ -522,27 +604,19 @@ def phase_encoder():
     rng = np.random.default_rng(5)
     ragged = rng.integers(1, 513, 16).tolist()
     ragged[3] = 0
-    # The reranker's pairs: a query plus a ~508-approx-token chunk mostly
-    # fill the 512 bucket, shorter tails do not.
-    rerank_lengths = [512] * 5 + rng.integers(1, 512, 3).tolist()
-    cases = [
-        # The shapes the RAG path gives K3, through the fused-QKV views
-        # bert.forward passes. arctic-embed-l (B=16, H=16): the ingest
-        # shape and a short one.
-        encoder_case("arctic_s512", 16, 16, 512, [512] * 16, seed=1,
-                     fused=True, timed=True),
-        encoder_case("arctic_s128", 16, 16, 128, [128] * 16, seed=2,
-                     fused=True, timed=True),
-        # reranker-base (B=8, H=12): its RAG shape and a shorter bucket.
-        encoder_case("reranker_s512", 8, 12, 512, rerank_lengths, seed=7,
-                     fused=True, timed=True),
-        encoder_case("reranker_s256", 8, 12, 256, [256] * 8, seed=3,
-                     fused=True, timed=True),
+    cases = [encoder_case(name, B, H, S, ln, seed=seed, fused=True,
+                          timed=True)
+             for name, B, H, S, ln, seed in _encoder_timed_cases()]
+    cases += [
         # Contiguous q/k/v (the wrapper takes any strides).
         encoder_case("ragged_zero_row", 16, 16, 512, ragged, seed=4),
         encoder_case("fused_qkv_view", 8, 12, 256,
                      [256, 0, 1, 100, 17, 255, 64, 200], seed=5, fused=True),
         encoder_case("odd_s", 2, 2, 33, [0, 20], seed=6),
+        # Sharp scores whose maximum lies in each row's last key tile.
+        encoder_case("sharp_late_max", 8, 4, 512,
+                     [512, 449, 300, 65, 130, 511, 64, 200], seed=8,
+                     fused=True, sharp=True),
     ]
     for c in cases:
         emit(c)
@@ -569,28 +643,16 @@ def _verify_pairs(lengths, R, tree, cap):
     return float(pairs), float(slots)
 
 
-def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
-                    seed=0, timed=False, late_max=False, q_rep=1, tree=None):
-    """K4 against its plain version in f32 on the same codes and scales,
-    over the full L-layer fused pool read at `layer`, query by query
-    (PAGED_INT8_RTOL of each (row, verify position)'s max |out|). With
-    q_rep = R > 1 the R verify positions of each row (the packed nodes
-    of `tree`) go through the kernel at once. Tail table slots point at
-    an unused page; after the parity check the scales of that page and
-    of sink page 0 are poisoned with NaN and the kernel's result must not
-    change (it never reads them). `late_max` gives the slot every
-    position sees last (the root, len - 1) a k that matches its query
-    group, so the running max rises on the row's last page and the
-    earlier pages' sums must be rescaled."""
+def _paged_int8_inputs(B, H, KH, Hd, ps, maxp, lengths, L, layer, seed,
+                       late_max, R):
+    """K4's inputs: bf16 q [B, H, Hd] ([B, R, H, Hd] for R > 1), the full
+    L-layer fused pool and f32 scales, a table naming shuffled pages
+    (tail slots at page P - 1, never assigned), int32 lengths."""
     import torch
-
-    from generativeaiexamples_tpu_torch.serving import (
-        paged_attention_int8 as pa8)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     P = B * maxp + 2              # page P - 1: never assigned, poisoned
-    R = q_rep
     q = (torch.randn((B, R, H, Hd), generator=g, device=dev)
          * PAGED_INT8_Q_SCALE).bfloat16()
     if R == 1:
@@ -613,6 +675,31 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
             kv[0, layer, :, page, t % ps] = (
                 torch.sign(group_q[b]) * 127).to(torch.int8)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kv, sc, table, ln, P
+
+
+def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
+                    seed=0, timed=False, late_max=False, q_rep=1, tree=None):
+    """K4 against its plain version in f32 on the same codes and scales,
+    over the full L-layer fused pool read at `layer`, query by query
+    (PAGED_INT8_RTOL of each (row, verify position)'s max |out|). With
+    q_rep = R > 1 the R verify positions of each row (the packed nodes
+    of `tree`) go through the kernel at once. Tail table slots point at
+    an unused page; after the parity check the scales of that page and
+    of sink page 0 are poisoned with NaN and the kernel's result must not
+    change (it never reads them). A second launch must give the same
+    bits (the page axis split across CTAs and merged included). `late_max`
+    gives the slot every position sees last (the root, len - 1) a k that
+    matches its query group, so the running max rises on the row's last
+    page and the earlier pages' sums must be rescaled."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_int8 as pa8)
+
+    R = q_rep
+    q, kv, sc, table, ln, P = _paged_int8_inputs(
+        B, H, KH, Hd, ps, maxp, lengths, L, layer, seed, late_max, R)
 
     def kernel(lay=layer):
         return pa8.paged_attention_int8(q, kv, sc, table, ln, lay, q_rep=R,
@@ -628,6 +715,7 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
 
     got = kernel()
     want = plain(q.float())
+    repeat = bool(torch.equal(got, kernel()))
     torch.cuda.synchronize()
     diff = (got.float() - want).abs().reshape(B * R, -1).amax(1)
     row_max = want.abs().reshape(B * R, -1).amax(1)
@@ -642,7 +730,9 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
     torch.cuda.synchronize()
     unread = bool(torch.equal(poisoned, got))
     finite = bool(torch.isfinite(got.float()).all())
-    ok = finite and unread and row_rel <= PAGED_INT8_RTOL
+    ok = finite and unread and repeat and row_rel <= PAGED_INT8_RTOL
+    plan = pa8.paged_int8_plan(B, KH, (H // KH) * R, Hd, ps, maxp,
+                               n_sms())
     rec = {"phase": "paged_int8", "case": name, "B": B, "H": H, "KH": KH,
            "Hd": Hd, "ps": ps, "maxp": maxp, "L": L, "layer": layer,
            "q_rep": R, "tree": list(tree) if tree else None,
@@ -652,7 +742,8 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
            "late_max": late_max, "max_abs_err": err,
            "max_row_rel_err": row_rel, "rtol": PAGED_INT8_RTOL,
            "min_row_max_abs_out": out_min,
-           "sink_and_tail_unread": unread, "finite": finite, "ok": ok}
+           "sink_and_tail_unread": unread, "repeat_identical": repeat,
+           "plan": plan._asdict(), "finite": finite, "ok": ok}
     if timed:
         pairs, slots = _verify_pairs(lengths, R, tree, maxp * ps)
         # Codes and scales of the slots read (k and v: 2 Hd bytes + 2 f32
@@ -671,6 +762,8 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
             kernel(turn[0])
 
         rec["ms"] = time_ms(alternating)
+        rec["device_ms"] = device_ms(alternating, KERNEL_FUNCTIONS[
+            "paged_attention_int8"])
         rec["plain_ms"] = time_ms(lambda: plain(q), iters=3, warmup=1)
         # No single torch call takes a page table and int8 pages.
         rec["library_ms"] = None
@@ -680,18 +773,39 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
     return rec
 
 
-def phase_paged_int8():
+def _paged_int8_timed_cases():
+    """K4's timed cases: (name, B, maxp, lengths, seed, q_rep, tree) at the
+    8B shape (H = 32, KH = 8, head_dim 128, page 128)."""
     import numpy as np
 
     b128 = np.linspace(1, 4096, 128).astype(int).tolist()
     b8 = [1, 17, 128, 129, 1000, 4096, 7000, 8191]
+    # The spec_int8 burst's rows midway through their 64 tokens: each
+    # prompt's tokens (its bytes and BOS) plus 32, in the engine's
+    # 64-slot table.
+    burst = [len(p) + 1 + 32 for p in _int8_prompts(128)]
     cases = [
         # K2's 8B decode case, on the int8 pool.
-        paged_int8_case("8b_decode", 8, 32, 8, 128, 128, 64, b8, seed=21,
-                        timed=True),
+        ("8b_decode", 8, 64, b8, 21, 1, None),
         # The documented int8 deployment's batch.
-        paged_int8_case("8b_b128", 128, 32, 8, 128, 128, 32, b128, seed=22,
-                        timed=True),
+        ("8b_b128", 128, 32, b128, 22, 1, None)]
+    # The verify forms: linear k = 1 (R = 2, the r05 config) and k = 3
+    # (R = 4), and the (3, 4) tree (R = 13), at B = 8 (one more page of
+    # table so the deepest node fits) and B = 128.
+    for tag, R, tree in (("qrep2", 2, None), ("qrep4", 4, None),
+                         ("tree34", 13, (3, 4))):
+        cases.append((f"{tag}_b8", 8, 65, b8, 26, R, tree))
+        cases.append((f"{tag}_b128", 128, 33, b128, 27, R, tree))
+    cases += [("tree34_burst", 128, 64, burst, 31, 13, (3, 4)),
+              ("qrep2_burst", 128, 64, burst, 32, 2, None)]
+    return cases
+
+
+def phase_paged_int8():
+    cases = [paged_int8_case(name, B, 32, 8, 128, 128, maxp, ln, seed=seed,
+                             timed=True, q_rep=R, tree=tree)
+             for name, B, maxp, ln, seed, R, tree in _paged_int8_timed_cases()]
+    cases += [
         paged_int8_case("hd64", 4, 32, 8, 64, 128, 16, [1, 300, 1024, 2047],
                         seed=23),
         # A small page, G = 4, and a length-0 row (clamped to 1).
@@ -701,20 +815,8 @@ def phase_paged_int8():
         paged_int8_case("late_max", 8, 32, 8, 128, 128, 64,
                         [129, 700, 1500, 2048, 3000, 4097, 6000, 8191],
                         seed=25, late_max=True),
-    ]
-    # The verify forms at the 8B shapes: linear k = 1 (R = 2, the r05
-    # config) and k = 3 (R = 4), and the (3, 4) tree (R = 13), at B = 8
-    # (one more page of table so the deepest node fits) and B = 128.
-    for tag, R, tree in (("qrep2", 2, None), ("qrep4", 4, None),
-                         ("tree34", 13, (3, 4))):
-        cases.append(paged_int8_case(f"{tag}_b8", 8, 32, 8, 128, 128, 65, b8,
-                                     seed=26, timed=True, q_rep=R,
-                                     tree=tree))
-        cases.append(paged_int8_case(f"{tag}_b128", 128, 32, 8, 128, 128, 33,
-                                     b128, seed=27, timed=True, q_rep=R,
-                                     tree=tree))
-    cases += [
-        paged_int8_case("tree28", 8, 32, 8, 128, 128, 65, b8, seed=28,
+        paged_int8_case("tree28", 8, 32, 8, 128, 128, 65,
+                        [1, 17, 128, 129, 1000, 4096, 7000, 8191], seed=28,
                         q_rep=17, tree=(2, 8)),
         paged_int8_case("tree34_late_max", 8, 32, 8, 128, 128, 65,
                         [129, 700, 1500, 2048, 3000, 4097, 6000, 8180],
@@ -1833,13 +1935,40 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
             launches = dict(kernels.LAUNCHES)
             metrics = engine.metrics.snapshot()
             peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            streams = dict(served.app.streams)  # the counted burst's
+            profile = None
+            if spec.get("speculative_tree_branches"):
+                # Outside the counted window: the same burst again under
+                # the profiler, for the split of a verify step between
+                # K4, K6, the other device work and the host.
+                steps0 = engine.metrics.snapshot()["decode_steps"]
+                profile = _profile_window(lambda: sum(
+                    r["completion_tokens"] for r in _burst(
+                        served.base, prompts, max_tokens) if r))
+                steps = engine.metrics.snapshot()["decode_steps"] - steps0
+                window = profile["wall_ms"]
+                profile["decode_steps"] = steps
+                profile["per_step_ms"] = {
+                    "wall": window / steps if steps else None,
+                    **{k: ms / steps if steps else None
+                       for k, ms in profile["port_kernels_ms"].items()},
+                    "device_busy": (profile["device_busy_ms"] / steps
+                                    if steps else None)}
+                profile["shares"] = {
+                    "paged_attention_int8": profile["port_kernels_ms"][
+                        "paged_attention_int8"] / window,
+                    "int8_matmul": profile["port_kernels_ms"][
+                        "int8_matmul"] / window,
+                    "other_device": (profile["device_busy_ms"] - sum(
+                        profile["port_kernels_ms"].values())) / window,
+                    "device_idle": profile["device_idle_share"]}
         finally:
             served.close()
         tokenize = tokenizer.encode
         equal, first = 0, None
         for p in prompts:
             ids = tuple(tokenize(p, add_bos=True))
-            got = served.app.streams.get(ids, [])
+            got = streams.get(ids, [])
             div = _first_divergence(got, base_streams.get(ids, []))
             if div is None:
                 equal += 1
@@ -1873,7 +2002,7 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
                "peak_mem_gb": peak_gb,
                "streams_equal_to_serving_int8": equal / len(prompts),
                "first_divergence": first,
-               "launches": launches, "ok": ok}
+               "launches": launches, "profile": profile, "ok": ok}
         emit(rec)
         recs.append(rec)
         engine.pool = None
@@ -1971,7 +2100,7 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
     return rec
 
 
-# -- K1 and K6 against another tree (--compare-parent) ---------------------
+# -- K1, K3, K4 and K6 against another tree (--compare-parent) -------------
 
 # (name, B, H, KH, Sq, Sk, lengths, q_offset) at head_dim 128, causal.
 AB_FLASH = (("8b_s2048", 4, 32, 8, 2048, 2048, [2048] * 4, [0] * 4),
@@ -1979,10 +2108,12 @@ AB_FLASH = (("8b_s2048", 4, 32, 8, 2048, 2048, [2048] * 4, [0] * 4),
 
 
 def time_kernels() -> dict:
-    """K1 and K6 times through the public wrappers of whichever port
-    package is first on sys.path, at AB_FLASH and every K6_SHAPES x
-    K6_ROWS case (the weights rotated through copies as in
-    int8_mm_case)."""
+    """K1, K3, K4 and K6 times through the public wrappers of whichever
+    port package is first on sys.path: AB_FLASH, K3's and K4's timed
+    cases (K4 alternating two layers as in paged_int8_case; these also
+    with their device time, `<case>_device`, since a small case's loop
+    time is the host's), and every K6_SHAPES x K6_ROWS case (the weights
+    rotated through copies as in int8_mm_case)."""
     import torch
 
     from generativeaiexamples_tpu_torch import kernels
@@ -1990,7 +2121,12 @@ def time_kernels() -> dict:
     from generativeaiexamples_tpu_torch.ops.int8_matmul import int8_matmul
     from generativeaiexamples_tpu_torch.ops.quant import quantize_tensor
 
-    kernels.build(["flash_attention", "int8_matmul"])
+    from generativeaiexamples_tpu_torch.ops import encoder_attention as ea
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_int8 as pa8)
+
+    kernels.build(["flash_attention", "encoder_attention",
+                   "paged_attention_int8", "int8_matmul"])
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     ms = {}
@@ -2002,6 +2138,30 @@ def time_kernels() -> dict:
         off = torch.tensor(q_offset, dtype=torch.int32, device=dev)
         ms[name] = time_ms(lambda: attn.flash_attention(
             q, k, v, causal=True, lengths=ln, q_offset=off))
+    for name, B, H, S, lengths, seed in _encoder_timed_cases():
+        q, k, v, ln = _encoder_inputs(B, H, S, lengths, seed, True)
+
+        def k3():
+            ea.encoder_attention(q, k, v, ln)
+
+        ms[f"k3_{name}"] = time_ms(k3)
+        ms[f"k3_{name}_device"] = device_ms(k3, KERNEL_FUNCTIONS[
+            "encoder_attention"])
+    for name, B, maxp, lengths, seed, R, tree in _paged_int8_timed_cases():
+        q, kv, sc, table, ln, _ = _paged_int8_inputs(
+            B, 32, 8, 128, 128, maxp, lengths, 2, 1, seed, False, R)
+        turn = [0]
+
+        def alternating():
+            turn[0] ^= 1
+            pa8.paged_attention_int8(q, kv, sc, table, ln, turn[0], q_rep=R,
+                                     tree=tree)
+
+        ms[f"k4_{name}"] = time_ms(alternating)
+        ms[f"k4_{name}_device"] = device_ms(alternating, KERNEL_FUNCTIONS[
+            "paged_attention_int8"])
+        del kv, sc
+        torch.cuda.empty_cache()
     for wname, (K, M) in K6_SHAPES.items():
         qt = quantize_tensor(torch.randn((K, M), generator=g, device=dev)
                              * K ** -0.5)
@@ -2019,6 +2179,79 @@ def time_kernels() -> dict:
         del copies, qt
         torch.cuda.empty_cache()
     return ms
+
+
+# -- plan variants of K4 (--variants) ---------------------------------------
+
+# K4's plan variants at its timed cases: fields of paged_int8_plan's
+# result replaced ({} is the shipped plan).
+K4_PLAN_VARIANTS = (
+    ("8b_decode", {}), ("8b_decode", {"key_slices": 4}),
+    ("8b_decode", {"pages_per_split": 8}),
+    ("8b_decode", {"pages_per_split": 32}),
+    ("qrep2_b8", {}), ("qrep2_b8", {"key_slices": 4}),
+    ("8b_b128", {}), ("8b_b128", {"key_slices": 8}),
+    ("8b_b128", {"key_slices": 2}),
+    ("tree34_b128", {}), ("tree34_b128", {"key_slices": 1}),
+    ("tree34_burst", {}), ("tree34_burst", {"key_slices": 1}))
+
+
+def kernel_variants() -> list:
+    """K4's plan variants at its timed cases, in one process on one card:
+    each checked against its plain version (max error relative to each
+    row's max |out|) and timed (loop and device)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_int8 as pa8)
+
+    kernels.build(["paged_attention_int8"])
+    rows = []
+    cases = {c[0]: c for c in _paged_int8_timed_cases()}
+    shipped = pa8.paged_int8_plan
+    for name, override in K4_PLAN_VARIANTS:
+        _, B, maxp, lengths, seed, R, tree = cases[name]
+        q, kv, sc, table, ln, _ = _paged_int8_inputs(
+            B, 32, 8, 128, 128, maxp, lengths, 2, 1, seed, False, R)
+
+        def plan(B_, KH, rows_, Hd, ps, maxp_, n_sms):
+            p = shipped(B_, KH, rows_, Hd, ps, maxp_, n_sms)._replace(
+                **override)
+            splits = -(-maxp_ // p.pages_per_split)
+            step = 32 if (ps // p.key_slices) % 32 == 0 else 16
+            ws = (4 * B_ * KH * splits * p.row_tiles * (Hd // 2 + 4) * 32
+                  if splits > 1 else 0)
+            return p._replace(keys_per_step=step, splits=splits,
+                              workspace_bytes=ws)
+
+        turn = [0]
+
+        def kernel():
+            turn[0] ^= 1
+            return pa8.paged_attention_int8(q, kv, sc, table, ln, turn[0],
+                                            q_rep=R, tree=tree)
+
+        pa8.paged_int8_plan = plan
+        try:
+            got = kernel().float().reshape(B * R, -1)
+            want = pa8.paged_attention_int8_rep_reference(
+                (q if R > 1 else q[:, None]).float(), kv[:, 1], sc[:, 1],
+                table, ln.clamp(min=1), tree=tree).reshape(B * R, -1)
+            rel = float(((got - want).abs().amax(1)
+                         / want.abs().amax(1)).max())
+            rows.append({"kernel": "paged_attention_int8", "case": name,
+                         "plan": plan(B, 8, 4 * R, 128, 128, maxp,
+                                      n_sms())._asdict(),
+                         "shipped_plan": not override,
+                         "max_row_rel_err": rel, "ms": time_ms(kernel),
+                         "device_ms": device_ms(kernel, KERNEL_FUNCTIONS[
+                             "paged_attention_int8"])})
+        finally:
+            pa8.paged_int8_plan = shipped
+        del kv, sc
+        torch.cuda.empty_cache()
+    return rows
 
 
 def compare_parent(parent: str) -> dict:
@@ -2060,9 +2293,12 @@ def main() -> int:
         emit({"card": nvidia_smi(), "order": "parent, change, change, parent",
               "compare_parent_ms": compare_parent(args[1])})
         return 0
+    if args == ["--variants"]:
+        emit({"card": nvidia_smi(), "variants": kernel_variants()})
+        return 0
     if args:
         print("usage: chip_smoke.py [--compare-parent DIR | "
-              "--time-kernels DIR]", file=sys.stderr)
+              "--time-kernels DIR | --variants]", file=sys.stderr)
         return 2
     try:
         from generativeaiexamples_tpu_torch import kernels
@@ -2139,9 +2375,14 @@ def main() -> int:
     k4["spec_launches"] = {r["config"]: r["launches"]["paged_attention_int8"]
                            for r in spec_int8}
     k4["verify_cases"] = {
-        c["case"]: {k: c[k] for k in ("q_rep", "tree", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")}
+        c["case"]: {k: c[k] for k in ("q_rep", "tree", "ms", "device_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}
         for c in paged_int8 if c["q_rep"] > 1 and "ms" in c}
+    k3 = next(e for e in line if e["name"] == "encoder_attention")
+    k3["cases"] = {c["case"]: {k: c[k] for k in (
+        "ms", "device_ms", "bound_ms", "library_ms", "library_device_ms",
+        "k1_d64_ms")} for c in encoder if "ms" in c}
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]

@@ -12,10 +12,11 @@ defaults:
   away from its default.
 - `AppConfig`: the sections the developer_rag chain reads (llm,
   embeddings, reranker, retriever, prompts, text_splitter, vector_store,
-  serving, engine). `load_config()` overlays `APP_<SECTION>_<FIELD>`
-  environment variables (the JAX config wizard's contract) and refuses
-  fields that name unported features when they are set away from their
-  defaults (`check_supported`).
+  serving, engine). `load_config()` reads the YAML or JSON file that
+  `APP_CONFIG_FILE` names, overlays `APP_<SECTION>_<FIELD>` environment
+  variables (the JAX config wizard's contract) and refuses fields that
+  name unported features when they are set away from their defaults
+  (`check_supported`), in the file as in the env.
 """
 
 from __future__ import annotations
@@ -280,20 +281,119 @@ def _coerce_env(value: str, default: Any, env_name: str) -> Any:
     return value
 
 
-def load_config(env: Optional[Mapping[str, str]] = None,
+def _check_leaf(value: Any, default: Any, source: str) -> Any:
+    """A file's leaf value as the field's type (known from its default):
+    lists become tuples, ints pass for floats; anything else raises."""
+    if isinstance(value, list):
+        value = tuple(value)
+    expected = type(default)
+    if expected is float and isinstance(value, int) \
+            and not isinstance(value, bool):
+        return float(value)
+    if not isinstance(value, expected) or (expected is int
+                                           and isinstance(value, bool)):
+        raise ValueError(f"bad config value from {source}: expected "
+                         f"{expected.__name__}, got {type(value).__name__} "
+                         f"({value!r})")
+    if expected is tuple and default:
+        elem_tp = type(default[0])
+        for i, elem in enumerate(value):
+            if not isinstance(elem, elem_tp) or (elem_tp is int
+                                                 and isinstance(elem, bool)):
+                raise ValueError(f"bad config value from {source}[{i}]: "
+                                 f"expected {elem_tp.__name__} elements, "
+                                 f"got {elem!r}")
+    return value
+
+
+def read_config_file(path: str) -> Dict[str, Any]:
+    """The {section: {field: value}} mapping of a YAML or JSON config
+    file: JSON when the name ends in .json, else YAML, falling back to
+    JSON (the JAX config wizard's autodetection)."""
+    with open(path, "r", encoding="utf-8") as fh:
+        text = fh.read()
+    if path.endswith(".json"):
+        try:
+            parsed = json.loads(text)
+        except json.JSONDecodeError as err:
+            raise ValueError(f"config file {path} is not valid JSON: "
+                             f"{err}") from err
+    else:
+        import yaml  # only a YAML file needs it
+
+        try:
+            parsed = yaml.safe_load(text)
+        except yaml.YAMLError as yaml_err:
+            try:
+                parsed = json.loads(text)
+            except json.JSONDecodeError:
+                raise ValueError(f"config file {path} is neither valid YAML "
+                                 f"nor JSON: {yaml_err}") from yaml_err
+    if parsed is not None and not isinstance(parsed, dict):
+        raise ValueError(f"config file {path} must contain a mapping at "
+                         f"top level")
+    return parsed or {}
+
+
+def _file_layer(data: Mapping[str, Any], path: str,
+                hints: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The fields of a config file that the port's schema has, checked
+    against their defaults' types. Sections and fields it lacks (the
+    JAX-only knobs) are logged and dropped, except an UNSUPPORTED engine
+    field set away from its default, which raises as its env var does."""
+    layer: Dict[str, Dict[str, Any]] = {}
+    for sec, raw in data.items():
+        if sec not in hints:
+            _LOG.warning("config file %s: section [%s] has no counterpart "
+                         "in the port and is ignored", path, sec)
+            continue
+        if not isinstance(raw, Mapping):
+            raise ValueError(f"config section [{sec}] must be a mapping, "
+                             f"got {type(raw).__name__} ({raw!r})")
+        node = hints[sec]()
+        names = {f.name for f in dataclasses.fields(node)}
+        layer[sec] = {}
+        for name, value in raw.items():
+            if sec == "engine" and name in UNSUPPORTED:
+                default, item = UNSUPPORTED[name]
+                if value != default:
+                    raise ValueError(
+                        f"config file {path}: engine.{name}={value!r} is "
+                        f"not supported by the PyTorch port yet ({item})")
+            elif name not in names:
+                _LOG.warning("config file %s: [%s] %s has no counterpart "
+                             "in the port and is ignored", path, sec, name)
+            else:
+                layer[sec][name] = _check_leaf(
+                    value, getattr(node, name), f"field {sec}.{name}")
+    return layer
+
+
+def load_config(path: Optional[str] = None,
+                env: Optional[Mapping[str, str]] = None,
                 overrides: Optional[Mapping[str, Mapping[str, Any]]] = None
                 ) -> AppConfig:
-    """Defaults, then `overrides` ({section: {field: value}}), then the
+    """Defaults, then the YAML or JSON file at `path` (default:
+    $APP_CONFIG_FILE; a missing file is logged and skipped, as the JAX
+    wizard does), then `overrides` ({section: {field: value}}), then the
     `APP_<SECTION>_<FIELD>` environment variables (default: os.environ),
     checked with `check_supported`. Unknown sections or fields in
-    `overrides` raise; unknown APP_* variables are logged and ignored
-    (other services may share the namespace)."""
+    `overrides` raise; those of the file and unknown APP_* variables are
+    logged and ignored (the file may carry the JAX package's other knobs,
+    and other services may share the env namespace)."""
     env = dict(os.environ if env is None else env)
     overrides = dict(overrides or {})
     hints = typing.get_type_hints(AppConfig)
     unknown = set(overrides) - set(hints)
     if unknown:
         raise ValueError(f"unknown config sections {sorted(unknown)}")
+    if path is None:
+        path = env.get("APP_CONFIG_FILE", "")
+    layer: Dict[str, Dict[str, Any]] = {}
+    if path and os.path.isfile(path):
+        layer = _file_layer(read_config_file(path), path, hints)
+    elif path:
+        _LOG.warning("config file %s not found; using defaults + env", path)
     known_env = {"APP_CONFIG_FILE"}
     sections: Dict[str, Any] = {}
     for sec, cls in hints.items():
@@ -303,6 +403,7 @@ def load_config(env: Optional[Mapping[str, str]] = None,
         if set(given) - names:
             raise ValueError(f"unknown config keys in [{sec}]: "
                              f"{sorted(set(given) - names)}")
+        given = {**layer.get(sec, {}), **given}
         for name in names:
             env_name = env_var_name(sec, name)
             known_env.add(env_name)

@@ -1,5 +1,5 @@
 // cp.async helpers shared by the kernels that stage tiles in shared
-// memory ahead of their use (int8_matmul.cu, paged_attention_int8.cu):
+// memory ahead of their use (int8_matmul.cu, paged_attention_tree.cu):
 // 16-byte asynchronous copies from device to shared memory, committed in
 // groups and waited on by count. Editing this header rebuilds every
 // library (kernels.library_path hashes the csrc/*.cuh headers).

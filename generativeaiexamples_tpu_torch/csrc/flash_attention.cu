@@ -294,26 +294,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-// A 4-D map over a [B, heads, S, D] bf16 view with element strides
-// (batch, head, seq), boxes of [rows][64].
-bool attention_map(CUtensorMap* map, const void* base, int B, int heads, int S, int D,
-                   const long long* st, int rows) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(heads), static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(st[2]) * 2, static_cast<uint64_t>(st[1]) * 2,
-                               static_cast<uint64_t>(st[0]) * 2};
-  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
-  return encode_tiled_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, const void* lengths,
            const void* q_offset, int B, int H, int KH, int Sq, int Sk, const long long* st,
            float scale, int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!attention_map(&tq, q, B, H, Sq, D, st, BQ) ||
-      !attention_map(&tk, k, B, KH, Sk, D, st + 3, BK) ||
-      !attention_map(&tv, v, B, KH, Sk, D, st + 6, BK)) {
+  if (!encode_bhsd_sw128(&tq, q, B, H, Sq, D, st, BQ) ||
+      !encode_bhsd_sw128(&tk, k, B, KH, Sk, D, st + 3, BK) ||
+      !encode_bhsd_sw128(&tv, v, B, KH, Sk, D, st + 6, BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_fwd_kernel<D>;

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by flash_attention.cu and
-// int8_matmul.cu: mbarriers, TMA tile loads, the host-side tensor-map
-// encoder, and warpgroup MMA (wgmma) with shared-memory descriptors.
+// Hopper (sm_90a) building blocks shared by flash_attention.cu,
+// encoder_attention.cu and int8_matmul.cu: mbarriers, TMA tile loads,
+// the host-side tensor-map encoder, and warpgroup MMA (wgmma) with
+// shared-memory descriptors.
 //
 // Shared-memory layout both kernels use: every TMA box is 128 bytes wide
 // (64 bf16 or 128 int8) and loaded with CU_TENSOR_MAP_SWIZZLE_128B, so a
@@ -115,6 +116,17 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completion on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- the tensor-map encoder (host) -------------------------------------
 // cuTensorMapEncodeTiled is a driver-API function; it is fetched once
 // through the runtime, so the library links only the runtime.
@@ -136,11 +148,12 @@ inline PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
 }
 
 // A tiled map over `rank` dimensions (dims innermost first, byte strides of
-// dims 1 .. rank - 1), boxes of `box` elements, 128-byte swizzle, zero
-// fill out of bounds. Returns false if the driver refuses it.
-inline bool encode_tiled_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
-                               const void* base, const uint64_t* dims, const uint64_t* strides,
-                               const uint32_t* box) {
+// dims 1 .. rank - 1), boxes of `box` elements, the given swizzle (the
+// box's inner extent must not exceed the swizzle span), zero fill out of
+// bounds. Returns false if the driver refuses it.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                         const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                         CUtensorMapSwizzle swizzle) {
   const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
@@ -148,8 +161,27 @@ inline bool encode_tiled_sw128(CUtensorMap* map, CUtensorMapDataType type, int r
                 reinterpret_cast<const cuuint64_t*>(dims),
                 reinterpret_cast<const cuuint64_t*>(strides),
                 reinterpret_cast<const cuuint32_t*>(box), ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_tiled_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                               const void* base, const uint64_t* dims, const uint64_t* strides,
+                               const uint32_t* box) {
+  return encode_tiled(map, type, rank, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A 4-D map over a [B, heads, S, D] bf16 view with element strides
+// (batch, head, seq) st[0..2], boxes of [rows][64]: the attention
+// kernels' q, k and v, which may be views of token-major buffers.
+inline bool encode_bhsd_sw128(CUtensorMap* map, const void* base, int B, int heads, int S,
+                              int D, const long long* st, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(heads), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(st[2]) * 2, static_cast<uint64_t>(st[1]) * 2,
+                               static_cast<uint64_t>(st[0]) * 2};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
+  return encode_tiled_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
 // ---- warpgroup MMA ----------------------------------------------------------

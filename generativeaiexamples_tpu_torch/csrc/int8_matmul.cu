@@ -62,6 +62,7 @@
 namespace {
 
 using namespace gaie::hopper;
+using gaie::widen2;
 
 // ---- the TMA / wgmma kernel (M % 16 == 0) ----------------------------------
 
@@ -79,15 +80,6 @@ struct Ring {
   static constexpr int BAR_OFF = STAGES * (CODE_BYTES + X_BYTES);
   static constexpr int SMEM = BAR_OFF + 256 + 1024;  // barriers, flag, alignment slack
 };
-
-// Two codes (bytes lo and hi of `u`, which holds codes + 128) as bf16x2:
-// 2^23 + u is an exact f32; subtracting 2^23 + 128 leaves the code, whose
-// f32 has a zero low half, so its bf16 is the high half.
-__device__ __forceinline__ uint32_t widen2(uint32_t u, int lo, int hi) {
-  const float flo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | lo)) - 8388736.f;
-  const float fhi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | hi)) - 8388736.f;
-  return __byte_perm(__float_as_uint(flo), __float_as_uint(fhi), 0x7632);
-}
 
 template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)

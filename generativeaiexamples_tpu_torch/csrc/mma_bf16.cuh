@@ -1,6 +1,7 @@
-// bf16 tensor-core helpers shared by the attention kernels
-// (flash_attention.cu, encoder_attention.cu): mma.sync m16n8k16 with f32
-// accumulation and the register packing its fragments need.
+// bf16 tensor-core helpers shared by the kernels (flash_attention.cu,
+// encoder_attention.cu, paged_attention_int8.cu, int8_matmul.cu):
+// mma.sync m16n8k16 with f32 accumulation, the register packing its
+// fragments need, ldmatrix, and the exact int8 -> bf16 widening.
 //
 // Fragment layout of one warp (g = lane / 4, t4 = lane % 4):
 //   A (16 x 16, row-major)  a[0] = (row g,     cols 2 t4, 2 t4 + 1)
@@ -31,6 +32,25 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+// Two int8 codes as bf16x2, exactly: bytes lo and hi of `u`, which holds
+// codes + 128 (the raw codes xor 0x80 per byte). 2^23 + u is an exact
+// f32; subtracting 2^23 + 128 leaves the code, whose f32 has a zero low
+// half, so its bf16 is the high half. Byte lo goes to the low half.
+__device__ __forceinline__ uint32_t widen2(uint32_t u, int lo, int hi) {
+  const float flo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | lo)) - 8388736.f;
+  const float fhi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | hi)) - 8388736.f;
+  return __byte_perm(__float_as_uint(flo), __float_as_uint(fhi), 0x7632);
+}
+
+// (a, b) as bf16x2 hi + lo: hi the rounded pair, lo the rounded
+// remainders, so hi + lo carries ~16 bits of each value's mantissa.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_f32(a - hf.x, b - hf.y);
+}
+
 // D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major).
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -56,6 +76,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row_a
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row_addr));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Two 8x8 b16 matrices (lanes 0 .. 15 give the row addresses).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* row_addr) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row_addr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(a));
 }
 

@@ -52,10 +52,11 @@ SIGNATURES = {
     # q, k, v, o, lengths, B, H, S, D, strides[12], scale, stream
     "encoder_attention": ("gaie_encoder_attention_bf16",
                           [_P] * 5 + [_I] * 4 + [_STRIDES, _F, _P]),
-    # q, kv, scales, o, page_table, lengths, B, H, KH, L, P, ps, maxp, Hd,
-    # layer, q_rep, tree_k, tree_m, stream
+    # q, kv, scales, o, page_table, lengths, workspace, tickets, B, H, KH,
+    # L, P, ps, maxp, Hd, layer, q_rep, tree_k, tree_m, key_slices,
+    # pages_per_split, scale, stream
     "paged_attention_int8": ("gaie_paged_attention_int8",
-                             [_P] * 6 + [_I] * 12 + [_P]),
+                             [_P] * 8 + [_I] * 14 + [_F, _P]),
     # q, k_pages, v_pages, o, page_table, lengths, B, H, KH, P, ps, maxp,
     # Hd, tree_k, tree_m, scale, stream
     "paged_attention_tree": ("gaie_paged_tree_attention_bf16",
@@ -69,6 +70,26 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}
+
+
+# Arrival tickets of the split kernels (K4, K6): int32 zeros per (kernel,
+# device), grown on demand and left zeroed by every launch (the last CTA
+# of a group resets its ticket). Launches on one stream run in order, so
+# a kernel's launches share one buffer.
+_TICKETS: Dict[tuple, object] = {}
+
+
+def tickets(name: str, device, n: int):
+    """At least `n` zeroed int32 tickets for kernel `name` on `device`."""
+    import torch
+
+    key = (name, device.type, device.index if device.index is not None
+           else torch.cuda.current_device())
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def reset_launches() -> None:

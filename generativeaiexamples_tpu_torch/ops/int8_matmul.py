@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -76,22 +76,6 @@ def int8_matmul_plan(R: int, K: int, M: int) -> Int8MatmulPlan:
                           4 * splits * R * M if splits > 1 else 0)
 
 
-# Split-K arrival tickets, one int32 per output tile, zeroed once per
-# device and left zeroed by every launch (the last CTA of a tile resets
-# its ticket). Launches on one stream run in order, so they share it.
-_TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    key = (device.type, device.index if device.index is not None
-           else torch.cuda.current_device())
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
-                                        device=device)
-    return t
-
-
 def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor,
                           scale: torch.Tensor,
                           out_dtype: Optional[torch.dtype] = None
@@ -139,7 +123,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if plan.splits > 1:
         ws = torch.empty((plan.splits, R, M), dtype=torch.float32,
                          device=x.device)
-        tickets = _tickets(x.device, plan.tiles)
+        tickets = kernels.tickets("int8_matmul", x.device, plan.tiles)
     kernels.launch("int8_matmul", x.data_ptr(), q.data_ptr(),
                    scale.data_ptr(), out.data_ptr(),
                    ws.data_ptr() if ws is not None else None,

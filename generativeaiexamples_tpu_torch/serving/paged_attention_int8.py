@@ -24,11 +24,19 @@ arithmetic `_tree_keep`. The pages are read once for all R positions. A
 CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 versions (`paged_attention_int8_reference_fused` for one query,
 `paged_attention_int8_rep_reference` for the others).
+
+`paged_int8_plan` is the kernel's launch plan, pure Python so the CPU
+tests can check it: the consumer warps per 16-row tile of query rows,
+and how the page axis is split across CTAs (flash-decoding) when B x KH
+CTAs alone would leave the card idle. The wrapper passes it the card's
+SM count.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -135,6 +143,57 @@ def paged_attention_int8_rep_reference(q, kv_pages, kv_scales, page_table,
     return out.reshape(B, R, H, Hd).to(q.dtype)
 
 
+MAX_WARPS = 8        # consumer warps of a CTA (row tiles x key slices)
+CTAS_PER_SM = 2      # CTAs a split launch aims for per SM (two resident;
+                     # twice as many measured slower, PERF.md)
+
+
+class PagedInt8Plan(NamedTuple):
+    row_tiles: int        # 16-row tiles of the (H / KH) * q_rep query rows
+    key_slices: int       # consumer warps per row tile, each a slice of every page
+    keys_per_step: int    # keys a warp takes per step (32, or 16)
+    splits: int           # CTAs along the page axis (grid z)
+    pages_per_split: int  # table slots each split covers (the last may hold fewer)
+    workspace_bytes: int  # f32 partials, 0 unsplit
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_int8_plan(B: int, KH: int, rows: int, Hd: int, ps: int,
+                    maxp: int, n_sms: int) -> PagedInt8Plan:
+    """The K4 launch plan for B sequences, KH kv heads and `rows` = (H /
+    KH) * q_rep query rows a kv head, pages of ps tokens, maxp table
+    slots, on a card of n_sms SMs. Splits: with fewer than CTAS_PER_SM *
+    n_sms CTAs of (kv head, row), the page axis is cut into equal runs of
+    table slots so that B * KH * splits comes close to that target; a
+    row whose pages end before a split's run skips it. Key slices (warps
+    per 16-row tile, a power of two, at most 8 warps): split launches
+    take as many as leave 16 keys of a page to each; unsplit ones keep 32
+    keys a step where the page allows; both choices measured fastest on
+    an H100 (`chip_smoke.py --variants`, PERF.md). Cached: the engine
+    asks for the same few shapes on every step."""
+    row_tiles = math.ceil(rows / 16)
+    if row_tiles > MAX_WARPS:
+        raise ValueError(f"paged_int8_plan: {rows} query rows a kv head "
+                         f"exceed {16 * MAX_WARPS}")
+    want = max(1, min(maxp, CTAS_PER_SM * n_sms // (B * KH)))
+    per = math.ceil(maxp / want)
+    splits = math.ceil(maxp / per)
+    slices = 1
+    while row_tiles * slices * 2 <= MAX_WARPS and ps % (slices * 32) == 0:
+        slices *= 2
+    if splits == 1 and ps % 32 == 0:
+        slices = min(slices, ps // 32)
+    step = 32 if (ps // slices) % 32 == 0 else 16
+    ws = (4 * B * KH * splits * row_tiles * (Hd // 2 + 4) * 32
+          if splits > 1 else 0)
+    return PagedInt8Plan(row_tiles, slices, step, splits, per, ws)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def paged_attention_int8(q: torch.Tensor, kv_pages: torch.Tensor,
                          kv_scales: torch.Tensor, page_table: torch.Tensor,
                          lengths: torch.Tensor, layer: int, *,
@@ -142,13 +201,14 @@ def paged_attention_int8(q: torch.Tensor, kv_pages: torch.Tensor,
                          tree=None) -> torch.Tensor:
     """K4. q is [B, H, Hd], or [B, R, H, Hd] with `q_rep = R > 1` (R
     verify positions; under `tree = (k, M)` the packed lattice, R == 1 +
-    k*M). The softmax scale is folded into an f32 copy of q, and lengths
-    are clamped to >= 1, as the JAX wrapper does (a length-0 row attends
-    one masked-in token; the engine ignores inactive rows). On CUDA: bf16
-    q (Hd in {64, 128}), the full int8 pool and f32 scales with ps a
-    multiple of 16 up to 128, int32 page_table and lengths, all
-    contiguous, and (H / KH) * R query rows per kv head whose staging
-    fits the block's shared memory; the output is bf16."""
+    k*M). Lengths are clamped to >= 1, as the JAX wrapper does (a
+    length-0 row attends one masked-in token; the engine ignores inactive
+    rows). On CUDA the bf16 q goes to the kernel as it is, with the
+    softmax scale applied to the score columns there: bf16 q (Hd in {64,
+    128}), the full int8 pool and f32 scales with ps a multiple of 16 up
+    to 128, int32 page_table and lengths, all contiguous, and at most 128
+    query rows ((H / KH) * R) per kv head; the output is bf16. The launch
+    follows `paged_int8_plan`."""
     if tree is not None and q_rep != 1 + tree[0] * tree[1]:
         raise ValueError(f"paged_attention_int8: tree {tree} needs q_rep "
                          f"== 1 + k * M, got {q_rep}")
@@ -190,16 +250,28 @@ def paged_attention_int8(q: torch.Tensor, kv_pages: torch.Tensor,
             raise ValueError(f"paged_attention_int8: {name} must be "
                              f"contiguous {dtype} on {q.device}, got "
                              f"{t.dtype} on {t.device}")
-    qk = q.float() * s
+    if any(t.data_ptr() % 16 for t in (q, kv_pages, kv_scales)):
+        raise ValueError("paged_attention_int8: q, kv_pages and kv_scales "
+                         "must be 16-byte aligned")
+    index = (q.device.index if q.device.index is not None
+             else torch.cuda.current_device())
+    plan = paged_int8_plan(B, KH, (H // KH) * q_rep, Hd, ps, maxp,
+                           _sm_count(index))
     out = torch.empty_like(q)
+    ws = tickets = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                         device=q.device)
+        tickets = kernels.tickets("paged_attention_int8", q.device,
+                                  B * KH)
     tk, tm = tree if tree is not None else (0, 0)
-    # The kernel clamps lengths to >= 1 and the span to maxp * ps itself,
-    # and refuses (launch error) a row count whose staging overflows
-    # shared memory.
+    # The kernel clamps lengths to >= 1 and the span to maxp * ps itself.
     kernels.launch(
-        "paged_attention_int8", qk.data_ptr(), kv_pages.data_ptr(),
+        "paged_attention_int8", q.data_ptr(), kv_pages.data_ptr(),
         kv_scales.data_ptr(), out.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), B, H, KH, L, P, ps, maxp, Hd, int(layer),
-        q_rep, int(tk), int(tm),
+        lengths.data_ptr(), ws.data_ptr() if ws is not None else None,
+        tickets.data_ptr() if tickets is not None else None,
+        B, H, KH, L, P, ps, maxp, Hd, int(layer), q_rep, int(tk), int(tm),
+        plan.key_slices, plan.pages_per_split, float(s),
         torch.cuda.current_stream(q.device).cuda_stream)
     return out

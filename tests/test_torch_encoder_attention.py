@@ -86,16 +86,34 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
 
 def test_encoder_kernel_matches_plain_version_on_cuda():
     """K3 on the card against its plain version on the same bf16 inputs.
-    Tolerance 2e-2: the kernel rounds P and its output to bf16 in the
-    same places as the plain version but sums in another order."""
+    Tolerance 2e-2: the kernel rounds P and its output to bf16 (P before
+    the division by the denominator, the plain version after it) and sums
+    in another order. Cases: fused-QKV views at S = 256 with a lengths-0
+    row (the mean of V), S = 512 (four 128-row query tiles re-reading
+    K / V), an S that is no multiple of the 64-key tile, and sharp scores
+    (q and each row's last 64 valid keys x 4, V x 1/4 so the output stays
+    under 2 where a bf16 ulp is 2^-7) whose maxima all lie in the last
+    one or two key tiles, so the online softmax must rescale what it
+    summed before; a repeat launch gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K3 is a CUDA kernel")
     g = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn((4, 256, 3, 12, 64), generator=g,
-                      device="cuda").bfloat16()
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    lengths = torch.tensor([256, 0, 1, 100], dtype=torch.int32,
-                           device="cuda")
-    got = tenc.encoder_attention(q, k, v, lengths)
-    want = tenc.encoder_attention_reference(q, k, v, lengths)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    for B, H, S, lengths, sharp in (
+            (4, 12, 256, [256, 0, 1, 100], False),
+            (2, 16, 512, [512, 301], False),
+            (3, 2, 33, [0, 20, 33], False),
+            (4, 4, 512, [512, 449, 65, 200], True)):
+        qkv = torch.randn((B, S, 3, H, 64), generator=g,
+                          device="cuda").bfloat16()
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        if sharp:
+            q.mul_(4)
+            v.mul_(0.25)
+            for b, n in enumerate(lengths):
+                k[b, :, max(n - 64, 0):n].mul_(4)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        got = tenc.encoder_attention(q, k, v, ln)
+        want = tenc.encoder_attention_reference(q, k, v, ln)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+        assert torch.equal(got, tenc.encoder_attention(q, k, v, ln))

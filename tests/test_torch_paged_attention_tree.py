@@ -25,6 +25,7 @@ from generativeaiexamples_tpu_torch.serving import engine_model as tem
 from generativeaiexamples_tpu_torch.serving import paged_attention as tpa
 from generativeaiexamples_tpu_torch.serving import paged_attention_int8 as tpa8
 from generativeaiexamples_tpu_torch.serving import paged_attention_tree as tpt
+from test_torch_paged_attention_int8 import paged_int8_split_merge
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -108,6 +109,13 @@ def test_int8_tree_form_matches_jax_kernel(k, M):
     got = tpa8.paged_attention_int8(*_t(qm, kv, sc, table, ln), 0, q_rep=r,
                                     tree=(k, M)).numpy()
     np.testing.assert_allclose(got, kernel, **TOL)
+    # The CUDA kernel's arithmetic (scale on the score columns, the page
+    # axis split into runs merged in order) against the same kernel.
+    for per in (1, 2, 4):
+        split = paged_int8_split_merge(
+            *_t(qm, kv[:, 0], sc[:, 0], table, ln), pages_per_split=per,
+            tree=(k, M)).numpy()
+        np.testing.assert_allclose(split, kernel, **TOL)
     # The gather-then-dequantize twin (the CPU route of the dispatcher)
     # against the JAX one and against K4's arithmetic mask.
     jref = np.asarray(jpa.paged_tree_attention_int8_reference_fused(
@@ -136,6 +144,11 @@ def test_int8_linear_q_rep_matches_jax_kernel(R):
     got = tpa8.paged_attention_int8(*_t(qm, kv, sc, table, ln), 1,
                                     q_rep=R).numpy()
     np.testing.assert_allclose(got, kernel, **TOL)
+    for per in (1, 3):  # the CUDA kernel's arithmetic, split and merged
+        split = paged_int8_split_merge(
+            *_t(qm, kv[:, 1], sc[:, 1], table, ln),
+            pages_per_split=per).numpy()
+        np.testing.assert_allclose(split, kernel, **TOL)
     # Position j equals a one-query call at length + j.
     for j in range(R):
         one = tpa8.paged_attention_int8(
