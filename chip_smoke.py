@@ -17,8 +17,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
               launch must give the same bits; SDPA (is_causal, or a
               boolean mask for lengths and q_offset) timed beside it
   4. paged    K2 (csrc/paged_attention.cu) against
-              `paged_attention_reference`, at 8B decode shapes plus
-              head_dim 64 and a small page size
+              `paged_attention_reference` in f32, at 8B decode shapes
+              (B=8 lengths 1…8191, B=1 at 6,000, B=8 at the serving
+              phase's 17…129), head_dim 64, pages of 16 and 8 slots,
+              and sharp scores whose maximum sits on each row's last page
+              (every split and key slice must be rescaled); the sink
+              page, poisoned with NaN, must stay unread and a second
+              launch must give the same bits (the page axis split);
+              loop and device time beside SDPA over pre-gathered K/V
   5. encoder  K3 (csrc/encoder_attention.cu) against
               `encoder_attention_reference` at arctic-embed-l (B=16,
               H=16, S=128/512) and reranker-base (B=8, H=12, S=256/512)
@@ -48,10 +54,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   6b. tree    K5 (csrc/paged_attention_tree.cu) against
               `paged_tree_attention_reference` in f32, node by node: the
               8B shape (B=8, lengths 1…8191, (3, 4)), (2, 8) at head_dim
-              64 / page 16 (with a length-1 row) and at 8B, and a
-              late_max case, with a NaN-poisoned sink page and tail
-              slots; SDPA with a boolean mask over pre-gathered K/V
-              timed beside it
+              64 / page 16 (with a length-1 row) and at 8B, (3, 4) at
+              page 8, and a late_max case, with a NaN-poisoned sink page
+              and tail slots; a second launch must give the same bits;
+              loop and device time beside SDPA with a boolean mask over
+              pre-gathered K/V
   7. int8_matmul  K6 (csrc/int8_matmul.cu) against
               `int8_matmul_reference` in f32 at every 8B projection shape
               (K, M) and R = 8, 128 (decode), 256, 1664 (linear and tree
@@ -122,16 +129,16 @@ port's package beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --compare-parent DIR
 
-times K1, K3, K4 and K6 (AB_FLASH, K3's and K4's timed cases, every K6
+times K1-K6 (AB_FLASH, K2's, K3's, K4's and K5's timed cases, every K6
 case) through the public wrappers of the tree at DIR and of this one, in
 turns (DIR, this, this, DIR), each in its own process on the same card,
 and prints the four times per case.
 
     python3 chip_smoke.py --variants
 
-times K4 under other launch plans (key slices, pages per split) beside
-the shipped plan, each checked against its plain version, in one
-process.
+times K4, K2 and K5 under other launch plans (key slices, stage size,
+pages per split) beside the shipped plan, each checked against its plain
+version, in one process.
 """
 
 from __future__ import annotations
@@ -215,7 +222,8 @@ def nvidia_smi() -> str:
 
 
 def n_sms() -> int:
-    """The card's SM count, as K4's wrapper passes it to its plan."""
+    """The card's SM count, as the K2, K4 and K5 wrappers pass it to
+    their plans."""
     import torch
 
     return torch.cuda.get_device_properties(0).multi_processor_count
@@ -235,6 +243,41 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, calls: int = 50, batches: int = 5) -> float:
+    """Host time of one call of `fn`: the least, over `batches` runs of
+    `calls` calls (the card synchronised before each run), of the wall
+    time per call. Where the card takes less time a call than the host,
+    this is what the host spends in it; the least of the runs leaves out
+    the other tenants of a shared host."""
+    import torch
+
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return best * 1e3
+
+
+def host_profile(fn, calls: int = 100, top: int = 8) -> list:
+    """Where the host's time in a call of `fn` goes: torch.profiler's CPU
+    activities over `calls` calls, the `top` by self CPU time, as [µs a
+    call, occurrences a call, name]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_cpu_time_total / calls, e.count / calls, e.key)
+                   for e in prof.key_averages()), reverse=True)[:top]
+    return [[us, n, key[:60]] for us, n, key in rows]
 
 
 def device_ms(fn, kernel_function: str = "", iters: int = 10) -> float:
@@ -394,17 +437,25 @@ def phase_flash():
 # -- phase 4: K2 ------------------------------------------------------------
 
 
-def paged_case(name, B, H, KH, Hd, ps, maxp, lengths, seed=0, timed=False):
+def _paged_inputs(B, H, KH, Hd, ps, maxp, lengths, seed, q_scale=1.0,
+                  late_max=False):
+    """K2's inputs: bf16 q [B, H, Hd], two layers of bf16 pages [2, KH,
+    P, ps, Hd] (k and v), a table naming shuffled pages with its tail
+    slots at sink page 0, int32 lengths. `late_max` gives each row's last
+    slot (on its last page) a k that matches its query group, so that the
+    row's largest score comes last and every earlier page, split and key
+    slice must be rescaled."""
     import torch
-
-    from generativeaiexamples_tpu_torch.serving import paged_attention as pa
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     n_pages = B * maxp + 1
-    q = torch.randn((B, H, Hd), generator=g, device=dev).bfloat16()
-    kp = torch.randn((KH, n_pages, ps, Hd), generator=g, device=dev).bfloat16()
-    vp = torch.randn((KH, n_pages, ps, Hd), generator=g, device=dev).bfloat16()
+    q = (torch.randn((B, H, Hd), generator=g, device=dev)
+         * q_scale).bfloat16()
+    kp = torch.randn((2, KH, n_pages, ps, Hd), generator=g,
+                     device=dev).bfloat16()
+    vp = torch.randn((2, KH, n_pages, ps, Hd), generator=g,
+                     device=dev).bfloat16()
     perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
     table = torch.zeros((B, maxp), dtype=torch.int32, device=dev)
     used = 0
@@ -412,11 +463,36 @@ def paged_case(name, B, H, KH, Hd, ps, maxp, lengths, seed=0, timed=False):
         need = -(-n // ps)
         table[b, :need] = perm[used:used + need].int()
         used += need
+    if late_max:
+        group_q = q.float().reshape(B, KH, H // KH, Hd).sum(2)
+        for b, n in enumerate(lengths):
+            page = int(table[b, (n - 1) // ps])
+            kp[:, :, page, (n - 1) % ps] = (
+                torch.sign(group_q[b]) * 4).bfloat16()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, ln
+
+
+def paged_case(name, B, H, KH, Hd, ps, maxp, lengths, seed=0, timed=False,
+               q_scale=1.0, late_max=False):
+    """K2 against `paged_attention_reference` in f32 on the same bf16
+    inputs (layer 1 of a two-layer pool), within BF16_ATOL. Tail table
+    slots point at sink page 0; after the parity check the sink is
+    poisoned with NaN and the kernel's result must not change (it never
+    reads those slots). A second launch must give the same bits (the
+    page axis split across CTAs and merged included)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import paged_attention as pa
+
+    q, kp2, vp2, table, ln = _paged_inputs(B, H, KH, Hd, ps, maxp, lengths,
+                                           seed, q_scale, late_max)
+    kp, vp = kp2[1], vp2[1]
     got = pa.paged_attention(q, kp, vp, table, ln)
+    repeat = bool(torch.equal(got, pa.paged_attention(q, kp, vp, table, ln)))
     want = pa.paged_attention_reference(q.float(), kp.float(), vp.float(),
                                         table, ln)
-    # Tail table slots point at sink page 0: poison it and require a
+    # Tail slots point at sink page 0: poison it and require a
     # bit-identical result, i.e. the kernel never reads those slots.
     kp_sink, vp_sink = kp[:, 0].clone(), vp[:, 0].clone()
     kp[:, 0] = float("nan")
@@ -427,11 +503,15 @@ def paged_case(name, B, H, KH, Hd, ps, maxp, lengths, seed=0, timed=False):
     err = float((got.float() - want).abs().max())
     sink_unread = bool(torch.equal(poisoned, got))
     finite = bool(torch.isfinite(got.float()).all())
-    ok = finite and sink_unread and err <= BF16_ATOL
+    ok = finite and sink_unread and repeat and err <= BF16_ATOL
+    plan = pa.paged_bf16_plan(B, KH, H // KH, Hd, ps, maxp, n_sms())
     rec = {"phase": "paged", "case": name, "B": B, "H": H, "KH": KH,
            "Hd": Hd, "ps": ps, "maxp": maxp, "lengths": lengths,
-           "max_abs_err": err, "tol": BF16_ATOL, "sink_unread": sink_unread,
-           "finite": finite, "ok": ok}
+           "q_scale": q_scale, "late_max": late_max,
+           "max_abs_err": err, "tol": BF16_ATOL,
+           "max_abs_out": float(want.abs().max()),
+           "sink_unread": sink_unread, "repeat_identical": repeat,
+           "plan": plan._asdict(), "finite": finite, "ok": ok}
     if timed:
         tokens = float(sum(lengths))
         # K/V of the tokens this input attends (not whole pages), the
@@ -440,19 +520,35 @@ def paged_case(name, B, H, KH, Hd, ps, maxp, lengths, seed=0, timed=False):
             + 4.0 * (table.numel() + B)
         flops = 4.0 * Hd * H * tokens
         rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
-        rec["ms"] = time_ms(lambda: pa.paged_attention(q, kp, vp, table, ln))
+        # Alternate the two layers so that one call's pages are not in L2
+        # for the next (the decode path reads another layer every call).
+        turn = [0]
+
+        def alternating():
+            turn[0] ^= 1
+            pa.paged_attention(q, kp2[turn[0]], vp2[turn[0]], table, ln)
+
+        rec["ms"] = time_ms(alternating)
+        rec["device_ms"] = device_ms(alternating,
+                                     KERNEL_FUNCTIONS["paged_attention"])
+        rec["host_ms"] = host_ms(alternating)
+        rec["host_profile"] = host_profile(alternating)
         rec["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(
             q, kp, vp, table, ln), iters=5)
         # No single torch call takes a page table; SDPA over K/V gathered
         # beforehand (gather not timed) is kept as a dense yardstick only.
         rec["library_ms"] = None
-        rec["sdpa_gathered_ms"] = paged_sdpa_gathered_ms(q, kp, vp, table,
-                                                         ln)
-        rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
+        rec["sdpa_gathered_ms"], rec["sdpa_gathered_device_ms"] = \
+            paged_sdpa_gathered_ms(q, kp, vp, table, ln)
+        rec["gbytes_per_s"] = n_bytes / (rec["device_ms"] * 1e-3) / 1e9
+    del kp2, vp2, got, poisoned, want
+    torch.cuda.empty_cache()
     return rec
 
 
 def paged_sdpa_gathered_ms(q, kp, vp, table, ln):
+    """(loop ms, device ms) of SDPA with a lengths mask over K/V gathered
+    through the table beforehand (the gather is not timed)."""
     import torch
     import torch.nn.functional as F
 
@@ -464,18 +560,42 @@ def paged_sdpa_gathered_ms(q, kp, vp, table, ln):
     v = vp[:, t].permute(1, 0, 2, 3, 4).reshape(B, KH, maxp * ps, Hd)
     mask = (torch.arange(maxp * ps, device=q.device)[None, :]
             < ln[:, None])[:, None, None, :]
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True))
+
+    def sdpa():
+        F.scaled_dot_product_attention(q[:, :, None, :], k, v,
+                                       attn_mask=mask, enable_gqa=True)
+
+    return time_ms(sdpa), device_ms(sdpa)
+
+
+# K2's timed cases at the 8B shape (H = 32, KH = 8, head_dim 128, page
+# 128, 64 table slots): (name, B, lengths, seed).
+K2_TIMED = (
+    ("8b_decode", 8, [1, 17, 128, 129, 1000, 4096, 7000, 8191], 11),
+    # The decode that follows the chunked phase's 6,000-token prompt.
+    ("8b_b1_6000", 1, [6000], 14),
+    # The serving phase's rows: short prompts and up to 64 new tokens;
+    # the loop time is the host's.
+    ("8b_short", 8, [17, 23, 30, 41, 64, 81, 100, 129], 15))
 
 
 def phase_paged():
-    cases = [
-        paged_case("8b_decode", 8, 32, 8, 128, 128, 64,
-                   [1, 17, 128, 129, 1000, 4096, 7000, 8191], seed=11,
-                   timed=True),
+    cases = [paged_case(name, B, 32, 8, 128, 128, 64, lengths, seed=seed,
+                        timed=True)
+             for name, B, lengths, seed in K2_TIMED]
+    cases += [
         paged_case("hd64", 4, 32, 8, 64, 128, 16, [1, 300, 1024, 2047],
                    seed=12),
         paged_case("ps16", 3, 8, 2, 128, 16, 32, [5, 16, 511], seed=13),
+        # The smallest page the engine admits: a 16-key step holds two
+        # pages, a ring stage eight; the page axis is split.
+        paged_case("ps8", 4, 32, 8, 128, 8, 128, [1, 9, 300, 1023],
+                   seed=16),
+        # Sharp scores whose maximum sits on each row's last page: every
+        # earlier page, key slice and split must be rescaled when merged.
+        paged_case("sharp_late_max", 8, 32, 8, 128, 128, 64,
+                   [129, 700, 1500, 2048, 3000, 4097, 6000, 8191], seed=17,
+                   q_scale=PAGED_INT8_Q_SCALE, late_max=True),
     ]
     for c in cases:
         emit(c)
@@ -839,20 +959,13 @@ def phase_paged_int8():
 TREE_RTOL = 1e-2
 
 
-def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
-              timed=False, late_max=False):
-    """K5 against `paged_tree_attention_reference` in f32 on the same bf16
-    inputs, node by node (TREE_RTOL of each (row, node)'s max |out|). q
-    is scaled up as in the K4 cases so the scores are sharp. Tail table
-    slots point at an unused page; after the parity check that page and
-    sink page 0 are poisoned with NaN and the kernel's result must not
-    change. `late_max` puts each row's largest score at its root slot."""
+def _tree_inputs(B, H, KH, Hd, ps, maxp, lengths, tree, seed, late_max):
+    """K5's inputs: bf16 q [B, H, r, Hd] scaled as in the K4 cases, two
+    layers of bf16 pages [2, KH, P, ps, Hd] (k and v), a table naming
+    shuffled pages with its tail slots at page P - 1 (never assigned),
+    int32 lengths. `late_max` puts each row's largest score at its root
+    slot."""
     import torch
-    import torch.nn.functional as F
-
-    from generativeaiexamples_tpu_torch.serving import paged_attention as pa
-    from generativeaiexamples_tpu_torch.serving import (
-        paged_attention_tree as pt)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -860,8 +973,8 @@ def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
     P = B * maxp + 2
     q = (torch.randn((B, H, r, Hd), generator=g, device=dev)
          * PAGED_INT8_Q_SCALE).bfloat16()
-    kp = torch.randn((KH, P, ps, Hd), generator=g, device=dev).bfloat16()
-    vp = torch.randn((KH, P, ps, Hd), generator=g, device=dev).bfloat16()
+    kp = torch.randn((2, KH, P, ps, Hd), generator=g, device=dev).bfloat16()
+    vp = torch.randn((2, KH, P, ps, Hd), generator=g, device=dev).bfloat16()
     perm = torch.randperm(P - 2, generator=g, device=dev) + 1
     table = torch.full((B, maxp), P - 1, dtype=torch.int32, device=dev)
     used = 0
@@ -874,10 +987,35 @@ def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
         for b, n in enumerate(lengths):
             t = max(n, 1) - 1
             page = int(table[b, t // ps])
-            kp[:, page, t % ps] = (torch.sign(group_q[b]) * 4).bfloat16()
+            kp[:, :, page, t % ps] = (torch.sign(group_q[b]) * 4).bfloat16()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, ln, P
+
+
+def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
+              timed=False, late_max=False):
+    """K5 against `paged_tree_attention_reference` in f32 on the same bf16
+    inputs (layer 1 of a two-layer pool), node by node (TREE_RTOL of each
+    (row, node)'s max |out|). After the parity check the unused page the
+    tail slots name and sink page 0 are poisoned with NaN and the
+    kernel's result must not change. A second launch must give the same
+    bits (the span split across CTAs and merged included)."""
+    import torch
+    import torch.nn.functional as F
+
+    from generativeaiexamples_tpu_torch.serving import paged_attention as pa
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_tree as pt)
+
+    dev = torch.device("cuda")
+    r = 1 + tree[0] * tree[1]
+    q, kp2, vp2, table, ln, P = _tree_inputs(B, H, KH, Hd, ps, maxp, lengths,
+                                             tree, seed, late_max)
+    kp, vp = kp2[1], vp2[1]
     anc = pt._canonical_tree(*tree)
     got = pt.paged_tree_attention(q, kp, vp, table, ln, tree)
+    repeat = bool(torch.equal(got, pt.paged_tree_attention(
+        q, kp, vp, table, ln, tree)))
     want = pa.paged_tree_attention_reference(
         q.float(), kp.float(), vp.float(), table, ln.clamp(min=1), anc)
     torch.cuda.synchronize()
@@ -895,13 +1033,15 @@ def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
     torch.cuda.synchronize()
     unread = bool(torch.equal(poisoned, got))
     finite = bool(torch.isfinite(got.float()).all())
-    ok = finite and unread and node_rel <= TREE_RTOL
+    ok = finite and unread and repeat and node_rel <= TREE_RTOL
+    plan = pa.paged_bf16_plan(B, KH, (H // KH) * r, Hd, ps, maxp, n_sms())
     rec = {"phase": "tree", "case": name, "B": B, "H": H, "KH": KH,
            "Hd": Hd, "ps": ps, "maxp": maxp, "tree": list(tree), "r": r,
            "lengths": lengths, "late_max": late_max, "max_abs_err": err,
            "max_node_rel_err": node_rel, "rtol": TREE_RTOL,
            "min_node_max_abs_out": float(node_max.min()),
-           "sink_and_tail_unread": unread, "finite": finite, "ok": ok}
+           "sink_and_tail_unread": unread, "repeat_identical": repeat,
+           "plan": plan._asdict(), "finite": finite, "ok": ok}
     if timed:
         pairs, slots = _verify_pairs(lengths, r, tree, maxp * ps)
         # K/V of the slots read (bf16), q and the output once, the table
@@ -910,8 +1050,17 @@ def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
             + 4.0 * (table.numel() + B)
         flops = 4.0 * Hd * H * pairs
         rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
-        rec["ms"] = time_ms(lambda: pt.paged_tree_attention(
-            q, kp, vp, table, ln, tree))
+        turn = [0]
+
+        def alternating():  # another layer's pages each call, as in K2's
+            turn[0] ^= 1
+            pt.paged_tree_attention(q, kp2[turn[0]], vp2[turn[0]], table,
+                                    ln, tree)
+
+        rec["ms"] = time_ms(alternating)
+        rec["device_ms"] = device_ms(alternating,
+                                     KERNEL_FUNCTIONS["paged_attention_tree"])
+        rec["host_ms"] = host_ms(alternating)
         rec["plain_ms"] = time_ms(lambda: pa.paged_tree_attention_reference(
             q, kp, vp, table, ln.clamp(min=1), anc), iters=3, warmup=1)
         # SDPA with a boolean mask over K/V gathered beforehand (the
@@ -925,28 +1074,42 @@ def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
         mask = (rel < 0)[:, None, :] | (
             ((rel >= 0) & (rel < r))[:, None, :]
             & anc_t[:, rel.clamp(0, r - 1)].transpose(0, 1))   # [B, r, S]
+
+        def sdpa():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None],
+                                           enable_gqa=True)
+
         # No single torch call takes a page table (as for K2): the SDPA
         # time over K/V gathered beforehand is a dense yardstick only.
         rec["library_ms"] = None
-        rec["sdpa_gathered_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask[:, None], enable_gqa=True))
-        rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
+        rec["sdpa_gathered_ms"] = time_ms(sdpa)
+        rec["sdpa_gathered_device_ms"] = device_ms(sdpa)
+        rec["gbytes_per_s"] = n_bytes / (rec["device_ms"] * 1e-3) / 1e9
         del k, v, mask
-    del kp, vp, got, poisoned
+    del kp2, vp2, got, poisoned
     torch.cuda.empty_cache()
     return rec
 
 
+# K5's timed cases at the 8B shape (H = 32, KH = 8, head_dim 128, page
+# 128): (name, B, maxp, lengths, tree, seed). The bf16 tree engine's
+# shape: batch 8, the (3, 4) lattice, lengths up to 8191 (one more table
+# page for the tree).
+K5_TIMED = (("8b_tree34", 8, 65, [1, 17, 128, 129, 1000, 4096, 7000, 8191],
+             (3, 4), 51),)
+
+
 def phase_tree():
     b8 = [1, 17, 128, 129, 1000, 4096, 7000, 8191]
-    cases = [
-        # The bf16 tree engine's shape: 8B heads, batch 8, the (3, 4)
-        # lattice, lengths up to 8191 (one more table page for the tree).
-        tree_case("8b_tree34", 8, 32, 8, 128, 128, 65, b8, (3, 4), seed=51,
-                  timed=True),
+    cases = [tree_case(name, B, 32, 8, 128, 128, maxp, lengths, tree,
+                       seed=seed, timed=True)
+             for name, B, maxp, lengths, tree, seed in K5_TIMED]
+    cases += [
         tree_case("tree28_hd64_ps16", 4, 8, 2, 64, 16, 64,
                   [1, 50, 300, 1000], (2, 8), seed=52),
+        # The smallest page the engine admits, with the span split.
+        tree_case("tree34_ps8", 4, 32, 8, 128, 8, 130, [1, 9, 300, 1023],
+                  (3, 4), seed=55),
         tree_case("tree28_8b", 8, 32, 8, 128, 128, 65, b8, (2, 8), seed=53),
         tree_case("late_max", 8, 32, 8, 128, 128, 65,
                   [129, 700, 1500, 2048, 3000, 4097, 6000, 8180], (3, 4),
@@ -1267,10 +1430,12 @@ def _complete(base, prompt, max_tokens, **sampling):
 
 
 # Device function names of the port's kernels, for the profile windows.
+# K2 and K5 share one body (csrc/paged_bf16.cuh) under two kernel names.
 KERNEL_FUNCTIONS = {"flash_attention": "flash_fwd_kernel",
                     "paged_attention": "paged_decode_kernel",
                     "encoder_attention": "encoder_attention_kernel",
                     "paged_attention_int8": "paged_int8_kernel",
+                    "paged_attention_tree": "paged_tree_kernel",
                     "int8_matmul": "int8_matmul_kernel"}
 
 
@@ -2108,12 +2273,14 @@ AB_FLASH = (("8b_s2048", 4, 32, 8, 2048, 2048, [2048] * 4, [0] * 4),
 
 
 def time_kernels() -> dict:
-    """K1, K3, K4 and K6 times through the public wrappers of whichever
-    port package is first on sys.path: AB_FLASH, K3's and K4's timed
-    cases (K4 alternating two layers as in paged_int8_case; these also
+    """K1-K6 times through the public wrappers of whichever port package
+    is first on sys.path: AB_FLASH, K2's, K3's, K4's and K5's timed cases
+    (K2, K4 and K5 alternating two layers as in their phases; these also
     with their device time, `<case>_device`, since a small case's loop
-    time is the host's), and every K6_SHAPES x K6_ROWS case (the weights
-    rotated through copies as in int8_mm_case)."""
+    time is the host's; K2 and K5 with their host time, `<case>_host`,
+    and K2's 8b_short with a CPU profile of a call), and every
+    K6_SHAPES x K6_ROWS case (the weights rotated through copies as in
+    int8_mm_case)."""
     import torch
 
     from generativeaiexamples_tpu_torch import kernels
@@ -2122,11 +2289,13 @@ def time_kernels() -> dict:
     from generativeaiexamples_tpu_torch.ops.quant import quantize_tensor
 
     from generativeaiexamples_tpu_torch.ops import encoder_attention as ea
+    from generativeaiexamples_tpu_torch.serving import paged_attention as pa
     from generativeaiexamples_tpu_torch.serving import (
         paged_attention_int8 as pa8)
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_tree as pt)
 
-    kernels.build(["flash_attention", "encoder_attention",
-                   "paged_attention_int8", "int8_matmul"])
+    kernels.build()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     ms = {}
@@ -2138,6 +2307,39 @@ def time_kernels() -> dict:
         off = torch.tensor(q_offset, dtype=torch.int32, device=dev)
         ms[name] = time_ms(lambda: attn.flash_attention(
             q, k, v, causal=True, lengths=ln, q_offset=off))
+    for name, B, lengths, seed in K2_TIMED:
+        q, kp, vp, table, ln = _paged_inputs(B, 32, 8, 128, 128, 64,
+                                             lengths, seed)
+        turn = [0]
+
+        def k2():
+            turn[0] ^= 1
+            pa.paged_attention(q, kp[turn[0]], vp[turn[0]], table, ln)
+
+        ms[f"k2_{name}"] = time_ms(k2)
+        ms[f"k2_{name}_device"] = device_ms(k2, KERNEL_FUNCTIONS[
+            "paged_attention"])
+        ms[f"k2_{name}_host"] = host_ms(k2)
+        if name == "8b_short":  # host-bound: where a call's time goes
+            ms[f"k2_{name}_host_profile"] = host_profile(k2)
+        del kp, vp
+        torch.cuda.empty_cache()
+    for name, B, maxp, lengths, tree, seed in K5_TIMED:
+        q, kp, vp, table, ln, _ = _tree_inputs(B, 32, 8, 128, 128, maxp,
+                                               lengths, tree, seed, False)
+        turn = [0]
+
+        def k5():
+            turn[0] ^= 1
+            pt.paged_tree_attention(q, kp[turn[0]], vp[turn[0]], table, ln,
+                                    tree)
+
+        ms[f"k5_{name}"] = time_ms(k5)
+        ms[f"k5_{name}_device"] = device_ms(k5, KERNEL_FUNCTIONS[
+            "paged_attention_tree"])
+        ms[f"k5_{name}_host"] = host_ms(k5)
+        del kp, vp
+        torch.cuda.empty_cache()
     for name, B, H, S, lengths, seed in _encoder_timed_cases():
         q, k, v, ln = _encoder_inputs(B, H, S, lengths, seed, True)
 
@@ -2254,6 +2456,118 @@ def kernel_variants() -> list:
     return rows
 
 
+# K2's and K5's plan variants at their timed cases: (kernel, case, fields
+# of paged_bf16_plan's result replaced; {} is the shipped plan).
+# The first plan of this design (64-slot stages, 3 deep, 2 CTAs an SM
+# targeted, no shortest run) is kept as a variant of each.
+BF16_PLAN_VARIANTS = (
+    ("paged_attention", "8b_decode", {}),
+    ("paged_attention", "8b_decode", {"stage_keys": 64, "key_slices": 4,
+                                      "ring_stages": 3,
+                                      "pages_per_split": 16}),
+    ("paged_attention", "8b_decode", {"pages_per_split": 16}),
+    ("paged_attention", "8b_decode", {"pages_per_split": 8}),
+    ("paged_attention", "8b_decode", {"ring_stages": 3}),
+    ("paged_attention", "8b_decode", {"key_slices": 4}),
+    ("paged_attention", "8b_b1_6000", {}),
+    ("paged_attention", "8b_b1_6000", {"stage_keys": 64, "key_slices": 4,
+                                       "ring_stages": 3,
+                                       "pages_per_split": 2}),
+    ("paged_attention", "8b_b1_6000", {"pages_per_split": 2}),
+    ("paged_attention", "8b_b1_6000", {"pages_per_split": 8}),
+    ("paged_attention", "8b_b1_6000", {"ring_stages": 3}),
+    ("paged_attention", "8b_short", {}),
+    ("paged_attention", "8b_short", {"pages_per_split": 64}),
+    ("paged_attention_tree", "8b_tree34", {}),
+    ("paged_attention_tree", "8b_tree34", {"stage_keys": 64,
+                                           "ring_stages": 3,
+                                           "pages_per_split": 17}),
+    ("paged_attention_tree", "8b_tree34", {"pages_per_split": 17}),
+    ("paged_attention_tree", "8b_tree34", {"pages_per_split": 8}),
+    ("paged_attention_tree", "8b_tree34", {"ring_stages": 3}),
+    ("paged_attention_tree", "8b_tree34", {"key_slices": 1}))
+
+
+def bf16_variants() -> list:
+    """K2's and K5's plan variants at their timed cases, in one process
+    on one card: each checked against its plain version (K2: max abs
+    error; K5: max error relative to each node's max |out|) and timed
+    (loop and device, alternating two layers)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving import paged_attention as pa
+    from generativeaiexamples_tpu_torch.serving import (
+        paged_attention_tree as pt)
+
+    kernels.build(["paged_attention", "paged_attention_tree"])
+    k2_cases = {c[0]: c for c in K2_TIMED}
+    k5_cases = {c[0]: c for c in K5_TIMED}
+    shipped = pa.paged_bf16_plan
+    rows = []
+    for kernel_name, name, override in BF16_PLAN_VARIANTS:
+        tree = None
+        if kernel_name == "paged_attention":
+            _, B, lengths, seed = k2_cases[name]
+            maxp = 64
+            q, kp, vp, table, ln = _paged_inputs(B, 32, 8, 128, 128, maxp,
+                                                 lengths, seed)
+        else:
+            _, B, maxp, lengths, tree, seed = k5_cases[name]
+            q, kp, vp, table, ln, _ = _tree_inputs(
+                B, 32, 8, 128, 128, maxp, lengths, tree, seed, False)
+
+        def plan(B_, KH, rows_, Hd, ps, maxp_, n_sms_):
+            p = shipped(B_, KH, rows_, Hd, ps, maxp_, n_sms_)._replace(
+                **override)
+            splits = -(-maxp_ // p.pages_per_split)
+            width = p.stage_keys // p.key_slices
+            ws = (4 * B_ * KH * splits * p.row_tiles * (Hd // 2 + 4) * 32
+                  if splits > 1 else 0)
+            return p._replace(keys_per_step=32 if width % 32 == 0 else 16,
+                              splits=splits, workspace_bytes=ws)
+
+        turn = [0]
+
+        def kernel():
+            turn[0] ^= 1
+            if tree is None:
+                return pa.paged_attention(q, kp[turn[0]], vp[turn[0]],
+                                          table, ln)
+            return pt.paged_tree_attention(q, kp[turn[0]], vp[turn[0]],
+                                           table, ln, tree)
+
+        pa.paged_bf16_plan = plan
+        try:
+            turn[0] = 0  # the next call reads layer 1
+            got = kernel().float()
+            if tree is None:
+                want = pa.paged_attention_reference(
+                    q.float(), kp[1].float(), vp[1].float(), table, ln)
+                err = {"max_abs_err": float((got - want).abs().max())}
+            else:
+                want = pa.paged_tree_attention_reference(
+                    q.float(), kp[1].float(), vp[1].float(), table,
+                    ln.clamp(min=1), pt._canonical_tree(*tree))
+                diff = (got - want).abs().amax((1, 3))        # [B, r]
+                err = {"max_node_rel_err": float((
+                    diff / want.abs().amax((1, 3))).max())}
+            group_rows = 4 * (q.shape[2] if tree is not None else 1)
+            rows.append({"kernel": kernel_name, "case": name,
+                         "plan": plan(B, 8, group_rows, 128, 128, maxp,
+                                      n_sms())._asdict(),
+                         "shipped_plan": not override, **err,
+                         "ms": time_ms(kernel),
+                         "device_ms": device_ms(kernel, KERNEL_FUNCTIONS[
+                             kernel_name]),
+                         "host_ms": host_ms(kernel)})
+        finally:
+            pa.paged_bf16_plan = shipped
+        del kp, vp, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def compare_parent(parent: str) -> dict:
     """time_kernels of the tree at `parent` and of this one in turns
     (parent, change, change, parent), each in its own process on the
@@ -2294,7 +2608,8 @@ def main() -> int:
               "compare_parent_ms": compare_parent(args[1])})
         return 0
     if args == ["--variants"]:
-        emit({"card": nvidia_smi(), "variants": kernel_variants()})
+        emit({"card": nvidia_smi(),
+              "variants": kernel_variants() + bf16_variants()})
         return 0
     if args:
         print("usage: chip_smoke.py [--compare-parent DIR | "
@@ -2383,6 +2698,16 @@ def main() -> int:
     k3["cases"] = {c["case"]: {k: c[k] for k in (
         "ms", "device_ms", "bound_ms", "library_ms", "library_device_ms",
         "k1_d64_ms")} for c in encoder if "ms" in c}
+    # K2's and K5's timed cases (K2 also launches on spec_bf16's plain
+    # fallback), each beside SDPA over K/V gathered beforehand.
+    for name, cases in (("paged_attention", paged),
+                        ("paged_attention_tree", tree)):
+        entry = next(e for e in line if e["name"] == name)
+        entry["cases"] = {c["case"]: {k: c[k] for k in (
+            "ms", "device_ms", "bound_ms", "sdpa_gathered_ms",
+            "sdpa_gathered_device_ms", "plan")} for c in cases if "ms" in c}
+    k2 = next(e for e in line if e["name"] == "paged_attention")
+    k2["spec_bf16_launches"] = spec_bf16["launches"]["paged_attention"]
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]

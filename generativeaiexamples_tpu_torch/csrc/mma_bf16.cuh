@@ -1,5 +1,6 @@
 // bf16 tensor-core helpers shared by the kernels (flash_attention.cu,
-// encoder_attention.cu, paged_attention_int8.cu, int8_matmul.cu):
+// encoder_attention.cu, paged_attention_int8.cu, int8_matmul.cu and the
+// bf16 paged kernels through paged_bf16.cuh):
 // mma.sync m16n8k16 with f32 accumulation, the register packing its
 // fragments need, ldmatrix, and the exact int8 -> bf16 widening.
 //

@@ -78,6 +78,7 @@
 
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "partials.cuh"
 #include "tree_mask.cuh"
 
 namespace {
@@ -86,9 +87,11 @@ using namespace gaie::hopper;
 using gaie::ldmatrix_x2;
 using gaie::ldmatrix_x4;
 using gaie::ldmatrix_x4_trans;
+using gaie::merge_partial;
 using gaie::mma_16816;
 using gaie::pack_f32;
 using gaie::split_bf16x2;
+using gaie::store_partial;
 using gaie::verify_keep;
 using gaie::widen2;
 
@@ -112,47 +115,6 @@ template <int HD>
 __device__ __forceinline__ uint32_t code_off(int r, int c) {
   const uint32_t o = static_cast<uint32_t>(r * HD + 16 * c);
   return o ^ (((o >> 7) & Shape<HD>::SWZ) << 4);
-}
-
-// Folds a partial (acc2, m, l of rows g and g + 8; lane-strided at r)
-// into this thread's state: another CTA's partial in global memory
-// (GLOBAL) or one of this CTA's in shared memory.
-template <int HD, bool GLOBAL>
-__device__ __forceinline__ void merge_partial(float* acc, float& mA, float& lA, float& mB,
-                                              float& lB, const float* r, int lane) {
-  constexpr int N = Shape<HD>::NACC;
-  auto ld = [&](int i) -> float {
-    if constexpr (GLOBAL) {
-      return __ldcg(r + i * 32 + lane);  // another CTA's write: read through L2
-    } else {
-      return r[i * 32 + lane];
-    }
-  };
-  const float m2A = ld(N), l2A = ld(N + 1), m2B = ld(N + 2), l2B = ld(N + 3);
-  const float MA = fmaxf(mA, m2A), MB = fmaxf(mB, m2B);
-  const float fA = exp2f(mA - MA), gA = exp2f(m2A - MA);
-  const float fB = exp2f(mB - MB), gB = exp2f(m2B - MB);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const bool rowA = (i & 3) < 2;
-    acc[i] = acc[i] * (rowA ? fA : fB) + ld(i) * (rowA ? gA : gB);
-  }
-  lA = lA * fA + l2A * gA;
-  lB = lB * fB + l2B * gB;
-  mA = MA;
-  mB = MB;
-}
-
-template <int HD>
-__device__ __forceinline__ void store_partial(float* r, const float* acc, float mA, float lA,
-                                              float mB, float lB, int lane) {
-  constexpr int N = Shape<HD>::NACC;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i * 32 + lane] = acc[i];
-  r[N * 32 + lane] = mA;
-  r[(N + 1) * 32 + lane] = lA;
-  r[(N + 2) * 32 + lane] = mB;
-  r[(N + 3) * 32 + lane] = lB;
 }
 
 // HD: head_dim. NC: keys a consumer warp takes per step (32, or 16 when

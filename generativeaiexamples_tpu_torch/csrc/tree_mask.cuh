@@ -1,5 +1,6 @@
 // The verify masks shared by the speculative attention kernels
-// (paged_attention_int8.cu's q_rep / tree forms, paged_attention_tree.cu),
+// (paged_attention_int8.cu's q_rep / tree forms, paged_bf16.cuh's body of
+// paged_attention.cu and paged_attention_tree.cu),
 // the device form of serving/paged_attention_int8.py::_tree_keep.
 // Editing this header rebuilds every library (kernels.library_path hashes
 // the csrc/*.cuh headers).

@@ -45,10 +45,11 @@ SIGNATURES = {
     # scale, causal, stream
     "flash_attention": ("gaie_flash_attention_bf16",
                         [_P] * 6 + [_I] * 6 + [_STRIDES, _F, _I, _P]),
-    # q, k_pages, v_pages, o, page_table, lengths, B, H, KH, P, ps, maxp,
-    # Hd, scale, stream
+    # q, k_pages, v_pages, o, page_table, lengths, workspace, tickets, B,
+    # H, KH, P, ps, maxp, Hd, key_slices, stage_keys, ring_stages,
+    # pages_per_split, scale, stream
     "paged_attention": ("gaie_paged_attention_bf16",
-                        [_P] * 6 + [_I] * 7 + [_F, _P]),
+                        [_P] * 8 + [_I] * 11 + [_F, _P]),
     # q, k, v, o, lengths, B, H, S, D, strides[12], scale, stream
     "encoder_attention": ("gaie_encoder_attention_bf16",
                           [_P] * 5 + [_I] * 4 + [_STRIDES, _F, _P]),
@@ -57,10 +58,11 @@ SIGNATURES = {
     # pages_per_split, scale, stream
     "paged_attention_int8": ("gaie_paged_attention_int8",
                              [_P] * 8 + [_I] * 14 + [_F, _P]),
-    # q, k_pages, v_pages, o, page_table, lengths, B, H, KH, P, ps, maxp,
-    # Hd, tree_k, tree_m, scale, stream
+    # q, k_pages, v_pages, o, page_table, lengths, workspace, tickets, B,
+    # H, KH, P, ps, maxp, Hd, tree_k, tree_m, key_slices, stage_keys,
+    # ring_stages, pages_per_split, scale, stream
     "paged_attention_tree": ("gaie_paged_tree_attention_bf16",
-                             [_P] * 6 + [_I] * 9 + [_F, _P]),
+                             [_P] * 8 + [_I] * 13 + [_F, _P]),
     # x, q, scale, y, workspace, tickets, R, K, M, row_tile, splits,
     # k_tiles_per_split, stream
     "int8_matmul": ("gaie_int8_matmul_bf16", [_P] * 6 + [_I] * 6 + [_P]),
@@ -72,23 +74,23 @@ _LOCK = threading.Lock()
 _FUNCS: Dict[str, object] = {}
 
 
-# Arrival tickets of the split kernels (K4, K6): int32 zeros per (kernel,
-# device), grown on demand and left zeroed by every launch (the last CTA
-# of a group resets its ticket). Launches on one stream run in order, so
-# a kernel's launches share one buffer.
+# Arrival tickets of the split kernels (K2, K4, K5, K6): int32 zeros per
+# (kernel, device), grown on demand and left zeroed by every launch (the
+# last CTA of a group resets its ticket). Launches on one stream run in
+# order, so a kernel's launches share one buffer.
 _TICKETS: Dict[tuple, object] = {}
 
 
 def tickets(name: str, device, n: int):
-    """At least `n` zeroed int32 tickets for kernel `name` on `device`."""
-    import torch
-
-    key = (name, device.type, device.index if device.index is not None
-           else torch.cuda.current_device())
-    t = _TICKETS.get(key)
+    """At least `n` zeroed int32 tickets for kernel `name` on `device`, a
+    tensor's device (which names its index). A dictionary hit on the hot
+    path: the wrappers call it on every split launch."""
+    t = _TICKETS.get((name, device))
     if t is None or t.numel() < n:
-        t = _TICKETS[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
-                                        device=device)
+        import torch
+
+        t = _TICKETS[(name, device)] = torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=device)
     return t
 
 

@@ -14,6 +14,14 @@ kernel). A CUDA tensor launches the kernel or raises; a CPU tensor runs
 `paged_attention_reference`. The fused int8 pool goes to K4
 (serving/paged_attention_int8.py).
 
+`paged_bf16_plan` is the launch plan of K2 and of the tree-verify kernel
+K5 (serving/paged_attention_tree.py), which share one body
+(`csrc/paged_bf16.cuh`): the consumer warps per 16-row tile of query
+rows, the slots a ring stage holds, and how the page axis is split
+across CTAs when B x KH CTAs alone would leave the card idle. It is pure
+Python so the CPU tests can check it; the wrappers pass it the card's SM
+count.
+
 Tree verify (speculation) has its plain versions here, as in the JAX
 package: `paged_tree_attention_reference` over a bf16/f32 pool and
 `paged_tree_attention_int8_reference_fused` over one layer of the fused
@@ -23,7 +31,9 @@ and of K4's tree form, and the route a CPU tensor takes.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -114,44 +124,137 @@ def paged_tree_attention_int8_reference_fused(q, kv_pages, kv_scales,
                                 scale if scale is not None else Hd ** -0.5)
 
 
+MAX_WARPS = 8            # consumer warps of a CTA (row tiles x key slices)
+CTAS_PER_SM = 3          # CTAs a split launch aims for per SM
+MIN_SPLIT_SLOTS = 512    # kv slots a split covers at least
+STAGE_KEYS = 128         # kv slots a ring stage holds
+RING_BYTES = 131072      # bytes of the ring
+
+
+class PagedBf16Plan(NamedTuple):
+    row_tiles: int        # 16-row tiles of the (H / KH) * R query rows
+    key_slices: int       # consumer warps per row tile, each a slice of every stage
+    keys_per_step: int    # keys a warp takes per step (32, or 16)
+    stage_keys: int       # kv slots a ring stage holds
+    ring_stages: int      # stages in the ring
+    splits: int           # CTAs along the page axis (grid z)
+    pages_per_split: int  # table slots each split covers (the last may hold fewer)
+    workspace_bytes: int  # f32 partials, 0 unsplit
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_bf16_plan(B: int, KH: int, rows: int, Hd: int, ps: int,
+                    maxp: int, n_sms: int) -> PagedBf16Plan:
+    """The K2 / K5 launch plan for B sequences, KH kv heads and `rows` =
+    (H / KH) * R query rows a kv head (R = 1 for decode, the tree's node
+    count for K5), pages of ps tokens, maxp table slots, on a card of
+    n_sms SMs. A ring stage holds STAGE_KEYS slots of K and V (a page of
+    128 slots, or sixteen of 8; 64 KB at head_dim 128), and the ring
+    RING_BYTES. Splits: with fewer than CTAS_PER_SM * n_sms CTAs of
+    (kv head, row), the page axis is cut into equal runs of table slots
+    so that B * KH * splits comes close to that target, each run at
+    least MIN_SPLIT_SLOTS slots (the last split to arrive merges the
+    others, a round of loads per key slice); a row whose pages end
+    before a split's run skips it. Key slices (warps per 16-row tile, a
+    power of two, at most MAX_WARPS warps): split launches take as many
+    as leave 16 keys of a stage to each, unsplit ones as many as leave
+    32. These choices measured fastest on an H100 (`chip_smoke.py
+    --variants`, PERF.md). Cached: the engine asks for the same few
+    shapes on every step."""
+    row_tiles = math.ceil(rows / 16)
+    if row_tiles > MAX_WARPS:
+        raise ValueError(f"paged_bf16_plan: {rows} query rows a kv head "
+                         f"exceed {16 * MAX_WARPS}")
+    want = max(1, min(maxp, CTAS_PER_SM * n_sms // (B * KH)))
+    per = max(math.ceil(maxp / want), math.ceil(MIN_SPLIT_SLOTS / ps))
+    splits = math.ceil(maxp / per)
+    least = 16 if splits > 1 else 32  # keys of a stage each slice keeps
+    slices = 1
+    while (row_tiles * slices * 2 <= MAX_WARPS
+           and STAGE_KEYS // (slices * 2) >= least):
+        slices *= 2
+    step = 32 if (STAGE_KEYS // slices) % 32 == 0 else 16
+    ws = (4 * B * KH * splits * row_tiles * (Hd // 2 + 4) * 32
+          if splits > 1 else 0)
+    return PagedBf16Plan(row_tiles, slices, step, STAGE_KEYS,
+                         RING_BYTES // (4 * STAGE_KEYS * Hd), splits,
+                         min(per, maxp), ws)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_paged_bf16(name: str, q, k_pages, v_pages, page_table, lengths,
+                       rows: int, scale: float, *tree) -> torch.Tensor:
+    """Checks the operands K2 and K5 share and launches kernel `name`
+    under paged_bf16_plan: bf16 q and pages [KH, P, ps, Hd] (Hd in {64,
+    128}, ps a multiple of 8 up to 128), int32 page_table [B, maxp] and
+    lengths [B], all contiguous on q's device; `rows` query rows a kv
+    head. The output is bf16 in q's layout."""
+    B, H, Hd = q.shape[0], q.shape[1], q.shape[-1]
+    KH, P, ps, Hk = k_pages.shape
+    maxp = page_table.shape[1] if page_table.dim() == 2 else -1
+    if (v_pages.shape != k_pages.shape or Hk != Hd or Hd not in (64, 128)
+            or H % KH or rows > 16 * MAX_WARPS or ps % 8
+            or not 0 < ps <= 128 or page_table.shape != (B, maxp)
+            or lengths.shape != (B,)):
+        raise ValueError(
+            f"{name}: unsupported shapes q {tuple(q.shape)} pages "
+            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} table "
+            f"{tuple(page_table.shape)} lengths {tuple(lengths.shape)}")
+    for label, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _check_cuda_operand(label, t, q.device)
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+    for label, t in (("page_table", page_table), ("lengths", lengths)):
+        if t.dtype != torch.int32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous int32 "
+                             f"on {q.device}")
+    plan = paged_bf16_plan(B, KH, rows, Hd, ps, maxp,
+                           _sm_count(q.device.index))
+    out = torch.empty_like(q)
+    ws = tickets = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                         device=q.device)
+        tickets = kernels.tickets(name, q.device, B * KH)
+    kernels.launch(
+        name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        out.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        tickets.data_ptr() if tickets is not None else None,
+        B, H, KH, P, ps, maxp, Hd, *tree, plan.key_slices, plan.stage_keys,
+        plan.ring_stages, plan.pages_per_split, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """K2: paged decode attention. bf16 q [B,H,Hd] and pages
-    [KH,P,ps,Hd] (Hd in {64, 128}, ps a multiple of 8 up to 128),
-    int32 page_table [B, maxp] and lengths [B]; all contiguous."""
+    [KH,P,ps,Hd] (Hd in {64, 128}, ps a multiple of 8 up to 128, at most
+    128 query heads a kv head), int32 page_table [B, maxp] and lengths
+    [B]; all contiguous. The launch follows `paged_bf16_plan`; a row of
+    length 0 gets zeros on the card."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table,
                                          lengths, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    B, H, Hd = q.shape
-    KH, P, ps, Hk = k_pages.shape
-    maxp = page_table.shape[1] if page_table.dim() == 2 else -1
-    if (v_pages.shape != k_pages.shape or Hk != Hd or Hd not in (64, 128)
-            or H % KH or (H // KH) * Hd > 1024 or ps % 8 or not 0 < ps <= 128
-            or page_table.shape != (B, maxp) or lengths.shape != (B,)):
-        raise ValueError(
-            f"unsupported shapes q {tuple(q.shape)} pages "
-            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} table "
-            f"{tuple(page_table.shape)} lengths {tuple(lengths.shape)}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        _check_cuda_operand(name, t, q.device)
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("page_table", page_table), ("lengths", lengths)):
-        if t.dtype != torch.int32 or t.device != q.device \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 on {q.device}")
-    out = torch.empty_like(q)
-    kernels.launch(
-        "paged_attention", q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), out.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), B, H, KH, P, ps, maxp, Hd,
-        float(scale if scale is not None else Hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    return out
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} pages "
+                         f"{tuple(k_pages.shape)} (want [B, H, Hd] and "
+                         f"[KH, P, ps, Hd])")
+    Hd = q.shape[-1]
+    return _launch_paged_bf16(
+        "paged_attention", q, k_pages, v_pages, page_table, lengths,
+        q.shape[1] // k_pages.shape[0],
+        scale if scale is not None else Hd ** -0.5)
 
 
 def paged_attention_dispatch(q, k_pages, v_pages, page_table, lengths, *,

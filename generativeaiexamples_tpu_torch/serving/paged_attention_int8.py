@@ -43,7 +43,7 @@ import torch
 from generativeaiexamples_tpu_torch import kernels
 from generativeaiexamples_tpu_torch.ops.attention import NEG_INF
 from generativeaiexamples_tpu_torch.serving.paged_attention import (
-    _gather_pages, paged_attention_reference)
+    _gather_pages, _sm_count, paged_attention_reference)
 
 
 def quantize_kv(x: torch.Tensor, scale_dtype=torch.float32):
@@ -187,11 +187,6 @@ def paged_int8_plan(B: int, KH: int, rows: int, Hd: int, ps: int,
     ws = (4 * B * KH * splits * row_tiles * (Hd // 2 + 4) * 32
           if splits > 1 else 0)
     return PagedInt8Plan(row_tiles, slices, step, splits, per, ws)
-
-
-@functools.lru_cache(maxsize=16)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_attention_int8(q: torch.Tensor, kv_pages: torch.Tensor,

@@ -11,7 +11,8 @@ ancestor-or-self chain (engine_model._tree_layout).
   (K5), which replaces the Pallas `_tree_kernel`. It reads only the
   `length + r - 1` tokens the deepest node sees and builds the ancestor
   mask arithmetically (`paged_attention_int8._tree_keep`), so no mask
-  table crosses from the host.
+  table crosses from the host. It shares K2's body and launch plan
+  (`csrc/paged_bf16.cuh`, `paged_attention.paged_bf16_plan`).
 - int8 pools: the twin is K4's tree form,
   `paged_attention_int8(..., q_rep=r, tree=(k, M))`: the same page
   stream as linear verify with the tree mask.
@@ -31,10 +32,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from generativeaiexamples_tpu_torch import kernels
-from generativeaiexamples_tpu_torch.ops.attention import _check_cuda_operand
 from generativeaiexamples_tpu_torch.serving.paged_attention import (
-    paged_tree_attention_int8_reference_fused, paged_tree_attention_reference)
+    _launch_paged_bf16, paged_tree_attention_int8_reference_fused,
+    paged_tree_attention_reference)
 from generativeaiexamples_tpu_torch.serving.paged_attention_int8 import (
     paged_attention_int8)
 
@@ -71,9 +71,11 @@ def paged_tree_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """K5: tree-verify attention over one layer's pool. q [B, H, r, Hd]
     packed tree queries (r == 1 + k*M for tree = (k, M)), pages [KH, P,
     ps, Hd], int32 page_table [B, maxp] and lengths [B] (incl. the root).
-    On CUDA: bf16 q and pages (Hd in {64, 128}), all contiguous, and
-    (H / KH) * r <= 128 query rows per kv head; the output is bf16.
-    Lengths are clamped to >= 1 as the JAX wrapper does."""
+    On CUDA: bf16 q and pages (Hd in {64, 128}, ps a multiple of 8 up to
+    128), all contiguous, and (H / KH) * r <= 128 query rows per kv head;
+    the output is bf16 and the launch follows
+    `paged_attention.paged_bf16_plan`. Lengths are clamped to >= 1 as the
+    JAX wrapper does."""
     B, H, r, Hd = q.shape
     k, m = tree
     if r != 1 + k * m:
@@ -85,33 +87,14 @@ def paged_tree_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_tree_attention: unsupported device "
                          f"{q.device}")
-    KH, P, ps, Hk = k_pages.shape
-    maxp = page_table.shape[1] if page_table.dim() == 2 else -1
-    if (v_pages.shape != k_pages.shape or Hk != Hd or Hd not in (64, 128)
-            or H % KH or (H // KH) * r > 128 or page_table.shape != (B, maxp)
-            or lengths.shape != (B,)):
-        raise ValueError(
-            f"paged_tree_attention: unsupported shapes q {tuple(q.shape)} "
-            f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)} table "
-            f"{tuple(page_table.shape)} lengths {tuple(lengths.shape)}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        _check_cuda_operand(name, t, q.device)
-        if not t.is_contiguous():
-            raise ValueError(f"paged_tree_attention: {name} must be "
-                             f"contiguous")
-    for name, t in (("page_table", page_table), ("lengths", lengths)):
-        if t.dtype != torch.int32 or t.device != q.device \
-                or not t.is_contiguous():
-            raise ValueError(f"paged_tree_attention: {name} must be "
-                             f"contiguous int32 on {q.device}")
-    out = torch.empty_like(q)
-    kernels.launch(
-        "paged_attention_tree", q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), out.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), B, H, KH, P, ps, maxp, Hd, k, m,
-        float(scale if scale is not None else Hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    return out
+    if k_pages.dim() != 4:
+        raise ValueError(f"paged_tree_attention: pages "
+                         f"{tuple(k_pages.shape)} (want [KH, P, ps, Hd])")
+    # The kernel clamps lengths to >= 1 and the span to maxp * ps itself.
+    return _launch_paged_bf16(
+        "paged_attention_tree", q, k_pages, v_pages, page_table, lengths,
+        (H // k_pages.shape[0]) * r,
+        scale if scale is not None else Hd ** -0.5, k, m)
 
 
 def _kernel_tree(q, anc_mask, k, n_branches, who):

@@ -25,6 +25,7 @@ from generativeaiexamples_tpu_torch.serving import engine_model as tem
 from generativeaiexamples_tpu_torch.serving import paged_attention as tpa
 from generativeaiexamples_tpu_torch.serving import paged_attention_int8 as tpa8
 from generativeaiexamples_tpu_torch.serving import paged_attention_tree as tpt
+from test_torch_paged_attention import paged_bf16_split_merge
 from test_torch_paged_attention_int8 import paged_int8_split_merge
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -94,6 +95,38 @@ def test_tree_reference_matches_jax_tree_kernel(k, M):
                                              k, M)
     assert torch.equal(wrap, torch.from_numpy(ref))
     assert torch.equal(disp, torch.from_numpy(ref))
+
+
+@pytest.mark.parametrize("per", ["1", "2", "maxp"])
+@pytest.mark.parametrize("k,M,ps,plan", [
+    (2, 2, 16, (64, 2, 16)),
+    # 52 query rows a kv head (4 row tiles), 32 keys a step.
+    (3, 4, 16, (64, 2, 32)),
+    # Pages of 8 slots: a 16-key step straddles two of them.
+    (2, 8, 8, (64, 1, 16)),
+])
+def test_split_merge_matches_jax_tree_kernel(k, M, ps, plan, per):
+    """K5's arithmetic (csrc/paged_bf16.cuh: splits of table slots, ring
+    stages, key slices, online softmax, merges in order) in f32 against
+    the JAX tree kernel in interpret mode and the reference, for runs of
+    one table slot, of two, and of the whole table."""
+    r = 1 + k * M
+    maxp = 64 // ps
+    q, kp, vp, table, ln = _geom(r, seed=k * 7 + M, ps=ps, maxp=maxp,
+                                 P=3 * maxp + 2)
+    stage_keys, key_slices, step = plan
+    got = paged_bf16_split_merge(
+        *_t(q, kp, vp, table, ln),
+        pages_per_split=maxp if per == "maxp" else int(per),
+        stage_keys=stage_keys, key_slices=key_slices, keys_per_step=step,
+        tree=(k, M)).numpy()
+    kernel = np.asarray(jpt.paged_tree_attention(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, ln)), (k, M),
+        interpret=True))
+    np.testing.assert_allclose(got, kernel, **TOL)
+    ref = tpa.paged_tree_attention_reference(
+        *_t(q, kp, vp, table, ln), tpt._canonical_tree(k, M)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
 
 
 @pytest.mark.parametrize("k,M", [(2, 2), (3, 4), (2, 8)])
@@ -190,3 +223,27 @@ def test_kernels_refuse_a_non_canonical_mask_on_cuda():
     with pytest.raises(ValueError, match="canonical"):
         tpt.paged_tree_attention_int8_dispatch(q.bfloat16(), kv, sc, table,
                                                ln, doctored, 2, 2, 0)
+
+
+def test_tree_kernel_matches_plain_version_on_cuda():
+    """K5 on the card (skips without one) against its plain version in
+    f32, node by node within 1e-2 of each node's max |out| (bf16 output,
+    q scaled up so the scores are sharp): at B = 2 (the span split
+    across CTAs) and with pages of 8 slots, and a repeat launch gives the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K5 is a CUDA kernel")
+    for ps, maxp in ((128, 9), (8, 40)):
+        q, kp, vp, table, ln = (t.cuda() for t in _t(*_geom(
+            13, seed=ps, B=2, H=32, KH=8, Hd=128, ps=ps, maxp=maxp,
+            P=2 * maxp + 2)))
+        q, kp, vp = (q * 8).bfloat16(), kp.bfloat16(), vp.bfloat16()
+        got = tpt.paged_tree_attention(q, kp, vp, table, ln, (3, 4))
+        want = tpa.paged_tree_attention_reference(
+            q.float(), kp.float(), vp.float(), table, ln,
+            tpt._canonical_tree(3, 4))
+        per_node = lambda t: t.transpose(1, 2).reshape(2 * 13, -1)  # noqa: E731
+        diff = per_node(got.float() - want).abs().amax(1)
+        assert float((diff / per_node(want).abs().amax(1)).max()) <= 1e-2
+        assert torch.equal(got, tpt.paged_tree_attention(
+            q, kp, vp, table, ln, (3, 4)))
