@@ -12,7 +12,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               per source, all in parallel
   3. flash    K1 (csrc/flash_attention.cu) against `mha_reference` run in
               f32 on the same bf16 inputs, at Llama-3-8B prefill shapes
-              (and the chunked lane's q_offset shape) plus ragged /
+              (and the chunked lane's and a prefix-cache hit's q_offset
+              shapes) plus ragged /
               q_offset / fully-masked / head_dim 64 cases; a second
               launch must give the same bits; SDPA (is_causal, or a
               boolean mask for lengths and q_offset) timed beside it
@@ -101,12 +102,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
               (int8 weights and KV, batch 128, page 128, max_seq 8192),
               with one cut (4,097 pool pages); 128 concurrent greedy
               64-token completions and one ~6,000-token chunked prompt
-              behind the OpenAI server. K6, K4 and K1 must launch, K2 not
+              behind the OpenAI server. K6, K4 and K1 must launch, K2
+              not. Then, with the engine stopped, four free pages of its
+              int8 pool through pool_to_pages, host memory and
+              pages_to_pool: codes and scales must come back bit-identical
   11b. spec_bf16  (before the bf16 engine goes) a tree engine (k = 3,
               M = 4, batch 8) over the same bf16 weights: 8 concurrent
               64-token completions, one sampled, so dispatches fall back
               to plain decode while it is live; K5 must launch, K2 only
               through the fallback
+  11c. prefix  (before the bf16 engine goes) an engine with the prefix
+              cache and the KV pager (batch 8, page 128, 257 pool pages,
+              a quarter of them cacheable, 512 MB of host tier) over the
+              same weights: a 1,536-token shared prefix with 8 questions
+              (each hit prefills only its suffix through K1's q_offset
+              form; TTFT cold against hits; then all 8 at once), and 12
+              1,024-token sessions run twice each, the first three
+              resumed from host RAM and the spill file: promoted pages
+              must equal their copy taken before demotion bit for bit and
+              the resumed streams the resident hits'; K1 and K2 must
+              launch
   13. spec_int8  over serving_int8's quantized weights, two speculative
               engines in turn in the same deployment: k = 3, M = 4 (tree)
               and k = 1 (linear), each with serving_int8's 128-request
@@ -120,7 +135,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   14. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
               serving_int8; K5: spec_bf16), times and bound; K4's entry
-              also carries its verify cases and its spec_int8 launches
+              also carries its verify cases and its spec_int8 launches,
+              K1's and K2's their prefix launches
   15. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
@@ -419,6 +435,11 @@ def phase_flash():
         # 8,192-row scratch cache.
         flash_case("8b_chunk_q_offset", 1, 32, 8, 2048, 8192, 128, [6000],
                    [4096], seed=9, timed=True),
+        # A prefix-cache hit on a fully cached 1,536-token prompt: capped
+        # at plen - 1, one suffix token at q_offset 1,535 (mid-tile) in a
+        # 128-wide chunk over a 2,048-row scratch cache.
+        flash_case("8b_hit_q_offset", 1, 32, 8, 128, 2048, 128, [1536],
+                   [1535], seed=10, timed=True),
         flash_case("ragged", 4, 32, 8, 200, 200, 128, [200, 137, 1, 64],
                    [0] * 4, seed=3),
         flash_case("q_offset", 4, 32, 8, 128, 512, 128, [512, 128, 228, 328],
@@ -1954,6 +1975,36 @@ def _burst(base, prompts, max_tokens):
     return results
 
 
+def _page_round_trip(pool, pages):
+    """The KV pager's page moves on an int8 pool: random codes and scales
+    written into `pages`, read out with pool_to_pages and copied to host
+    memory, the pages zeroed, the host copy scattered back with
+    pages_to_pool: codes and scales must come back bit-identical."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import engine_model
+
+    dev = pool.kv.device
+    row = torch.tensor(pages, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    codes = torch.randint(-127, 128, (len(pages),) + pool.kv[:, :, :, 0].shape,
+                          generator=g, device=dev).to(torch.int8)
+    scales = torch.rand((len(pages),) + pool.s[:, :, :, 0].shape,
+                        generator=g, device=dev)
+    engine_model.pages_to_pool(pool, codes, scales, row)
+    got, got_s = engine_model.pool_to_pages(pool, row)
+    host, host_s = got.cpu().numpy(), got_s.cpu().numpy()
+    pool.kv[:, :, :, row] = 0
+    pool.s[:, :, :, row] = 0
+    engine_model.pages_to_pool(pool, torch.from_numpy(host).to(dev),
+                               torch.from_numpy(host_s).to(dev), row)
+    back, back_s = engine_model.pool_to_pages(pool, row)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(back, codes) and torch.equal(back_s, scales))
+    return {"pages": list(pages),
+            "bytes": back.numel() + 4 * back_s.numel(), "ok": ok}
+
+
 def phase_serving_int8(card: str, model_size: str = "8b",
                        device: str = "cuda", n_requests: int = 128,
                        max_tokens: int = 64, long_prompt: int = 6000,
@@ -2003,6 +2054,9 @@ def phase_serving_int8(card: str, model_size: str = "8b",
             r["completion_tokens"] for r in burst() if r))
     finally:
         served.close()
+    # With the engine stopped, a few free pages of its int8 pool make
+    # the pager's round trip.
+    round_trip = _page_round_trip(pool, engine.allocator._free[-4:])
     tokens = sum(r["completion_tokens"] for r in results if r)
     finished = all(r is not None and r["finish_reason"] in ("length", "stop")
                    and r["completion_tokens"] >= 1 for r in results)
@@ -2011,7 +2065,7 @@ def phase_serving_int8(card: str, model_size: str = "8b",
           and launches["int8_matmul"] > 0
           and launches["paged_attention_int8"] > 0
           and launches["flash_attention"] > 0
-          and launches["paged_attention"] == 0)
+          and launches["paged_attention"] == 0 and round_trip["ok"])
     max_pages = ecfg["max_seq_len"] // ecfg["page_size"]
     default_pages = ecfg["max_batch_size"] * max_pages + max_pages + 1
     rec = {"phase": "serving_int8", "card": card,
@@ -2036,7 +2090,7 @@ def phase_serving_int8(card: str, model_size: str = "8b",
            "mean_batch_occupancy": metrics["mean_batch_occupancy"],
            "long_prompt": {"tokens": long_prompt, **long_rec},
            "launches": launches, "peak_mem_gb": peak_gb,
-           "profile": profile, "ok": ok}
+           "page_round_trip": round_trip, "profile": profile, "ok": ok}
     emit(rec)
     return rec, served
 
@@ -2261,6 +2315,265 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
            "ttft_p95_ms": metrics["ttft_p95_ms"],
            "peak_mem_gb": peak_gb, "launches": launches,
            "k2_launch_cap": k2_cap, "ok": ok}
+    emit(rec)
+    return rec
+
+
+# -- phase 11c: the prefix cache and the KV pager at 8B --------------------
+
+PREFIX_ENGINE = {"prefix_cache": True, "kv_pager": True,
+                 "prefix_cache_capacity": 0.25, "kv_host_budget_mb": 512}
+PREFIX_POOL_PAGES = 257
+
+
+# Scheduler methods whose host time splits a request's TTFT.
+TIMELINE_METHODS = ("_admit_waiting", "_lookup_prefix",
+                    "_begin_prefix_prefill", "_dispatch_chunk",
+                    "_finish_long_prefill", "_prefill_group",
+                    "_dispatch_decode", "_land_next_block")
+
+
+def _ttft_timeline(engine, run):
+    """Host time of the scheduler's methods between the submit of
+    `run()`'s one request and its first token: each of TIMELINE_METHODS
+    (and `submit`) is wrapped on `engine` for the call (the engine must
+    be idle), and per method the calls and milliseconds that started in
+    that span are summed. Returns (ttft_ms, {method: [calls, ms]})."""
+    log, submits = [], []
+    engine.submit = lambda req, _fn=engine.submit: (
+        submits.append(req.submit_time), _fn(req))[1]
+    for name in TIMELINE_METHODS:
+        fn = getattr(engine, name)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                log.append((_name, t0, time.perf_counter()))
+
+        setattr(engine, name, timed)
+    try:
+        run()
+    finally:
+        for name in TIMELINE_METHODS + ("submit",):
+            delattr(engine, name)
+    ttft = engine.metrics.last_ttft_ms
+    out = {}
+    for name, a, b in log:
+        if 0 <= (a - submits[0]) * 1e3 < ttft:
+            calls, ms = out.get(name, (0, 0.0))
+            out[name] = [calls + 1, ms + (b - a) * 1e3]
+    return ttft, out
+
+
+def _timeline_rec(engine, base, prompt, max_tokens):
+    ttft, host = _ttft_timeline(
+        engine, lambda: _complete(base, prompt, max_tokens))
+    return {"ttft_ms": ttft, "host_ms": host}
+
+
+def _metric_delta(engine, before, keys):
+    after = engine.metrics.snapshot()
+    return after, {k: after[k] - before[k] for k in keys}
+
+
+def phase_prefix(card: str, bf16_served, device: str = "cuda",
+                 prefix_len: int = 1536, question_len: int = 40,
+                 n_questions: int = 8, session_len: int = 1024,
+                 n_sessions: int = 12, n_resume: int = 3,
+                 max_tokens: int = 16, n_pages: int = PREFIX_POOL_PAGES,
+                 engine_cfg=None, warmup_buckets=(128, 1024, 2048)):
+    """An engine with the prefix cache and the KV pager (PREFIX_ENGINE,
+    batch 8, page 128, n_pages pool pages) over the bf16 8B weights the
+    serving phases used, behind the OpenAI server; raw token-id prompts
+    through /v1/completions (no chat template shifts the pages), greedy.
+
+    Shared prefix (the RAG shape): one prefix_len-token prefix (system
+    prompt and retrieved context) and n_questions distinct
+    question_len-token questions, one after another: the first misses,
+    each later one must raise prefix_hit_tokens by page_size x the
+    prefix's full pages and prefill_tokens by its suffix only (K1's
+    q_offset form). TTFT cold against the hits' p50. Then the same
+    prompts at once: hits against lane demotions (the scratch lane is one
+    wide, as in the JAX engine).
+
+    Sessions (the pager): n_sessions distinct session_len-token prompts,
+    each run twice while resident (the second run, h1, is a hit capped at
+    plen - 1: a CoW tail and an unaligned q_offset); the later sessions
+    push the first past the cache's capacity into host RAM and the spill
+    file. The first n_resume sessions' pages are copied (pool_to_pages)
+    right after their h1; resuming them (h2) must promote pages equal to
+    that copy bit for bit and give h1's tokens. kv_demotions,
+    kv_promotions and kv_spill_writes must be > 0. K1 and K2 must launch
+    in both parts."""
+    import tempfile
+
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving import engine_model
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+
+    t_phase = time.perf_counter()
+    src = bf16_served.engine
+    spill = tempfile.TemporaryDirectory(prefix="kv_spill_")
+    ecfg = {**PREFIX_ENGINE, "kv_spill_dir": spill.name,
+            **(engine_cfg or {})}
+    engine = LLMEngine(src.params, src.cfg, src.tokenizer, ecfg,
+                       n_pages=n_pages, device=device)
+    served = ServedEngine(engine=engine, warmup_buckets=list(warmup_buckets))
+    ps = engine.pool.page_size
+    keys = ("prefix_hits", "prefix_miss", "prefix_hit_tokens",
+            "prefill_tokens", "kv_demotions", "kv_promotions",
+            "kv_spill_writes", "kv_promote_ms")
+    g = torch.Generator().manual_seed(11)
+
+    def ids(n):
+        return torch.randint(0, 256, (n,), generator=g).tolist()
+
+    def run(prompt):
+        before = engine.metrics.snapshot()
+        res = _complete(served.base, prompt, max_tokens)
+        torch.cuda.synchronize()
+        _, d = _metric_delta(engine, before, keys)
+        return {**res, "ttft_ms": engine.metrics.last_ttft_ms,
+                "tokens": list(served.app.streams[tuple(prompt)]), **d}
+
+    try:
+        # -- shared prefix ---------------------------------------------
+        prefix = ids(prefix_len)
+        prompts = [prefix + ids(question_len) for _ in range(n_questions)]
+        full_pages = prefix_len // ps
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        seq_runs = [run(p) for p in prompts]
+        before = engine.metrics.snapshot()
+        t0 = time.perf_counter()
+        burst = _burst(served.base, prompts, max_tokens)
+        burst_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        _, burst_d = _metric_delta(engine, before, keys)
+        shared_launches = dict(kernels.LAUNCHES)
+        # Outside the counted window: where a resident shared-prefix
+        # hit's TTFT goes on the host.
+        timeline = {"shared_prefix_hit": _timeline_rec(
+            engine, served.base, prompts[-1], max_tokens)}
+        cold, hits = seq_runs[0], seq_runs[1:]
+        hit_ttft = sorted(r["ttft_ms"] for r in hits)
+        shared_ok = (
+            cold["prefix_miss"] == 1
+            and cold["prefill_tokens"] == len(prompts[0])
+            and all(r["prefix_hits"] == 1
+                    and r["prefix_hit_tokens"] == full_pages * ps
+                    and r["prefill_tokens"] == len(p) - full_pages * ps
+                    for r, p in zip(hits, prompts[1:]))
+            and all(r is not None and r["completion_tokens"] >= 1
+                    for r in burst)
+            and burst_d["prefix_miss"] == 0 and burst_d["prefix_hits"] >= 1
+            and shared_launches["flash_attention"] > 0
+            and shared_launches["paged_attention"] > 0)
+        shared = {
+            "prefix_tokens": prefix_len, "prefix_full_pages": full_pages,
+            "question_tokens": question_len, "requests": n_questions,
+            "hit_tokens_each": [r["prefix_hit_tokens"] for r in hits],
+            "prefill_tokens_each": [r["prefill_tokens"] for r in seq_runs],
+            "ttft_cold_ms": cold["ttft_ms"],
+            "ttft_hit_p50_ms": hit_ttft[len(hit_ttft) // 2],
+            "ttft_hits_ms": [r["ttft_ms"] for r in hits],
+            "burst": {"hits": burst_d["prefix_hits"],
+                      "misses": burst_d["prefix_miss"],
+                      "lane_demotions": n_questions - burst_d["prefix_hits"]
+                      - burst_d["prefix_miss"],
+                      "prefill_tokens": burst_d["prefill_tokens"],
+                      "wall_s": burst_s},
+            "launches": shared_launches, "ok": shared_ok}
+
+        # -- sessions through the pager ---------------------------------
+        kernels.reset_launches()
+        sessions = [ids(session_len) for _ in range(n_sessions)]
+        h1, snaps, sess_runs = [], [], []
+        for i, p in enumerate(sessions):
+            sess_runs.append(run(p))
+            h1.append(run(p))
+            if i < n_resume:
+                pages = engine.prefix_cache.match(p)
+                codes, _ = engine_model.pool_to_pages(
+                    engine.pool, torch.tensor(pages, device=engine.device))
+                snaps.append((len(pages), codes.cpu()))
+        # The spill worker has moved the host tier's oldest pages to disk
+        # before the resumes read them.
+        spilled = engine.kv_pager.wait_maintenance(60.0)
+        mid = engine.metrics.snapshot()
+        tiers = [[n.tier for n in engine.prefix_cache.match_nodes(p)]
+                 for p in sessions[:n_resume]]
+        h2, equal = [], []
+        for i, p in enumerate(sessions[:n_resume]):
+            h2.append(run(p))
+            nodes = engine.prefix_cache.match_nodes(p)[:snaps[i][0]]
+            codes, _ = engine_model.pool_to_pages(
+                engine.pool, torch.tensor([n.page for n in nodes],
+                                          device=engine.device))
+            equal.append(bool(torch.equal(codes.cpu().view(torch.int16),
+                                          snaps[i][1].view(torch.int16))))
+        torch.cuda.synchronize()
+        session_launches = dict(kernels.LAUNCHES)
+        end = engine.metrics.snapshot()
+        # Outside the counted window: where a resident session hit's TTFT
+        # goes on the host.
+        timeline["session_hit"] = _timeline_rec(engine, served.base,
+                                                sessions[-1], max_tokens)
+        promoted = end["kv_promotions"] - mid["kv_promotions"]
+        capped = session_len - 1
+        sess_ok = (
+            all(r["prefix_hits"] == 1 and r["prefix_hit_tokens"] == capped
+                and r["prefill_tokens"] == 1 for r in h1 + h2)
+            and all(equal) and len(equal) == n_resume
+            and all(a["tokens"] == b["tokens"] for a, b in zip(h1, h2))
+            and spilled and all(t[0] != 0 for t in tiers)  # all demoted
+            and end["kv_demotions"] > 0 and promoted > 0
+            and end["kv_spill_writes"] > 0
+            and session_launches["flash_attention"] > 0
+            and session_launches["paged_attention"] > 0)
+        sessions_rec = {
+            "sessions": n_sessions, "session_tokens": session_len,
+            "resumed": n_resume, "max_tokens": max_tokens,
+            "capacity_pages": engine.prefix_cache.capacity_pages,
+            "host_slots": engine.kv_pager.n_host_slots,
+            "h1_hit_tokens": [r["prefix_hit_tokens"] for r in h1],
+            "h2_hit_tokens": [r["prefix_hit_tokens"] for r in h2],
+            "resume_tiers": tiers,
+            "promoted_equal_snapshot": equal,
+            "h2_tokens_equal_h1": [a["tokens"] == b["tokens"]
+                                   for a, b in zip(h1, h2)],
+            "ttft_cold_p50_ms": sorted(r["ttft_ms"] for r in sess_runs)[
+                len(sess_runs) // 2],
+            "ttft_h1_p50_ms": sorted(r["ttft_ms"] for r in h1)[len(h1) // 2],
+            "ttft_h2_ms": [r["ttft_ms"] for r in h2],
+            "promoted_pages": promoted,
+            "promote_ms_per_page": ((end["kv_promote_ms"]
+                                     - mid["kv_promote_ms"]) / promoted
+                                    if promoted else None),
+            "pager": {k: end[k] for k in end if k.startswith("kv_")},
+            "launches": session_launches, "ok": sess_ok}
+    finally:
+        served.close()
+        engine.pool = None
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        spill.cleanup()
+    launches = {k: shared_launches[k] + session_launches[k]
+                for k in shared_launches}
+    rec = {"phase": "prefix", "card": card,
+           "engine": {**{k: ecfg[k] for k in PREFIX_ENGINE},
+                      "n_pages": n_pages, "page_size": ps,
+                      "max_batch_size": src.ecfg.max_batch_size},
+           "shared_prefix": shared, "sessions": sessions_rec,
+           "ttft_timeline": timeline, "launches": launches,
+           "engine_warmup_s": served.warm_s,
+           "seconds": time.perf_counter() - t_phase,
+           "ok": shared["ok"] and sessions_rec["ok"]}
     emit(rec)
     return rec
 
@@ -2648,6 +2961,7 @@ def main() -> int:
         chunked = phase_chunked(served)
         rag = phase_rag(card, served)
         spec_bf16 = phase_spec_bf16(card, served)
+        prefix = phase_prefix(card, served)
     finally:
         served.close()
     # The bf16 engine and the RAG stores go before the int8 engine comes.
@@ -2708,11 +3022,16 @@ def main() -> int:
             "sdpa_gathered_device_ms", "plan")} for c in cases if "ms" in c}
     k2 = next(e for e in line if e["name"] == "paged_attention")
     k2["spec_bf16_launches"] = spec_bf16["launches"]["paged_attention"]
+    # K1 (a hit's suffix at q_offset) and K2 (decode over adopted and
+    # promoted pages) on the prefix-cache path.
+    for e in line:
+        if e["name"] in ("flash_attention", "paged_attention"):
+            e["prefix_launches"] = prefix["launches"][e["name"]]
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]
           and rag["ok"] and serving_int8["ok"] and spec_bf16["ok"]
-          and all(r["ok"] for r in spec_int8))
+          and prefix["ok"] and all(r["ok"] for r in spec_int8))
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

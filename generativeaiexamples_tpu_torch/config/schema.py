@@ -5,9 +5,10 @@ config/schema.py that this package honours, with the same names and
 defaults:
 
 - `EngineConfig`: the serving engine, speculation included
-  (`speculative_k`, `speculative_tree_branches`). Flags of the JAX
+  (`speculative_k`, `speculative_tree_branches`) and the prefix cache and
+  KV pager (`prefix_cache`, `kv_pager` and their sizes). Flags of the JAX
   engine that the port does not have yet (step plans, the fused prefill
-  rider, prefix cache, ...) are listed in `UNSUPPORTED` with the ROADMAP
+  rider, QoS, multi-host, ...) are listed in `UNSUPPORTED` with the ROADMAP
   item that brings them; `EngineConfig.coerce` refuses any of them set
   away from its default.
 - `AppConfig`: the sections the developer_rag chain reads (llm,
@@ -59,6 +60,25 @@ class EngineConfig:
     # one packed tree (0 or 1 = the linear chain). Inert without
     # speculative_k, as in the JAX engine.
     speculative_tree_branches: int = 0
+    # Cross-request prefix KV reuse (serving/prefix_cache.py): a radix
+    # tree maps page-granular prompt prefixes to ref-counted pool pages;
+    # admissions adopt the longest cached prefix and prefill only the
+    # suffix. Off by default: off is the engine without the cache.
+    prefix_cache: bool = False
+    # Fraction of the page pool the tree may hold (LRU-trimmed beyond it;
+    # allocator pressure evicts further: live sequences always win).
+    prefix_cache_capacity: float = 0.5
+    # Session KV pager (serving/kv_pager.py; requires prefix_cache):
+    # eviction demotes cached pages to host RAM and then a disk spill
+    # instead of dropping them, and a match promotes them back with one
+    # scatter. Off by default.
+    kv_pager: bool = False
+    # Host-RAM budget of the pager's warm tier in MB (0 = no host tier:
+    # demotions go straight to the spill file).
+    kv_host_budget_mb: int = 256
+    # Directory of the spill file ("" = a temporary directory per
+    # engine, removed when the engine stops).
+    kv_spill_dir: str = ""
     # First tokens are sampled inside the prefill dispatch (bucketed
     # groups and the chunk that completes a long prompt). The port has
     # only that form, so False is refused.
@@ -113,8 +133,6 @@ UNSUPPORTED = {
     "weights_path": ("", "ROADMAP A.10: HF checkpoint loading"),
     "step_plans": (False, "ROADMAP A.14: step plans"),
     "fused_prefill": (False, "ROADMAP A.14: fused prefill"),
-    "prefix_cache": (False, "ROADMAP A.15: prefix cache"),
-    "kv_pager": (False, "ROADMAP A.15: KV pager"),
     "qos": (False, "ROADMAP A.16: QoS"),
     "multihost": (False, "ROADMAP A.17: multi-host"),
     "auto_pool_pages": (False, "ROADMAP A.17: memory planner"),

@@ -49,9 +49,21 @@ the same device state (`decode_plain_spec_state_multi_step`). As in the
 JAX engine with `step_plans` off, the spec programs are called
 directly.
 
+Prefix cache (`prefix_cache`, serving/prefix_cache.py): admission looks
+the prompt up in a radix tree of cached full pages, adopts the longest
+cached prefix (shared pages read-only, a partial tail page copy-on-
+write), seeds a scratch cache from those pages (`pool_to_cache`) and
+runs only the suffix through the chunked lane with its queries offset by
+the cached length. The finish scatter points the shared pages' rows at
+the sink, so they are never rewritten; completed prefills insert their
+full pages. The allocator's reclaim hook evicts cold cached pages when
+live traffic runs short. With `kv_pager` (serving/kv_pager.py) eviction
+demotes pages to host RAM and a disk spill instead, and a match promotes
+them back with one scatter.
+
 Not ported yet, and refused at construction (see config/schema.py):
-step plans, the fused prefill rider, prefix cache, pager, QoS,
-multi-host, emission pacing and the flight recorder.
+step plans, the fused prefill rider, QoS, multi-host, emission pacing
+and the flight recorder.
 """
 
 from __future__ import annotations
@@ -75,6 +87,10 @@ from generativeaiexamples_tpu_torch.ops.quant import is_quantized
 from generativeaiexamples_tpu_torch.serving import engine_model
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
     PageAllocator, PagePool, SequencePages)
+from generativeaiexamples_tpu_torch.serving.kv_pager import (
+    KV_PAGER_KEYS, KVPager, PagedPrefixCache)
+from generativeaiexamples_tpu_torch.serving.prefix_cache import (
+    TIER_DEVICE, RadixPrefixCache)
 from generativeaiexamples_tpu_torch.utils.tokenizer import StreamDetokenizer
 
 _LOG = logging.getLogger(__name__)
@@ -229,6 +245,17 @@ class EngineMetrics:
         self.spec_committed = 0
         self.spec_slot_steps = 0
         self.spec_fallback_steps = 0
+        # Prefix cache: lookups that adopted cached pages / found
+        # nothing, pages evicted (demoted with the pager), prompt tokens
+        # whose prefill the cache skipped; and the host time the pager's
+        # promotions took. Always present, 0 when the cache is off.
+        self.prefix_hits = 0
+        self.prefix_miss = 0
+        self.prefix_evictions = 0
+        self.prefix_hit_tokens = 0
+        self.kv_promote_ms = 0.0
+        # The pager's stats() (KV_PAGER_KEYS); None when it is off.
+        self.kv_pager_stats = None
         self._ttft: deque = deque(maxlen=self.TTFT_SAMPLES)
         self._token_events: deque = deque(maxlen=8192)
         self._lock = threading.Lock()
@@ -286,7 +313,14 @@ class EngineMetrics:
             "spec_fallback_steps": self.spec_fallback_steps,
             "spec_committed": self.spec_committed,
             "spec_slot_steps": self.spec_slot_steps,
+            "prefix_hits": self.prefix_hits,
+            "prefix_miss": self.prefix_miss,
+            "prefix_evictions": self.prefix_evictions,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "kv_promote_ms": self.kv_promote_ms,
         }
+        out.update(self.kv_pager_stats() if self.kv_pager_stats is not None
+                   else dict.fromkeys(KV_PAGER_KEYS, 0))
         out.update({f"kernel_launches_{k}": n
                     for k, n in kernels.LAUNCHES.items()})
         return out
@@ -338,9 +372,33 @@ class LLMEngine:
                                    dtype=_DTYPES[self.ecfg.kv_dtype],
                                    device=self.device)
         self.allocator = PageAllocator(n_pages)
+        # Cross-request prefix KV reuse, owned by the scheduler thread
+        # like the allocator; with the pager, eviction demotes pages to
+        # host RAM and disk instead of dropping them.
+        self.prefix_cache = None
+        self.kv_pager = None
+        if self.ecfg.kv_pager and not self.ecfg.prefix_cache:
+            raise ValueError("engine.kv_pager requires engine.prefix_cache "
+                             "(the radix tree is the pager's index)")
+        if self.ecfg.prefix_cache:
+            cap = int(max(0.0, self.ecfg.prefix_cache_capacity) * n_pages)
+            if self.ecfg.kv_pager:
+                self.kv_pager = KVPager(
+                    self.pool, host_budget_mb=self.ecfg.kv_host_budget_mb,
+                    spill_dir=self.ecfg.kv_spill_dir,
+                    max_batch_pages=self.max_pages)
+                self.prefix_cache = PagedPrefixCache(
+                    self.allocator, ps, cap, self.kv_pager,
+                    lambda: self.pool)
+            else:
+                self.prefix_cache = RadixPrefixCache(self.allocator, ps,
+                                                     cap)
+            self.allocator.reclaim = self._reclaim_cached_pages
         self.slots: List[Optional[_Slot]] = [None] * self.ecfg.max_batch_size
         self.waiting: deque = deque()
         self.metrics = EngineMetrics()
+        if self.kv_pager is not None:
+            self.metrics.kv_pager_stats = self.kv_pager.stats
         # Buckets are positive multiples of page_size within max_seq_len.
         max_bucket = self.max_pages * ps
         rounded = {min(-(-b // ps) * ps, max_bucket)
@@ -397,8 +455,12 @@ class LLMEngine:
         before serving, all against the page-0 sink, so the first live
         burst does not pay first-call costs (kernel builds, cuBLAS
         heuristics, allocator growth). Eager decode launches the same
-        shapes at every K, so one step covers every block length. Call
-        before start()."""
+        shapes at every K, so one step covers every block length. With
+        the prefix cache, one hit chain per bucket (the gather into a
+        bucket-sized scratch, a suffix chunk at every bucket width that
+        fits, the finish scatter); with the pager, its gather and
+        scatter at every power-of-two width up to max_pages. Call before
+        start()."""
         if self._running:
             raise RuntimeError("warmup() must run before start()")
         ps = self.pool.page_size
@@ -446,6 +508,29 @@ class LLMEngine:
                 self.params, self.cfg, self.pool, self._last_tokens, tables,
                 self._put(np.ones((B,), np.int32)), inactive, *sampling, 1,
                 sampling_flags=(True, False, False))
+        if self.prefix_cache is not None:
+            bset = sorted(buckets or self.buckets)
+            for s_tot in bset:
+                sink_row = self._put(np.zeros((s_tot // ps,), np.int32))
+                for chunk in [b for b in bset if b <= s_tot]:
+                    # Seeded at s_tot - chunk cached tokens, so the
+                    # chunk's rows fit the scratch.
+                    cache = engine_model.pool_to_cache(
+                        self.pool, self.cfg, sink_row, s_tot - chunk)
+                    _, cache = engine_model.prefill_chunk_step(
+                        self.params, self.cfg, cache,
+                        self._put(np.zeros((1, chunk), np.int32)), 1)
+                engine_model.cache_to_pool(self.pool, cache, self.cfg,
+                                           sink_row)
+        if self.kv_pager is not None:
+            w = 1
+            while True:
+                row = self._put(np.zeros((w,), np.int64))
+                codes, scales = engine_model.pool_to_pages(self.pool, row)
+                engine_model.pages_to_pool(self.pool, codes, scales, row)
+                if w >= self.max_pages:
+                    break
+                w *= 2
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -467,6 +552,10 @@ class LLMEngine:
                 _LOG.warning("engine stop: scheduler thread still alive "
                              "after the join timeout")
                 self.metrics.stuck_thread_joins += 1
+        if self.kv_pager is not None:
+            # Drain the spill worker and drop the mapping (a daemon
+            # worker mid-write at exit would race the spill-dir cleanup).
+            self.kv_pager.close()
 
     # -- public API --------------------------------------------------------
 
@@ -614,17 +703,32 @@ class LLMEngine:
                 req = self.waiting.popleft()
             ids = req.prompt_ids or [0]
             long = len(ids) > self.buckets[-1]
-            if long and len(self._long_prefills) >= self._max_long_prefills:
-                # One scratch cache at a time: the next long prompt waits
-                # (at the head of the queue) for the lane.
+            lane_full = len(self._long_prefills) >= self._max_long_prefills
+            if long and lane_full:
+                # One scratch cache at a time (a prefix hit takes the same
+                # lane): the next long prompt waits at the head of the
+                # queue, before any radix lookup.
                 deferred_long.append(req)
                 continue
+            # With the lane full any hit is discarded below: look up
+            # without promoting, so it costs no scatter.
+            hit = (self._lookup_prefix(ids, promote=not lane_full)
+                   if self.prefix_cache is not None else None)
+            demoted = False
+            if hit is not None and lane_full:
+                # A short prompt with the lane busy: the plain batched
+                # prefill rather than a wait for the lane.
+                self._release_hit_pin(hit)
+                hit, demoted = None, True
             seq = SequencePages(self.allocator, self.pool.page_size,
                                 self.max_pages)
             try:
+                if hit is not None:
+                    seq.adopt(*hit)
                 seq.ensure(len(ids))
             except MemoryError as e:
                 seq.release()
+                self._release_hit_pin(hit)
                 self.metrics.admission_failures += 1
                 ps = self.pool.page_size
                 never_fits = -(-(len(ids) + 1) // ps) \
@@ -644,9 +748,24 @@ class LLMEngine:
                 with self._lock:
                     self.waiting.appendleft(req)
                 break
+            if self.prefix_cache is not None:
+                if hit is not None:
+                    self.metrics.prefix_hits += 1
+                    self.metrics.prefix_hit_tokens += hit[1]
+                elif not demoted:
+                    # A hit sent to the batched prefill is not a miss.
+                    self.metrics.prefix_miss += 1
             # Reserve the slot; the real _Slot replaces it at dispatch.
             placeholder = _Slot(req, seq, None)
             self.slots[slot_idx] = placeholder
+            if hit is not None:
+                try:
+                    self._begin_prefix_prefill(req, slot_idx, seq, ids,
+                                               *hit, placeholder)
+                except Exception:
+                    _LOG.exception("prefix-hit prefill setup failed")
+                    self._fail_request(req, slot_idx, seq)
+                continue
             if long:
                 self._begin_long_prefill(req, slot_idx, seq, ids,
                                          placeholder)
@@ -685,6 +804,126 @@ class LLMEngine:
         self._long_prefills.append(
             _LongPrefill(req, slot_idx, seq, ids, s_total, placeholder,
                          chunk))
+
+    # -- prefix cache ------------------------------------------------------
+
+    def _reclaim_cached_pages(self, n: int) -> None:
+        """The allocator's shortfall hook: evict (with the pager, demote)
+        cold cached pages, so live traffic always wins over the cache."""
+        self.metrics.prefix_evictions += self.prefix_cache.evict(n)
+
+    def _lookup_prefix(self, ids: List[int], promote: bool = True):
+        """Longest cached page-granular prefix of this prompt, capped at
+        len(ids) - 1 so at least one suffix token runs through the model
+        (its logits sample the first output token). Returns (pages,
+        n_tokens) or None. When the cap lands mid-page the last page is
+        gather-only (`SequencePages.adopt` makes it a copy-on-write tail)
+        and is PINNED here: the adopt/ensure allocations before the
+        gather can trigger reclaim eviction of refcount-1 tree pages, and
+        the sequence holds no reference of its own to it. Every consumer
+        of a hit releases the pin (`_release_hit_pin`).
+
+        With the pager the match may reach demoted nodes: the matched
+        path is promoted back into the pool with one scatter. Without
+        `promote`, or when the allocator cannot cover the cold pages even
+        after reclaim, the hit keeps the leading device-resident run (the
+        resident set is closed under ancestors, so that is always a
+        prefix of the path)."""
+        ps = self.pool.page_size
+        if self.kv_pager is None:
+            pages = self.prefix_cache.match(ids)
+            m = min(len(pages) * ps, len(ids) - 1)
+            if m <= 0:
+                return None
+        else:
+            nodes = self.prefix_cache.match_nodes(ids)
+            m = min(len(nodes) * ps, len(ids) - 1)
+            if m <= 0:
+                return None
+            nodes = nodes[: -(-m // ps)]
+            n_cold = sum(n.tier != TIER_DEVICE for n in nodes)
+            promoted = False
+            if n_cold and promote:
+                t0 = time.perf_counter()
+                try:
+                    self.pool = self.prefix_cache.promote(self.pool, nodes)
+                    promoted = True
+                    # Host time of the promotion: tier reads, staging and
+                    # the copy to the card (the scatter is queued).
+                    self.metrics.kv_promote_ms += (time.perf_counter()
+                                                   - t0) * 1e3
+                except MemoryError:
+                    pass  # the resident prefix below
+            if n_cold and not promoted:
+                keep = []
+                for n in nodes:
+                    if n.tier != TIER_DEVICE:
+                        break
+                    keep.append(n)
+                nodes = keep
+                m = min(len(nodes) * ps, len(ids) - 1)
+                if m <= 0:
+                    return None
+            pages = [n.page for n in nodes]
+        pages = pages[: -(-m // ps)]
+        if m % ps:
+            self.allocator.retain([pages[-1]])
+        return pages, m
+
+    def _release_hit_pin(self, hit) -> None:
+        """Drop _lookup_prefix's pin on the gather-only tail page (a no-op
+        for a page-aligned hit or None)."""
+        if hit is not None and hit[1] % self.pool.page_size:
+            self.allocator.release([hit[0][-1]])
+
+    def _insert_prefix(self, ids: List[int], seq: SequencePages) -> None:
+        """Register a completed prefill's FULL prompt pages in the radix
+        tree (a partial tail page stays private: decode writes into it).
+        The tree retains its own references; where a chunk is already
+        cached the existing page wins and the duplicate stays with the
+        sequence. The caller trims the tree after (`_trim_prefix`)."""
+        n_full = len(ids) // self.pool.page_size
+        if self.prefix_cache is not None and n_full > 0:
+            self.prefix_cache.insert(list(ids), seq.pages[:n_full])
+
+    def _trim_prefix(self) -> None:
+        """Evict (with the pager, demote) the tree down to its capacity."""
+        if self.prefix_cache is not None:
+            self.metrics.prefix_evictions += self.prefix_cache.trim()
+
+    def _begin_prefix_prefill(self, req: GenRequest, slot_idx: int,
+                              seq: SequencePages, ids: List[int],
+                              pages: List[int], m: int,
+                              placeholder: _Slot) -> None:
+        """Admission of a prefix-cache hit: seed a scratch cache with the
+        matched pages' k/v (one gather, the values decode attention reads
+        for those pages) and run ONLY the suffix ids[m:] through the
+        chunked lane, its queries offset by m. The finish scatter points
+        the adopted read-only rows at the sink, so shared pages are never
+        rewritten; a CoW tail page is rewritten whole (gathered head and
+        computed tail). Owns _lookup_prefix's pin on the gather-only tail
+        page: released once the gather is issued (any later write to that
+        page is queued behind it on the same stream) or on failure."""
+        try:
+            ps = self.pool.page_size
+            plen = len(ids)
+            if plen <= self.buckets[-1]:
+                chunk = self._bucket_for(plen - m)
+                s_total = self._bucket_for(plen)
+            else:
+                chunk = self.buckets[-1]
+                s_total = -(-plen // chunk) * chunk
+            row = np.zeros((s_total // ps,), np.int32)
+            row[:len(pages)] = pages
+            self._scratch_caches[slot_idx] = engine_model.pool_to_cache(
+                self.pool, self.cfg, self._put(row), m)
+        finally:
+            self._release_hit_pin((pages, m))
+        placeholder.prefilling = True
+        lp = _LongPrefill(req, slot_idx, seq, ids, s_total, placeholder,
+                          chunk)
+        lp.pos = m
+        self._long_prefills.append(lp)
 
     def _advance_long_prefills(self) -> bool:
         """Dispatch the next chunk(s) of each in-progress long prefill
@@ -730,7 +969,10 @@ class LLMEngine:
         """Dispatch the next chunk of `lp`; True when it completed the
         prompt (its first token is then in _chunk_res and last_tokens)."""
         part = lp.ids[lp.pos:lp.pos + lp.chunk]
-        width = self._pick_chunk_width(len(part), lp.chunk)
+        # A prefix hit's suffix starts at the cached length, so a chunk
+        # may not fit a full width before the scratch cache ends.
+        width = min(self._pick_chunk_width(len(part), lp.chunk),
+                    lp.s_total - lp.pos)
         tok = np.zeros((1, width), np.int32)
         tok[0, :len(part)] = part
         if lp.pos == 0:
@@ -777,12 +1019,17 @@ class LLMEngine:
 
     def _finish_long_prefill(self, lp: _LongPrefill) -> None:
         """Last chunk fed: scatter the scratch cache into the sequence's
-        pages (padding rows to the sink), then open the slot for decode;
-        the first token sampled by the final chunk reaches the host like
-        a bucketed prefill's."""
+        pages (padding rows and the rows of pages shared with the prefix
+        cache to the sink), register its full pages in the cache, open
+        the slot for decode and emit the first token the final chunk
+        sampled."""
         ps = self.pool.page_size
         row = np.zeros((lp.s_total // ps,), np.int32)
         row[:len(lp.seq.pages)] = lp.seq.pages
+        # Pages adopted read-only from the prefix cache are never
+        # rewritten: their rows scatter into the sink. (A CoW tail page
+        # is private and is rewritten whole from the scratch cache.)
+        row[:lp.seq.n_shared] = 0
         cache = self._scratch_caches.pop(lp.slot_idx)
         engine_model.cache_to_pool(self.pool, cache, self.cfg,
                                    self._put(row))
@@ -794,9 +1041,16 @@ class LLMEngine:
                 self._history, self._dev_lengths, [lp.slot_idx],
                 self._put(hist), self._put(np.asarray([len(lp.ids)],
                                                       np.int32)), tok0)
+        self._insert_prefix(lp.ids, lp.seq)
         slot = _Slot(lp.req, lp.seq, StreamDetokenizer(self.tokenizer))
         self.slots[lp.slot_idx] = slot
-        self._pending_first.append((HostCopy(tok0), [(lp.slot_idx, slot)]))
+        # The row's copy to the device above waited for the stream to
+        # drain, so the first token is only the scatter and a 4-byte copy
+        # away: emit it now. Left pending, it would wait behind the next
+        # decode dispatches (tens of ms of host launches each). The trim
+        # comes after it, as it may demote pages to the host.
+        self._emit_first_values(tok0.cpu().numpy(), [(lp.slot_idx, slot)])
+        self._trim_prefix()
 
     def _fail_request(self, req: GenRequest, slot_idx: int,
                       seq: SequencePages) -> None:
@@ -857,6 +1111,10 @@ class LLMEngine:
             self.slots[slot_idx] = slot
             metas.append((slot_idx, slot))
             self.metrics.prefill_tokens += len(ids)
+            # Its full prompt pages become reusable; a later gather of
+            # them is queued behind these writes on the same stream.
+            self._insert_prefix(ids, seq)
+            self._trim_prefix()
         self._pending_first.append((HostCopy(toks), metas))
 
     def _slot_used(self, slot: _Slot) -> int:
@@ -1046,6 +1304,7 @@ class LLMEngine:
         its reservation, retiring slots free pages). The floor is the
         k/v rows one step writes: every packed node of a tree step."""
         need = self._spec_tree_nodes if self._spec_k else 1
+        reclaimable = None  # the tree does not change within this pass
         for i, slot in enumerate(self.slots):
             if slot is None or not slot.no_capacity:
                 continue
@@ -1054,6 +1313,12 @@ class LLMEngine:
                 continue
             table_cap, avail = self._advance_capacity(slot,
                                                       self._slot_used(slot))
+            if self.prefix_cache is not None and avail < need:
+                # Cold cached pages can back the slot (the allocator's
+                # reclaim hook evicts inside alloc).
+                if reclaimable is None:
+                    reclaimable = self.prefix_cache.reclaimable()
+                avail += reclaimable * self.pool.page_size
             if table_cap >= need and avail >= need:
                 slot.no_capacity = False
                 continue

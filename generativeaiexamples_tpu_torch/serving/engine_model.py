@@ -13,6 +13,12 @@ that k/v live in the serving PagePool:
 - `decode_multi_step`: K fused iterations over the whole slot batch,
   write-then-attend paged decode attention (K2 on CUDA) and on-device
   sampling, tokens chained on the device.
+- Prefix-cache hits and the KV pager: `pool_to_cache` gathers a cached
+  prefix's pages into a fresh batch-1 scratch cache (the suffix then runs
+  through `prefill_chunk_step` at q_offset = the cached length);
+  `pool_to_pages` / `pages_to_pool` move whole pages out of and back
+  into the pool verbatim (int8 codes and scales never re-quantized).
+  These are plain indexing, as they are in the JAX package.
 - Chunked prefill of prompts longer than the largest bucket:
   `prefill_chunk_step` / `prefill_chunk_sample_step` run one chunk
   through a contiguous scratch `KVCache` with `q_offset = cache.lengths`
@@ -685,4 +691,71 @@ def cache_to_pool(pool: Pool, cache: KVCache, cfg: LlamaConfig,
         pool.k.dtype)
     pool.v[:, :, rows] = cache.v[:, 0].reshape(L, KH, S // ps, ps, Hd).to(
         pool.v.dtype)
+    return pool
+
+
+@torch.no_grad()
+def pool_to_cache(pool: Pool, cfg: LlamaConfig,
+                  table_row: torch.Tensor,  # [S // page_size] page ids
+                  n_tokens: int) -> KVCache:
+    """Gather cached prefix pages into a fresh contiguous scratch cache
+    (batch 1, S = len(table_row) * page_size, the model dtype) with
+    lengths = n_tokens: the inverse of cache_to_pool, for prefix-cache
+    hits. The cache is the gather itself (rows past the prefix read sink
+    page 0); no zero-filled scratch is made. int8 pools dequantize with
+    their narrow per-token scales, code x scale in the model dtype, as
+    the JAX function does."""
+    ps = pool.page_size
+    S = table_row.shape[0] * ps
+    L, KH, Hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+    rows = table_row.long()
+    if pool.quantized:
+        k, v = (pool.kv[i][:, :, rows].to(dt)
+                * pool.s[i][:, :, rows, :, None].to(dt) for i in (0, 1))
+    else:
+        k = pool.k[:, :, rows].to(dt)
+        v = pool.v[:, :, rows].to(dt)
+    # [L, KH, npages, ps, Hd] -> the cache's [L, B=1, KH, S, Hd]
+    k = k.reshape(L, KH, S, Hd)[:, None]
+    v = v.reshape(L, KH, S, Hd)[:, None]
+    lengths = torch.full((1,), int(n_tokens), dtype=torch.int32,
+                         device=rows.device)
+    return KVCache(k, v, lengths)
+
+
+@torch.no_grad()
+def pool_to_pages(pool: Pool, table_row: torch.Tensor):
+    """Gather `table_row`'s pages out of the pool verbatim, page-major:
+    the KV pager's demotion read. Returns (codes, scales):
+
+      codes  [n, 2, L, KH, ps, Hd] ([:, 0] = k, [:, 1] = v) in the pool
+             dtype (int8 codes for a quantized pool);
+      scales [n, 2, L, KH, ps] f32 for a quantized pool, else None.
+
+    Page-0 entries gather the sink (callers pad with them and keep the
+    valid prefix)."""
+    rows = table_row.long()
+    if pool.quantized:
+        return (pool.kv[:, :, :, rows].movedim(3, 0).contiguous(),
+                pool.s[:, :, :, rows].movedim(3, 0).contiguous())
+    codes = torch.stack([pool.k[:, :, rows], pool.v[:, :, rows]])
+    return codes.movedim(3, 0).contiguous(), None
+
+
+@torch.no_grad()
+def pages_to_pool(pool: Pool, codes: torch.Tensor,
+                  scales: Optional[torch.Tensor],
+                  table_row: torch.Tensor) -> Pool:
+    """Scatter page-major bytes (pool_to_pages' layout) back into the
+    pool at `table_row`'s page ids, in place: the KV pager's promotion.
+    Codes and scales are written as they are, never re-quantized; page-0
+    entries (padding) land in the sink."""
+    rows = table_row.long()
+    if pool.quantized:
+        pool.kv[:, :, :, rows] = codes.movedim(0, 3)
+        pool.s[:, :, :, rows] = scales.movedim(0, 3)
+        return pool
+    pool.k[:, :, rows] = codes[:, 0].movedim(0, 2).to(pool.k.dtype)
+    pool.v[:, :, rows] = codes[:, 1].movedim(0, 2).to(pool.v.dtype)
     return pool

@@ -10,8 +10,12 @@ Counterpart of generativeaiexamples_tpu/serving/kv_cache.py.
   reads the whole pool and indexes the layer itself.
 - Page 0 is a reserved sink in both: padding positions and unused
   page-table slots point at it, so scatters never need dynamic shapes.
-- Host: PageAllocator hands out page ids from a plain free list in the
-  same order as the JAX allocator (page ids feed identical streams).
+- Host: PageAllocator hands out ref-counted page ids from a plain free
+  list in the same order as the JAX allocator (page ids feed identical
+  streams). The prefix cache (serving/prefix_cache.py) holds one
+  reference per cached page and every adopting sequence another
+  (`SequencePages.adopt`); the allocator's `reclaim` hook lets the cache
+  give pages back when live traffic runs short.
 
 The engine updates the pool IN PLACE (the JAX steps donate and return
 it instead).
@@ -20,7 +24,7 @@ it instead).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,12 +99,19 @@ class QuantPagePool:
 
 class PageAllocator:
     """Host-side ref-counted free list. Page 0 is never handed out (the
-    sink). release() raises on a double free or a page never allocated."""
+    sink). Pages are born with refcount 1; retain() adds a reference and
+    release() drops one, returning the page to the free list at zero. It
+    raises on a double free or a page never allocated.
+
+    `reclaim` (optional callable, n_short -> None) runs when alloc()
+    comes up short, before it raises: the prefix cache registers its LRU
+    eviction there, so cold cached pages always yield to live traffic."""
 
     def __init__(self, n_pages: int):
         self.n_pages = n_pages
         self._free: List[int] = list(range(n_pages - 1, 0, -1))
         self._rc: dict = {}  # page id -> refcount (allocated pages only)
+        self.reclaim: Optional[Callable[[int], None]] = None
 
     @property
     def n_free(self) -> int:
@@ -110,6 +121,8 @@ class PageAllocator:
         return self._rc.get(page, 0)
 
     def alloc(self, n: int) -> List[int]:
+        if n > len(self._free) and self.reclaim is not None:
+            self.reclaim(n - len(self._free))
         if n > len(self._free):
             raise MemoryError(f"KV page pool exhausted: want {n}, have "
                               f"{len(self._free)} of {self.n_pages}")
@@ -149,6 +162,37 @@ class SequencePages:
         self.max_pages = max_pages
         self.pages: List[int] = []
         self.length = 0  # tokens written
+        # Leading pages adopted read-only from the prefix cache: the
+        # sequence holds a reference but never writes them (the engine
+        # points their scatter rows at the page-0 sink).
+        self.n_shared = 0
+
+    def adopt(self, pages: Sequence[int],
+              n_tokens: int) -> Optional[Tuple[int, int]]:
+        """Adopt a cached prefix: `pages` (ref-counted, read-only) cover
+        `n_tokens` (<= len(pages) * page_size). Fully covered pages are
+        shared in place; a partially covered tail page is copy-on-write:
+        a fresh private page takes its table slot and the caller fills it
+        (the engine's scratch-cache scatter rewrites the whole page,
+        gathered head and computed tail). Returns the (src, dst) CoW
+        pair, or None when the prefix ends on a page boundary."""
+        if self.pages or self.length:
+            raise ValueError("adopt() must come before ensure()")
+        ps = self.page_size
+        if not 0 < n_tokens <= len(pages) * ps:
+            raise ValueError(f"adopt: {n_tokens} tokens not covered by "
+                             f"{len(pages)} pages of {ps}")
+        n_full = n_tokens // ps
+        self.allocator.retain(pages[:n_full])
+        self.pages = list(pages[:n_full])
+        self.n_shared = n_full
+        cow = None
+        if n_tokens % ps:
+            dst = self.allocator.alloc(1)[0]
+            self.pages.append(dst)
+            cow = (pages[n_full], dst)
+        self.length = n_tokens
+        return cow
 
     def ensure(self, new_length: int) -> None:
         """Grow the page list to cover new_length tokens."""
@@ -170,5 +214,6 @@ class SequencePages:
         so error paths that release twice are no-ops."""
         pages, self.pages = self.pages, []
         self.length = 0
+        self.n_shared = 0
         if pages:
             self.allocator.release(pages)

@@ -81,19 +81,54 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
 
 
 @pytest.mark.parametrize("kind", ["json", "yaml"])
-@pytest.mark.parametrize("section, name, value, item", [
-    ("engine", "prefix_cache", True, "A.15"),
-    ("engine", "step_plans", True, "A.14"),
-    ("retriever", "query_augmentation", "rewrite", "A.11"),
-    ("vector_store", "index_type", "ivf", "A.18"),
+@pytest.mark.parametrize("section, fields, item", [
+    # The prefix cache and the pager are ported; beside multi-host (the
+    # pager's slice mode is ROADMAP A.17) the file is still refused.
+    pytest.param("engine", {"prefix_cache": True, "kv_pager": True,
+                            "multihost": True}, "A.17",
+                 id="engine-prefix_cache-True-A.15"),
+    pytest.param("engine", {"step_plans": True}, "A.14",
+                 id="engine-step_plans-True-A.14"),
+    pytest.param("retriever", {"query_augmentation": "rewrite"}, "A.11",
+                 id="retriever-query_augmentation-rewrite-A.11"),
+    pytest.param("vector_store", {"index_type": "ivf"}, "A.18",
+                 id="vector_store-index_type-ivf-A.18"),
 ])
-def test_config_file_refuses_unported_fields(tmp_path, kind, section, name,
-                                             value, item):
-    path = _write(tmp_path, kind, {section: {name: value}})
+def test_config_file_refuses_unported_fields(tmp_path, kind, section, fields,
+                                             item):
+    path = _write(tmp_path, kind, {section: fields})
     with pytest.raises(ValueError, match=item):
         load_config(env={"APP_CONFIG_FILE": path})
     # The JAX wizard takes the same file: the refusal is the port's.
-    assert getattr(getattr(jax_load(path, env={}), section), name) == value
+    node = getattr(jax_load(path, env={}), section)
+    assert {n: getattr(node, n) for n in fields} == fields
+
+
+PREFIX_FIELDS = {"prefix_cache": True, "prefix_cache_capacity": 0.25,
+                 "kv_pager": True, "kv_host_budget_mb": 512,
+                 "kv_spill_dir": "/var/spill"}
+PREFIX_ENV = {"APP_ENGINE_PREFIXCACHE": "true",
+              "APP_ENGINE_PREFIXCACHECAPACITY": "0.25",
+              "APP_ENGINE_KVPAGER": "1", "APP_ENGINE_KVHOSTBUDGETMB": "512",
+              "APP_ENGINE_KVSPILLDIR": "/var/spill"}
+
+
+@pytest.mark.parametrize("source", ["env", "json", "yaml"])
+def test_prefix_cache_fields_match_jax_wizard(tmp_path, source):
+    """The five prefix-cache and pager fields, from the env or the file,
+    read as the JAX wizard reads them (defaults included)."""
+    default = load_config(env={}).engine
+    theirs = jax_load(env={}).engine
+    assert {n: getattr(default, n) for n in PREFIX_FIELDS} == {
+        n: getattr(theirs, n) for n in PREFIX_FIELDS}
+    assert not default.prefix_cache and not default.kv_pager
+    env = (dict(PREFIX_ENV) if source == "env" else {
+        "APP_CONFIG_FILE": _write(tmp_path, source,
+                                  {"engine": PREFIX_FIELDS})})
+    port = load_config(env=env)
+    _assert_same(port, jax_load(env=env))
+    assert {n: getattr(port.engine, n) for n in PREFIX_FIELDS} == \
+        PREFIX_FIELDS
 
 
 def test_config_file_unported_field_at_default_passes(tmp_path):

@@ -120,18 +120,26 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
         small.submit(GenRequest(prompt_ids=[5] * 33))
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("fused_prefill", True), ("kv_pager", True),
-    ("prefix_cache", True), ("multihost", True), ("step_plans", True)])
-def test_unported_engine_flags_are_refused(flag, value):
+@pytest.mark.parametrize("flag,value,beside", [
+    pytest.param("fused_prefill", True, {}, id="fused_prefill-True"),
+    # The prefix cache and the pager are ported: beside them, the
+    # features still missing are refused (the pager's multi-host slice
+    # mode, A.17; QoS, A.16).
+    pytest.param("multihost", True, {"prefix_cache": True,
+                                     "kv_pager": True}, id="kv_pager-True"),
+    pytest.param("qos", True, {"prefix_cache": True},
+                 id="prefix_cache-True"),
+    pytest.param("multihost", True, {}, id="multihost-True"),
+    pytest.param("step_plans", True, {}, id="step_plans-True")])
+def test_unported_engine_flags_are_refused(flag, value, beside):
     cfg = tl.LlamaConfig.tiny()
     params = tl.init_params(cfg, "cpu")
     with pytest.raises(ValueError, match="ROADMAP A"):
-        LLMEngine(params, cfg, ByteTokenizer(), {**ECFG, flag: value},
-                  device="cpu")
+        LLMEngine(params, cfg, ByteTokenizer(),
+                  {**ECFG, **beside, flag: value}, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP A"):
         LLMEngine(params, cfg, ByteTokenizer(),
-                  JConfig(**{**ECFG, flag: value}), device="cpu")
+                  JConfig(**{**ECFG, **beside, flag: value}), device="cpu")
 
 
 def test_tokenizer_copy_matches_jax():

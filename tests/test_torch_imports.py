@@ -45,7 +45,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_flash', 'phase_paged', 'phase_encoder', 'phase_model', "
         "'phase_serving', 'phase_chunked', 'phase_rag', 'phase_paged_int8', "
         "'phase_int8_matmul', 'phase_serving_int8', 'phase_tree', "
-        "'phase_spec_int8', 'phase_spec_bf16', 'main'):",
+        "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
