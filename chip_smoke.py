@@ -51,7 +51,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               burst's lengths, the (2, 8) tree, a late_max tree and a
               head_dim 64 / page 16 tree. A second launch must give the
               same bits (the B = 8 cases split the page axis and merge);
-              loop and device time beside the byte bound
+              loop and device time beside the byte bound and SDPA over
+              K/V gathered and dequantized beforehand (a yardstick)
   6b. tree    K5 (csrc/paged_attention_tree.cu) against
               `paged_tree_attention_reference` in f32, node by node: the
               8B shape (B=8, lengths 1…8191, (3, 4)), (2, 8) at head_dim
@@ -132,11 +133,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
               runs again under the profiler (outside the counted window)
               for the split of a verify step between K4, K6, the other
               device work and the host
+  13b. checkpoint  serve from disk, after every phase above: the served
+              bf16 8B engine's weights (kept when its engine went) written
+              as an HF snapshot (4 shards + index, 16.06 GB under the
+              ignored build/, free disk checked first) and the RAG
+              phase's encoders as two BERT snapshots; load_tokenizer's
+              gate on the weights-only snapshot; the encoders loaded
+              (trees, embeddings and scores bit-identical to the
+              in-memory ones; K3); load_llama in bf16 (time, GB/s, peak
+              device memory; every leaf bit-identical), build_engine from
+              the path behind the OpenAI server (a streaming chat and 4
+              concurrent 64-token greedy completions equal to the served
+              engine's tokens; K1, K2), the chain over it (PDF and HTML
+              through /documents into a persisted store, reloaded; the
+              RAG phase's 2,001-chunk store saved and reloaded, equal
+              hits); load_llama(quantize=True) (codes and scales
+              bit-identical to the loader's quantizer on the card and, at
+              layer 0, to the JAX loader's numpy arithmetic; peak device
+              memory at most the int8 tree plus one bf16 layer of the
+              largest leaf) and the int8 deployment from the path (K6,
+              K4, no K2). The snapshots are removed at the end
   14. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
               serving_int8; K5: spec_bf16), times and bound; K4's entry
               also carries its verify cases and its spec_int8 launches,
-              K1's and K2's their prefix launches
+              K1's and K2's their prefix launches, every kernel its
+              launches on the checkpoint phase's loaded models
   15. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
@@ -162,6 +184,8 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -906,12 +930,54 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
         rec["device_ms"] = device_ms(alternating, KERNEL_FUNCTIONS[
             "paged_attention_int8"])
         rec["plain_ms"] = time_ms(lambda: plain(q), iters=3, warmup=1)
-        # No single torch call takes a page table and int8 pages.
+        # No single torch call takes a page table and int8 pages; SDPA
+        # over K/V gathered and dequantized beforehand (neither timed) is
+        # kept as a dense yardstick only, as for K2 and K5.
         rec["library_ms"] = None
+        rec["sdpa_gathered_ms"], rec["sdpa_gathered_device_ms"] = \
+            paged_int8_sdpa_gathered_ms(q, kv[:, layer], sc[:, layer], table,
+                                        ln, R, tree)
         rec["gbytes_per_s"] = n_bytes / (rec["ms"] * 1e-3) / 1e9
     del kv, sc, got, poisoned
     torch.cuda.empty_cache()
     return rec
+
+
+def paged_int8_sdpa_gathered_ms(q, kv, sc, table, ln, R, tree):
+    """(loop ms, device ms) of SDPA over one layer's K/V gathered through
+    the table and dequantized to bf16 beforehand (neither is timed), with
+    K4's visibility as a boolean mask: lengths for q_rep 1, `pos < len +
+    j` for query j of the linear verify form, the prefix and the
+    ancestor chain for a tree (`_tree_keep`, K4's plain version's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from generativeaiexamples_tpu_torch.serving.paged_attention import (
+        _gather_pages)
+    from generativeaiexamples_tpu_torch.serving.paged_attention_int8 import (
+        _tree_keep)
+
+    def deq(i):
+        return (_gather_pages(kv[i], table).float()
+                * _gather_pages(sc[i], table)[..., None]).bfloat16()
+
+    k, v = deq(0), deq(1)                                  # [B, KH, S, Hd]
+    S, dev = k.shape[2], q.device
+    qq = (q[:, None] if R == 1 else q).transpose(1, 2)     # [B, H, R, Hd]
+    pos = torch.arange(S, device=dev)[None, None, :]
+    length = ln.long().clamp(min=1)[:, None, None]
+    jrow = torch.arange(R, device=dev)[None, :, None]
+    keep = (_tree_keep(pos, length, jrow, R, tree) if tree is not None
+            else pos < length + jrow)                       # [B, R, S]
+    mask = keep[:, None]
+
+    def sdpa():
+        F.scaled_dot_product_attention(qq, k, v, attn_mask=mask,
+                                       enable_gqa=True)
+
+    out = time_ms(sdpa), device_ms(sdpa)
+    del k, v, mask
+    return out
 
 
 def _paged_int8_timed_cases():
@@ -1730,11 +1796,13 @@ def _rag_corpus(seed: int, n_chunks: int) -> str:
     return "\n\n".join(out)
 
 
-def _multipart(filename: str, text: str):
+def _multipart(filename: str, data):
+    """A multipart upload of `data` (text, or bytes as they are)."""
     boundary = "gaieboundary7a3f"
+    raw = data.encode() if isinstance(data, str) else data
     body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
             f"filename=\"{filename}\"\r\nContent-Type: text/plain\r\n\r\n"
-            ).encode() + text.encode() + f"\r\n--{boundary}--\r\n".encode()
+            ).encode() + raw + f"\r\n--{boundary}--\r\n".encode()
     return body, f"multipart/form-data; boundary={boundary}"
 
 
@@ -1785,7 +1853,7 @@ def _exact_topk_check(rows, queries, got_ids, got_scores, k):
 
 def phase_rag(card: str, served: ServedEngine, device: str = "cuda",
               n_chunks: int = 2000, store_rows: int = 1_000_000,
-              store_dim: int = 1024, max_tokens: int = 32):
+              store_dim: int = 1024, max_tokens: int = 32, keep=None):
     """The port's ChainServer with developer_rag over the device store,
     the served 8B engine, and arctic-embed-l / BERT-base reranker
     encoders (bf16, random from seeds): ingest the repository's prose
@@ -1795,7 +1863,10 @@ def phase_rag(card: str, served: ServedEngine, device: str = "cuda",
     knowledge-base /generate answers whose prompts exceed the 4096
     bucket. Each answer must generate its tokens with no error frame
     (an engine failure becomes one); K3's launches must equal the
-    encoder layers times the forwards made, and K1 and K2 must launch."""
+    encoder layers times the forwards made, and K1 and K2 must launch.
+    `keep` (a dict), when given, receives the encoders, the ingested
+    store and the phase's queries, which the checkpoint phase writes to
+    disk and loads back."""
     import numpy as np
     import torch
 
@@ -1844,8 +1915,9 @@ def phase_rag(card: str, served: ServedEngine, device: str = "cuda",
         # Two knowledge-base answers (prompts beyond the 4096 bucket).
         gens = []
         m = served.engine.metrics
-        for q in ("How does the prefill scheduler use the page cache?",
-                  "What bounds the attention kernel on the device?"):
+        questions = ("How does the prefill scheduler use the page cache?",
+                     "What bounds the attention kernel on the device?")
+        for q in questions:
             prefill0, tokens0 = m.prefill_tokens, m.tokens_out
             g = _chain_generate(base, q, max_tokens)
             g["prompt_tokens"] = m.prefill_tokens - prefill0
@@ -1902,6 +1974,9 @@ def phase_rag(card: str, served: ServedEngine, device: str = "cuda",
         int(h.text) for h in batch[0]]
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del big
+    if keep is not None:
+        keep.update(emb=emb, rr=rr, store=store,
+                    queries=[query, *questions])
 
     # An answer generates max_tokens tokens, or fewer when it ends on an
     # end-of-sequence token; a request the engine fails streams the error
@@ -2578,6 +2653,695 @@ def phase_prefix(card: str, bf16_served, device: str = "cuda",
     return rec
 
 
+# -- phase 15: serve from disk (checkpoints, tokenizer gate, store) ---------
+
+# Where the phase writes its snapshots (inside the ignored build/), and
+# removes them when it ends.
+CHECKPOINT_DIR = os.path.join("build", "checkpoint_smoke")
+# HF names of a Llama layer's tensors, and whether ours is the transpose
+# (HF linears are [out, in], the port's [in, out]). Written out here, not
+# taken from the loader, so the snapshot is independent of what reads it.
+HF_LLAMA_LAYER = (("ln1", "input_layernorm.weight", False),
+                  ("ln2", "post_attention_layernorm.weight", False),
+                  ("wq", "self_attn.q_proj.weight", True),
+                  ("wk", "self_attn.k_proj.weight", True),
+                  ("wv", "self_attn.v_proj.weight", True),
+                  ("wo", "self_attn.o_proj.weight", True),
+                  ("w_gate", "mlp.gate_proj.weight", True),
+                  ("w_up", "mlp.up_proj.weight", True),
+                  ("w_down", "mlp.down_proj.weight", True))
+HF_BERT_LAYER = (("wq", "attention.self.query.weight", True),
+                 ("bq", "attention.self.query.bias", False),
+                 ("wk", "attention.self.key.weight", True),
+                 ("bk", "attention.self.key.bias", False),
+                 ("wv", "attention.self.value.weight", True),
+                 ("bv", "attention.self.value.bias", False),
+                 ("wo", "attention.output.dense.weight", True),
+                 ("bo", "attention.output.dense.bias", False),
+                 ("ln1_w", "attention.output.LayerNorm.weight", False),
+                 ("ln1_b", "attention.output.LayerNorm.bias", False),
+                 ("w_in", "intermediate.dense.weight", True),
+                 ("b_in", "intermediate.dense.bias", False),
+                 ("w_out", "output.dense.weight", True),
+                 ("b_out", "output.dense.bias", False),
+                 ("ln2_w", "output.LayerNorm.weight", False),
+                 ("ln2_b", "output.LayerNorm.bias", False))
+
+
+def _write_safetensors(path, entries) -> int:
+    """A .safetensors file of (name, tensor) entries, each tensor copied
+    to the host in turn (bf16 as its 16-bit patterns); the header padded
+    to 8 bytes, as the HF writer does. Returns the data bytes."""
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, off = {}, 0
+    for name, t in entries:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(blob)) + blob)
+        for _, t in entries:
+            host = t.contiguous().cpu()
+            if host.dtype == torch.bfloat16:
+                host = host.view(torch.int16)
+            fh.write(host.numpy().data)
+    return off
+
+
+def _write_snapshot(path, entries, config, n_shards=1) -> int:
+    """An HF snapshot directory: config.json, the entries over `n_shards`
+    files of about equal bytes and, when sharded, the
+    model.safetensors.index.json naming each tensor's file."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=1)
+    sizes = [t.numel() * t.element_size() for _, t in entries]
+    total, shards, acc = sum(sizes), [[] for _ in range(n_shards)], 0
+    for entry, n in zip(entries, sizes):
+        shards[min(n_shards - 1, acc * n_shards // total)].append(entry)
+        acc += n
+    weight_map = {}
+    for i, shard in enumerate(shards):
+        fname = (f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors"
+                 if n_shards > 1 else "model.safetensors")
+        _write_safetensors(os.path.join(path, fname), shard)
+        weight_map.update({name: fname for name, _ in shard})
+    if n_shards > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"),
+                  "w") as fh:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": weight_map}, fh, indent=1)
+    return total
+
+
+def _llama_snapshot_entries(params, cfg):
+    """The served Llama tree under HF LlamaForCausalLM names and layouts
+    (views on the device; written one at a time)."""
+    entries = [("model.embed_tokens.weight", params["tok_emb"]),
+               ("model.norm.weight", params["ln_f"])]
+    for i in range(cfg.n_layers):
+        for leaf, name, transpose in HF_LLAMA_LAYER:
+            w = params["layers"][leaf][i]
+            entries.append((f"model.layers.{i}.{name}",
+                            w.t() if transpose else w))
+    if not cfg.tie_embeddings:
+        entries.append(("lm_head.weight", params["lm_head"].t()))
+    return entries
+
+
+def _llama_hf_config(cfg) -> dict:
+    import torch
+
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "intermediate_size": cfg.mlp_dim, "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": cfg.rms_eps,
+            "max_position_embeddings": cfg.max_seq_len,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "torch_dtype": str(cfg.dtype).replace("torch.", "")
+            if cfg.dtype != torch.float32 else "float32"}
+
+
+def _bert_snapshot(params, cfg, prefixed: bool):
+    """(entries, config.json) of an encoder engine's tree (fused QKV split
+    back into HF's query, key and value) under HF BERT names: bare, as
+    BertModel saves them, or under `bert.` with the pooler and the
+    classifier, as BertForSequenceClassification does."""
+    lw, D = params["layers"], cfg.dim
+    split = {"wq": lw["wqkv"][..., :D], "wk": lw["wqkv"][..., D:2 * D],
+             "wv": lw["wqkv"][..., 2 * D:], "bq": lw["bqkv"][..., :D],
+             "bk": lw["bqkv"][..., D:2 * D], "bv": lw["bqkv"][..., 2 * D:]}
+    pre = "bert." if prefixed else ""
+    entries = [(pre + "embeddings.word_embeddings.weight", params["tok_emb"]),
+               (pre + "embeddings.position_embeddings.weight",
+                params["pos_emb"]),
+               (pre + "embeddings.token_type_embeddings.weight",
+                params["type_emb"]),
+               (pre + "embeddings.LayerNorm.weight", params["emb_ln"]["w"]),
+               (pre + "embeddings.LayerNorm.bias", params["emb_ln"]["b"])]
+    for i in range(cfg.n_layers):
+        for leaf, name, transpose in HF_BERT_LAYER:
+            w = (split[leaf] if leaf in split else lw[leaf])[i]
+            entries.append((f"{pre}encoder.layer.{i}.{name}",
+                            w.t() if transpose else w))
+    if cfg.n_labels:
+        c = params["classifier"]
+        entries += [(pre + "pooler.dense.weight", c["pool_w"].t()),
+                    (pre + "pooler.dense.bias", c["pool_b"]),
+                    ("classifier.weight", c["w"].t()),
+                    ("classifier.bias", c["b"])]
+    config = {"model_type": "bert", "vocab_size": cfg.vocab_size,
+              "hidden_size": D, "num_hidden_layers": cfg.n_layers,
+              "num_attention_heads": cfg.n_heads,
+              "intermediate_size": cfg.mlp_dim,
+              "max_position_embeddings": cfg.max_position,
+              "type_vocab_size": cfg.type_vocab_size,
+              "layer_norm_eps": cfg.ln_eps}
+    return entries, config
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal shape, dtype and bits (a float compare would take -0 for 0)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    raw = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+           torch.float32: torch.int32}.get(a.dtype)
+    return bool(torch.equal(a.view(raw), b.view(raw)) if raw
+                else torch.equal(a, b))
+
+
+def _tree_mismatches(got, want, path="") -> list:
+    """Paths of the leaves (codes and scales of a QuantizedTensor) that
+    differ in keys, shape, dtype or bits."""
+    from generativeaiexamples_tpu_torch.ops.quant import QuantizedTensor
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path or "/"]
+        return [m for k in sorted(want)
+                for m in _tree_mismatches(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, QuantizedTensor):
+        if not isinstance(got, QuantizedTensor):
+            return [path]
+        return [p for p, a, b in ((path + ".q", got.q, want.q),
+                                  (path + ".s", got.s, want.s))
+                if not _bits_equal(a, b)]
+    return [] if _bits_equal(got, want) else [path]
+
+
+def _tree_bytes(tree) -> int:
+    from generativeaiexamples_tpu_torch.ops.quant import QuantizedTensor
+
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, QuantizedTensor):
+        return tree.q.nbytes + tree.s.nbytes
+    return tree.nbytes
+
+
+def _checkpoint_prompts(vocab: int):
+    """Four token-id prompts of 20-100 ids (seed 9)."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    return [rng.integers(0, min(vocab, 128000), n).tolist()
+            for n in rng.integers(20, 101, 4)]
+
+
+def checkpoint_streams(served: ServedEngine, max_tokens: int = 64):
+    """Token streams of the checkpoint prompts through `served`'s OpenAI
+    server: one streaming chat completion, then four concurrent greedy
+    completions admitted as ONE prefill group (the scheduler is stopped
+    until all four wait, so two engines see the same batch shapes and
+    their bf16 results can be compared bit for bit)."""
+    engine, app = served.engine, served.app
+    app.streams.clear()
+    chat = _stream_chat(served.base, 32)
+    (chat_tokens,) = app.streams.values()
+    prompts = _checkpoint_prompts(engine.cfg.vocab_size)
+    engine.stop()
+    results = [None] * len(prompts)
+
+    def run(i):
+        results[i] = _complete(served.base, prompts[i], max_tokens)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + 60
+    while len(engine.waiting) < len(prompts) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    grouped = len(engine.waiting) == len(prompts)
+    engine.start()
+    for t in threads:
+        t.join(timeout=600)
+    return {"chat": chat, "chat_tokens": chat_tokens, "grouped": grouped,
+            "completions": results,
+            "tokens": [app.streams.get(tuple(p)) for p in prompts]}
+
+
+def _pdf_bytes(pages) -> bytes:
+    """A minimal PDF, one FlateDecode content stream of text a page."""
+    import zlib
+
+    out = (b"%PDF-1.4\n1 0 obj\n<< /Type /Catalog /Pages 2 0 R >>\n"
+           b"endobj\n2 0 obj\n<< /Type /Pages /Kids ["
+           + b" ".join(b"%d 0 R" % (3 + 2 * i) for i in range(len(pages)))
+           + b"] /Count %d >>\nendobj\n" % len(pages))
+    for i, text in enumerate(pages):
+        num = 3 + 2 * i
+        content = zlib.compress(b"BT /F1 12 Tf 72 720 Td (" + text.encode()
+                                + b") Tj ET")
+        out += (b"%d 0 obj\n<< /Type /Page /Parent 2 0 R /Contents %d 0 R "
+                b">>\nendobj\n%d 0 obj\n<< /Length %d /Filter /FlateDecode "
+                b">>\nstream\n" % (num, num + 1, num + 1, len(content))
+                + content + b"\nendstream\nendobj\n")
+    return out + b"trailer\n<< /Root 1 0 R >>\n%%EOF"
+
+
+CHECKPOINT_PDF = ("Pager spill files hold demoted KV pages on disk.",
+                  "Promotion scatters the pages back in one copy.")
+CHECKPOINT_HTML = ("<html><head><style>p {margin: 0}</style><script>var "
+                   "hidden = 1;</script></head><body><h1>Tokenizer gate</h1>"
+                   "<p>A weights-only snapshot falls back to bytes only "
+                   "when asked.</p></body></html>")
+
+
+def _loaded(load):
+    """Run `load()` with the device's peak memory counter reset: (result,
+    seconds, peak bytes allocated above what was allocated before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = load()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() - base
+
+
+def _largest_layer_bytes(params) -> int:
+    """One layer of the largest stacked leaf (in the model dtype): what a
+    streaming load may hold beside the tree."""
+    return max(v.shape[1:].numel() * v.element_size()
+               for v in params["layers"].values())
+
+
+def _quantizers_match_numpy(device) -> dict:
+    """quantize_tensor (per output column) and quantize_kv (per row) on
+    the card against the JAX package's arithmetic in numpy (f32 divide,
+    round half to even) on seeded values of mixed magnitude (`match`);
+    and how many of those values' quotients by 127 differ between a
+    division by a host scalar and `div127`'s by a device tensor."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch.ops.quant import (
+        div127, quantize_tensor)
+    from generativeaiexamples_tpu_torch.serving.paged_attention_int8 import (
+        quantize_kv)
+
+    g = torch.Generator(device=device).manual_seed(13)
+    w = torch.randn((1024, 4096), generator=g, device=device) \
+        * torch.rand((1, 4096), generator=g, device=device)
+    wf = w.cpu().numpy()
+
+    def ref(axis):
+        amax = np.abs(wf).max(axis=axis, keepdims=True)
+        s = np.maximum(amax / np.float32(127), np.float32(1e-8))
+        return np.clip(np.round(wf / s), -127, 127).astype(np.int8), \
+            np.squeeze(s, axis)
+
+    qt = quantize_tensor(w)
+    kq, ks = quantize_kv(w)
+    (q0, s0), (q1, s1) = ref(0), ref(-1)
+    match = bool(np.array_equal(qt.q.cpu().numpy(), q0)
+                 and np.array_equal(qt.s.cpu().numpy(), s0)
+                 and np.array_equal(kq.cpu().numpy(), q1)
+                 and np.array_equal(ks.cpu().numpy(), s1))
+    return {"match": match, "values": w.numel(),
+            "host_scalar_div_differs": int((w / 127.0 != div127(w)).sum())}
+
+
+def _checkpoint_chain(engine, emb, rr, keep, root, device):
+    """The chain over the loaded engines with a persisted store: PDF and
+    HTML uploads through /documents, a search returning every stored
+    chunk with its file, the store's directory reloaded; then the RAG
+    phase's 2,001-chunk store saved, reloaded into a fresh store and
+    searched with the RAG phase's queries (equal ids and scores)."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.api.server import (
+        ChainServer, make_http_server)
+    from generativeaiexamples_tpu_torch.config.schema import load_config
+    from generativeaiexamples_tpu_torch.connectors.factory import EngineHub
+    from generativeaiexamples_tpu_torch.rag.documents import load_document
+    from generativeaiexamples_tpu_torch.rag.vectorstore import (
+        DeviceVectorStore)
+
+    chain_dir = os.path.join(root, "chain_store")
+    config = load_config(env={}, overrides={
+        "vector_store": {"name": "tpu", "persist_dir": chain_dir},
+        "reranker": {"enabled": True},
+        "embeddings": {"dimensions": emb.dim}})
+    hub = EngineHub(config, llm=engine, embed=emb, rerank=rr, device=device)
+    app = ChainServer(config, hub=hub, upload_dir=os.path.join(root, "up"))
+    httpd = make_http_server(app, "127.0.0.1", 0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    files = {"ckpt.pdf": _pdf_bytes(CHECKPOINT_PDF),
+             "ckpt.html": CHECKPOINT_HTML.encode()}
+    try:
+        uploads = {}
+        for name, data in files.items():
+            body, ctype = _multipart(name, data)
+            req = urllib.request.Request(base + "/documents", data=body,
+                                         headers={"Content-Type": ctype})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                uploads[name] = json.loads(r.read()).get("message", "")
+        store, splitter = app.example.res.store, app.example.res.splitter
+        n = len(store)
+        with _post(base + "/search", {"query": CHECKPOINT_PDF[0],
+                                      "top_k": max(n, 1)}) as r:
+            chunks = json.loads(r.read())["chunks"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+        app.close()
+    # The chunks each file's extraction gives (on the card's machine HTML
+    # goes through the standard-library parser; the log says which).
+    want = {}
+    for name, data in files.items():
+        path = os.path.join(root, "extract_" + name)
+        with open(path, "wb") as fh:
+            fh.write(data)
+        want[name] = sorted(c for d in load_document(path, name)
+                            for c in splitter.split(d.text))
+    found = {name: sorted(c["content"] for c in chunks
+                          if c["filename"] == name) for name in files}
+    reopened = DeviceVectorStore(emb.dim, device=device,
+                                 persist_dir=chain_dir)
+    chain_ok = (all(m.endswith("uploaded successfully")
+                    for m in uploads.values())
+                and n == 3 and found == want
+                and all(found[f] for f in files)
+                and reopened.list_documents() == sorted(files)
+                and len(reopened) == n)
+
+    # The RAG phase's ingested store: save, reload, same hits.
+    src = keep["store"]
+    store_dir = os.path.join(root, "rag_store")
+    t0 = time.perf_counter()
+    src.save(store_dir)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = DeviceVectorStore.load(store_dir, src.dim, device=device)
+    load_s = time.perf_counter() - t0
+    qv = np.stack([keep["emb"].embed_query(q) for q in keep["queries"]])
+    a = src.search_batch(qv, top_k=10)
+    b = fresh.search_batch(qv, top_k=10)
+    same_ids = [[h.text for h in x] for x in a] == \
+        [[h.text for h in x] for x in b]
+    same_scores = [[h.score for h in x] for x in a] == \
+        [[h.score for h in x] for x in b]
+    store_rec = {"chunks": len(src), "reloaded": len(fresh),
+                 "bytes_on_disk": sum(
+                     os.path.getsize(os.path.join(store_dir, f))
+                     for f in os.listdir(store_dir)),
+                 "save_s": save_s, "load_s": load_s,
+                 "queries": len(keep["queries"]), "same_ids": same_ids,
+                 "same_scores": same_scores}
+    del fresh, reopened
+    return {"uploads": uploads, "chunks_stored": n,
+            "search_found": {f: len(v) for f, v in found.items()},
+            "documents_reopened": sorted(files), "chain_ok": chain_ok,
+            "rag_store": store_rec,
+            "ok": chain_ok and same_ids and same_scores
+            and len(src) == store_rec["reloaded"]}
+
+
+def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
+                     device: str = "cuda", engine_cfg=None,
+                     int8_cfg=None, int8_pages: int = 1025,
+                     n_requests: int = 32, max_tokens: int = 32) -> dict:
+    """Serve from disk. The served bf16 8B engine's own weights
+    (`src_params`, kept when its engine went) are written as an HF
+    snapshot (four shards, an index, config.json at the published
+    widths) and the RAG phase's encoders as two BERT snapshots, under the
+    ignored build/ (free disk checked first), all removed at the end.
+    Then, each loaded model freed before the next:
+
+    - the tokenizer gate: `load_tokenizer` on the weights-only 8B
+      snapshot must raise unless GAIE_BYTE_TOKENIZER_FALLBACK=1 (set for
+      the rest of the phase, as these snapshots have no tokenizer);
+    - encoders: `load_bert` trees bit-identical to the in-memory
+      encoders', then `build_encoders` from the two paths: embeddings
+      and scores of a few texts bit-identical to the in-memory ones;
+      K3 must launch;
+    - bf16: `load_llama(device="cuda")` (time, GB/s, peak device memory
+      against the tree's bytes) bit-identical leaf by leaf; then
+      `build_engine(weights_path=...)` behind the OpenAI server: its
+      streaming chat and four concurrent 64-token greedy completions
+      must equal the served engine's tokens (`ref`); K1 and K2 must
+      launch; the chain over it: PDF and HTML through /documents into a
+      persisted store, and the RAG store saved and reloaded;
+    - int8: `load_llama(quantize=True)` (peak device memory at most the
+      int8 tree plus one bf16 layer of the largest leaf), codes and
+      scales bit-identical to the loader's quantizer applied on the card
+      to the source bf16 weights, layer 0 of each int8 leaf also to the
+      JAX loader's numpy arithmetic (and `quantize_tensor` /
+      `quantize_kv` to the JAX package's, on seeded values); then the
+      int8 deployment built from the path serves `n_requests`
+      concurrent completions: K6 and K4 must launch, K2 not."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.models import bert as bert_lib
+    from generativeaiexamples_tpu_torch.models.hf_loader import (
+        load_bert, load_llama)
+    from generativeaiexamples_tpu_torch.ops.quant import (
+        LLAMA_QUANT_KEYS, quantize_for_load)
+    from generativeaiexamples_tpu_torch.serving.__main__ import (
+        build_encoders, build_engine)
+    from generativeaiexamples_tpu_torch.utils.tokenizer import (
+        ByteTokenizer, load_tokenizer)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        CHECKPOINT_DIR)
+    llm_dir = os.path.join(root, "llama")
+    emb_dir, rr_dir = os.path.join(root, "embed"), os.path.join(root, "rerank")
+    emb_src, rr_src = keep["emb"], keep["rr"]
+    llm_entries = _llama_snapshot_entries(src_params, src_cfg)
+    tree_bytes = sum(t.numel() * t.element_size() for _, t in llm_entries)
+    need = tree_bytes + 2 * _tree_bytes(emb_src.params) \
+        + 2 * _tree_bytes(rr_src.params) + (1 << 30)
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise RuntimeError(f"checkpoint phase: {free / 1e9:.2f} GB free "
+                           f"under {root}, {need / 1e9:.2f} GB needed")
+    launches = {}
+    old_env = os.environ.pop("GAIE_BYTE_TOKENIZER_FALLBACK", None)
+    rec = {"phase": "checkpoint", "card": card, "disk_free_gb": free / 1e9}
+    try:
+        t0 = time.perf_counter()
+        _write_snapshot(llm_dir, llm_entries, _llama_hf_config(src_cfg),
+                        n_shards=4)
+        write_s = time.perf_counter() - t0
+        del llm_entries
+        for path, src, prefixed in ((emb_dir, emb_src, False),
+                                    (rr_dir, rr_src, True)):
+            entries, config = _bert_snapshot(src.params, src.cfg, prefixed)
+            _write_snapshot(path, entries, config)
+        rec["write"] = {"llm_bytes": tree_bytes, "llm_s": write_s,
+                        "llm_gb_per_s": tree_bytes / write_s / 1e9,
+                        "files": sorted(os.listdir(llm_dir))}
+
+        # The tokenizer gate on the weights-only 8B snapshot.
+        try:
+            load_tokenizer(llm_dir)
+            gate_raised = False
+        except FileNotFoundError:
+            gate_raised = True
+        os.environ["GAIE_BYTE_TOKENIZER_FALLBACK"] = "1"
+        rec["tokenizer_gate"] = {
+            "raised_without_fallback": gate_raised,
+            "byte_with_fallback": isinstance(load_tokenizer(llm_dir),
+                                             ByteTokenizer)}
+
+        # Encoders.
+        loaded_e, _ = load_bert(emb_dir, dtype=emb_src.cfg.dtype,
+                                device=device)
+        loaded_r, _ = load_bert(rr_dir, n_labels=1, dtype=rr_src.cfg.dtype,
+                                device=device)
+        enc_mismatch = (
+            _tree_mismatches(bert_lib.fuse_qkv_params(loaded_e),
+                             emb_src.params, "embed")
+            + _tree_mismatches(bert_lib.fuse_qkv_params(loaded_r),
+                               rr_src.params, "rerank"))
+        del loaded_e, loaded_r
+        emb, rr = build_encoders(device, embed_path=emb_dir,
+                                 rerank_path=rr_dir)
+        texts = list(keep["queries"]) + list(CHECKPOINT_PDF)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got_e = emb.embed(texts)
+        got_s = rr.score(keep["queries"][0], texts)
+        torch.cuda.synchronize()
+        launches["encoders"] = dict(kernels.LAUNCHES)
+        same_e = np.array_equal(got_e, emb_src.embed(texts))
+        same_s = np.array_equal(got_s, rr_src.score(keep["queries"][0],
+                                                    texts))
+        enc_ok = (not enc_mismatch and same_e and same_s
+                  and launches["encoders"]["encoder_attention"] > 0)
+        rec["encoders"] = {"mismatched_leaves": enc_mismatch,
+                           "embed_shape": list(got_e.shape),
+                           "embeddings_bit_identical": same_e,
+                           "scores_bit_identical": same_s}
+
+        # bf16: the load measured, then the engine built from the path.
+        params, load_s, peak = _loaded(
+            lambda: load_llama(llm_dir, device=device,
+                               dtype=src_cfg.dtype)[0])
+        mismatch = _tree_mismatches(params, src_params)
+        loaded_bytes = _tree_bytes(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["bf16"] = {"load_s": load_s,
+                       "read_gb_per_s": loaded_bytes / load_s / 1e9,
+                       "tree_bytes": loaded_bytes, "peak_bytes": peak,
+                       "peak_over_tree_bytes": peak - loaded_bytes,
+                       "mismatched_leaves": mismatch}
+        t0 = time.perf_counter()
+        served = ServedEngine(engine=build_engine(
+            device=device, warmup=False, engine_cfg=engine_cfg,
+            weights_path=llm_dir), warmup_buckets=[128])
+        rec["bf16"]["engine_build_s"] = time.perf_counter() - t0
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            got = checkpoint_streams(served)
+            torch.cuda.synchronize()
+            launches["bf16"] = dict(kernels.LAUNCHES)
+            chain = _checkpoint_chain(served.engine, emb, rr, keep, root,
+                                      device)
+        finally:
+            served.close()
+        streams_equal = (got["chat_tokens"] == ref["chat_tokens"]
+                         and got["tokens"] == ref["tokens"]
+                         and all(t for t in ref["tokens"]))
+        rec["bf16"].update({
+            "grouped": [ref["grouped"], got["grouped"]],
+            "chat_tokens": len(got["chat_tokens"]),
+            "completion_tokens": [len(t or []) for t in got["tokens"]],
+            "streams_equal_served": streams_equal})
+        rec["chain"] = chain
+        del served, emb, rr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # int8: the load measured, then the deployment from the path.
+        qparams, qload_s, qpeak = _loaded(
+            lambda: load_llama(llm_dir, device=device, dtype=src_cfg.dtype,
+                               quantize=True)[0])
+        int8_bytes = _tree_bytes(qparams)
+        allowance = _largest_layer_bytes(src_params)
+        qmismatch, host_checked = [], []
+        for key in LLAMA_QUANT_KEYS:
+            w = src_params["layers"][key]
+            for layer in range(w.shape[0]):
+                want = quantize_for_load(w[layer])
+                got_q = qparams["layers"][key][layer]
+                if not (_bits_equal(got_q.q, want.q)
+                        and _bits_equal(got_q.s, want.s)):
+                    qmismatch.append(f"{key}[{layer}]")
+            # The JAX loader's numpy arithmetic on layer 0, on the host.
+            af = w[0].float().cpu().numpy()
+            amax = np.abs(af).max(axis=-2, keepdims=True).clip(1e-8)
+            s = (amax / 127.0).astype(np.float32)
+            q = np.clip(np.round(af / s), -127, 127).astype(np.int8)
+            got_q = qparams["layers"][key][0]
+            host_checked.append(key)
+            if not (np.array_equal(got_q.q.cpu().numpy(), q)
+                    and np.array_equal(got_q.s.cpu().numpy(), s[0])):
+                qmismatch.append(f"{key}[0] vs numpy")
+        if "lm_head" in src_params:
+            want = quantize_for_load(src_params["lm_head"])
+            if not (_bits_equal(qparams["lm_head"].q, want.q)
+                    and _bits_equal(qparams["lm_head"].s, want.s)):
+                qmismatch.append("lm_head")
+            del want
+        qmismatch += [p for p in _tree_mismatches(
+            {k: qparams[k] for k in ("tok_emb", "ln_f")},
+            {k: src_params[k] for k in ("tok_emb", "ln_f")})]
+        qmismatch += _tree_mismatches(
+            {k: qparams["layers"][k] for k in ("ln1", "ln2")},
+            {k: src_params["layers"][k] for k in ("ln1", "ln2")})
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["int8"] = {"load_s": qload_s,
+                       "read_gb_per_s": tree_bytes / qload_s / 1e9,
+                       "int8_tree_bytes": int8_bytes, "peak_bytes": qpeak,
+                       "allowance_bytes": allowance,
+                       "peak_within": qpeak <= int8_bytes + allowance,
+                       "host_checked_layer0": host_checked,
+                       "mismatched": qmismatch,
+                       "quantizers_vs_numpy":
+                       _quantizers_match_numpy(device)}
+        ecfg = {**(int8_cfg or INT8_DEPLOYMENT)}
+        served = ServedEngine(engine=build_engine(
+            device=device, warmup=False, engine_cfg=ecfg,
+            n_pages=int8_pages, weights_path=llm_dir),
+            warmup_buckets=[128])
+        try:
+            prompts = _int8_prompts(n_requests)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            results = _burst(served.base, prompts, max_tokens)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches["int8"] = dict(kernels.LAUNCHES)
+        finally:
+            served.close()
+        tokens = sum(r["completion_tokens"] for r in results if r)
+        int8_served_ok = all(
+            r is not None and r["finish_reason"] in ("length", "stop")
+            and r["completion_tokens"] >= 1 for r in results)
+        rec["int8"].update({"requests": n_requests, "completion_tokens":
+                            tokens, "wall_s": wall,
+                            "tokens_per_s": tokens / wall if wall else None,
+                            "served_ok": int8_served_ok})
+        del served
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if old_env is None:
+            os.environ.pop("GAIE_BYTE_TOKENIZER_FALLBACK", None)
+        else:
+            os.environ["GAIE_BYTE_TOKENIZER_FALLBACK"] = old_env
+    total = {name: sum(v.get(name, 0) for v in launches.values())
+             for name in kernels.SIGNATURES}
+    ok = (rec["tokenizer_gate"]["raised_without_fallback"]
+          and rec["tokenizer_gate"]["byte_with_fallback"]
+          and enc_ok and not mismatch and streams_equal
+          and ref["grouped"] and got["grouped"]
+          and launches["bf16"]["flash_attention"] > 0
+          and launches["bf16"]["paged_attention"] > 0
+          and chain["ok"] and not qmismatch
+          and rec["int8"]["quantizers_vs_numpy"]["match"]
+          and rec["int8"]["peak_within"] and int8_served_ok
+          and launches["int8"]["int8_matmul"] > 0
+          and launches["int8"]["paged_attention_int8"] > 0
+          and launches["int8"]["paged_attention"] == 0)
+    rec.update({"launches": total, "launches_by_model": launches,
+                "snapshot_removed": not os.path.exists(root),
+                "seconds": time.perf_counter() - t_phase, "ok": ok})
+    emit(rec)
+    return rec
+
+
 # -- K1, K3, K4 and K6 against another tree (--compare-parent) -------------
 
 # (name, B, H, KH, Sq, Sk, lengths, q_offset) at head_dim 128, causal.
@@ -2956,21 +3720,33 @@ def main() -> int:
     int8_mm = phase_int8_matmul()
     model = phase_model()
     served = ServedEngine("8b", "cuda")
+    rag_keep = {}
     try:
         serving = phase_serving(card, served)
         chunked = phase_chunked(served)
-        rag = phase_rag(card, served)
+        rag = phase_rag(card, served, keep=rag_keep)
         spec_bf16 = phase_spec_bf16(card, served)
         prefix = phase_prefix(card, served)
+        # What the engine loaded from the snapshot of these weights must
+        # give, taken before this engine goes.
+        ckpt_ref = checkpoint_streams(served)
     finally:
         served.close()
-    # The bf16 engine and the RAG stores go before the int8 engine comes.
+    # The bf16 engine's pool and the RAG phase's 1M-row store go before
+    # the int8 engine comes; its weights, encoders and ingested store stay
+    # for the checkpoint phase (~16 GB beside the int8 phases' ~45).
+    bf16_params, bf16_cfg = served.engine.params, served.engine.cfg
     del served
     gc.collect()
     torch.cuda.empty_cache()
     serving_int8, int8_served = phase_serving_int8(card)
     spec_int8 = phase_spec_int8(card, int8_served)
     del int8_served
+    gc.collect()
+    torch.cuda.empty_cache()
+    checkpoint = phase_checkpoint(card, bf16_params, bf16_cfg, ckpt_ref,
+                                  rag_keep)
+    del bf16_params, rag_keep
 
     line = []
     for name, rep, cases, main_case, launches, tol in (
@@ -3006,8 +3782,16 @@ def main() -> int:
     k4["verify_cases"] = {
         c["case"]: {k: c[k] for k in ("q_rep", "tree", "ms", "device_ms",
                                       "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms")}
+                                      "library_ms", "sdpa_gathered_ms",
+                                      "sdpa_gathered_device_ms")}
         for c in paged_int8 if c["q_rep"] > 1 and "ms" in c}
+    main_k4 = next(c for c in paged_int8 if c["case"] == "8b_decode")
+    k4["sdpa_gathered_ms"] = main_k4["sdpa_gathered_ms"]
+    k4["sdpa_gathered_device_ms"] = main_k4["sdpa_gathered_device_ms"]
+    k4["cases"] = {c["case"]: {k: c[k] for k in (
+        "ms", "device_ms", "bound_ms", "sdpa_gathered_ms",
+        "sdpa_gathered_device_ms", "plan")} for c in paged_int8
+        if c["q_rep"] == 1 and "ms" in c}
     k3 = next(e for e in line if e["name"] == "encoder_attention")
     k3["cases"] = {c["case"]: {k: c[k] for k in (
         "ms", "device_ms", "bound_ms", "library_ms", "library_device_ms",
@@ -3027,11 +3811,15 @@ def main() -> int:
     for e in line:
         if e["name"] in ("flash_attention", "paged_attention"):
             e["prefix_launches"] = prefix["launches"][e["name"]]
+        # Launches on the models loaded from their snapshots (K5 is not
+        # on that path).
+        e["checkpoint_launches"] = checkpoint["launches"][e["name"]]
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]
           and rag["ok"] and serving_int8["ok"] and spec_bf16["ok"]
-          and prefix["ok"] and all(r["ok"] for r in spec_int8))
+          and prefix["ok"] and all(r["ok"] for r in spec_int8)
+          and checkpoint["ok"])
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

@@ -10,7 +10,8 @@ defaults:
   engine that the port does not have yet (step plans, the fused prefill
   rider, QoS, multi-host, ...) are listed in `UNSUPPORTED` with the ROADMAP
   item that brings them; `EngineConfig.coerce` refuses any of them set
-  away from its default.
+  away from its default. `weights_path` names an HF safetensors snapshot
+  (empty: random weights at a named geometry).
 - `AppConfig`: the sections the developer_rag chain reads (llm,
   embeddings, reranker, retriever, prompts, text_splitter, vector_store,
   serving, engine). `load_config()` reads the YAML or JSON file that
@@ -35,6 +36,9 @@ _LOG = logging.getLogger(__name__)
 
 @dataclass(frozen=True)
 class EngineConfig:
+    # HF snapshot directory of the LLM ("" = random-init, the launcher's
+    # --model-size geometry).
+    weights_path: str = ""
     dtype: str = "bfloat16"       # model weights / activations
     kv_dtype: str = "bfloat16"    # bfloat16 | float32 | int8 (fused pool)
     quantize_weights: str = "none"  # none | int8 (weight-only, per column)
@@ -130,7 +134,6 @@ class EngineConfig:
 # JAX EngineConfig flags outside this slice: name -> (default, where the
 # port will gain it).
 UNSUPPORTED = {
-    "weights_path": ("", "ROADMAP A.10: HF checkpoint loading"),
     "step_plans": (False, "ROADMAP A.14: step plans"),
     "fused_prefill": (False, "ROADMAP A.14: fused prefill"),
     "qos": (False, "ROADMAP A.16: QoS"),
@@ -151,7 +154,9 @@ class VectorStoreConfig:
     index_type: str = "flat"  # ivf: ROADMAP A.18
     quantize_int8: bool = False  # ROADMAP A.18
     tiered: bool = False  # ROADMAP A.18
-    persist_dir: str = ""  # ROADMAP A.11
+    # Directory the store loads from at construction and saves to on
+    # every mutation ("" = in memory only).
+    persist_dir: str = ""
 
 
 @dataclass(frozen=True)
@@ -174,7 +179,7 @@ class EmbeddingConfig:
     model_engine: str = "tpu"
     dimensions: int = 1024
     server_url: str = ""
-    weights_path: str = ""  # ROADMAP A.10
+    weights_path: str = ""  # HF BERT snapshot ("" = random-init)
 
 
 @dataclass(frozen=True)
@@ -183,7 +188,7 @@ class RerankerConfig:
     model_engine: str = "tpu"
     server_url: str = ""
     enabled: bool = False
-    weights_path: str = ""  # ROADMAP A.10
+    weights_path: str = ""  # HF cross-encoder snapshot ("" = random-init)
 
 
 @dataclass(frozen=True)
@@ -244,9 +249,6 @@ UNSUPPORTED_APP = {
     ("vector_store", "index_type"): "ROADMAP A.18: IVF index",
     ("vector_store", "quantize_int8"): "ROADMAP A.18: int8 rows",
     ("vector_store", "tiered"): "ROADMAP A.18: tiered index",
-    ("vector_store", "persist_dir"): "ROADMAP A.11: store persistence",
-    ("embeddings", "weights_path"): "ROADMAP A.10: checkpoint loading",
-    ("reranker", "weights_path"): "ROADMAP A.10: checkpoint loading",
 }
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of generativeaiexamples_tpu/connectors/factory.py for the
 in-process engine value (`model_engine: tpu`, the JAX config's name).
-`EngineHub` owns the in-process engines: it builds them lazily (random
-init at the launcher's geometries, ROADMAP A.10) or takes engines handed
-to it, so one engine can serve both an OpenAI server and the chain.
+`EngineHub` owns the in-process engines: it builds them lazily through
+the launcher (from the config's weights paths, or random init at the
+launcher's geometries) or takes engines handed to it, so one engine can
+serve both an OpenAI server and the chain.
 Unlike the JAX hub it is not a process-wide singleton: the caller makes
 one and passes it on. The remote OpenAI connectors, the hermetic fakes
 and the lexical embedder are not ported yet (ROADMAP A.11).
@@ -32,6 +33,7 @@ class EngineHub:
         self.model_size = model_size
         self._llm, self._embed, self._rerank = llm, embed, rerank
         self._owns_llm = llm is None
+        self._encoders_built = embed is not None and rerank is not None
         self._build_lock = threading.Lock()
 
     def llm_engine(self):
@@ -47,14 +49,26 @@ class EngineHub:
             return self._llm
 
     def _encoders(self):
+        """Each encoder loads its own snapshot (and tokenizer) from
+        `embeddings.weights_path` / `reranker.weights_path`, as the JAX
+        hub's launcher does; without one it is random-init while the LLM
+        is, and None beside a loaded LLM. Engines handed in are kept."""
         with self._build_lock:
-            if self._embed is None or self._rerank is None:
+            if not self._encoders_built:
                 from generativeaiexamples_tpu_torch.serving.__main__ import (
                     build_encoders)
 
-                emb, rr = build_encoders(self.device)
+                cfg = self.config
+                emb, rr = build_encoders(
+                    self.device,
+                    embed_path="" if self._embed else
+                    cfg.embeddings.weights_path,
+                    rerank_path="" if self._rerank else
+                    cfg.reranker.weights_path,
+                    random_init=not cfg.engine.weights_path)
                 self._embed = self._embed or emb
                 self._rerank = self._rerank or rr
+                self._encoders_built = True
             return self._embed, self._rerank
 
     def embed_engine(self):
@@ -85,7 +99,13 @@ def get_llm(config: AppConfig, hub: EngineHub):
 def get_embedder(config: AppConfig, hub: EngineHub):
     _in_process("embeddings", config.embeddings.model_engine,
                 config.embeddings.server_url)
-    return LocalEmbedder(hub.embed_engine())
+    embed = hub.embed_engine()
+    if embed is None:
+        raise RuntimeError(
+            "no in-process embedding engine (embeddings.weights_path "
+            "unset with a real LLM); set embeddings.model_engine=hash "
+            "or provide weights")
+    return LocalEmbedder(embed)
 
 
 def get_reranker(config: AppConfig, hub: EngineHub):
@@ -93,4 +113,5 @@ def get_reranker(config: AppConfig, hub: EngineHub):
         return None
     _in_process("reranker", config.reranker.model_engine,
                 config.reranker.server_url)
-    return LocalReranker(hub.rerank_engine())
+    rr = hub.rerank_engine()
+    return LocalReranker(rr) if rr is not None else None

@@ -56,7 +56,32 @@ def quantize_tensor(w: torch.Tensor, contract_axis: int = -2
     half to even, clip to +-127), so the codes are bit-identical."""
     wf = w.float()
     amax = wf.abs().amax(dim=contract_axis, keepdim=True)
-    s = (amax / 127.0).clamp(min=1e-8)
+    s = div127(amax).clamp(min=1e-8)
+    q = torch.round(wf / s).clamp(-127, 127).to(torch.int8)
+    return QuantizedTensor(q, s.squeeze(contract_axis))
+
+
+def div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 correctly rounded in f32, as numpy and XLA divide. The
+    divisor is a tensor on x's device: CUDA divides by a host scalar as a
+    product with its reciprocal, which differs in the last bit for some
+    values (chip_smoke.py's checkpoint phase counts them), and then so
+    can the codes."""
+    return x / torch.tensor(127.0, dtype=torch.float32, device=x.device)
+
+
+def quantize_for_load(w: torch.Tensor, contract_axis: int = -2
+                      ) -> QuantizedTensor:
+    """The checkpoint loader's per-output-channel int8: the JAX loader's
+    arithmetic (`models/hf_loader._quantize_numpy_leaf` there), which
+    clips amax at 1e-8 BEFORE dividing by 127, where `quantize_tensor`
+    divides first and clips the scale. The two differ on every channel
+    whose amax is under 1.27e-6 (an all-zero channel included). `w` is
+    the checkpoint's stored values (cast to f32 here, as the loader
+    does), never a bf16-rounded copy of f32 ones."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=contract_axis, keepdim=True).clamp(min=1e-8)
+    s = div127(amax)
     q = torch.round(wf / s).clamp(-127, 127).to(torch.int8)
     return QuantizedTensor(q, s.squeeze(contract_axis))
 

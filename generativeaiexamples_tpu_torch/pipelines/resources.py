@@ -31,8 +31,11 @@ class Resources:
         self.reranker = (reranker if reranker is not None
                          else factory.get_reranker(config, self.hub))
         dim = getattr(self.embedder, "dim", config.embeddings.dimensions)
+        # The document store is durable when persist_dir is configured
+        # (loads existing data now, saves on every mutation).
         self.store = store if store is not None else create_vector_store(
-            config, dim=dim, device=self.hub.device)
+            config, dim=dim, device=self.hub.device,
+            persist_dir=config.vector_store.persist_dir)
         self.splitter = get_text_splitter(config)
         self.retriever = Retriever(
             self.store, self.embedder,

@@ -12,13 +12,22 @@ generativeaiexamples_tpu/rag/vectorstore.py:
   dispatch. There is no host copy to scan.
 
 Documents carry {text, metadata{filename, ...}}; deletion is by
-filename. IVF, int8 rows, the tiered index (ROADMAP A.18), persistence,
-micro-batching and the external milvus / pgvector stores (ROADMAP A.11)
-are not ported; `create_vector_store` refuses them by name.
+filename. With `persist_dir` a store is durable, in the JAX store's
+format (`save` / `load`): `vectors.npz` (the f32 rows under "vecs",
+compressed) and `docs.jsonl` (one document a line), each written to a
+temporary file and moved into place, so a crash mid-save leaves the
+previous snapshot whole. The store loads the directory at construction
+and saves it after every add and delete. A directory saved by either
+package loads in the other. IVF, int8 rows, the tiered index (ROADMAP
+A.18), micro-batching and the external milvus / pgvector stores
+(ROADMAP A.11) are not ported; `create_vector_store` refuses them by
+name.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -38,10 +47,24 @@ class SearchResult:
     metadata: Dict = field(default_factory=dict)
 
 
-class MemoryVectorStore:
-    """Exact cosine/IP search over an [N, D] host matrix. Thread-safe."""
+def _atomic_replace(path: str, write_fn) -> None:
+    """Write via `write_fn(tmp_path)`, then os.replace into place: a crash
+    mid-write leaves the previous file intact."""
+    tmp = path + ".tmp"
+    try:
+        write_fn(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
-    def __init__(self, dim: int, metric: str = "ip"):
+
+class MemoryVectorStore:
+    """Exact cosine/IP search over an [N, D] host matrix. Thread-safe.
+    Durable with `persist_dir` (module docstring)."""
+
+    def __init__(self, dim: int, metric: str = "ip",
+                 persist_dir: Optional[str] = None):
         self.dim = dim
         self.metric = metric  # "ip" (normalized embeddings) or "cosine"
         self._vecs = np.zeros((0, dim), np.float32)
@@ -49,6 +72,9 @@ class MemoryVectorStore:
         self._lock = threading.RLock()
         self._n_searches = 0
         self._n_batched = 0
+        self.persist_dir = persist_dir or None
+        if self.persist_dir:
+            self._load_from(self.persist_dir)
 
     # -- ingest ------------------------------------------------------------
 
@@ -67,6 +93,7 @@ class MemoryVectorStore:
             self._vecs = np.concatenate([self._vecs, embeddings])
             for t, m in zip(texts, metadatas):
                 self._docs.append({"text": t, "metadata": dict(m)})
+            self._persist()
             return list(range(base, base + len(texts)))
 
     # -- search ------------------------------------------------------------
@@ -186,6 +213,7 @@ class MemoryVectorStore:
             self._vecs = self._vecs[keep] if keep else np.zeros(
                 (0, self.dim), np.float32)
             self._docs = [self._docs[i] for i in keep]
+            self._persist()
             return removed
 
     def __len__(self) -> int:
@@ -197,6 +225,67 @@ class MemoryVectorStore:
         with self._lock:
             return list(self._docs)
 
+    # -- persistence -------------------------------------------------------
+
+    def _host_rows(self) -> np.ndarray:
+        """Lock held. The rows [N, D] f32 as a host array."""
+        return self._vecs
+
+    def _set_rows(self, rows: np.ndarray) -> None:
+        """Lock held. Replace the rows with `rows` [N, D] f32."""
+        self._vecs = rows
+
+    def save(self, path: str) -> None:
+        """Write the store to directory `path` (created if missing)."""
+        with self._lock:
+            os.makedirs(path, exist_ok=True)
+            vecs, docs = self._host_rows(), list(self._docs)
+
+            def write_vecs(tmp):
+                with open(tmp, "wb") as fh:
+                    np.savez_compressed(fh, vecs=vecs)
+
+            def write_docs(tmp):
+                with open(tmp, "w") as fh:
+                    for d in docs:
+                        fh.write(json.dumps(d) + "\n")
+
+            _atomic_replace(os.path.join(path, "vectors.npz"), write_vecs)
+            _atomic_replace(os.path.join(path, "docs.jsonl"), write_docs)
+
+    @classmethod
+    def load(cls, path: str, dim: int, metric: str = "ip", **kwargs):
+        """A new store holding what `save` wrote to `path`."""
+        store = cls(dim, metric, **kwargs)
+        store._load_from(path)
+        return store
+
+    def _load_from(self, path: str) -> None:
+        """Replace the contents with the snapshot at `path`, if it holds
+        one; rows of another width raise."""
+        vp = os.path.join(path, "vectors.npz")
+        dp = os.path.join(path, "docs.jsonl")
+        if not (os.path.isfile(vp) and os.path.isfile(dp)):
+            return
+        with self._lock:
+            with np.load(vp) as z:
+                loaded = z["vecs"].astype(np.float32)
+            if loaded.size and loaded.shape[1] != self.dim:
+                raise ValueError(
+                    f"persisted store at {path} holds {loaded.shape[1]}-dim "
+                    f"vectors but this store is configured for "
+                    f"dim={self.dim}; re-ingest the corpus or fix "
+                    f"embeddings.dimensions")
+            with open(dp) as fh:
+                docs = [json.loads(ln) for ln in fh if ln.strip()]
+            self._set_rows(loaded.reshape(-1, self.dim))
+            self._docs = docs
+
+    def _persist(self) -> None:
+        """Lock held. Save to `persist_dir` when the store has one."""
+        if self.persist_dir:
+            self.save(self.persist_dir)
+
 
 class DeviceVectorStore(MemoryVectorStore):
     """Exact flat MIPS with the rows on the device (the counterpart of
@@ -206,14 +295,15 @@ class DeviceVectorStore(MemoryVectorStore):
     search."""
 
     def __init__(self, dim: int, metric: str = "ip",
-                 device: DeviceLike = None):
-        super().__init__(dim, metric)
+                 device: DeviceLike = None,
+                 persist_dir: Optional[str] = None):
         self.device = resolve_device(device)
-        self._vecs = None  # no host copy: the rows live on the device
         self._rows = torch.zeros((0, dim), dtype=torch.float32,
                                  device=self.device)
         self._pending: List[torch.Tensor] = []  # added since the refresh
         self._flat: Optional[torch.Tensor] = None  # normalized rows
+        super().__init__(dim, metric, persist_dir)
+        self._vecs = None  # no host copy: the rows live on the device
 
     def add(self, texts: Sequence[str], embeddings,
             metadatas: Optional[Sequence[Dict]] = None) -> List[int]:
@@ -227,6 +317,7 @@ class DeviceVectorStore(MemoryVectorStore):
             self._flat = None
             self._docs.extend({"text": t, "metadata": dict(m)}
                               for t, m in zip(texts, metadatas))
+            self._persist()
             return list(range(base, base + len(texts)))
 
     def delete_documents(self, filenames: Sequence[str]) -> int:
@@ -240,7 +331,17 @@ class DeviceVectorStore(MemoryVectorStore):
                 self._rows = self._rows.index_select(0, idx)
                 self._docs = [self._docs[i] for i in keep]
                 self._flat = None
+            self._persist()
             return removed
+
+    def _host_rows(self) -> np.ndarray:
+        self._refresh_flat()
+        return self._rows.cpu().numpy()
+
+    def _set_rows(self, rows: np.ndarray) -> None:
+        self._rows = torch.from_numpy(rows).to(self.device)
+        self._pending = []
+        self._flat = None
 
     def rows(self) -> torch.Tensor:
         """The stored rows [N, D] f32 on the device (pending adds folded
@@ -315,17 +416,20 @@ class DeviceVectorStore(MemoryVectorStore):
 
 
 def create_vector_store(config, dim: Optional[int] = None,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None,
+                        persist_dir: Optional[str] = None):
     """Factory from AppConfig.vector_store. `memory` is the host store;
     `tpu` and `native` (the JAX config's names, kept so configs are
-    shared) are the device store. Anything else, and every knob the port
-    does not honour (`check_supported`), is refused by name."""
+    shared) are the device store; either is durable at `persist_dir`
+    (usually config.vector_store.persist_dir). Anything else, and every
+    knob the port does not honour (`check_supported`), is refused by
+    name."""
     vs = check_supported(config).vector_store
     dim = dim or config.embeddings.dimensions
     if vs.name in ("tpu", "native"):
-        return DeviceVectorStore(dim, device=device)
+        return DeviceVectorStore(dim, device=device, persist_dir=persist_dir)
     if vs.name == "memory":
-        return MemoryVectorStore(dim)
+        return MemoryVectorStore(dim, persist_dir=persist_dir)
     if vs.name in ("milvus", "pgvector"):
         raise ValueError(f"vector_store.name={vs.name!r}: the external "
                          f"stores are not ported yet (ROADMAP A.11)")

@@ -42,6 +42,7 @@ import torch
 
 from generativeaiexamples_tpu_torch import kernels
 from generativeaiexamples_tpu_torch.ops.attention import NEG_INF
+from generativeaiexamples_tpu_torch.ops.quant import div127
 from generativeaiexamples_tpu_torch.serving.paged_attention import (
     _gather_pages, _sm_count, paged_attention_reference)
 
@@ -52,7 +53,7 @@ def quantize_kv(x: torch.Tensor, scale_dtype=torch.float32):
     The JAX package's arithmetic, so codes and scales are bit-identical."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    s = (amax / 127.0).clamp(min=1e-8)
+    s = div127(amax).clamp(min=1e-8)
     q = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
     return q, s.squeeze(-1).to(scale_dtype)
 

@@ -16,8 +16,8 @@ import pytest
 import yaml
 
 from generativeaiexamples_tpu.config.wizard import load_config as jax_load
-from generativeaiexamples_tpu_torch.config.schema import (AppConfig,
-                                                          load_config)
+from generativeaiexamples_tpu_torch.config.schema import (
+    UNSUPPORTED, UNSUPPORTED_APP, AppConfig, load_config)
 
 # A deployment's file: every section the port reads, one int8 speculative
 # engine, and JAX-only knobs the port does not have.
@@ -167,3 +167,50 @@ def test_config_file_bad_values_raise(tmp_path, data, match):
         load_config(env={"APP_CONFIG_FILE": path})
     with pytest.raises(ValueError):
         jax_load(path, env={})
+
+
+# Checkpoint loading (engine, embedder, reranker) and store persistence
+# are ported: their fields are accepted, from the env or the file.
+SERVE_FROM_DISK = {"engine": {"weights_path": "/models/llama"},
+                   "embeddings": {"weights_path": "/models/embed"},
+                   "reranker": {"weights_path": "/models/rerank"},
+                   "vector_store": {"persist_dir": "/var/store"}}
+SERVE_FROM_DISK_ENV = {"APP_ENGINE_WEIGHTSPATH": "/models/llama",
+                       "APP_EMBEDDINGS_WEIGHTSPATH": "/models/embed",
+                       "APP_RERANKER_WEIGHTSPATH": "/models/rerank",
+                       "APP_VECTORSTORE_PERSISTDIR": "/var/store"}
+
+
+@pytest.mark.parametrize("source", ["env", "json", "yaml"])
+def test_weights_path_and_persist_dir_accepted(tmp_path, source):
+    env = (dict(SERVE_FROM_DISK_ENV) if source == "env" else {
+        "APP_CONFIG_FILE": _write(tmp_path, source, SERVE_FROM_DISK)})
+    port = load_config(env=env)
+    _assert_same(port, jax_load(env=env))
+    for sec, fields in SERVE_FROM_DISK.items():
+        node = getattr(port, sec)
+        assert {n: getattr(node, n) for n in fields} == fields
+
+
+def _off_default(value):
+    if isinstance(value, bool):
+        return not value
+    return "x" if isinstance(value, str) else value
+
+
+@pytest.mark.parametrize("key", sorted(UNSUPPORTED_APP), ids=".".join)
+def test_remaining_chain_refusals_name_their_item(key):
+    section, name = key
+    default = getattr(getattr(AppConfig(), section), name)
+    with pytest.raises(ValueError, match=UNSUPPORTED_APP[key].split(":")[0]):
+        load_config(env={}, overrides={section: {name: _off_default(
+            default)}})
+
+
+@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
+def test_remaining_engine_refusals_name_their_item(name):
+    default, item = UNSUPPORTED[name]
+    env = {f"APP_ENGINE_{name.replace('_', '').upper()}":
+           "true" if isinstance(default, bool) else "x"}
+    with pytest.raises(ValueError, match=item.split(":")[0]):
+        load_config(env=env)

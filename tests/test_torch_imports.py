@@ -2,7 +2,7 @@
 
 The port (`generativeaiexamples_tpu_torch`) and `chip_smoke.py` import
 torch and never jax, and nothing of the JAX package: the card's machine
-has no jax. Entry points run on CUDA unless the caller asks for the CPU;
+has no jax. Nor do they import safetensors, ml_dtypes or transformers. Entry points run on CUDA unless the caller asks for the CPU;
 with no CUDA and no explicit device they raise instead of falling back.
 """
 
@@ -45,7 +45,9 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_flash', 'phase_paged', 'phase_encoder', 'phase_model', "
         "'phase_serving', 'phase_chunked', 'phase_rag', 'phase_paged_int8', "
         "'phase_int8_matmul', 'phase_serving_int8', 'phase_tree', "
-        "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', 'main'):",
+        "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', "
+        "'checkpoint_streams', 'phase_checkpoint', "
+        "'paged_int8_sdpa_gathered_ms', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
@@ -61,9 +63,12 @@ def test_every_port_module_imports_with_jax_blocked():
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
+    """Nor the packages that read checkpoints for the JAX loader: the port
+    reads safetensors itself (the card's machine need not have them)."""
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "generativeaiexamples_tpu")]
+                                  "generativeaiexamples_tpu", "safetensors",
+                                  "ml_dtypes", "transformers")]
     assert not bad, f"{path.name} imports {bad}"
 
 

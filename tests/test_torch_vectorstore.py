@@ -119,7 +119,7 @@ def test_device_store_keeps_rows_on_its_device_and_takes_tensors():
         store.add(["x"], np.zeros((2, DIM)))
 
 
-def test_create_vector_store_names_and_refusals():
+def test_create_vector_store_names_and_refusals(tmp_path):
     cfg = load_config(env={})
     assert isinstance(create_vector_store(cfg, 8), MemoryVectorStore)
     for name in ("tpu", "native"):
@@ -127,13 +127,21 @@ def test_create_vector_store_names_and_refusals():
         assert isinstance(create_vector_store(c, 8, device="cpu"),
                           DeviceVectorStore)
     for over, item in (({"name": "milvus"}, "A.11"),
-                       ({"persist_dir": "/x"}, "A.11"),
                        ({"index_type": "ivf"}, "A.18"),
                        ({"tiered": True}, "A.18")):
         c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
             cfg.vector_store, **over))
         with pytest.raises(ValueError, match=item):
             create_vector_store(c, 8, device="cpu")
+    # persist_dir is ported: the config is accepted and the factory hands
+    # the directory to the store it builds.
+    c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
+        cfg.vector_store, name="tpu", persist_dir="/x"))
+    assert create_vector_store(c, 8, device="cpu").persist_dir is None
+    store = create_vector_store(c, 8, device="cpu",
+                                persist_dir=str(tmp_path))
+    assert isinstance(store, DeviceVectorStore)
+    assert store.persist_dir == str(tmp_path)
 
 
 def test_splitter_and_documents_match_jax(tmp_path):
@@ -143,18 +151,32 @@ def test_splitter_and_documents_match_jax(tmp_path):
             jsplit.TokenTextSplitter(size, overlap).split(text)
     assert tsplit.ApproxTokenizer().encode(text) == \
         jsplit.ApproxTokenizer().encode(text)
+    pdf = (b"%PDF-1.4\n1 0 obj\n<< /Type /Catalog /Pages 2 0 R >>\nendobj\n"
+           b"2 0 obj\n<< /Type /Pages /Kids [3 0 R 5 0 R] /Count 2 >>\n"
+           b"endobj\n")
+    for num, text in ((3, b"first page"), (5, b"second page")):
+        content = zlib.compress(b"BT /F1 12 Tf 72 720 Td (" + text
+                                + b") Tj ET")
+        pdf += (b"%d 0 obj\n<< /Type /Page /Parent 2 0 R /Contents %d 0 R "
+                b">>\nendobj\n%d 0 obj\n<< /Length %d /Filter /FlateDecode "
+                b">>\nstream\n" % (num, num + 1, num + 1, len(content))
+                + content + b"\nendstream\nendobj\n")
+    pdf += b"trailer\n<< /Root 1 0 R >>\n%%EOF"
     for name, body in (("a.txt", "plain text\n"), ("b.json", '{"k": [1]}'),
-                       ("c.md", "# md"), ("d.pdf", "%PDF"),
+                       ("c.md", "# md"), ("d.pdf", pdf),
                        ("e.bin", "x")):
         p = tmp_path / name
-        p.write_text(body)
+        if isinstance(body, bytes):
+            p.write_bytes(body)
+        else:
+            p.write_text(body)
         got = tdocs.load_document(str(p))
-        if name == "d.pdf":
-            assert got == []  # PDF is not ported: skipped, as unsupported
-            continue
         want = jdocs.load_document(str(p))
         assert [(d.text, d.metadata) for d in got] == \
             [(d.text, d.metadata) for d in want]
+        if name == "d.pdf":  # PDF is ported: one document a page
+            assert [(d.text, d.metadata["page"]) for d in got] == [
+                ("first page", 0), ("second page", 1)]
 
 
 class _SeededEmbedder:
