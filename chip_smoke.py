@@ -88,7 +88,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               time by kernel name
   10. chunked a ~6,000-token completion through the same server (chunked
               prefill beyond the 4096 bucket; K1 must launch), and the
-              chunk steps' first-token logits against a one-shot forward
+              chunk steps' first-token logits against a one-shot forward;
+              then engine.prefill_decode_k_cap: three greedy streams
+              decode while the prompt prefills (at the default
+              prefill_chunks_per_block and at 1), every decode block
+              dispatched while the lane is live must take K <= 2 and the
+              streams must equal the same requests run alone
   11. rag     the chain server (developer_rag, device store, ranked
               hybrid retrieval) over the same 8B engine with
               arctic-embed-l and BERT-base reranker encoders: ingest of
@@ -97,6 +102,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
               knowledge-base /generate answers (tokens generated, no
               error frame); K3's launches must equal encoder layers x
               forwards, K1 and K2 must launch
+  11a. chain  over the RAG phase's encoders and 2,001-chunk store and the
+              same engine, tracing on: 64 distinct corpus queries to
+              /search one at a time with micro-batching off, then all at
+              once with serving.microbatch_enabled (results held to exact
+              host MIPS, ids equal, fewer forwards, K3 launches = layers x
+              forwards, the coalesced query embeddings compared bit for
+              bit); 16 concurrent traced knowledge-base answers (one with
+              a traceparent; every generate span shares its trace with one
+              llm.local and one engine.generate span; the TTFT split from
+              the spans; the reranker's batcher must coalesce); 2 answers
+              with query augmentation (rewrite, hyde, multi_query: one
+              embed_queries forward, one search_batch) and the fact check
+              (a "[fact-check] " frame and a verdict); K1, K2, K3 launch
   12. serving_int8  after the bf16 engine and the stores are released:
               an LLMEngine at Llama-3-8B geometry, random weights from
               seed 0 quantized at load, in the documented int8 deployment
@@ -155,7 +173,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               K4, no K2). The snapshots are removed at the end
   14. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
-              serving_int8; K5: spec_bf16), times and bound; K4's entry
+              serving_int8; K5: spec_bf16), times and bound; K1-K3 also
+              their launches on the chain phase; K4's entry
               also carries its verify cases and its spec_int8 launches,
               K1's and K2's their prefix launches, every kernel its
               launches on the checkpoint phase's loaded models
@@ -1744,18 +1763,107 @@ def phase_chunked(served: ServedEngine, prompt_len: int = 6000):
     torch.cuda.synchronize()
     err = float((chunked.float() - oneshot.float()).abs().max())
     del cache, x
+    k_cap = _k_cap_check(served, prompt, list(served.app.streams[
+        tuple(prompt)]))
     ok = (served_rec["completion_tokens"] >= 1
           and launches["flash_attention"] >= 2 * engine.cfg.n_layers
-          and err <= CHUNK_LOGIT_ATOL and bool(torch.isfinite(chunked).all()))
+          and err <= CHUNK_LOGIT_ATOL and bool(torch.isfinite(chunked).all())
+          and k_cap["ok"])
     rec = {"phase": "chunked", "prompt_tokens": prompt_len, "chunk": chunk,
            "served": served_rec, "launches": launches,
            "chunk_steps_s": chunked_s,
            "logit_scale": float(oneshot.float().abs().max()),
            "first_token_logit_max_abs_err": err, "tol": CHUNK_LOGIT_ATOL,
            "argmax_equal": int(chunked.argmax()) == int(oneshot.argmax()),
-           "ok": ok}
+           "prefill_decode_k_cap": k_cap, "ok": ok}
     emit(rec)
     return rec
+
+
+def _k_cap_run(served, prompt, shorts, chunks_per_block: int,
+               max_tokens: int):
+    """The short greedy prompts admitted one at a time (each its own
+    prefill group, as when run alone), then `prompt` through the chunked
+    lane while they decode, with engine.prefill_chunks_per_block set to
+    `chunks_per_block` for the run. Returns each plain decode block's K
+    with whether a chunked prefill was in progress at its dispatch (a spy
+    on engine_model.decode_multi_step, removed after) and the streams'
+    tokens (shorts, then prompt)."""
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.serving import engine_model
+
+    engine, streams = served.engine, served.app.streams
+    real = engine_model.decode_multi_step
+    log = []
+
+    def spy(*args, **kw):
+        n_steps = args[11] if len(args) > 11 else kw["n_steps"]
+        log.append((n_steps, bool(engine._long_prefills)))
+        return real(*args, **kw)
+
+    saved = engine.ecfg
+    engine.ecfg = dataclasses.replace(
+        saved, prefill_chunks_per_block=chunks_per_block)
+    engine_model.decode_multi_step = spy
+    threads = []
+    try:
+        for p in shorts:
+            streams.pop(tuple(p), None)
+            t = threading.Thread(target=_complete,
+                                 args=(served.base, p, max_tokens))
+            t.start()
+            threads.append(t)
+            deadline = time.time() + 60
+            while len(streams.get(tuple(p), ())) < 2 \
+                    and time.time() < deadline:
+                time.sleep(0.001)
+        long_rec = _complete(served.base, prompt, 8)
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        engine_model.decode_multi_step = real
+        engine.ecfg = saved
+    live = [k for k, lv in log if lv]
+    return {"chunks_per_block": chunks_per_block,
+            "blocks": len(log), "blocks_while_prefilling": len(live),
+            "k_while_prefilling": sorted(set(live)),
+            "k_otherwise": sorted({k for k, lv in log if not lv}),
+            "long_completion_tokens": long_rec["completion_tokens"]
+            }, [list(streams[tuple(p)]) for p in (*shorts, prompt)]
+
+
+def _k_cap_check(served, prompt, long_alone, n_short: int = 3,
+                 max_tokens: int = 128):
+    """engine.prefill_decode_k_cap on the card: `n_short` greedy streams
+    decode while the ~6k-token prompt prefills in chunks. Three streams,
+    not two: at most a quarter of the batch decoding already caps K at 2
+    (the low-occupancy rule), which would hide the rule under test. Run
+    at the default prefill_chunks_per_block (2: the prompt's two chunks
+    go out in one beat, so no decode block is dispatched in between),
+    then at 1, where the blocks between the chunks must take K <= the
+    cap. The streams must equal the same requests run alone."""
+    import torch
+
+    cap = served.engine.ecfg.prefill_decode_k_cap
+    g = torch.Generator().manual_seed(7)
+    shorts = [torch.randint(0, 256, (48 + 16 * i,), generator=g).tolist()
+              for i in range(n_short)]
+    alone = []
+    for p in shorts:
+        _complete(served.base, p, max_tokens)
+        alone.append(list(served.app.streams[tuple(p)]))
+    alone.append(long_alone)
+    runs = []
+    for cpb in (served.engine.ecfg.prefill_chunks_per_block, 1):
+        run, got = _k_cap_run(served, prompt, shorts, cpb, max_tokens)
+        run["streams_equal_alone"] = [g == w for g, w in zip(got, alone)]
+        runs.append(run)
+    ok = (cap == 2 and runs[-1]["blocks_while_prefilling"] >= 1
+          and all(max(r["k_while_prefilling"], default=0) <= cap
+                  and all(r["streams_equal_alone"]) for r in runs))
+    return {"cap": cap, "short_streams": n_short,
+            "short_max_tokens": max_tokens, "runs": runs, "ok": ok}
 
 
 # -- phase 11: the developer_rag chain at full width ----------------------
@@ -2008,6 +2116,391 @@ def phase_rag(card: str, served: ServedEngine, device: str = "cuda",
            "launches": launches, "want_encoder_launches": want_k3,
            "store_metrics": metrics.get("vector_store"),
            "peak_mem_gb": peak_gb, "ok": ok}
+    emit(rec)
+    return rec
+
+
+# -- phase 11a: the rest of the chain (micro-batching, tracing, augmentation)
+
+
+def _pct(vals, p):
+    """The p-quantile (0..1) of vals by rank, None when empty."""
+    vals = sorted(v for v in vals if v is not None)
+    return vals[min(len(vals) - 1, int(p * len(vals)))] if vals else None
+
+
+def _together(n: int, fn):
+    """fn(i) on n threads released at once: [(result, seconds)]."""
+    out = [None] * n
+    bar = threading.Barrier(n)
+
+    def run(i):
+        bar.wait()
+        t0 = time.perf_counter()
+        try:
+            res = fn(i)
+        except Exception as e:  # reported, and fails the phase
+            res = e
+        out[i] = (res, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return out
+
+
+def _span_s(t):
+    """A span or event time in seconds: the built-in tracer keeps
+    time.time() floats, the OpenTelemetry SDK integer nanoseconds."""
+    return t / 1e9 if isinstance(t, int) else t
+
+
+def _search(base, query, top_k):
+    with _post(base + "/search", {"query": query, "top_k": top_k}) as r:
+        return json.loads(r.read())["chunks"]
+
+
+def _chain_frames(base, query, max_tokens, headers=None):
+    """One knowledge-base /generate: the frames' contents, in order."""
+    req = urllib.request.Request(
+        base + "/generate", data=json.dumps({
+            "messages": [{"role": "user", "content": query}],
+            "use_knowledge_base": True, "max_tokens": max_tokens}).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    frames = []
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                frames.append(json.loads(line[6:])["choices"][0])
+    return frames
+
+
+def _chain_server(config, hub, store):
+    """A ChainServer (developer_rag) over `hub`'s engines and the given
+    store, on a local port: (app, httpd, base, thread)."""
+    from generativeaiexamples_tpu_torch.api.server import (
+        ChainServer, make_http_server)
+    from generativeaiexamples_tpu_torch.pipelines.base import (
+        get_example_class)
+    from generativeaiexamples_tpu_torch.pipelines.resources import Resources
+
+    example = get_example_class("developer_rag")(
+        Resources(config, hub=hub, store=store))
+    app = ChainServer(config, example=example)
+    httpd = make_http_server(app, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    return app, httpd, f"http://127.0.0.1:{httpd.server_address[1]}", th
+
+
+def _stop_server(app, httpd, th):
+    httpd.shutdown()
+    httpd.server_close()
+    th.join(timeout=30)
+    app.close()
+
+
+def phase_chain(card: str, served: ServedEngine, keep: dict,
+                device: str = "cuda", n_search: int = 64,
+                n_answers: int = 16, n_augmented: int = 2,
+                max_tokens: int = 32, top_k: int = 5):
+    """The rest of the chain over phase_rag's encoders and 2,001-chunk
+    device store (`keep`) and the served 8B engine, tracing on (a
+    MemoryExporter):
+
+    1. coalesced search: `n_search` distinct corpus queries to /search
+       one at a time on a server with micro-batching off, then all at
+       once on one with `serving.microbatch_enabled`; every result held
+       to exact host MIPS, the two runs' ids equal, the query embeddings
+       made concurrently through the embedder's batcher compared bit for
+       bit with the direct ones; K3's launches must equal encoder layers
+       x forwards;
+    2. traced answers: `n_answers` concurrent knowledge-base /generate
+       (ranked_hybrid), one with a W3C traceparent: each `generate` span
+       must share its trace with one `llm.local` and one
+       `engine.generate` span, the header's trace id must come back, and
+       the reranker's batcher must coalesce; the TTFT split is read from
+       the spans;
+    3. augmented answers: `n_augmented` answers with
+       query_augmentation rewrite,hyde,multi_query and fact_check: the
+       variants reach the encoder as one embed_queries call (one
+       forward) and the store as one search_batch, and each answer ends
+       with the "[fact-check] " frame and a verdict the engine
+       generated. K1, K2 and K3 must launch.
+    The batchers are disabled and tracing turned off at the end, so the
+    later phases run as before."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.api.server import sanitize
+    from generativeaiexamples_tpu_torch.config.schema import load_config
+    from generativeaiexamples_tpu_torch.connectors.factory import EngineHub
+    from generativeaiexamples_tpu_torch.obs import tracing
+
+    emb, rr, store = keep["emb"], keep["rr"], keep["store"]
+    base_cfg = {"vector_store": {"name": "tpu"},
+                "reranker": {"enabled": True},
+                "embeddings": {"dimensions": emb.dim}}
+    cfg_off = load_config(env={}, overrides=base_cfg)
+    cfg_on = load_config(env={}, overrides={
+        **base_cfg, "serving": {"microbatch_enabled": True}})
+    cfg_aug = load_config(env={}, overrides={
+        **base_cfg, "serving": {"microbatch_enabled": True},
+        "retriever": {"query_augmentation": "rewrite,hyde,multi_query",
+                      "fact_check": True}})
+    hub = EngineHub(cfg_on, llm=served.engine, embed=emb, rerank=rr,
+                    device=device)
+    exporter = tracing.MemoryExporter()
+    tracing.setup(exporter=exporter)
+    backend = tracing._BACKEND  # "otel" where the SDK is installed
+    docs = store.snapshot_docs()
+    texts = [d["text"] for d in docs]
+    # Queries the server's input hygiene leaves as they are, so the
+    # embeddings made here are those of what /search embeds.
+    rng = np.random.default_rng(11)
+    queries = []
+    for i in rng.permutation(len(docs)):
+        q = " ".join(texts[int(i)].split()[:12])
+        if sanitize(q) == q and q not in queries:
+            queries.append(q)
+        if len(queries) == n_search:
+            break
+    rows = store.rows().cpu().numpy()
+    servers = []
+    try:
+        # 1. /search, direct then coalesced.
+        app, httpd, base, th = _chain_server(cfg_off, hub, store)
+        servers.append((app, httpd, th))
+        torch.cuda.synchronize()
+        f0 = emb.forwards
+        direct, direct_s = [], []
+        for q in queries:
+            t0 = time.perf_counter()
+            direct.append(_search(base, q, top_k))
+            direct_s.append(time.perf_counter() - t0)
+        direct_forwards = emb.forwards - f0
+        direct_vecs = np.stack([emb.embed_query(q) for q in queries])
+        app, httpd, base, th = _chain_server(cfg_on, hub, store)
+        servers.append((app, httpd, th))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        f0, r0 = emb.forwards, rr.forwards
+        coal = _together(n_search, lambda i: _search(base, queries[i],
+                                                     top_k))
+        torch.cuda.synchronize()
+        search_launches = dict(kernels.LAUNCHES)
+        coal_forwards = emb.forwards - f0
+        want_k3 = (coal_forwards * emb.cfg.n_layers
+                   + (rr.forwards - r0) * rr.cfg.n_layers)
+        stats = app.example.res.retriever.microbatch_stats()
+        coal_vecs = _together(n_search, lambda i: emb.embed_query(
+            queries[i]))
+        coal_vecs = np.stack([v for v, _ in coal_vecs])
+        same_bits = int(sum(np.array_equal(a, b)
+                            for a, b in zip(direct_vecs, coal_vecs)))
+        vec_err = float(np.abs(direct_vecs - coal_vecs).max())
+        search_errors = [c for c, _ in coal if isinstance(c, Exception)]
+        coal_hits = [c if not isinstance(c, Exception) else [{
+            "content": texts[0], "score": float("nan")}] * top_k
+            for c, _ in coal]
+
+        def ids_scores(hits):
+            return ([[texts.index(c["content"]) for c in h] for h in hits],
+                    [[c["score"] for c in h] for h in hits])
+
+        d_ids, d_scores = ids_scores(direct)
+        c_ids, c_scores = ids_scores(coal_hits)
+        d_ok, d_swaps, d_err = _exact_topk_check(rows, direct_vecs, d_ids,
+                                                 d_scores, top_k)
+        c_ok, c_swaps, c_err = _exact_topk_check(rows, direct_vecs, c_ids,
+                                                 c_scores, top_k)
+        search = {
+            "queries": n_search, "top_k": top_k,
+            "direct": {"forwards": direct_forwards, "exact_ok": d_ok,
+                       "swaps": d_swaps, "max_score_err": d_err,
+                       "latency_p50_ms": _pct(direct_s, 0.5) * 1e3,
+                       "latency_p99_ms": _pct(direct_s, 0.99) * 1e3},
+            "coalesced": {"forwards": coal_forwards, "exact_ok": c_ok,
+                          "swaps": c_swaps, "max_score_err": c_err,
+                          "errors": [repr(e) for e in search_errors],
+                          "latency_p50_ms": _pct([t for _, t in coal],
+                                                 0.5) * 1e3,
+                          "latency_p99_ms": _pct([t for _, t in coal],
+                                                 0.99) * 1e3,
+                          "embed_batcher": stats.get("embed"),
+                          "search_batcher": stats.get("search")},
+            "ids_equal": d_ids == c_ids,
+            "embeddings_bit_identical": same_bits,
+            "embeddings_max_abs_diff": vec_err,
+            "launches": search_launches, "want_encoder_launches": want_k3}
+        search_ok = (d_ok and c_ok and d_ids == c_ids and not search_errors
+                     and (same_bits == n_search or vec_err <= 2e-2)
+                     and coal_forwards < direct_forwards
+                     and search_launches["encoder_attention"] == want_k3)
+
+        # 2. traced answers, all at once (one with a traceparent).
+        trace_id = "4bf92f3577b34da6a3ce929d0e0e4736"
+        header = {"traceparent": f"00-{trace_id}-00f067aa0ba902b7-01"}
+        exporter.clear()
+        kernels.reset_launches()
+        rr_stats0 = rr.microbatch_stats()
+        questions = [f"How does the engine handle request {i} when the "
+                     f"page cache is full?" for i in range(n_answers)]
+        answers = _together(n_answers, lambda i: _chain_frames(
+            base, questions[i], max_tokens, header if i == 0 else None))
+        torch.cuda.synchronize()
+        answer_launches = dict(kernels.LAUNCHES)
+        rr_stats = rr.microbatch_stats()
+        spans = exporter.get_finished_spans()
+        by_trace = {}
+        for sp in spans:
+            by_trace.setdefault(sp.context.trace_id, []).append(sp)
+        gens = [sp for sp in spans if sp.name == "generate"]
+        splits, linked = [], 0
+        for g in gens:
+            tree = by_trace[g.context.trace_id]
+            llm = [sp for sp in tree if sp.name == "llm.local"]
+            eng = [sp for sp in tree if sp.name == "engine.generate"]
+            if len(llm) == 1 and len(eng) == 1:
+                linked += 1
+
+            def first(sp):
+                return next((e for e in sp.events
+                             if e.name == "first_token"), None)
+
+            g0 = _span_s(g.start_time)
+            e_first = first(eng[0]) if eng else None
+            l_first = first(llm[0]) if llm else None
+            splits.append({
+                # Start of generate to the engine's first token (random
+                # weights rarely emit one of the byte tokenizer's text
+                # ids, so the first frame, and the spans' text TTFTs,
+                # often never come).
+                "chain_first_token_ms": (
+                    (_span_s(e_first.timestamp) - g0) * 1e3 if e_first
+                    else None),
+                "retrieval_and_prompt_ms": (
+                    (_span_s(llm[0].start_time) - g0) * 1e3 if llm
+                    else None),
+                "engine_ttft_ms": (e_first.attributes["ttft_ms"]
+                                   if e_first else None),
+                "chain_first_frame_ms": g.attributes.get("ttft_ms"),
+                "llm_first_text_ms": (l_first.attributes["ttft_ms"]
+                                      if l_first else None)})
+        answer_errors = [a for a, _ in answers if isinstance(a, Exception)]
+        good = [a for a, _ in answers if not isinstance(a, Exception)]
+        ttft_split = {key: {"p50": _pct([s[key] for s in splits], 0.5),
+                            "p95": _pct([s[key] for s in splits], 0.95),
+                            "n": sum(s[key] is not None for s in splits)}
+                      for key in ("chain_first_token_ms",
+                                  "retrieval_and_prompt_ms",
+                                  "engine_ttft_ms", "chain_first_frame_ms",
+                                  "llm_first_text_ms")}
+        rerank_calls = rr_stats["submitted"] - rr_stats0["submitted"]
+        rerank_dispatches = rr_stats["dispatches"] - rr_stats0["dispatches"]
+        traced = {
+            "answers": n_answers, "max_tokens": max_tokens,
+            "errors": [repr(e) for e in answer_errors],
+            "done_frames": sum(a[-1]["finish_reason"] == "[DONE]"
+                               for a in good),
+            "error_frames": sum("Error from chain server"
+                                in f["message"]["content"]
+                                for a in good for f in a),
+            "generate_spans": len(gens), "linked_traces": linked,
+            "header_trace_back": any(
+                g.context.trace_id == int(trace_id, 16) for g in gens),
+            "ttft_split": ttft_split,
+            "rerank_calls": rerank_calls,
+            "rerank_dispatches": rerank_dispatches,
+            "rerank_batcher": rr_stats, "launches": answer_launches}
+        traced_ok = (not answer_errors and traced["done_frames"] == n_answers
+                     and traced["error_frames"] == 0
+                     and len(gens) == linked == n_answers
+                     and ttft_split["chain_first_token_ms"]["n"] == n_answers
+                     and traced["header_trace_back"]
+                     and rerank_dispatches < rerank_calls
+                     and all(answer_launches[k] > 0 for k in (
+                         "flash_attention", "paged_attention",
+                         "encoder_attention")))
+
+        # 3. augmented answers with the fact check, one at a time.
+        app, httpd, base, th = _chain_server(cfg_aug, hub, store)
+        servers.append((app, httpd, th))
+        res = app.example.res
+        calls = []
+        real_eq = res.embedder.embed_queries
+
+        def counted(texts_):
+            calls.append(len(texts_))
+            return real_eq(texts_)
+
+        res.embedder.embed_queries = counted
+        kernels.reset_launches()
+        exporter.clear()
+        augmented = []
+        for i in range(n_augmented):
+            calls.clear()
+            f0 = emb.forwards
+            b0 = store.stats()["batched_searches"]
+            frames = _chain_frames(base, questions[i], max_tokens)
+            contents = [f["message"]["content"] for f in frames]
+            mark = (contents.index("\n\n[fact-check] ")
+                    if "\n\n[fact-check] " in contents else None)
+            augmented.append({
+                "frames": len(frames),
+                "done_frame": frames[-1]["finish_reason"] == "[DONE]",
+                "fact_check_frame": mark is not None,
+                "verdict_frames": (len(frames) - 2 - mark
+                                   if mark is not None else 0),
+                "embed_queries_calls": list(calls),
+                "embed_forwards": emb.forwards - f0,
+                "search_batch_calls": store.stats()["batched_searches"]
+                - b0})
+        torch.cuda.synchronize()
+        aug_launches = dict(kernels.LAUNCHES)
+        # Each augmented answer's trace: the hyde, multi_query, answer
+        # and fact-check LLM calls (rewrite has no history to resolve).
+        aug_traces = {}
+        for sp in exporter.get_finished_spans():
+            aug_traces.setdefault(sp.context.trace_id, []).append(sp)
+        verdicts = []
+        for tree in aug_traces.values():
+            eng = sorted((sp for sp in tree if sp.name == "engine.generate"),
+                         key=lambda sp: _span_s(sp.start_time))
+            verdicts.append({"llm_calls": len(eng),
+                             "verdict_tokens": (eng[-1].attributes.get(
+                                 "tokens_generated") if eng else 0)})
+        aug_ok = (all(a["done_frame"] and a["fact_check_frame"]
+                      and len(a["embed_queries_calls"]) == 1
+                      and a["embed_queries_calls"][0] >= 2
+                      and a["embed_forwards"] == 1
+                      and a["search_batch_calls"] == 1 for a in augmented)
+                  and len(verdicts) == n_augmented
+                  and all(v["llm_calls"] == 4 and v["verdict_tokens"] >= 1
+                          for v in verdicts)
+                  and all(aug_launches[k] > 0 for k in (
+                      "flash_attention", "paged_attention",
+                      "encoder_attention")))
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = json.loads(r.read())
+    finally:
+        for app, httpd, th in servers:
+            _stop_server(app, httpd, th)
+        for obj in (emb, rr, store):
+            obj.disable_microbatch()
+        tracing._ENABLED = False  # the later phases run untraced
+    ok = search_ok and traced_ok and aug_ok
+    rec = {"phase": "chain", "card": card, "store_chunks": len(docs),
+           "tracing_backend": backend,
+           "search": search, "search_ok": search_ok,
+           "traced": traced, "traced_ok": traced_ok,
+           "augmented": augmented, "augmented_traces": verdicts,
+           "augmented_launches": aug_launches, "augmented_ok": aug_ok,
+           "microbatch_metrics": metrics.get("microbatch"), "ok": ok}
     emit(rec)
     return rec
 
@@ -3725,6 +4218,7 @@ def main() -> int:
         serving = phase_serving(card, served)
         chunked = phase_chunked(served)
         rag = phase_rag(card, served, keep=rag_keep)
+        chain = phase_chain(card, served, rag_keep)
         spec_bf16 = phase_spec_bf16(card, served)
         prefix = phase_prefix(card, served)
         # What the engine loaded from the snapshot of these weights must
@@ -3814,10 +4308,18 @@ def main() -> int:
         # Launches on the models loaded from their snapshots (K5 is not
         # on that path).
         e["checkpoint_launches"] = checkpoint["launches"][e["name"]]
+        if e["name"] in ("flash_attention", "paged_attention",
+                         "encoder_attention"):
+            # The chain phase: coalesced search, traced and augmented
+            # answers.
+            e["chain_launches"] = sum(
+                launches[e["name"]] for launches in (
+                    chain["search"]["launches"], chain["traced"]["launches"],
+                    chain["augmented_launches"]))
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]
-          and rag["ok"] and serving_int8["ok"] and spec_bf16["ok"]
+          and rag["ok"] and chain["ok"] and serving_int8["ok"] and spec_bf16["ok"]
           and prefix["ok"] and all(r["ok"] for r in spec_int8)
           and checkpoint["ok"])
     print(card, flush=True)

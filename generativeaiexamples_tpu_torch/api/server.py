@@ -14,13 +14,17 @@ aiohttp). Same routes, bodies, error bodies and input hygiene:
   DELETE /documents?filename=x
   POST /search     DocumentSearch{query, top_k} -> {chunks: [
                    DocumentChunk{content, filename, score}]}
-  GET  /metrics    -> the vector store's counters
+  GET  /metrics    -> the vector store's counters and the micro-batchers'
   GET  /health     -> {message}; 503 when the CUDA device does not answer
 
 Chains, ingests and searches run on an executor of
-`serving.executor_workers` threads, as in the JAX server; the HTTP
-thread of a /generate request writes the frames the chain thread hands
-it. Tracing spans come with observability (ROADMAP A.11).
+`serving.executor_workers` threads (at least 2 x microbatch_max_batch
+with micro-batching on, so the batchers can fill a window), as in the
+JAX server; the HTTP thread of a /generate request writes the frames the
+chain thread hands it. Tracing (obs/tracing.py): /generate reads the
+caller's W3C traceparent and opens a `generate` span with the TTFT and
+the frames streamed; the chain thread attaches that span's context, so
+the retriever, LLM and engine spans join its trace.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ from urllib.parse import parse_qs, urlsplit
 import torch
 
 from generativeaiexamples_tpu_torch.config.schema import AppConfig
+from generativeaiexamples_tpu_torch.obs import tracing
+from generativeaiexamples_tpu_torch.serving.openai_server import (
+    BurstHTTPServer)
 
 _LOG = logging.getLogger(__name__)
 
@@ -83,6 +90,7 @@ class ChainServer:
             Resources)
 
         self.config = config
+        tracing.setup(config)  # no-op unless tracing.enabled/ENABLE_TRACING
         if example is not None:
             self.example = example
         else:
@@ -92,9 +100,13 @@ class ChainServer:
         self.upload_dir = upload_dir or os.path.join(
             tempfile.gettempdir(), "gaie_torch", "uploaded_files")
         os.makedirs(self.upload_dir, exist_ok=True)
-        self._executor = ThreadPoolExecutor(
-            max_workers=config.serving.executor_workers,
-            thread_name_prefix="chain-srv")
+        # With micro-batching on, concurrency below the batch window
+        # could never fill a dispatch: the width is floored above it.
+        workers = config.serving.executor_workers
+        if config.serving.microbatch_enabled:
+            workers = max(workers, 2 * config.serving.microbatch_max_batch)
+        self._executor = ThreadPoolExecutor(max_workers=workers,
+                                            thread_name_prefix="chain-srv")
 
     def close(self) -> None:
         self._executor.shutdown(wait=True)
@@ -116,13 +128,18 @@ class ChainServer:
     # -- /metrics ----------------------------------------------------------
 
     def metrics(self) -> Tuple[int, Dict]:
-        """The vector store's counters; `microbatch` stays empty (the
-        cross-request batcher is not ported)."""
+        """The vector store's counters and the cross-request
+        micro-batchers' per stage (embed / rerank / search: mean
+        coalesced batch size, queue-wait p50/p99, dispatches saved;
+        empty with micro-batching off)."""
         payload: Dict[str, Any] = {}
-        store = getattr(getattr(self.example, "res", None), "store", None)
+        res = getattr(self.example, "res", None)
+        store = getattr(res, "store", None)
         if store is not None and hasattr(store, "stats"):
             payload["vector_store"] = store.stats()
-        payload["microbatch"] = {}
+        retriever = getattr(res, "retriever", None)
+        if retriever is not None and hasattr(retriever, "microbatch_stats"):
+            payload["microbatch"] = retriever.microbatch_stats()
         return 200, payload
 
     # -- /generate ---------------------------------------------------------
@@ -154,15 +171,24 @@ class ChainServer:
                                                   False)), llm_settings
 
     def generate_frames(self, query: str, chat_history: list, use_kb: bool,
-                        llm_settings: Dict):
+                        llm_settings: Dict, headers: Optional[Dict] = None):
         """SSE frames (bytes) of one answer: the chain runs on the
         executor, its pieces cross a queue, and the [DONE] sentinel frame
-        ends the stream whatever happened in the chain."""
+        ends the stream whatever happened in the chain. `headers` are the
+        request's (a W3C traceparent in them parents the spans)."""
         rid = str(uuid.uuid4())
         pieces: "queue.Queue" = queue.Queue()
         done = object()
+        gspan = tracing.GenerationSpan(
+            "generate", context=tracing.extract_context(headers or {}))
+        gspan.sp.set_attribute("use_knowledge_base", use_kb)
+        gspan.sp.set_attribute("request_id", rid)
+        chain_ctx = gspan.sp.context()
 
         def run_chain():
+            # Attached on the thread that runs the chain, so the spans it
+            # opens (retriever, LLM, engine) join the generate span.
+            tok = tracing.attach_context(chain_ctx)
             try:
                 gen = (self.example.rag_chain(query, chat_history,
                                               **llm_settings) if use_kb
@@ -176,6 +202,7 @@ class ChainServer:
                            "chain-server logs for more details. "
                            f"({type(e).__name__})")
             finally:
+                tracing.detach_context(tok)
                 pieces.put(done)
 
         fut = self._executor.submit(run_chain)
@@ -184,10 +211,12 @@ class ChainServer:
                 piece = pieces.get()
                 if piece is done:
                     break
+                gspan.on_token()
                 yield _sse(_chain_response(rid, piece))
             yield _sse(_chain_response(rid, "", "[DONE]"))
         finally:
             fut.result()
+            gspan.__exit__(None, None, None)
 
     # -- /documents --------------------------------------------------------
 
@@ -325,7 +354,7 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Connection", "close")
         self.end_headers()
         self.close_connection = True
-        frames = self.app.generate_frames(*args)
+        frames = self.app.generate_frames(*args, headers=dict(self.headers))
         try:
             for frame in frames:
                 self.wfile.write(frame)
@@ -340,7 +369,7 @@ def make_http_server(app: ChainServer, host: str = "0.0.0.0",
     """A ThreadingHTTPServer bound to (host, port) serving `app`; port 0
     picks a free port (see `server_address`)."""
     handler = type("ChainHandler", (_Handler,), {"app": app})
-    httpd = ThreadingHTTPServer((host, port), handler)
+    httpd = BurstHTTPServer((host, port), handler)
     httpd.daemon_threads = True
     return httpd
 

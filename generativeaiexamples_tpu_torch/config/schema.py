@@ -14,7 +14,7 @@ defaults:
   (empty: random weights at a named geometry).
 - `AppConfig`: the sections the developer_rag chain reads (llm,
   embeddings, reranker, retriever, prompts, text_splitter, vector_store,
-  serving, engine). `load_config()` reads the YAML or JSON file that
+  serving, engine, tracing). `load_config()` reads the YAML or JSON file that
   `APP_CONFIG_FILE` names, overlays `APP_<SECTION>_<FIELD>` environment
   variables (the JAX config wizard's contract) and refuses fields that
   name unported features when they are set away from their defaults
@@ -56,6 +56,10 @@ class EngineConfig:
     # block while other streams decode (idle engines run chunks at full
     # dispatch speed).
     prefill_chunks_per_block: int = 2
+    # While a chunked prefill is in progress, cap decode blocks at this
+    # many steps, so chunks interleave with decode at a fine grain
+    # (0 = no cap).
+    prefill_decode_k_cap: int = 2
     # Greedy self-speculation: k n-gram draft tokens per verify step from
     # the device token history, verified in one forward (0 = off).
     # Sampled requests fall back to plain decode on the same engine.
@@ -147,7 +151,9 @@ UNSUPPORTED = {
 
 @dataclass(frozen=True)
 class VectorStoreConfig:
-    name: str = "memory"  # memory | tpu | native (tpu/native: device store)
+    # memory | tpu | native (the device store) | milvus | pgvector (an
+    # external server at `url`)
+    name: str = "memory"
     url: str = ""
     nlist: int = 64
     nprobe: int = 16
@@ -163,7 +169,9 @@ class VectorStoreConfig:
 class LLMConfig:
     server_url: str = ""
     model_name: str = "llama3-8b-instruct"
-    model_engine: str = "tpu"  # the in-process engine (the JAX name)
+    # tpu (the in-process engine; the JAX name) | echo (hermetic fake) |
+    # openai (any OpenAI-compatible server at server_url)
+    model_engine: str = "tpu"
 
 
 @dataclass(frozen=True)
@@ -176,7 +184,7 @@ class TextSplitterConfig:
 @dataclass(frozen=True)
 class EmbeddingConfig:
     model_name: str = "snowflake-arctic-embed-l"
-    model_engine: str = "tpu"
+    model_engine: str = "tpu"  # tpu | openai | lexical | hash (test fake)
     dimensions: int = 1024
     server_url: str = ""
     weights_path: str = ""  # HF BERT snapshot ("" = random-init)
@@ -185,7 +193,7 @@ class EmbeddingConfig:
 @dataclass(frozen=True)
 class RerankerConfig:
     model_name: str = "rerank-cross-encoder"
-    model_engine: str = "tpu"
+    model_engine: str = "tpu"  # tpu | openai | overlap (test fake)
     server_url: str = ""
     enabled: bool = False
     weights_path: str = ""  # HF cross-encoder snapshot ("" = random-init)
@@ -198,8 +206,11 @@ class RetrieverConfig:
     nr_url: str = ""
     nr_pipeline: str = "ranked_hybrid"
     max_context_tokens: int = 1500
-    query_augmentation: str = ""  # ROADMAP A.11
-    fact_check: bool = False  # ROADMAP A.11
+    # Query augmentation before retrieval: "" | rewrite | hyde |
+    # multi_query, comma-combinable ("rewrite,hyde").
+    query_augmentation: str = ""
+    # Stream a fact-check verdict after the answer.
+    fact_check: bool = False
 
 
 @dataclass(frozen=True)
@@ -220,8 +231,25 @@ class PromptsConfig:
 
 @dataclass(frozen=True)
 class ServingConfig:
-    microbatch_enabled: bool = False  # ROADMAP A.11
+    # Coalesce concurrent embed / rerank / vector-search callers into one
+    # device dispatch (serving/batcher.py). Off by default.
+    microbatch_enabled: bool = False
+    # Most requests one dispatch may absorb.
+    microbatch_max_batch: int = 16
+    # How long the first queued request waits for company.
+    microbatch_max_wait_us: int = 2000
+    # Chain-server executor width (floored at 2 x microbatch_max_batch
+    # when micro-batching is on).
     executor_workers: int = 64
+
+
+@dataclass(frozen=True)
+class TracingConfig:
+    """Span export (obs/tracing.py); ENABLE_TRACING=1 also enables it."""
+
+    enabled: bool = False
+    otlp_endpoint: str = "http://localhost:4317"
+    service_name: str = "chain-server"
 
 
 @dataclass(frozen=True)
@@ -238,14 +266,12 @@ class AppConfig:
     prompts: PromptsConfig = field(default_factory=PromptsConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
+    tracing: TracingConfig = field(default_factory=TracingConfig)
 
 
 # Chain fields that name features the port does not have yet:
 # (section, field) -> where the port gains them.
 UNSUPPORTED_APP = {
-    ("retriever", "query_augmentation"): "ROADMAP A.11: query augmentation",
-    ("retriever", "fact_check"): "ROADMAP A.11: fact check",
-    ("serving", "microbatch_enabled"): "ROADMAP A.11: micro-batching",
     ("vector_store", "index_type"): "ROADMAP A.18: IVF index",
     ("vector_store", "quantize_int8"): "ROADMAP A.18: int8 rows",
     ("vector_store", "tiered"): "ROADMAP A.18: tiered index",

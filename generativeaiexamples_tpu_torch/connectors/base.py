@@ -1,9 +1,11 @@
 """Connector protocols: what pipelines talk to.
 
-The port's copy of generativeaiexamples_tpu/connectors/base.py. The
-in-process engines implement them (connectors/local.py); the remote
-OpenAI connectors and the lexical embedder are not ported yet (ROADMAP
-A.11).
+The port's copy of generativeaiexamples_tpu/connectors/base.py, implemented
+by (a) the in-process engines (connectors/local.py), (b) any
+OpenAI-compatible remote URL (connectors/openai_http.py), (c) the
+hermetic fakes and the lexical embedder (connectors/fakes.py,
+connectors/lexical.py), selected by config `model_engine`. Pipelines
+never know which one they got.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ class Embedder(Protocol):
         ...
 
     def embed_queries(self, texts: Sequence[str]) -> np.ndarray:
+        """Batched query embedding: one engine dispatch for all of
+        multi-query retrieval's variants (Retriever.retrieve_batch)."""
         ...
 
 

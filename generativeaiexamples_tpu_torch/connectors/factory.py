@@ -1,18 +1,21 @@
 """Connector factory: config -> ChatLLM / Embedder / Reranker.
 
-Counterpart of generativeaiexamples_tpu/connectors/factory.py for the
-in-process engine value (`model_engine: tpu`, the JAX config's name).
-`EngineHub` owns the in-process engines: it builds them lazily through
-the launcher (from the config's weights paths, or random init at the
-launcher's geometries) or takes engines handed to it, so one engine can
-serve both an OpenAI server and the chain.
-Unlike the JAX hub it is not a process-wide singleton: the caller makes
-one and passes it on. The remote OpenAI connectors, the hermetic fakes
-and the lexical embedder are not ported yet (ROADMAP A.11).
+Counterpart of generativeaiexamples_tpu/connectors/factory.py:
+`model_engine` selects the implementation and `server_url` the remote,
+as in the JAX factory: the in-process engines (`tpu`, the JAX config's
+name), the hermetic fakes (echo, hash, overlap), the lexical embedder
+and the OpenAI-compatible HTTP clients. `EngineHub` owns the in-process
+engines: it builds them lazily through the launcher (from the config's
+weights paths, or random init at the launcher's geometries) or takes
+engines handed to it, so one engine can serve both an OpenAI server and
+the chain. Unlike the JAX hub it is not a process-wide singleton: the
+caller makes one and passes it on. The hub resolves its device whatever
+the connectors are (CUDA unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Optional
 
@@ -83,35 +86,85 @@ class EngineHub:
             self._llm.stop()
 
 
-def _in_process(section: str, engine: str, server_url: str) -> None:
-    if engine != "tpu" or server_url:
-        raise ValueError(
-            f"{section}.model_engine={engine!r} / server_url="
-            f"{server_url!r}: only the in-process engine ('tpu') is "
-            f"ported; remote, fake and lexical connectors are ROADMAP A.11")
-
-
 def get_llm(config: AppConfig, hub: EngineHub):
-    _in_process("llm", config.llm.model_engine, config.llm.server_url)
-    return LocalEngineLLM(hub.llm_engine())
+    """`llm.model_engine`: echo/test (the hermetic fake), openai/nim/remote
+    (or any engine but tpu with a server_url: an OpenAI-compatible
+    server), tpu (the hub's in-process engine, or its server at
+    server_url)."""
+    eng = config.llm.model_engine
+    if eng in ("echo", "test"):
+        from generativeaiexamples_tpu_torch.connectors.fakes import EchoLLM
+
+        return EchoLLM()
+    if eng in ("openai", "nim", "remote") or config.llm.server_url:
+        from generativeaiexamples_tpu_torch.connectors.openai_http import (
+            OpenAIChatLLM)
+
+        return OpenAIChatLLM(config.llm.server_url
+                             or "http://localhost:8000/v1",
+                             model=config.llm.model_name)
+    if eng == "tpu":
+        return LocalEngineLLM(hub.llm_engine())
+    raise ValueError(f"unknown llm.model_engine {eng!r}")
 
 
 def get_embedder(config: AppConfig, hub: EngineHub):
-    _in_process("embeddings", config.embeddings.model_engine,
-                config.embeddings.server_url)
-    embed = hub.embed_engine()
-    if embed is None:
-        raise RuntimeError(
-            "no in-process embedding engine (embeddings.weights_path "
-            "unset with a real LLM); set embeddings.model_engine=hash "
-            "or provide weights")
-    return LocalEmbedder(embed)
+    """`embeddings.model_engine`: hash/test (the hermetic fake),
+    lexical/tfidf/bm25 (hashed TF-IDF, its DF table persisted beside a
+    durable store), openai/nim/remote (or a server_url), tpu (the hub's
+    in-process engine)."""
+    ecfg = config.embeddings
+    eng = ecfg.model_engine
+    if eng in ("hash", "test"):
+        from generativeaiexamples_tpu_torch.connectors.fakes import (
+            HashEmbedder)
+
+        return HashEmbedder(dim=ecfg.dimensions)
+    if eng in ("lexical", "tfidf", "bm25"):
+        from generativeaiexamples_tpu_torch.connectors.lexical import (
+            LexicalEmbedder)
+
+        persist = config.vector_store.persist_dir
+        return LexicalEmbedder(
+            dim=ecfg.dimensions,
+            persist_path=(os.path.join(persist, "lexical_df.json")
+                          if persist else None))
+    if eng in ("openai", "nim", "remote") or ecfg.server_url:
+        from generativeaiexamples_tpu_torch.connectors.openai_http import (
+            OpenAIEmbedder)
+
+        return OpenAIEmbedder(ecfg.server_url or "http://localhost:8000/v1",
+                              model=ecfg.model_name, dim=ecfg.dimensions)
+    if eng == "tpu":
+        embed = hub.embed_engine()
+        if embed is None:
+            raise RuntimeError(
+                "no in-process embedding engine (embeddings.weights_path "
+                "unset with a real LLM); set embeddings.model_engine=hash "
+                "(or lexical) or provide weights")
+        return LocalEmbedder(embed)
+    raise ValueError(f"unknown embeddings.model_engine {eng!r}")
 
 
 def get_reranker(config: AppConfig, hub: EngineHub):
+    """None unless reranker.enabled; then `reranker.model_engine`:
+    overlap/test (the hermetic fake), openai/nim/remote (or a
+    server_url), else the hub's in-process engine (None when it has
+    none)."""
     if not config.reranker.enabled:
         return None
-    _in_process("reranker", config.reranker.model_engine,
-                config.reranker.server_url)
+    eng = config.reranker.model_engine
+    if eng in ("overlap", "test"):
+        from generativeaiexamples_tpu_torch.connectors.fakes import (
+            OverlapReranker)
+
+        return OverlapReranker()
+    if eng in ("openai", "nim", "remote") or config.reranker.server_url:
+        from generativeaiexamples_tpu_torch.connectors.openai_http import (
+            OpenAIReranker)
+
+        return OpenAIReranker(config.reranker.server_url
+                              or "http://localhost:8000/v1",
+                              model=config.reranker.model_name)
     rr = hub.rerank_engine()
     return LocalReranker(rr) if rr is not None else None

@@ -1,7 +1,8 @@
 """In-process connectors: pipelines -> the port's engines, no HTTP hop.
 
-The port's copy of generativeaiexamples_tpu/connectors/local.py (without
-tracing spans, which come with observability).
+The port's copy of generativeaiexamples_tpu/connectors/local.py: the
+chat stream runs inside an `llm.local` span, and the engine's
+`engine.generate` span is parented onto the caller's trace context.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from generativeaiexamples_tpu_torch.connectors.base import ChatBase, Message
+from generativeaiexamples_tpu_torch.obs.tracing import (
+    current_context, traced_llm_stream)
 from generativeaiexamples_tpu_torch.serving.openai_server import StopStream
 
 
@@ -26,13 +29,20 @@ class LocalEngineLLM(ChatBase):
 
     def stream_chat(self, messages: Sequence[Message], *, temperature=0.2,
                     top_p=0.7, max_tokens=1024, stop=()) -> Iterator[str]:
+        yield from traced_llm_stream(
+            "llm.local", self._stream(messages, temperature, top_p,
+                                      max_tokens, stop),
+            {"max_tokens": max_tokens, "temperature": temperature})
+
+    def _stream(self, messages, temperature, top_p, max_tokens, stop
+                ) -> Iterator[str]:
         text = self.tokenizer.apply_chat_template(messages,
                                                   add_generation_prompt=True)
         ids = self.tokenizer.encode(text)
         matcher = StopStream(list(stop))
         for ev in self.engine.generate_stream(
                 ids, max_new_tokens=max_tokens, temperature=temperature,
-                top_p=top_p):
+                top_p=top_p, trace_context=current_context()):
             if ev.get("finish_reason") == "error":
                 raise RuntimeError("the engine failed the request")
             piece, hit = matcher.push(ev["text"])

@@ -3,17 +3,20 @@
 The port's copy of generativeaiexamples_tpu/pipelines/base.py: every
 pipeline implements llm_chain / rag_chain / ingest_docs, optionally
 document_search / get_documents / delete_documents, and registers under
-a name the chain server picks (config or EXAMPLE_NAME). Query
-augmentation and fact checking are refused by the config
-(config/schema.py: ROADMAP A.11), so the shared helpers below take their
-off paths only.
+a name the chain server picks (config or EXAMPLE_NAME). The shared
+answer-quality helpers honour `retriever.query_augmentation` (rewrite |
+hyde | multi_query, comma-combinable) and `retriever.fact_check`.
 """
 
 from __future__ import annotations
 
 import abc
+import logging
 from typing import Dict, Generator, List, Type
 
+from generativeaiexamples_tpu_torch.rag import augmentation as aug
+
+_LOG = logging.getLogger(__name__)
 _REGISTRY: Dict[str, Type["BaseExample"]] = {}
 
 
@@ -31,7 +34,7 @@ def get_example_class(name: str) -> Type["BaseExample"]:
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown example {name!r}; known: {sorted(_REGISTRY)}"
-                       f" (the other pipelines are ROADMAP A.11)")
+                       f" (the other pipelines are ROADMAP A.11(f))")
     return _REGISTRY[name]
 
 
@@ -65,16 +68,46 @@ class BaseExample(abc.ABC):
         """Ingest one uploaded document."""
 
     def retrieve_with_augmentation(self, query: str, chat_history):
-        """(query, hits) through the CONFIGURED retrieval path
-        (ranked_hybrid included). Augmentation modes are refused by the
-        config, so the query passes through unchanged."""
-        return query, self.res.retriever.retrieve_default(query)
+        """(possibly rewritten) query + hits through the CONFIGURED
+        retrieval path (ranked_hybrid included), honouring
+        retriever.query_augmentation: rewrite | hyde | multi_query,
+        comma-combinable. Unknown modes warn and are ignored."""
+        rcfg = self.res.config.retriever
+        modes = {m.strip() for m in rcfg.query_augmentation.split(",")
+                 if m.strip()}
+        unknown = modes - {"rewrite", "hyde", "multi_query"}
+        if unknown:
+            _LOG.warning("unknown query_augmentation modes ignored: %s "
+                         "(valid: rewrite, hyde, multi_query)",
+                         sorted(unknown))
+            modes -= unknown
+        if not modes:
+            return query, self.res.retriever.retrieve_default(query)
+        q = query
+        if "rewrite" in modes:
+            q = aug.query_rewriting(self.res.llm, q, chat_history)
+        variants = [q]
+        if "hyde" in modes:
+            variants.append(aug.augment_query_generated(self.res.llm, q))
+        if "multi_query" in modes:
+            variants.extend(aug.augment_multiple_query(self.res.llm, q))
+        # Every variant scores in ONE embed_queries call and ONE
+        # search_batch dispatch (retrieve_multi), RRF-fused.
+        return q, self.res.retriever.retrieve_multi(variants,
+                                                    top_k=rcfg.top_k)
 
     def answer_with_fact_check(self, query: str, context: str, token_iter
                                ) -> Generator[str, None, None]:
-        """Stream `token_iter` (retriever.fact_check is refused by the
-        config, so no verdict is appended)."""
-        yield from token_iter
+        """Stream `token_iter`; with retriever.fact_check on, buffer it
+        and append the guardrail's verdict."""
+        if not self.res.config.retriever.fact_check:
+            yield from token_iter
+            return
+        answer = "".join(token_iter)
+        yield answer
+        yield "\n\n[fact-check] "
+        yield from aug.fact_check(self.res.llm, context, query, answer,
+                                  max_tokens=512)
 
     # optional interface (server probes these)
     def document_search(self, content: str, num_docs: int) -> List[Dict]:

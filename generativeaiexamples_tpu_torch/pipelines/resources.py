@@ -1,10 +1,12 @@
 """Shared pipeline resources: connectors, store, splitter, retriever.
 
 The port's copy of generativeaiexamples_tpu/pipelines/resources.py,
-without cross-request micro-batching and without the conversation-memory
-store (multi_turn_rag's, not ported yet: ROADMAP A.11). Connectors and
-the store can be injected; otherwise they are built from the config
-over `hub`'s in-process engines.
+without the conversation-memory store (multi_turn_rag's, not ported
+yet: ROADMAP A.11(f)). Connectors and the store can be injected;
+otherwise they are built from the config (over `hub`'s in-process
+engines for `model_engine: tpu`). With `serving.microbatch_enabled` the
+embedder, the reranker and the document store coalesce concurrent
+callers into one dispatch each (serving/batcher.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from generativeaiexamples_tpu_torch.connectors import factory
 from generativeaiexamples_tpu_torch.rag.retriever import Retriever
 from generativeaiexamples_tpu_torch.rag.splitter import get_text_splitter
 from generativeaiexamples_tpu_torch.rag.vectorstore import create_vector_store
+from generativeaiexamples_tpu_torch.serving import batcher as mb
 
 
 class Resources:
@@ -31,11 +34,39 @@ class Resources:
         self.reranker = (reranker if reranker is not None
                          else factory.get_reranker(config, self.hub))
         dim = getattr(self.embedder, "dim", config.embeddings.dimensions)
+        # Cross-request micro-batching: in-process engines batch at the
+        # bucketed forward, other embedders get the connector-level
+        # wrapper (embed_queries), fake and remote rerankers stay as
+        # they are.
+        sv = config.serving
+        if sv.microbatch_enabled:
+            self.embedder = mb.enable_embedder_microbatch(
+                self.embedder, max_batch=sv.microbatch_max_batch,
+                max_wait_us=sv.microbatch_max_wait_us)
+            self.reranker = mb.enable_reranker_microbatch(
+                self.reranker, max_batch=sv.microbatch_max_batch,
+                max_wait_us=sv.microbatch_max_wait_us)
         # The document store is durable when persist_dir is configured
         # (loads existing data now, saves on every mutation).
         self.store = store if store is not None else create_vector_store(
             config, dim=dim, device=self.hub.device,
             persist_dir=config.vector_store.persist_dir)
+        if sv.microbatch_enabled and hasattr(self.store,
+                                             "enable_microbatch"):
+            self.store.enable_microbatch(
+                max_batch=sv.microbatch_max_batch,
+                max_wait_us=sv.microbatch_max_wait_us)
+        # A lexical embedder that starts with an empty DF table in front
+        # of a non-empty durable store (no persisted snapshot) rebuilds
+        # its IDF state from the stored chunk text. The micro-batch
+        # wrapper delegates through `.inner`.
+        lex = getattr(self.embedder, "inner", self.embedder)
+        if getattr(lex, "n_docs", None) == 0 \
+                and hasattr(lex, "fit_documents") \
+                and hasattr(self.store, "snapshot_docs") \
+                and len(self.store):
+            lex.fit_documents(
+                [d["text"] for d in self.store.snapshot_docs()])
         self.splitter = get_text_splitter(config)
         self.retriever = Retriever(
             self.store, self.embedder,

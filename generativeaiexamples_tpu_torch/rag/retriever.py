@@ -5,9 +5,17 @@ The port's copy of generativeaiexamples_tpu/rag/retriever.py:
   nothing passes it;
 - a whole-chunk token budget for the context (`limit_tokens`);
 - `ranked_hybrid`: dense + BM25 candidate union, cross-encoder rerank,
-  stdev outlier dropping.
-Tracing spans (observability) and `retrieve_multi` (query augmentation)
-are not ported yet (ROADMAP A.11).
+  stdev outlier dropping;
+- `retrieve_multi`: query-augmentation variants in one batched dense
+  dispatch, fused by reciprocal rank.
+
+`retrieve` and `retrieve_batch` run inside `retriever.retrieve` /
+`retriever.retrieve_batch` spans (obs/tracing.py; as in the JAX
+retriever, `retrieve_hybrid` opens none of its own). Under
+`serving.microbatch_enabled` the device-bound stages this class drives
+(embed_query, reranker.score, store.search) each coalesce across
+concurrent request threads; `microbatch_stats()` gathers their counters
+for the chain server's /metrics.
 """
 
 from __future__ import annotations
@@ -19,8 +27,11 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from generativeaiexamples_tpu_torch.obs import tracing
+from generativeaiexamples_tpu_torch.rag.augmentation import fuse_ranked
 from generativeaiexamples_tpu_torch.rag.splitter import ApproxTokenizer
 from generativeaiexamples_tpu_torch.rag.vectorstore import SearchResult
+from generativeaiexamples_tpu_torch.serving.batcher import microbatch_stats_of
 
 
 class BM25Lexical:
@@ -93,13 +104,17 @@ class Retriever:
     def retrieve(self, query: str, top_k: Optional[int] = None,
                  with_threshold: bool = True) -> List[SearchResult]:
         k = top_k or self.top_k
-        qv = self.embedder.embed_query(query)
-        results = self.store.search(
-            qv, top_k=k,
-            score_threshold=self.score_threshold if with_threshold else None)
-        if not results and with_threshold:
-            # Nothing passed the threshold: retry without it.
-            results = self.store.search(qv, top_k=k, score_threshold=None)
+        with tracing.span("retriever.retrieve", {"top_k": k}) as sp:
+            qv = self.embedder.embed_query(query)
+            results = self.store.search(
+                qv, top_k=k,
+                score_threshold=self.score_threshold if with_threshold
+                else None)
+            if not results and with_threshold:
+                # Nothing passed the threshold: retry without it.
+                results = self.store.search(qv, top_k=k,
+                                            score_threshold=None)
+            sp.set_attribute("n_results", len(results))
         return results
 
     def retrieve_batch(self, queries: Sequence[str],
@@ -107,25 +122,50 @@ class Retriever:
                        with_threshold: bool = True
                        ) -> List[List[SearchResult]]:
         """Dense retrieval for MANY queries: one embedder call and one
-        store dispatch. Result lists align with the query order; a query
-        with no result above the threshold is retried without it."""
+        store dispatch (sequential searches for a store without
+        search_batch: the external ones). Result lists align with the
+        query order; a query with no result above the threshold is
+        retried without it."""
         k = top_k or self.top_k
         thr = self.score_threshold if with_threshold else None
-        qvs = np.asarray(self.embedder.embed_queries(list(queries)))
-        batches = self.store.search_batch(qvs, top_k=k, score_threshold=thr)
-        if with_threshold and any(not b for b in batches):
-            retry = [i for i, b in enumerate(batches) if not b]
-            redo = self.store.search_batch(qvs[retry], top_k=k,
-                                           score_threshold=None)
-            for i, b in zip(retry, redo):
-                batches[i] = b
+        batched = hasattr(self.store, "search_batch")
+
+        def search(qvs, threshold):
+            if batched:
+                return self.store.search_batch(qvs, top_k=k,
+                                               score_threshold=threshold)
+            return [self.store.search(qv, top_k=k,
+                                      score_threshold=threshold)
+                    for qv in qvs]
+
+        with tracing.span("retriever.retrieve_batch",
+                          {"top_k": k, "n_queries": len(queries)}) as sp:
+            if hasattr(self.embedder, "embed_queries"):
+                qvs = np.asarray(self.embedder.embed_queries(list(queries)))
+            else:
+                qvs = np.stack([self.embedder.embed_query(q)
+                                for q in queries])
+            batches = search(qvs, thr)
+            if with_threshold and any(not b for b in batches):
+                retry = [i for i, b in enumerate(batches) if not b]
+                for i, b in zip(retry, search(qvs[retry], None)):
+                    batches[i] = b
+            sp.set_attribute("n_results", sum(len(b) for b in batches))
         return batches
 
     def retrieve_multi(self, queries: Sequence[str],
                        top_k: Optional[int] = None) -> List[SearchResult]:
-        raise NotImplementedError(
-            "multi-query retrieval comes with query augmentation "
-            "(rag/augmentation.py), not ported yet (ROADMAP A.11)")
+        """Multi-query-variant retrieval through the CONFIGURED path
+        (hybrid included) with ONE dense dispatch, fused by RRF."""
+        k = top_k or self.top_k
+        if not queries:
+            return []
+        if len(queries) == 1:
+            return self.retrieve_default(queries[0], top_k=k)
+        if self.default_hybrid:
+            return self.retrieve_hybrid(queries[0], top_k=k,
+                                        extra_queries=queries[1:])
+        return fuse_ranked(self.retrieve_batch(queries, top_k=k), top_k=k)
 
     def retrieve_hybrid(self, query: str, top_k: Optional[int] = None,
                         candidates: int = 20,
@@ -170,6 +210,24 @@ class Retriever:
             keep = vals >= vals.mean() - vals.std()
             cands = [c for c, kp in zip(cands, keep) if kp]
         return cands
+
+    # -- observability -----------------------------------------------------
+
+    def microbatch_stats(self) -> dict:
+        """Cross-request batcher counters of the stages this retriever
+        drives, keyed by stage ("embed" / "rerank" / "search"). Stages
+        without a live batcher are omitted; empty = micro-batching off."""
+        from generativeaiexamples_tpu_torch.serving.batcher import (
+            microbatch_stats_of)
+
+        out = {}
+        for name, obj in (("embed", self.embedder),
+                          ("rerank", self.reranker),
+                          ("search", self.store)):
+            snap = microbatch_stats_of(obj)
+            if snap is not None:
+                out[name] = snap
+        return out
 
     # -- context assembly --------------------------------------------------
 

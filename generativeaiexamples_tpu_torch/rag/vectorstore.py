@@ -18,9 +18,14 @@ compressed) and `docs.jsonl` (one document a line), each written to a
 temporary file and moved into place, so a crash mid-save leaves the
 previous snapshot whole. The store loads the directory at construction
 and saves it after every add and delete. A directory saved by either
-package loads in the other. IVF, int8 rows, the tiered index (ROADMAP
-A.18), micro-batching and the external milvus / pgvector stores
-(ROADMAP A.11) are not ported; `create_vector_store` refuses them by
+package loads in the other.
+
+Both stores are `MicroBatchHost`s (serving/batcher.py): with
+`enable_microbatch`, concurrent single-query `search` calls funnel into
+one `search_batch` dispatch. `create_vector_store` also builds the
+external milvus (rag/milvus_store.py) and pgvector
+(rag/pgvector_store.py) stores. IVF, int8 rows and the tiered index
+(ROADMAP A.18) are not ported; `create_vector_store` refuses them by
 name.
 """
 
@@ -38,6 +43,8 @@ import torch
 from generativeaiexamples_tpu_torch.config.schema import check_supported
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops.topk import mips_topk
+from generativeaiexamples_tpu_torch.serving.batcher import (
+    MicroBatcher, MicroBatcherClosed, MicroBatchHost)
 
 
 @dataclass
@@ -59,7 +66,7 @@ def _atomic_replace(path: str, write_fn) -> None:
             os.unlink(tmp)
 
 
-class MemoryVectorStore:
+class MemoryVectorStore(MicroBatchHost):
     """Exact cosine/IP search over an [N, D] host matrix. Thread-safe.
     Durable with `persist_dir` (module docstring)."""
 
@@ -96,6 +103,32 @@ class MemoryVectorStore:
             self._persist()
             return list(range(base, base + len(texts)))
 
+    # -- cross-request micro-batching (serving/batcher.py) -----------------
+
+    def _build_microbatcher(self, max_batch, max_wait_us) -> MicroBatcher:
+        """enable_microbatch() funnels concurrent single-query search()
+        callers through the one-dispatch search_batch path: N callers
+        inside the window pay one GEMM and one top-k instead of N.
+        Grouped by (top_k, score_threshold), so a group is exactly one
+        batch call."""
+        return MicroBatcher(
+            f"search[{type(self).__name__}]", self._search_group,
+            max_batch=max_batch or 16, max_wait_us=max_wait_us,
+            bucket_fn=lambda item: (item[1], item[2]))
+
+    def _search_group(self, items) -> List[List[SearchResult]]:
+        """Batcher dispatch: items are (query [D], top_k, threshold)
+        sharing one (top_k, threshold) key. A lone caller takes the
+        single-query path. Unlike the JAX store, whose jitted search pads
+        a group to a ladder of batch shapes, eager torch runs any [Q, D]
+        shape as is, so there is no padding to hide from results or
+        counters."""
+        top_k, thr = items[0][1], items[0][2]
+        if len(items) == 1:
+            return [self._search_one(items[0][0], top_k, thr)]
+        qs = np.stack([np.asarray(it[0], np.float32) for it in items])
+        return self._search_batch_direct(qs, top_k, thr)
+
     # -- search ------------------------------------------------------------
 
     def _scores(self, query: np.ndarray) -> np.ndarray:
@@ -109,6 +142,13 @@ class MemoryVectorStore:
 
     def search(self, query_embedding: np.ndarray, top_k: int = 4,
                score_threshold: Optional[float] = None) -> List[SearchResult]:
+        b = self._batcher  # read once: a racing disable must not crash
+        if b is not None:
+            try:
+                return b.submit((np.asarray(query_embedding, np.float32),
+                                 top_k, score_threshold))
+            except MicroBatcherClosed:
+                pass  # raced a disable/re-enable: serve direct
         return self._search_one(query_embedding, top_k, score_threshold)
 
     def _search_one(self, query_embedding: np.ndarray, top_k: int = 4,
@@ -126,7 +166,8 @@ class MemoryVectorStore:
                      ) -> List[List[SearchResult]]:
         """Score ALL queries ([Q, D]) in one pass; result lists align with
         the query order. A single-row batch takes the single-query path,
-        so batched and sequential results are identical."""
+        so batched and sequential results are identical. Already one
+        dispatch: never enters the micro-batcher."""
         qs = np.asarray(query_embeddings, np.float32)
         if qs.ndim != 2:
             raise ValueError(f"query_embeddings must be [Q, D], got "
@@ -421,17 +462,26 @@ def create_vector_store(config, dim: Optional[int] = None,
     """Factory from AppConfig.vector_store. `memory` is the host store;
     `tpu` and `native` (the JAX config's names, kept so configs are
     shared) are the device store; either is durable at `persist_dir`
-    (usually config.vector_store.persist_dir). Anything else, and every
-    knob the port does not honour (`check_supported`), is refused by
-    name."""
+    (usually config.vector_store.persist_dir). `milvus` and `pgvector`
+    are external servers at `vector_store.url` (durable server-side) and
+    fail loudly without one. Anything else, and every knob the port does
+    not honour (`check_supported`), is refused by name."""
     vs = check_supported(config).vector_store
     dim = dim or config.embeddings.dimensions
+    if vs.name == "milvus":
+        from generativeaiexamples_tpu_torch.rag.milvus_store import (
+            MilvusVectorStore)
+
+        return MilvusVectorStore(vs.url, dim)
+    if vs.name == "pgvector":
+        from generativeaiexamples_tpu_torch.rag.pgvector_store import (
+            PgVectorStore)
+
+        return PgVectorStore(vs.url, dim)
     if vs.name in ("tpu", "native"):
         return DeviceVectorStore(dim, device=device, persist_dir=persist_dir)
     if vs.name == "memory":
         return MemoryVectorStore(dim, persist_dir=persist_dir)
-    if vs.name in ("milvus", "pgvector"):
-        raise ValueError(f"vector_store.name={vs.name!r}: the external "
-                         f"stores are not ported yet (ROADMAP A.11)")
     raise ValueError(f"vector_store.name={vs.name!r} is not a bundled "
-                     f"store; use one of memory | tpu | native")
+                     f"store; use one of memory | tpu | native | milvus | "
+                     f"pgvector")

@@ -7,8 +7,13 @@ host memory without blocking; the host reads the copies only after the
 last batch is on the device queue (the JAX engines' "dispatch all, then
 drain"). Each encoder layer runs the K3 kernel on the card.
 
-Cross-request micro-batching (`enable_microbatch`) needs
-serving/batcher.py and is not ported yet (ROADMAP A.11).
+Both engines support cross-request dynamic micro-batching
+(`enable_microbatch`, serving/batcher.py): concurrent callers coalesce
+into one bucketed forward (one K3 launch a layer over more live rows)
+instead of queueing batch-of-1 forwards behind the engine lock. The
+batcher's dispatcher thread runs that forward and waits on its host
+copies itself, so a caller only ever reads its own slice of a finished
+numpy array. Off by default; off is the engine without the batcher.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models import bert
+from generativeaiexamples_tpu_torch.serving.batcher import (
+    MicroBatcher, MicroBatcherClosed, MicroBatchHost)
 from generativeaiexamples_tpu_torch.serving.engine import HostCopy
 
 
@@ -48,7 +55,7 @@ def _wrap(ids, cls_id, sep_id, limit):
     return ids
 
 
-class _EncoderBase:
+class _EncoderBase(MicroBatchHost):
     """Device placement, fused weights and the batch forward shared by
     both engines."""
 
@@ -67,11 +74,6 @@ class _EncoderBase:
         self.buckets = [min(b, cfg.max_position) for b in buckets]
         self._lock = threading.Lock()
         self.forwards = 0  # bucketed forwards dispatched (one per batch)
-
-    def enable_microbatch(self, *args, **kwargs):
-        raise NotImplementedError(
-            "cross-request micro-batching (serving/batcher.py) is not "
-            "ported yet (ROADMAP A.11)")
 
     def _dispatch(self, toks: np.ndarray, lens: np.ndarray,
                   types: np.ndarray = None) -> HostCopy:
@@ -100,6 +102,27 @@ class EmbeddingEngine(_EncoderBase):
     def dim(self) -> int:
         return self.cfg.dim
 
+    def _build_microbatcher(self, max_batch, max_wait_us) -> MicroBatcher:
+        """enable_microbatch() coalesces concurrent embed()/embed_query()
+        CALLS: one queue item per call (stats read in caller units).
+        Calls merge only when their LONGEST row shares a `_bucket` rung,
+        and the dispatcher flattens a group's rows into `_forward_ids`,
+        which re-sorts by length and packs the same bucket ladder."""
+        return MicroBatcher(
+            "embed", self._embed_group,
+            max_batch=max_batch or self.max_batch, max_wait_us=max_wait_us,
+            bucket_fn=lambda ids: _bucket(
+                max((len(r) for r in ids), default=1), self.buckets))
+
+    def _embed_group(self, groups: List[List[List[int]]]) -> List[np.ndarray]:
+        flat = [row for g in groups for row in g]
+        vecs = self._forward_ids(flat)
+        out, pos = [], 0
+        for g in groups:
+            out.append(vecs[pos: pos + len(g)])
+            pos += len(g)
+        return out
+
     def _encode_ids(self, texts: Sequence[str]) -> List[List[int]]:
         limit = self.buckets[-1]
         cls_id, sep_id = _specials(self.tokenizer)
@@ -112,7 +135,18 @@ class EmbeddingEngine(_EncoderBase):
             return np.zeros((0, self.cfg.dim), np.float32)
         if is_query:
             texts = [self.QUERY_PREFIX + t for t in texts]
-        return self._forward_ids(self._encode_ids(texts))
+        ids = self._encode_ids(texts)
+        b = self._batcher  # read once: a racing disable must not crash
+        if b is not None:
+            # The whole call is ONE queue item; calls whose longest rows
+            # share a bucket merge into one length-sorted pass. Rows are
+            # independent in the forward, so a coalesced single-row call
+            # runs the same [max_batch, S] forward as a direct one.
+            try:
+                return b.submit(ids)
+            except MicroBatcherClosed:
+                pass  # raced a disable/re-enable: the direct forward
+        return self._forward_ids(ids)
 
     def embed_query(self, text: str) -> np.ndarray:
         return self.embed([text], is_query=True)[0]
@@ -153,6 +187,28 @@ class RerankEngine(_EncoderBase):
             raise ValueError("reranker config must set n_labels >= 1")
         super().__init__(params, cfg, tokenizer, max_batch, buckets, device)
 
+    def _build_microbatcher(self, max_batch, max_wait_us) -> MicroBatcher:
+        """enable_microbatch() coalesces concurrent score() CALLS (one
+        queue item per (query, passages) set), flattening a group's pairs
+        into one cross-encoder pass and splitting the scores back per
+        caller. Sets are keyed by their longest pair's bucket, so a short
+        set never pays a long set's padding."""
+        return MicroBatcher(
+            "rerank", self._score_group,
+            max_batch=max_batch or self.max_batch, max_wait_us=max_wait_us,
+            bucket_fn=lambda pairs: _bucket(
+                max(max(1, len(p[0])) for p in pairs), self.buckets))
+
+    def _score_group(self, groups: List[List[Tuple[List[int], int]]]
+                     ) -> List[np.ndarray]:
+        flat = [pair for g in groups for pair in g]
+        scores = self._forward_pairs(flat)
+        out, pos = [], 0
+        for g in groups:
+            out.append(np.asarray(scores[pos: pos + len(g)], np.float32))
+            pos += len(g)
+        return out
+
     def score(self, query: str, passages: Sequence[str]) -> np.ndarray:
         """[n] passages -> [n] float32 relevance scores (higher=better)."""
         if not len(passages):
@@ -169,6 +225,13 @@ class RerankEngine(_EncoderBase):
             if sep_id is not None and tail:
                 tail = tail + [sep_id]
             pairs.append((head + tail, len(head)))
+        b = self._batcher  # read once: a racing disable must not crash
+        if b is not None:
+            # The (query, passages) set is ONE queue item (see embed).
+            try:
+                return b.submit(pairs)
+            except MicroBatcherClosed:
+                pass  # raced a disable/re-enable: the direct forward
         return self._forward_pairs(pairs)
 
     def _forward_pairs(self, pairs: Sequence[Tuple[List[int], int]]

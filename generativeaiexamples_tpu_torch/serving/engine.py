@@ -61,6 +61,13 @@ live traffic runs short. With `kv_pager` (serving/kv_pager.py) eviction
 demotes pages to host RAM and a disk spill instead, and a match promotes
 them back with one scatter.
 
+Tracing (obs/tracing.py): each request gets an `engine.generate` span,
+opened at its prefill commit and parented onto `GenRequest.trace_context`
+(the caller's context: the scheduler thread is another thread), with a
+`first_token` event carrying the TTFT and, at retire, the tokens
+generated and the device memory counters. With tracing off every site is
+a no-op.
+
 Not ported yet, and refused at construction (see config/schema.py):
 step plans, the fused prefill rider, QoS, multi-host, emission pacing
 and the flight recorder.
@@ -83,6 +90,7 @@ from generativeaiexamples_tpu_torch import kernels
 from generativeaiexamples_tpu_torch.config.schema import EngineConfig
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models.llama import KVCache, LlamaConfig
+from generativeaiexamples_tpu_torch.obs import tracing
 from generativeaiexamples_tpu_torch.ops.quant import is_quantized
 from generativeaiexamples_tpu_torch.serving import engine_model
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
@@ -94,6 +102,11 @@ from generativeaiexamples_tpu_torch.serving.prefix_cache import (
 from generativeaiexamples_tpu_torch.utils.tokenizer import StreamDetokenizer
 
 _LOG = logging.getLogger(__name__)
+
+# The device memory counters that decorate a retired request's span are
+# read at the first retirement and then every Nth (the spans between
+# carry the cached reading), as the JAX engine does.
+MEMSTATS_SAMPLE_EVERY = 32
 
 # Failed admissions (page exhaustion) a request may retry while nothing
 # in flight could free pages, before it is failed with an error event.
@@ -130,13 +143,16 @@ class GenRequest:
     admission_attempts: int = 0
     cancelled: bool = False  # set by the server on disconnect / stop string
     truncate_prompt: bool = False  # opt-in: keep the tail instead of refusing
+    trace_context: Any = None  # the caller's trace context (obs/tracing.py)
 
 
 class _Slot:
-    def __init__(self, req: GenRequest, seq: SequencePages, detok):
+    def __init__(self, req: GenRequest, seq: SequencePages, detok,
+                 span=None):
         self.req = req
         self.seq = seq
         self.detok = detok
+        self.span = span  # tracing.ManualSpan, or None for a placeholder
         self.generated = 0
         # Tokens DISPATCHED (prefill token + K per decode block joined),
         # in flight included: caps K so no block runs past max_new_tokens.
@@ -323,6 +339,8 @@ class EngineMetrics:
                    else dict.fromkeys(KV_PAGER_KEYS, 0))
         out.update({f"kernel_launches_{k}": n
                     for k, n in kernels.LAUNCHES.items()})
+        # Span export / attribute failures (counted, never swallowed).
+        out["trace_export_errors"] = tracing.trace_export_errors()
         return out
 
 
@@ -424,6 +442,10 @@ class LLMEngine:
         # holds a scratch cache); landed decode blocks count beats.
         self._long_prefills: List[_LongPrefill] = []
         self._max_long_prefills = 1
+        # Device memory counters for retired spans (scheduler thread
+        # only; MEMSTATS_SAMPLE_EVERY).
+        self._memstats_cache: Optional[Dict[str, int]] = None
+        self._memstats_tick = 0
         self._scratch_caches: Dict[int, KVCache] = {}
         self._chunk_res: Dict[int, torch.Tensor] = {}  # slot -> tok0 [1]
         self._beat = 0
@@ -1042,7 +1064,13 @@ class LLMEngine:
                 self._put(hist), self._put(np.asarray([len(lp.ids)],
                                                       np.int32)), tok0)
         self._insert_prefix(lp.ids, lp.seq)
-        slot = _Slot(lp.req, lp.seq, StreamDetokenizer(self.tokenizer))
+        span = tracing.ManualSpan(
+            "engine.generate", context=lp.req.trace_context,
+            attributes={"prompt_tokens": len(lp.ids),
+                        "chunked_prefill": True,
+                        "request_id": lp.req.request_id})
+        slot = _Slot(lp.req, lp.seq, StreamDetokenizer(self.tokenizer),
+                     span=span)
         self.slots[lp.slot_idx] = slot
         # The row's copy to the device above waited for the stream to
         # drain, so the first token is only the scatter and a 4-byte copy
@@ -1107,7 +1135,12 @@ class LLMEngine:
         self.metrics.fused_sample_dispatches += 1
         metas = []
         for req, slot_idx, seq, ids in entries:
-            slot = _Slot(req, seq, StreamDetokenizer(self.tokenizer))
+            span = tracing.ManualSpan(
+                "engine.generate", context=req.trace_context,
+                attributes={"prompt_tokens": len(ids),
+                            "request_id": req.request_id})
+            slot = _Slot(req, seq, StreamDetokenizer(self.tokenizer),
+                         span=span)
             self.slots[slot_idx] = slot
             metas.append((slot_idx, slot))
             self.metrics.prefill_tokens += len(ids)
@@ -1176,6 +1209,11 @@ class LLMEngine:
             # Low occupancy: short blocks keep the device queue shallow
             # so an arrival's prefill never waits behind K steps.
             K = min(K, 2)
+        if self._long_prefills and self.ecfg.prefill_decode_k_cap > 0:
+            # Chunked-prefill priority lane: short decode blocks keep the
+            # device queue shallow so prefill chunks interleave at a fine
+            # grain.
+            K = min(K, self.ecfg.prefill_decode_k_cap)
         cap_min = min(self._advance_capacity(
             self.slots[i], self._slot_used(self.slots[i]))[0] for i in live)
         max_rem = max(self.slots[i].req.max_new_tokens
@@ -1340,8 +1378,7 @@ class LLMEngine:
                     first_col = 1  # the prefill copy already emitted it
                 else:
                     slot.first_emitted = True
-                    self.metrics.record_ttft(
-                        (now - slot.req.submit_time) * 1e3)
+                    self._note_first(slot, now)
             for j in range(first_col, fl.K + 1):
                 self._emit(slot, int(block[i, j]), slot_idx=i)
                 if self.slots[i] is not slot:
@@ -1404,9 +1441,18 @@ class LLMEngine:
             if self.slots[slot_idx] is not slot or slot.first_emitted:
                 continue
             slot.first_emitted = True
-            self.metrics.record_ttft((now - slot.req.submit_time) * 1e3)
+            self._note_first(slot, now)
             self._emit(slot, int(vals[j]), slot_idx=slot_idx)
             self.metrics.record_tokens(1)
+
+    def _note_first(self, slot: _Slot, now: float) -> None:
+        """The slot's first token reached the host: record its TTFT (the
+        metric and the span's first_token event)."""
+        ttft_ms = (now - slot.req.submit_time) * 1e3
+        self.metrics.record_ttft(ttft_ms)
+        if slot.span is not None:
+            slot.span.add_event("first_token",
+                                {"ttft_ms": round(ttft_ms, 2)})
 
     def _emit(self, slot: _Slot, tok: int, slot_idx: int) -> None:
         self.metrics.tokens_out += 1
@@ -1440,4 +1486,35 @@ class LLMEngine:
                                  "finished": True, "finish_reason": reason})
         self._release_seq(slot.seq)
         self.slots[slot_idx] = None
+        self._mark_done(slot)
         self._wake.set()
+
+    def _mark_done(self, slot: _Slot) -> None:
+        """Close a retired slot's span: tokens generated and the device
+        memory counters. The counters come from the caching allocator's
+        host-side bookkeeping and the device properties (no device sync
+        on the scheduler thread), sampled every MEMSTATS_SAMPLE_EVERY
+        retirements."""
+        if slot.span is None:
+            return
+        slot.span.set_attribute("tokens_generated", slot.generated)
+        if tracing.is_enabled() and self.device.type == "cuda":
+            self._memstats_tick += 1
+            if self._memstats_cache is None or \
+                    self._memstats_tick % MEMSTATS_SAMPLE_EVERY == 1:
+                try:
+                    st = torch.cuda.memory_stats(self.device)
+                    self._memstats_cache = {
+                        "bytes_in_use": st.get("allocated_bytes.all.current",
+                                               0),
+                        "peak_bytes_in_use": st.get(
+                            "allocated_bytes.all.peak", 0),
+                        "bytes_limit": torch.cuda.get_device_properties(
+                            self.device).total_memory}
+                except RuntimeError:
+                    self._memstats_cache = {}
+                    _LOG.debug("device memory stats unavailable for span",
+                               exc_info=True)
+            for key, value in self._memstats_cache.items():
+                slot.span.set_attribute(f"device.{key}", value)
+        slot.span.end()

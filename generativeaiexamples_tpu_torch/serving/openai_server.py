@@ -10,7 +10,10 @@ stream parks its thread on the request's event queue):
   POST /v1/ranking             (RerankEngine; 503 without one)
   GET  /v1/models, /health, /metrics
 
-Response bodies have the same JSON shapes as the JAX server's.
+Response bodies have the same JSON shapes as the JAX server's. The JAX
+server bridges streams through an executor whose width it floors (128,
+and 2 x serving.microbatch_max_batch with micro-batching on); here every
+connection has its own thread, so there is no pool width to floor.
 """
 
 from __future__ import annotations
@@ -346,12 +349,20 @@ class _Handler(BaseHTTPRequestHandler):
             req.cancelled = True  # client went away: stop decoding
 
 
+class BurstHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with aiohttp's listen backlog (the JAX servers'
+    transport): a burst of concurrent clients queues instead of being
+    reset, as it is past the standard library's default of 5."""
+
+    request_queue_size = 128
+
+
 def make_http_server(app: OpenAIServer, host: str = "0.0.0.0",
                      port: int = 8000) -> ThreadingHTTPServer:
     """A ThreadingHTTPServer bound to (host, port) serving `app`; port 0
     picks a free port (see `server_address`)."""
     handler = type("OpenAIHandler", (_Handler,), {"app": app})
-    httpd = ThreadingHTTPServer((host, port), handler)
+    httpd = BurstHTTPServer((host, port), handler)
     httpd.daemon_threads = True
     return httpd
 

@@ -89,8 +89,8 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
                  id="engine-prefix_cache-True-A.15"),
     pytest.param("engine", {"step_plans": True}, "A.14",
                  id="engine-step_plans-True-A.14"),
-    pytest.param("retriever", {"query_augmentation": "rewrite"}, "A.11",
-                 id="retriever-query_augmentation-rewrite-A.11"),
+    pytest.param("vector_store", {"tiered": True}, "A.18",
+                 id="vector_store-tiered-True-A.18"),
     pytest.param("vector_store", {"index_type": "ivf"}, "A.18",
                  id="vector_store-index_type-ivf-A.18"),
 ])
@@ -214,3 +214,60 @@ def test_remaining_engine_refusals_name_their_item(name):
            "true" if isinstance(default, bool) else "x"}
     with pytest.raises(ValueError, match=item.split(":")[0]):
         load_config(env=env)
+
+
+# The chain's tracing section, the micro-batch knobs, query augmentation,
+# the fact check, the external stores and the decode K cap are ported:
+# read from the env or the file as the JAX wizard reads them.
+CHAIN_FIELDS = {
+    "tracing": {"enabled": True, "otlp_endpoint": "http://collector:4317",
+                "service_name": "rag"},
+    "serving": {"microbatch_enabled": True, "microbatch_max_batch": 8,
+                "microbatch_max_wait_us": 500},
+    "retriever": {"query_augmentation": "rewrite,hyde", "fact_check": True},
+    "engine": {"prefill_decode_k_cap": 4},
+    "vector_store": {"name": "pgvector", "url": "postgresql://u@h/db"},
+    "llm": {"model_engine": "echo"},
+    "embeddings": {"model_engine": "lexical"},
+    "reranker": {"model_engine": "overlap"},
+}
+CHAIN_ENV = {"APP_TRACING_ENABLED": "1",
+             "APP_TRACING_OTLPENDPOINT": "http://collector:4317",
+             "APP_TRACING_SERVICENAME": "rag",
+             "APP_SERVING_MICROBATCHENABLED": "true",
+             "APP_SERVING_MICROBATCHMAXBATCH": "8",
+             "APP_SERVING_MICROBATCHMAXWAITUS": "500",
+             "APP_RETRIEVER_QUERYAUGMENTATION": "rewrite,hyde",
+             "APP_RETRIEVER_FACTCHECK": "yes",
+             "APP_ENGINE_PREFILLDECODEKCAP": "4",
+             "APP_VECTORSTORE_NAME": "pgvector",
+             "APP_VECTORSTORE_URL": "postgresql://u@h/db",
+             "APP_LLM_MODELENGINE": "echo",
+             "APP_EMBEDDINGS_MODELENGINE": "lexical",
+             "APP_RERANKER_MODELENGINE": "overlap"}
+
+
+@pytest.mark.parametrize("source", ["env", "json", "yaml"])
+def test_chain_and_k_cap_fields_match_jax_wizard(tmp_path, source, caplog):
+    env = (dict(CHAIN_ENV) if source == "env" else {
+        "APP_CONFIG_FILE": _write(tmp_path, source, CHAIN_FIELDS)})
+    with caplog.at_level(logging.WARNING):
+        port = load_config(env=env)
+    assert "no counterpart" not in caplog.text
+    assert "ignored" not in caplog.text
+    _assert_same(port, jax_load(env=env))
+    for sec, fields in CHAIN_FIELDS.items():
+        node = getattr(port, sec)
+        assert {n: getattr(node, n) for n in fields} == fields, sec
+
+
+def test_chain_and_k_cap_defaults_match_jax_wizard():
+    port, theirs = load_config(env={}), jax_load(env={})
+    _assert_same(port, theirs)
+    assert dataclasses.asdict(port.tracing) == dataclasses.asdict(
+        theirs.tracing)
+    assert port.engine.prefill_decode_k_cap == \
+        theirs.engine.prefill_decode_k_cap == 2
+    assert not {("retriever", "query_augmentation"),
+                ("retriever", "fact_check"),
+                ("serving", "microbatch_enabled")} & set(UNSUPPORTED_APP)

@@ -99,8 +99,16 @@ def test_engines_refuse_what_they_do_not_take(embedders):
     params = tb.init_params(cfg, "cpu")
     with pytest.raises(ValueError, match="n_labels"):
         RerankEngine(params, cfg, ByteTokenizer(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        embedders[1].enable_microbatch()
+    # Micro-batching is taken (serving/batcher.py), and a batcher is
+    # refused a width below one.
+    b = embedders[1].enable_microbatch(max_batch=4, max_wait_us=0)
+    try:
+        assert b.max_batch == 4
+        with pytest.raises(ValueError, match="max_batch"):
+            embedders[1].enable_microbatch(max_batch=-1)
+    finally:
+        embedders[1].disable_microbatch()
+    assert embedders[1].microbatch_stats() is None
 
 
 def _post(url, body):

@@ -15,6 +15,7 @@ library's HTTP server.
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -253,3 +254,91 @@ def test_server_completion_and_side_routes(server):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(base + path, body)
         assert e.value.code == status
+
+
+_ORACLE = {}
+
+
+def _oracle(jcfg, jparams, prompt, n_new):
+    """Offline JAX greedy continuation (no JAX LLMEngine), cut after the
+    first <eos> as the engine ends the stream there."""
+    import jax.numpy as jnp
+
+    key = (tuple(prompt), n_new)
+    if key not in _ORACLE:
+        out = jl.greedy_generate(jparams, jcfg, jnp.asarray([prompt],
+                                                            jnp.int32),
+                                 n_new, use_pallas=False)
+        toks = np.asarray(out)[0, len(prompt):].tolist()
+        eos = ByteTokenizer().eos_id
+        _ORACLE[key] = toks[:toks.index(eos) + 1] if eos in toks else toks
+    return _ORACLE[key]
+
+
+@pytest.mark.parametrize("cap", [2, 0])
+def test_decode_k_capped_while_a_chunked_prefill_is_live(monkeypatch, cap):
+    """engine.prefill_decode_k_cap (the JAX rule that
+    tests/test_serving.py::TestPrefillPriorityLane pins): while a chunked
+    prefill is in progress beside decoding streams, every decode block
+    takes at most `cap` steps; at 0 there is no cap, and K=8 blocks run
+    between the chunks. Two of four slots decoding stay above the
+    low-occupancy cap, so only this rule caps K. Either way the greedy
+    streams equal the same requests run alone (the cap changes when
+    tokens come, never which), and the long prompt's the offline
+    oracle's."""
+    from generativeaiexamples_tpu_torch.serving import engine_model as tem
+
+    jcfg = jl.LlamaConfig.tiny(vocab_size=259)
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(3))
+    tparams = convert.llama_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu", torch.float32)
+    eng = LLMEngine(tparams, tl.LlamaConfig.tiny(vocab_size=259),
+                    ByteTokenizer(), dict(
+                        max_batch_size=4, max_seq_len=256, page_size=8,
+                        prefill_buckets=(16,), decode_steps_per_dispatch=8,
+                        prefill_chunks_per_block=1,
+                        prefill_decode_k_cap=cap), device="cpu")
+    assert eng.ecfg.prefill_decode_k_cap == cap
+    log = []
+    real = tem.decode_multi_step
+
+    def spy(*args, **kw):
+        log.append((args[11], bool(eng._long_prefills)))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tem, "decode_multi_step", spy)
+    shorts = [[5, 6, 7], [9, 10, 11, 12]]
+    long_prompt = [(i * 7) % 256 for i in range(160)]  # 10 chunks of 16
+    got = {}
+    eng.start()
+    try:
+        def run(p, n):
+            got[tuple(p)] = [e["token_id"] for e in eng.generate_stream(
+                p, max_new_tokens=n) if e["token_id"] >= 0]
+
+        for p in shorts:
+            run(p, 60)
+        alone = dict(got)
+        log.clear()
+        threads = [threading.Thread(target=run, args=(p, 60))
+                   for p in shorts]
+        for t in threads:
+            t.start()
+        while eng.metrics.tokens_out < 8:
+            time.sleep(0.001)
+        run(long_prompt, 4)
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        eng.stop()
+    live = [k for k, lv in log if lv]
+    assert live, log
+    if cap:
+        assert max(live) <= cap, log
+    else:
+        assert max(live) > 2, log
+    for p in shorts:
+        assert got[tuple(p)] == alone[tuple(p)]
+        assert len(alone[tuple(p)]) == 60
+    assert got[tuple(long_prompt)] == _oracle(jcfg, jparams, long_prompt, 4)

@@ -2,8 +2,13 @@
 
 The port (`generativeaiexamples_tpu_torch`) and `chip_smoke.py` import
 torch and never jax, and nothing of the JAX package: the card's machine
-has no jax. Nor do they import safetensors, ml_dtypes or transformers. Entry points run on CUDA unless the caller asks for the CPU;
-with no CUDA and no explicit device they raise instead of falling back.
+has no jax. Nor do they import safetensors, ml_dtypes, transformers or
+requests (the HTTP clients use urllib). psutil and the OpenTelemetry SDK
+are optional: imported only inside the functions that fall back without
+them (obs/tracing.py's `setup` and `get_system_metrics`), so every module
+imports with both missing. Entry points run on CUDA unless the caller
+asks for the CPU; with no CUDA and no explicit device they raise instead
+of falling back.
 """
 
 import ast
@@ -46,7 +51,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_serving', 'phase_chunked', 'phase_rag', 'phase_paged_int8', "
         "'phase_int8_matmul', 'phase_serving_int8', 'phase_tree', "
         "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', "
-        "'checkpoint_streams', 'phase_checkpoint', "
+        "'checkpoint_streams', 'phase_checkpoint', 'phase_chain', "
         "'paged_int8_sdpa_gathered_ms', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
@@ -64,12 +69,82 @@ def test_every_port_module_imports_with_jax_blocked():
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     """Nor the packages that read checkpoints for the JAX loader: the port
-    reads safetensors itself (the card's machine need not have them)."""
+    reads safetensors itself (the card's machine need not have them); nor
+    requests, which the card's machine does not list."""
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                   "generativeaiexamples_tpu", "safetensors",
-                                  "ml_dtypes", "transformers")]
+                                  "ml_dtypes", "transformers", "requests")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+OPTIONAL = ("psutil", "opentelemetry")
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_packages_only_in_guarded_function_imports(path):
+    """psutil and the OpenTelemetry SDK: never at module level, and only
+    in obs/tracing.py's functions, each inside a try block."""
+    tree = ast.parse(path.read_text(), str(path))
+    guarded = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try):
+            for inner in node.body:
+                for sub in ast.walk(inner):
+                    guarded.add(id(sub))
+    found = []
+    for fn in [n for n in ast.walk(tree)
+               if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]:
+        for node in ast.walk(fn):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     and node.module else [])
+            if any(n.split(".")[0] in OPTIONAL for n in names):
+                found.append((fn.name, id(node) in guarded))
+    top = [m for node in tree.body for m in (
+        [a.name for a in node.names] if isinstance(node, ast.Import) else
+        [node.module] if isinstance(node, ast.ImportFrom) and node.module
+        else []) if m.split(".")[0] in OPTIONAL]
+    assert not top, f"{path.name} imports {top} at module level"
+    if path.name == "tracing.py":
+        assert {f for f, _ in found} <= {
+            "setup", "get_system_metrics", "extract_context",
+            "inject_context", "current_context", "attach_context",
+            "detach_context", "context"}, found
+        assert all(ok for _, ok in found), found
+    else:
+        assert not found, f"{path.name} imports {found}"
+
+
+def test_every_port_module_imports_without_the_optional_packages():
+    """psutil and the OpenTelemetry SDK blocked: every module imports, the
+    tracer takes the built-in backend and the host metrics their
+    resource-module fallback."""
+    code = "\n".join([
+        "import importlib, sys",
+        "for m in ('jax', 'generativeaiexamples_tpu', 'psutil',",
+        "          'opentelemetry', 'opentelemetry.sdk', 'requests'):",
+        "    sys.modules[m] = None",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        f"for m in {MODULES!r}:",
+        "    importlib.import_module(m)",
+        "import chip_smoke",
+        "from generativeaiexamples_tpu_torch.obs import tracing",
+        "exp = tracing.MemoryExporter()",
+        "assert tracing.setup(exporter=exp) and tracing._BACKEND == 'mini'",
+        "m = tracing.get_system_metrics()",
+        "assert m['system.memory_rss_mb'] > 0 and 'system.cpu_user_s' in m",
+        "tracing.ManualSpan('x').end()",
+        "assert [s.name for s in exp.get_finished_spans()] == ['x']",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_entry_points_raise_without_cuda_or_explicit_device(monkeypatch):

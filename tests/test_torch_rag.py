@@ -329,14 +329,28 @@ def test_app_config_defaults_and_env_overlay_match_jax():
                       ("engine", "prefill_buckets")):
         assert getattr(getattr(ours, sec), name) == getattr(
             getattr(theirs, sec), name), (sec, name)
-    for var, item in (("APP_RETRIEVER_QUERYAUGMENTATION", "A.11"),
-                      ("APP_SERVING_MICROBATCHENABLED", "A.11"),
-                      ("APP_VECTORSTORE_INDEXTYPE", "A.18"),
+    for var, item in (("APP_VECTORSTORE_INDEXTYPE", "A.18"),
                       ("APP_ENGINE_STEPPLANS", "A.14")):
-        value = "ivf" if "INDEX" in var else (
-            "rewrite" if "AUG" in var else "true" if "PLANS" in var else "1")
+        value = "ivf" if "INDEX" in var else "true"
         with pytest.raises(ValueError, match=item):
             load_config(env={var: value})
+    # Query augmentation, fact check, micro-batching, tracing and the
+    # decode K cap are ported: read as the JAX wizard reads them.
+    env = {"APP_RETRIEVER_QUERYAUGMENTATION": "rewrite,hyde",
+           "APP_RETRIEVER_FACTCHECK": "true",
+           "APP_SERVING_MICROBATCHENABLED": "1",
+           "APP_SERVING_MICROBATCHMAXBATCH": "8",
+           "APP_TRACING_ENABLED": "true",
+           "APP_ENGINE_PREFILLDECODEKCAP": "4"}
+    ours, theirs = load_config(env=env), jload(path="", env=env)
+    for sec, name in (("retriever", "query_augmentation"),
+                      ("retriever", "fact_check"),
+                      ("serving", "microbatch_enabled"),
+                      ("serving", "microbatch_max_batch"),
+                      ("tracing", "enabled"),
+                      ("engine", "prefill_decode_k_cap")):
+        assert getattr(getattr(ours, sec), name) == getattr(
+            getattr(theirs, sec), name), (sec, name)
     with pytest.raises(ValueError, match="unknown config"):
         load_config(env={}, overrides={"retriever": {"nope": 1}})
     # A JAX-only variable left at its default passes.

@@ -126,7 +126,13 @@ def test_create_vector_store_names_and_refusals(tmp_path):
         c = load_config(env={}, overrides={"vector_store": {"name": name}})
         assert isinstance(create_vector_store(c, 8, device="cpu"),
                           DeviceVectorStore)
-    for over, item in (({"name": "milvus"}, "A.11"),
+    # The external stores are built, and fail loudly without a server.
+    for name in ("milvus", "pgvector"):
+        c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
+            cfg.vector_store, name=name))
+        with pytest.raises(RuntimeError, match="vector_store.url"):
+            create_vector_store(c, 8, device="cpu")
+    for over, item in (({"name": "weaviate"}, "not a bundled store"),
                        ({"index_type": "ivf"}, "A.18"),
                        ({"tiered": True}, "A.18")):
         c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
@@ -224,10 +230,11 @@ def test_retriever_matches_jax():
         for g, w in zip(t.retrieve_batch(["matrix", "apples"]),
                         j.retrieve_batch(["matrix", "apples"])):
             _same(g, w)
+        for variants in (["matrix"], ["matrix", "apples", "yellow"]):
+            _same(t.retrieve_multi(variants), j.retrieve_multi(variants))
     bm_t, bm_j = tret.BM25Lexical(), jret.BM25Lexical()
     bm_t.fit(texts)
     bm_j.fit(texts)
     np.testing.assert_array_equal(bm_t.scores("yellow matrix"),
                                   bm_j.scores("yellow matrix"))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tret.Retriever(tstore, emb).retrieve_multi(["a", "b"])
+    assert tret.Retriever(tstore, emb).retrieve_multi([]) == []
