@@ -14,7 +14,8 @@ aiohttp). Same routes, bodies, error bodies and input hygiene:
   DELETE /documents?filename=x
   POST /search     DocumentSearch{query, top_k} -> {chunks: [
                    DocumentChunk{content, filename, score}]}
-  GET  /metrics    -> the vector store's counters and the micro-batchers'
+  GET  /metrics    -> the vector stores' counters (documents and
+                   conversation memory) and the micro-batchers'
   GET  /health     -> {message}; 503 when the CUDA device does not answer
 
 Chains, ingests and searches run on an executor of
@@ -128,15 +129,18 @@ class ChainServer:
     # -- /metrics ----------------------------------------------------------
 
     def metrics(self) -> Tuple[int, Dict]:
-        """The vector store's counters and the cross-request
-        micro-batchers' per stage (embed / rerank / search: mean
-        coalesced batch size, queue-wait p50/p99, dispatches saved;
-        empty with micro-batching off)."""
+        """The vector stores' counters (the documents' under
+        `vector_store`, the conversation memory's under `conv_store`) and
+        the cross-request micro-batchers' per stage (embed / rerank /
+        search: mean coalesced batch size, queue-wait p50/p99, dispatches
+        saved; empty with micro-batching off)."""
         payload: Dict[str, Any] = {}
         res = getattr(self.example, "res", None)
-        store = getattr(res, "store", None)
-        if store is not None and hasattr(store, "stats"):
-            payload["vector_store"] = store.stats()
+        for key, out in (("store", "vector_store"),
+                         ("conv_store", "conv_store")):
+            store = getattr(res, key, None)
+            if store is not None and hasattr(store, "stats"):
+                payload[out] = store.stats()
         retriever = getattr(res, "retriever", None)
         if retriever is not None and hasattr(retriever, "microbatch_stats"):
             payload["microbatch"] = retriever.microbatch_stats()

@@ -12,9 +12,9 @@ defaults:
   item that brings them; `EngineConfig.coerce` refuses any of them set
   away from its default. `weights_path` names an HF safetensors snapshot
   (empty: random weights at a named geometry).
-- `AppConfig`: the sections the developer_rag chain reads (llm,
-  embeddings, reranker, retriever, prompts, text_splitter, vector_store,
-  serving, engine, tracing). `load_config()` reads the YAML or JSON file that
+- `AppConfig`: the sections the chain's pipelines read (llm,
+  embeddings, reranker, retriever, vlm, prompts, text_splitter,
+  vector_store, serving, engine, tracing). `load_config()` reads the YAML or JSON file that
   `APP_CONFIG_FILE` names, overlays `APP_<SECTION>_<FIELD>` environment
   variables (the JAX config wizard's contract) and refuses fields that
   name unported features when they are set away from their defaults
@@ -227,6 +227,23 @@ class PromptsConfig:
         "something is out of context, you will refrain from replying and "
         "politely decline to respond to the user.\n\nContext:\n{context}"
     )
+    multi_turn_rag_template: str = (
+        "You are a document chatbot. Help the user as they ask questions about "
+        "documents. User message: {input}\n\nContext from documents:\n{context}\n"
+        "\nConversation history:\n{history}"
+    )
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    """Vision-language endpoint of multimodal ingestion (any
+    OpenAI-compatible image chat server); an empty server_url turns image
+    and chart enrichment off (ingestion keeps text and tables). The JAX
+    schema's deplot_model_name is read by no code there, so the port has no
+    such field: a config file that sets it is logged and the key ignored."""
+
+    server_url: str = ""
+    model_name: str = "neva-22b"
 
 
 @dataclass(frozen=True)
@@ -263,6 +280,7 @@ class AppConfig:
     embeddings: EmbeddingConfig = field(default_factory=EmbeddingConfig)
     reranker: RerankerConfig = field(default_factory=RerankerConfig)
     retriever: RetrieverConfig = field(default_factory=RetrieverConfig)
+    vlm: VLMConfig = field(default_factory=VLMConfig)
     prompts: PromptsConfig = field(default_factory=PromptsConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)

@@ -1,7 +1,9 @@
 """Pipelines: the pluggable example layer.
 
-Importing this package registers the ported examples (developer_rag;
-the other five are queued in ROADMAP A.11(f)).
+Importing this package registers the built-in examples, the seven the
+JAX package registers.
 """
 
-from generativeaiexamples_tpu_torch.pipelines import developer_rag  # noqa: F401
+from generativeaiexamples_tpu_torch.pipelines import (  # noqa: F401
+    api_catalog, developer_rag, knowledge_graph, multi_turn_rag, multimodal,
+    query_decomposition, structured_data)

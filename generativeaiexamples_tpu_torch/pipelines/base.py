@@ -33,8 +33,7 @@ def get_example_class(name: str) -> Type["BaseExample"]:
     import generativeaiexamples_tpu_torch.pipelines as _p  # noqa: F401
 
     if name not in _REGISTRY:
-        raise KeyError(f"unknown example {name!r}; known: {sorted(_REGISTRY)}"
-                       f" (the other pipelines are ROADMAP A.11(f))")
+        raise KeyError(f"unknown example {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

@@ -1,16 +1,17 @@
-"""Shared pipeline resources: connectors, store, splitter, retriever.
+"""Shared pipeline resources: connectors, stores, splitter, retriever.
 
-The port's copy of generativeaiexamples_tpu/pipelines/resources.py,
-without the conversation-memory store (multi_turn_rag's, not ported
-yet: ROADMAP A.11(f)). Connectors and the store can be injected;
-otherwise they are built from the config (over `hub`'s in-process
-engines for `model_engine: tpu`). With `serving.microbatch_enabled` the
-embedder, the reranker and the document store coalesce concurrent
-callers into one dispatch each (serving/batcher.py).
+The port's copy of generativeaiexamples_tpu/pipelines/resources.py.
+Connectors and both stores (the documents' and the conversation
+memory's) can be injected; otherwise they are built from the config
+(over `hub`'s in-process engines for `model_engine: tpu`). With
+`serving.microbatch_enabled` the embedder, the reranker and the
+document store coalesce concurrent callers into one dispatch each
+(serving/batcher.py); the conversation-memory store never does.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 from generativeaiexamples_tpu_torch.config.schema import (
@@ -24,7 +25,8 @@ from generativeaiexamples_tpu_torch.serving import batcher as mb
 
 class Resources:
     def __init__(self, config: AppConfig, *, hub: Optional[factory.EngineHub]
-                 = None, llm=None, embedder=None, reranker=None, store=None):
+                 = None, llm=None, embedder=None, reranker=None, store=None,
+                 conv_store=None):
         self.config = check_supported(config)
         self.hub = hub if hub is not None else factory.EngineHub(config)
         self.llm = llm if llm is not None else factory.get_llm(config,
@@ -51,8 +53,17 @@ class Resources:
         self.store = store if store is not None else create_vector_store(
             config, dim=dim, device=self.hub.device,
             persist_dir=config.vector_store.persist_dir)
+        # The conversation-memory store (multi_turn_rag) is ephemeral: in
+        # this process, never persisted, even when the document store is
+        # an external server.
+        self.conv_store = (conv_store if conv_store is not None else
+                           create_vector_store(config, dim=dim,
+                                               device=self.hub.device,
+                                               ephemeral=True))
         if sv.microbatch_enabled and hasattr(self.store,
                                              "enable_microbatch"):
+            # Document store only: conversation memory is per-request
+            # scratch far below coalescing scale.
             self.store.enable_microbatch(
                 max_batch=sv.microbatch_max_batch,
                 max_wait_us=sv.microbatch_max_wait_us)
@@ -79,4 +90,7 @@ class Resources:
             default_hybrid=(config.retriever.nr_pipeline == "ranked_hybrid"
                             and self.reranker is not None),
         )
-        self.extras: Dict = {}  # pipeline-private state
+        # Guards the lazy build of shared pipeline state (the knowledge
+        # graph).
+        self._lock = threading.Lock()
+        self.extras: Dict = {}  # pipeline-private state (CSV registry, VLM)

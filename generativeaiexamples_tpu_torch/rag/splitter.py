@@ -1,16 +1,16 @@
-"""Token-window text splitter with a dependency-free token counter.
+"""Text splitters: token-window and recursive-character.
 
-The port's copy of `ApproxTokenizer`, `TokenTextSplitter` and
-`get_text_splitter` from generativeaiexamples_tpu/rag/splitter.py (the
-splitter of the developer_rag ingest path: chunk_size - 2 tokens, 200
-overlap). The recursive-character splitter serves pipelines that are
-not ported yet.
+The port's copy of generativeaiexamples_tpu/rag/splitter.py: the
+token-window splitter of the core pipelines' ingest path (chunk_size - 2
+tokens, 200 overlap) with a dependency-free token counter, and the
+recursive-character splitter (1000 / 100 characters) of the multimodal
+pipeline.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 
 class ApproxTokenizer:
@@ -59,6 +59,63 @@ class TokenTextSplitter:
             if start + self.chunk_size >= len(ids):
                 break
         return [c for c in chunks if c]
+
+
+class RecursiveCharacterSplitter:
+    """LangChain-style recursive split on ["\\n\\n", "\\n", ". ", " ", ""]."""
+
+    def __init__(self, chunk_size: int = 1000, chunk_overlap: int = 100,
+                 separators: Optional[Sequence[str]] = None):
+        self.chunk_size = chunk_size
+        self.chunk_overlap = chunk_overlap
+        self.separators = list(separators or ["\n\n", "\n", ". ", " ", ""])
+
+    def split(self, text: str) -> List[str]:
+        return [c.strip() for c in self._split(text, 0) if c.strip()]
+
+    def _split(self, text: str, depth: int) -> List[str]:
+        if len(text) <= self.chunk_size:
+            return [text]
+        if depth >= len(self.separators):
+            return self._window(text)
+        sep = self.separators[depth]
+        if sep == "":
+            return self._window(text)
+        parts = text.split(sep)
+        chunks: List[str] = []
+        cur = ""
+        for part in parts:
+            candidate = (cur + sep + part) if cur else part
+            if len(candidate) <= self.chunk_size:
+                cur = candidate
+            else:
+                if cur:
+                    chunks.append(cur)
+                if len(part) > self.chunk_size:
+                    chunks.extend(self._split(part, depth + 1))
+                    cur = ""
+                else:
+                    cur = part
+        if cur:
+            chunks.append(cur)
+        return self._overlap(chunks, sep)
+
+    def _window(self, text: str) -> List[str]:
+        step = self.chunk_size - self.chunk_overlap
+        return [text[i: i + self.chunk_size]
+                for i in range(0, len(text), step)]
+
+    def _overlap(self, chunks: List[str], sep: str) -> List[str]:
+        if self.chunk_overlap <= 0 or len(chunks) < 2:
+            return chunks
+        out = [chunks[0]]
+        for prev, cur in zip(chunks, chunks[1:]):
+            tail = prev[-self.chunk_overlap:]
+            cut = tail.find(sep)
+            if 0 <= cut < len(tail) - 1:
+                tail = tail[cut + len(sep):]
+            out.append((tail + sep + cur) if tail else cur)
+        return out
 
 
 def get_text_splitter(config, tokenizer=None) -> TokenTextSplitter:

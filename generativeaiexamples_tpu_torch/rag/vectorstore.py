@@ -24,7 +24,8 @@ Both stores are `MicroBatchHost`s (serving/batcher.py): with
 `enable_microbatch`, concurrent single-query `search` calls funnel into
 one `search_batch` dispatch. `create_vector_store` also builds the
 external milvus (rag/milvus_store.py) and pgvector
-(rag/pgvector_store.py) stores. IVF, int8 rows and the tiered index
+(rag/pgvector_store.py) stores, and the ephemeral in-process store of
+conversation memory. IVF, int8 rows and the tiered index
 (ROADMAP A.18) are not ported; `create_vector_store` refuses them by
 name.
 """
@@ -458,29 +459,37 @@ class DeviceVectorStore(MemoryVectorStore):
 
 def create_vector_store(config, dim: Optional[int] = None,
                         device: DeviceLike = None,
-                        persist_dir: Optional[str] = None):
+                        persist_dir: Optional[str] = None,
+                        ephemeral: bool = False):
     """Factory from AppConfig.vector_store. `memory` is the host store;
     `tpu` and `native` (the JAX config's names, kept so configs are
     shared) are the device store; either is durable at `persist_dir`
     (usually config.vector_store.persist_dir). `milvus` and `pgvector`
     are external servers at `vector_store.url` (durable server-side) and
     fail loudly without one. Anything else, and every knob the port does
-    not honour (`check_supported`), is refused by name."""
+    not honour (`check_supported`), is refused by name.
+
+    `ephemeral=True` marks a per-process scratch store (conversation
+    memory): it is never persisted, and under milvus or pgvector it stays
+    in-process as a `MemoryVectorStore`, so private conversation turns
+    never land in the shared document collection."""
     vs = check_supported(config).vector_store
     dim = dim or config.embeddings.dimensions
-    if vs.name == "milvus":
+    if ephemeral:
+        persist_dir = None
+    if vs.name == "milvus" and not ephemeral:
         from generativeaiexamples_tpu_torch.rag.milvus_store import (
             MilvusVectorStore)
 
         return MilvusVectorStore(vs.url, dim)
-    if vs.name == "pgvector":
+    if vs.name == "pgvector" and not ephemeral:
         from generativeaiexamples_tpu_torch.rag.pgvector_store import (
             PgVectorStore)
 
         return PgVectorStore(vs.url, dim)
     if vs.name in ("tpu", "native"):
         return DeviceVectorStore(dim, device=device, persist_dir=persist_dir)
-    if vs.name == "memory":
+    if vs.name in ("memory", "milvus", "pgvector"):
         return MemoryVectorStore(dim, persist_dir=persist_dir)
     raise ValueError(f"vector_store.name={vs.name!r} is not a bundled "
                      f"store; use one of memory | tpu | native | milvus | "

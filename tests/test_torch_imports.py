@@ -320,3 +320,63 @@ def test_chip_smoke_refuses_to_run_without_cuda():
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# The chain's pipeline layer (ROADMAP A.11(f)): the six pipelines beside
+# developer_rag and the modules they brought.
+PIPELINE_MODULES = (
+    "generativeaiexamples_tpu_torch.connectors.vlm",
+    "generativeaiexamples_tpu_torch.kg",
+    "generativeaiexamples_tpu_torch.kg.evaluation",
+    "generativeaiexamples_tpu_torch.kg.extraction",
+    "generativeaiexamples_tpu_torch.kg.graph",
+    "generativeaiexamples_tpu_torch.pipelines.api_catalog",
+    "generativeaiexamples_tpu_torch.pipelines.knowledge_graph",
+    "generativeaiexamples_tpu_torch.pipelines.multi_turn_rag",
+    "generativeaiexamples_tpu_torch.pipelines.multimodal",
+    "generativeaiexamples_tpu_torch.pipelines.query_decomposition",
+    "generativeaiexamples_tpu_torch.pipelines.structured_data",
+    "generativeaiexamples_tpu_torch.utils.fsio",
+    "generativeaiexamples_tpu_torch.utils.layout",
+    "generativeaiexamples_tpu_torch.utils.pptx",
+)
+
+
+def test_scans_cover_the_pipeline_modules():
+    """The AST scan (PORT_FILES) and the blocked-import passes (MODULES)
+    both reach every pipeline module, so each is held to importing
+    neither jax, the JAX package nor requests."""
+    assert set(PIPELINE_MODULES) <= set(MODULES)
+    scanned = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+               .removesuffix(".__init__") for p in PORT_FILES}
+    assert set(PIPELINE_MODULES) <= scanned
+
+
+def test_pipeline_modules_import_without_their_lazy_packages():
+    """pandas (structured_data) and networkx (kg GraphML) are imported
+    only inside the functions that need them, and the VLM client rides
+    urllib: every pipeline module imports, and the registry lists all
+    seven examples, with jax, the JAX package, requests, pandas and
+    networkx blocked; chip_smoke's pipelines phase is there."""
+    code = "\n".join([
+        "import importlib, sys",
+        "for m in ('jax', 'generativeaiexamples_tpu', 'requests', 'pandas',",
+        "          'networkx'):",
+        "    sys.modules[m] = None",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        f"for m in {PIPELINE_MODULES!r}:",
+        "    importlib.import_module(m)",
+        "from generativeaiexamples_tpu_torch.pipelines.base import "
+        "list_examples",
+        "assert len(list_examples()) == 7, list_examples()",
+        "import chip_smoke",
+        "for name in ('phase_pipelines', '_pipelines_pdf', "
+        "'_pipelines_deck', '_stub_vlm'):",
+        "    getattr(chip_smoke, name)",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
