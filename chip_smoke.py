@@ -12,8 +12,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               per source, all in parallel
   3. flash    K1 (csrc/flash_attention.cu) against `mha_reference` run in
               f32 on the same bf16 inputs, at Llama-3-8B prefill shapes
-              (and the chunked lane's and a prefix-cache hit's q_offset
-              shapes) plus ragged /
+              (and the chunked lane's, a prefix-cache hit's and the fused
+              rider's q_offset shapes) plus ragged /
               q_offset / fully-masked / head_dim 64 cases; a second
               launch must give the same bits; SDPA (is_causal, or a
               boolean mask for lengths and q_offset) timed beside it
@@ -94,6 +94,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
               prefill_chunks_per_block and at 1), every decode block
               dispatched while the lane is live must take K <= 2 and the
               streams must equal the same requests run alone
+  10b. fused_prefill  engine.fused_prefill over the served bf16 weights:
+              three engines of batch 4 in turn (A the chunked lane, B
+              the rider at a 512-token budget, C the lane with the
+              unfused finish), each with three greedy 128-token streams
+              decoding while a 6,000-token prompt prefills; every stream
+              must equal the same request run alone, B must ride
+              (fused_steps, rider + lane tokens = the prompt), C must
+              count no fused sample; the short streams' inter-token gap
+              while the prompt prefills (p50, max), its TTFT,
+              prefill_stall_beats and K1 / K2 launches are printed
   11. rag     the chain server (developer_rag, device store, ranked
               hybrid retrieval) over the same 8B engine with
               arctic-embed-l and BERT-base reranker encoders: ingest of
@@ -172,6 +182,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               runs again under the profiler (outside the counted window)
               for the split of a verify step between K4, K6, the other
               device work and the host
+  13c. fused_prefill_int8  run B again over the int8 deployment's
+              weights (batch 4, 128 pool pages, buckets up to 1,024): a
+              2,000-token prompt rides beside three streams; the streams
+              must equal the same requests run alone; K1, K4 and K6 must
+              launch, K2 not
   13b. checkpoint  serve from disk, after every phase above: the served
               bf16 8B engine's weights (kept when its engine went) written
               as an HF snapshot (4 shards + index, 16.06 GB under the
@@ -194,7 +209,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               K4, no K2). The snapshots are removed at the end
   14. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
-              serving_int8; K5: spec_bf16), times and bound; K1-K3 also
+              serving_int8; K5: spec_bf16), times and bound; K1's rider
+              chunk case; K1, K2, K4 and K6 their launches on the rider
+              runs (fused_launches); K1-K3 also
               their launches on the chain and pipelines phases; K4's entry
               also carries its verify cases and its spec_int8 launches,
               K1's and K2's their prefix launches, every kernel its
@@ -504,6 +521,11 @@ def phase_flash():
         # 128-wide chunk over a 2,048-row scratch cache.
         flash_case("8b_hit_q_offset", 1, 32, 8, 128, 2048, 128, [1536],
                    [1535], seed=10, timed=True),
+        # The fused prefill rider's chunk (phase_fused_prefill, run B): a
+        # 512-wide chunk at q_offset 5,120 of a 6,000-token prompt over
+        # the 8,192-row scratch cache.
+        flash_case("8b_rider_q_offset", 1, 32, 8, 512, 8192, 128, [5632],
+                   [5120], seed=11, timed=True),
         flash_case("ragged", 4, 32, 8, 200, 200, 128, [200, 137, 1, 64],
                    [0] * 4, seed=3),
         flash_case("q_offset", 4, 32, 8, 128, 512, 128, [512, 128, 228, 328],
@@ -1885,6 +1907,250 @@ def _k_cap_check(served, prompt, long_alone, n_short: int = 3,
                   and all(r["streams_equal_alone"]) for r in runs))
     return {"cap": cap, "short_streams": n_short,
             "short_max_tokens": max_tokens, "runs": runs, "ok": ok}
+
+
+# -- phase 10b: the fused prefill rider at 8B ------------------------------
+
+# The three engines of phase_fused_prefill: the chunked lane alone (A),
+# the rider at a 512-token budget (B), and the lane with the unfused
+# finish (C: sample_token + set_last_token after the last chunk).
+FUSED_RUNS = (("A_lane", {}),
+              ("B_rider", {"fused_prefill": True, "fused_token_budget": 512}),
+              ("C_unfused_finish", {"fused_sampling": False}))
+
+
+def _timed_stream(engine, prompt, max_tokens, out: dict) -> None:
+    """One greedy request through engine.submit; `out` gets its token ids
+    and the host time each reached the stream."""
+    from generativeaiexamples_tpu_torch.serving.engine import GenRequest
+
+    req = engine.submit(GenRequest(prompt_ids=list(prompt),
+                                   max_new_tokens=max_tokens))
+    out.update(submit=req.submit_time, tokens=[], times=[])
+    while True:
+        ev = req.stream.get()
+        if ev["token_id"] >= 0:
+            out["times"].append(time.perf_counter())
+            out["tokens"].append(ev["token_id"])
+        if ev["finished"]:
+            out["finish"] = ev["finish_reason"]
+            return
+
+
+def _alone(engine, prompt, max_tokens) -> list:
+    out = {}
+    _timed_stream(engine, prompt, max_tokens, out)
+    return out["tokens"]
+
+
+def _fused_run(engine, prompt, shorts, max_tokens: int, long_tokens: int):
+    """The short greedy prompts admitted one at a time (each its own
+    prefill group, as when run alone), then `prompt` while they decode.
+    A spy on engine_model.plan_step counts the prompt tokens each kind of
+    plan fed (riders: decode_k > 0; the chunked lane: chunk-only plans).
+    Returns the run's record and the streams (shorts, then prompt)."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving import engine_model
+
+    fed = {"rider": 0, "lane": 0}
+    real = engine_model.plan_step
+
+    def spy(params, cfg, plan, **kw):
+        if plan.rider_width:
+            fed["rider" if plan.decode_k else "lane"] += kw["chunk_valid"]
+        return real(params, cfg, plan, **kw)
+
+    before = engine.metrics.snapshot()
+    outs = [{} for _ in range(len(shorts) + 1)]
+    threads = []
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    engine_model.plan_step = spy
+    try:
+        for i, p in enumerate(shorts):
+            t = threading.Thread(target=_timed_stream,
+                                 args=(engine, p, max_tokens, outs[i]))
+            t.start()
+            threads.append(t)
+            deadline = time.time() + 60
+            while len(outs[i].get("tokens", ())) < 2 \
+                    and time.time() < deadline:
+                time.sleep(0.001)
+        _timed_stream(engine, prompt, long_tokens, outs[-1])
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        engine_model.plan_step = real
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    after = engine.metrics.snapshot()
+    delta = {k: after[k] - before[k] for k in (
+        "fused_steps", "fused_prefill_tokens", "prefill_stall_beats",
+        "fused_sample_dispatches", "prefill_tokens")}
+    long_out = outs[-1]
+    t_sub, t_first = long_out["submit"], long_out["times"][0]
+    # Every inter-token gap of a short stream that overlaps the prompt's
+    # prefill (its submission to its first token).
+    gaps = [(b - a) * 1e3 for o in outs[:-1]
+            for a, b in zip(o["times"], o["times"][1:])
+            if b > t_sub and a < t_first]
+    rec = {"ttft_ms": (t_first - t_sub) * 1e3,
+           "short_gaps_while_prefilling": len(gaps),
+           "short_gap_p50_ms": float(np.percentile(gaps, 50)) if gaps
+           else None,
+           "short_gap_max_ms": max(gaps) if gaps else None,
+           "tokens_fed": fed, **delta,
+           "launches": {k: launches[k] for k in (
+               "flash_attention", "paged_attention", "paged_attention_int8",
+               "int8_matmul")},
+           "finish": [o["finish"] for o in outs]}
+    return rec, [o["tokens"] for o in outs]
+
+
+def _fused_checks(name, rec, got, alone, prompt_len, int8: bool) -> bool:
+    """The run's streams against the same requests run alone, and the
+    counters of its engine kind."""
+    rec["streams_equal_alone"] = [g == w for g, w in zip(got, alone)]
+    rec["first_divergence"] = [_first_divergence(g, w)
+                               for g, w in zip(got, alone)]
+    fed, lc = rec["tokens_fed"], rec["launches"]
+    ok = (all(rec["streams_equal_alone"])
+          and fed["rider"] + fed["lane"] == prompt_len
+          and rec["fused_prefill_tokens"] == fed["rider"]
+          and lc["flash_attention"] > 0)
+    ok = ok and ((lc["paged_attention_int8"] > 0 and lc["int8_matmul"] > 0
+                  and lc["paged_attention"] == 0) if int8
+                 else lc["paged_attention"] > 0)
+    if name.startswith("B"):
+        ok = ok and rec["fused_steps"] >= 1 and fed["rider"] > 0
+    else:
+        ok = ok and rec["fused_steps"] == 0 and fed["rider"] == 0
+    if name.startswith("C"):
+        ok = ok and rec["fused_sample_dispatches"] == 0
+    return ok
+
+
+def _fused_traffic(seed: int, prompt_len: int, n_short: int):
+    """The long prompt and the short prompts (48, 64, ... tokens) of a
+    fused-prefill run, random bytes from `seed`."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(0, 256, (prompt_len,), generator=g).tolist()
+    shorts = [torch.randint(0, 256, (48 + 16 * i,), generator=g).tolist()
+              for i in range(n_short)]
+    return prompt, shorts
+
+
+def _fused_engine_run(params, cfg, tokenizer, ecfg, n_pages, device,
+                      prompt, shorts, max_tokens, long_tokens, alone=None):
+    """An engine at `ecfg` over `params`, started; the streams of each
+    request alone on it unless `alone` is given; _fused_run's traffic;
+    the engine stopped and its pool freed. Returns (record, streams,
+    alone)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+
+    engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
+                       device=device).start()
+    try:
+        if alone is None:
+            alone = [_alone(engine, p, max_tokens) for p in shorts]
+            alone.append(_alone(engine, prompt, long_tokens))
+        rec, got = _fused_run(engine, prompt, shorts, max_tokens,
+                              long_tokens)
+        rec["rider_width"] = engine._fused_width
+    finally:
+        engine.stop()
+        engine.pool = None
+        del engine
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return rec, got, alone
+
+
+def phase_fused_prefill(card: str, served: ServedEngine,
+                        device: str = "cuda", prompt_len: int = 6000,
+                        n_short: int = 3, max_tokens: int = 128,
+                        long_tokens: int = 8, engine_cfg=None):
+    """engine.fused_prefill over the served bf16 8B weights: engines of
+    batch 4 with a pool for the prompt and three 256-token streams,
+    built and closed in turn (FUSED_RUNS): A the chunked lane, B the
+    rider (512-token budget: 12 riders of 512 in place of two chunks of
+    4,096), C the lane with the unfused finish. In each, `n_short` greedy
+    streams decode while a `prompt_len`-token prompt prefills
+    (_k_cap_check's traffic). Every stream must equal the same request
+    run alone (on engine A, before the runs); B must ride (fused_steps,
+    and fused_prefill_tokens equal to the tokens its riders fed, which
+    with the lane's make the prompt); C must count no fused sample.
+    Prints each run's inter-token gap of the short streams while the
+    prompt prefills (p50, max), the prompt's TTFT, prefill_stall_beats
+    and the launches of K1 and K2."""
+    src = served.engine
+    n_pages = -(-(prompt_len + n_short * 256) // src.ecfg.page_size) + 1
+    base_cfg = {"max_batch_size": 4, **(engine_cfg or {})}
+    prompt, shorts = _fused_traffic(11, prompt_len, n_short)
+    t0 = time.perf_counter()
+    runs, alone = {}, None
+    for name, knobs in FUSED_RUNS:
+        rec, got, alone = _fused_engine_run(
+            src.params, src.cfg, src.tokenizer, {**base_cfg, **knobs},
+            n_pages, device, prompt, shorts, max_tokens, long_tokens, alone)
+        rec["ok"] = _fused_checks(name, rec, got, alone, prompt_len, False)
+        rec["long_first_tokens"] = got[-1]
+        runs[name] = rec
+    firsts = [r["long_first_tokens"] for r in runs.values()]
+    firsts_equal = all(f == firsts[0] for f in firsts)
+    rec = {"phase": "fused_prefill", "card": card,
+           "model": "llama3_8b random bf16 (the served weights)",
+           "engine": base_cfg, "n_pages": n_pages,
+           "prompt_tokens": prompt_len, "short_streams": n_short,
+           "short_max_tokens": max_tokens, "runs": runs,
+           "long_first_tokens_equal": firsts_equal,
+           "seconds": time.perf_counter() - t0,
+           "ok": all(r["ok"] for r in runs.values()) and firsts_equal}
+    emit(rec)
+    return rec
+
+
+def phase_fused_prefill_int8(card: str, params, cfg, tokenizer,
+                             device: str = "cuda", prompt_len: int = 2000,
+                             n_short: int = 3, max_tokens: int = 64,
+                             long_tokens: int = 8, n_pages: int = 128,
+                             engine_cfg=None):
+    """Run B of phase_fused_prefill at a smaller size over the int8
+    deployment's weights (int8 weights, int8 pool), so K6 and K4 run
+    under a rider: batch 4, `n_pages` pool pages, buckets up to 1,024 (a
+    2,000-token prompt then goes chunked: 4 riders of 512 where the lane
+    runs two chunks of 1,024). The streams must equal the same requests
+    run alone on the same engine (the lane carries an idle engine's
+    chunks); K1, K4 and K6 must launch, K2 not."""
+    ecfg = {**INT8_DEPLOYMENT, "max_batch_size": 4,
+            "prefill_buckets": [128, 512, 1024], **dict(FUSED_RUNS)["B_rider"],
+            **(engine_cfg or {})}
+    prompt, shorts = _fused_traffic(12, prompt_len, n_short)
+    t0 = time.perf_counter()
+    rec, got, alone = _fused_engine_run(
+        params, cfg, tokenizer, ecfg, n_pages, device, prompt, shorts,
+        max_tokens, long_tokens)
+    rec["ok"] = _fused_checks("B_rider", rec, got, alone, prompt_len, True)
+    rec.update(phase="fused_prefill_int8", card=card,
+               model="llama3_8b random (seed 0), int8 weights, int8 KV",
+               engine=ecfg, n_pages=n_pages, prompt_tokens=prompt_len,
+               short_streams=n_short, short_max_tokens=max_tokens,
+               reduced={"n_pages": n_pages,
+                        "max_batch_size": ecfg["max_batch_size"],
+                        "prefill_buckets": list(ecfg["prefill_buckets"])},
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    return rec
 
 
 # -- phase 11: the developer_rag chain at full width ----------------------
@@ -4799,6 +5065,7 @@ def main() -> int:
     try:
         serving = phase_serving(card, served)
         chunked = phase_chunked(served)
+        fused = phase_fused_prefill(card, served)
         rag = phase_rag(card, served, keep=rag_keep)
         chain = phase_chain(card, served, rag_keep)
         pipelines = phase_pipelines(card, served, rag_keep)
@@ -4818,7 +5085,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_int8, int8_served = phase_serving_int8(card)
     spec_int8 = phase_spec_int8(card, int8_served)
-    del int8_served
+    int8_engine = int8_served.engine
+    fused_int8 = phase_fused_prefill_int8(
+        card, int8_engine.params, int8_engine.cfg, int8_engine.tokenizer)
+    del int8_served, int8_engine
     gc.collect()
     torch.cuda.empty_cache()
     checkpoint = phase_checkpoint(card, bf16_params, bf16_cfg, ckpt_ref,
@@ -4883,6 +5153,19 @@ def main() -> int:
             "sdpa_gathered_device_ms", "plan")} for c in cases if "ms" in c}
     k2 = next(e for e in line if e["name"] == "paged_attention")
     k2["spec_bf16_launches"] = spec_bf16["launches"]["paged_attention"]
+    # The fused prefill rider: K1 and K2 on run B of the bf16 phase, K4
+    # and K6 on the int8 rider run; K1's rider chunk case.
+    for e in line:
+        run = (fused["runs"]["B_rider"] if e["name"] in (
+            "flash_attention", "paged_attention") else fused_int8)
+        if e["name"] in run["launches"]:
+            e["fused_launches"] = run["launches"][e["name"]]
+    k1 = next(e for e in line if e["name"] == "flash_attention")
+    k1["rider_case"] = {k: c[k] for c in flash
+                        if c["case"] == "8b_rider_q_offset"
+                        for k in ("max_abs_err", "ok", "ms", "device_ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "library")}
     # K1 (a hit's suffix at q_offset) and K2 (decode over adopted and
     # promoted pages) on the prefix-cache path.
     for e in line:
@@ -4905,6 +5188,7 @@ def main() -> int:
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]
+          and fused["ok"] and fused_int8["ok"]
           and rag["ok"] and chain["ok"] and pipelines["ok"]
           and serving_int8["ok"] and spec_bf16["ok"]
           and prefix["ok"] and all(r["ok"] for r in spec_int8)

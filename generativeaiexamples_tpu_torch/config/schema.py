@@ -4,12 +4,13 @@ The port's own copy of the slice of generativeaiexamples_tpu's
 config/schema.py that this package honours, with the same names and
 defaults:
 
-- `EngineConfig`: the serving engine, speculation included
-  (`speculative_k`, `speculative_tree_branches`) and the prefix cache and
-  KV pager (`prefix_cache`, `kv_pager` and their sizes). Flags of the JAX
-  engine that the port does not have yet (step plans, the fused prefill
-  rider, QoS, multi-host, ...) are listed in `UNSUPPORTED` with the ROADMAP
-  item that brings them; `EngineConfig.coerce` refuses any of them set
+- `EngineConfig`: the serving engine, with speculation
+  (`speculative_k`, `speculative_tree_branches`), the prefix cache and
+  KV pager (`prefix_cache`, `kv_pager` and their sizes) and the fused
+  prefill rider (`fused_prefill`, `fused_token_budget`). Flags of the JAX
+  engine that the port does not have yet (step plans, QoS, multi-host,
+  ...) are listed in `UNSUPPORTED` with the ROADMAP item that brings
+  them; `EngineConfig.coerce` refuses any of them set
   away from its default. `weights_path` names an HF safetensors snapshot
   (empty: random weights at a named geometry).
 - `AppConfig`: the sections the chain's pipelines read (llm,
@@ -87,9 +88,22 @@ class EngineConfig:
     # Directory of the spill file ("" = a temporary directory per
     # engine, removed when the engine stops).
     kv_spill_dir: str = ""
-    # First tokens are sampled inside the prefill dispatch (bucketed
-    # groups and the chunk that completes a long prompt). The port has
-    # only that form, so False is refused.
+    # Fused prefill rider: while streams decode, the next chunk of an
+    # in-progress chunked prefill rides inside the decode dispatch
+    # (engine_model.fused_decode_prefill_step) instead of going out as a
+    # standalone chunk forward ahead of the decode blocks. The chunked
+    # lane carries the chunks when the engine is idle, and always on a
+    # speculative engine (accepted there, never fused). Off by default.
+    fused_prefill: bool = False
+    # Prompt tokens one rider carries: its width is the largest power of
+    # two <= min(fused_token_budget, the largest prefill bucket); 0 turns
+    # the rider off.
+    fused_token_budget: int = 512
+    # The chunk that completes a prompt samples its first token in the
+    # same call, and a finish whose last chunk did not sample (a rider,
+    # fused_sampling off) samples with sample_token_into. False is the
+    # unfused two-call finish (sample_token, then set_last_token), an
+    # A/B knob. Bucketed prefill groups always sample in their dispatch.
     fused_sampling: bool = True
 
     @staticmethod
@@ -128,18 +142,13 @@ class EngineConfig:
         if out.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"engine.dtype={out.dtype!r}: bfloat16 or "
                              f"float32")
-        if not out.fused_sampling:
-            raise ValueError("engine.fused_sampling=False (the unfused "
-                             "two-dispatch finish, an A/B knob of the JAX "
-                             "engine) is not ported (ROADMAP A.7)")
         return out
 
 
 # JAX EngineConfig flags outside this slice: name -> (default, where the
 # port will gain it).
 UNSUPPORTED = {
-    "step_plans": (False, "ROADMAP A.14: step plans"),
-    "fused_prefill": (False, "ROADMAP A.14: fused prefill"),
+    "step_plans": (False, "ROADMAP A.14(d): step plans"),
     "qos": (False, "ROADMAP A.16: QoS"),
     "multihost": (False, "ROADMAP A.17: multi-host"),
     "auto_pool_pages": (False, "ROADMAP A.17: memory planner"),

@@ -26,10 +26,24 @@ first tokens) is copied to pinned host memory with a non-blocking copy
 and a CUDA event recorded behind it; the host reads it only once the
 event has completed, admitting new arrivals while it waits.
 
-Chunked prefill (the JAX engine's plain lane): a long prompt's chunks
-run through a contiguous scratch KVCache with offset queries; the chunk
-that completes the prompt samples the first token inside the same
-dispatch, and ONE scatter moves the cache into the sequence's pages.
+Chunked prefill: a long prompt's chunks run through a contiguous
+scratch KVCache with offset queries, and ONE scatter (the commit) moves
+the cache into the sequence's pages. The chunk that completes the prompt
+samples the first token inside the same dispatch; a finish whose last
+chunk did not sample samples from its logits at the commit
+(`sample_token_into`, or with `fused_sampling` off the unfused
+`sample_token` + `set_last_token` pair).
+
+Fused prefill rider (`fused_prefill`): while streams decode, the next
+chunk (`_fused_width` tokens, at most `fused_token_budget`) of an
+in-progress long prefill rides inside the decode dispatch
+(`engine_model.fused_decode_prefill_step`) instead of going out as a
+standalone chunk forward ahead of the decode blocks; the chunked lane
+above is then the fallback (an idle engine, a speculative one, a scratch
+cache narrower than the rider). Every dispatch, decode block or chunk,
+is an `engine_model.StepPlan` lowered by `engine_model.plan_step`.
+`prefill_stall_beats` counts landed blocks over which a live prefill fed
+no token.
 
 int8 serving (`kv_dtype="int8"`, `quantize_weights="int8"`): the pool is
 the fused `QuantPagePool` (decode attention through K4) and the params
@@ -69,8 +83,8 @@ generated and the device memory counters. With tracing off every site is
 a no-op.
 
 Not ported yet, and refused at construction (see config/schema.py):
-step plans, the fused prefill rider, QoS, multi-host, emission pacing
-and the flight recorder.
+step plans beside speculation (a rider on a verify block), QoS,
+multi-host, emission pacing and the flight recorder.
 """
 
 from __future__ import annotations
@@ -119,6 +133,12 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def _pow2_floor(n: int) -> int:
     """Largest power of two <= max(n, 1): decode block lengths."""
     return 1 << (max(n, 1).bit_length() - 1)
+
+
+def _sampling_flags(all_greedy: bool):
+    """sample()'s (all_greedy, any_top_k, any_top_p) for a batch: an
+    all-greedy batch skips the sorts and the draw."""
+    return (True, False, False) if all_greedy else (False, True, True)
 
 
 class PromptTooLongError(ValueError):
@@ -171,7 +191,8 @@ class _Slot:
 
 class _LongPrefill:
     """In-progress chunked prefill for one long prompt. While other
-    streams are decoding, the scheduler advances it at most
+    streams are decoding, its chunks ride inside the decode dispatches
+    (fused_prefill), or the chunked lane advances it at most
     prefill_chunks_per_block chunks per LANDED decode block (the `beat`
     counter), so chunk dispatches interleave with decode blocks on the
     device queue; with no live decode traffic chunks run at full
@@ -179,7 +200,7 @@ class _LongPrefill:
     engine._scratch_caches[slot_idx] from the first chunk on."""
 
     __slots__ = ("req", "slot_idx", "seq", "ids", "s_total", "pos", "slot",
-                 "beat", "chunk")
+                 "beat", "chunk", "stall_pos")
 
     def __init__(self, req, slot_idx, seq, ids, s_total, slot, chunk):
         self.req = req
@@ -191,6 +212,7 @@ class _LongPrefill:
         self.slot = slot        # the placeholder occupying slots[slot_idx]
         self.beat = -1          # beat at which the last chunk dispatched
         self.chunk = chunk      # chunk width: the largest bucket
+        self.stall_pos = -1     # pos at the last beat (prefill_stall_beats)
 
 
 class HostCopy:
@@ -252,6 +274,17 @@ class EngineMetrics:
         self.decode_steps = 0
         self.busy_slots_acc = 0
         self.prefill_tokens = 0
+        # Fused prefill rider: decode dispatches that carried a prompt
+        # chunk, the prompt tokens they fed, and landed blocks (beats)
+        # over which a live chunked prefill fed no token. Always present,
+        # 0 when the rider is off.
+        self.fused_steps = 0
+        self.fused_prefill_tokens = 0
+        self.prefill_stall_beats = 0
+        # Prefill finishes whose first-token sample rode one call: the
+        # prompt-completing chunk's tail or sample_token_into at the
+        # commit (0 with fused_sampling off, and on bucketed-only
+        # traffic, whose groups always sample in their dispatch).
         self.fused_sample_dispatches = 0
         self.admission_failures = 0
         self.stuck_thread_joins = 0
@@ -319,6 +352,9 @@ class EngineMetrics:
                                      if self.decode_steps else 0.0),
             "tokens_per_sec": self.tokens_per_sec(),
             "prefill_tokens": self.prefill_tokens,
+            "fused_steps": self.fused_steps,
+            "fused_prefill_tokens": self.fused_prefill_tokens,
+            "prefill_stall_beats": self.prefill_stall_beats,
             "fused_sample_dispatches": self.fused_sample_dispatches,
             "admission_failures": self.admission_failures,
             "stuck_thread_joins": self.stuck_thread_joins,
@@ -447,7 +483,12 @@ class LLMEngine:
         self._memstats_cache: Optional[Dict[str, int]] = None
         self._memstats_tick = 0
         self._scratch_caches: Dict[int, KVCache] = {}
-        self._chunk_res: Dict[int, torch.Tensor] = {}  # slot -> tok0 [1]
+        # slot -> (last chunk's logits [V] or None, tok0 or None): what
+        # the commit samples from, or the token the last chunk sampled.
+        self._chunk_res: Dict[int, Any] = {}
+        # Host staging buffer of each chunk width, reused.
+        self._chunk_staging: Dict[int, np.ndarray] = {}
+        self._fused_sampling = self.ecfg.fused_sampling
         self._beat = 0
         # The chunked lane's scratch cache: the pool dtype, or the model
         # dtype for an int8 pool (cache_to_pool quantizes it), as the JAX
@@ -469,6 +510,15 @@ class LLMEngine:
                                         dtype=torch.int32, device=self.device)
             self._dev_lengths = torch.ones((B,), dtype=torch.int32,
                                            device=self.device)
+        # The fused rider's chunk width: the largest power of two within
+        # both the largest bucket and the token budget; 0 (no rider) when
+        # the knob is off, the budget is <= 0 or the engine speculates
+        # (a rider beside verify blocks is ROADMAP A.14(d)).
+        self._fused_width = 0
+        if (self.ecfg.fused_prefill and not self._spec_k
+                and self.ecfg.fused_token_budget > 0):
+            self._fused_width = _pow2_floor(
+                min(self.buckets[-1], self.ecfg.fused_token_budget))
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -682,6 +732,7 @@ class LLMEngine:
             fl.releases = []
         self._reap_starved()
         self._beat += 1
+        self._note_prefill_stalls()
 
     def _fetch_block_host(self, fl: _InFlight) -> np.ndarray:
         """Wait for a block's host copy. While the device works, emit
@@ -950,9 +1001,10 @@ class LLMEngine:
     def _advance_long_prefills(self) -> bool:
         """Dispatch the next chunk(s) of each in-progress long prefill
         (paced by the landed-block beat while decode traffic is live);
-        finish those whose prompt is fully fed. The chunk that completes
-        a prompt samples its first token in the same dispatch. Returns
-        True if any advanced."""
+        finish those whose prompt is fully fed. With the fused rider this
+        is the fallback lane: a prefill whose next chunk the next decode
+        dispatch will carry (_fuse_ready) is skipped. Returns True if any
+        advanced."""
         did = False
         decoding = any(s is not None and not s.prefilling
                        for s in self.slots)
@@ -968,6 +1020,8 @@ class LLMEngine:
                 self._drop_scratch(lp.slot_idx)
                 self._finish(lp.slot_idx, "cancelled")
                 continue
+            if decoding and self._fuse_ready(lp):
+                continue  # the next decode dispatch carries the chunk
             if decoding and lp.beat == self._beat:
                 continue  # this beat's chunks already went out
             lp.beat = self._beat
@@ -988,40 +1042,72 @@ class LLMEngine:
         return did
 
     def _dispatch_chunk(self, lp: _LongPrefill) -> bool:
-        """Dispatch the next chunk of `lp`; True when it completed the
-        prompt (its first token is then in _chunk_res and last_tokens)."""
-        part = lp.ids[lp.pos:lp.pos + lp.chunk]
+        """Dispatch the next chunk of `lp` as a chunk-only plan; True when
+        it completed the prompt. Under fused_sampling that chunk samples
+        the first token in the same call (rider_sample)."""
+        n_part = min(lp.chunk, len(lp.ids) - lp.pos)
         # A prefix hit's suffix starts at the cached length, so a chunk
         # may not fit a full width before the scratch cache ends.
-        width = min(self._pick_chunk_width(len(part), lp.chunk),
+        width = min(self._pick_chunk_width(n_part, lp.chunk),
                     lp.s_total - lp.pos)
-        tok = np.zeros((1, width), np.int32)
-        tok[0, :len(part)] = part
-        if lp.pos == 0:
-            self._scratch_caches[lp.slot_idx] = KVCache.zeros(
-                self.cfg, 1, max_len=lp.s_total, dtype=self._scratch_dtype,
-                device=self.device)
-        cache = self._scratch_caches[lp.slot_idx]
-        final = lp.pos + len(part) >= len(lp.ids)
-        if final:
-            req = lp.req
-            flags = ((True, False, False) if req.temperature <= 0.0
-                     else (False, True, True))
-            tok0, self._last_tokens, cache = \
-                engine_model.prefill_chunk_sample_step(
-                    self.params, self.cfg, cache, self._put(tok), len(part),
-                    self._last_tokens, lp.slot_idx, req.temperature,
-                    req.top_p, req.top_k, self._generator,
-                    sampling_flags=flags)
-            self._chunk_res[lp.slot_idx] = tok0
+        final = lp.pos + n_part >= len(lp.ids)
+        fuse_sample = final and self._fused_sampling
+        self._exec_plan(engine_model.StepPlan(
+            rider_width=width, rider_s_total=lp.s_total,
+            rider_sample=fuse_sample), lp, n_part)
+        if fuse_sample:
             self.metrics.fused_sample_dispatches += 1
-        else:
-            _, cache = engine_model.prefill_chunk_step(
-                self.params, self.cfg, cache, self._put(tok), len(part))
-        self._scratch_caches[lp.slot_idx] = cache
-        lp.pos += len(part)
-        self.metrics.prefill_tokens += len(part)
+        lp.pos += n_part
+        self.metrics.prefill_tokens += n_part
         return final
+
+    def _chunk_buf(self, width: int) -> np.ndarray:
+        """Zeroed (1, width) int32 staging buffer, one per width for the
+        engine's lifetime (_put copies it before the next reuse)."""
+        buf = self._chunk_staging.get(width)
+        if buf is None:
+            buf = self._chunk_staging[width] = np.zeros((1, width), np.int32)
+        else:
+            buf.fill(0)
+        return buf
+
+    def _exec_plan(self, plan: "engine_model.StepPlan",
+                   lp: Optional[_LongPrefill] = None, n_part: int = 0,
+                   **kw) -> dict:
+        """Run one StepPlan through engine_model.plan_step and fold the
+        device state it returns back into the engine. A plan with a chunk
+        feeds lp's next n_part prompt tokens, padded to rider_width,
+        through lp's scratch cache (made, zeroed, for the prompt's first
+        chunk) and stashes the chunk's logits, or the first token a
+        rider_sample plan drew, in _chunk_res for the commit."""
+        if plan.rider_width:
+            slot = lp.slot_idx
+            tok = self._chunk_buf(plan.rider_width)
+            tok[0, :n_part] = lp.ids[lp.pos:lp.pos + n_part]
+            if lp.pos == 0:
+                self._scratch_caches[slot] = KVCache.zeros(
+                    self.cfg, 1, max_len=plan.rider_s_total,
+                    dtype=self._scratch_dtype, device=self.device)
+                self._chunk_res.pop(slot, None)
+            kw.update(cache=self._scratch_caches[slot],
+                      chunk_tokens=self._put(tok), chunk_valid=n_part)
+        if plan.rider_sample:
+            req = lp.req
+            kw.update(last_tokens=self._last_tokens, slot_idx=lp.slot_idx,
+                      temperature=req.temperature, top_p=req.top_p,
+                      top_k=req.top_k, generator=self._generator,
+                      sampling_flags=_sampling_flags(req.temperature <= 0.0))
+        res = engine_model.plan_step(self.params, self.cfg, plan, **kw)
+        if "last_tokens" in res:
+            self._last_tokens = res["last_tokens"]
+        if "dev_lengths" in res:
+            self._dev_lengths = res["dev_lengths"]
+            self._history = res["history"]
+        if plan.rider_width:
+            self._scratch_caches[lp.slot_idx] = res["cache"]
+            self._chunk_res[lp.slot_idx] = (res.get("chunk_logits"),
+                                            res.get("tok0"))
+        return res
 
     @staticmethod
     def _pick_chunk_width(n: int, chunk: int) -> int:
@@ -1040,11 +1126,12 @@ class LLMEngine:
         self._chunk_res.pop(slot_idx, None)
 
     def _finish_long_prefill(self, lp: _LongPrefill) -> None:
-        """Last chunk fed: scatter the scratch cache into the sequence's
-        pages (padding rows and the rows of pages shared with the prefix
-        cache to the sink), register its full pages in the cache, open
-        the slot for decode and emit the first token the final chunk
-        sampled."""
+        """Last chunk fed, the commit: scatter the scratch cache into the
+        sequence's pages (padding rows and the rows of pages shared with
+        the prefix cache to the sink), sample the first token from the
+        last chunk's logits unless that chunk sampled it, register the
+        full pages in the cache, open the slot for decode and emit the
+        first token."""
         ps = self.pool.page_size
         row = np.zeros((lp.s_total // ps,), np.int32)
         row[:len(lp.seq.pages)] = lp.seq.pages
@@ -1055,7 +1142,21 @@ class LLMEngine:
         cache = self._scratch_caches.pop(lp.slot_idx)
         engine_model.cache_to_pool(self.pool, cache, self.cfg,
                                    self._put(row))
-        tok0 = self._chunk_res.pop(lp.slot_idx)
+        logits, tok0 = self._chunk_res.pop(lp.slot_idx)
+        if tok0 is None:
+            req = lp.req
+            sampling = (req.temperature, req.top_p, req.top_k,
+                        self._generator,
+                        *_sampling_flags(req.temperature <= 0.0))
+            if self._fused_sampling:
+                tok0, self._last_tokens = engine_model.sample_token_into(
+                    self._last_tokens, lp.slot_idx, logits, *sampling)
+                self.metrics.fused_sample_dispatches += 1
+            else:
+                tok0 = engine_model.sample_token(logits, *sampling)
+                self._last_tokens = engine_model.set_last_token(
+                    self._last_tokens, lp.slot_idx, tok0)
+        tok0 = tok0.reshape(1)
         if self._spec_k:
             hist = np.zeros((1, self.ecfg.max_seq_len), np.int32)
             hist[0, :len(lp.ids)] = lp.ids
@@ -1121,8 +1222,7 @@ class LLMEngine:
             top_ps[j] = req.top_p
             top_ks[j] = req.top_k
             idxs[j] = slot_idx
-        all_greedy = bool(all(temps[:n] <= 0.0))
-        flags = (True, False, False) if all_greedy else (False, True, True)
+        flags = _sampling_flags(bool(all(temps[:n] <= 0.0)))
         d_tokens, d_lengths = self._put(tokens), self._put(lengths)
         toks = engine_model.prefill_batch_step(
             self.params, self.cfg, self.pool, d_tokens, d_lengths,
@@ -1132,7 +1232,6 @@ class LLMEngine:
         if self._spec_k:
             engine_model.set_history_rows(self._history, self._dev_lengths,
                                           idxs, d_tokens, d_lengths, toks)
-        self.metrics.fused_sample_dispatches += 1
         metas = []
         for req, slot_idx, seq, ids in entries:
             span = tracing.ManualSpan(
@@ -1173,9 +1272,11 @@ class LLMEngine:
 
     def _dispatch_decode(self) -> bool:
         """Dispatch ONE K-step block over the slot batch (device sampling
-        or verification, device-chained tokens, no host wait): a verify
-        block on a speculative engine unless a sampled request is live,
-        else a plain decode block."""
+        or verification, device-chained tokens, no host wait): build the
+        batch state, choose the StepPlan (_select_plan: a verify block on
+        a speculative engine unless a sampled request is live, else a
+        plain decode block, with a prefill rider when one can ride) and
+        lower it through engine_model.plan_step (_exec_plan)."""
         B = len(self.slots)
         spec_mode = self._spec_k > 0 and not self._sampled_live()
         # Per step: r tokens may commit (the budget and bookkeeping
@@ -1269,53 +1370,113 @@ class LLMEngine:
             alloc = (K - 1) * r + r_nodes
         if not active:
             return False
+        flags = _sampling_flags(all(temps[i] <= 0.0 for i in active))
+        plan, lp = self._select_plan(K, spec_mode)
+        kw = dict(pool=self.pool, last_tokens=self._last_tokens,
+                  page_tables=self._put(tables),
+                  active=self._put(active_mask))
+        if self._spec_k:
+            kw.update(history=self._history, dev_lengths=self._dev_lengths)
+        if not spec_mode:
+            kw.update(lengths=self._put(lengths), temperature=self._put(temps),
+                      top_p=self._put(top_ps), top_k=self._put(top_ks),
+                      generator=self._generator, sampling_flags=flags)
+        n_part = min(plan.rider_width, len(lp.ids) - lp.pos) if lp else 0
+        res = self._exec_plan(plan, lp, n_part, **kw)
+        if lp is not None:
+            self._rider_bookkeeping(lp, n_part)
         self.metrics.decode_steps += K
         self.metrics.busy_slots_acc += len(active) * K
         if spec_mode:
-            targets, counts, self._last_tokens, self._dev_lengths, \
-                self._history = engine_model.decode_spec_multi_step(
-                    self.params, self.cfg, self.pool, self._history,
-                    self._last_tokens, self._dev_lengths, self._put(tables),
-                    self._put(active_mask), K, self._spec_k,
-                    self._tree_branches)
             for i in active:
                 s = self.slots[i]
                 s.awaiting_first = False
                 s.scheduled += worst
                 s.kv_worst += worst
             self._inflight.append(_InFlight(
-                torch.cat([targets, counts[..., None]], dim=-1), metas, K,
-                spec_worst=worst))
+                torch.cat([res["targets"], res["counts"][..., None]],
+                          dim=-1), metas, K, spec_worst=worst))
             return True
-        all_greedy = bool(all(temps[i] <= 0.0 for i in active))
-        flags = (True, False, False) if all_greedy else (False, True, True)
-        sampling = (self._put(temps), self._put(top_ps), self._put(top_ks),
-                    self._generator)
-        if self._spec_k:
-            block, self._last_tokens, self._dev_lengths, self._history = \
-                engine_model.decode_plain_spec_state_multi_step(
-                    self.params, self.cfg, self.pool, self._history,
-                    self._last_tokens, self._dev_lengths, self._put(tables),
-                    self._put(active_mask), *sampling, K,
-                    sampling_flags=flags)
+        if plan.spec_state:
             self.metrics.spec_fallback_steps += 1
-        else:
-            block, self._last_tokens = engine_model.decode_multi_step(
-                self.params, self.cfg, self.pool, self._last_tokens,
-                self._put(tables), self._put(lengths),
-                self._put(active_mask), *sampling, K, sampling_flags=flags)
         for i in active:
             s = self.slots[i]
             metas.append((i, s, 0 if s.awaiting_first else 1))
             s.awaiting_first = False
             s.scheduled += K
-            if self._spec_k:
+            if plan.spec_state:
                 # kv_len moves only at landing: reserve this block's K
                 # writes so a sibling dispatch ensures pages past them.
                 s.kv_worst += K
-        self._inflight.append(_InFlight(block, metas, K,
-                                        plain_spec=bool(self._spec_k)))
+        self._inflight.append(_InFlight(res["block"], metas, K,
+                                        plain_spec=plan.spec_state))
         return True
+
+    def _rider_candidate(self) -> Optional[_LongPrefill]:
+        """The in-progress long prefill whose next chunk can ride the
+        next decode dispatch (a rider width, prompt tokens left, a
+        scratch cache at least as wide as the rider), or None."""
+        if not self._fused_width:
+            return None
+        for lp in self._long_prefills:
+            if (self.slots[lp.slot_idx] is lp.slot and not lp.req.cancelled
+                    and lp.pos < len(lp.ids)
+                    and lp.s_total >= self._fused_width):
+                return lp
+        return None
+
+    def _select_plan(self, K: int, spec_mode: bool):
+        """The StepPlan of this decode dispatch: K steps; the verify
+        width on a speculative engine unless a live sampled request
+        forced the plain fallback (spec_state); a prefill rider when a
+        candidate can ride. Speculative engines have no rider width, so
+        a rider never pairs with spec_k (ROADMAP A.14(d)). The rider is
+        narrowed where the scratch cache ends before a full width (a
+        prefix hit's suffix starts at the cached length), so every row it
+        writes lies in the cache. Returns (plan, rider _LongPrefill or
+        None)."""
+        spec_k = self._spec_k if spec_mode else 0
+        spec_state = bool(self._spec_k) and not spec_mode
+        lp = None if spec_state else self._rider_candidate()
+        return engine_model.StepPlan(
+            decode_k=K, spec_k=spec_k,
+            tree_branches=self._tree_branches if spec_k else 0,
+            rider_width=(min(self._fused_width, lp.s_total - lp.pos)
+                         if lp else 0),
+            rider_s_total=lp.s_total if lp else 0,
+            spec_state=spec_state), lp
+
+    def _fuse_ready(self, lp: _LongPrefill) -> bool:
+        """True when the next decode dispatch will carry lp's next chunk
+        as a rider: lp is the rider candidate and at least one slot will
+        dispatch (else deferring would stall the prefill behind traffic
+        that never launches a block). Eager torch has no compiled-variant
+        set, so any shape may ride."""
+        return self._rider_candidate() is lp and any(
+            s is not None and not s.prefilling and not s.req.cancelled
+            and not s.no_capacity and s.req.max_new_tokens - s.scheduled > 0
+            for s in self.slots)
+
+    def _rider_bookkeeping(self, lp: _LongPrefill, n_part: int) -> None:
+        """After a rider plan ran: advance the prefill's cursor, meter its
+        tokens (real ones, not the rider's padding), mark this beat's
+        chunk as sent, and commit the prefill once its prompt is fed."""
+        lp.pos += n_part
+        lp.beat = self._beat  # the rider consumed this beat's chunk
+        self.metrics.fused_steps += 1
+        self.metrics.fused_prefill_tokens += n_part
+        self.metrics.prefill_tokens += n_part
+        if lp.pos >= len(lp.ids):
+            self._long_prefills.remove(lp)
+            self._finish_long_prefill(lp)
+
+    def _note_prefill_stalls(self) -> None:
+        """One landed decode block is one beat: a chunked prefill that fed
+        no prompt token over it counts one prefill_stall_beats."""
+        for lp in self._long_prefills:
+            if lp.stall_pos == lp.pos:
+                self.metrics.prefill_stall_beats += 1
+            lp.stall_pos = lp.pos
 
     def _advance_capacity(self, slot: _Slot, used: int):
         """(table_cap, avail): tokens the slot can still store against its

@@ -25,7 +25,15 @@ that k/v live in the serving PagePool:
   (K1's shifted causal diagonal on CUDA), and `cache_to_pool` scatters
   the finished cache into the page pool once. The prompt-completing
   chunk samples its first token and writes it to `last_tokens` in the
-  same call.
+  same call; a finish whose last chunk did not sample samples from its
+  logits with `sample_token_into` (or, with fused_sampling off, the
+  `sample_token` + `set_last_token` pair).
+- The fused prefill rider (`fused_decode_prefill_step`): one chunk of a
+  long prompt and a decode block in one call, so the chunk rides inside
+  the decode dispatch instead of queueing ahead of it.
+- Step plans: `StepPlan` describes one engine dispatch and `plan_step`
+  lowers it to one of the step functions above; every scheduler
+  dispatch goes through it.
 
 With an int8 pool (`QuantPagePool`) every k/v row is quantized as it is
 written (`paged_attention_int8.quantize_kv`: one f32 scale per kv head
@@ -51,7 +59,8 @@ pool IN PLACE (`index_put_` per layer) and never copy it.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple, Union
+import time
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -194,6 +203,42 @@ def set_last_tokens(last_tokens: torch.Tensor, idxs: Sequence[int],
     last_tokens.index_copy_(0, dst,
                             toks.index_select(0, src).to(last_tokens.dtype))
     return last_tokens
+
+
+@torch.no_grad()
+def sample_token(logits: torch.Tensor, temperature: float, top_p: float,
+                 top_k: int, generator: Optional[torch.Generator] = None,
+                 all_greedy: bool = True, any_top_k: bool = False,
+                 any_top_p: bool = False) -> torch.Tensor:
+    """Sample ONE token from [V] logits on the device (no host read): the
+    unfused finish's sampler. Returns tok [] (int32)."""
+    sp = SamplingParams.make(1, temperature, top_p, top_k,
+                             device=logits.device)
+    return sample(logits[None, :], sp, generator, all_greedy=all_greedy,
+                  any_top_k=any_top_k, any_top_p=any_top_p)[0]
+
+
+@torch.no_grad()
+def set_last_token(last_tokens: torch.Tensor, idx: int,
+                   tok: torch.Tensor) -> torch.Tensor:
+    """last_tokens[idx] = tok in place (a finished prefill's first
+    token)."""
+    last_tokens[idx] = tok.to(last_tokens.dtype)
+    return last_tokens
+
+
+@torch.no_grad()
+def sample_token_into(last_tokens: torch.Tensor, idx: int,
+                      logits: torch.Tensor, temperature: float, top_p: float,
+                      top_k: int, generator: Optional[torch.Generator] = None,
+                      all_greedy: bool = True, any_top_k: bool = False,
+                      any_top_p: bool = False):
+    """sample_token + set_last_token in one call (the fused_sampling
+    finish of a prefill whose last chunk did not sample): exactly
+    sample_token's math and draws. Returns (tok [], last_tokens)."""
+    tok = sample_token(logits, temperature, top_p, top_k, generator,
+                       all_greedy, any_top_k, any_top_p)
+    return tok, set_last_token(last_tokens, idx, tok)
 
 
 def _decode_once(params: Params, cfg: LlamaConfig, pool: Pool,
@@ -670,6 +715,38 @@ def prefill_chunk_sample_step(params: Params, cfg: LlamaConfig,
 
 
 @torch.no_grad()
+def fused_decode_prefill_step(
+        params: Params, cfg: LlamaConfig, pool: Pool,
+        last_tokens: torch.Tensor,   # [B] device tokens
+        page_tables: torch.Tensor,   # [B, maxp] int32
+        lengths: torch.Tensor,       # [B] int32 incl. current
+        active: torch.Tensor,        # [B] bool
+        temperature: torch.Tensor, top_p: torch.Tensor, top_k: torch.Tensor,
+        generator: Optional[torch.Generator],
+        cache: KVCache,              # the long prefill's scratch cache
+        chunk_tokens: torch.Tensor,  # [1, W] next prompt chunk (0-padded)
+        chunk_valid: int,            # valid tokens in the chunk
+        n_steps: int,
+        sampling_flags: Tuple[bool, bool, bool] = (False, True, True)):
+    """The fused prefill rider: one chunk of an in-progress long prefill
+    AND the decode batch's next n_steps block in one call, queued on one
+    stream, so a long prompt advances without a standalone chunk forward
+    ahead of the decode blocks. The halves touch disjoint state (the
+    chunk: the prefill's scratch cache; decode: the page pool, in place)
+    and run exactly prefill_chunk_step's math (K1 at q_offset =
+    cache.lengths) and decode_multi_step's loop (K2 or K4) with its
+    generator draws. Returns (block [B, n_steps + 1], last_tokens,
+    chunk_logits [V] at the last valid chunk position, cache)."""
+    chunk_logits, cache = prefill_chunk_step(params, cfg, cache,
+                                             chunk_tokens, chunk_valid)
+    block, last_tokens = decode_multi_step(
+        params, cfg, pool, last_tokens, page_tables, lengths, active,
+        temperature, top_p, top_k, generator, n_steps,
+        sampling_flags=sampling_flags)
+    return block, last_tokens, chunk_logits, cache
+
+
+@torch.no_grad()
 def cache_to_pool(pool: Pool, cache: KVCache, cfg: LlamaConfig,
                   table_row: torch.Tensor) -> Pool:
     """Scatter a finished scratch cache (batch 1, S_total a multiple of
@@ -759,3 +836,111 @@ def pages_to_pool(pool: Pool, codes: torch.Tensor,
     pool.k[:, :, rows] = codes[:, 0].movedim(0, 2).to(pool.k.dtype)
     pool.v[:, :, rows] = codes[:, 1].movedim(0, 2).to(pool.v.dtype)
     return pool
+
+
+# -- step plans: one declarative recipe per engine dispatch ----------------
+
+
+class StepPlan(NamedTuple):
+    """Declarative description of ONE engine dispatch: the scheduler
+    builds a plan and `plan_step` lowers it to one step function.
+
+    decode_k       decode / verify steps (0 = no decode half: a chunk
+                   dispatch of the chunked lane)
+    spec_k         draft tokens per verify step (0 = plain decode)
+    tree_branches  n-gram draft branches of a tree verify (<= 1: linear)
+    rider_width    prefill chunk width (0 = no chunk)
+    rider_s_total  the chunk's scratch-cache length
+    spec_state     plain decode over a speculative engine's device state
+                   (the sampled-request fallback)
+    rider_sample   the chunk COMPLETES its prompt and samples the first
+                   token in the same call (engine.fused_sampling; chunk-
+                   only plans, decode_k == 0)
+    """
+
+    decode_k: int = 0
+    spec_k: int = 0
+    tree_branches: int = 0
+    rider_width: int = 0
+    rider_s_total: int = 0
+    spec_state: bool = False
+    rider_sample: bool = False
+
+
+def plan_step(params: Params, cfg: LlamaConfig, plan: StepPlan,
+              **kw) -> dict:
+    """Every scheduler dispatch goes through here: `_plan_step`'s result
+    with "t_dispatch", the host clock when the step's launches returned
+    (the flight recorder's hook)."""
+    out = _plan_step(params, cfg, plan, **kw)
+    out["t_dispatch"] = time.perf_counter()
+    return out
+
+
+def _plan_step(params: Params, cfg: LlamaConfig, plan: StepPlan, *,
+               pool=None, last_tokens=None, page_tables=None, lengths=None,
+               active=None, temperature=None, top_p=None, top_k=None,
+               generator=None, history=None, dev_lengths=None, cache=None,
+               chunk_tokens=None, chunk_valid=None, slot_idx=None,
+               sampling_flags: Tuple[bool, bool, bool] = (
+                   True, False, False)) -> dict:
+    """Lower a StepPlan to its step function. The lattice points:
+
+      (K, 0, -, 0)   decode_multi_step
+      (K, 0, -, W)   fused_decode_prefill_step   (the rider)
+      (K, k, -, 0)   decode_spec_multi_step      (linear or tree)
+      (K, 0*, -, 0)  decode_plain_spec_state_multi_step  (*spec_state)
+      (0, 0, -, W)   prefill_chunk_step          (a chunk of the lane)
+      (0, 0, -, W†)  prefill_chunk_sample_step   (†rider_sample)
+
+    (K, k, -, W), a rider beside speculation, is ROADMAP A.14(d) and
+    raises. For a rider-sample plan, temperature / top_p / top_k are the
+    finishing request's scalars. Returns a dict of the state the plan
+    touched: "block" or ("targets", "counts"), "last_tokens", "pool"
+    (updated in place), and per plan "dev_lengths" / "history",
+    "chunk_logits" / "cache", or "tok0"."""
+    if plan.decode_k == 0:
+        if plan.rider_sample:
+            tok0, last_tokens, cache = prefill_chunk_sample_step(
+                params, cfg, cache, chunk_tokens, chunk_valid, last_tokens,
+                slot_idx, temperature, top_p, top_k, generator,
+                sampling_flags=sampling_flags)
+            return {"tok0": tok0, "last_tokens": last_tokens,
+                    "cache": cache}
+        logits, cache = prefill_chunk_step(params, cfg, cache, chunk_tokens,
+                                           chunk_valid)
+        return {"chunk_logits": logits, "cache": cache}
+    if plan.spec_k:
+        if plan.rider_width:
+            raise ValueError("a prefill rider beside speculation "
+                             "(fused_spec_prefill_step) is not ported yet "
+                             "(ROADMAP A.14(d))")
+        (targets, counts, last_tokens, dev_lengths,
+         history) = decode_spec_multi_step(
+            params, cfg, pool, history, last_tokens, dev_lengths,
+            page_tables, active, plan.decode_k, plan.spec_k,
+            plan.tree_branches)
+        return {"targets": targets, "counts": counts,
+                "last_tokens": last_tokens, "dev_lengths": dev_lengths,
+                "history": history, "pool": pool}
+    if plan.spec_state:
+        block, last_tokens, dev_lengths, history = \
+            decode_plain_spec_state_multi_step(
+                params, cfg, pool, history, last_tokens, dev_lengths,
+                page_tables, active, temperature, top_p, top_k, generator,
+                plan.decode_k, sampling_flags=sampling_flags)
+        return {"block": block, "last_tokens": last_tokens,
+                "dev_lengths": dev_lengths, "history": history,
+                "pool": pool}
+    if plan.rider_width:
+        block, last_tokens, chunk_logits, cache = fused_decode_prefill_step(
+            params, cfg, pool, last_tokens, page_tables, lengths, active,
+            temperature, top_p, top_k, generator, cache, chunk_tokens,
+            chunk_valid, plan.decode_k, sampling_flags=sampling_flags)
+        return {"block": block, "last_tokens": last_tokens, "pool": pool,
+                "chunk_logits": chunk_logits, "cache": cache}
+    block, last_tokens = decode_multi_step(
+        params, cfg, pool, last_tokens, page_tables, lengths, active,
+        temperature, top_p, top_k, generator, plan.decode_k,
+        sampling_flags=sampling_flags)
+    return {"block": block, "last_tokens": last_tokens, "pool": pool}

@@ -29,6 +29,7 @@ import torch
 
 from generativeaiexamples_tpu_torch.serving.engine import (
     GenRequest, PromptTooLongError)
+from generativeaiexamples_tpu_torch.serving.kv_pager import KV_PAGER_KEYS
 
 _LOG = logging.getLogger(__name__)
 
@@ -146,7 +147,9 @@ class OpenAIServer:
 
     def health(self) -> Tuple[int, Dict]:
         """Device liveness, not just process liveness: a CUDA runtime
-        query (free memory) on the engine's device."""
+        query (free memory) on the engine's device. With an LLM engine,
+        the JAX server's sections too: `fused_prefill` (always),
+        `prefix_cache` (when the cache is on) and `kv_pager` (always)."""
         dev = next((e.device for e in (self.llm, self.embed, self.rerank)
                     if e is not None), None)
         payload = {"status": "healthy",
@@ -165,6 +168,30 @@ class OpenAIServer:
                 payload.update(devices=1, device=str(dev or "cpu"))
         except RuntimeError as e:  # device lost
             return 503, {"status": "unhealthy", "error": str(e)}
+        pc = getattr(self.llm, "prefix_cache", None)
+        if pc is not None:
+            m = self.llm.metrics
+            payload["prefix_cache"] = {
+                "enabled": True, "cached_pages": pc.n_cached_pages,
+                "hits": m.prefix_hits, "misses": m.prefix_miss,
+                "evictions": m.prefix_evictions,
+                "hit_tokens": m.prefix_hit_tokens}
+        ecfg = getattr(self.llm, "ecfg", None)
+        if ecfg is not None:
+            # Always present with an engine (counters 0 and enabled false
+            # with the knob off), so the keys never flicker.
+            m = self.llm.metrics
+            payload["fused_prefill"] = {
+                "enabled": bool(ecfg.fused_prefill),
+                "fused_steps": m.fused_steps,
+                "fused_prefill_tokens": m.fused_prefill_tokens,
+                "prefill_stall_beats": m.prefill_stall_beats}
+        # Always present: the pager's tiers and counters, zeros when off.
+        kp = getattr(self.llm, "kv_pager", None)
+        payload["kv_pager"] = ({"enabled": True, **kp.stats()}
+                               if kp is not None else
+                               {"enabled": False,
+                                **dict.fromkeys(KV_PAGER_KEYS, 0)})
         return 200, payload
 
     def models(self) -> Tuple[int, Dict]:

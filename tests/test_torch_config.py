@@ -11,6 +11,7 @@ and ignored.
 import dataclasses
 import json
 import logging
+import re
 
 import pytest
 import yaml
@@ -87,7 +88,7 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
     pytest.param("engine", {"prefix_cache": True, "kv_pager": True,
                             "multihost": True}, "A.17",
                  id="engine-prefix_cache-True-A.15"),
-    pytest.param("engine", {"step_plans": True}, "A.14",
+    pytest.param("engine", {"step_plans": True}, r"A\.14\(d\)",
                  id="engine-step_plans-True-A.14"),
     pytest.param("vector_store", {"tiered": True}, "A.18",
                  id="vector_store-tiered-True-A.18"),
@@ -212,7 +213,7 @@ def test_remaining_engine_refusals_name_their_item(name):
     default, item = UNSUPPORTED[name]
     env = {f"APP_ENGINE_{name.replace('_', '').upper()}":
            "true" if isinstance(default, bool) else "x"}
-    with pytest.raises(ValueError, match=item.split(":")[0]):
+    with pytest.raises(ValueError, match=re.escape(item.split(":")[0])):
         load_config(env=env)
 
 
@@ -271,3 +272,38 @@ def test_chain_and_k_cap_defaults_match_jax_wizard():
     assert not {("retriever", "query_augmentation"),
                 ("retriever", "fact_check"),
                 ("serving", "microbatch_enabled")} & set(UNSUPPORTED_APP)
+
+
+# The fused prefill rider and the unfused finish are ported: their three
+# knobs read from the env or the file as the JAX wizard reads them.
+FUSED_FIELDS = {"fused_prefill": True, "fused_token_budget": 256,
+                "fused_sampling": False}
+FUSED_ENV = {"APP_ENGINE_FUSEDPREFILL": "true",
+             "APP_ENGINE_FUSEDTOKENBUDGET": "256",
+             "APP_ENGINE_FUSEDSAMPLING": "false"}
+
+
+@pytest.mark.parametrize("source", ["env", "json", "yaml"])
+def test_fused_prefill_fields_match_jax_wizard(tmp_path, source):
+    default, theirs = load_config(env={}).engine, jax_load(env={}).engine
+    assert {n: getattr(default, n) for n in FUSED_FIELDS} == {
+        n: getattr(theirs, n) for n in FUSED_FIELDS} == {
+        "fused_prefill": False, "fused_token_budget": 512,
+        "fused_sampling": True}
+    env = (dict(FUSED_ENV) if source == "env" else {
+        "APP_CONFIG_FILE": _write(tmp_path, source,
+                                  {"engine": FUSED_FIELDS})})
+    port = load_config(env=env)
+    _assert_same(port, jax_load(env=env))
+    assert {n: getattr(port.engine, n) for n in FUSED_FIELDS} == \
+        FUSED_FIELDS
+    assert "fused_prefill" not in UNSUPPORTED
+
+
+def test_fused_prefill_beside_speculation_is_accepted():
+    """As in the JAX engine, a speculative config may set the rider: it is
+    accepted (and the engine never fuses); step plans stay refused."""
+    port = load_config(env={**FUSED_ENV, "APP_ENGINE_SPECULATIVEK": "3"})
+    assert port.engine.fused_prefill and port.engine.speculative_k == 3
+    with pytest.raises(ValueError, match=r"ROADMAP A\.14\(d\)"):
+        load_config(env={**FUSED_ENV, "APP_ENGINE_STEPPLANS": "true"})

@@ -122,7 +122,10 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
 
 
 @pytest.mark.parametrize("flag,value,beside", [
-    pytest.param("fused_prefill", True, {}, id="fused_prefill-True"),
+    # The fused rider is ported; step plans beside it (the rider on a
+    # verify block, ROADMAP A.14(d)) are still refused.
+    pytest.param("step_plans", True, {"fused_prefill": True},
+                 id="fused_prefill-True"),
     # The prefix cache and the pager are ported: beside them, the
     # features still missing are refused (the pager's multi-host slice
     # mode, A.17; QoS, A.16).
