@@ -86,6 +86,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               Then, outside the counted window, torch.profiler over one
               more 64-token completion: device idle share and device
               time by kernel name
+  9b. flight  the flight recorder on the same server (on by default):
+              /debug/timeline must round-trip as JSON and its spans nest;
+              saved under build/ and split into device busy, host gap
+              and idle by scripts/analyze_timeline.py --json (a
+              subprocess; the attribution must sum to 100%);
+              /metrics?format=prometheus must carry the eight hist_*
+              histograms, /health its flight_recorder section; then the
+              four completions (all greedy, admitted together once all
+              are queued) with the recorder on (host time of its
+              record_* calls per beat against the mean beat interval)
+              and off: tokens/s of both, streams byte-identical
   10. chunked a ~6,000-token completion through the same server (chunked
               prefill beyond the 4096 bucket; K1 must launch), and the
               chunk steps' first-token logits against a one-shot forward;
@@ -95,15 +106,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               dispatched while the lane is live must take K <= 2 and the
               streams must equal the same requests run alone
   10b. fused_prefill  engine.fused_prefill over the served bf16 weights:
-              three engines of batch 4 in turn (A the chunked lane, B
+              five engines of batch 4 in turn (A the chunked lane, B
               the rider at a 512-token budget, C the lane with the
-              unfused finish), each with three greedy 128-token streams
+              unfused finish; tree engines, k = 3 and M = 4: D the rider
+              knob without step plans, E composed plans, the rider inside
+              the verify steps), each with three greedy 128-token streams
               decoding while a 6,000-token prompt prefills; every stream
-              must equal the same request run alone, B must ride
-              (fused_steps, rider + lane tokens = the prompt), C must
-              count no fused sample; the short streams' inter-token gap
-              while the prompt prefills (p50, max), its TTFT,
-              prefill_stall_beats and K1 / K2 launches are printed
+              must equal the same request run alone (on A for A-C, on D
+              for D-E), B and E must ride (fused_steps, rider + lane
+              tokens = the prompt), A, C and D must not, C must count no
+              fused sample, D and E must launch K5 and not K2; each run's
+              flight timeline is attributed as in 9b; the short streams'
+              inter-token gap while the prompt prefills (p50, max), its
+              TTFT, prefill_stall_beats and K1 / K2 / K5 launches are
+              printed
   11. rag     the chain server (developer_rag, device store, ranked
               hybrid retrieval) over the same 8B engine with
               arctic-embed-l and BERT-base reranker encoders: ingest of
@@ -186,7 +202,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               weights (batch 4, 128 pool pages, buckets up to 1,024): a
               2,000-token prompt rides beside three streams; the streams
               must equal the same requests run alone; K1, K4 and K6 must
-              launch, K2 not
+              launch, K2 not. Then the int8 tree composition (k = 3,
+              M = 4, step plans): the same traffic, the rider inside the
+              verify steps; streams equal the same requests alone on
+              that engine; K1, K4 and K6 must launch, K2 and K5 not
   13b. checkpoint  serve from disk, after every phase above: the served
               bf16 8B engine's weights (kept when its engine went) written
               as an HF snapshot (4 shards + index, 16.06 GB under the
@@ -207,16 +226,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
               memory at most the int8 tree plus one bf16 layer of the
               largest leaf) and the int8 deployment from the path (K6,
               K4, no K2). The snapshots are removed at the end
-  14. kernels one line {"kernels": [...]} with each kernel's parity,
+  14. timing  the seconds of each phase and the total
+  15. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
               serving_int8; K5: spec_bf16), times and bound; K1's rider
               chunk case; K1, K2, K4 and K6 their launches on the rider
-              runs (fused_launches); K1-K3 also
+              runs (fused_launches), K1, K4, K5 and K6 theirs on the
+              rider beside verify steps (spec_rider_launches: run E and
+              the int8 tree composition); K1-K3 also
               their launches on the chain and pipelines phases; K4's entry
               also carries its verify cases and its spec_int8 launches,
               K1's and K2's their prefix launches, every kernel its
               launches on the checkpoint phase's loaded models
-  15. the card's name and power limit, then the last line
+  16. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
 It imports neither jax nor the JAX package. Without CUDA, or without the
@@ -1755,6 +1777,167 @@ def phase_serving(card: str, served: ServedEngine):
     return rec
 
 
+# -- phase 9b: the flight recorder at 8B -------------------------------------
+
+ROOT_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _flight_report(trace: dict, name: str) -> dict:
+    """A /debug/timeline payload (Chrome trace JSON): it must survive a
+    JSON round trip and its spans must nest; saved as
+    build/flight_<name>.json, then split into device busy, host gap and
+    idle by `scripts/analyze_timeline.py <file> --json` in a subprocess.
+    The attribution must sum to 100% of the timeline's wall time."""
+    from generativeaiexamples_tpu_torch.serving.flight import spans_nest
+
+    text = json.dumps(trace)
+    round_trip = json.loads(text) == trace
+    os.makedirs(os.path.join(ROOT_DIR, "build"), exist_ok=True)
+    path = os.path.join("build", f"flight_{name}.json")
+    with open(os.path.join(ROOT_DIR, path), "w") as f:
+        f.write(text)
+    proc = subprocess.run(
+        [sys.executable, os.path.join("scripts", "analyze_timeline.py"),
+         path, "--json"], cwd=ROOT_DIR, capture_output=True, text=True,
+        timeout=120)
+    events = trace["traceEvents"]
+    rec = {"file": path, "bytes": len(text),
+           "beats": sum(e.get("cat") == "beat" for e in events),
+           "events": len(events), "round_trip": round_trip,
+           "spans_nest": spans_nest(trace), "analyzer_rc": proc.returncode}
+    if proc.returncode != 0:
+        rec["analyzer_stderr"] = proc.stderr[-2000:]
+        rec["ok"] = False
+        return rec
+    overall = json.loads(proc.stdout)["overall"]
+    pct = {c: v["pct"] for c, v in overall["categories"].items()}
+    rec.update(wall_ms=overall["wall_ms"],
+               attributed_pct=overall["attributed_pct"],
+               attribution_pct=pct, top_causes=overall["top_causes"],
+               device_busy_pct=pct.get("device_busy", 0.0))
+    rec["ok"] = (round_trip and rec["spans_nest"] and rec["beats"] > 0
+                 and abs(overall["attributed_pct"] - 100.0) < 0.5)
+    return rec
+
+
+def _get_text(url: str, timeout: float = 60):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode(), dict(r.headers)
+
+
+def _greedy_burst(base, n: int, max_tokens: int) -> float:
+    """phase_serving's concurrent completions, all greedy: n at once;
+    returns the wall seconds."""
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=_complete, args=(
+        base, f"Request number {i}:", max_tokens)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return time.perf_counter() - t0
+
+
+def phase_flight(card: str, served: ServedEngine, n_requests: int = 4,
+                 max_tokens: int = 64):
+    """The flight recorder (on by default) after the serving phase, on
+    the same server: /debug/timeline (round trip, nesting, the analyzer's
+    attribution of device busy / host gap / idle, saved under build/),
+    /metrics?format=prometheus (the eight hist_* histograms) and
+    /health's flight_recorder section. Then its cost: the serving phase's
+    concurrent completions (all greedy here) with the recorder on, the
+    host time of its record_* calls per beat against the mean beat
+    interval, and the same completions with the recorder off: tokens/s
+    of both, and the streams must be byte-identical (recording observes,
+    never steers). In both runs admission waits until all the burst's
+    requests are queued, so both admit them in one batched prefill: the
+    streams then depend on the recorder alone, not on how the HTTP
+    threads happened to arrive (a prefill of another row count tiles its
+    bf16 matmuls otherwise, and random weights flip greedy near-ties)."""
+    from generativeaiexamples_tpu_torch.serving.flight import HIST_KEYS
+
+    base, engine = served.base, served.engine
+    t_phase = time.perf_counter()
+    text, _ = _get_text(base + "/debug/timeline")
+    timeline = _flight_report(json.loads(text), "serving")
+    prom, headers = _get_text(base + "/metrics?format=prometheus")
+    hists_present = {k: f"# TYPE gaie_{k[len('hist_'):]} histogram" in prom
+                     for k in HIST_KEYS}
+    health = json.loads(_get_text(base + "/health")[0])["flight_recorder"]
+
+    rec_s = [0.0]
+    fl = engine.flight
+
+    def timed(fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            fn(*args, **kw)
+            rec_s[0] += time.perf_counter() - t0
+        return call
+
+    prompts = [tuple(engine.tokenizer.encode(f"Request number {i}:",
+                                             add_bos=True))
+               for i in range(n_requests)]
+
+    def gated(admit):
+        # Opens once the burst is queued (or after 30 s, so a request
+        # that never arrives fails the comparison instead of hanging).
+        opened, t_gate = [False], time.perf_counter()
+
+        def call():
+            opened[0] = (opened[0] or len(engine.waiting) >= n_requests
+                         or time.perf_counter() - t_gate > 30.0)
+            return admit() if opened[0] else False
+        return call
+
+    streams, runs = {}, {}
+    for on in (True, False):
+        fl.set_enabled(on)
+        fl.record_beat, fl.record_event = (timed(fl.record_beat),
+                                           timed(fl.record_event))
+        engine._admit_waiting = gated(engine._admit_waiting)
+        rec_s[0] = 0.0
+        beats0, t0 = fl.stats()["flight_beats"], time.perf_counter()
+        try:
+            wall = _greedy_burst(base, n_requests, max_tokens)
+        finally:
+            # The class's methods again.
+            del fl.record_beat, fl.record_event, engine._admit_waiting
+        n_beats = fl.stats()["flight_beats"] - beats0
+        streams[on] = [served.app.streams.get(p) for p in prompts]
+        tokens = sum(len(x or ()) for x in streams[on])
+        runs["on" if on else "off"] = {
+            "wall_s": wall, "completion_tokens": tokens,
+            "tokens_per_s": tokens / wall if wall else None,
+            "beats": n_beats, "record_host_ms": rec_s[0] * 1e3}
+        if on:
+            ready = [float(b["t_ready"]) for b in fl.snapshot_beats()
+                     if b["t_dispatch"] >= t0]
+            interval = ((ready[-1] - ready[0]) / (len(ready) - 1)
+                        if len(ready) > 1 else None)
+            per_beat_us = rec_s[0] * 1e6 / n_beats if n_beats else None
+            runs["on"].update(
+                record_host_us_per_beat=per_beat_us,
+                mean_beat_interval_ms=interval * 1e3 if interval else None,
+                record_share_of_beat=(per_beat_us * 1e-6 / interval
+                                      if interval and per_beat_us else None))
+    fl.set_enabled(True)
+    identical = streams[True] == streams[False] and all(streams[True])
+    ok = (timeline["ok"] and all(hists_present.values())
+          and headers.get("X-Prometheus-Exposition-Version") == "0.0.4"
+          and health["enabled"] and health["flight_beats"] > 0
+          and runs["off"]["beats"] == 0 and runs["on"]["beats"] > 0
+          and identical)
+    rec = {"phase": "flight", "card": card, "timeline": timeline,
+           "prometheus_bytes": len(prom), "hists_present": hists_present,
+           "health": health, "requests": n_requests,
+           "max_tokens": max_tokens, "runs": runs,
+           "streams_identical_on_off": identical,
+           "seconds": time.perf_counter() - t_phase, "ok": ok}
+    emit(rec)
+    return rec
+
+
 # -- phase 10: chunked long prefill at 8B ---------------------------------
 
 
@@ -1911,12 +2094,20 @@ def _k_cap_check(served, prompt, long_alone, n_short: int = 3,
 
 # -- phase 10b: the fused prefill rider at 8B ------------------------------
 
-# The three engines of phase_fused_prefill: the chunked lane alone (A),
-# the rider at a 512-token budget (B), and the lane with the unfused
-# finish (C: sample_token + set_last_token after the last chunk).
+# The engines of phase_fused_prefill: the chunked lane alone (A), the
+# rider at a 512-token budget (B), and the lane with the unfused finish
+# (C: sample_token + set_last_token after the last chunk); then two tree
+# engines (k = 3, M = 4): the rider knob without step plans (D: the lane
+# carries every chunk) and composed plans (E: the chunks ride inside the
+# verify steps).
 FUSED_RUNS = (("A_lane", {}),
               ("B_rider", {"fused_prefill": True, "fused_token_budget": 512}),
               ("C_unfused_finish", {"fused_sampling": False}))
+SPEC_TREE = {"speculative_k": 3, "speculative_tree_branches": 4}
+SPEC_FUSED_RUNS = (
+    ("D_spec_lane", {**SPEC_TREE, **dict(FUSED_RUNS)["B_rider"]}),
+    ("E_spec_rider", {**SPEC_TREE, **dict(FUSED_RUNS)["B_rider"],
+                      "step_plans": True}))
 
 
 def _timed_stream(engine, prompt, max_tokens, out: dict) -> None:
@@ -2006,15 +2197,17 @@ def _fused_run(engine, prompt, shorts, max_tokens: int, long_tokens: int):
            "short_gap_max_ms": max(gaps) if gaps else None,
            "tokens_fed": fed, **delta,
            "launches": {k: launches[k] for k in (
-               "flash_attention", "paged_attention", "paged_attention_int8",
-               "int8_matmul")},
+               "flash_attention", "paged_attention", "paged_attention_tree",
+               "paged_attention_int8", "int8_matmul")},
            "finish": [o["finish"] for o in outs]}
     return rec, [o["tokens"] for o in outs]
 
 
-def _fused_checks(name, rec, got, alone, prompt_len, int8: bool) -> bool:
-    """The run's streams against the same requests run alone, and the
-    counters of its engine kind."""
+def _fused_checks(name, rec, got, alone, prompt_len, need, never) -> bool:
+    """The run's streams against the same requests run alone, the
+    kernels that must (`need`) and must not (`never`) launch, and the
+    counters of its engine kind: a run named *rider must ride, any other
+    must not; C counts no fused sample."""
     rec["streams_equal_alone"] = [g == w for g, w in zip(got, alone)]
     rec["first_divergence"] = [_first_divergence(g, w)
                                for g, w in zip(got, alone)]
@@ -2022,17 +2215,24 @@ def _fused_checks(name, rec, got, alone, prompt_len, int8: bool) -> bool:
     ok = (all(rec["streams_equal_alone"])
           and fed["rider"] + fed["lane"] == prompt_len
           and rec["fused_prefill_tokens"] == fed["rider"]
-          and lc["flash_attention"] > 0)
-    ok = ok and ((lc["paged_attention_int8"] > 0 and lc["int8_matmul"] > 0
-                  and lc["paged_attention"] == 0) if int8
-                 else lc["paged_attention"] > 0)
-    if name.startswith("B"):
+          and all(lc[k] > 0 for k in need)
+          and all(lc[k] == 0 for k in never))
+    if name.endswith("rider"):
         ok = ok and rec["fused_steps"] >= 1 and fed["rider"] > 0
     else:
         ok = ok and rec["fused_steps"] == 0 and fed["rider"] == 0
     if name.startswith("C"):
         ok = ok and rec["fused_sample_dispatches"] == 0
-    return ok
+    return ok and rec["flight"]["ok"]
+
+
+# The kernels each kind of fused-prefill run must launch, and must not.
+BF16_KERNELS = (("flash_attention", "paged_attention"),
+                ("paged_attention_int8", "int8_matmul"))
+SPEC_BF16_KERNELS = (("flash_attention", "paged_attention_tree"),
+                     ("paged_attention", "paged_attention_int8"))
+INT8_KERNELS = (("flash_attention", "paged_attention_int8", "int8_matmul"),
+                ("paged_attention", "paged_attention_tree"))
 
 
 def _fused_traffic(seed: int, prompt_len: int, n_short: int):
@@ -2047,15 +2247,20 @@ def _fused_traffic(seed: int, prompt_len: int, n_short: int):
     return prompt, shorts
 
 
-def _fused_engine_run(params, cfg, tokenizer, ecfg, n_pages, device,
+def _fused_engine_run(name, params, cfg, tokenizer, ecfg, n_pages, device,
                       prompt, shorts, max_tokens, long_tokens, alone=None):
     """An engine at `ecfg` over `params`, started; the streams of each
-    request alone on it unless `alone` is given; _fused_run's traffic;
-    the engine stopped and its pool freed. Returns (record, streams,
+    request alone on it unless `alone` is given; _fused_run's traffic
+    with a fresh flight recorder, whose timeline (the engine's
+    /debug/timeline payload) _flight_report saves and attributes; the
+    engine stopped and its pool freed. Returns (record, streams,
     alone)."""
     import torch
 
     from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+    from generativeaiexamples_tpu_torch.serving.flight import FlightRecorder
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        OpenAIServer)
 
     engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
                        device=device).start()
@@ -2063,8 +2268,13 @@ def _fused_engine_run(params, cfg, tokenizer, ecfg, n_pages, device,
         if alone is None:
             alone = [_alone(engine, p, max_tokens) for p in shorts]
             alone.append(_alone(engine, prompt, long_tokens))
+        # The timeline covers this run only, not the runs alone.
+        engine.flight = FlightRecorder(engine.ecfg.flight_ring_size)
+        engine.metrics.flight_stats = engine.flight.stats
         rec, got = _fused_run(engine, prompt, shorts, max_tokens,
                               long_tokens)
+        rec["flight"] = _flight_report(
+            OpenAIServer(engine).timeline()[1], f"fused_{name}")
         rec["rider_width"] = engine._fused_width
     finally:
         engine.stop()
@@ -2094,28 +2304,43 @@ def phase_fused_prefill(card: str, served: ServedEngine,
     prompt prefills (p50, max), the prompt's TTFT, prefill_stall_beats
     and the launches of K1 and K2."""
     src = served.engine
-    n_pages = -(-(prompt_len + n_short * 256) // src.ecfg.page_size) + 1
+    ps = src.ecfg.page_size
+    n_pages = -(-(prompt_len + n_short * 256) // ps) + 1
+    # A tree engine reserves pages for the worst case of two blocks in
+    # flight (K x (k + 1) tokens and the packed nodes of a step).
+    spec_pages = -(-(prompt_len + n_short * 384) // ps) + 4
     base_cfg = {"max_batch_size": 4, **(engine_cfg or {})}
     prompt, shorts = _fused_traffic(11, prompt_len, n_short)
     t0 = time.perf_counter()
-    runs, alone = {}, None
-    for name, knobs in FUSED_RUNS:
-        rec, got, alone = _fused_engine_run(
-            src.params, src.cfg, src.tokenizer, {**base_cfg, **knobs},
-            n_pages, device, prompt, shorts, max_tokens, long_tokens, alone)
-        rec["ok"] = _fused_checks(name, rec, got, alone, prompt_len, False)
-        rec["long_first_tokens"] = got[-1]
-        runs[name] = rec
-    firsts = [r["long_first_tokens"] for r in runs.values()]
-    firsts_equal = all(f == firsts[0] for f in firsts)
+    runs = {}
+    for group, pages, kernels_of in ((FUSED_RUNS, n_pages, BF16_KERNELS),
+                                     (SPEC_FUSED_RUNS, spec_pages,
+                                      SPEC_BF16_KERNELS)):
+        alone = None  # each group's streams alone on its first engine
+        for name, knobs in group:
+            rec, got, alone = _fused_engine_run(
+                name, src.params, src.cfg, src.tokenizer,
+                {**base_cfg, **knobs}, pages, device, prompt, shorts,
+                max_tokens, long_tokens, alone)
+            rec["n_pages"] = pages
+            rec["ok"] = _fused_checks(name, rec, got, alone, prompt_len,
+                                      *kernels_of)
+            rec["long_first_tokens"] = got[-1]
+            runs[name] = rec
+    firsts_equal = {
+        label: all(runs[n]["long_first_tokens"]
+                   == runs[names[0]]["long_first_tokens"] for n in names)
+        for label, names in (("A-C", [n for n, _ in FUSED_RUNS]),
+                             ("D-E", [n for n, _ in SPEC_FUSED_RUNS]))}
     rec = {"phase": "fused_prefill", "card": card,
            "model": "llama3_8b random bf16 (the served weights)",
-           "engine": base_cfg, "n_pages": n_pages,
+           "engine": base_cfg, "spec_engine": SPEC_TREE,
            "prompt_tokens": prompt_len, "short_streams": n_short,
            "short_max_tokens": max_tokens, "runs": runs,
            "long_first_tokens_equal": firsts_equal,
            "seconds": time.perf_counter() - t0,
-           "ok": all(r["ok"] for r in runs.values()) and firsts_equal}
+           "ok": (all(r["ok"] for r in runs.values())
+                  and all(firsts_equal.values()))}
     emit(rec)
     return rec
 
@@ -2131,16 +2356,32 @@ def phase_fused_prefill_int8(card: str, params, cfg, tokenizer,
     2,000-token prompt then goes chunked: 4 riders of 512 where the lane
     runs two chunks of 1,024). The streams must equal the same requests
     run alone on the same engine (the lane carries an idle engine's
-    chunks); K1, K4 and K6 must launch, K2 not."""
+    chunks); K1, K4 and K6 must launch, K2 not. Then the int8 tree
+    composition (`spec_rider`): the same traffic on a tree engine (k = 3,
+    M = 4) with step plans, the rider inside the verify steps (K4's tree
+    form); its streams against the same requests alone on it; K1, K4 and
+    K6 must launch, K2 and K5 not."""
     ecfg = {**INT8_DEPLOYMENT, "max_batch_size": 4,
             "prefill_buckets": [128, 512, 1024], **dict(FUSED_RUNS)["B_rider"],
             **(engine_cfg or {})}
     prompt, shorts = _fused_traffic(12, prompt_len, n_short)
     t0 = time.perf_counter()
     rec, got, alone = _fused_engine_run(
-        params, cfg, tokenizer, ecfg, n_pages, device, prompt, shorts,
-        max_tokens, long_tokens)
-    rec["ok"] = _fused_checks("B_rider", rec, got, alone, prompt_len, True)
+        "int8_B_rider", params, cfg, tokenizer, ecfg, n_pages, device,
+        prompt, shorts, max_tokens, long_tokens)
+    rec["ok"] = _fused_checks("B_rider", rec, got, alone, prompt_len,
+                              *INT8_KERNELS[0:1], ("paged_attention",))
+    # The int8 tree composition: the same traffic on a tree engine with
+    # composed plans, its streams against the same requests alone on it.
+    spec_cfg = {**ecfg, **SPEC_TREE, "step_plans": True}
+    spec, got, alone = _fused_engine_run(
+        "int8_spec_rider", params, cfg, tokenizer, spec_cfg, n_pages, device,
+        prompt, shorts, max_tokens, long_tokens)
+    spec["ok"] = _fused_checks("spec_rider", spec, got, alone, prompt_len,
+                               *INT8_KERNELS)
+    spec["engine"] = spec_cfg
+    rec["spec_rider"] = spec
+    rec["ok"] = rec["ok"] and spec["ok"]
     rec.update(phase="fused_prefill_int8", card=card,
                model="llama3_8b random (seed 0), int8 weights, int8 KV",
                engine=ecfg, n_pages=n_pages, prompt_tokens=prompt_len,
@@ -5062,18 +5303,30 @@ def main() -> int:
     model = phase_model()
     served = ServedEngine("8b", "cuda")
     rag_keep = {}
+    # Seconds per phase since the build began (the build, the kernel
+    # phases, phase_model and the served engine's set-up come first).
+    phase_s = {"build_to_served": time.perf_counter() - t0}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
     try:
-        serving = phase_serving(card, served)
-        chunked = phase_chunked(served)
-        fused = phase_fused_prefill(card, served)
-        rag = phase_rag(card, served, keep=rag_keep)
-        chain = phase_chain(card, served, rag_keep)
-        pipelines = phase_pipelines(card, served, rag_keep)
-        spec_bf16 = phase_spec_bf16(card, served)
-        prefix = phase_prefix(card, served)
+        serving = timed("serving", phase_serving, card, served)
+        flight = timed("flight", phase_flight, card, served)
+        chunked = timed("chunked", phase_chunked, served)
+        fused = timed("fused_prefill", phase_fused_prefill, card, served)
+        rag = timed("rag", phase_rag, card, served, keep=rag_keep)
+        chain = timed("chain", phase_chain, card, served, rag_keep)
+        pipelines = timed("pipelines", phase_pipelines, card, served,
+                          rag_keep)
+        spec_bf16 = timed("spec_bf16", phase_spec_bf16, card, served)
+        prefix = timed("prefix", phase_prefix, card, served)
         # What the engine loaded from the snapshot of these weights must
         # give, taken before this engine goes.
-        ckpt_ref = checkpoint_streams(served)
+        ckpt_ref = timed("checkpoint_streams", checkpoint_streams, served)
     finally:
         served.close()
     # The bf16 engine's pool and the RAG phase's 1M-row store go before
@@ -5083,17 +5336,21 @@ def main() -> int:
     del served
     gc.collect()
     torch.cuda.empty_cache()
-    serving_int8, int8_served = phase_serving_int8(card)
-    spec_int8 = phase_spec_int8(card, int8_served)
+    serving_int8, int8_served = timed("serving_int8", phase_serving_int8,
+                                      card)
+    spec_int8 = timed("spec_int8", phase_spec_int8, card, int8_served)
     int8_engine = int8_served.engine
-    fused_int8 = phase_fused_prefill_int8(
-        card, int8_engine.params, int8_engine.cfg, int8_engine.tokenizer)
+    fused_int8 = timed("fused_prefill_int8", phase_fused_prefill_int8,
+                       card, int8_engine.params, int8_engine.cfg,
+                       int8_engine.tokenizer)
     del int8_served, int8_engine
     gc.collect()
     torch.cuda.empty_cache()
-    checkpoint = phase_checkpoint(card, bf16_params, bf16_cfg, ckpt_ref,
-                                  rag_keep)
+    checkpoint = timed("checkpoint", phase_checkpoint, card, bf16_params,
+                       bf16_cfg, ckpt_ref, rag_keep)
     del bf16_params, rag_keep
+    phase_s["total"] = time.perf_counter() - t0
+    emit({"phase": "timing", "seconds": phase_s})
 
     line = []
     for name, rep, cases, main_case, launches, tol in (
@@ -5154,12 +5411,21 @@ def main() -> int:
     k2 = next(e for e in line if e["name"] == "paged_attention")
     k2["spec_bf16_launches"] = spec_bf16["launches"]["paged_attention"]
     # The fused prefill rider: K1 and K2 on run B of the bf16 phase, K4
-    # and K6 on the int8 rider run; K1's rider chunk case.
+    # and K6 on the int8 rider run; K1's rider chunk case. The rider
+    # beside verify steps: K1 and K5 on run E, K1, K4 and K6 on the int8
+    # tree composition.
     for e in line:
         run = (fused["runs"]["B_rider"] if e["name"] in (
             "flash_attention", "paged_attention") else fused_int8)
         if e["name"] in run["launches"]:
             e["fused_launches"] = run["launches"][e["name"]]
+        spec_runs = {"E_spec_rider": fused["runs"]["E_spec_rider"],
+                     "int8_spec_rider": fused_int8["spec_rider"]}
+        launched = {run: r["launches"][e["name"]]
+                    for run, r in spec_runs.items()
+                    if r["launches"].get(e["name"])}
+        if launched:
+            e["spec_rider_launches"] = launched
     k1 = next(e for e in line if e["name"] == "flash_attention")
     k1["rider_case"] = {k: c[k] for c in flash
                         if c["case"] == "8b_rider_q_offset"
@@ -5187,7 +5453,8 @@ def main() -> int:
             e["pipelines_launches"] = pipelines["launches"][e["name"]]
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
-              + int8_mm) and model["ok"] and serving["ok"] and chunked["ok"]
+              + int8_mm) and model["ok"] and serving["ok"] and flight["ok"]
+          and chunked["ok"]
           and fused["ok"] and fused_int8["ok"]
           and rag["ok"] and chain["ok"] and pipelines["ok"]
           and serving_int8["ok"] and spec_bf16["ok"]

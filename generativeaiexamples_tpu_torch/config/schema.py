@@ -6,10 +6,11 @@ defaults:
 
 - `EngineConfig`: the serving engine, with speculation
   (`speculative_k`, `speculative_tree_branches`), the prefix cache and
-  KV pager (`prefix_cache`, `kv_pager` and their sizes) and the fused
-  prefill rider (`fused_prefill`, `fused_token_budget`). Flags of the JAX
-  engine that the port does not have yet (step plans, QoS, multi-host,
-  ...) are listed in `UNSUPPORTED` with the ROADMAP item that brings
+  KV pager (`prefix_cache`, `kv_pager` and their sizes), the fused
+  prefill rider (`fused_prefill`, `fused_token_budget`), step plans
+  beside speculation (`step_plans`) and the flight recorder
+  (`flight_recorder`, `flight_ring_size`). Flags of the JAX engine that
+  the port does not have yet (QoS, multi-host, ...) are listed in `UNSUPPORTED` with the ROADMAP item that brings
   them; `EngineConfig.coerce` refuses any of them set
   away from its default. `weights_path` names an HF safetensors snapshot
   (empty: random weights at a named geometry).
@@ -92,8 +93,9 @@ class EngineConfig:
     # in-progress chunked prefill rides inside the decode dispatch
     # (engine_model.fused_decode_prefill_step) instead of going out as a
     # standalone chunk forward ahead of the decode blocks. The chunked
-    # lane carries the chunks when the engine is idle, and always on a
-    # speculative engine (accepted there, never fused). Off by default.
+    # lane carries the chunks when the engine is idle, and on a
+    # speculative engine without step_plans (accepted there, never
+    # fused). Off by default.
     fused_prefill: bool = False
     # Prompt tokens one rider carries: its width is the largest power of
     # two <= min(fused_token_budget, the largest prefill bucket); 0 turns
@@ -105,6 +107,17 @@ class EngineConfig:
     # unfused two-call finish (sample_token, then set_last_token), an
     # A/B knob. Bucketed prefill groups always sample in their dispatch.
     fused_sampling: bool = True
+    # Composed step plans: on a speculative engine the fused rider rides
+    # inside the verify dispatch (engine_model.fused_spec_prefill_step),
+    # so speculation and fused_prefill compose. Off: a speculative engine
+    # never fuses (the lane carries every chunk), as in the JAX engine.
+    step_plans: bool = False
+    # Flight recorder (serving/flight.py): one record per landed decode
+    # block and per request lifecycle event in preallocated rings,
+    # served at /debug/timeline. On by default, as in the JAX engine.
+    flight_recorder: bool = True
+    # Beat-ring capacity in records (the event ring is 4x this).
+    flight_ring_size: int = 4096
 
     @staticmethod
     def coerce(cfg: Any = None) -> "EngineConfig":
@@ -148,7 +161,6 @@ class EngineConfig:
 # JAX EngineConfig flags outside this slice: name -> (default, where the
 # port will gain it).
 UNSUPPORTED = {
-    "step_plans": (False, "ROADMAP A.14(d): step plans"),
     "qos": (False, "ROADMAP A.16: QoS"),
     "multihost": (False, "ROADMAP A.17: multi-host"),
     "auto_pool_pages": (False, "ROADMAP A.17: memory planner"),

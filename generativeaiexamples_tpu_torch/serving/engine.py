@@ -39,11 +39,13 @@ chunk (`_fused_width` tokens, at most `fused_token_budget`) of an
 in-progress long prefill rides inside the decode dispatch
 (`engine_model.fused_decode_prefill_step`) instead of going out as a
 standalone chunk forward ahead of the decode blocks; the chunked lane
-above is then the fallback (an idle engine, a speculative one, a scratch
-cache narrower than the rider). Every dispatch, decode block or chunk,
-is an `engine_model.StepPlan` lowered by `engine_model.plan_step`.
-`prefill_stall_beats` counts landed blocks over which a live prefill fed
-no token.
+above is then the fallback (an idle engine, a scratch cache narrower
+than the rider, a speculative engine without `step_plans`). With
+`step_plans` a speculative engine's rider rides inside its verify
+blocks (`engine_model.fused_spec_prefill_step`). Every dispatch, decode
+block or chunk, is an `engine_model.StepPlan` lowered by
+`engine_model.plan_step`. `prefill_stall_beats` counts landed blocks
+over which a live prefill fed no token.
 
 int8 serving (`kv_dtype="int8"`, `quantize_weights="int8"`): the pool is
 the fused `QuantPagePool` (decode attention through K4) and the params
@@ -59,9 +61,8 @@ of tokens per step, so lengths are device-authoritative
 (`_dev_lengths`). The host reserves pages for the worst case
 (`_Slot.kv_len + kv_worst`) and reconciles when a block lands. While a
 sampled request is live, dispatches fall back to the plain block over
-the same device state (`decode_plain_spec_state_multi_step`). As in the
-JAX engine with `step_plans` off, the spec programs are called
-directly.
+the same device state (`decode_plain_spec_state_multi_step`), which
+never carries a rider.
 
 Prefix cache (`prefix_cache`, serving/prefix_cache.py): admission looks
 the prompt up in a radix tree of cached full pages, adopts the longest
@@ -82,9 +83,20 @@ opened at its prefill commit and parented onto `GenRequest.trace_context`
 generated and the device memory counters. With tracing off every site is
 a no-op.
 
+Flight recorder (serving/flight.py, `flight_recorder`, on by default):
+every landed block writes one beat record (dispatch and host-ready
+stamps, the block's StepPlan, busy slots, queue depth, tokens emitted,
+pager pages moved) and each request its lifecycle events (submit,
+admit, prefill dispatch or chunks, first token, retire), into
+preallocated rings served as Chrome trace JSON at /debug/timeline. The
+latency histograms (TTFT, e2e, queue wait, beat gap, promote ms a page)
+are always live; `ttft_p50_ms` / `ttft_p95_ms` are read from the TTFT
+histogram, as in the JAX engine. With no QoS every request is
+"standard".
+
 Not ported yet, and refused at construction (see config/schema.py):
-step plans beside speculation (a rider on a verify block), QoS,
-multi-host, emission pacing and the flight recorder.
+QoS, multi-host and the memory planner. Emission pacing is not ported
+(its knob is logged and ignored).
 """
 
 from __future__ import annotations
@@ -107,6 +119,11 @@ from generativeaiexamples_tpu_torch.models.llama import KVCache, LlamaConfig
 from generativeaiexamples_tpu_torch.obs import tracing
 from generativeaiexamples_tpu_torch.ops.quant import is_quantized
 from generativeaiexamples_tpu_torch.serving import engine_model
+from generativeaiexamples_tpu_torch.serving.flight import (
+    EV_ADMIT, EV_ADMIT_RETRY, EV_FIRST_TOKEN, EV_KV_DEMOTE, EV_KV_PROMOTE,
+    EV_PREFILL_CHUNK, EV_PREFILL_DISPATCH, EV_RETIRE, EV_SUBMIT,
+    FLIGHT_KEYS, HIST_KEYS, RETIRE_CODES, TIER_STANDARD, ExpHistogram,
+    FlightRecorder)
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
     PageAllocator, PagePool, SequencePages)
 from generativeaiexamples_tpu_torch.serving.kv_pager import (
@@ -164,6 +181,9 @@ class GenRequest:
     cancelled: bool = False  # set by the server on disconnect / stop string
     truncate_prompt: bool = False  # opt-in: keep the tail instead of refusing
     trace_context: Any = None  # the caller's trace context (obs/tracing.py)
+    # The flight recorder logs the submit at the first admission pop
+    # (scheduler thread); a requeued request is not logged again.
+    flight_seen: bool = False
 
 
 class _Slot:
@@ -244,10 +264,11 @@ class _InFlight:
     """One dispatched-but-unprocessed decode block."""
 
     __slots__ = ("copy", "metas", "K", "releases", "spec_worst",
-                 "plain_spec")
+                 "t_dispatch", "plan")
 
     def __init__(self, block: torch.Tensor, metas, K: int,
-                 spec_worst: int = 0, plain_spec: bool = False):
+                 plan: "engine_model.StepPlan", t_dispatch: float,
+                 spec_worst: int = 0):
         # Plain blocks: [B, K + 1] tokens. Speculative blocks: [B, K,
         # k + 2], the targets of each step with its count appended.
         self.copy = HostCopy(block)
@@ -256,10 +277,11 @@ class _InFlight:
         # > 0 marks a speculative block: the worst-case tokens per slot
         # (K * (k + 1)), refunded down to the accepted ones at landing.
         self.spec_worst = spec_worst
-        # A plain block on a speculative engine (the sampled fallback):
-        # landing advances each slot's kv_len by exactly K.
-        self.plain_spec = plain_spec
         self.releases: List[SequencePages] = []  # freed once this lands
+        # plan_step's dispatch-return stamp and the block's StepPlan (the
+        # flight recorder's beat record).
+        self.t_dispatch = t_dispatch
+        self.plan = plan
 
 
 class EngineMetrics:
@@ -267,9 +289,12 @@ class EngineMetrics:
     Written by the scheduler thread; read by scrapes."""
 
     RATE_WINDOW_S = 30.0
-    TTFT_SAMPLES = 4096
 
     def __init__(self):
+        # Exponential-bucket latency histograms (serving/flight.py), one
+        # per HIST_KEYS key without its "hist_" prefix; single writer
+        # (the scheduler thread observes, scrapes copy).
+        self.hists = {k[len("hist_"):]: ExpHistogram() for k in HIST_KEYS}
         self.tokens_out = 0
         self.decode_steps = 0
         self.busy_slots_acc = 0
@@ -305,20 +330,17 @@ class EngineMetrics:
         self.kv_promote_ms = 0.0
         # The pager's stats() (KV_PAGER_KEYS); None when it is off.
         self.kv_pager_stats = None
-        self._ttft: deque = deque(maxlen=self.TTFT_SAMPLES)
+        # The flight recorder's stats() (FLIGHT_KEYS); None emits zeros.
+        self.flight_stats = None
+        # The most recent request's time to first token (None before any).
+        self.last_ttft_ms: Optional[float] = None
         self._token_events: deque = deque(maxlen=8192)
         self._lock = threading.Lock()
 
     def record_ttft(self, ms: float) -> None:
-        with self._lock:
-            self._ttft.append(ms)
-
-    @property
-    def last_ttft_ms(self) -> Optional[float]:
-        """The most recent request's time to first token (None before
-        any)."""
-        with self._lock:
-            return self._ttft[-1] if self._ttft else None
+        # Scheduler thread only (single writer, like every histogram).
+        self.hists["ttft_ms"].observe(ms)
+        self.last_ttft_ms = ms
 
     def record_tokens(self, n: int) -> None:
         if n > 0:
@@ -337,15 +359,13 @@ class EngineMetrics:
         return sum(n for _, n in events) / max(now - events[0][0], 1e-3)
 
     def snapshot(self) -> Dict[str, Any]:
-        with self._lock:
-            ttft = sorted(self._ttft)
-
-        def pct(p):
-            return ttft[min(len(ttft) - 1, int(p * len(ttft)))] if ttft \
-                else None
-
+        hist_snaps = {f"hist_{k}": h.snapshot()
+                      for k, h in self.hists.items()}
+        ttft = hist_snaps["hist_ttft_ms"]
         out = {
-            "ttft_p50_ms": pct(0.50), "ttft_p95_ms": pct(0.95),
+            # Estimated from the TTFT histogram, as the JAX engine does
+            # (None until a first token).
+            "ttft_p50_ms": ttft["p50"], "ttft_p95_ms": ttft["p95"],
             "tokens_generated": self.tokens_out,
             "decode_steps": self.decode_steps,
             "mean_batch_occupancy": (self.busy_slots_acc / self.decode_steps
@@ -373,6 +393,9 @@ class EngineMetrics:
         }
         out.update(self.kv_pager_stats() if self.kv_pager_stats is not None
                    else dict.fromkeys(KV_PAGER_KEYS, 0))
+        out.update(self.flight_stats() if self.flight_stats is not None
+                   else dict.fromkeys(FLIGHT_KEYS, 0))
+        out.update(hist_snaps)
         out.update({f"kernel_launches_{k}": n
                     for k, n in kernels.LAUNCHES.items()})
         # Span export / attribute failures (counted, never swallowed).
@@ -453,6 +476,17 @@ class LLMEngine:
         self.metrics = EngineMetrics()
         if self.kv_pager is not None:
             self.metrics.kv_pager_stats = self.kv_pager.stats
+        # Flight recorder: always constructed (its stats and the timeline
+        # exist either way); flight_recorder=False makes every append one
+        # branch. The beat bookkeeping: the previous beat's host-ready
+        # stamp (the beat-gap histogram) and the pager's page moves since
+        # the last beat record.
+        self.flight = FlightRecorder(ring_size=self.ecfg.flight_ring_size,
+                                     enabled=self.ecfg.flight_recorder)
+        self.metrics.flight_stats = self.flight.stats
+        self._last_beat_ready = 0.0
+        self._beat_kv_demote = 0
+        self._beat_kv_promote = 0
         # Buckets are positive multiples of page_size within max_seq_len.
         max_bucket = self.max_pages * ps
         rounded = {min(-(-b // ps) * ps, max_bucket)
@@ -512,10 +546,12 @@ class LLMEngine:
                                            device=self.device)
         # The fused rider's chunk width: the largest power of two within
         # both the largest bucket and the token budget; 0 (no rider) when
-        # the knob is off, the budget is <= 0 or the engine speculates
-        # (a rider beside verify blocks is ROADMAP A.14(d)).
+        # the knob is off, the budget is <= 0, or the engine speculates
+        # without step_plans (composed plans are what put a rider beside
+        # verify steps).
         self._fused_width = 0
-        if (self.ecfg.fused_prefill and not self._spec_k
+        if (self.ecfg.fused_prefill
+                and (not self._spec_k or self.ecfg.step_plans)
                 and self.ecfg.fused_token_budget > 0):
             self._fused_width = _pow2_floor(
                 min(self.buckets[-1], self.ecfg.fused_token_budget))
@@ -719,10 +755,15 @@ class LLMEngine:
 
     def _land_next_block(self) -> None:
         """Land the oldest in-flight block: wait for it, emit / retire,
-        release the pages parked on it."""
+        release the pages parked on it, advance the beat and write its
+        flight record."""
         fl = self._inflight.popleft()
+        tokens_before = self.metrics.tokens_out
+        t_ready = 0.0
         try:
-            self._process_block_host(fl, self._fetch_block_host(fl))
+            host = self._fetch_block_host(fl)
+            t_ready = time.perf_counter()
+            self._process_block_host(fl, host)
         except Exception:
             _LOG.exception("decode block failed; failing batch")
             self._fail_active()
@@ -733,6 +774,36 @@ class LLMEngine:
         self._reap_starved()
         self._beat += 1
         self._note_prefill_stalls()
+        self._record_beat(fl, t_ready, self.metrics.tokens_out - tokens_before)
+
+    def _record_beat(self, fl: _InFlight, t_ready: float,
+                     emitted: int) -> None:
+        """One beat record (and the beat-gap histogram sample) for a
+        just-landed block. The histogram is always live; the ring append
+        is one branch with the recorder off."""
+        prev = self._last_beat_ready
+        if t_ready:
+            if prev:
+                self.metrics.hists["beat_gap_ms"].observe(
+                    (t_ready - prev) * 1e3)
+            self._last_beat_ready = t_ready
+        if not self.flight.enabled:
+            self._beat_kv_demote = self._beat_kv_promote = 0
+            return
+        busy = sum(s is not None and not s.req.cancelled
+                   for s in self.slots)
+        plan = fl.plan
+        self.flight.record_beat(
+            t_dispatch=fl.t_dispatch, t_ready=t_ready or fl.t_dispatch,
+            t_prev_ready=prev, decode_k=plan.decode_k,
+            spec_k=plan.spec_k, tree_branches=plan.tree_branches,
+            rider_width=plan.rider_width, rider_s_total=plan.rider_s_total,
+            spec_state=plan.spec_state, fused_rider=bool(plan.rider_width),
+            qos_paused=False, busy=(0, busy, 0),
+            wait=(0, len(self.waiting), 0), tokens_emitted=emitted,
+            kv_demote_pages=self._beat_kv_demote,
+            kv_promote_pages=self._beat_kv_promote)
+        self._beat_kv_demote = self._beat_kv_promote = 0
 
     def _fetch_block_host(self, fl: _InFlight) -> np.ndarray:
         """Wait for a block's host copy. While the device works, emit
@@ -774,6 +845,7 @@ class LLMEngine:
                 if slot_idx is None:
                     break
                 req = self.waiting.popleft()
+            self._flight_note_pop(req)
             ids = req.prompt_ids or [0]
             long = len(ids) > self.buckets[-1]
             lane_full = len(self._long_prefills) >= self._max_long_prefills
@@ -803,6 +875,11 @@ class LLMEngine:
                 seq.release()
                 self._release_hit_pin(hit)
                 self.metrics.admission_failures += 1
+                if self.flight.enabled:
+                    self.flight.record_event(
+                        EV_ADMIT_RETRY, time.perf_counter(),
+                        rid=req.request_id, tier=TIER_STANDARD,
+                        a=float(req.admission_attempts))
                 ps = self.pool.page_size
                 never_fits = -(-(len(ids) + 1) // ps) \
                     > self.allocator.n_pages - 1
@@ -831,6 +908,7 @@ class LLMEngine:
             # Reserve the slot; the real _Slot replaces it at dispatch.
             placeholder = _Slot(req, seq, None)
             self.slots[slot_idx] = placeholder
+            self._flight_admit(req, slot_idx)
             if hit is not None:
                 try:
                     self._begin_prefix_prefill(req, slot_idx, seq, ids,
@@ -882,8 +960,15 @@ class LLMEngine:
 
     def _reclaim_cached_pages(self, n: int) -> None:
         """The allocator's shortfall hook: evict (with the pager, demote)
-        cold cached pages, so live traffic always wins over the cache."""
-        self.metrics.prefix_evictions += self.prefix_cache.evict(n)
+        cold cached pages, so live traffic always wins over the cache.
+        A pager demotion is a page move for the flight recorder."""
+        freed = self.prefix_cache.evict(n)
+        self.metrics.prefix_evictions += freed
+        if freed and self.kv_pager is not None:
+            self._beat_kv_demote += freed
+            if self.flight.enabled:
+                self.flight.record_event(EV_KV_DEMOTE, time.perf_counter(),
+                                         a=float(freed))
 
     def _lookup_prefix(self, ids: List[int], promote: bool = True):
         """Longest cached page-granular prefix of this prompt, capped at
@@ -921,12 +1006,19 @@ class LLMEngine:
                 try:
                     self.pool = self.prefix_cache.promote(self.pool, nodes)
                     promoted = True
-                    # Host time of the promotion: tier reads, staging and
-                    # the copy to the card (the scatter is queued).
-                    self.metrics.kv_promote_ms += (time.perf_counter()
-                                                   - t0) * 1e3
                 except MemoryError:
                     pass  # the resident prefix below
+                if promoted:
+                    # Host time of the promotion: tier reads, staging and
+                    # the copy to the card (the scatter is queued).
+                    dt_ms = (time.perf_counter() - t0) * 1e3
+                    self.metrics.kv_promote_ms += dt_ms
+                    self.metrics.hists["kv_promote_ms_per_page"].observe(
+                        dt_ms / n_cold)
+                    self._beat_kv_promote += n_cold
+                    if self.flight.enabled:
+                        self.flight.record_event(EV_KV_PROMOTE, t0,
+                                                 a=float(n_cold), b=dt_ms)
             if n_cold and not promoted:
                 keep = []
                 for n in nodes:
@@ -1059,6 +1151,10 @@ class LLMEngine:
             self.metrics.fused_sample_dispatches += 1
         lp.pos += n_part
         self.metrics.prefill_tokens += n_part
+        if self.flight.enabled:
+            self.flight.record_event(EV_PREFILL_CHUNK, time.perf_counter(),
+                                     rid=lp.req.request_id,
+                                     tier=TIER_STANDARD, a=float(n_part))
         return final
 
     def _chunk_buf(self, width: int) -> np.ndarray:
@@ -1183,6 +1279,8 @@ class LLMEngine:
 
     def _fail_request(self, req: GenRequest, slot_idx: int,
                       seq: SequencePages) -> None:
+        if self.slots[slot_idx] is not None:
+            self._flight_retire(self.slots[slot_idx], "error")
         self.slots[slot_idx] = None
         seq.release()
         req.stream.put({"text": "", "token_id": -1, "finished": True,
@@ -1243,6 +1341,11 @@ class LLMEngine:
             self.slots[slot_idx] = slot
             metas.append((slot_idx, slot))
             self.metrics.prefill_tokens += len(ids)
+            if self.flight.enabled:
+                self.flight.record_event(
+                    EV_PREFILL_DISPATCH, time.perf_counter(),
+                    rid=req.request_id, tier=TIER_STANDARD, slot=slot_idx,
+                    a=float(len(ids)))
             # Its full prompt pages become reusable; a later gather of
             # them is queued behind these writes on the same stream.
             self._insert_prefix(ids, seq)
@@ -1395,7 +1498,8 @@ class LLMEngine:
                 s.kv_worst += worst
             self._inflight.append(_InFlight(
                 torch.cat([res["targets"], res["counts"][..., None]],
-                          dim=-1), metas, K, spec_worst=worst))
+                          dim=-1), metas, K, plan, res["t_dispatch"],
+                spec_worst=worst))
             return True
         if plan.spec_state:
             self.metrics.spec_fallback_steps += 1
@@ -1408,8 +1512,8 @@ class LLMEngine:
                 # kv_len moves only at landing: reserve this block's K
                 # writes so a sibling dispatch ensures pages past them.
                 s.kv_worst += K
-        self._inflight.append(_InFlight(res["block"], metas, K,
-                                        plain_spec=plan.spec_state))
+        self._inflight.append(_InFlight(res["block"], metas, K, plan,
+                                        res["t_dispatch"]))
         return True
 
     def _rider_candidate(self) -> Optional[_LongPrefill]:
@@ -1429,9 +1533,9 @@ class LLMEngine:
         """The StepPlan of this decode dispatch: K steps; the verify
         width on a speculative engine unless a live sampled request
         forced the plain fallback (spec_state); a prefill rider when a
-        candidate can ride. Speculative engines have no rider width, so
-        a rider never pairs with spec_k (ROADMAP A.14(d)). The rider is
-        narrowed where the scratch cache ends before a full width (a
+        candidate can ride, beside the verify width too (a speculative
+        engine has a rider width only with step_plans). The fallback plan
+        never carries a rider. The rider is narrowed where the scratch cache ends before a full width (a
         prefix hit's suffix starts at the cached length), so every row it
         writes lies in the cache. Returns (plan, rider _LongPrefill or
         None)."""
@@ -1452,6 +1556,10 @@ class LLMEngine:
         dispatch (else deferring would stall the prefill behind traffic
         that never launches a block). Eager torch has no compiled-variant
         set, so any shape may ride."""
+        if self._spec_k and self._sampled_live():
+            # The sampled fallback plan carries no rider; the lane feeds
+            # the prompt while it runs.
+            return False
         return self._rider_candidate() is lp and any(
             s is not None and not s.prefilling and not s.req.cancelled
             and not s.no_capacity and s.req.max_new_tokens - s.scheduled > 0
@@ -1466,6 +1574,11 @@ class LLMEngine:
         self.metrics.fused_steps += 1
         self.metrics.fused_prefill_tokens += n_part
         self.metrics.prefill_tokens += n_part
+        if self.flight.enabled:
+            self.flight.record_event(EV_PREFILL_CHUNK, time.perf_counter(),
+                                     rid=lp.req.request_id,
+                                     tier=TIER_STANDARD, a=float(n_part),
+                                     b=1.0)  # b = 1: a fused rider
         if lp.pos >= len(lp.ids):
             self._long_prefills.remove(lp)
             self._finish_long_prefill(lp)
@@ -1544,8 +1657,9 @@ class LLMEngine:
                 self._emit(slot, int(block[i, j]), slot_idx=i)
                 if self.slots[i] is not slot:
                     break  # finished mid-block; the rest is overshoot
-            if fl.plain_spec:
-                # Every step of a plain block advances: the reconciled
+            if fl.plan.spec_state:
+                # A plain block on a speculative engine (the sampled
+                # fallback): every step advances, so the reconciled
                 # length moves K and the reservation is released.
                 slot.kv_len += fl.K
                 slot.kv_worst -= fl.K
@@ -1611,6 +1725,10 @@ class LLMEngine:
         metric and the span's first_token event)."""
         ttft_ms = (now - slot.req.submit_time) * 1e3
         self.metrics.record_ttft(ttft_ms)
+        if self.flight.enabled:
+            self.flight.record_event(EV_FIRST_TOKEN, time.perf_counter(),
+                                     rid=slot.req.request_id,
+                                     tier=TIER_STANDARD, a=ttft_ms)
         if slot.span is not None:
             slot.span.add_event("first_token",
                                 {"ttft_ms": round(ttft_ms, 2)})
@@ -1630,6 +1748,45 @@ class LLMEngine:
         if eos or done:
             self._finish(slot_idx, reason, emit=False)
 
+    # -- flight-recorder lifecycle hooks (scheduler thread only) ---------
+
+    def _flight_note_pop(self, req: GenRequest) -> None:
+        """Record the request's submit, retroactively (stamped with its
+        submit_time: server threads never write the ring), once."""
+        if not self.flight.enabled or req.flight_seen:
+            return
+        req.flight_seen = True
+        if not req.request_id:
+            # Engine-direct callers have no server-issued id; one is made
+            # so their events still correlate into timeline spans.
+            req.request_id = f"req-{self.flight.stats()['flight_events']}"
+        self.flight.record_event(EV_SUBMIT, req.submit_time,
+                                 rid=req.request_id, tier=TIER_STANDARD,
+                                 a=float(len(req.prompt_ids)))
+
+    def _flight_admit(self, req: GenRequest, slot_idx: int) -> None:
+        """Slot reserved: the queue-wait histogram (always live) and the
+        admit event."""
+        now = time.perf_counter()
+        wait_ms = max(0.0, (now - req.submit_time) * 1e3)
+        self.metrics.hists["queue_wait_ms_standard"].observe(wait_ms)
+        if self.flight.enabled:
+            self.flight.record_event(EV_ADMIT, now, rid=req.request_id,
+                                     tier=TIER_STANDARD, slot=slot_idx,
+                                     a=wait_ms)
+
+    def _flight_retire(self, slot: _Slot, reason: str) -> None:
+        """Slot retired: the e2e histogram and the retire event (reason
+        code, tokens, e2e ms and the span's trace id)."""
+        now = time.perf_counter()
+        e2e_ms = max(0.0, (now - slot.req.submit_time) * 1e3)
+        self.metrics.hists["e2e_ms"].observe(e2e_ms)
+        if self.flight.enabled:
+            self.flight.record_event(
+                EV_RETIRE, now, rid=slot.req.request_id, tier=TIER_STANDARD,
+                code=RETIRE_CODES.get(reason, -1), a=float(slot.generated),
+                b=e2e_ms, aux=tracing.span_trace_id(slot.span))
+
     def _release_seq(self, seq: SequencePages) -> None:
         """Free a retired sequence's pages once the newest in-flight block
         (which may still write them for the retired slot) has landed."""
@@ -1642,6 +1799,7 @@ class LLMEngine:
         slot = self.slots[slot_idx]
         if slot is None:
             return
+        self._flight_retire(slot, reason)
         if emit:
             slot.req.stream.put({"text": "", "token_id": -1,
                                  "finished": True, "finish_reason": reason})

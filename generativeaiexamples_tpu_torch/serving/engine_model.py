@@ -30,7 +30,8 @@ that k/v live in the serving PagePool:
   `sample_token` + `set_last_token` pair).
 - The fused prefill rider (`fused_decode_prefill_step`): one chunk of a
   long prompt and a decode block in one call, so the chunk rides inside
-  the decode dispatch instead of queueing ahead of it.
+  the decode dispatch instead of queueing ahead of it;
+  `fused_spec_prefill_step` is the same beside a block of verify steps.
 - Step plans: `StepPlan` describes one engine dispatch and `plan_step`
   lowers it to one of the step functions above; every scheduler
   dispatch goes through it.
@@ -612,6 +613,39 @@ def decode_spec_multi_step(params: Params, cfg: LlamaConfig, pool: Pool,
 
 
 @torch.no_grad()
+def fused_spec_prefill_step(
+        params: Params, cfg: LlamaConfig, pool: Pool,
+        history: torch.Tensor,       # [B, Hcap] int32
+        last_tokens: torch.Tensor,   # [B] current token
+        dev_lengths: torch.Tensor,   # [B] incl. current
+        page_tables: torch.Tensor,   # [B, maxp]
+        active: torch.Tensor,        # [B] bool
+        cache: KVCache,              # the long prefill's scratch cache
+        chunk_tokens: torch.Tensor,  # [1, W] next prompt chunk (0-padded)
+        chunk_valid: int,            # valid tokens in the chunk
+        n_steps: int, k: int, n_branches: int = 0):
+    """The composed step plan: one chunk of an in-progress long prefill
+    AND n_steps speculative verify steps (linear or tree) in one call,
+    queued on one stream, so a speculative engine's long prompt rides
+    inside the verify dispatch instead of going out as a standalone
+    chunk forward. The halves touch disjoint state (the chunk: the
+    prefill's scratch cache; verify: the page pool and the history, in
+    place) and run exactly prefill_chunk_step's math (K1 at q_offset =
+    cache.lengths) and decode_spec_multi_step's loop (K2 / K4 q_rep for
+    linear verify, K5 / K4's tree form for a tree). Returns (targets,
+    counts, last_tokens, dev_lengths, history, chunk_logits [V] at the
+    last valid chunk position, cache)."""
+    chunk_logits, cache = prefill_chunk_step(params, cfg, cache,
+                                             chunk_tokens, chunk_valid)
+    (targets, counts, last_tokens, dev_lengths,
+     history) = decode_spec_multi_step(params, cfg, pool, history,
+                                       last_tokens, dev_lengths, page_tables,
+                                       active, n_steps, k, n_branches)
+    return (targets, counts, last_tokens, dev_lengths, history,
+            chunk_logits, cache)
+
+
+@torch.no_grad()
 def decode_plain_spec_state_multi_step(
         params: Params, cfg: LlamaConfig, pool: Pool,
         history: torch.Tensor,      # [B, Hcap] int32
@@ -889,12 +923,12 @@ def _plan_step(params: Params, cfg: LlamaConfig, plan: StepPlan, *,
       (K, 0, -, 0)   decode_multi_step
       (K, 0, -, W)   fused_decode_prefill_step   (the rider)
       (K, k, -, 0)   decode_spec_multi_step      (linear or tree)
+      (K, k, -, W)   fused_spec_prefill_step     (verify + the rider)
       (K, 0*, -, 0)  decode_plain_spec_state_multi_step  (*spec_state)
       (0, 0, -, W)   prefill_chunk_step          (a chunk of the lane)
       (0, 0, -, W†)  prefill_chunk_sample_step   (†rider_sample)
 
-    (K, k, -, W), a rider beside speculation, is ROADMAP A.14(d) and
-    raises. For a rider-sample plan, temperature / top_p / top_k are the
+    For a rider-sample plan, temperature / top_p / top_k are the
     finishing request's scalars. Returns a dict of the state the plan
     touched: "block" or ("targets", "counts"), "last_tokens", "pool"
     (updated in place), and per plan "dev_lengths" / "history",
@@ -912,9 +946,15 @@ def _plan_step(params: Params, cfg: LlamaConfig, plan: StepPlan, *,
         return {"chunk_logits": logits, "cache": cache}
     if plan.spec_k:
         if plan.rider_width:
-            raise ValueError("a prefill rider beside speculation "
-                             "(fused_spec_prefill_step) is not ported yet "
-                             "(ROADMAP A.14(d))")
+            (targets, counts, last_tokens, dev_lengths, history,
+             chunk_logits, cache) = fused_spec_prefill_step(
+                params, cfg, pool, history, last_tokens, dev_lengths,
+                page_tables, active, cache, chunk_tokens, chunk_valid,
+                plan.decode_k, plan.spec_k, plan.tree_branches)
+            return {"targets": targets, "counts": counts,
+                    "last_tokens": last_tokens, "dev_lengths": dev_lengths,
+                    "history": history, "pool": pool,
+                    "chunk_logits": chunk_logits, "cache": cache}
         (targets, counts, last_tokens, dev_lengths,
          history) = decode_spec_multi_step(
             params, cfg, pool, history, last_tokens, dev_lengths,

@@ -8,7 +8,9 @@ stream parks its thread on the request's event queue):
   POST /v1/completions
   POST /v1/embeddings          (EmbeddingEngine; 503 without one)
   POST /v1/ranking             (RerankEngine; 503 without one)
-  GET  /v1/models, /health, /metrics
+  GET  /v1/models, /health, /metrics (?format=prometheus: text
+       exposition 0.0.4), /debug/timeline (the flight recorder's
+       Chrome trace JSON)
 
 Response bodies have the same JSON shapes as the JAX server's. The JAX
 server bridges streams through an executor whose width it floors (128,
@@ -24,11 +26,14 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
+from urllib.parse import parse_qs
 
 import torch
 
 from generativeaiexamples_tpu_torch.serving.engine import (
     GenRequest, PromptTooLongError)
+from generativeaiexamples_tpu_torch.serving.flight import (
+    chrome_trace, prometheus_text)
 from generativeaiexamples_tpu_torch.serving.kv_pager import KV_PAGER_KEYS
 
 _LOG = logging.getLogger(__name__)
@@ -149,7 +154,8 @@ class OpenAIServer:
         """Device liveness, not just process liveness: a CUDA runtime
         query (free memory) on the engine's device. With an LLM engine,
         the JAX server's sections too: `fused_prefill` (always),
-        `prefix_cache` (when the cache is on) and `kv_pager` (always)."""
+        `prefix_cache` (when the cache is on), `kv_pager` and
+        `flight_recorder` (always)."""
         dev = next((e.device for e in (self.llm, self.embed, self.rerank)
                     if e is not None), None)
         payload = {"status": "healthy",
@@ -192,7 +198,31 @@ class OpenAIServer:
                                if kp is not None else
                                {"enabled": False,
                                 **dict.fromkeys(KV_PAGER_KEYS, 0)})
+        # Always present (enabled false, zeros without a recorder): beats
+        # and lifecycle events over the lanes this server fronts, and
+        # where the timeline is.
+        lanes = self._flight_lanes()
+        section = {"enabled": False, "flight_beats": 0, "flight_events": 0,
+                   "lanes": len(lanes), "timeline": "/debug/timeline"}
+        for rec in lanes.values():
+            st = rec.stats()
+            section["enabled"] = section["enabled"] or bool(
+                st["flight_enabled"])
+            section["flight_beats"] += st["flight_beats"]
+            section["flight_events"] += st["flight_events"]
+        payload["flight_recorder"] = section
         return 200, payload
+
+    def _flight_lanes(self) -> Dict[str, Any]:
+        """name -> FlightRecorder of each engine this server fronts (one
+        lane, "engine", with an LLM engine)."""
+        rec = getattr(self.llm, "flight", None)
+        return {"engine": rec} if rec is not None else {}
+
+    def timeline(self) -> Tuple[int, Dict]:
+        """The flight recorder's rings as Chrome trace-event JSON
+        (Perfetto loads it directly)."""
+        return 200, chrome_trace(self._flight_lanes())
 
     def models(self) -> Tuple[int, Dict]:
         data = ([{"id": self.model_name, "object": "model"}]
@@ -201,6 +231,11 @@ class OpenAIServer:
 
     def metrics(self) -> Tuple[int, Dict]:
         return 200, (self.llm.metrics.snapshot() if self.llm else {})
+
+    def metrics_prometheus(self) -> str:
+        """/metrics?format=prometheus: the snapshot as Prometheus text
+        exposition 0.0.4 (the histograms in native form)."""
+        return prometheus_text(self.metrics()[1])
 
     def embeddings(self, body: Dict) -> Tuple[int, Dict]:
         if self.embed is None:
@@ -330,9 +365,21 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(data)
 
     def do_GET(self):
+        path, _, query = self.path.partition("?")
+        if path == "/metrics" and parse_qs(query).get("format") == [
+                "prometheus"]:
+            data = self.app.metrics_prometheus().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; charset=utf-8")
+            self.send_header("X-Prometheus-Exposition-Version", "0.0.4")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+            return None
         routes = {"/health": self.app.health, "/v1/models": self.app.models,
-                  "/metrics": self.app.metrics}
-        fn = routes.get(self.path.split("?", 1)[0])
+                  "/metrics": self.app.metrics,
+                  "/debug/timeline": self.app.timeline}
+        fn = routes.get(path)
         if fn is None:
             return self._json(404, {"error": f"no route {self.path}"})
         return self._json(*fn())

@@ -35,9 +35,10 @@ FILE = {
     "engine": {"kv_dtype": "int8", "quantize_weights": "int8",
                "max_batch_size": 128, "page_size": 64,
                "prefill_buckets": [128, 512], "speculative_k": 3,
-               "speculative_tree_branches": 4,
+               "speculative_tree_branches": 4, "flight_ring_size": 512,
                # JAX-only engine knobs: logged and ignored by the port.
-               "flight_ring_size": 512, "enable_pallas_kernels": True},
+               "pace_emission_max_streams": 4,
+               "enable_pallas_kernels": True},
     "mesh": {"ici_tensor": 1},
 }
 
@@ -88,7 +89,8 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
     pytest.param("engine", {"prefix_cache": True, "kv_pager": True,
                             "multihost": True}, "A.17",
                  id="engine-prefix_cache-True-A.15"),
-    pytest.param("engine", {"step_plans": True}, r"A\.14\(d\)",
+    # Step plans are ported: beside them, QoS (A.16) is still refused.
+    pytest.param("engine", {"step_plans": True, "qos": True}, r"A\.16",
                  id="engine-step_plans-True-A.14"),
     pytest.param("vector_store", {"tiered": True}, "A.18",
                  id="vector_store-tiered-True-A.18"),
@@ -153,8 +155,11 @@ def test_config_file_jax_only_keys_logged(tmp_path, caplog):
     path = _write(tmp_path, "yaml", FILE)
     with caplog.at_level(logging.WARNING):
         load_config(env={"APP_CONFIG_FILE": path})
-    assert "flight_ring_size" in caplog.text
+    assert "pace_emission_max_streams" in caplog.text
+    assert "enable_pallas_kernels" in caplog.text
     assert "[mesh]" in caplog.text
+    # The flight recorder's knobs are ported: read, not logged.
+    assert "flight_ring_size" not in caplog.text
 
 
 @pytest.mark.parametrize("data, match", [
@@ -301,9 +306,45 @@ def test_fused_prefill_fields_match_jax_wizard(tmp_path, source):
 
 
 def test_fused_prefill_beside_speculation_is_accepted():
-    """As in the JAX engine, a speculative config may set the rider: it is
-    accepted (and the engine never fuses); step plans stay refused."""
+    """As in the JAX engine, a speculative config may set the rider, with
+    or without step plans (APP_ENGINE_STEPPLANS, read as the JAX wizard
+    reads it); QoS beside them is still refused (A.16)."""
     port = load_config(env={**FUSED_ENV, "APP_ENGINE_SPECULATIVEK": "3"})
     assert port.engine.fused_prefill and port.engine.speculative_k == 3
-    with pytest.raises(ValueError, match=r"ROADMAP A\.14\(d\)"):
-        load_config(env={**FUSED_ENV, "APP_ENGINE_STEPPLANS": "true"})
+    assert not port.engine.step_plans
+    env = {**FUSED_ENV, "APP_ENGINE_SPECULATIVEK": "3",
+           "APP_ENGINE_STEPPLANS": "true"}
+    port = load_config(env=env)
+    assert port.engine.step_plans
+    _assert_same(port, jax_load(env=env))
+    with pytest.raises(ValueError, match=r"ROADMAP A\.16"):
+        load_config(env={**env, "APP_ENGINE_QOS": "true"})
+
+
+# Step plans and the flight recorder are ported: read from the env or the
+# file as the JAX wizard reads them, with its defaults.
+PLAN_FLIGHT_FIELDS = {"step_plans": True, "flight_recorder": False,
+                      "flight_ring_size": 256}
+PLAN_FLIGHT_ENV = {"APP_ENGINE_STEPPLANS": "yes",
+                   "APP_ENGINE_FLIGHTRECORDER": "0",
+                   "APP_ENGINE_FLIGHTRINGSIZE": "256"}
+
+
+@pytest.mark.parametrize("source", ["env", "json", "yaml"])
+def test_step_plans_and_flight_fields_match_jax_wizard(tmp_path, source,
+                                                       caplog):
+    default, theirs = load_config(env={}).engine, jax_load(env={}).engine
+    assert {n: getattr(default, n) for n in PLAN_FLIGHT_FIELDS} == {
+        n: getattr(theirs, n) for n in PLAN_FLIGHT_FIELDS} == {
+        "step_plans": False, "flight_recorder": True,
+        "flight_ring_size": 4096}
+    env = (dict(PLAN_FLIGHT_ENV) if source == "env" else {
+        "APP_CONFIG_FILE": _write(tmp_path, source,
+                                  {"engine": PLAN_FLIGHT_FIELDS})})
+    with caplog.at_level(logging.WARNING):
+        port = load_config(env=env)
+    assert "ignored" not in caplog.text
+    _assert_same(port, jax_load(env=env))
+    assert {n: getattr(port.engine, n) for n in PLAN_FLIGHT_FIELDS} == \
+        PLAN_FLIGHT_FIELDS
+    assert not set(PLAN_FLIGHT_FIELDS) & set(UNSUPPORTED)

@@ -122,9 +122,10 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
 
 
 @pytest.mark.parametrize("flag,value,beside", [
-    # The fused rider is ported; step plans beside it (the rider on a
-    # verify block, ROADMAP A.14(d)) are still refused.
-    pytest.param("step_plans", True, {"fused_prefill": True},
+    # The fused rider and step plans beside speculation are ported:
+    # beside them, QoS (A.16) and the memory planner (A.17) are refused.
+    pytest.param("qos", True, {"fused_prefill": True, "step_plans": True,
+                               "speculative_k": 2},
                  id="fused_prefill-True"),
     # The prefix cache and the pager are ported: beside them, the
     # features still missing are refused (the pager's multi-host slice
@@ -134,7 +135,8 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
     pytest.param("qos", True, {"prefix_cache": True},
                  id="prefix_cache-True"),
     pytest.param("multihost", True, {}, id="multihost-True"),
-    pytest.param("step_plans", True, {}, id="step_plans-True")])
+    pytest.param("auto_pool_pages", True, {"step_plans": True},
+                 id="step_plans-True")])
 def test_unported_engine_flags_are_refused(flag, value, beside):
     cfg = tl.LlamaConfig.tiny()
     params = tl.init_params(cfg, "cpu")

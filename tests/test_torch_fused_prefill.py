@@ -197,8 +197,9 @@ class TestFusedDispatch:
         assert eng.metrics.fused_steps == 0  # nothing to fuse into
 
     def test_speculative_engine_never_fuses(self):
-        """A speculative engine accepts the knob and keeps the chunked
-        lane: a rider beside verify blocks is ROADMAP A.14(d)."""
+        """Without step_plans a speculative engine accepts the knob and
+        keeps the chunked lane, as the JAX engine does; with them its
+        chunks ride the verify blocks (test_torch_spec_rider.py)."""
         eng = _engine(decode_steps_per_dispatch=4, speculative_k=2,
                       fused_prefill=True)
         assert eng._fused_width == 0

@@ -52,6 +52,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_int8_matmul', 'phase_serving_int8', 'phase_tree', "
         "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', "
         "'checkpoint_streams', 'phase_checkpoint', 'phase_chain', "
+        "'phase_flight', 'phase_fused_prefill', 'phase_fused_prefill_int8', "
         "'paged_int8_sdpa_gathered_ms', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
@@ -380,3 +381,13 @@ def test_pipeline_modules_import_without_their_lazy_packages():
                           env={**os.environ, "PYTHONPATH": ""})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_flight_module_and_timeline_analyzer_are_covered():
+    """The flight recorder is the port's own copy (pure numpy), and
+    chip_smoke.py runs scripts/analyze_timeline.py on the card, where no
+    JAX is installed: neither may import jax or the JAX package."""
+    assert "generativeaiexamples_tpu_torch.serving.flight" in MODULES
+    analyzer = ROOT / "scripts" / "analyze_timeline.py"
+    assert {m.split(".")[0] for m in _imports(analyzer)} <= {
+        "__future__", "argparse", "json", "sys", "typing"}

@@ -330,25 +330,27 @@ def test_app_config_defaults_and_env_overlay_match_jax():
         assert getattr(getattr(ours, sec), name) == getattr(
             getattr(theirs, sec), name), (sec, name)
     for var, item in (("APP_VECTORSTORE_INDEXTYPE", "A.18"),
-                      ("APP_ENGINE_STEPPLANS", "A.14")):
+                      ("APP_ENGINE_QOS", "A.16")):
         value = "ivf" if "INDEX" in var else "true"
         with pytest.raises(ValueError, match=item):
             load_config(env={var: value})
-    # Query augmentation, fact check, micro-batching, tracing and the
-    # decode K cap are ported: read as the JAX wizard reads them.
+    # Query augmentation, fact check, micro-batching, tracing, the decode
+    # K cap and step plans are ported: read as the JAX wizard reads them.
     env = {"APP_RETRIEVER_QUERYAUGMENTATION": "rewrite,hyde",
            "APP_RETRIEVER_FACTCHECK": "true",
            "APP_SERVING_MICROBATCHENABLED": "1",
            "APP_SERVING_MICROBATCHMAXBATCH": "8",
            "APP_TRACING_ENABLED": "true",
-           "APP_ENGINE_PREFILLDECODEKCAP": "4"}
+           "APP_ENGINE_PREFILLDECODEKCAP": "4",
+           "APP_ENGINE_STEPPLANS": "true"}
     ours, theirs = load_config(env=env), jload(path="", env=env)
     for sec, name in (("retriever", "query_augmentation"),
                       ("retriever", "fact_check"),
                       ("serving", "microbatch_enabled"),
                       ("serving", "microbatch_max_batch"),
                       ("tracing", "enabled"),
-                      ("engine", "prefill_decode_k_cap")):
+                      ("engine", "prefill_decode_k_cap"),
+                      ("engine", "step_plans")):
         assert getattr(getattr(ours, sec), name) == getattr(
             getattr(theirs, sec), name), (sec, name)
     with pytest.raises(ValueError, match="unknown config"):

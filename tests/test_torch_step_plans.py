@@ -1,11 +1,13 @@
-"""Port parity: the fused prefill rider's step, the finish samplers and
-the step-plan lowering (serving/engine_model.py) against the JAX
-package's jitted functions with use_pallas=False, on shared weights.
+"""Port parity: the fused prefill rider's steps (beside a decode block,
+and beside verify steps: the composed plan), the finish samplers and the
+step-plan lowering (serving/engine_model.py) against the JAX package's
+jitted functions with use_pallas=False, on shared weights.
 
 Tiny f32 Llama carried across with the converter; the same page tables,
 chunk and scratch cache on both sides. Logits, pool pages and scratch
 caches within f32 atol 1e-4 (tests/test_llama.py's tolerance); greedy
-tokens identical; int8 pool codes identical, scales within rtol 1e-5
+tokens identical (verify targets, counts, lengths and history too); int8
+pool codes identical, scales within rtol 1e-5
 (test_torch_engine_model_int8's bounds). Sampled draws come from a torch
 Generator and cannot match jax.random's, so they are held to the JAX
 top-k / top-p mask instead. Sink page 0 is left out of pool comparisons.
@@ -186,6 +188,71 @@ def test_fused_step_equals_chunk_then_decode(model):
         assert torch.equal(getattr(pool_a, name), getattr(pool_b, name))
 
 
+def _spec_state(n_rows=B):
+    hist = torch.zeros((n_rows, 64), dtype=torch.int32)
+    hist[0, :12] = torch.arange(12) % 7
+    hist[2, :6] = torch.arange(6) % 5
+    return hist, torch.tensor([12, 1, 6, 1], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("k, M, n_steps", [(2, 0, 2), (2, 3, 1)],
+                         ids=["linear", "tree"])
+def test_fused_spec_prefill_step_matches_jax(model, k, M, n_steps):
+    """The composed plan, two chained calls: verify targets, counts,
+    lengths, last tokens and history equal to JAX's; chunk logits, the
+    pool's written pages and the scratch cache within f32 atol (int8:
+    codes equal, scales within rtol)."""
+    _, jcfg, jparams, tcfg, tparams = model
+    (jpool, jlast, jcache), (tpool, tlast, tcache), dec, (chunk, valid) = \
+        _state(model)
+    th, td = _spec_state()
+    jh, jd = jnp.asarray(th.numpy()), jnp.asarray(td.numpy())
+    tables, active = dec["tables"], dec["active"]
+    for _ in range(2):
+        (jt, jc, jlast, jd, jh, jpool, jlogits,
+         jcache) = jem.fused_spec_prefill_step(
+            jparams, jcfg, jpool, jh, jlast, jd, jnp.asarray(tables),
+            jnp.asarray(active), jcache, jnp.asarray(chunk),
+            jnp.int32(valid), n_steps, k, n_branches=M, use_pallas=False)
+        tt, tc, tlast, td, th, tlogits, tcache = tem.fused_spec_prefill_step(
+            tparams, tcfg, tpool, th, tlast, td, torch.from_numpy(tables),
+            torch.from_numpy(active), tcache, torch.from_numpy(chunk), valid,
+            n_steps, k, M)
+        for got, want in ((tt, jt), (tc, jc), (tlast, jlast), (td, jd),
+                          (th, jh)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                                   atol=ATOL, rtol=0)
+        _assert_pools_close(jpool, tpool)
+        _assert_caches_close(jcache, tcache)
+
+
+def test_fused_spec_step_equals_chunk_then_verify(model):
+    """The composed plan is exactly prefill_chunk_step then
+    decode_spec_multi_step: the same targets, logits and bytes."""
+    _, _, _, tcfg, tparams = model
+    _, (pool_a, last_a, cache_a), dec, (chunk, valid) = _state(model)
+    _, (pool_b, last_b, cache_b), _, _ = _state(model)
+    tables, active = (torch.from_numpy(dec[key]) for key in (
+        "tables", "active"))
+    hist_a, dl_a = _spec_state()
+    hist_b, dl_b = _spec_state()
+    got = tem.fused_spec_prefill_step(
+        tparams, tcfg, pool_a, hist_a, last_a, dl_a, tables, active, cache_a,
+        torch.from_numpy(chunk), valid, 1, 2, 3)
+    want_logits, cache_b = tem.prefill_chunk_step(
+        tparams, tcfg, cache_b, torch.from_numpy(chunk), valid)
+    want = tem.decode_spec_multi_step(tparams, tcfg, pool_b, hist_b, last_b,
+                                      dl_b, tables, active, 1, 2, 3)
+    for a, b in zip(got[:5], want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[5], want_logits)
+    assert torch.equal(got[6].k, cache_b.k)
+    assert torch.equal(got[6].lengths, cache_b.lengths)
+    for name in (("kv", "s") if pool_a.quantized else ("k", "v")):
+        assert torch.equal(getattr(pool_a, name), getattr(pool_b, name))
+
+
 # -- the finish samplers ----------------------------------------------------
 
 
@@ -258,13 +325,6 @@ def _clone(x):
     return x
 
 
-def _spec_state(n_rows=B):
-    hist = torch.zeros((n_rows, 64), dtype=torch.int32)
-    hist[0, :12] = torch.arange(12) % 7
-    hist[2, :6] = torch.arange(6) % 5
-    return hist, torch.tensor([12, 1, 6, 1], dtype=torch.int32)
-
-
 LATTICE = {
     "decode": (tem.StepPlan(decode_k=2), "decode_multi_step"),
     "rider": (tem.StepPlan(decode_k=2, rider_width=W, rider_s_total=S_TOTAL),
@@ -273,6 +333,12 @@ LATTICE = {
                     "decode_spec_multi_step"),
     "spec_tree": (tem.StepPlan(decode_k=1, spec_k=2, tree_branches=3),
                   "decode_spec_multi_step"),
+    "spec_rider_linear": (tem.StepPlan(decode_k=2, spec_k=2, rider_width=W,
+                                       rider_s_total=S_TOTAL),
+                          "fused_spec_prefill_step"),
+    "spec_rider_tree": (tem.StepPlan(decode_k=1, spec_k=2, tree_branches=3,
+                                     rider_width=W, rider_s_total=S_TOTAL),
+                        "fused_spec_prefill_step"),
     "spec_state": (tem.StepPlan(decode_k=2, spec_state=True),
                    "decode_plain_spec_state_multi_step"),
     "chunk": (tem.StepPlan(rider_width=W, rider_s_total=S_TOTAL),
@@ -299,6 +365,14 @@ def _direct(name, tparams, tcfg, pool, last, cache, dec, chunk, valid):
             tparams, tcfg, pool, last, tables, lengths, active, *samp, None,
             cache, chunk, valid, 2)
         return {"block": block, "last_tokens": last, "chunk_logits": logits,
+                "cache": cache}
+    if name in ("spec_rider_linear", "spec_rider_tree"):
+        hist, dl = _spec_state()
+        t, c, last, dl, hist, logits, cache = tem.fused_spec_prefill_step(
+            tparams, tcfg, pool, hist, last, dl, tables, active, cache,
+            chunk, valid, plan.decode_k, plan.spec_k, plan.tree_branches)
+        return {"targets": t, "counts": c, "last_tokens": last,
+                "dev_lengths": dl, "history": hist, "chunk_logits": logits,
                 "cache": cache}
     if name in ("spec_linear", "spec_tree"):
         hist, dl = _spec_state()
@@ -372,9 +446,17 @@ def test_plan_step_lattice_point_equals_direct_call(model, name):
 
 
 def test_plan_defaults_and_rider_beside_speculation_refused(model):
+    """The plan's fields and defaults are JAX's. The rider beside
+    speculation, once refused (ROADMAP A.14(d)), now lowers to
+    fused_spec_prefill_step: every lattice point of the JAX docstring
+    runs, none raises."""
     _, _, _, tcfg, tparams = model
     assert tem.StepPlan() == tem.StepPlan(0, 0, 0, 0, 0, False, False)
     assert tem.StepPlan._fields == jem.StepPlan._fields
-    with pytest.raises(ValueError, match=r"ROADMAP A\.14\(d\)"):
-        tem.plan_step(tparams, tcfg, tem.StepPlan(
-            decode_k=2, spec_k=2, rider_width=W, rider_s_total=S_TOTAL))
+    lowered = {fn for _, fn in LATTICE.values()}
+    assert "fused_spec_prefill_step" in lowered
+    assert all(hasattr(jem, fn) and hasattr(tem, fn) for fn in lowered)
+    _, (pool, last, cache), dec, (chunk, valid) = _state(model)
+    res = _via_plan("spec_rider_tree", tparams, tcfg, pool, last, cache, dec,
+                    chunk, valid)
+    assert res["cache"].lengths.tolist() == [W + valid]
