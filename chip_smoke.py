@@ -110,7 +110,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the rider at a 512-token budget, C the lane with the
               unfused finish; tree engines, k = 3 and M = 4: D the rider
               knob without step plans, E composed plans, the rider inside
-              the verify steps), each with three greedy 128-token streams
+              the verify steps), each with three greedy 64-token streams
               decoding while a 6,000-token prompt prefills; every stream
               must equal the same request run alone (on A for A-C, on D
               for D-E), B and E must ride (fused_steps, rider + lane
@@ -134,10 +134,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               once with serving.microbatch_enabled (results held to exact
               host MIPS, ids equal, fewer forwards, K3 launches = layers x
               forwards, the coalesced query embeddings compared bit for
-              bit); 16 concurrent traced knowledge-base answers (one with
+              bit); 4 concurrent traced knowledge-base answers (one with
               a traceparent; every generate span shares its trace with one
               llm.local and one engine.generate span; the TTFT split from
-              the spans; the reranker's batcher must coalesce); 2 answers
+              the spans; the reranker's batcher must coalesce); 1 answer
               with query augmentation (rewrite, hyde, multi_query: one
               embed_queries forward, one search_batch) and the fact check
               (a "[fact-check] " frame and a verdict); K1, K2, K3 launch
@@ -188,6 +188,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               must equal their copy taken before demotion bit for bit and
               the resumed streams the resident hits'; K1 and K2 must
               launch
+  11e. fleet  (after prefix, before the bf16 engine goes) two replica
+              engines over the served weights (prefix cache on, 129 pool
+              pages each) behind the port's OpenAI server: 8 greedy
+              64-token chats over 4 sessions, each equal to the same
+              request alone on the served engine, K1 and K2 launches equal
+              to what the replicas' dispatches imply; each session's
+              second turn on its replica with a router and an engine
+              prefix hit; drain with a stream in flight, evict with a
+              queued batch-tier request (requeued, tier and tenant kept);
+              disagg (r0 prefill, r1 decode) of a 4,136-token prompt (32
+              pages, 537 MB of bf16 KV) over the host bounce, the device
+              path and pipelined 8-page windows, ms a page and TTFT
+              against colocated, no fallback; r1 behind a second server
+              as an HttpReplica (a proxied SSE chat, one /v1/kv transfer
+              seating the in-process bytes); then a QoS engine replaying
+              qos.bursty_trace(seed=0) off and on (latency TTFT p50/p95,
+              preemptions) and the edge's 429s with Retry-After. K1, K2
+              launch; K4, K5, K6 not
   13. spec_int8  over serving_int8's quantized weights, two speculative
               engines in turn in the same deployment: k = 3, M = 4 (tree)
               and k = 1 (linear), each with serving_int8's 128-request
@@ -234,7 +252,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               runs (fused_launches), K1, K4, K5 and K6 theirs on the
               rider beside verify steps (spec_rider_launches: run E and
               the int8 tree composition); K1-K3 also
-              their launches on the chain and pipelines phases; K4's entry
+              their launches on the chain and pipelines phases; every
+              kernel its fleet launches (fleet_launches); K4's entry
               also carries its verify cases and its spec_int8 launches,
               K1's and K2's their prefix launches, every kernel its
               launches on the checkpoint phase's loaded models
@@ -269,7 +288,9 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
+import zlib
 
 # H100 SXM peaks (NVIDIA data sheet) for the roofline bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -2060,7 +2081,7 @@ def _k_cap_run(served, prompt, shorts, chunks_per_block: int,
 
 
 def _k_cap_check(served, prompt, long_alone, n_short: int = 3,
-                 max_tokens: int = 128):
+                 max_tokens: int = 64):
     """engine.prefill_decode_k_cap on the card: `n_short` greedy streams
     decode while the ~6k-token prompt prefills in chunks. Three streams,
     not two: at most a quarter of the batch decoding already caps K at 2
@@ -2288,7 +2309,7 @@ def _fused_engine_run(name, params, cfg, tokenizer, ecfg, n_pages, device,
 
 def phase_fused_prefill(card: str, served: ServedEngine,
                         device: str = "cuda", prompt_len: int = 6000,
-                        n_short: int = 3, max_tokens: int = 128,
+                        n_short: int = 3, max_tokens: int = 64,
                         long_tokens: int = 8, engine_cfg=None):
     """engine.fused_prefill over the served bf16 8B weights: engines of
     batch 4 with a pool for the prompt and three 256-token streams,
@@ -2739,7 +2760,7 @@ def _stop_server(app, httpd, th):
 
 def phase_chain(card: str, served: ServedEngine, keep: dict,
                 device: str = "cuda", n_search: int = 64,
-                n_answers: int = 16, n_augmented: int = 2,
+                n_answers: int = 4, n_augmented: int = 1,
                 max_tokens: int = 32, top_k: int = 5):
     """The rest of the chain over phase_rag's encoders and 2,001-chunk
     device store (`keep`) and the served 8B engine, tracing on (a
@@ -4230,6 +4251,594 @@ def phase_prefix(card: str, bf16_served, device: str = "cuda",
     return rec
 
 
+# -- phase 11e: the serving fleet (router, lifecycle, disagg, HTTP, QoS) ----
+
+# The fleet's replicas: the served engine's config with the prefix cache
+# on, and a pool small enough to sit beside the served engine.
+FLEET_POOL_PAGES = 129
+# The QoS engine's pool: the trace's 1,024-5,000-token batch prompts in
+# 8 slots.
+QOS_POOL_PAGES = 385
+# bursty_trace(seed=0) with long batch prompts (bounded Pareto 1,024 to
+# 5,000 tokens: beyond the largest bucket they go through the chunked
+# lane, which the latency tier's TTFT phase pauses).
+QOS_TRACE = {"batch_prompt": (1.4, 1024, 5000)}
+# The edge's bounds in the 429 check (each tier's in-flight limit).
+QOS_EDGE_BOUNDS = {"latency": 2, "standard": 2, "batch": 1}
+
+
+class _DispatchTally:
+    """K1 and K2 launches an engine's dispatches imply: a prefill group's
+    forward or a chunk plan launches K1 once a layer, a decode plan K2
+    once a layer a step. Wraps the engine's `_prefill_group` and
+    `_exec_plan` for the counted window (the engine must be idle when it
+    is installed and removed)."""
+
+    def __init__(self, engine):
+        self.engine, self.k1, self.k2 = engine, 0, 0
+        layers = engine.cfg.n_layers
+        group, plan = engine._prefill_group, engine._exec_plan
+
+        def prefill_group(*a, **kw):
+            self.k1 += layers
+            return group(*a, **kw)
+
+        def exec_plan(p, *a, **kw):
+            if p.rider_width:
+                self.k1 += layers
+            if p.decode_k and not p.spec_k:
+                self.k2 += layers * p.decode_k
+            return plan(p, *a, **kw)
+
+        engine._prefill_group = prefill_group
+        engine._exec_plan = exec_plan
+
+    def remove(self):
+        del self.engine._prefill_group
+        del self.engine._exec_plan
+
+
+def _cold_replica(first_page, rids):
+    """The replica the prefix router's stable hash gives a prompt no
+    replica has seen (serving/router.py `_choose`'s last branch)."""
+    h = zlib.crc32(" ".join(str(t) for t in first_page).encode())
+    return sorted(rids)[h % len(rids)]
+
+
+def _chat_sse(base, messages, max_tokens, user="", headers=None):
+    """One streaming chat completion: (status, concatenated text,
+    finish_reason, response headers)."""
+    body = {"messages": messages, "max_tokens": max_tokens, "stream": True}
+    if user:
+        body["user"] = user
+    req = urllib.request.Request(
+        base + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    text, finish = "", None
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            for raw in resp:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                ch = json.loads(line[6:])["choices"][0]
+                text += ch["delta"].get("content", "")
+                finish = ch.get("finish_reason") or finish
+            return resp.status, text, finish, dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(), None, dict(e.headers)
+
+
+def _collect_req(req, timeout=600):
+    """(token ids, finish_reason, seconds to the first token) of a
+    submitted request's stream."""
+    toks, first = [], None
+    while True:
+        ev = req.stream.get(timeout=timeout)
+        if ev["token_id"] >= 0:
+            if first is None:
+                first = time.perf_counter()
+            toks.append(ev["token_id"])
+        if ev["finished"]:
+            return toks, ev["finish_reason"], first
+
+
+def _serve(app):
+    """`app` behind a ThreadingHTTPServer on a local port: (httpd,
+    thread, base url)."""
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        make_http_server)
+
+    httpd = make_http_server(app, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    return httpd, th, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _pages_of(engine, ids):
+    """The raw bytes of `ids`' cached full pages in `engine`'s pool."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import engine_model
+
+    pages = engine.prefix_cache.match(list(ids))
+    codes, _ = engine_model.pool_to_pages(
+        engine.pool, torch.tensor(pages, device=engine.device))
+    return codes.cpu().view(torch.int16)
+
+
+def phase_fleet(card: str, bf16_served, device: str = "cuda",
+                n_chats: int = 8, n_sessions: int = 4, chat_chars: int = 300,
+                max_tokens: int = 64, disagg_prompt: int = 4136,
+                disagg_tokens: int = 32, chunk_pages: int = 8,
+                n_pages: int = FLEET_POOL_PAGES, engine_cfg=None,
+                warmups=(((512, 1024), None), ((4096,), (1,))),
+                qos_pages: int = QOS_POOL_PAGES, qos_trace=None,
+                qos_warmup=((128,), (1,)),
+                edge_requests: int = 6, edge_tokens: int = 64):
+    """The serving fleet over the bf16 8B weights the served engine holds:
+    two LocalReplica engines (the served engine's config with the prefix
+    cache on, n_pages pool pages each) sharing that one weight tree,
+    behind the port's OpenAI server.
+
+    (a) routing: n_chats greedy max_tokens-token chats over n_sessions
+    sessions (`user`), submitted 0.1 s apart so each is its own prefill
+    group as when run alone, all decoding together, two sessions on
+    each replica (the cold first turns' texts are drawn so the router's
+    stable hash splits them): each stream must
+    equal the same request alone on the served engine; over this window
+    K1's and K2's launches must equal what the replicas' dispatches imply
+    (launch counting under two scheduler threads). Then each session's
+    second turn must land on its replica with a router locality hit and
+    an engine prefix hit. (b) lifecycle: drain a replica with a stream in
+    flight (it completes), restore; stop a replica's engine, queue a
+    batch-tier request pinned to it, evict it: the request is requeued to
+    the survivor with its tier and tenant and completes; restore. (c)
+    disagg (r0 prefill, r1 decode): a disagg_prompt-token prompt (32 full
+    pages and a 40-token suffix) over the host bounce, then over the
+    device path (card to card, no host copy), then pipelined in windows
+    of chunk_pages pages; one more prompt warms the shapes first. The
+    decode replica must prefill only the suffix on the two serialized
+    routes, every stream must equal the served engine's, and no run may
+    fall back (disagg_fallbacks, disagg_device_fallbacks 0). (d) HTTP:
+    r1 behind a second server as an HttpReplica of a router-only fleet: a
+    proxied SSE chat equal to the served engine's, and one transfer over
+    /v1/kv/export -> /v1/kv/import seating bytes equal to the in-process
+    export. (e) QoS, after the replicas are freed: one engine replays
+    qos.bursty_trace(seed=0) with long batch prompts, QoS off then on
+    (latency-tier TTFT p50/p95, qos_preemptions); then with
+    serving.qos_edge, edge_requests concurrent latency-tier requests
+    against a bound of 2: the rest must get 429 with Retry-After.
+
+    K1 and K2 must launch in the phase, K4, K5 and K6 must not."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.config.schema import ServingConfig
+    from generativeaiexamples_tpu_torch.serving import qos as qos_mod
+    from generativeaiexamples_tpu_torch.serving.disagg import page_geometry
+    from generativeaiexamples_tpu_torch.serving.engine import (
+        GenRequest, LLMEngine)
+    from generativeaiexamples_tpu_torch.serving.fleet import (
+        EngineFleet, HttpReplica, LocalReplica)
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        OpenAIServer)
+
+    t_phase = time.perf_counter()
+    src = bf16_served.engine
+    tok = src.tokenizer
+    ecfg = dataclasses.replace(src.ecfg, prefix_cache=True,
+                               **(engine_cfg or {}))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    engines = []
+    for _ in range(2):
+        eng = LLMEngine(src.params, src.cfg, tok, ecfg, n_pages=n_pages,
+                        device=device)
+        for buckets, groups in warmups:
+            eng.warmup(buckets=list(buckets),
+                       group_sizes=None if groups is None else list(groups))
+        engines.append(eng.start())
+    build_s = time.perf_counter() - t0
+    memory = {"allocated_gb": torch.cuda.memory_allocated() / 2**30,
+              "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    ps = engines[0].pool.page_size
+    rng = np.random.default_rng(21)
+    servers = []
+
+    def fleet_of(**kw):
+        return EngineFleet([LocalReplica("r0", engines[0]),
+                            LocalReplica("r1", engines[1])], tok, ps,
+                           health_interval_s=0, **kw).start()
+
+    def letters(n):
+        return "".join(chr(c) for c in rng.integers(97, 123, n))
+
+    def chat_ids(messages):
+        return tok.encode(tok.apply_chat_template(messages), add_bos=False)
+
+    fleet = fleet_of()
+    app = _recording_server(fleet)
+    httpd, th, base = _serve(app)
+    servers.append((httpd, th))
+    rec = {"phase": "fleet", "card": card, "replica_pool_pages": n_pages,
+           "replica_build_s": build_s, "memory": memory,
+           "engine": {"page_size": ps, "max_batch_size": ecfg.max_batch_size,
+                      "prefix_cache": True}}
+    try:
+        part_s = {}
+        t_part = time.perf_counter()
+        # -- (a) routing ---------------------------------------------------
+        users = [f"user-{i % n_sessions}" for i in range(n_chats)]
+        # The first turns are cold, so the router's stable hash of their
+        # first page places them: their texts are drawn until the hash
+        # gives each replica half the sessions, so both scheduler
+        # threads launch at once in the counted window.
+        firsts, per = [], {"r0": 0, "r1": 0}
+        for _ in range(256):
+            if len(firsts) == n_sessions:
+                break
+            msgs = [{"role": "user", "content": letters(chat_chars)}]
+            r = _cold_replica(chat_ids(msgs)[:ps], ("r0", "r1"))
+            if per[r] < n_sessions // 2 + n_sessions % 2:
+                per[r] += 1
+                firsts.append(msgs)
+        chats = firsts + [[{"role": "user", "content": letters(chat_chars)}]
+                          for _ in range(n_chats - n_sessions)]
+        want = [_alone(src, chat_ids(m), max_tokens) for m in chats]
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        tallies = [_DispatchTally(e) for e in engines]
+        results = [None] * n_chats
+
+        def chat(i):
+            results[i] = _chat_sse(base, chats[i], max_tokens, users[i])
+
+        threads = []
+        for i in range(n_chats):
+            threads.append(threading.Thread(target=chat, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.1)
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        window = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        for t in tallies:
+            t.remove()
+        got = [list(app.streams.get(tuple(chat_ids(m)), ()))
+               for m in chats]
+        placed = {u: fleet.router._affinity[u][0] for u in set(users)}
+        turn1 = {"streams_equal_served": [g == w for g, w in zip(got, want)],
+                 "first_divergence": [_first_divergence(g, w)
+                                      for g, w in zip(got, want)],
+                 "finish": [r[2] if r else None for r in results],
+                 "placement": placed,
+                 "launches": {k: window[k] for k in ("flash_attention",
+                                                     "paged_attention")},
+                 "dispatch_implied": {
+                     "flash_attention": sum(t.k1 for t in tallies),
+                     "paged_attention": sum(t.k2 for t in tallies)}}
+        turn2 = []
+        for u in sorted(set(users)):
+            i = users.index(u)
+            msgs = chats[i] + [{"role": "assistant", "content": results[i][1]},
+                               {"role": "user", "content": letters(40)}]
+            rid = fleet.router._affinity[u][0]
+            eng = engines[int(rid[1])]
+            snap0, hits0 = fleet.router.snapshot(), eng.metrics.prefix_hits
+            status, _, finish, _ = _chat_sse(base, msgs, 16, u)
+            snap1 = fleet.router.snapshot()
+            turn2.append({
+                "session": u, "replica": rid, "status": status,
+                "finish": finish,
+                "same_replica": fleet.router._affinity[u][0] == rid,
+                "router_prefix_hit": snap1["router_prefix_hits"]
+                - snap0["router_prefix_hits"],
+                "router_hit_tokens": snap1["router_hit_tokens"]
+                - snap0["router_hit_tokens"],
+                "engine_prefix_hits": eng.metrics.prefix_hits - hits0})
+        routing_ok = (
+            all(turn1["streams_equal_served"])
+            and all(f in ("length", "stop") for f in turn1["finish"])
+            and len(set(placed.values())) == 2
+            and turn1["launches"] == turn1["dispatch_implied"]
+            and turn1["launches"]["flash_attention"] > 0
+            and turn1["launches"]["paged_attention"] > 0
+            and all(t["status"] == 200 and t["same_replica"]
+                    and t["router_prefix_hit"] == 1
+                    and t["engine_prefix_hits"] >= 1 for t in turn2))
+        rec["routing"] = {"chats": n_chats, "sessions": n_sessions,
+                          "prompt_tokens": [len(chat_ids(m)) for m in chats],
+                          "turn1": turn1, "turn2": turn2,
+                          "router": fleet.router.snapshot(),
+                          "ok": routing_ok}
+
+        part_s["routing"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # -- (b) lifecycle ---------------------------------------------------
+        prompt = rng.integers(0, 256, 200).tolist()
+        req = GenRequest(prompt_ids=prompt, max_new_tokens=max_tokens)
+        fleet.submit(req)
+        first = req.stream.get(timeout=600)
+        rid = next(r for r, d in fleet.router.queue_depths().items() if d)
+        drained = fleet.drain(rid, timeout_s=300)
+        toks, finish, _ = _collect_req(req)
+        state_drained = fleet.fleet_health()["replicas"][rid]["state"]
+        fleet.restore(rid)
+        drain_ok = (drained and state_drained == "drained"
+                    and finish in ("length", "stop")
+                    and len(toks) + (first["token_id"] >= 0)
+                    == max_tokens)
+        victim = placed[users[0]]
+        survivor = "r1" if victim == "r0" else "r0"
+        v_eng = engines[int(victim[1])]
+        v_eng.stop()
+        queued = GenRequest(prompt_ids=rng.integers(0, 256, 150).tolist(),
+                            max_new_tokens=16, priority="batch",
+                            tenant_id="tenant-evict", session_id=users[0],
+                            request_id="evict-requeue")
+        # Placed on the victim (the survivor briefly refuses placements),
+        # where it queues on the stopped engine.
+        fleet.router.set_admitting(survivor, False)
+        fleet.submit(queued)
+        fleet.router.set_admitting(survivor, True)
+        waiting = len(v_eng.waiting)
+        requeued = fleet.evict(victim)
+        toks, finish, _ = _collect_req(queued)
+        s_eng = engines[int(survivor[1])]
+        tiers = [e["tier"] for e in s_eng.flight.snapshot_events()
+                 if e["rid"] == "evict-requeue"]
+        state_evicted = fleet.fleet_health()["replicas"][victim]["state"]
+        fleet.restore(victim)
+        evict_ok = (waiting == 1 and requeued == 1
+                    and state_evicted == "evicted"
+                    and finish in ("length", "stop") and len(toks) == 16
+                    and queued.priority == "batch"
+                    and queued.tenant_id == "tenant-evict"
+                    and tiers and all(t == 2 for t in tiers)
+                    and fleet.router._affinity[users[0]][0] == survivor
+                    and v_eng._running
+                    and fleet.metrics.snapshot()["router_requeued"] == 1)
+        rec["lifecycle"] = {
+            "drain": {"replica": rid, "emptied": drained,
+                      "state": state_drained, "finish": finish,
+                      "ok": drain_ok},
+            "evict": {"replica": victim, "survivor": survivor,
+                      "queued_on_victim": waiting, "requeued": requeued,
+                      "state": state_evicted, "tokens": len(toks),
+                      "survivor_tiers": tiers, "ok": evict_ok}}
+        lifecycle_ok = drain_ok and evict_ok
+
+        part_s["lifecycle"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # -- (c) disagg ------------------------------------------------------
+        runs = {}
+        full = disagg_prompt // ps
+        shape, dtype, _ = page_geometry(engines[1].pool)
+        page_bytes = int(np.prod(shape)) * torch.empty(
+            (), dtype=dtype).element_size()
+        for name, kw in (
+                ("warm", {}), ("host", {}),
+                ("device", {"disagg_device_path": True}),
+                ("pipelined", {"disagg_pipeline": True,
+                               "disagg_transfer_chunk_pages": chunk_pages})):
+            prompt = rng.integers(0, 256, disagg_prompt).tolist()
+            t0 = time.perf_counter()
+            ref = GenRequest(prompt_ids=prompt, max_new_tokens=disagg_tokens)
+            src.submit(ref)
+            ref_toks, _, ref_first = _collect_req(ref)
+            colocated_ttft = (ref_first - t0) * 1e3
+            dfleet = fleet_of(replica_roles={"r0": "prefill",
+                                             "r1": "decode"},
+                              disagg=True, **kw)
+            dec = engines[1]
+            m0, ops0 = dec.metrics.snapshot(), dfleet.ops.snapshot()
+            req = GenRequest(prompt_ids=prompt, max_new_tokens=disagg_tokens)
+            t0 = time.perf_counter()
+            dfleet.submit(req)
+            got_toks, finish, first = _collect_req(req)
+            ttft = (first - t0) * 1e3
+            dfleet._disagg_transfer.drain(timeout_s=60)
+            m1, ops1 = dec.metrics.snapshot(), dfleet.ops.snapshot()
+            d = {k: m1[k] - m0[k] for k in (
+                "prefill_tokens", "prefix_hits", "prefix_hit_tokens",
+                "kv_transfer_pages", "kv_transfer_ms",
+                "kv_transfer_device_pages", "kv_transfer_chunks")}
+            o = {k: ops1[k] - ops0[k] for k in ops1}
+            pages = d["kv_transfer_pages"]
+            run = {"prompt_tokens": disagg_prompt, "full_pages": full,
+                   "kv_bytes": pages * page_bytes,
+                   "decode_prefill_tokens": d["prefill_tokens"],
+                   "engine": d, "fleet_ops": o,
+                   "ms_per_page": (o["disagg_transfer_ms"] / pages
+                                   if pages else None),
+                   "import_ms_per_page": (d["kv_transfer_ms"] / pages
+                                          if pages else None),
+                   "ttft_ms": ttft, "colocated_ttft_ms": colocated_ttft,
+                   "equal_served": got_toks == ref_toks,
+                   "first_divergence": _first_divergence(got_toks,
+                                                         ref_toks),
+                   "finish": finish}
+            suffix_only = d["prefill_tokens"] == disagg_prompt - full * ps
+            run["ok"] = (
+                o["disagg_requests"] == 1 and o["disagg_fallbacks"] == 0
+                and o["disagg_device_fallbacks"] == 0
+                and finish in ("length", "stop")
+                and (name == "pipelined" or (
+                    suffix_only and got_toks == ref_toks
+                    and pages == full and d["prefix_hits"] == 1))
+                and (name != "device"
+                     or d["kv_transfer_device_pages"] == full)
+                and (name == "device" or d["kv_transfer_device_pages"] == 0))
+            runs[name] = run
+        rec["disagg"] = {"runs": runs, "chunk_pages": chunk_pages}
+        disagg_ok = all(r["ok"] for r in runs.values())
+
+        part_s["disagg"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # -- (d) HTTP replicas -----------------------------------------------
+        b_app = _recording_server(engines[1])
+        a_app = _recording_server(engines[0])
+        hb, tb, base_b = _serve(b_app)
+        ha, ta, base_a = _serve(a_app)
+        servers += [(hb, tb), (ha, ta)]
+        hfleet = EngineFleet([HttpReplica("h0", base_b)], tok, ps,
+                             health_interval_s=0).start()
+        hf, tf_, base_f = _serve(OpenAIServer(hfleet))
+        servers.append((hf, tf_))
+        msgs = [{"role": "user", "content": letters(chat_chars)}]
+        ids = chat_ids(msgs)
+        want_toks = _alone(src, ids, 32)
+        _, want_text, want_finish, _ = _chat_sse(bf16_served.base, msgs, 32)
+        status, text, finish, _ = _chat_sse(base_f, msgs, 32)
+        proxied = list(b_app.streams.get(tuple(ids), ()))
+        remote = HttpReplica("b", base_b).export_kv_pages(ids)
+        local = LocalReplica("r1", engines[1]).export_kv_pages(ids)
+        wire_equal = (remote is not None and local is not None
+                      and remote[2] == local[2]
+                      and torch.equal(remote[0].view(torch.int16),
+                                      local[0].view(torch.int16)))
+        imported = HttpReplica("a", base_a).import_kv_pages(
+            ids[:remote[2]], remote[0], remote[1]) if remote else 0
+        seated_equal = bool(imported and torch.equal(
+            _pages_of(engines[0], ids), _pages_of(engines[1], ids)))
+        http_ok = (status == 200 and text == want_text
+                   and finish == want_finish and proxied == want_toks
+                   and wire_equal and imported == len(ids) // ps
+                   and seated_equal)
+        rec["http"] = {"sse_status": status, "sse_text_equal": text
+                       == want_text, "finish": finish,
+                       "proxied_tokens_equal_served": proxied == want_toks,
+                       "export_pages": (remote[0].shape[0] if remote
+                                        else 0),
+                       "wire_equal_in_process": wire_equal,
+                       "imported": imported, "seated_equal": seated_equal,
+                       "ok": http_ok}
+        hfleet.stop()
+        part_s["http"] = time.perf_counter() - t_part
+        launches_fleet = dict(kernels.LAUNCHES)
+    finally:
+        for httpd, t in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            t.join(timeout=30)
+        for e in engines:
+            e.stop()
+            e.pool = None
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (e) QoS --------------------------------------------------------------
+    t_part = time.perf_counter()
+    qcfg = dataclasses.replace(src.ecfg, qos=True)
+    qeng = LLMEngine(src.params, src.cfg, tok, qcfg, n_pages=qos_pages,
+                     device=device)
+    t0 = time.perf_counter()
+    qeng.warmup(buckets=list(qos_warmup[0]), group_sizes=list(qos_warmup[1]))
+    qos_warm_s = time.perf_counter() - t0
+    qeng.start()
+    trace = qos_mod.bursty_trace(seed=0, **(qos_trace or QOS_TRACE))
+    scheduler = qeng.qos
+    qos_runs = {}
+    try:
+        for name in ("off", "on"):
+            qeng.qos = scheduler if name == "on" else None
+            p0 = qeng.metrics.qos_preemptions
+            t0 = time.perf_counter()
+            res = qos_mod.run_trace_on_engine(qeng, trace, seed=0,
+                                              timeout_s=600)
+            lat = sorted(r["ttft_s"] * 1e3 for r in res
+                         if r["tier"] == "latency" and r["ttft_s"])
+            bat = sorted(r["ttft_s"] * 1e3 for r in res
+                         if r["tier"] == "batch" and r["ttft_s"])
+            qos_runs[name] = {
+                "wall_s": time.perf_counter() - t0,
+                "latency_ttft_p50_ms": _pct(lat, 0.5),
+                "latency_ttft_p95_ms": _pct(lat, 0.95),
+                "batch_ttft_p50_ms": _pct(bat, 0.5),
+                "errors": sum(r["error"] for r in res),
+                "served": sum(r["tokens"] > 0 for r in res),
+                "qos_preemptions": qeng.metrics.qos_preemptions - p0}
+        qeng.qos = scheduler
+        edge_app = OpenAIServer(qeng, serving_cfg=ServingConfig(
+            qos_edge=True, qos_bound_latency=QOS_EDGE_BOUNDS["latency"],
+            qos_bound_standard=QOS_EDGE_BOUNDS["standard"],
+            qos_bound_batch=QOS_EDGE_BOUNDS["batch"],
+            qos_retry_after_s=1.0))
+        he, te, base_e = _serve(edge_app)
+        answers = [None] * edge_requests
+
+        def edge_call(i):
+            answers[i] = _chat_sse(
+                base_e, [{"role": "user", "content": f"edge {i}"}],
+                edge_tokens, headers={"x-priority": "latency"})
+
+        try:
+            ths = [threading.Thread(target=edge_call, args=(i,))
+                   for i in range(edge_requests)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            edge_snap = edge_app.metrics()[1]
+        finally:
+            he.shutdown()
+            he.server_close()
+            te.join(timeout=30)
+    finally:
+        qeng.stop()
+        qeng.pool = None
+        del qeng
+        gc.collect()
+        torch.cuda.empty_cache()
+    shed = [a for a in answers if a and a[0] == 429]
+    served = [a for a in answers if a and a[0] == 200]
+    bound = QOS_EDGE_BOUNDS["latency"]
+    edge_ok = (len(served) == bound and len(shed) == edge_requests - bound
+               and all(a[3].get("Retry-After") == "1" for a in shed)
+               and edge_snap["qos_shed_latency"] == len(shed))
+    qos_ok = (qos_runs["off"]["qos_preemptions"] == 0
+              and all(r["errors"] == 0 and r["served"] == len(trace)
+                      for r in qos_runs.values()))
+    rec["qos"] = {"trace": {"requests": len(trace),
+                            "latency": sum(t.tier == "latency"
+                                           for t in trace),
+                            "batch": sum(t.tier == "batch" for t in trace),
+                            "batch_prompt": list(
+                                (qos_trace or QOS_TRACE)["batch_prompt"])},
+                  "pool_pages": qos_pages, "warmup_s": qos_warm_s,
+                  "runs": qos_runs,
+                  "edge": {"bounds": QOS_EDGE_BOUNDS,
+                           "requests": edge_requests, "served": len(served),
+                           "shed_429": len(shed),
+                           "retry_after": [a[3].get("Retry-After")
+                                           for a in shed],
+                           "qos_shed_latency": edge_snap["qos_shed_latency"],
+                           "ok": edge_ok},
+                  "ok": qos_ok and edge_ok}
+    torch.cuda.synchronize()
+    part_s["qos"] = time.perf_counter() - t_part
+    rec["part_seconds"] = part_s
+    launches = dict(kernels.LAUNCHES)
+    rec["launches"] = launches
+    rec["launches_before_qos"] = launches_fleet
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = (routing_ok and lifecycle_ok and disagg_ok and http_ok
+                 and rec["qos"]["ok"]
+                 and launches["flash_attention"] > 0
+                 and launches["paged_attention"] > 0
+                 and not any(launches[k] for k in (
+                     "paged_attention_int8", "paged_attention_tree",
+                     "int8_matmul")))
+    emit(rec)
+    return rec
+
+
 # -- phase 15: serve from disk (checkpoints, tokenizer gate, store) ---------
 
 # Where the phase writes its snapshots (inside the ignored build/), and
@@ -5324,6 +5933,7 @@ def main() -> int:
                           rag_keep)
         spec_bf16 = timed("spec_bf16", phase_spec_bf16, card, served)
         prefix = timed("prefix", phase_prefix, card, served)
+        fleet = timed("fleet", phase_fleet, card, served)
         # What the engine loaded from the snapshot of these weights must
         # give, taken before this engine goes.
         ckpt_ref = timed("checkpoint_streams", checkpoint_streams, served)
@@ -5435,6 +6045,9 @@ def main() -> int:
     # K1 (a hit's suffix at q_offset) and K2 (decode over adopted and
     # promoted pages) on the prefix-cache path.
     for e in line:
+        # The fleet phase: two replicas, disagg, HTTP replicas and QoS (K1
+        # and K2 only).
+        e["fleet_launches"] = fleet["launches"][e["name"]]
         if e["name"] in ("flash_attention", "paged_attention"):
             e["prefix_launches"] = prefix["launches"][e["name"]]
         # Launches on the models loaded from their snapshots (K5 is not
@@ -5458,7 +6071,8 @@ def main() -> int:
           and fused["ok"] and fused_int8["ok"]
           and rag["ok"] and chain["ok"] and pipelines["ok"]
           and serving_int8["ok"] and spec_bf16["ok"]
-          and prefix["ok"] and all(r["ok"] for r in spec_int8)
+          and prefix["ok"] and fleet["ok"]
+          and all(r["ok"] for r in spec_int8)
           and checkpoint["ok"])
     print(card, flush=True)
     if not ok:

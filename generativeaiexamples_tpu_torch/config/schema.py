@@ -9,14 +9,21 @@ defaults:
   KV pager (`prefix_cache`, `kv_pager` and their sizes), the fused
   prefill rider (`fused_prefill`, `fused_token_budget`), step plans
   beside speculation (`step_plans`) and the flight recorder
-  (`flight_recorder`, `flight_ring_size`). Flags of the JAX engine that
-  the port does not have yet (QoS, multi-host, ...) are listed in `UNSUPPORTED` with the ROADMAP item that brings
-  them; `EngineConfig.coerce` refuses any of them set
-  away from its default. `weights_path` names an HF safetensors snapshot
-  (empty: random weights at a named geometry).
-- `AppConfig`: the sections the chain's pipelines read (llm,
-  embeddings, reranker, retriever, vlm, prompts, text_splitter,
-  vector_store, serving, engine, tracing). `load_config()` reads the YAML or JSON file that
+  (`flight_recorder`, `flight_ring_size`) and QoS (`qos`, the tier
+  weights, `qos_preempt_prefill`). Flags of the JAX engine that the port
+  does not have yet (multi-host, the memory planner) are listed in
+  `UNSUPPORTED` with the ROADMAP item that brings them;
+  `EngineConfig.coerce` refuses any of them set away from its default.
+  `weights_path` names an HF safetensors snapshot (empty: random weights
+  at a named geometry).
+- `FleetConfig`: the serving fleet (serving/fleet.py): local replicas,
+  remote replica URLs, the router policy, health probes and
+  disaggregated prefill/decode. The autoscaler's and the chaos harness's
+  fields are refused (`UNSUPPORTED_APP`, ROADMAP A.16).
+- `AppConfig`: the sections the chain's pipelines and the engine server
+  read (llm, embeddings, reranker, retriever, vlm, prompts,
+  text_splitter, vector_store, serving, engine, fleet, tracing).
+  `load_config()` reads the YAML or JSON file that
   `APP_CONFIG_FILE` names, overlays `APP_<SECTION>_<FIELD>` environment
   variables (the JAX config wizard's contract) and refuses fields that
   name unported features when they are set away from their defaults
@@ -118,6 +125,20 @@ class EngineConfig:
     flight_recorder: bool = True
     # Beat-ring capacity in records (the event ring is 4x this).
     flight_ring_size: int = 4096
+    # SLO-aware multi-tenant QoS (serving/qos.py): requests carry a tier
+    # (latency | standard | batch) and a tenant; admission is weighted-fair
+    # across tiers and least-served-tenant within one instead of FIFO, and
+    # a latency-tier request in its TTFT phase pauses lower-tier long
+    # prefills at the beat boundary. Off by default: off is the FIFO
+    # scheduler.
+    qos: bool = False
+    # Admission-bandwidth weights per tier (floored at 1).
+    qos_weight_latency: int = 8
+    qos_weight_standard: int = 4
+    qos_weight_batch: int = 1
+    # With qos on, pause lower-tier long prefills while a latency-tier
+    # request is prefilling or awaiting its first token.
+    qos_preempt_prefill: bool = True
 
     @staticmethod
     def coerce(cfg: Any = None) -> "EngineConfig":
@@ -161,7 +182,6 @@ class EngineConfig:
 # JAX EngineConfig flags outside this slice: name -> (default, where the
 # port will gain it).
 UNSUPPORTED = {
-    "qos": (False, "ROADMAP A.16: QoS"),
     "multihost": (False, "ROADMAP A.17: multi-host"),
     "auto_pool_pages": (False, "ROADMAP A.17: memory planner"),
 }
@@ -279,6 +299,85 @@ class ServingConfig:
     # Chain-server executor width (floored at 2 x microbatch_max_batch
     # when micro-batching is on).
     executor_workers: int = 64
+    # Edge admission (serving/qos.py EdgeAdmission): per-tier bounds on
+    # the requests in flight at the OpenAI server; past its bound a
+    # request is shed with 429 + Retry-After before it queues. Off by
+    # default (no shedding; the depth is still tracked).
+    qos_edge: bool = False
+    # Per-tier in-flight bounds (0 = unbounded).
+    qos_bound_latency: int = 32
+    qos_bound_standard: int = 64
+    qos_bound_batch: int = 128
+    # Retry-After hint (seconds) of a shed response.
+    qos_retry_after_s: float = 1.0
+
+
+@dataclass(frozen=True)
+class FleetConfig:
+    """Serving fleet (serving/fleet.py, serving/router.py): N replicas
+    behind a prefix-locality router. Off by default (replicas=1, no
+    replica_urls): the server runs one engine."""
+
+    # Local engine replicas the launcher builds over one weight tree
+    # (1 = no fleet).
+    replicas: int = 1
+    # Comma-separated base URLs of remote engine servers; with replicas=0
+    # the process only routes (no local engine).
+    replica_urls: str = ""
+    # prefix (locality + load + affinity) | least_load | round_robin.
+    router_policy: str = "prefix"
+    # How long a session (`user` / x-session-id) stays pinned to the
+    # replica that served it.
+    affinity_ttl_s: float = 300.0
+    # Queue-depth penalty in tokens per queued request when scoring a
+    # locality hit.
+    load_penalty_tokens: int = 256
+    # Per-replica shadow-tree budget in pages.
+    shadow_capacity_pages: int = 4096
+    # Health-probe period (0 = no probe thread).
+    health_interval_s: float = 10.0
+    # Consecutive failed probes before a replica is evicted.
+    health_fail_threshold: int = 3
+    # A remote replica's probe deadline (backed off up to 3x).
+    probe_timeout_s: float = 2.0
+    # Comma-separated roles, positionally (locals first, then remotes):
+    # prefill | decode | mixed.
+    replica_roles: str = ""
+    # Two-stage serving: prefill on a prefill-role replica, its KV pages
+    # moved to the decode replica (serving/disagg.py), decode from the
+    # transferred prefix; any failure serves colocated on the same stream.
+    disagg: bool = False
+    # Prompts shorter than this skip the two-stage plan.
+    disagg_min_prompt_tokens: int = 0
+    disagg_prefill_timeout_s: float = 120.0
+    disagg_transfer_timeout_s: float = 60.0
+    # Ship completed prefill chunks while later chunks compute; the last
+    # window from a background thread.
+    disagg_pipeline: bool = False
+    # Move pages card to card when both pools are on one device (no host
+    # bounce); any failure falls back to the GKVT wire for that pair.
+    disagg_device_path: bool = False
+    # Pages per transfer window (0 = whole-prefix windows).
+    disagg_transfer_chunk_pages: int = 0
+    # The JAX fleet's autoscaler and chaos harness: refused here
+    # (UNSUPPORTED_APP), kept so a file that sets them is not ignored.
+    autoscale: bool = False
+    autoscale_min_replicas: int = 1
+    autoscale_max_replicas: int = 4
+    autoscale_warm_pool: int = 1
+    autoscale_interval_s: float = 2.0
+    autoscale_up_depth: float = 8.0
+    autoscale_down_depth: float = 1.0
+    autoscale_up_ticks: int = 2
+    autoscale_down_ticks: int = 5
+    autoscale_cooldown_s: float = 20.0
+    autoscale_scale_to_zero: bool = False
+    autoscale_up_queue_wait_p95_ms: float = 0.0
+    autoscale_up_ttft_p95_ms: float = 0.0
+    autoscale_spawn: str = "local"
+    autoscale_spawn_ready_timeout_s: float = 120.0
+    chaos: bool = False
+    chaos_seed: int = 0
 
 
 @dataclass(frozen=True)
@@ -305,6 +404,7 @@ class AppConfig:
     prompts: PromptsConfig = field(default_factory=PromptsConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
 
 
@@ -314,6 +414,11 @@ UNSUPPORTED_APP = {
     ("vector_store", "index_type"): "ROADMAP A.18: IVF index",
     ("vector_store", "quantize_int8"): "ROADMAP A.18: int8 rows",
     ("vector_store", "tiered"): "ROADMAP A.18: tiered index",
+    **{("fleet", f.name): "ROADMAP A.16: autoscaler"
+       for f in dataclasses.fields(FleetConfig)
+       if f.name.startswith("autoscale")},
+    ("fleet", "chaos"): "ROADMAP A.16: chaos",
+    ("fleet", "chaos_seed"): "ROADMAP A.16: chaos",
 }
 
 

@@ -75,28 +75,40 @@ _FUNCS: Dict[str, object] = {}
 
 
 # Arrival tickets of the split kernels (K2, K4, K5, K6): int32 zeros per
-# (kernel, device), grown on demand and left zeroed by every launch (the
-# last CTA of a group resets its ticket). Launches on one stream run in
-# order, so a kernel's launches share one buffer.
+# (kernel, device, stream), grown on demand and left zeroed by every
+# launch (the last CTA of a group resets its ticket). Launches on one
+# stream run in order, so a kernel's launches on it share one buffer;
+# engines whose threads launch on different streams (fleet replicas in
+# one process may) get a buffer each, so two launches in flight at once
+# never share a ticket.
 _TICKETS: Dict[tuple, object] = {}
+# Guards LAUNCHES and _TICKETS: fleet replicas in one process launch from
+# their own scheduler threads.
+_COUNT_LOCK = threading.Lock()
 
 
 def tickets(name: str, device, n: int):
     """At least `n` zeroed int32 tickets for kernel `name` on `device`, a
-    tensor's device (which names its index). A dictionary hit on the hot
-    path: the wrappers call it on every split launch."""
-    t = _TICKETS.get((name, device))
-    if t is None or t.numel() < n:
-        import torch
+    tensor's device (which names its index), for the current stream of
+    that device. A dictionary hit on the hot path: the wrappers call it
+    on every split launch."""
+    import torch
 
-        t = _TICKETS[(name, device)] = torch.zeros(
-            max(n, 4096), dtype=torch.int32, device=device)
+    key = (name, device, torch.cuda.current_stream(device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        with _COUNT_LOCK:
+            t = _TICKETS.get(key)
+            if t is None or t.numel() < n:
+                t = _TICKETS[key] = torch.zeros(
+                    max(n, 4096), dtype=torch.int32, device=device)
     return t
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -182,4 +194,5 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {rc}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1

@@ -1,8 +1,8 @@
 """Engine server launcher: `python -m generativeaiexamples_tpu_torch.serving`.
 
 Counterpart of generativeaiexamples_tpu/serving/__main__.py without
-fleet or multi-host. The config comes from `load_config()` (the
-APP_CONFIG_FILE file and APP_<SECTION>_<FIELD> variables):
+multi-host. The config comes from `load_config()` (the APP_CONFIG_FILE
+file and APP_<SECTION>_<FIELD> variables):
 
 - `engine.weights_path`: an HF Llama snapshot (safetensors, config.json
   and, for real text, tokenizer.json), loaded in `engine.dtype` and
@@ -16,8 +16,19 @@ APP_CONFIG_FILE file and APP_<SECTION>_<FIELD> variables):
   launcher's hermetic tiny encoders (on the CPU) or random ones at full
   width (arctic-embed-l, BERT-base; on the card, where K3 takes head_dim
   64 only); with a loaded LLM, none (the endpoint answers 503).
+- `[fleet]` (serving/fleet.py): `fleet.replicas` > 1 builds that many
+  engines over ONE weight tree on the card, each with its own pool,
+  behind the prefix-locality router; `fleet.replica_urls` adds remote
+  engine servers (with `fleet.replicas` 0 the process only routes, with
+  no engine and no encoders); `fleet.replica_roles` and `fleet.disagg`
+  split prefill and decode across replicas.
+- `ENGINE_WARMUP=0` skips the engine warmup (the JAX launcher's knob).
 
     APP_ENGINE_WEIGHTSPATH=/models/llama3-8b-instruct \\
+        python -m generativeaiexamples_tpu_torch.serving
+    APP_ENGINE_WEIGHTSPATH=/models/llama3-8b-instruct \\
+        APP_FLEET_REPLICAS=2 APP_ENGINE_PREFIXCACHE=true \\
+        APP_FLEET_REPLICAROLES=prefill,decode APP_FLEET_DISAGG=true \\
         python -m generativeaiexamples_tpu_torch.serving
     APP_ENGINE_WEIGHTSPATH=/models/llama3-8b-instruct \\
         APP_ENGINE_QUANTIZEWEIGHTS=int8 APP_ENGINE_KVDTYPE=int8 \\
@@ -28,7 +39,8 @@ APP_CONFIG_FILE file and APP_<SECTION>_<FIELD> variables):
         --device cpu --port 8099
 
 Serves /v1/chat/completions, /v1/completions, /v1/embeddings,
-/v1/ranking, /v1/models, /health and /metrics on one port.
+/v1/ranking, /v1/models, /health, /metrics, /debug/timeline and
+/v1/kv/export, /v1/kv/import on one port.
 """
 
 from __future__ import annotations
@@ -36,7 +48,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
-from typing import Any, Optional, Tuple
+import os
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -60,6 +73,24 @@ GEOMETRIES = {
 
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_engines(model_size: str = "8b", device: DeviceLike = None,
+                  seed: int = 0, warmup: bool = True, engine_cfg: Any = None,
+                  n_pages: Optional[int] = None, weights_path: str = "",
+                  replicas: int = 1) -> List[LLMEngine]:
+    """`replicas` LLMEngines over ONE weight tree (loaded or random, as
+    `build_engine` makes it), each with its own pool of `n_pages` pages,
+    warmed up (not started): a fleet's local replicas."""
+    first = build_engine(model_size, device, seed=seed, warmup=warmup,
+                         engine_cfg=engine_cfg, n_pages=n_pages,
+                         weights_path=weights_path)
+    out = [first]
+    for _ in range(max(1, replicas) - 1):
+        eng = LLMEngine(first.params, first.cfg, first.tokenizer, first.ecfg,
+                        n_pages=n_pages, device=first.device)
+        out.append(eng.warmup() if warmup else eng)
+    return out
 
 
 def build_engine(model_size: str = "8b", device: DeviceLike = None,
@@ -156,6 +187,30 @@ def build_encoders(device: DeviceLike = None, seed: int = 1,
     return out[0], out[1]
 
 
+def build_llm(config, model_size: str = "8b", device: DeviceLike = None,
+              warmup: bool = True):
+    """The LLM surface the server fronts, from the config: one started
+    LLMEngine, or with `fleet.replicas` > 1 or `fleet.replica_urls` a
+    started EngineFleet (`fleet.replicas` 0 with URLs: router-only, the
+    tokenizer from `engine.weights_path` or the byte tokenizer)."""
+    from generativeaiexamples_tpu_torch.serving.fleet import build_fleet
+
+    urls = (config.fleet.replica_urls or "").strip()
+    if urls and config.fleet.replicas <= 0:
+        wp = config.engine.weights_path
+        tokenizer = load_tokenizer(wp) if wp else load_tokenizer("byte")
+        fleet = build_fleet(config, engines=None, tokenizer=tokenizer)
+        logging.info("router-only fleet over %s", urls)
+        return fleet.start()
+    n = max(1, config.fleet.replicas)
+    if n > 1 or urls:
+        engines = build_engines(model_size, device, warmup=warmup,
+                                engine_cfg=config.engine, replicas=n)
+        return build_fleet(config, engines=engines).start()
+    return build_engine(model_size, device, warmup=warmup,
+                        engine_cfg=config.engine).start()
+
+
 def main() -> None:
     from generativeaiexamples_tpu_torch.config.schema import load_config
     from generativeaiexamples_tpu_torch.serving.openai_server import (
@@ -174,19 +229,24 @@ def main() -> None:
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
     config = load_config()
-    emb, rr = build_encoders(
-        args.device, embed_path=config.embeddings.weights_path,
-        rerank_path=config.reranker.weights_path,
-        random_init=not config.engine.weights_path)
-    engine = build_engine(args.model_size, args.device,
-                          engine_cfg=config.engine).start()
+    router_only = (config.fleet.replicas <= 0
+                   and bool(config.fleet.replica_urls.strip()))
+    emb = rr = None
+    if not router_only:
+        emb, rr = build_encoders(
+            args.device, embed_path=config.embeddings.weights_path,
+            rerank_path=config.reranker.weights_path,
+            random_init=not config.engine.weights_path)
+    llm = build_llm(config, args.model_size, args.device,
+                    warmup=os.environ.get("ENGINE_WARMUP", "1") != "0")
     logging.info("engine server on %s:%d (device %s)", args.host, args.port,
-                 engine.device)
+                 getattr(llm, "device", None))
     try:
-        run_server(OpenAIServer(engine, emb, rr, model_name=args.model_name),
+        run_server(OpenAIServer(llm, emb, rr, model_name=args.model_name,
+                                serving_cfg=config.serving),
                    args.host, args.port)
     finally:
-        engine.stop()
+        llm.stop()
 
 
 if __name__ == "__main__":

@@ -89,14 +89,30 @@ stamps, the block's StepPlan, busy slots, queue depth, tokens emitted,
 pager pages moved) and each request its lifecycle events (submit,
 admit, prefill dispatch or chunks, first token, retire), into
 preallocated rings served as Chrome trace JSON at /debug/timeline. The
-latency histograms (TTFT, e2e, queue wait, beat gap, promote ms a page)
-are always live; `ttft_p50_ms` / `ttft_p95_ms` are read from the TTFT
-histogram, as in the JAX engine. With no QoS every request is
-"standard".
+latency histograms (TTFT, e2e, queue wait per tier, beat gap, promote
+and transfer ms a page) are always live; `ttft_p50_ms` / `ttft_p95_ms`
+are read from the TTFT histogram, as in the JAX engine.
+
+QoS (`qos`, serving/qos.py): requests carry a tier (`priority`) and a
+tenant; admission pops the TierScheduler's weighted-fair pick instead
+of the queue's head, and while an admitted latency-tier request is
+prefilling or awaiting its first token, lower-tier long prefills pause
+at the beat boundary (no chunk, no rider) and resume where they stood.
+Off, admission is FIFO.
+
+KV page transfer (serving/disagg.py, the fleet's disaggregated
+prefill/decode): `run_control_op` runs a closure on the scheduler
+thread, the single owner of the tree, the allocator and the pool;
+`export_prefix_pages` / `export_prefix_pages_device` gather a cached
+prefix's pages (to host memory, or as device tensors),
+`publish_prefill_pages` makes an in-flight chunked prefill's completed
+pages exportable, and `import_prefix_pages` seats transferred pages with
+one scatter and inserts them into the radix tree, so the next admission
+of that prompt takes the normal hit path.
 
 Not ported yet, and refused at construction (see config/schema.py):
-QoS, multi-host and the memory planner. Emission pacing is not ported
-(its knob is logged and ignored).
+multi-host and the memory planner. Emission pacing is not ported (its
+knob is logged and ignored).
 """
 
 from __future__ import annotations
@@ -119,17 +135,23 @@ from generativeaiexamples_tpu_torch.models.llama import KVCache, LlamaConfig
 from generativeaiexamples_tpu_torch.obs import tracing
 from generativeaiexamples_tpu_torch.ops.quant import is_quantized
 from generativeaiexamples_tpu_torch.serving import engine_model
+from generativeaiexamples_tpu_torch.serving.disagg import page_geometry
+from generativeaiexamples_tpu_torch.serving.fleet import (
+    CHAOS_KEYS, FLEET_OPS_KEYS)
 from generativeaiexamples_tpu_torch.serving.flight import (
     EV_ADMIT, EV_ADMIT_RETRY, EV_FIRST_TOKEN, EV_KV_DEMOTE, EV_KV_PROMOTE,
-    EV_PREFILL_CHUNK, EV_PREFILL_DISPATCH, EV_RETIRE, EV_SUBMIT,
-    FLIGHT_KEYS, HIST_KEYS, RETIRE_CODES, TIER_STANDARD, ExpHistogram,
-    FlightRecorder)
+    EV_KV_TRANSFER, EV_PREFILL_CHUNK, EV_PREFILL_DISPATCH, EV_QOS_PAUSE,
+    EV_QOS_PICK, EV_QOS_RESUME, EV_RETIRE, EV_SUBMIT, FLIGHT_KEYS, HIST_KEYS,
+    RETIRE_CODES, ExpHistogram, FlightRecorder)
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
     PageAllocator, PagePool, SequencePages)
 from generativeaiexamples_tpu_torch.serving.kv_pager import (
-    KV_PAGER_KEYS, KVPager, PagedPrefixCache)
+    KV_PAGER_KEYS, KVPager, PagedPrefixCache, gather_spans)
 from generativeaiexamples_tpu_torch.serving.prefix_cache import (
-    TIER_DEVICE, RadixPrefixCache)
+    TIER_DEVICE, TIER_DISK, TIER_HOST, RadixPrefixCache)
+from generativeaiexamples_tpu_torch.serving.qos import (
+    TierScheduler, request_tier, tier_id)
+from generativeaiexamples_tpu_torch.serving.router import ROUTER_COUNTER_KEYS
 from generativeaiexamples_tpu_torch.utils.tokenizer import StreamDetokenizer
 
 _LOG = logging.getLogger(__name__)
@@ -150,6 +172,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def _pow2_floor(n: int) -> int:
     """Largest power of two <= max(n, 1): decode block lengths."""
     return 1 << (max(n, 1).bit_length() - 1)
+
+
+def _pow2_ceil(n: int) -> int:
+    """Smallest power of two >= max(n, 1): page gather/scatter widths."""
+    return 1 << (max(n, 1) - 1).bit_length()
 
 
 def _sampling_flags(all_greedy: bool):
@@ -177,6 +204,15 @@ class GenRequest:
         default_factory=queue.Queue)
     submit_time: float = dataclasses.field(default_factory=time.perf_counter)
     request_id: str = ""
+    # Session identity for fleet routing (OpenAI `user` field /
+    # x-session-id header): the router pins a session to the replica
+    # holding its conversation KV. Unused by a single engine.
+    session_id: str = ""
+    # QoS tier (serving/qos.py: latency | standard | batch; anything else
+    # counts as standard) and tenant (`user` / x-tenant-id). Inert with
+    # engine.qos off.
+    priority: str = "standard"
+    tenant_id: str = ""
     admission_attempts: int = 0
     cancelled: bool = False  # set by the server on disconnect / stop string
     truncate_prompt: bool = False  # opt-in: keep the tail instead of refusing
@@ -220,7 +256,7 @@ class _LongPrefill:
     engine._scratch_caches[slot_idx] from the first chunk on."""
 
     __slots__ = ("req", "slot_idx", "seq", "ids", "s_total", "pos", "slot",
-                 "beat", "chunk", "stall_pos")
+                 "beat", "chunk", "stall_pos", "tier", "paused", "published")
 
     def __init__(self, req, slot_idx, seq, ids, s_total, slot, chunk):
         self.req = req
@@ -233,6 +269,14 @@ class _LongPrefill:
         self.beat = -1          # beat at which the last chunk dispatched
         self.chunk = chunk      # chunk width: the largest bucket
         self.stall_pos = -1     # pos at the last beat (prefill_stall_beats)
+        # QoS: the request's tier, and whether a latency-tier TTFT phase
+        # holds this prefill paused (pos and the scratch cache are its
+        # whole state, so a resume is byte-identical).
+        self.tier = request_tier(req)
+        self.paused = False
+        # Full pages already scattered into the pool and inserted into
+        # the tree by publish_prefill_pages; the finish sinks their rows.
+        self.published = 0
 
 
 class HostCopy:
@@ -328,6 +372,18 @@ class EngineMetrics:
         self.prefix_evictions = 0
         self.prefix_hit_tokens = 0
         self.kv_promote_ms = 0.0
+        # Disaggregated prefill/decode: pages this engine imported, the
+        # host ms those imports took, pages that came over the device
+        # path, and import control ops (one per transfer window).
+        self.kv_transfer_pages = 0
+        self.kv_transfer_ms = 0.0
+        self.kv_transfer_device_pages = 0
+        self.kv_transfer_chunks = 0
+        # QoS: lower-tier long prefills paused for a latency-tier TTFT
+        # phase, and the waiting requests per tier (maintained with QoS
+        # off too). Always present.
+        self.qos_preemptions = 0
+        self.qos_queue_depth = {"latency": 0, "standard": 0, "batch": 0}
         # The pager's stats() (KV_PAGER_KEYS); None when it is off.
         self.kv_pager_stats = None
         # The flight recorder's stats() (FLIGHT_KEYS); None emits zeros.
@@ -390,7 +446,20 @@ class EngineMetrics:
             "prefix_evictions": self.prefix_evictions,
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "kv_promote_ms": self.kv_promote_ms,
+            "kv_transfer_pages": self.kv_transfer_pages,
+            "kv_transfer_ms": round(self.kv_transfer_ms, 3),
+            "kv_transfer_device_pages": self.kv_transfer_device_pages,
+            "kv_transfer_chunks": self.kv_transfer_chunks,
+            "qos_preemptions": self.qos_preemptions,
+            "qos_queue_depth": dict(self.qos_queue_depth),
         }
+        # The router's and the fleet's keys, zeros for one engine, so
+        # /metrics has one schema whether an engine or a fleet serves it.
+        out.update(dict.fromkeys(ROUTER_COUNTER_KEYS, 0))
+        out["router_queue_depth"] = {}
+        out["router_tier_depth"] = {}
+        out.update(dict.fromkeys(FLEET_OPS_KEYS, 0))
+        out.update(dict.fromkeys(CHAOS_KEYS, 0))
         out.update(self.kv_pager_stats() if self.kv_pager_stats is not None
                    else dict.fromkeys(KV_PAGER_KEYS, 0))
         out.update(self.flight_stats() if self.flight_stats is not None
@@ -487,6 +556,19 @@ class LLMEngine:
         self._last_beat_ready = 0.0
         self._beat_kv_demote = 0
         self._beat_kv_promote = 0
+        # QoS: None is the FIFO admission path; on, the weighted-fair
+        # TierScheduler picks each admission.
+        self.qos = None
+        if self.ecfg.qos:
+            self.qos = TierScheduler({
+                "latency": self.ecfg.qos_weight_latency,
+                "standard": self.ecfg.qos_weight_standard,
+                "batch": self.ecfg.qos_weight_batch})
+        # Control ops (the fleet's KV page transfer): closures queued by
+        # other threads through run_control_op() and run at the top of
+        # the scheduler loop, so the tree, the allocator and the pool stay
+        # scheduler-owned. Each entry is (fn, result box, done event).
+        self._control_ops: deque = deque()
         # Buckets are positive multiples of page_size within max_seq_len.
         max_bucket = self.max_pages * ps
         rounded = {min(-(-b // ps) * ps, max_bucket)
@@ -664,6 +746,12 @@ class LLMEngine:
             # Drain the spill worker and drop the mapping (a daemon
             # worker mid-write at exit would race the spill-dir cleanup).
             self.kv_pager.close()
+        # Pending control ops must not strand their waiters: fail them,
+        # so the fleet's transfer falls back to colocated serving.
+        while self._control_ops:
+            _, box, done = self._control_ops.popleft()
+            box["err"] = RuntimeError("engine stopped")
+            done.set()
 
     # -- public API --------------------------------------------------------
 
@@ -680,6 +768,7 @@ class LLMEngine:
             req.prompt_ids = req.prompt_ids[-max_prompt:]
         with self._lock:
             self.waiting.append(req)
+            self._tier_depth(req, +1)
         self._wake.set()
         return req
 
@@ -698,6 +787,287 @@ class LLMEngine:
         return "".join(ev["text"] for ev in self.generate_stream(prompt_ids,
                                                                  **kw))
 
+    # -- control ops / disagg KV page transfer (serving/disagg.py) ---------
+
+    def run_control_op(self, fn, timeout_s: float = 60.0):
+        """Run `fn()` on the scheduler thread (the single owner of slot,
+        page, allocator and radix-tree state) and return its result: the
+        fleet's KV page transfer rides this seam so an export or import
+        never races the scheduler's own tree mutations. Runs inline when
+        the scheduler is not live or the caller is the scheduler."""
+        t = self._thread
+        if (not self._running or t is None or not t.is_alive()
+                or threading.current_thread() is t):
+            return fn()
+        box: Dict[str, Any] = {}
+        done = threading.Event()
+        self._control_ops.append((fn, box, done))
+        self._wake.set()
+        if not done.wait(timeout_s):
+            raise TimeoutError("engine control op timed out "
+                               f"after {timeout_s}s")
+        if "err" in box:
+            raise box["err"]
+        return box.get("out")
+
+    def _drain_control_ops(self) -> None:
+        """Scheduler thread, loop top: run the queued control closures.
+        Errors are boxed back to the waiter, never kill the loop."""
+        while self._control_ops:
+            fn, box, done = self._control_ops.popleft()
+            try:
+                box["out"] = fn()
+            except BaseException as e:  # the waiter re-raises
+                box["err"] = e
+            finally:
+                done.set()
+
+    def _cached_page_runs(self, ids: Sequence[int]):
+        """Longest exportable cached prefix of `ids` as two node runs:
+        the device-resident lead (the resident set is closed under
+        ancestors) and, with the pager, the demoted tail readable from
+        its cold tier. A pending node ends the run (its bytes are on
+        their way to the host)."""
+        nodes = self.prefix_cache.match_nodes(list(ids))
+        dev: List = []
+        for n in nodes:
+            if n.tier != TIER_DEVICE:
+                break
+            dev.append(n)
+        cold: List = []
+        if self.kv_pager is not None:
+            for n in nodes[len(dev):]:
+                if n.tier not in (TIER_HOST, TIER_DISK):
+                    break
+                cold.append(n)
+        return dev, cold
+
+    def _host_buffer(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """A zeroed host tensor for moving pages; pinned when the pool
+        is on the card, so the copies run at the bus rate."""
+        return torch.zeros(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def export_prefix_pages(self, ids: Sequence[int],
+                            start_page: int = 0, max_pages: int = 0):
+        """Longest cached full-page prefix of `ids` as HOST tensors: the
+        disagg transfer's source half. Batched pool_to_pages gathers for
+        the device-resident run, at most max_pages pages each, and, with
+        the pager, a read of any demoted tail from its cold tier; codes
+        and int8 scales VERBATIM, so a round trip is bit-identical to
+        never having left this pool. `start_page` / `max_pages` pick a
+        page window of the cached prefix (default: all of it). Returns
+        (codes [n, 2, L, KH, ps, Hd] in the pool dtype, scales [n, 2, L,
+        KH, ps] f32 or None, n_tokens), n_tokens covering the prefix
+        through the window's END (so ids[:n_tokens] with
+        first_page=start_page is the matching import), or None when the
+        window is empty. Scheduler thread only (run_control_op); the
+        blocking copy to the host is the transfer's cost."""
+        if self.prefix_cache is None:
+            return None
+        dev, cold = self._cached_page_runs(ids)
+        n_total = len(dev) + len(cold)
+        lo = max(0, int(start_page))
+        hi = n_total if max_pages <= 0 else min(n_total,
+                                                lo + int(max_pages))
+        n_pages = hi - lo
+        if n_pages <= 0:
+            return None
+        codes_shape, codes_dtype, scales_shape = page_geometry(self.pool)
+        codes = self._host_buffer((n_pages,) + codes_shape, codes_dtype)
+        scales = (self._host_buffer((n_pages,) + scales_shape,
+                                    torch.float32)
+                  if scales_shape else None)
+        dev_w = dev[lo:hi]
+        for s_lo, s_hi in gather_spans(len(dev_w), self.max_pages):
+            batch = dev_w[s_lo:s_hi]
+            row = np.zeros((_pow2_ceil(len(batch)),), np.int64)  # pad: sink
+            row[:len(batch)] = [n.page for n in batch]
+            got, got_s = engine_model.pool_to_pages(self.pool,
+                                                    self._put(row))
+            codes[s_lo:s_hi].copy_(got[:len(batch)])
+            if scales is not None:
+                scales[s_lo:s_hi].copy_(got_s[:len(batch)])
+        cold_w = cold[max(lo - len(dev), 0): max(hi - len(dev), 0)]
+        if cold_w:
+            tail = codes[len(dev_w):]
+            self.kv_pager.read_pages(
+                cold_w, tail.view(self.kv_pager._raw_dtype).numpy(),
+                None if scales is None else scales[len(dev_w):].numpy())
+        return codes, scales, hi * self.pool.page_size
+
+    def export_prefix_pages_device(self, ids: Sequence[int],
+                                   start_page: int = 0,
+                                   max_pages: int = 0):
+        """Device-path export half: the window's device-RESIDENT pages as
+        device tensors straight off one pool_to_pages gather, no host
+        copy; the target engine's import_prefix_pages scatters them into
+        its own pool (a device-to-device copy; codes and scales
+        verbatim, so the route is bit-identical to the host bounce).
+        Only the leading device-resident run takes part (a demoted tail
+        takes the host path), and each call caps its window at max_pages
+        pages; callers loop on the returned n_tokens. Returns (codes,
+        scales or None, n_tokens) like export_prefix_pages, or None when
+        the window holds no device-resident page. Scheduler thread only
+        (run_control_op)."""
+        if self.prefix_cache is None:
+            return None
+        dev, _ = self._cached_page_runs(ids)
+        lo = max(0, int(start_page))
+        hi = len(dev) if max_pages <= 0 else min(len(dev),
+                                                 lo + int(max_pages))
+        hi = min(hi, lo + self.max_pages)
+        n_pages = hi - lo
+        if n_pages <= 0:
+            return None
+        row = np.zeros((_pow2_ceil(n_pages),), np.int64)  # pad: sink
+        row[:n_pages] = [n.page for n in dev[lo:hi]]
+        got, got_s = engine_model.pool_to_pages(self.pool, self._put(row))
+        return (got[:n_pages], None if got_s is None else got_s[:n_pages],
+                hi * self.pool.page_size)
+
+    def publish_prefill_pages(self, ids: Sequence[int]) -> int:
+        """Make the COMPLETED chunks of an in-flight chunked prefill of
+        `ids` exportable now (the pipelined-disagg seam): scatter the
+        newly covered full pages from the scratch cache into the pool
+        (cache_to_pool with every other row sunk; an int8 pool quantizes
+        page by page, so incremental scatters equal the one-shot) and
+        insert the covered prefix into the radix tree. Idempotent and
+        monotone; the finish sinks the published rows, so each page is
+        written once. With no matching in-flight prefill, returns the
+        exportable coverage already in the tree. Returns covered full
+        pages. Scheduler thread only (run_control_op)."""
+        if self.prefix_cache is None:
+            return 0
+        ids = list(ids)
+        ps = self.pool.page_size
+        n_full = len(ids) // ps
+        if n_full <= 0:
+            return 0
+        for lp in self._long_prefills:
+            if (lp.ids != ids or self.slots[lp.slot_idx] is not lp.slot
+                    or lp.req.cancelled):
+                continue
+            covered = min(lp.pos // ps, n_full)
+            done = max(lp.published, lp.seq.n_shared)
+            if covered > done:
+                row = np.zeros((lp.s_total // ps,), np.int32)  # sink 0
+                row[done:covered] = lp.seq.pages[done:covered]
+                engine_model.cache_to_pool(
+                    self.pool, self._scratch_caches[lp.slot_idx], self.cfg,
+                    self._put(row))
+            if covered > lp.published:
+                self.prefix_cache.insert(ids[: covered * ps],
+                                         lp.seq.pages[:covered])
+                self._trim_prefix()
+                lp.published = covered
+            return lp.published
+        dev, cold = self._cached_page_runs(ids)
+        return min(len(dev) + len(cold), n_full)
+
+    def import_prefix_pages(self, ids: Sequence[int], codes: torch.Tensor,
+                            scales: Optional[torch.Tensor],
+                            first_page: int = 0,
+                            on_device: bool = False) -> int:
+        """Seat transferred pages into this engine's pool and radix tree
+        (the disagg transfer's target half): allocate pool pages (reclaim
+        may evict or demote cold cached pages, as a promote does), ONE
+        pages_to_pool scatter, then insert the prefix into the tree so
+        the next admission of `ids` takes the normal prefix-cache hit
+        path. `codes` / `scales` are host tensors (the GKVT wire) or, with
+        `on_device`, device tensors from export_prefix_pages_device;
+        `first_page` says which page of ids' prefix codes[0] covers, so a
+        chunked transfer imports window by window, each import deduping
+        against what already landed. Returns pages imported (0 when the
+        prefix is already resident); raises MemoryError when the
+        allocator cannot cover the pages even after reclaim and
+        ValueError when the window starts past the resident prefix (a
+        gap) or the pages do not fit this pool's geometry. Scheduler
+        thread only (run_control_op)."""
+        if self.prefix_cache is None:
+            raise RuntimeError("KV import needs engine.prefix_cache")
+        codes_shape, codes_dtype, scales_shape = page_geometry(self.pool)
+        if (tuple(codes.shape[1:]) != codes_shape
+                or codes.dtype != codes_dtype
+                or (scales is None) != (scales_shape is None)
+                or (scales is not None
+                    and tuple(scales.shape) != (codes.shape[0],)
+                    + scales_shape)):
+            raise ValueError(
+                f"KV import of pages {tuple(codes.shape[1:])} "
+                f"{codes.dtype} into a pool of {codes_shape} {codes_dtype}")
+        ps = self.pool.page_size
+        first = max(0, int(first_page))
+        n = min(first + int(codes.shape[0]), len(ids) // ps)
+        if n <= first:
+            return 0
+
+        def resident_run(upto_pages: int) -> List:
+            out = []
+            for node in self.prefix_cache.match_nodes(
+                    list(ids[: upto_pages * ps])):
+                if node.tier != TIER_DEVICE:
+                    break
+                out.append(node)
+            return out
+
+        # Import only the NON-resident suffix: a growing multi-turn prefix
+        # re-ships every turn, and pages for chunks the tree already holds
+        # could reclaim hot cache.
+        have = len(resident_run(n))
+        if have >= n:
+            return 0
+        if have < first:
+            raise ValueError(
+                f"import window starts at page {first} but only "
+                f"{have} pages of the prefix are resident — a chunk "
+                "gap (an earlier window failed or was evicted)")
+        t0 = time.perf_counter()
+        m = n - have
+        pages = self.allocator.alloc(m)
+        try:
+            if have and len(resident_run(have)) < have:
+                # The alloc's reclaim evicted part of the resident prefix:
+                # the suffix would link under missing ancestors.
+                raise MemoryError(
+                    "resident prefix evicted during import alloc")
+            w = _pow2_ceil(m)
+            row = np.zeros((w,), np.int64)  # pad: sink page 0
+            row[:m] = pages
+            buf = torch.zeros((w,) + codes_shape, dtype=codes_dtype,
+                              device=self.device)
+            buf[:m].copy_(codes[have - first: n - first], non_blocking=True)
+            sbuf = None
+            if scales is not None:
+                sbuf = torch.zeros((w,) + scales_shape, dtype=torch.float32,
+                                   device=self.device)
+                sbuf[:m].copy_(scales[have - first: n - first],
+                               non_blocking=True)
+            self.pool = engine_model.pages_to_pool(self.pool, buf, sbuf,
+                                                   self._put(row))
+            # The leading `have` chunks are present (re-verified above,
+            # and nothing evicts between here and the insert on this
+            # thread), so the insert dedups them: only the fresh suffix
+            # pages are adopted.
+            lead = [nd.page for nd in resident_run(have)]
+            self.prefix_cache.insert(list(ids[: n * ps]),
+                                     lead + list(pages))
+            self._trim_prefix()
+        finally:
+            # The tree retained its own references at the insert.
+            self.allocator.release(pages)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self.metrics.kv_transfer_pages += m
+        self.metrics.kv_transfer_ms += dt_ms
+        self.metrics.kv_transfer_chunks += 1
+        if on_device:
+            self.metrics.kv_transfer_device_pages += m
+        self.metrics.hists["kv_transfer_ms_per_page"].observe(dt_ms / m)
+        if self.flight.enabled:
+            self.flight.record_event(EV_KV_TRANSFER, t0, a=float(m),
+                                     b=dt_ms)
+        return m
+
     # -- scheduler ---------------------------------------------------------
 
     def _put(self, x) -> torch.Tensor:
@@ -707,6 +1077,58 @@ class LLMEngine:
     def _prefill_cap(self) -> int:
         cap = self.ecfg.max_prefill_group
         return cap if cap > 0 else self.ecfg.max_batch_size
+
+    def _tier_depth(self, req: GenRequest, delta: int) -> None:
+        """Move the per-tier waiting-depth gauge (kept with QoS off too:
+        the beat records and the router read it). self._lock held."""
+        d = self.metrics.qos_queue_depth
+        tier = request_tier(req)
+        d[tier] = max(0, d[tier] + delta)
+
+    def _qos_pop_waiting(self) -> GenRequest:
+        """Weighted-fair admission pop (QoS on; self._lock held): the
+        least-served-per-weight tier, the least-served tenant in it, then
+        arrival order."""
+        idx = self.qos.pick(self.waiting)
+        req = self.waiting[idx]
+        del self.waiting[idx]
+        return req
+
+    def _qos_refresh_preemption(self) -> None:
+        """Pause or resume long prefills at the beat boundary (QoS with
+        qos_preempt_prefill): while an admitted latency-tier request is
+        in its TTFT phase, lower-tier prefills dispatch no chunk and
+        carry no rider. A latency-tier prefill never pauses; transitions
+        are counted on their edge."""
+        if self.qos is None or not self._long_prefills \
+                or not self.ecfg.qos_preempt_prefill:
+            return
+        pressure = self._qos_latency_pressure()
+        now = 0.0
+        for lp in self._long_prefills:
+            should = pressure and lp.tier != "latency"
+            if should != lp.paused and self.flight.enabled:
+                now = now or time.perf_counter()
+                self.flight.record_event(
+                    EV_QOS_PAUSE if should else EV_QOS_RESUME, now,
+                    rid=lp.req.request_id, tier=tier_id(lp.tier),
+                    a=float(lp.pos))
+            if should and not lp.paused:
+                self.metrics.qos_preemptions += 1
+            lp.paused = should
+
+    def _qos_latency_pressure(self) -> bool:
+        """True while an ADMITTED latency-tier request is prefilling or
+        awaiting its first token (a merely waiting one does not count:
+        pausing for it could deadlock a prefill holding the only slot)."""
+        for s in self.slots:
+            if s is None or s.req.cancelled:
+                continue
+            if request_tier(s.req) != "latency":
+                continue
+            if s.prefilling or not s.first_emitted:
+                return True
+        return False
 
     def _free_slot_index(self) -> Optional[int]:
         for i, s in enumerate(self.slots):
@@ -725,6 +1147,7 @@ class LLMEngine:
         wait is for the OLDEST in-flight block, during which newer blocks
         keep the device busy and new arrivals are admitted."""
         while self._running:
+            self._drain_control_ops()
             did_work = self._admit_waiting()
             # Chunk forwards interleave with decode dispatches (paced by
             # the landed-block beat) instead of monopolizing the device.
@@ -790,8 +1213,11 @@ class LLMEngine:
         if not self.flight.enabled:
             self._beat_kv_demote = self._beat_kv_promote = 0
             return
-        busy = sum(s is not None and not s.req.cancelled
-                   for s in self.slots)
+        busy = [0, 0, 0]
+        for s in self.slots:
+            if s is not None and not s.req.cancelled:
+                busy[tier_id(s.req)] += 1
+        d = self.metrics.qos_queue_depth
         plan = fl.plan
         self.flight.record_beat(
             t_dispatch=fl.t_dispatch, t_ready=t_ready or fl.t_dispatch,
@@ -799,8 +1225,9 @@ class LLMEngine:
             spec_k=plan.spec_k, tree_branches=plan.tree_branches,
             rider_width=plan.rider_width, rider_s_total=plan.rider_s_total,
             spec_state=plan.spec_state, fused_rider=bool(plan.rider_width),
-            qos_paused=False, busy=(0, busy, 0),
-            wait=(0, len(self.waiting), 0), tokens_emitted=emitted,
+            qos_paused=any(lp.paused for lp in self._long_prefills),
+            busy=tuple(busy), wait=(d["latency"], d["standard"], d["batch"]),
+            tokens_emitted=emitted,
             kv_demote_pages=self._beat_kv_demote,
             kv_promote_pages=self._beat_kv_promote)
         self._beat_kv_demote = self._beat_kv_promote = 0
@@ -844,7 +1271,10 @@ class LLMEngine:
                 slot_idx = self._free_slot_index()
                 if slot_idx is None:
                     break
-                req = self.waiting.popleft()
+                # FIFO by default; with QoS the weighted-fair pick.
+                req = (self.waiting.popleft() if self.qos is None
+                       else self._qos_pop_waiting())
+                self._tier_depth(req, -1)
             self._flight_note_pop(req)
             ids = req.prompt_ids or [0]
             long = len(ids) > self.buckets[-1]
@@ -878,7 +1308,7 @@ class LLMEngine:
                 if self.flight.enabled:
                     self.flight.record_event(
                         EV_ADMIT_RETRY, time.perf_counter(),
-                        rid=req.request_id, tier=TIER_STANDARD,
+                        rid=req.request_id, tier=tier_id(req),
                         a=float(req.admission_attempts))
                 ps = self.pool.page_size
                 never_fits = -(-(len(ids) + 1) // ps) \
@@ -897,6 +1327,7 @@ class LLMEngine:
                     continue
                 with self._lock:
                     self.waiting.appendleft(req)
+                    self._tier_depth(req, +1)
                 break
             if self.prefix_cache is not None:
                 if hit is not None:
@@ -909,6 +1340,10 @@ class LLMEngine:
             placeholder = _Slot(req, seq, None)
             self.slots[slot_idx] = placeholder
             self._flight_admit(req, slot_idx)
+            if self.qos is not None:
+                # Only real admissions are charged (deferred and requeued
+                # requests go back uncharged).
+                self.qos.note_admitted(req)
             if hit is not None:
                 try:
                     self._begin_prefix_prefill(req, slot_idx, seq, ids,
@@ -926,6 +1361,8 @@ class LLMEngine:
         if deferred_long:
             with self._lock:
                 self.waiting.extendleft(reversed(deferred_long))
+                for r in deferred_long:
+                    self._tier_depth(r, +1)
         did = False
         cap = self._prefill_cap
         for bucket, entries in groups.items():
@@ -1098,6 +1535,7 @@ class LLMEngine:
         dispatch will carry (_fuse_ready) is skipped. Returns True if any
         advanced."""
         did = False
+        self._qos_refresh_preemption()
         decoding = any(s is not None and not s.prefilling
                        for s in self.slots)
         for lp in list(self._long_prefills):
@@ -1111,6 +1549,10 @@ class LLMEngine:
                 self._long_prefills.remove(lp)
                 self._drop_scratch(lp.slot_idx)
                 self._finish(lp.slot_idx, "cancelled")
+                continue
+            if lp.paused:
+                # QoS: a latency-tier TTFT phase holds the device; this
+                # prefill resumes from pos and its scratch cache.
                 continue
             if decoding and self._fuse_ready(lp):
                 continue  # the next decode dispatch carries the chunk
@@ -1154,7 +1596,7 @@ class LLMEngine:
         if self.flight.enabled:
             self.flight.record_event(EV_PREFILL_CHUNK, time.perf_counter(),
                                      rid=lp.req.request_id,
-                                     tier=TIER_STANDARD, a=float(n_part))
+                                     tier=tier_id(lp.tier), a=float(n_part))
         return final
 
     def _chunk_buf(self, width: int) -> np.ndarray:
@@ -1234,7 +1676,9 @@ class LLMEngine:
         # Pages adopted read-only from the prefix cache are never
         # rewritten: their rows scatter into the sink. (A CoW tail page
         # is private and is rewritten whole from the scratch cache.)
-        row[:lp.seq.n_shared] = 0
+        # Pages publish_prefill_pages already scattered sink too: each
+        # page is written once.
+        row[:max(lp.seq.n_shared, lp.published)] = 0
         cache = self._scratch_caches.pop(lp.slot_idx)
         engine_model.cache_to_pool(self.pool, cache, self.cfg,
                                    self._put(row))
@@ -1344,7 +1788,7 @@ class LLMEngine:
             if self.flight.enabled:
                 self.flight.record_event(
                     EV_PREFILL_DISPATCH, time.perf_counter(),
-                    rid=req.request_id, tier=TIER_STANDARD, slot=slot_idx,
+                    rid=req.request_id, tier=tier_id(req), slot=slot_idx,
                     a=float(len(ids)))
             # Its full prompt pages become reusable; a later gather of
             # them is queued behind these writes on the same stream.
@@ -1522,9 +1966,10 @@ class LLMEngine:
         scratch cache at least as wide as the rider), or None."""
         if not self._fused_width:
             return None
+        self._qos_refresh_preemption()
         for lp in self._long_prefills:
             if (self.slots[lp.slot_idx] is lp.slot and not lp.req.cancelled
-                    and lp.pos < len(lp.ids)
+                    and not lp.paused and lp.pos < len(lp.ids)
                     and lp.s_total >= self._fused_width):
                 return lp
         return None
@@ -1577,7 +2022,7 @@ class LLMEngine:
         if self.flight.enabled:
             self.flight.record_event(EV_PREFILL_CHUNK, time.perf_counter(),
                                      rid=lp.req.request_id,
-                                     tier=TIER_STANDARD, a=float(n_part),
+                                     tier=tier_id(lp.tier), a=float(n_part),
                                      b=1.0)  # b = 1: a fused rider
         if lp.pos >= len(lp.ids):
             self._long_prefills.remove(lp)
@@ -1728,7 +2173,7 @@ class LLMEngine:
         if self.flight.enabled:
             self.flight.record_event(EV_FIRST_TOKEN, time.perf_counter(),
                                      rid=slot.req.request_id,
-                                     tier=TIER_STANDARD, a=ttft_ms)
+                                     tier=tier_id(slot.req), a=ttft_ms)
         if slot.span is not None:
             slot.span.add_event("first_token",
                                 {"ttft_ms": round(ttft_ms, 2)})
@@ -1752,27 +2197,35 @@ class LLMEngine:
 
     def _flight_note_pop(self, req: GenRequest) -> None:
         """Record the request's submit, retroactively (stamped with its
-        submit_time: server threads never write the ring), once."""
-        if not self.flight.enabled or req.flight_seen:
+        submit_time: server threads never write the ring), once, and
+        under QoS the weighted-fair pick that chose it."""
+        if not self.flight.enabled:
             return
-        req.flight_seen = True
-        if not req.request_id:
-            # Engine-direct callers have no server-issued id; one is made
-            # so their events still correlate into timeline spans.
-            req.request_id = f"req-{self.flight.stats()['flight_events']}"
-        self.flight.record_event(EV_SUBMIT, req.submit_time,
-                                 rid=req.request_id, tier=TIER_STANDARD,
-                                 a=float(len(req.prompt_ids)))
+        tier = tier_id(req)
+        if not req.flight_seen:
+            req.flight_seen = True
+            if not req.request_id:
+                # Engine-direct callers have no server-issued id; one is
+                # made so their events still correlate into spans.
+                req.request_id = \
+                    f"req-{self.flight.stats()['flight_events']}"
+            self.flight.record_event(EV_SUBMIT, req.submit_time,
+                                     rid=req.request_id, tier=tier,
+                                     a=float(len(req.prompt_ids)))
+        if self.qos is not None:
+            self.flight.record_event(EV_QOS_PICK, time.perf_counter(),
+                                     rid=req.request_id, tier=tier)
 
     def _flight_admit(self, req: GenRequest, slot_idx: int) -> None:
         """Slot reserved: the queue-wait histogram (always live) and the
         admit event."""
         now = time.perf_counter()
         wait_ms = max(0.0, (now - req.submit_time) * 1e3)
-        self.metrics.hists["queue_wait_ms_standard"].observe(wait_ms)
+        tier = request_tier(req)
+        self.metrics.hists["queue_wait_ms_" + tier].observe(wait_ms)
         if self.flight.enabled:
             self.flight.record_event(EV_ADMIT, now, rid=req.request_id,
-                                     tier=TIER_STANDARD, slot=slot_idx,
+                                     tier=tier_id(tier), slot=slot_idx,
                                      a=wait_ms)
 
     def _flight_retire(self, slot: _Slot, reason: str) -> None:
@@ -1783,7 +2236,8 @@ class LLMEngine:
         self.metrics.hists["e2e_ms"].observe(e2e_ms)
         if self.flight.enabled:
             self.flight.record_event(
-                EV_RETIRE, now, rid=slot.req.request_id, tier=TIER_STANDARD,
+                EV_RETIRE, now, rid=slot.req.request_id,
+                tier=tier_id(slot.req),
                 code=RETIRE_CODES.get(reason, -1), a=float(slot.generated),
                 b=e2e_ms, aux=tracing.span_trace_id(slot.span))
 

@@ -26,10 +26,12 @@ per beat). On top of it:
 - `scripts/analyze_timeline.py` reads that JSON and splits wall time
   into device-busy / host-gap / idle with named gap causes.
 
-The fleet event kinds (EV_SCALE_*, EV_UPGRADE, EV_CHAOS), the disagg
-transfer (EV_KV_TRANSFER) and the QoS ones are kept as constants so the
-trace schema is the same; nothing in the port writes them yet (ROADMAP
-A.16).
+The engine writes the QoS events (EV_QOS_PICK / PAUSE / RESUME) and, on
+an importing replica, EV_KV_TRANSFER; a fleet serves one lane per local
+replica plus its control-plane lane ("fleet", where a rolling upgrade
+writes EV_UPGRADE) on /debug/timeline. EV_SCALE_* and EV_CHAOS are kept
+as constants so the trace schema is the same: their writers, the
+autoscaler and the chaos harness, are not ported yet (ROADMAP A.16).
 
 Thread model (deliberately lock-free): every `record_*` call happens on
 the engine scheduler thread (submit-time events are recorded
@@ -50,6 +52,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from generativeaiexamples_tpu_torch.serving.qos import TIERS
+
 # -- lifecycle event kinds ---------------------------------------------------
 
 EV_SUBMIT = 1          # request entered the waiting queue (ts=submit_time)
@@ -64,8 +68,8 @@ EV_QOS_PAUSE = 9       # long prefill paused for a latency-tier TTFT phase
 EV_QOS_RESUME = 10     # ... and resumed
 EV_KV_PROMOTE = 11     # pager promote (a = pages, b = ms)
 EV_KV_DEMOTE = 12      # pager/cache reclaim demotion (a = pages)
-# Elastic-fleet control events (the JAX package's autoscaler, chaos
-# injector and rolling upgrade; ROADMAP A.16 in the port). These are NOT
+# Elastic-fleet control events (the autoscaler and chaos injector, ROADMAP
+# A.16 in the port, and the fleet's rolling upgrade). These are NOT
 # written into an engine's recorder: each controller owns its own
 # single-writer recorder lane, so the scheduler-thread-only invariant
 # above holds per ring. aux carries the replica id; a = active-replica
@@ -75,7 +79,7 @@ EV_SCALE_DOWN = 14     # autoscaler parked a replica (warm/cold)
 EV_SCALE_WAKE = 15     # submit-time wake of a parked fleet (a = 1)
 EV_UPGRADE = 16        # one replica rolled (b = drain+swap ms)
 EV_CHAOS = 17          # chaos injection (aux = "<kind>:<rid>")
-# Disaggregated prefill/decode (ROADMAP A.16 in the port): KV pages imported
+# Disaggregated prefill/decode (serving/disagg.py): KV pages imported
 # from a prefill-role replica (a = pages, b = import ms). Written by
 # the IMPORTING engine's scheduler thread (the transfer runs as a
 # control op), so the single-writer ring invariant holds and the
@@ -146,10 +150,7 @@ FLIGHT_KEYS = ("flight_beats", "flight_events", "flight_enabled")
 
 # Always-present histogram keys in EngineMetrics.snapshot() (each maps
 # to an ExpHistogram snapshot dict; zero-count dicts when idle).
-# QoS tiers by rank (the JAX package's serving/qos.TIERS): a request's
-# tier id is its index here. The port has no QoS yet, so every request
-# is "standard".
-TIERS = ("latency", "standard", "batch")
+# QoS tiers by rank (serving/qos.py): a request's tier id is its index.
 TIER_STANDARD = TIERS.index("standard")
 
 HIST_KEYS = (

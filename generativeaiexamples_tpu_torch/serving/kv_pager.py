@@ -323,6 +323,28 @@ class KVPager:
         self._maybe_kick()
         return pool
 
+    def read_pages(self, nodes, codes_out: np.ndarray,
+                   scales_out: Optional[np.ndarray]) -> None:
+        """Copy cold nodes' bytes into caller buffers WITHOUT promoting
+        them (the disagg export, serving/disagg.py: a demoted tail ships
+        straight from its cold tier, with no scatter and no pool
+        pressure). `codes_out[i]` / `scales_out[i]` receive node i's page
+        in `codes_dtype` (a 16-bit float pool's raw bits); every node
+        must be TIER_HOST or TIER_DISK."""
+        with self._lock:
+            for i, node in enumerate(nodes):
+                if node.tier == TIER_HOST:
+                    codes_out[i] = self._host_codes[node.handle]
+                    if scales_out is not None:
+                        scales_out[i] = self._host_scales[node.handle]
+                elif node.tier == TIER_DISK:
+                    self._spill_read_locked(node.handle, codes_out[i],
+                                            None if scales_out is None
+                                            else scales_out[i])
+                else:
+                    raise RuntimeError(
+                        f"read_pages of a tier-{node.tier} node")
+
     def reattach(self, node, page: int) -> bool:
         """A re-played prompt re-inserted a chunk whose node had been
         demoted: adopt its fresh device `page` as the node's payload and

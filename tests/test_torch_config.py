@@ -89,9 +89,16 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
     pytest.param("engine", {"prefix_cache": True, "kv_pager": True,
                             "multihost": True}, "A.17",
                  id="engine-prefix_cache-True-A.15"),
-    # Step plans are ported: beside them, QoS (A.16) is still refused.
-    pytest.param("engine", {"step_plans": True, "qos": True}, r"A\.16",
+    # Step plans and QoS are ported: beside them, the memory planner
+    # (A.17) is still refused.
+    pytest.param("engine", {"step_plans": True, "qos": True,
+                            "auto_pool_pages": True}, r"A\.17",
                  id="engine-step_plans-True-A.14"),
+    # The fleet is ported: beside it, the autoscaler (A.16) is refused.
+    pytest.param("fleet", {"replicas": 2, "autoscale": True}, r"A\.16",
+                 id="fleet-autoscale-True-A.16"),
+    pytest.param("fleet", {"disagg": True, "chaos": True}, r"A\.16",
+                 id="fleet-chaos-True-A.16"),
     pytest.param("vector_store", {"tiered": True}, "A.18",
                  id="vector_store-tiered-True-A.18"),
     pytest.param("vector_store", {"index_type": "ivf"}, "A.18",
@@ -201,6 +208,8 @@ def test_weights_path_and_persist_dir_accepted(tmp_path, source):
 def _off_default(value):
     if isinstance(value, bool):
         return not value
+    if isinstance(value, (int, float)):
+        return value + 1
     return "x" if isinstance(value, str) else value
 
 
@@ -308,7 +317,8 @@ def test_fused_prefill_fields_match_jax_wizard(tmp_path, source):
 def test_fused_prefill_beside_speculation_is_accepted():
     """As in the JAX engine, a speculative config may set the rider, with
     or without step plans (APP_ENGINE_STEPPLANS, read as the JAX wizard
-    reads it); QoS beside them is still refused (A.16)."""
+    reads it); QoS beside them too, and the fleet's autoscaler is refused
+    (A.16)."""
     port = load_config(env={**FUSED_ENV, "APP_ENGINE_SPECULATIVEK": "3"})
     assert port.engine.fused_prefill and port.engine.speculative_k == 3
     assert not port.engine.step_plans
@@ -317,8 +327,13 @@ def test_fused_prefill_beside_speculation_is_accepted():
     port = load_config(env=env)
     assert port.engine.step_plans
     _assert_same(port, jax_load(env=env))
+    # QoS beside them is read as the JAX wizard reads it; the fleet's
+    # autoscaler is refused (A.16).
+    port = load_config(env={**env, "APP_ENGINE_QOS": "true"})
+    assert port.engine.qos
+    _assert_same(port, jax_load(env={**env, "APP_ENGINE_QOS": "true"}))
     with pytest.raises(ValueError, match=r"ROADMAP A\.16"):
-        load_config(env={**env, "APP_ENGINE_QOS": "true"})
+        load_config(env={**env, "APP_FLEET_AUTOSCALE": "true"})
 
 
 # Step plans and the flight recorder are ported: read from the env or the
@@ -348,3 +363,60 @@ def test_step_plans_and_flight_fields_match_jax_wizard(tmp_path, source,
     assert {n: getattr(port.engine, n) for n in PLAN_FLIGHT_FIELDS} == \
         PLAN_FLIGHT_FIELDS
     assert not set(PLAN_FLIGHT_FIELDS) & set(UNSUPPORTED)
+
+
+# The fleet, QoS and the edge are ported: read from the env or the file as
+# the JAX wizard reads them, with its defaults.
+FLEET_FIELDS = {"replicas": 2, "replica_urls": "http://h1:8000",
+                "router_policy": "least_load", "affinity_ttl_s": 30.0,
+                "load_penalty_tokens": 64, "shadow_capacity_pages": 512,
+                "health_interval_s": 0.5, "health_fail_threshold": 2,
+                "probe_timeout_s": 1.5, "replica_roles": "prefill,decode",
+                "disagg": True, "disagg_min_prompt_tokens": 128,
+                "disagg_prefill_timeout_s": 30.0,
+                "disagg_transfer_timeout_s": 20.0, "disagg_pipeline": True,
+                "disagg_device_path": True,
+                "disagg_transfer_chunk_pages": 8}
+QOS_ENGINE_FIELDS = {"qos": True, "qos_weight_latency": 6,
+                     "qos_weight_standard": 3, "qos_weight_batch": 2,
+                     "qos_preempt_prefill": False}
+QOS_SERVING_FIELDS = {"qos_edge": True, "qos_bound_latency": 4,
+                      "qos_bound_standard": 8, "qos_bound_batch": 2,
+                      "qos_retry_after_s": 2.5}
+
+
+@pytest.mark.parametrize("source", ["env", "json", "yaml"])
+def test_fleet_and_qos_fields_match_jax_wizard(tmp_path, source):
+    default = load_config(env={})
+    theirs = jax_load(env={})
+    for sec, fields in (("fleet", FLEET_FIELDS),
+                        ("engine", QOS_ENGINE_FIELDS),
+                        ("serving", QOS_SERVING_FIELDS)):
+        assert {n: getattr(getattr(default, sec), n) for n in fields} == {
+            n: getattr(getattr(theirs, sec), n) for n in fields}
+    data = {"fleet": FLEET_FIELDS, "engine": QOS_ENGINE_FIELDS,
+            "serving": QOS_SERVING_FIELDS}
+    if source == "env":
+        env = {f"APP_{sec.upper()}_{n.replace('_', '').upper()}":
+               str(v).lower() if isinstance(v, bool) else str(v)
+               for sec, fields in data.items() for n, v in fields.items()}
+    else:
+        env = {"APP_CONFIG_FILE": _write(tmp_path, source, data)}
+    port = load_config(env=env)
+    _assert_same(port, jax_load(env=env))
+    for sec, fields in data.items():
+        assert {n: getattr(getattr(port, sec), n) for n in fields} == fields
+    assert "qos" not in UNSUPPORTED
+
+
+@pytest.mark.parametrize("field", ["autoscale", "autoscale_max_replicas",
+                                   "autoscale_spawn", "chaos",
+                                   "chaos_seed"])
+def test_fleet_autoscaler_and_chaos_are_refused_naming_a16(tmp_path, field):
+    default = getattr(AppConfig().fleet, field)
+    value = _off_default(default)
+    with pytest.raises(ValueError, match=r"ROADMAP A\.16"):
+        load_config(env={}, overrides={"fleet": {field: value}})
+    path = _write(tmp_path, "yaml", {"fleet": {field: value}})
+    with pytest.raises(ValueError, match=r"ROADMAP A\.16"):
+        load_config(env={"APP_CONFIG_FILE": path})

@@ -122,17 +122,17 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
 
 
 @pytest.mark.parametrize("flag,value,beside", [
-    # The fused rider and step plans beside speculation are ported:
-    # beside them, QoS (A.16) and the memory planner (A.17) are refused.
-    pytest.param("qos", True, {"fused_prefill": True, "step_plans": True,
-                               "speculative_k": 2},
-                 id="fused_prefill-True"),
+    # The fused rider, step plans beside speculation and QoS are ported:
+    # beside them, the memory planner (A.17) is refused.
+    pytest.param("auto_pool_pages", True, {
+        "fused_prefill": True, "step_plans": True, "speculative_k": 2,
+        "qos": True}, id="fused_prefill-True"),
     # The prefix cache and the pager are ported: beside them, the
     # features still missing are refused (the pager's multi-host slice
-    # mode, A.17; QoS, A.16).
+    # mode, A.17).
     pytest.param("multihost", True, {"prefix_cache": True,
                                      "kv_pager": True}, id="kv_pager-True"),
-    pytest.param("qos", True, {"prefix_cache": True},
+    pytest.param("multihost", True, {"prefix_cache": True, "qos": True},
                  id="prefix_cache-True"),
     pytest.param("multihost", True, {}, id="multihost-True"),
     pytest.param("auto_pool_pages", True, {"step_plans": True},

@@ -68,6 +68,20 @@ def test_mips_topk_matches_jax():
     np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("n_queries", [1, 5, 16, 17, 40])
+def test_mips_topk_row_does_not_depend_on_its_batch(n_queries):
+    """A query's scores and ids are the same bits alone and inside any
+    batch (QUERY_TILE-row tiles of one shape), so a coalesced search
+    orders near-ties as the same search alone does."""
+    rng = np.random.default_rng(3)
+    qs = torch.from_numpy(_unit(rng, n_queries))
+    db = torch.from_numpy(_unit(rng, 300))
+    s, i = mips_topk(qs, db, 9)
+    for r in range(n_queries):
+        s1, i1 = mips_topk(qs[r:r + 1], db, 9)
+        assert torch.equal(s1[0], s[r]) and torch.equal(i1[0], i[r])
+
+
 @pytest.mark.parametrize("metric", ["ip", "cosine"])
 def test_stores_match_jax_through_thresholds_deletes_and_readds(metric):
     rng = np.random.default_rng(1)
