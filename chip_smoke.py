@@ -1674,7 +1674,9 @@ def _profile_window(run):
 def _recording_server(engine):
     """The port's OpenAIServer over `engine`, which also keeps the last
     request's generated token ids under its prompt ids (`streams`): random
-    weights rarely emit text, so streams are compared by token."""
+    weights rarely emit text, so streams are compared by token. `times`
+    keeps when each token event reached the server's handler thread (where
+    its SSE frame would be written), on the host's perf_counter clock."""
     from generativeaiexamples_tpu_torch.serving.openai_server import (
         OpenAIServer)
 
@@ -1682,12 +1684,15 @@ def _recording_server(engine):
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.streams = {}
+            self.times = {}
 
         def _events(self, req):
             ids = self.streams[tuple(req.prompt_ids)] = []
+            times = self.times[tuple(req.prompt_ids)] = []
             for ev in OpenAIServer._events(req):
                 if ev["token_id"] >= 0:
                     ids.append(ev["token_id"])
+                    times.append(time.perf_counter())
                 yield ev
 
     return RecordingServer(engine, model_name="llama3-8b-random")
@@ -1959,6 +1964,119 @@ def phase_flight(card: str, served: ServedEngine, n_requests: int = 4,
     return rec
 
 
+# -- phase 9c: the emission pacer at 8B --------------------------------------
+
+
+def _gaps_ms(times):
+    """p50, p95 and max of the gaps between a stream's decode tokens (the
+    first token's wait is TTFT, not a gap)."""
+    gaps = sorted((b - a) * 1e3 for a, b in zip(times[1:], times[2:]))
+    if not gaps:
+        return {"p50": None, "p95": None, "max": None}
+    return {"p50": _pct(gaps, 0.5), "p95": _pct(gaps, 0.95),
+            "max": gaps[-1]}
+
+
+def phase_pacer(card: str, served: ServedEngine, n_streams: int = 4,
+                max_tokens: int = 64):
+    """The emission pacer on the served engine: n_streams greedy
+    max_tokens-token completions at once, with pace_emission_max_streams
+    at the JAX default of 16, then at 0 (pacing off) on the same engine
+    (`_pace_decide` reads the limit at every block); K1 and K2 must
+    launch over the two runs. Admission waits until
+    the burst is queued, so both runs prefill it in one group and the
+    streams depend on the pacer alone. Each stream's tokens must be equal
+    in both runs (same ids, same order); per stream, the gaps between its
+    decode tokens where the server's handler receives them (p50, p95,
+    max: the SSE cadence) and the time to its first token are printed for
+    both, with the blocks the pacer spread (commits with held tokens)."""
+    import dataclasses
+
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+
+    base, engine = served.base, served.engine
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    prompts = [f"Pacer stream {i}:" for i in range(n_streams)]
+    keys = [tuple(engine.tokenizer.encode(p, add_bos=True)) for p in prompts]
+    original = engine.ecfg
+    commits = [0, 0]
+    real_commit = engine._pace_commit
+
+    def commit(slot, now):
+        commits[0] += 1
+        commits[1] += bool(slot.pace_buf)
+        real_commit(slot, now)
+
+    limits = (16, 0)
+    runs, streams = {}, {}
+    try:
+        for limit in limits:
+            engine.ecfg = dataclasses.replace(
+                original, pace_emission_max_streams=limit)
+            opened, t_gate = [False], time.perf_counter()
+            admit = engine._admit_waiting
+
+            def gated():
+                opened[0] = (opened[0] or len(engine.waiting) >= n_streams
+                             or time.perf_counter() - t_gate > 30.0)
+                return admit() if opened[0] else False
+
+            engine._admit_waiting = gated
+            engine._pace_commit = commit
+            commits[:] = [0, 0]
+            results = [None] * n_streams
+            starts = [None] * n_streams
+
+            def run(i):
+                starts[i] = time.perf_counter()
+                results[i] = _complete(base, prompts[i], max_tokens)
+
+            try:
+                threads = [threading.Thread(target=run, args=(i,))
+                           for i in range(n_streams)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+            finally:
+                del engine._admit_waiting, engine._pace_commit
+            streams[limit] = [list(served.app.streams.get(k, ()))
+                              for k in keys]
+            times = [list(served.app.times.get(k, ())) for k in keys]
+            runs[str(limit)] = {
+                "pace_emission_max_streams": limit,
+                "finish": [r["finish_reason"] if r else None
+                           for r in results],
+                "tokens": [len(x) for x in streams[limit]],
+                "first_token_ms": [(t[0] - s) * 1e3 if t and s else None
+                                   for t, s in zip(times, starts)],
+                "gap_ms": [_gaps_ms(t) for t in times],
+                "commits": commits[0], "paced_commits": commits[1]}
+    finally:
+        engine.ecfg = original
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    on, off = (str(x) for x in limits)
+    identical = (streams[limits[0]] == streams[limits[1]]
+                 and all(streams[limits[0]]))
+    ok = (identical and runs[on]["paced_commits"] > 0
+          and runs[off]["paced_commits"] == 0
+          and all(f in ("length", "stop") for r in runs.values()
+                  for f in r["finish"])
+          and launches["flash_attention"] > 0
+          and launches["paged_attention"] > 0)
+    rec = {"phase": "pacer", "card": card, "streams": n_streams,
+           "max_tokens": max_tokens, "runs": runs, "launches": launches,
+           "streams_identical_on_off": identical,
+           "seconds": time.perf_counter() - t_phase, "ok": ok}
+    emit(rec)
+    return rec
+
+
 # -- phase 10: chunked long prefill at 8B ---------------------------------
 
 
@@ -2125,6 +2243,10 @@ FUSED_RUNS = (("A_lane", {}),
               ("B_rider", {"fused_prefill": True, "fused_token_budget": 512}),
               ("C_unfused_finish", {"fused_sampling": False}))
 SPEC_TREE = {"speculative_k": 3, "speculative_tree_branches": 4}
+# The rider is judged by the short streams' gaps while a prompt prefills,
+# which the emission pacer would spread: its engines run unpaced, as
+# they did before the pacer came.
+UNPACED = {"pace_emission_max_streams": 0}
 SPEC_FUSED_RUNS = (
     ("D_spec_lane", {**SPEC_TREE, **dict(FUSED_RUNS)["B_rider"]}),
     ("E_spec_rider", {**SPEC_TREE, **dict(FUSED_RUNS)["B_rider"],
@@ -2311,8 +2433,8 @@ def phase_fused_prefill(card: str, served: ServedEngine,
                         device: str = "cuda", prompt_len: int = 6000,
                         n_short: int = 3, max_tokens: int = 64,
                         long_tokens: int = 8, engine_cfg=None):
-    """engine.fused_prefill over the served bf16 8B weights: engines of
-    batch 4 with a pool for the prompt and three 256-token streams,
+    """engine.fused_prefill over the served bf16 8B weights: unpaced
+    engines of batch 4 with a pool for the prompt and three 256-token streams,
     built and closed in turn (FUSED_RUNS): A the chunked lane, B the
     rider (512-token budget: 12 riders of 512 in place of two chunks of
     4,096), C the lane with the unfused finish. In each, `n_short` greedy
@@ -2330,7 +2452,7 @@ def phase_fused_prefill(card: str, served: ServedEngine,
     # A tree engine reserves pages for the worst case of two blocks in
     # flight (K x (k + 1) tokens and the packed nodes of a step).
     spec_pages = -(-(prompt_len + n_short * 384) // ps) + 4
-    base_cfg = {"max_batch_size": 4, **(engine_cfg or {})}
+    base_cfg = {"max_batch_size": 4, **UNPACED, **(engine_cfg or {})}
     prompt, shorts = _fused_traffic(11, prompt_len, n_short)
     t0 = time.perf_counter()
     runs = {}
@@ -2384,7 +2506,7 @@ def phase_fused_prefill_int8(card: str, params, cfg, tokenizer,
     K6 must launch, K2 and K5 not."""
     ecfg = {**INT8_DEPLOYMENT, "max_batch_size": 4,
             "prefill_buckets": [128, 512, 1024], **dict(FUSED_RUNS)["B_rider"],
-            **(engine_cfg or {})}
+            **UNPACED, **(engine_cfg or {})}
     prompt, shorts = _fused_traffic(12, prompt_len, n_short)
     t0 = time.perf_counter()
     rec, got, alone = _fused_engine_run(
@@ -2706,6 +2828,19 @@ def _together(n: int, fn):
     return out
 
 
+def _await_spans(exporter, name: str, n: int, timeout_s: float = 10.0):
+    """The exporter's finished spans once at least `n` named `name` have
+    ended (or at `timeout_s`, so a missing span fails the check that reads
+    them)."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        spans = exporter.get_finished_spans()
+        if (sum(sp.name == name for sp in spans) >= n
+                or time.perf_counter() >= deadline):
+            return spans
+        time.sleep(0.02)
+
+
 def _span_s(t):
     """A span or event time in seconds: the built-in tracer keeps
     time.time() floats, the OpenTelemetry SDK integer nanoseconds."""
@@ -2760,7 +2895,7 @@ def _stop_server(app, httpd, th):
 
 def phase_chain(card: str, served: ServedEngine, keep: dict,
                 device: str = "cuda", n_search: int = 64,
-                n_answers: int = 4, n_augmented: int = 1,
+                n_answers: int = 3, n_augmented: int = 1,
                 max_tokens: int = 32, top_k: int = 5):
     """The rest of the chain over phase_rag's encoders and 2,001-chunk
     device store (`keep`) and the served 8B engine, tracing on (a
@@ -2910,7 +3045,10 @@ def phase_chain(card: str, served: ServedEngine, keep: dict,
         torch.cuda.synchronize()
         answer_launches = dict(kernels.LAUNCHES)
         rr_stats = rr.microbatch_stats()
-        spans = exporter.get_finished_spans()
+        # The engine ends a request's span on its scheduler thread just
+        # after it delivers the last event, so the client can finish first
+        # (as in the JAX engine): wait for the spans, not only the frames.
+        spans = _await_spans(exporter, "engine.generate", n_answers)
         by_trace = {}
         for sp in spans:
             by_trace.setdefault(sp.context.trace_id, []).append(sp)
@@ -3020,7 +3158,8 @@ def phase_chain(card: str, served: ServedEngine, keep: dict,
         # Each augmented answer's trace: the hyde, multi_query, answer
         # and fact-check LLM calls (rewrite has no history to resolve).
         aug_traces = {}
-        for sp in exporter.get_finished_spans():
+        for sp in _await_spans(exporter, "engine.generate",
+                               4 * n_augmented):
             aug_traces.setdefault(sp.context.trace_id, []).append(sp)
         verdicts = []
         for tree in aug_traces.values():
@@ -3614,13 +3753,13 @@ def phase_pipelines(card: str, served: ServedEngine, keep: dict,
 
 # The JAX package's documented int8 deployment (docs/deployment.md):
 # llama3-8b, int8 weights + int8 KV, max_batch_size 128, page_size 128.
+# Its pool is sized by the memory planner (auto_pool_pages: the card's
+# memory less the headroom, the weights and the scratch and activation
+# estimates), where the worst case (128 x 64 + 64 + 1 pages, ~71 GB)
+# does not fit one 80 GB card beside the weights.
 INT8_DEPLOYMENT = {"quantize_weights": "int8", "kv_dtype": "int8",
                    "max_batch_size": 128, "page_size": 128,
-                   "max_seq_len": 8192}
-# The one cut: 4,097 pool pages (a 35 GB pool at 8.65 MB a page) in place
-# of the engine's default 128 x 64 + 64 + 1 (~71 GB), so the pool, the
-# weights and the activations fit one 80 GB card beside each other.
-INT8_POOL_PAGES = 4097
+                   "max_seq_len": 8192, "auto_pool_pages": True}
 
 
 def _int8_prompts(n_requests: int):
@@ -3681,8 +3820,7 @@ def _page_round_trip(pool, pages):
 def phase_serving_int8(card: str, model_size: str = "8b",
                        device: str = "cuda", n_requests: int = 128,
                        max_tokens: int = 64, long_prompt: int = 6000,
-                       n_pages: int = INT8_POOL_PAGES,
-                       engine_cfg=None):
+                       n_pages=None, engine_cfg=None):
     """The int8 engine behind the OpenAI server: n_requests concurrent
     greedy completions of max_tokens with prompts of 20-400 bytes (seed
     3), then one long_prompt-token prompt through the chunked lane into
@@ -3690,17 +3828,27 @@ def phase_serving_int8(card: str, model_size: str = "8b",
     "error") with tokens; K6, K4 and K1 must launch in the window, K2
     not. Tokens/s, TTFT and memory are printed for information, and the
     same burst runs again under the profiler (outside the counted
-    window) for the device's busy time and idle share. Returns (the
-    record, the closed ServedEngine), whose weights and token streams
-    the speculative phase reuses."""
+    window) for the device's busy time and idle share.
+
+    With n_pages None the memory planner sizes the pool (the deployment's
+    auto_pool_pages): its breakdown is printed, its weights line must
+    equal the bytes the weight tree holds on the card and its page bytes
+    times its pages the pool tensors' bytes; the peak allocated over the
+    burst and the long prompt is printed beside the plan's total and the
+    budget (hbm - headroom), with the bytes other phases left resident
+    counted apart. Returns (the record, the closed ServedEngine), whose
+    weights, pool size and token streams the speculative phase reuses."""
     import torch
 
     from generativeaiexamples_tpu_torch import kernels
 
     ecfg = dict(engine_cfg or INT8_DEPLOYMENT)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     served = ServedEngine(model_size, device, engine_cfg=ecfg,
                           n_pages=n_pages, warmup_buckets=[128, 512])
     engine = served.engine
+    plan = engine.memory_plan
     try:
         prompts = _int8_prompts(n_requests)
 
@@ -3738,17 +3886,52 @@ def phase_serving_int8(card: str, model_size: str = "8b",
           and launches["int8_matmul"] > 0
           and launches["paged_attention_int8"] > 0
           and launches["flash_attention"] > 0
-          and launches["paged_attention"] == 0 and round_trip["ok"])
+          and launches["paged_attention"] == 0 and round_trip["ok"]
+          and (n_pages is not None or plan is not None))
     max_pages = ecfg["max_seq_len"] // ecfg["page_size"]
     default_pages = ecfg["max_batch_size"] * max_pages + max_pages + 1
+    n_pool = pool.n_pages
+    planner = None
+    if plan is not None:
+        weight_bytes = _tree_bytes(engine.params)
+        gib = float(1 << 30)
+        budget = plan.hbm_bytes_per_device - plan.headroom_bytes
+        planner = {
+            "breakdown": plan.breakdown(),
+            "lines": {line.name: line.bytes_per_device
+                      for line in plan.lines},
+            "hbm_bytes": plan.hbm_bytes_per_device,
+            "headroom_bytes": plan.headroom_bytes,
+            "page_bytes": plan.page_bytes_per_device,
+            "fit_pages": plan.fit_pages, "pool_pages": plan.pool_pages,
+            "weights_line_equals_tree": (
+                plan.lines[0].bytes_per_device == weight_bytes),
+            "tree_bytes": weight_bytes,
+            "pool_line_equals_tensors": (
+                plan.page_bytes_per_device * plan.pool_pages
+                == pool.nbytes),
+            "pool_tensor_bytes": pool.nbytes,
+            "plan_total_gib": plan.total_bytes_per_device / gib,
+            "budget_gib": budget / gib,
+            "resident_before_gib": resident / gib,
+            "peak_gib": peak_gb,
+            "engine_peak_gib": peak_gb - resident / gib,
+            "engine_peak_within_budget": (
+                peak_gb * gib - resident <= budget),
+            "peak_within_budget": peak_gb * gib <= budget}
+        print(plan.breakdown(), flush=True)
     rec = {"phase": "serving_int8", "card": card,
            "model": f"llama3_{model_size} random (seed 0), int8 weights "
                     f"quantized at load, int8 KV",
            "engine": ecfg, "layers": engine.cfg.n_layers,
-           "reduced": {"n_pages": n_pages, "default_n_pages": default_pages,
+           "reduced": {"n_pages": n_pool,
+                       "sized_by": ("the memory planner" if plan is not None
+                                    else "n_pages"),
+                       "default_n_pages": default_pages,
                        "pool_gb": pool.nbytes / 1e9,
-                       "default_pool_gb": pool.nbytes / n_pages
+                       "default_pool_gb": pool.nbytes / n_pool
                        * default_pages / 1e9},
+           "planner": planner,
            "engine_build_s": served.build_s, "warmup_s": served.warm_s,
            "requests": n_requests, "max_tokens": max_tokens,
            "prompt_bytes": [int(min(len(p) for p in prompts)),
@@ -3764,6 +3947,10 @@ def phase_serving_int8(card: str, model_size: str = "8b",
            "long_prompt": {"tokens": long_prompt, **long_rec},
            "launches": launches, "peak_mem_gb": peak_gb,
            "page_round_trip": round_trip, "profile": profile, "ok": ok}
+    if planner is not None:
+        rec["ok"] = (ok and planner["weights_line_equals_tree"]
+                     and planner["pool_line_equals_tensors"]
+                     and n_pool == plan.pool_pages)
     emit(rec)
     return rec, served
 
@@ -3787,10 +3974,11 @@ def _first_divergence(got, want):
 
 def phase_spec_int8(card: str, int8_served, device: str = "cuda",
                     n_requests: int = 128, max_tokens: int = 64,
-                    n_pages: int = INT8_POOL_PAGES, engine_cfg=None,
+                    n_pages=None, engine_cfg=None,
                     configs=SPEC_INT8_CONFIGS):
     """Speculative engines on the int8 deployment, over serving_int8's
-    quantized weights (its engine and pool are released first), each
+    quantized weights (its engine and pool are released first; n_pages
+    None: as many pages as its planned pool), each
     behind the OpenAI server in turn: serving_int8's burst of n_requests
     concurrent greedy max_tokens completions. Every request must finish
     with its tokens; K6 and K4 must launch, K2 and K5 not. The share of
@@ -3805,6 +3993,7 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
     old = int8_served.engine
     params, cfg, tokenizer = old.params, old.cfg, old.tokenizer
     base_streams = int8_served.app.streams
+    n_pages = n_pages or old.pool.n_pages
     old.pool = None
     del old, int8_served
     gc.collect()
@@ -4367,15 +4556,305 @@ def _pages_of(engine, ids):
     return codes.cpu().view(torch.int16)
 
 
+# The chaos kill's trace: bursty_trace(seed=3) cut to 3 s with 4 batch
+# prompts of 128-1,024 tokens.
+CHAOS_TRACE = {"horizon_s": 3.0, "latency_rps": 2.0, "batch_requests": 4,
+               "batch_prompt": (1.4, 128, 1024), "batch_out": (1.6, 16, 48)}
+# The kill's time into that trace (s); the slowed prefill's prompt (40
+# full pages of 128 and a 40-token suffix) and its delay a beat (s); the
+# autoscaler's in-flight depth a replica that scales up.
+CHAOS_KILL_T = 1.0
+CHAOS_PROMPT = 5160
+CHAOS_SLOW_S = 0.05
+ELASTIC_UP_DEPTH = 1.0
+
+
+def _active(fleet) -> int:
+    return sum(r.state == "active" for r in fleet.replicas)
+
+
+def _wait_active(fleet, n: int, timeout_s: float) -> float:
+    """Seconds until at most `n` replicas are active (the timeout if
+    never)."""
+    t0 = time.perf_counter()
+    while _active(fleet) > n and time.perf_counter() - t0 < timeout_s:
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _fleet_elastic(src, engines, fleet_of, letters, chat_ids, ecfg,
+                   n_pages, device, n_chats, max_tokens, gap_s):
+    """phase_fleet (f): r0 active and r1 parked warm behind a
+    FleetAutoscaler (0.25 s polls, 2 up / 3 down ticks, 1 s cooldown,
+    1 to 3 replicas, a warm pool of 1, ELASTIC_UP_DEPTH in-flight requests a
+    replica) whose spawn lane builds a LocalReplica engine over the
+    served weight tree with n_pages pages; the router places by load.
+    n_chats greedy chats arrive gap_s apart (each prefills alone, as its
+    reference did): the pressure must wake r1 (a scale-up), then, with no
+    spare left, spawn a third replica; idle must then park replicas down
+    to min_replicas (scale-downs); with scale_to_zero the last parks too
+    and one more chat wakes it at submit (a demand wake). Every stream
+    must equal the same request alone on the served engine. The seconds
+    from the first arrival to r1's wake and to the spawned replica's
+    first token are printed."""
+    from generativeaiexamples_tpu_torch.serving.autoscaler import (
+        FleetAutoscaler)
+    from generativeaiexamples_tpu_torch.serving.engine import (
+        GenRequest, LLMEngine)
+    from generativeaiexamples_tpu_torch.serving.flight import (
+        EV_ADMIT, EV_FIRST_TOKEN, EV_SCALE_UP)
+
+    spawned, spawn_s = [], []
+
+    def engine_factory():
+        t0 = time.perf_counter()
+        eng = LLMEngine(src.params, src.cfg, src.tokenizer, ecfg,
+                        n_pages=n_pages, device=device)
+        spawn_s.append(time.perf_counter() - t0)
+        spawned.append(eng)
+        return eng
+
+    chats = [[{"role": "user", "content": letters(200)}]
+             for _ in range(n_chats + 1)]
+    ids = [chat_ids(m) for m in chats]
+    want = [_alone(src, p, max_tokens) for p in ids]
+    # Least-load placement: each arrival goes to the shallowest replica,
+    # so a replica that has just joined takes the next ones.
+    fleet = fleet_of(router_policy="least_load")
+    fleet.park("r1")  # warm: its engine runs, it takes no placements
+    scaler = FleetAutoscaler(
+        fleet, engine_factory=engine_factory, min_replicas=1,
+        max_replicas=3, warm_pool=1, interval_s=0.25,
+        up_depth=ELASTIC_UP_DEPTH, down_depth=0.5, up_ticks=2, down_ticks=3,
+        cooldown_s=1.0, drain_timeout_s=120.0)
+    out = [None] * n_chats
+    try:
+        scaler.start()
+        t_burst = time.perf_counter()
+
+        def run(i):
+            req = GenRequest(prompt_ids=ids[i], max_new_tokens=max_tokens,
+                             request_id=f"elastic-{i}")
+            t0 = time.perf_counter()
+            fleet.submit(req)
+            out[i] = (*_collect_req(req), t0, time.perf_counter())
+
+        threads = []
+        for i in range(n_chats):
+            threads.append(threading.Thread(target=run, args=(i,)))
+            threads[-1].start()
+            time.sleep(gap_s)
+        for t in threads:
+            t.join(timeout=600)
+        t_done = time.perf_counter()
+        peak_replicas = len(fleet.replicas)
+        idle_s = _wait_active(fleet, 1, 60.0)
+        states_idle = {r.rid: r.state for r in fleet.replicas}
+        scaler.scale_to_zero = True
+        zero_s = _wait_active(fleet, 0, 60.0)
+        states_zero = {r.rid: r.state for r in fleet.replicas}
+        req = GenRequest(prompt_ids=ids[-1], max_new_tokens=max_tokens)
+        t0 = time.perf_counter()
+        fleet.submit(req)
+        wake_toks, wake_finish, wake_first = _collect_req(req)
+        wake_ttft_ms = (wake_first - t0) * 1e3 if wake_first else None
+        scaler.stop()
+        snap = fleet.metrics.snapshot()
+        events = scaler.flight.snapshot_events()
+        health = fleet.fleet_health()["autoscale"]
+    finally:
+        scaler.stop()
+        fleet.stop()
+    ups = [e for e in events if e["kind"] == EV_SCALE_UP]
+    wake_r1 = next((e["ts"] for e in ups if e["aux"] == "r1"), None)
+    first_spawned = None
+    for eng in spawned:
+        firsts = [e["ts"] for e in eng.flight.snapshot_events()
+                  if e["kind"] == EV_FIRST_TOKEN]
+        if firsts:
+            first_spawned = min(firsts + ([first_spawned]
+                                          if first_spawned else []))
+    got = [o[0] if o else None for o in out]
+    # Where each chat was admitted (its replica's admit event).
+    placed = {}
+    for rid, eng in (("r0", engines[0]), ("r1", engines[1]),
+                     *((f"as{i + 1}", e) for i, e in enumerate(spawned))):
+        for e in eng.flight.snapshot_events():
+            if e["kind"] == EV_ADMIT and e["rid"].startswith("elastic-"):
+                placed[int(e["rid"].split("-")[1])] = rid
+    chats_rec = [{"replica": placed.get(i),
+                  "submit_s": (o[3] - t_burst) if o else None,
+                  "ttft_ms": (o[2] - o[3]) * 1e3 if o and o[2] else None,
+                  "e2e_s": (o[4] - o[3]) if o else None}
+                 for i, o in enumerate(out)]
+    for eng in spawned:
+        eng.pool = None
+    rec = {"chats": n_chats, "max_tokens": max_tokens, "gap_s": gap_s,
+           "autoscaler": {"interval_s": 0.25, "up_depth": ELASTIC_UP_DEPTH,
+                          "down_depth": 0.5, "up_ticks": 2,
+                          "down_ticks": 3, "cooldown_s": 1.0,
+                          "min_replicas": 1, "max_replicas": 3,
+                          "warm_pool": 1},
+           "burst_s": t_done - t_burst, "per_chat": chats_rec,
+           "pressure_to_wake_ms": ((wake_r1 - t_burst) * 1e3
+                                   if wake_r1 else None),
+           "pressure_to_spawned_first_token_ms": (
+               (first_spawned - t_burst) * 1e3 if first_spawned else None),
+           "spawn_engine_build_s": spawn_s,
+           "scale_events": [{"kind": e["kind"], "rid": e["aux"],
+                             "t_ms": (e["ts"] - t_burst) * 1e3,
+                             "a": e["a"], "b": e["b"]} for e in events],
+           "peak_replicas": peak_replicas,
+           "idle_to_min_s": idle_s, "states_idle": states_idle,
+           "idle_to_zero_s": zero_s, "states_zero": states_zero,
+           "wake_ttft_ms": wake_ttft_ms,
+           "counters": {k: snap[k] for k in ("autoscale_ups",
+                                             "autoscale_downs",
+                                             "autoscale_wakes")},
+           "health_spawned": health.get("spawned"),
+           "streams_equal_served": [g == w for g, w in zip(got, want)],
+           "wake_stream_equal_served": wake_toks == want[-1],
+           "first_divergence": [_first_divergence(g or [], w)
+                                for g, w in zip(got, want)]}
+    rec["ok"] = (wake_r1 is not None and len(spawned) == 1
+                 and first_spawned is not None and peak_replicas == 3
+                 and snap["autoscale_ups"] >= 2
+                 and snap["autoscale_downs"] >= 1
+                 and snap["autoscale_wakes"] >= 1
+                 and sum(s == "active" for s in states_idle.values()) == 1
+                 and all(s != "active" for s in states_zero.values())
+                 and all(rec["streams_equal_served"])
+                 and rec["wake_stream_equal_served"]
+                 and wake_finish in ("length", "stop"))
+    return rec
+
+
+def _fleet_chaos(src, engines, fleet_of, rng, ecfg, n_pages, device,
+                 max_tokens, trace_kw):
+    """phase_fleet (g). A `slow` injection (CHAOS_SLOW_S a scheduler beat)
+    on the prefill replica during a pipelined disagg run in 1-page windows
+    of a CHAOS_PROMPT-token prompt whose last chunk holds full pages: each
+    window's export waits for one of the replica's beats, so the stage
+    finishes while the first chunk's windows still ship, the last chunk's
+    pages ship after it and the decode replica admits before the last
+    window lands (disagg_early_admits, printed);
+    the stream must equal the served engine's, or, where the early admit
+    left the decode replica a shorter prefix hit, a single engine's that
+    took the same hit (chunk shapes then differ from the served engine's,
+    so bf16 rounding may differ). Then a `kill` of a seeded pick in the
+    middle of bursty_trace(seed=3, **trace_kw) at CHAOS_KILL_T s over both
+    replicas (0.1 s probes, eviction after 2 failures): `classify` must
+    count no lost request (errored with no token). Each fleet's /metrics
+    must show chaos_injected_* equal to its injections."""
+    from generativeaiexamples_tpu_torch.serving import qos as qos_mod
+    from generativeaiexamples_tpu_torch.serving.chaos import (
+        ChaosEvent, ChaosMonkey, classify, run_chaos_trace)
+    from generativeaiexamples_tpu_torch.serving.engine import (
+        GenRequest, LLMEngine)
+    from generativeaiexamples_tpu_torch.serving.fleet import (
+        CHAOS_KEYS, EngineFleet, LocalReplica)
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        OpenAIServer)
+
+    prompt = rng.integers(0, 256, CHAOS_PROMPT).tolist()
+    ref = GenRequest(prompt_ids=prompt, max_new_tokens=max_tokens)
+    src.submit(ref)
+    ref_toks, _, _ = _collect_req(ref)
+    sfleet = fleet_of(replica_roles={"r0": "prefill", "r1": "decode"},
+                      disagg=True, disagg_pipeline=True,
+                      disagg_transfer_chunk_pages=1)
+    dec = engines[1]
+    try:
+        smonkey = ChaosMonkey(sfleet, seed=0)
+        m0, ops0 = dec.metrics.snapshot(), sfleet.ops.snapshot()
+        smonkey.inject(ChaosEvent(t=0.0, kind="slow", rid="r0",
+                                  magnitude=CHAOS_SLOW_S))
+        req = GenRequest(prompt_ids=prompt, max_new_tokens=max_tokens)
+        t0 = time.perf_counter()
+        sfleet.submit(req)
+        got, finish, first = _collect_req(req)
+        ttft = (first - t0) * 1e3 if first else None
+        sfleet._disagg_transfer.drain(timeout_s=120)
+        smonkey.undo_all()
+        m1, ops1 = dec.metrics.snapshot(), sfleet.ops.snapshot()
+        slow_metrics = OpenAIServer(sfleet).metrics()[1]
+    finally:
+        sfleet.stop()
+    d = {k: m1[k] - m0[k] for k in ("prefill_tokens", "prefix_hit_tokens",
+                                    "kv_transfer_pages",
+                                    "kv_transfer_chunks")}
+    o = {k: ops1[k] - ops0[k] for k in ops1}
+    same_hit_equal = None
+    if got != ref_toks and d["prefix_hit_tokens"]:
+        reng = LLMEngine(src.params, src.cfg, src.tokenizer, ecfg,
+                         n_pages=n_pages, device=device).start()
+        try:
+            _alone(reng, prompt[:d["prefix_hit_tokens"]] + [1], 1)
+            same_hit_equal = _alone(reng, prompt, max_tokens) == got
+        finally:
+            reng.stop()
+            reng.pool = None
+    slow = {"prompt_tokens": CHAOS_PROMPT, "slow_s_per_beat": CHAOS_SLOW_S,
+            "ttft_ms": ttft, "finish": finish,
+            "disagg_early_admits": o["disagg_early_admits"],
+            "kv_transfer_chunks": d["kv_transfer_chunks"],
+            "decode_engine": d, "fleet_ops": o,
+            "equal_served": got == ref_toks,
+            "first_divergence": _first_divergence(got, ref_toks),
+            "equal_same_hit_engine": same_hit_equal,
+            "chaos_metrics": {k: slow_metrics[k] for k in CHAOS_KEYS}}
+    slow["ok"] = (o["disagg_requests"] == 1 and o["disagg_fallbacks"] == 0
+                  and finish in ("length", "stop")
+                  and (got == ref_toks or same_hit_equal is True)
+                  and slow["chaos_metrics"] == {
+                      **dict.fromkeys(CHAOS_KEYS, 0),
+                      "chaos_injected_slow_beats": 1})
+
+    kfleet = EngineFleet([LocalReplica("r0", engines[0]),
+                          LocalReplica("r1", engines[1])], src.tokenizer,
+                         engines[0].pool.page_size, health_interval_s=0.1,
+                         health_fail_threshold=2).start()
+    trace = qos_mod.bursty_trace(seed=3, **trace_kw)
+    try:
+        t0 = time.perf_counter()
+        results, kmonkey = run_chaos_trace(
+            kfleet, trace, [ChaosEvent(t=CHAOS_KILL_T, kind="kill")], seed=7,
+            timeout_s=600.0)
+        wall = time.perf_counter() - t0
+        buckets = classify(results)
+        kill_metrics = OpenAIServer(kfleet).metrics()[1]
+        killed = [e["aux"] for e in kmonkey.flight.snapshot_events()]
+        states = {r.rid: r.state for r in kfleet.replicas}
+    finally:
+        kfleet.stop()
+    kill = {"trace": {"requests": len(trace), **{k: list(v) if isinstance(
+                v, tuple) else v for k, v in trace_kw.items()}},
+            "kill_t_s": CHAOS_KILL_T, "killed": killed, "states": states,
+            "wall_s": wall, "classify": buckets,
+            "replica_evictions": kill_metrics["replica_evictions"],
+            "router_requeued": kill_metrics["router_requeued"],
+            "chaos_metrics": {k: kill_metrics[k] for k in CHAOS_KEYS}}
+    kill["ok"] = (buckets["lost"] == 0 and buckets["completed"] >= 1
+                  and sum(buckets.values()) == len(trace)
+                  and len(killed) == 1
+                  and kill_metrics["replica_evictions"] == 1
+                  and kill["chaos_metrics"] == {
+                      **dict.fromkeys(CHAOS_KEYS, 0),
+                      "chaos_injected_kills": 1})
+    return {"slow": slow, "kill": kill, "ok": slow["ok"] and kill["ok"]}
+
+
 def phase_fleet(card: str, bf16_served, device: str = "cuda",
                 n_chats: int = 8, n_sessions: int = 4, chat_chars: int = 300,
-                max_tokens: int = 64, disagg_prompt: int = 4136,
+                max_tokens: int = 32, disagg_prompt: int = 4136,
                 disagg_tokens: int = 32, chunk_pages: int = 8,
                 n_pages: int = FLEET_POOL_PAGES, engine_cfg=None,
                 warmups=(((512, 1024), None), ((4096,), (1,))),
                 qos_pages: int = QOS_POOL_PAGES, qos_trace=None,
                 qos_warmup=((128,), (1,)),
-                edge_requests: int = 6, edge_tokens: int = 64):
+                edge_requests: int = 6, edge_tokens: int = 64,
+                elastic_chats: int = 10, elastic_tokens: int = 16,
+                elastic_gap_s: float = 0.3, chaos_trace=None):
     """The serving fleet over the bf16 8B weights the served engine holds:
     two LocalReplica engines (the served engine's config with the prefix
     cache on, n_pages pool pages each) sharing that one weight tree,
@@ -4404,7 +4883,14 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
     r1 behind a second server as an HttpReplica of a router-only fleet: a
     proxied SSE chat equal to the served engine's, and one transfer over
     /v1/kv/export -> /v1/kv/import seating bytes equal to the in-process
-    export. (e) QoS, after the replicas are freed: one engine replays
+    export. (f) elastic: the two replicas behind an autoscaler
+    (`_fleet_elastic`): a burst wakes the warm spare and spawns a third
+    replica over the same weights, idle parks down to one, scale to zero
+    and a demand wake; streams equal the served engine's. (g) chaos
+    (`_fleet_chaos`): a slowed prefill replica in a pipelined disagg run
+    of 1-page windows, then a replica killed in the middle of a bursty
+    trace (none lost that was not streaming). (e) QoS, after the
+    replicas are freed: one engine replays
     qos.bursty_trace(seed=0) with long batch prompts, QoS off then on
     (latency-tier TTFT p50/p95, qos_preemptions); then with
     serving.qos_edge, edge_requests concurrent latency-tier requests
@@ -4720,6 +5206,16 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
                        "ok": http_ok}
         hfleet.stop()
         part_s["http"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        rec["elastic"] = _fleet_elastic(
+            src, engines, fleet_of, letters, chat_ids, ecfg, n_pages, device,
+            elastic_chats, elastic_tokens, elastic_gap_s)
+        part_s["elastic"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        rec["chaos"] = _fleet_chaos(
+            src, engines, fleet_of, rng, ecfg, n_pages, device,
+            disagg_tokens, chaos_trace or CHAOS_TRACE)
+        part_s["chaos"] = time.perf_counter() - t_part
         launches_fleet = dict(kernels.LAUNCHES)
     finally:
         for httpd, t in servers:
@@ -4829,6 +5325,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
     rec["launches_before_qos"] = launches_fleet
     rec["seconds"] = time.perf_counter() - t_phase
     rec["ok"] = (routing_ok and lifecycle_ok and disagg_ok and http_ok
+                 and rec["elastic"]["ok"] and rec["chaos"]["ok"]
                  and rec["qos"]["ok"]
                  and launches["flash_attention"] > 0
                  and launches["paged_attention"] > 0
@@ -5925,6 +6422,7 @@ def main() -> int:
     try:
         serving = timed("serving", phase_serving, card, served)
         flight = timed("flight", phase_flight, card, served)
+        pacer = timed("pacer", phase_pacer, card, served)
         chunked = timed("chunked", phase_chunked, served)
         fused = timed("fused_prefill", phase_fused_prefill, card, served)
         rag = timed("rag", phase_rag, card, served, keep=rag_keep)
@@ -6050,6 +6548,8 @@ def main() -> int:
         e["fleet_launches"] = fleet["launches"][e["name"]]
         if e["name"] in ("flash_attention", "paged_attention"):
             e["prefix_launches"] = prefix["launches"][e["name"]]
+            # The pacer phase: two bursts of greedy streams.
+            e["pacer_launches"] = pacer["launches"][e["name"]]
         # Launches on the models loaded from their snapshots (K5 is not
         # on that path).
         e["checkpoint_launches"] = checkpoint["launches"][e["name"]]
@@ -6067,7 +6567,7 @@ def main() -> int:
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and flight["ok"]
-          and chunked["ok"]
+          and pacer["ok"] and chunked["ok"]
           and fused["ok"] and fused_int8["ok"]
           and rag["ok"] and chain["ok"] and pipelines["ok"]
           and serving_int8["ok"] and spec_bf16["ok"]

@@ -9,17 +9,20 @@ defaults:
   KV pager (`prefix_cache`, `kv_pager` and their sizes), the fused
   prefill rider (`fused_prefill`, `fused_token_budget`), step plans
   beside speculation (`step_plans`) and the flight recorder
-  (`flight_recorder`, `flight_ring_size`) and QoS (`qos`, the tier
-  weights, `qos_preempt_prefill`). Flags of the JAX engine that the port
-  does not have yet (multi-host, the memory planner) are listed in
-  `UNSUPPORTED` with the ROADMAP item that brings them;
+  (`flight_recorder`, `flight_ring_size`), QoS (`qos`, the tier
+  weights, `qos_preempt_prefill`), the emission pacer
+  (`pace_emission_max_streams`) and the memory planner
+  (`auto_pool_pages`, `hbm_gb_per_device`,
+  `planner_headroom_fraction`). Flags of the JAX engine that the port
+  does not have yet (multi-host) are listed in `UNSUPPORTED` with the
+  ROADMAP item that brings them;
   `EngineConfig.coerce` refuses any of them set away from its default.
   `weights_path` names an HF safetensors snapshot (empty: random weights
   at a named geometry).
 - `FleetConfig`: the serving fleet (serving/fleet.py): local replicas,
   remote replica URLs, the router policy, health probes and
-  disaggregated prefill/decode. The autoscaler's and the chaos harness's
-  fields are refused (`UNSUPPORTED_APP`, ROADMAP A.16).
+  disaggregated prefill/decode, the autoscaler (`autoscale*`) and the
+  chaos harness (`chaos`, `chaos_seed`).
 - `AppConfig`: the sections the chain's pipelines and the engine server
   read (llm, embeddings, reranker, retriever, vlm, prompts,
   text_splitter, vector_store, serving, engine, fleet, tracing).
@@ -27,7 +30,8 @@ defaults:
   `APP_CONFIG_FILE` names, overlays `APP_<SECTION>_<FIELD>` environment
   variables (the JAX config wizard's contract) and refuses fields that
   name unported features when they are set away from their defaults
-  (`check_supported`), in the file as in the env.
+  (`check_supported`), in the file as in the env, and `auto_pool_pages`
+  beside more than one engine on a device (`AUTO_POOL_SHARED`).
 """
 
 from __future__ import annotations
@@ -125,6 +129,12 @@ class EngineConfig:
     flight_recorder: bool = True
     # Beat-ring capacity in records (the event ring is 4x this).
     flight_ring_size: int = 4096
+    # Emission pacing: a landed K-step block delivers up to K tokens a
+    # stream at once; while at most this many streams decode, the pacer
+    # spreads each burst over the observed block interval (at most 100 ms
+    # a token; a terminal event or the next block flushes it at once).
+    # 0 turns pacing off.
+    pace_emission_max_streams: int = 16
     # SLO-aware multi-tenant QoS (serving/qos.py): requests carry a tier
     # (latency | standard | batch) and a tenant; admission is weighted-fair
     # across tiers and least-served-tenant within one instead of FIFO, and
@@ -139,6 +149,19 @@ class EngineConfig:
     # With qos on, pause lower-tier long prefills while a latency-tier
     # request is prefilling or awaiting its first token.
     qos_preempt_prefill: bool = True
+    # Size the page pool from serving/memory_plan.py instead of the
+    # max_batch_size x max_pages worst case: weights, scratch and
+    # activation transients and the headroom are counted against the
+    # device's memory and every remaining byte becomes KV pages (or the
+    # build fails with the breakdown and the smallest mesh that fits).
+    auto_pool_pages: bool = False
+    # Device memory budget in GiB for the planner (0 = the device's own:
+    # total_memory on CUDA, 4 GiB on the CPU).
+    hbm_gb_per_device: float = 0.0
+    # Share of device memory the planner leaves unallocated (allocator
+    # fragmentation, transients beyond its estimate);
+    # planner_headroom_bytes in /metrics.
+    planner_headroom_fraction: float = 0.1
 
     @staticmethod
     def coerce(cfg: Any = None) -> "EngineConfig":
@@ -183,7 +206,6 @@ class EngineConfig:
 # port will gain it).
 UNSUPPORTED = {
     "multihost": (False, "ROADMAP A.17: multi-host"),
-    "auto_pool_pages": (False, "ROADMAP A.17: memory planner"),
 }
 
 
@@ -359,23 +381,37 @@ class FleetConfig:
     disagg_device_path: bool = False
     # Pages per transfer window (0 = whole-prefix windows).
     disagg_transfer_chunk_pages: int = 0
-    # The JAX fleet's autoscaler and chaos harness: refused here
-    # (UNSUPPORTED_APP), kept so a file that sets them is not ignored.
+    # Elastic autoscaler (serving/autoscaler.py). Off: the fleet's size
+    # never changes.
     autoscale: bool = False
+    # Admitting replicas kept hot, and the fleet's largest size.
     autoscale_min_replicas: int = 1
     autoscale_max_replicas: int = 4
+    # Started, warmed, non-admitting spares (instant scale-up).
     autoscale_warm_pool: int = 1
     autoscale_interval_s: float = 2.0
+    # Tier-weighted in-flight requests a replica above which the scaler
+    # scales up, and below which it scales down.
     autoscale_up_depth: float = 8.0
     autoscale_down_depth: float = 1.0
+    # Consecutive polls past a threshold before an action, and the
+    # quiet time after each action.
     autoscale_up_ticks: int = 2
     autoscale_down_ticks: int = 5
     autoscale_cooldown_s: float = 20.0
+    # Park even the last replica when idle; demand wakes it at submit.
     autoscale_scale_to_zero: bool = False
+    # Latency signals: the last poll window's latency-tier queue-wait
+    # p95 and TTFT p95 past these scale up too (0 = off).
     autoscale_up_queue_wait_p95_ms: float = 0.0
     autoscale_up_ttft_p95_ms: float = 0.0
+    # Spawn lane: "local" builds an in-process engine over the served
+    # weights; "process" launches an engine-server subprocess.
     autoscale_spawn: str = "local"
     autoscale_spawn_ready_timeout_s: float = 120.0
+    # Chaos harness (serving/chaos.py): an armed, idle ChaosMonkey on
+    # the fleet (live chaos_injected_* counters, a "chaos" timeline
+    # lane); faults fire only when a drill runs a schedule.
     chaos: bool = False
     chaos_seed: int = 0
 
@@ -414,17 +450,23 @@ UNSUPPORTED_APP = {
     ("vector_store", "index_type"): "ROADMAP A.18: IVF index",
     ("vector_store", "quantize_int8"): "ROADMAP A.18: int8 rows",
     ("vector_store", "tiered"): "ROADMAP A.18: tiered index",
-    **{("fleet", f.name): "ROADMAP A.16: autoscaler"
-       for f in dataclasses.fields(FleetConfig)
-       if f.name.startswith("autoscale")},
-    ("fleet", "chaos"): "ROADMAP A.16: chaos",
-    ("fleet", "chaos_seed"): "ROADMAP A.16: chaos",
 }
+
+
+# The planner sizes one engine's pool from its device's whole memory, so
+# engines that share a device (a fleet's local replicas, the autoscaler's
+# spawns: all on the launcher's device) cannot each plan.
+AUTO_POOL_SHARED = (
+    "engine.auto_pool_pages plans one engine per device from the device's "
+    "whole memory; with more than one engine on the device ({}) the second "
+    "pool would not fit. Splitting the plan across a device's engines is "
+    "ROADMAP A.17")
 
 
 def check_supported(cfg: AppConfig) -> AppConfig:
     """Raise ValueError naming the ROADMAP item for any field of an
-    unported feature set away from its default; returns cfg."""
+    unported feature set away from its default, or for `auto_pool_pages`
+    beside local replicas or the autoscaler; returns cfg."""
     for (section, name), item in UNSUPPORTED_APP.items():
         node = getattr(cfg, section)
         default = getattr(type(node)(), name)
@@ -433,6 +475,11 @@ def check_supported(cfg: AppConfig) -> AppConfig:
             raise ValueError(f"{section}.{name}={value!r} is not supported "
                              f"by the PyTorch port yet ({item})")
     EngineConfig.coerce(cfg.engine)
+    if cfg.engine.auto_pool_pages and (cfg.fleet.replicas > 1
+                                       or cfg.fleet.autoscale):
+        raise ValueError(AUTO_POOL_SHARED.format(
+            f"fleet.replicas={cfg.fleet.replicas}, "
+            f"fleet.autoscale={cfg.fleet.autoscale}"))
     return cfg
 
 

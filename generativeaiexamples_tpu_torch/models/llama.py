@@ -132,6 +132,52 @@ def init_params(cfg: LlamaConfig, device: DeviceLike = None,
     return params
 
 
+def param_shapes(cfg: LlamaConfig) -> Params:
+    """The shape of every leaf `init_params` makes, without allocating
+    (what the memory planner reads)."""
+    D, H, KH, Hd, M, L = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.mlp_dim, cfg.n_layers)
+    shapes: Params = {
+        "tok_emb": (cfg.vocab_size, D),
+        "ln_f": (D,),
+        "layers": {
+            "ln1": (L, D), "ln2": (L, D),
+            "wq": (L, D, H * Hd), "wk": (L, D, KH * Hd),
+            "wv": (L, D, KH * Hd), "wo": (L, H * Hd, D),
+            "w_gate": (L, D, M), "w_up": (L, D, M), "w_down": (L, M, D),
+        },
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (D, cfg.vocab_size)
+    return shapes
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """The mesh axes each leaf's dimensions shard over, parallel to
+    `init_params` (the JAX package's `param_specs` after its logical-axis
+    rules; None = replicated). Megatron layout: q/k/v and the MLP's
+    inputs shard their output dimension on "tensor", wo and w_down their
+    input dimension, the embeddings their vocabulary; the hidden
+    dimension of the weights is the "fsdp" axis. The port runs on one
+    device today: the memory planner reads this table to plan other
+    geometries (ROADMAP A.17)."""
+    specs: Params = {
+        "tok_emb": ("tensor", "fsdp"),
+        "ln_f": (None,),
+        "layers": {
+            "ln1": (None, None), "ln2": (None, None),
+            "wq": (None, "fsdp", "tensor"), "wk": (None, "fsdp", "tensor"),
+            "wv": (None, "fsdp", "tensor"), "wo": (None, "tensor", "fsdp"),
+            "w_gate": (None, "fsdp", "tensor"),
+            "w_up": (None, "fsdp", "tensor"),
+            "w_down": (None, "tensor", "fsdp"),
+        },
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "tensor")
+    return specs
+
+
 def map_params(params: Params, fn: Callable[[torch.Tensor], Any]) -> Params:
     """Apply `fn` to every tensor of a parameter tree."""
     return {k: map_params(v, fn) if isinstance(v, dict) else fn(v)

@@ -53,7 +53,8 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-from generativeaiexamples_tpu_torch.config.schema import EngineConfig
+from generativeaiexamples_tpu_torch.config.schema import (
+    AUTO_POOL_SHARED, EngineConfig)
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models import bert, hf_loader, llama
 from generativeaiexamples_tpu_torch.ops.quant import quantize_llama_params
@@ -81,7 +82,12 @@ def build_engines(model_size: str = "8b", device: DeviceLike = None,
                   replicas: int = 1) -> List[LLMEngine]:
     """`replicas` LLMEngines over ONE weight tree (loaded or random, as
     `build_engine` makes it), each with its own pool of `n_pages` pages,
-    warmed up (not started): a fleet's local replicas."""
+    warmed up (not started): a fleet's local replicas. They share the
+    device, so more than one refuses `auto_pool_pages` without
+    `n_pages`."""
+    if (replicas > 1 and n_pages is None
+            and EngineConfig.coerce(engine_cfg).auto_pool_pages):
+        raise ValueError(AUTO_POOL_SHARED.format(f"replicas={replicas}"))
     first = build_engine(model_size, device, seed=seed, warmup=warmup,
                          engine_cfg=engine_cfg, n_pages=n_pages,
                          weights_path=weights_path)
@@ -192,7 +198,10 @@ def build_llm(config, model_size: str = "8b", device: DeviceLike = None,
     """The LLM surface the server fronts, from the config: one started
     LLMEngine, or with `fleet.replicas` > 1 or `fleet.replica_urls` a
     started EngineFleet (`fleet.replicas` 0 with URLs: router-only, the
-    tokenizer from `engine.weights_path` or the byte tokenizer)."""
+    tokenizer from `engine.weights_path` or the byte tokenizer). A fleet's
+    autoscaler spawns engines over the same weight tree on the same
+    device, or engine-server processes at the same model size and
+    device."""
     from generativeaiexamples_tpu_torch.serving.fleet import build_fleet
 
     urls = (config.fleet.replica_urls or "").strip()
@@ -206,7 +215,18 @@ def build_llm(config, model_size: str = "8b", device: DeviceLike = None,
     if n > 1 or urls:
         engines = build_engines(model_size, device, warmup=warmup,
                                 engine_cfg=config.engine, replicas=n)
-        return build_fleet(config, engines=engines).start()
+        first = engines[0]
+
+        def engine_factory() -> LLMEngine:
+            # The autoscaler's spawn lane: one more engine over the same
+            # weight tree on the same device (its own pool and thread).
+            return LLMEngine(first.params, first.cfg, first.tokenizer,
+                             first.ecfg, device=first.device)
+
+        return build_fleet(
+            config, engines=engines, engine_factory=engine_factory,
+            spawn_kw={"model_size": model_size,
+                      "device": str(first.device.type)}).start()
     return build_engine(model_size, device, warmup=warmup,
                         engine_cfg=config.engine).start()
 

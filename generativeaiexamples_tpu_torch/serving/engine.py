@@ -110,9 +110,25 @@ pages exportable, and `import_prefix_pages` seats transferred pages with
 one scatter and inserts them into the radix tree, so the next admission
 of that prompt takes the normal hit path.
 
+Emission pacer (`pace_emission_max_streams`, 16 by default as in the
+JAX engine): while few streams decode, a landed block's K-token bursts
+are handed to a pacer thread that spreads them over the observed block
+interval (at most 100 ms a token). A slot's first token is never paced,
+and a terminal event or the slot's next burst flushes whatever the pacer
+still holds first, so every stream stays in order. Unlike the JAX pacer,
+the fast path that delivers a burst directly (blocks landing less than
+4 ms a token apart) also flushes the slot's pending entry first.
+
+Memory planner (`auto_pool_pages`, serving/memory_plan.py): with no
+`n_pages` given, the pool holds the pages the plan fits beside the
+weights, the scratch and activation estimates and the headroom;
+`memory_plan` keeps the plan and `/metrics` its headroom.
+
+Chaos (serving/chaos.py): `chaos_beat_delay_s` sleeps at the top of each
+scheduler iteration (a slow replica); 0.0 costs one float compare.
+
 Not ported yet, and refused at construction (see config/schema.py):
-multi-host and the memory planner. Emission pacing is not ported (its
-knob is logged and ignored).
+multi-host.
 """
 
 from __future__ import annotations
@@ -238,6 +254,10 @@ class _Slot:
         self.first_emitted = False   # first token reached the stream
         self.no_capacity = False     # starved; finished after the drain
         self.prefilling = False      # placeholder of a chunked prefill
+        # Emission pacer: this block's held-back token events, and when
+        # the slot's previous block landed (the pacing interval).
+        self.pace_buf: List[Dict[str, Any]] = []
+        self.pace_last_land = 0.0
         # Speculative engines: tokens whose KV is known stored (moved at
         # landing) and the worst-case tokens of blocks still in flight;
         # pages must cover kv_len + kv_worst.
@@ -384,6 +404,9 @@ class EngineMetrics:
         # off too). Always present.
         self.qos_preemptions = 0
         self.qos_queue_depth = {"latency": 0, "standard": 0, "batch": 0}
+        # Per-device bytes the memory planner left unallocated (0 without
+        # a plan). Always present.
+        self.planner_headroom_bytes = 0
         # The pager's stats() (KV_PAGER_KEYS); None when it is off.
         self.kv_pager_stats = None
         # The flight recorder's stats() (FLIGHT_KEYS); None emits zeros.
@@ -452,6 +475,7 @@ class EngineMetrics:
             "kv_transfer_chunks": self.kv_transfer_chunks,
             "qos_preemptions": self.qos_preemptions,
             "qos_queue_depth": dict(self.qos_queue_depth),
+            "planner_headroom_bytes": self.planner_headroom_bytes,
         }
         # The router's and the fleet's keys, zeros for one engine, so
         # /metrics has one schema whether an engine or a fleet serves it.
@@ -508,6 +532,19 @@ class LLMEngine:
             raise ValueError(f"engine.max_seq_len {self.ecfg.max_seq_len} "
                              f"< page_size {ps}")
         self.max_pages = self.ecfg.max_seq_len // ps
+        # Memory planner: with auto_pool_pages and no explicit n_pages,
+        # the pool is sized from the device's memory (a plan that cannot
+        # fit raises MemoryPlanError with its breakdown).
+        self.memory_plan = None
+        if n_pages is None and self.ecfg.auto_pool_pages:
+            from generativeaiexamples_tpu_torch.serving.memory_plan import (
+                plan_engine_memory)
+
+            self.memory_plan = plan_engine_memory(cfg, self.ecfg,
+                                                  device=self.device)
+            n_pages = self.memory_plan.pool_pages
+            _LOG.info("auto_pool_pages: %d pages\n%s", n_pages,
+                      self.memory_plan.breakdown())
         if n_pages is None:
             # An int8 pool gets one sequence of slack, as the JAX engine
             # gives it: retired slots free their pages only when their
@@ -543,6 +580,9 @@ class LLMEngine:
         self.slots: List[Optional[_Slot]] = [None] * self.ecfg.max_batch_size
         self.waiting: deque = deque()
         self.metrics = EngineMetrics()
+        if self.memory_plan is not None:
+            self.metrics.planner_headroom_bytes = (
+                self.memory_plan.headroom_bytes)
         if self.kv_pager is not None:
             self.metrics.kv_pager_stats = self.kv_pager.stats
         # Flight recorder: always constructed (its stats and the timeline
@@ -569,6 +609,20 @@ class LLMEngine:
         # the scheduler loop, so the tree, the allocator and the pool stay
         # scheduler-owned. Each entry is (fn, result box, done event).
         self._control_ops: deque = deque()
+        # Chaos slow-replica injection (serving/chaos.py): seconds slept at
+        # the top of every scheduler iteration. Written by the chaos
+        # thread (a float store), read by the scheduler; 0.0 in service.
+        self.chaos_beat_delay_s = 0.0
+        # Emission pacer: entries keyed by id(slot), {"slot", "buf"
+        # (deque), "next_t", "spacing"}; the scheduler adds and flushes
+        # them under _pace_lock, the pacer thread delivers what is due.
+        self._pace_lock = threading.Lock()
+        self._pace_entries: Dict[int, Dict[str, Any]] = {}
+        self._pace_wake = threading.Event()
+        self._pace_thread: Optional[threading.Thread] = None
+        # True only while a landed block's tokens are emitted with pacing
+        # engaged (scheduler thread; _stream_put reads it).
+        self._pace_engaged = False
         # Buckets are positive multiples of page_size within max_seq_len.
         max_bucket = self.max_pages * ps
         rounded = {min(-(-b // ps) * ps, max_bucket)
@@ -727,6 +781,10 @@ class LLMEngine:
 
     def start(self) -> "LLMEngine":
         self._running = True
+        if self.ecfg.pace_emission_max_streams > 0:
+            self._pace_thread = threading.Thread(
+                target=self._pacer_loop, daemon=True, name="llm-engine-pace")
+            self._pace_thread.start()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine")
         self._thread.start()
@@ -735,13 +793,29 @@ class LLMEngine:
     def stop(self) -> None:
         self._running = False
         self._wake.set()
-        t, self._thread = self._thread, None
-        if t is not None:
+        self._pace_wake.set()
+        # Take the thread refs once: a chaos kill can race the health
+        # probe's eviction into a second stop().
+        threads = [self._thread, self._pace_thread]
+        self._thread = self._pace_thread = None
+        stuck = []
+        for t in threads:
+            if t is None:
+                continue
             t.join(timeout=10)
             if t.is_alive():
-                _LOG.warning("engine stop: scheduler thread still alive "
-                             "after the join timeout")
-                self.metrics.stuck_thread_joins += 1
+                stuck.append(t.name)
+        if stuck:
+            _LOG.warning("engine stop: %d thread(s) still alive after the "
+                         "join timeout: %s", len(stuck), stuck)
+            self.metrics.stuck_thread_joins += len(stuck)
+        # Tokens the pacer still holds must reach their consumers.
+        with self._pace_lock:
+            entries = list(self._pace_entries.values())
+            self._pace_entries.clear()
+        for entry in entries:
+            for ev in entry["buf"]:
+                entry["slot"].req.stream.put(ev)
         if self.kv_pager is not None:
             # Drain the spill worker and drop the mapping (a daemon
             # worker mid-write at exit would race the spill-dir cleanup).
@@ -1147,6 +1221,9 @@ class LLMEngine:
         wait is for the OLDEST in-flight block, during which newer blocks
         keep the device busy and new arrivals are admitted."""
         while self._running:
+            if self.chaos_beat_delay_s > 0.0:
+                # Injected slow-replica latency (chaos drills only).
+                time.sleep(self.chaos_beat_delay_s)
             self._drain_control_ops()
             did_work = self._admit_waiting()
             # Chunk forwards interleave with decode dispatches (paced by
@@ -2089,6 +2166,7 @@ class LLMEngine:
             return
         now = time.perf_counter()
         tokens_before = self.metrics.tokens_out
+        self._pace_engaged = self._pace_decide(fl.K)
         for i, slot, first_col in fl.metas:
             if self.slots[i] is not slot:
                 continue  # retired while this block was in flight
@@ -2108,6 +2186,7 @@ class LLMEngine:
                 # length moves K and the reservation is released.
                 slot.kv_len += fl.K
                 slot.kv_worst -= fl.K
+        self._pace_land(fl)
         self.metrics.record_tokens(self.metrics.tokens_out - tokens_before)
 
     def _process_spec_block(self, fl: _InFlight, block: np.ndarray) -> None:
@@ -2116,6 +2195,7 @@ class LLMEngine:
         worst-case page and budget reservations with the acceptance."""
         targets, counts = block[..., :-1], block[..., -1]
         emitted_all = 0
+        self._pace_engaged = self._pace_decide(fl.K * self._spec_r)
         for i, slot, _ in fl.metas:
             if self.slots[i] is not slot:
                 continue  # retired while in flight
@@ -2142,6 +2222,7 @@ class LLMEngine:
                 slot.kv_worst -= fl.spec_worst
             emitted_all += emitted
             self.metrics.spec_slot_steps += fl.K
+        self._pace_land(fl)
         self.metrics.spec_committed += emitted_all
         self.metrics.record_tokens(emitted_all)
 
@@ -2187,11 +2268,117 @@ class LLMEngine:
         text = "" if eos else slot.detok.push(tok)
         done = slot.generated >= slot.req.max_new_tokens
         reason = "stop" if eos else "length" if done else None
-        slot.req.stream.put({"text": text, "token_id": tok,
-                             "finished": eos or done,
-                             "finish_reason": reason})
+        self._stream_put(slot, {"text": text, "token_id": tok,
+                                "finished": eos or done,
+                                "finish_reason": reason})
         if eos or done:
             self._finish(slot_idx, reason, emit=False)
+
+    # -- emission pacer --------------------------------------------------
+
+    def _pace_decide(self, burst: int) -> bool:
+        """Pace only interactive regimes: multi-token bursts with at most
+        pace_emission_max_streams live decode streams. Read every block,
+        so the limit can change while the engine runs; never without the
+        pacer thread (start() runs it only for a limit above 0)."""
+        lim = self.ecfg.pace_emission_max_streams
+        if lim <= 0 or burst <= 1 or self._pace_thread is None:
+            return False
+        live = sum(1 for s in self.slots
+                   if s is not None and not s.prefilling)
+        return 0 < live <= lim
+
+    def _stream_put(self, slot: _Slot, ev: Dict[str, Any]) -> None:
+        """Deliver a stream event, holding non-terminal tokens back for
+        the pacer while a block is emitted with pacing engaged. Anything
+        the pacer still holds for the slot goes out first, so order is
+        kept and a terminal event is never delayed. A slot's first token
+        (generated == 1) is never held: it is the TTFT."""
+        if self._pace_engaged and not ev["finished"] and slot.generated > 1:
+            slot.pace_buf.append(ev)
+            return
+        # Only the scheduler thread fills either container, so this check
+        # is race-free; unpaced traffic takes no lock.
+        if slot.pace_buf or self._pace_entries:
+            self._pace_flush(slot)
+        slot.req.stream.put(ev)
+
+    def _pace_flush(self, slot: _Slot) -> None:
+        """Deliver at once everything held for this slot: the pacer's
+        entry (the older block) first, then the current buffer."""
+        with self._pace_lock:
+            entry = self._pace_entries.pop(id(slot), None)
+        if entry is not None:
+            for ev in entry["buf"]:
+                slot.req.stream.put(ev)
+        for ev in slot.pace_buf:
+            slot.req.stream.put(ev)
+        slot.pace_buf = []
+
+    def _pace_land(self, fl: _InFlight) -> None:
+        """End of a landed block's emission: commit each live slot's
+        held burst to the pacer (or, unpaced, note the landing time)."""
+        paced, self._pace_engaged = self._pace_engaged, False
+        end = time.perf_counter()
+        for i, slot, _ in fl.metas:
+            if self.slots[i] is slot:
+                if paced:
+                    self._pace_commit(slot, end)
+                else:
+                    slot.pace_last_land = end
+
+    def _pace_commit(self, slot: _Slot, now: float) -> None:
+        """Hand this slot's held burst to the pacer, spaced over the
+        observed block interval (at most 100 ms a token). The slot's
+        previous entry, if the pacer has not finished it, is flushed
+        first on both paths, so the pacer is never more than one block
+        behind and a burst never overtakes the one before it."""
+        if not slot.pace_buf:
+            slot.pace_last_land = now
+            return
+        n = len(slot.pace_buf)
+        interval = (now - slot.pace_last_land) if slot.pace_last_land else 0.0
+        slot.pace_last_land = now
+        spacing = min(interval / n, 0.1)
+        if spacing < 0.004:
+            # The first block, or blocks landing fast enough that bursts
+            # are already smooth: deliver now, after any pending entry.
+            self._pace_flush(slot)
+            return
+        with self._pace_lock:
+            prev = self._pace_entries.pop(id(slot), None)
+            if prev is not None:
+                for ev in prev["buf"]:
+                    slot.req.stream.put(ev)
+            self._pace_entries[id(slot)] = {
+                "slot": slot, "buf": deque(slot.pace_buf),
+                "next_t": now + spacing, "spacing": spacing}
+        slot.pace_buf = []
+        self._pace_wake.set()
+
+    def _pacer_loop(self) -> None:
+        """Deliver paced token events at their times; sleeps on an event
+        while nothing is scheduled, so unpaced traffic costs nothing."""
+        while self._running:
+            timeout = None
+            with self._pace_lock:
+                if self._pace_entries:
+                    now = time.perf_counter()
+                    nxt = None
+                    for key in list(self._pace_entries):
+                        entry = self._pace_entries[key]
+                        while entry["buf"] and entry["next_t"] <= now:
+                            entry["slot"].req.stream.put(
+                                entry["buf"].popleft())
+                            entry["next_t"] += entry["spacing"]
+                        if not entry["buf"]:
+                            del self._pace_entries[key]
+                        elif nxt is None or entry["next_t"] < nxt:
+                            nxt = entry["next_t"]
+                    if nxt is not None:
+                        timeout = max(0.001, nxt - now)
+            self._pace_wake.wait(timeout=timeout)
+            self._pace_wake.clear()
 
     # -- flight-recorder lifecycle hooks (scheduler thread only) ---------
 
@@ -2254,6 +2441,7 @@ class LLMEngine:
         if slot is None:
             return
         self._flight_retire(slot, reason)
+        self._pace_flush(slot)
         if emit:
             slot.req.stream.put({"text": "", "token_id": -1,
                                  "finished": True, "finish_reason": reason})

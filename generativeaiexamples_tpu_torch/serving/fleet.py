@@ -1,10 +1,11 @@
 """Serving fleet: N data-parallel engine replicas behind one router.
 
 The port's own copy of generativeaiexamples_tpu/serving/fleet.py, over
-the port's engines, router and KV transfer. The autoscaler and the chaos
-harness are not ported yet (ROADMAP A.16): `attach_autoscaler` /
-`attach_chaos` are hooks nothing calls, and their config fields are
-refused.
+the port's engines, router and KV transfer. `build_fleet` attaches the
+elastic autoscaler (serving/autoscaler.py, `fleet.autoscale`) with its
+spawn lane, an in-process engine over the served weights or an
+engine-server process, and an armed chaos monkey (serving/chaos.py,
+`fleet.chaos`).
 
 The production topology for heavy traffic: one `LLMEngine` saturates
 one card; the fleet runs N of them data-parallel and places requests by
@@ -896,11 +897,13 @@ class EngineFleet:
             load_penalty_tokens=load_penalty_tokens,
             shadow_capacity_pages=shadow_capacity_pages)
         self.metrics = FleetMetrics(self)
-        # Chaos stats and an autoscaler attach here (ROADMAP A.16: not
-        # ported yet); None keeps the /metrics keys zero-filled and the
-        # control paths inert.
+        # Chaos stats and an autoscaler attach here (attach_chaos /
+        # attach_autoscaler); None keeps the /metrics keys zero-filled and
+        # the control paths inert. build_fleet keeps an armed monkey in
+        # chaos_monkey.
         self.chaos_stats = None
         self.autoscaler = None
+        self.chaos_monkey = None
         # Control-plane flight lanes merged into /debug/timeline next
         # to the replica lanes: the fleet's own upgrade lane, plus
         # whatever the autoscaler/chaos controllers register. Each
@@ -977,15 +980,15 @@ class EngineFleet:
         return out
 
     def attach_autoscaler(self, autoscaler) -> None:
-        """Register an elastic controller (the JAX package's
-        serving/autoscaler.py; ROADMAP A.16 in the port): enables the
-        scale-to-zero wake path in submit() and the autoscaler lifecycle
-        under start()/stop()."""
+        """Register an elastic controller (serving/autoscaler.py, which
+        calls this itself): enables the scale-to-zero wake path in
+        submit() and the autoscaler lifecycle under start()/stop()."""
         self.autoscaler = autoscaler
 
     def attach_chaos(self, stats) -> None:
-        """Register a chaos monkey's counters (ROADMAP A.16 in the port)
-        so /metrics surfaces live chaos_injected_* values."""
+        """Register a chaos monkey's counters (serving/chaos.py, which
+        calls this itself) so /metrics surfaces live chaos_injected_*
+        values."""
         self.chaos_stats = stats
 
     def submit(self, req):
@@ -1746,19 +1749,21 @@ class EngineFleet:
                 "chaos": {"enabled": self.chaos_stats is not None}}
 
 
-def build_fleet(cfg, engines: Optional[List] = None, tokenizer=None):
+def build_fleet(cfg, engines: Optional[List] = None, tokenizer=None,
+                engine_factory=None, spawn_kw: Optional[Dict] = None):
     """Wire an EngineFleet from the [fleet] config section.
 
     `engines`: local LLMEngines (r0..rN). With `cfg.fleet.replica_urls`
     set, the fleet also (or, with no engines, only) fronts remote
     engine-server processes (h0..hM), and `tokenizer` must be given when
-    there is no local engine. The autoscaler and the chaos harness are
-    not ported (ROADMAP A.16): a config that turns either on is refused
-    here as at load."""
+    there is no local engine. With `fleet.autoscale` an autoscaler
+    attaches: `engine_factory` (zero arguments -> LLMEngine) is its spawn
+    lane, or with `fleet.autoscale_spawn` "process" an engine-server
+    subprocess a spawn (`spawn_kw`: spawn_process_replica's model_size
+    and device); without either it can still park and wake the existing
+    replicas. With `fleet.chaos` the fleet carries an armed, idle
+    ChaosMonkey in `chaos_monkey`."""
     fcfg = cfg.fleet
-    if getattr(fcfg, "autoscale", False) or getattr(fcfg, "chaos", False):
-        raise ValueError("fleet.autoscale / fleet.chaos are not supported "
-                         "by the PyTorch port yet (ROADMAP A.16)")
     replicas: List = []
     if engines:
         tokenizer = tokenizer or engines[0].tokenizer
@@ -1778,7 +1783,7 @@ def build_fleet(cfg, engines: Optional[List] = None, tokenizer=None):
                 if i < len(roles)}
     page_size = engines[0].ecfg.page_size if engines else \
         cfg.engine.page_size
-    return EngineFleet(
+    fleet = EngineFleet(
         replicas, tokenizer, page_size,
         router_policy=fcfg.router_policy,
         affinity_ttl_s=fcfg.affinity_ttl_s,
@@ -1794,3 +1799,47 @@ def build_fleet(cfg, engines: Optional[List] = None, tokenizer=None):
         disagg_pipeline=fcfg.disagg_pipeline,
         disagg_device_path=fcfg.disagg_device_path,
         disagg_transfer_chunk_pages=fcfg.disagg_transfer_chunk_pages)
+    if fcfg.autoscale:
+        from generativeaiexamples_tpu_torch.serving.autoscaler import (
+            FleetAutoscaler)
+
+        replica_factory = None
+        if fcfg.autoscale_spawn == "process":
+            # Each scale-up launches an engine-server subprocess and joins
+            # it as a ProcessReplica once its /health answers. The child
+            # reads this process's APP_CONFIG_FILE and APP_* env, with the
+            # fleet turned off: it serves one engine, and never spawns.
+            child_env = {"APP_FLEET_REPLICAS": "1",
+                         "APP_FLEET_REPLICAURLS": "",
+                         "APP_FLEET_AUTOSCALE": "false",
+                         "APP_FLEET_CHAOS": "false"}
+
+            def replica_factory(rid: str, role: str) -> ProcessReplica:
+                return spawn_process_replica(
+                    rid, role=role, env=child_env,
+                    ready_timeout_s=fcfg.autoscale_spawn_ready_timeout_s,
+                    probe_timeout_s=fcfg.probe_timeout_s,
+                    **(spawn_kw or {}))
+
+        FleetAutoscaler(
+            fleet, engine_factory=engine_factory,
+            replica_factory=replica_factory,
+            min_replicas=fcfg.autoscale_min_replicas,
+            max_replicas=fcfg.autoscale_max_replicas,
+            warm_pool=fcfg.autoscale_warm_pool,
+            interval_s=fcfg.autoscale_interval_s,
+            up_depth=fcfg.autoscale_up_depth,
+            down_depth=fcfg.autoscale_down_depth,
+            up_ticks=fcfg.autoscale_up_ticks,
+            down_ticks=fcfg.autoscale_down_ticks,
+            cooldown_s=fcfg.autoscale_cooldown_s,
+            scale_to_zero=fcfg.autoscale_scale_to_zero,
+            up_queue_wait_p95_ms=fcfg.autoscale_up_queue_wait_p95_ms,
+            up_ttft_p95_ms=fcfg.autoscale_up_ttft_p95_ms)
+    if fcfg.chaos:
+        from generativeaiexamples_tpu_torch.serving.chaos import ChaosMonkey
+
+        # Armed but idle: live counters and a timeline lane; faults fire
+        # only when a drill runs a schedule.
+        fleet.chaos_monkey = ChaosMonkey(fleet, seed=fcfg.chaos_seed)
+    return fleet

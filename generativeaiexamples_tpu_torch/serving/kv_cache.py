@@ -61,6 +61,21 @@ class PagePool:
                         torch.zeros(shape, dtype=dtype, device=dev),
                         page_size)
 
+    @staticmethod
+    def for_budget(cfg, hbm_bytes: int, page_size: int = 64, dtype=None,
+                   device: DeviceLike = None):
+        """A zeroed pool of as many pages as `hbm_bytes` holds (at least
+        2), k and v together; torch.int8 gives a QuantPagePool, whose
+        pages also hold one f32 scale a (k|v, layer, kv head, token)."""
+        dtype = dtype or cfg.dtype
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        per_tok = cfg.n_kv_heads * cfg.head_dim * itemsize
+        if dtype == torch.int8:
+            per_tok += cfg.n_kv_heads * 4
+        per_page = cfg.n_layers * page_size * per_tok * 2
+        n_pages = max(2, hbm_bytes // per_page)
+        return PagePool.zeros(cfg, int(n_pages), page_size, dtype, device)
+
 
 @dataclasses.dataclass
 class QuantPagePool:

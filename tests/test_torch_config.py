@@ -36,8 +36,10 @@ FILE = {
                "max_batch_size": 128, "page_size": 64,
                "prefill_buckets": [128, 512], "speculative_k": 3,
                "speculative_tree_branches": 4, "flight_ring_size": 512,
-               # JAX-only engine knobs: logged and ignored by the port.
-               "pace_emission_max_streams": 4,
+               # The pacer and the planner are ported: read as JAX does.
+               "pace_emission_max_streams": 4, "auto_pool_pages": True,
+               "hbm_gb_per_device": 40, "planner_headroom_fraction": 0.2,
+               # A JAX-only engine knob: logged and ignored by the port.
                "enable_pallas_kernels": True},
     "mesh": {"ici_tensor": 1},
 }
@@ -89,16 +91,18 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
     pytest.param("engine", {"prefix_cache": True, "kv_pager": True,
                             "multihost": True}, "A.17",
                  id="engine-prefix_cache-True-A.15"),
-    # Step plans and QoS are ported: beside them, the memory planner
-    # (A.17) is still refused.
+    # Step plans, QoS and the memory planner are ported: beside them,
+    # multi-host (A.17) is still refused.
     pytest.param("engine", {"step_plans": True, "qos": True,
-                            "auto_pool_pages": True}, r"A\.17",
-                 id="engine-step_plans-True-A.14"),
-    # The fleet is ported: beside it, the autoscaler (A.16) is refused.
-    pytest.param("fleet", {"replicas": 2, "autoscale": True}, r"A\.16",
+                            "auto_pool_pages": True, "multihost": True},
+                 r"A\.17", id="engine-step_plans-True-A.14"),
+    # The fleet's autoscaler and chaos harness are ported (A.16): read
+    # as the JAX wizard reads them (item None: accepted).
+    pytest.param("fleet", {"replicas": 2, "autoscale": True,
+                           "autoscale_spawn": "process"}, None,
                  id="fleet-autoscale-True-A.16"),
-    pytest.param("fleet", {"disagg": True, "chaos": True}, r"A\.16",
-                 id="fleet-chaos-True-A.16"),
+    pytest.param("fleet", {"disagg": True, "chaos": True, "chaos_seed": 7},
+                 None, id="fleet-chaos-True-A.16"),
     pytest.param("vector_store", {"tiered": True}, "A.18",
                  id="vector_store-tiered-True-A.18"),
     pytest.param("vector_store", {"index_type": "ivf"}, "A.18",
@@ -107,9 +111,13 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
 def test_config_file_refuses_unported_fields(tmp_path, kind, section, fields,
                                              item):
     path = _write(tmp_path, kind, {section: fields})
-    with pytest.raises(ValueError, match=item):
-        load_config(env={"APP_CONFIG_FILE": path})
-    # The JAX wizard takes the same file: the refusal is the port's.
+    if item is None:
+        port = getattr(load_config(env={"APP_CONFIG_FILE": path}), section)
+        assert {n: getattr(port, n) for n in fields} == fields
+    else:
+        with pytest.raises(ValueError, match=item):
+            load_config(env={"APP_CONFIG_FILE": path})
+    # The JAX wizard takes the same file: a refusal is the port's.
     node = getattr(jax_load(path, env={}), section)
     assert {n: getattr(node, n) for n in fields} == fields
 
@@ -162,11 +170,13 @@ def test_config_file_jax_only_keys_logged(tmp_path, caplog):
     path = _write(tmp_path, "yaml", FILE)
     with caplog.at_level(logging.WARNING):
         load_config(env={"APP_CONFIG_FILE": path})
-    assert "pace_emission_max_streams" in caplog.text
     assert "enable_pallas_kernels" in caplog.text
     assert "[mesh]" in caplog.text
-    # The flight recorder's knobs are ported: read, not logged.
-    assert "flight_ring_size" not in caplog.text
+    # The flight recorder's, the pacer's and the planner's knobs are
+    # ported: read, not logged.
+    for name in ("flight_ring_size", "pace_emission_max_streams",
+                 "auto_pool_pages", "hbm_gb_per_device"):
+        assert name not in caplog.text
 
 
 @pytest.mark.parametrize("data, match", [
@@ -317,8 +327,7 @@ def test_fused_prefill_fields_match_jax_wizard(tmp_path, source):
 def test_fused_prefill_beside_speculation_is_accepted():
     """As in the JAX engine, a speculative config may set the rider, with
     or without step plans (APP_ENGINE_STEPPLANS, read as the JAX wizard
-    reads it); QoS beside them too, and the fleet's autoscaler is refused
-    (A.16)."""
+    reads it); QoS and the fleet's autoscaler beside them too."""
     port = load_config(env={**FUSED_ENV, "APP_ENGINE_SPECULATIVEK": "3"})
     assert port.engine.fused_prefill and port.engine.speculative_k == 3
     assert not port.engine.step_plans
@@ -327,13 +336,16 @@ def test_fused_prefill_beside_speculation_is_accepted():
     port = load_config(env=env)
     assert port.engine.step_plans
     _assert_same(port, jax_load(env=env))
-    # QoS beside them is read as the JAX wizard reads it; the fleet's
-    # autoscaler is refused (A.16).
+    # QoS and the fleet's autoscaler beside them are read as the JAX
+    # wizard reads them.
     port = load_config(env={**env, "APP_ENGINE_QOS": "true"})
     assert port.engine.qos
     _assert_same(port, jax_load(env={**env, "APP_ENGINE_QOS": "true"}))
-    with pytest.raises(ValueError, match=r"ROADMAP A\.16"):
-        load_config(env={**env, "APP_FLEET_AUTOSCALE": "true"})
+    env = {**env, "APP_FLEET_AUTOSCALE": "true",
+           "APP_FLEET_AUTOSCALEWARMPOOL": "2"}
+    port = load_config(env=env)
+    assert port.fleet.autoscale and port.fleet.autoscale_warm_pool == 2
+    _assert_same(port, jax_load(env=env))
 
 
 # Step plans and the flight recorder are ported: read from the env or the
@@ -413,10 +425,76 @@ def test_fleet_and_qos_fields_match_jax_wizard(tmp_path, source):
                                    "autoscale_spawn", "chaos",
                                    "chaos_seed"])
 def test_fleet_autoscaler_and_chaos_are_refused_naming_a16(tmp_path, field):
+    """The autoscaler and the chaos harness (A.16) are ported: their
+    fields, once refused naming A.16 (the test keeps the name it had
+    then), are read from overrides, the file and the env as the JAX
+    wizard reads them."""
     default = getattr(AppConfig().fleet, field)
-    value = _off_default(default)
-    with pytest.raises(ValueError, match=r"ROADMAP A\.16"):
-        load_config(env={}, overrides={"fleet": {field: value}})
+    value = "process" if field == "autoscale_spawn" else _off_default(default)
+    port = load_config(env={}, overrides={"fleet": {field: value}})
+    assert getattr(port.fleet, field) == value
     path = _write(tmp_path, "yaml", {"fleet": {field: value}})
-    with pytest.raises(ValueError, match=r"ROADMAP A\.16"):
-        load_config(env={"APP_CONFIG_FILE": path})
+    env = {"APP_CONFIG_FILE": path}
+    port = load_config(env=env)
+    assert getattr(port.fleet, field) == value
+    _assert_same(port, jax_load(env=env))
+    env = {f"APP_FLEET_{field.replace('_', '').upper()}": str(value)}
+    _assert_same(load_config(env=env), jax_load(env=env))
+
+
+@pytest.mark.parametrize("fleet", [{"replicas": 2}, {"autoscale": True}],
+                         ids=["replicas", "autoscale"])
+@pytest.mark.parametrize("source", ["env", "yaml"])
+def test_auto_pool_pages_refused_beside_engines_sharing_a_device(
+        tmp_path, fleet, source):
+    """The planner sizes one engine a device from the device's whole
+    memory: beside local replicas or the autoscaler's spawns (all on one
+    device) the port refuses it naming A.17; the JAX wizard reads the
+    same deployment."""
+    data = {"engine": {"auto_pool_pages": True}, "fleet": fleet}
+    if source == "env":
+        env = {"APP_ENGINE_AUTOPOOLPAGES": "true",
+               **{f"APP_FLEET_{n.replace('_', '').upper()}": str(v).lower()
+                  for n, v in fleet.items()}}
+    else:
+        env = {"APP_CONFIG_FILE": _write(tmp_path, source, data)}
+    with pytest.raises(ValueError, match=r"auto_pool_pages.*A\.17"):
+        load_config(env=env)
+    theirs = jax_load(env=env)
+    assert theirs.engine.auto_pool_pages
+    assert {n: getattr(theirs.fleet, n) for n in fleet} == fleet
+    # Either alone is accepted.
+    for part in ({"engine": data["engine"]}, {"fleet": fleet}):
+        load_config(env={"APP_CONFIG_FILE": _write(tmp_path, "json", part)})
+
+
+# The emission pacer and the memory planner are ported: read from the env
+# and the file under the JAX wizard's names, with its defaults.
+PACER_PLANNER_FIELDS = {"pace_emission_max_streams": 4,
+                        "auto_pool_pages": True, "hbm_gb_per_device": 79.5,
+                        "planner_headroom_fraction": 0.15}
+PACER_PLANNER_ENV = {"APP_ENGINE_PACEEMISSIONMAXSTREAMS": "4",
+                     "APP_ENGINE_AUTOPOOLPAGES": "true",
+                     "APP_ENGINE_HBMGBPERDEVICE": "79.5",
+                     "APP_ENGINE_PLANNERHEADROOMFRACTION": "0.15"}
+
+
+@pytest.mark.parametrize("source", ["env", "yaml", "json"])
+def test_pacer_and_planner_fields_read_as_jax(tmp_path, source):
+    if source == "env":
+        env = dict(PACER_PLANNER_ENV)
+    else:
+        env = {"APP_CONFIG_FILE": _write(
+            tmp_path, source, {"engine": PACER_PLANNER_FIELDS})}
+    port = load_config(env=env)
+    assert {n: getattr(port.engine, n) for n in PACER_PLANNER_FIELDS} == \
+        PACER_PLANNER_FIELDS
+    _assert_same(port, jax_load(env=env))
+    defaults = load_config(env={}).engine
+    assert (defaults.pace_emission_max_streams, defaults.auto_pool_pages,
+            defaults.hbm_gb_per_device,
+            defaults.planner_headroom_fraction) == (16, False, 0.0, 0.1)
+    assert not set(PACER_PLANNER_FIELDS) & set(UNSUPPORTED)
+    assert set(UNSUPPORTED) == {"multihost"}
+    assert {name for _, name in UNSUPPORTED_APP} == {
+        "index_type", "quantize_int8", "tiered"}

@@ -122,11 +122,11 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
 
 
 @pytest.mark.parametrize("flag,value,beside", [
-    # The fused rider, step plans beside speculation and QoS are ported:
-    # beside them, the memory planner (A.17) is refused.
-    pytest.param("auto_pool_pages", True, {
+    # The fused rider, step plans beside speculation, QoS and the memory
+    # planner are ported: beside them, multi-host (A.17) is refused.
+    pytest.param("multihost", True, {
         "fused_prefill": True, "step_plans": True, "speculative_k": 2,
-        "qos": True}, id="fused_prefill-True"),
+        "qos": True, "auto_pool_pages": True}, id="fused_prefill-True"),
     # The prefix cache and the pager are ported: beside them, the
     # features still missing are refused (the pager's multi-host slice
     # mode, A.17).
@@ -135,7 +135,8 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
     pytest.param("multihost", True, {"prefix_cache": True, "qos": True},
                  id="prefix_cache-True"),
     pytest.param("multihost", True, {}, id="multihost-True"),
-    pytest.param("auto_pool_pages", True, {"step_plans": True},
+    pytest.param("multihost", True, {"step_plans": True,
+                                     "pace_emission_max_streams": 4},
                  id="step_plans-True")])
 def test_unported_engine_flags_are_refused(flag, value, beside):
     cfg = tl.LlamaConfig.tiny()

@@ -309,11 +309,10 @@ def test_fleet_surfaces_key_sets_equal_jax():
 
 def test_single_engine_surfaces_cover_jax_keys():
     """One engine: /metrics carries every JAX key but the unported ones
-    (multi-host, the planner, compiled plan variants), and /health has
-    the always-present fleet and qos sections."""
+    (multi-host, compiled plan variants), and /health has the
+    always-present fleet and qos sections."""
     unported = {"multihost_processes", "plan_variants_compiled",
-                "planner_headroom_bytes", "replay_divergence",
-                "replay_records_published"}
+                "replay_divergence", "replay_records_published"}
     j = set(jeng_mod.EngineMetrics().snapshot())
     t = set(teng_mod.EngineMetrics().snapshot())
     assert j - t == unported
@@ -515,6 +514,63 @@ def test_transfer_failure_falls_back_on_the_same_stream(models):
         assert snap["kv_transfer_pages"] == 0
     finally:
         fleet.stop()
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_pipelined_one_page_windows_admit_early(models, kind):
+    """JAX's tests/test_disagg.py pipelined case on the port: 1-page
+    windows, so the decode replica admits before the last window lands
+    (early admits counted, more transfer windows than plans, no
+    fallback). f32 and int8 streams equal the single engine's (f32: and
+    the offline JAX greedy oracle). A bf16 pool rounds the k/v a hit
+    reads back, so a bf16 stream follows the length of the hit it took:
+    it equals a single engine that took the same hit (the same holds for
+    any bf16 prefix hit, and in the JAX engine)."""
+    ps = 16 if kind == "int8" else PS
+    prompts = [[(7 * i + j) % 250 + 1 for j in range(3 * ps + 2 * i)]
+               for i in range(3)]
+    single = _engine(models, kind).start()
+    try:
+        want = [run_one(single, p) for p in prompts]
+    finally:
+        single.stop()
+    if kind == "float32":
+        assert want == [_greedy(models, p, 8) for p in prompts]
+    fleet, engines = _fleet(models, kind=kind,
+                            roles={"r0": "prefill", "r1": "decode"},
+                            disagg=True, disagg_pipeline=True,
+                            disagg_transfer_chunk_pages=1)
+    hits = []
+    try:
+        got = []
+        for p in prompts:
+            before = engines[1].metrics.prefix_hit_tokens
+            got.append(run_one(fleet, p))
+            hits.append(engines[1].metrics.prefix_hit_tokens - before)
+        fleet._disagg_transfer.drain(timeout_s=30)
+        snap = fleet.metrics.snapshot()
+        assert snap["router_disagg_plans"] == len(prompts)
+        assert snap["kv_transfer_chunks"] > snap["router_disagg_plans"]
+        assert snap["disagg_early_admits"] > 0
+        assert snap["disagg_fallbacks"] == 0
+        assert snap["disagg_transfer_ms"] > 0
+        assert engines[1].metrics.prefix_hits == len(prompts)
+    finally:
+        fleet.stop()
+    if kind != "bfloat16":
+        assert got == want
+        return
+    for p, hit, stream in zip(prompts, hits, got):
+        ref = _engine(models, kind).start()
+        try:
+            # Cache the hit's full pages. Where every page landed before
+            # the admit, the hit is the whole prompt but its last token.
+            whole = hit == len(p) - 1
+            run_one(ref, p if whole else p[:hit] + [1])
+            assert run_one(ref, p) == stream
+            assert ref.metrics.prefix_hit_tokens == hit
+        finally:
+            ref.stop()
 
 
 def test_min_prompt_tokens_keeps_shorts_on_the_decode_pool(models):

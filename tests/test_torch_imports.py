@@ -53,7 +53,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', "
         "'checkpoint_streams', 'phase_checkpoint', 'phase_chain', "
         "'phase_flight', 'phase_fused_prefill', 'phase_fused_prefill_int8', "
-        "'phase_fleet', "
+        "'phase_fleet', 'phase_pacer', "
         "'paged_int8_sdpa_gathered_ms', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
@@ -65,6 +65,13 @@ def test_every_port_module_imports_with_jax_blocked():
                           env={**os.environ, "PYTHONPATH": ""})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
+
+
+def test_fleet_and_planner_modules_are_covered():
+    """The elastic fleet's and the memory planner's modules are among
+    those imported with jax blocked and scanned below."""
+    for name in ("autoscaler", "chaos", "memory_plan"):
+        assert f"generativeaiexamples_tpu_torch.serving.{name}" in MODULES
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],

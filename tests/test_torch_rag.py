@@ -330,7 +330,7 @@ def test_app_config_defaults_and_env_overlay_match_jax():
         assert getattr(getattr(ours, sec), name) == getattr(
             getattr(theirs, sec), name), (sec, name)
     for var, item in (("APP_VECTORSTORE_INDEXTYPE", "A.18"),
-                      ("APP_FLEET_AUTOSCALE", "A.16")):
+                      ("APP_ENGINE_MULTIHOST", "A.17")):
         value = "ivf" if "INDEX" in var else "true"
         with pytest.raises(ValueError, match=item):
             load_config(env={var: value})
