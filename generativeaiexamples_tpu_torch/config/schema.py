@@ -218,11 +218,28 @@ class VectorStoreConfig:
     # external server at `url`)
     name: str = "memory"
     url: str = ""
-    nlist: int = 64
-    nprobe: int = 16
-    index_type: str = "flat"  # ivf: ROADMAP A.18
-    quantize_int8: bool = False  # ROADMAP A.18
-    tiered: bool = False  # ROADMAP A.18
+    nlist: int = 64  # IVF partitions
+    nprobe: int = 16  # IVF partitions probed a search
+    # flat = exact MIPS; ivf = the device's clustered ANN index
+    # (ops/ivf.py). Honoured by the device store (tpu / native).
+    index_type: str = "flat"
+    # Store IVF rows as int8 + per-row scales (1/4 of the f32 bytes).
+    quantize_int8: bool = False
+    # Tiered demand-paged IVF (ops/tiered.py): the device holds the
+    # centroids and the most-probed partitions inside hbm_budget_mb, the
+    # rest lives in a host-RAM warm cache (ram_budget_mb) over an mmap'd
+    # spill file. Requires index_type=ivf.
+    tiered: bool = False
+    # Device budget of the hot partition table (centroids excluded;
+    # floored at one partition slot).
+    hbm_budget_mb: int = 256
+    # Host-RAM budget of the warm cache of spill-file partition blocks.
+    ram_budget_mb: int = 1024
+    # Directory of the tiered index's spill file ("" = a `tiered/`
+    # subdirectory of persist_dir, or a temporary directory).
+    spill_dir: str = ""
+    # Per-search decay of the pager's probe-frequency EMA.
+    pager_ema_decay: float = 0.98
     # Directory the store loads from at construction and saves to on
     # every mutation ("" = in memory only).
     persist_dir: str = ""
@@ -445,12 +462,9 @@ class AppConfig:
 
 
 # Chain fields that name features the port does not have yet:
-# (section, field) -> where the port gains them.
-UNSUPPORTED_APP = {
-    ("vector_store", "index_type"): "ROADMAP A.18: IVF index",
-    ("vector_store", "quantize_int8"): "ROADMAP A.18: int8 rows",
-    ("vector_store", "tiered"): "ROADMAP A.18: tiered index",
-}
+# (section, field) -> where the port gains them. Empty: every chain
+# field is honoured.
+UNSUPPORTED_APP: Dict[Tuple[str, str], str] = {}
 
 
 # The planner sizes one engine's pool from its device's whole memory, so

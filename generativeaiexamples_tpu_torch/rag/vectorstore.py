@@ -1,15 +1,26 @@
-"""Vector stores: exact MIPS over host numpy or device memory.
+"""Vector stores: exact MIPS over host numpy or device memory, and the
+device IVF ANN index.
 
-Counterpart of the exact (flat) stores of
-generativeaiexamples_tpu/rag/vectorstore.py:
+Counterpart of generativeaiexamples_tpu/rag/vectorstore.py:
 
 - `MemoryVectorStore`: numpy matmul top-k on the host.
-- `DeviceVectorStore`: the counterpart of `TPUVectorStore` with
-  `index_type="flat"`. The rows live on the device (CUDA unless the
-  caller asks for the CPU) and nowhere else; rows added since the last
-  search are folded into the device matrix lazily at the next search
-  (`_refresh_flat`), and every search is one `ops.topk.mips_topk`
-  dispatch. There is no host copy to scan.
+- `DeviceVectorStore`: the counterpart of `TPUVectorStore`, scoring on
+  the device (CUDA unless the caller asks for the CPU). With
+  `index_type="flat"` (the default) the rows live on the device and
+  nowhere else; rows added since the last search are folded into the
+  device matrix lazily at the next search, and every search is one
+  `ops.topk.mips_topk` dispatch. With `index_type="ivf"` the rows live
+  in host memory, as the JAX store's do, and the device holds a flat
+  mirror only while the store serves exact search; the clustered index
+  of `ops/ivf.py` trains once the corpus passes IVF_MIN_ROWS (on a
+  background thread when the search comes from the micro-batcher),
+  streaming the host rows through the device in chunks, and once it is
+  installed the device holds its table and nothing of the corpus. Adds
+  are assigned without retraining, deletes and 50% growth retrain,
+  `quantize_int8` stores int8 rows, and `tiered` pages partitions
+  between device memory, host RAM and a disk spill (`ops/tiered.py`), so
+  `hbm_budget_mb` bounds what the index holds there. The recall gauge's
+  exact scan runs on the host over a snapshot of the rows.
 
 Documents carry {text, metadata{filename, ...}}; deletion is by
 filename. With `persist_dir` a store is durable, in the JAX store's
@@ -25,14 +36,16 @@ Both stores are `MicroBatchHost`s (serving/batcher.py): with
 one `search_batch` dispatch. `create_vector_store` also builds the
 external milvus (rag/milvus_store.py) and pgvector
 (rag/pgvector_store.py) stores, and the ephemeral in-process store of
-conversation memory. IVF, int8 rows and the tiered index
-(ROADMAP A.18) are not ported; `create_vector_store` refuses them by
-name.
+conversation memory (always flat, as in JAX). With an IVF index the
+store also writes `ivf.npz` (centroids and assignments) beside the
+snapshot, in the JAX store's format, so a reload in either package skips
+k-means. `ShardedIVFIndex` (a mesh) waits for ROADMAP A.17.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import threading
 from dataclasses import dataclass, field
@@ -43,9 +56,12 @@ import torch
 
 from generativeaiexamples_tpu_torch.config.schema import check_supported
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
+from generativeaiexamples_tpu_torch.ops.ivf import to_host
 from generativeaiexamples_tpu_torch.ops.topk import mips_topk
 from generativeaiexamples_tpu_torch.serving.batcher import (
     MicroBatcher, MicroBatcherClosed, MicroBatchHost)
+
+_LOG = logging.getLogger(__name__)
 
 
 @dataclass
@@ -53,6 +69,18 @@ class SearchResult:
     text: str
     score: float
     metadata: Dict = field(default_factory=dict)
+
+
+# Below this corpus size an IVF index buys nothing (one coarse scan would
+# cost as much as the exact matmul): the store stays on the exact path
+# and trains lazily once the corpus grows past it.
+IVF_MIN_ROWS = 256
+# Retrain when the corpus grew by this fraction since training: the
+# centroids no longer describe the data (incremental adds only assign).
+IVF_REBUILD_GROWTH = 0.5
+# Every Nth ANN search also runs the exact scorer and folds top-k overlap
+# into the running ann_recall_est gauge.
+RECALL_SAMPLE_EVERY = 32
 
 
 def _atomic_replace(path: str, write_fn) -> None:
@@ -126,9 +154,10 @@ class MemoryVectorStore(MicroBatchHost):
         counters."""
         top_k, thr = items[0][1], items[0][2]
         if len(items) == 1:
-            return [self._search_one(items[0][0], top_k, thr)]
+            return [self._search_one(items[0][0], top_k, thr,
+                                     defer_async=True)]
         qs = np.stack([np.asarray(it[0], np.float32) for it in items])
-        return self._search_batch_direct(qs, top_k, thr)
+        return self._search_batch_direct(qs, top_k, thr, defer_async=True)
 
     # -- search ------------------------------------------------------------
 
@@ -153,8 +182,11 @@ class MemoryVectorStore(MicroBatchHost):
         return self._search_one(query_embedding, top_k, score_threshold)
 
     def _search_one(self, query_embedding: np.ndarray, top_k: int = 4,
-                    score_threshold: Optional[float] = None
-                    ) -> List[SearchResult]:
+                    score_threshold: Optional[float] = None,
+                    defer_async: bool = False) -> List[SearchResult]:
+        """`defer_async` (the micro-batcher's dispatcher) moves slow
+        post-search work off the calling thread: a no-op here (see
+        DeviceVectorStore)."""
         with self._lock:
             if not self._docs:
                 return []
@@ -176,7 +208,8 @@ class MemoryVectorStore(MicroBatchHost):
         return self._search_batch_direct(qs, top_k, score_threshold)
 
     def _search_batch_direct(self, qs: np.ndarray, top_k: int,
-                             score_threshold: Optional[float]
+                             score_threshold: Optional[float],
+                             defer_async: bool = False
                              ) -> List[List[SearchResult]]:
         if len(qs) == 1:
             return [self._search_one(qs[0], top_k=top_k,
@@ -294,6 +327,11 @@ class MemoryVectorStore(MicroBatchHost):
 
             _atomic_replace(os.path.join(path, "vectors.npz"), write_vecs)
             _atomic_replace(os.path.join(path, "docs.jsonl"), write_docs)
+            self._save_extra(path)
+
+    def _save_extra(self, path: str) -> None:
+        """Lock held. Hook for index sidecars (DeviceVectorStore's
+        ivf.npz)."""
 
     @classmethod
     def load(cls, path: str, dim: int, metric: str = "ip", **kwargs):
@@ -322,6 +360,11 @@ class MemoryVectorStore(MicroBatchHost):
                 docs = [json.loads(ln) for ln in fh if ln.strip()]
             self._set_rows(loaded.reshape(-1, self.dim))
             self._docs = docs
+            self._load_extra(path)
+
+    def _load_extra(self, path: str) -> None:
+        """Lock held. Hook for index sidecars (DeviceVectorStore's
+        ivf.npz)."""
 
     def _persist(self) -> None:
         """Lock held. Save to `persist_dir` when the store has one."""
@@ -330,33 +373,105 @@ class MemoryVectorStore(MicroBatchHost):
 
 
 class DeviceVectorStore(MemoryVectorStore):
-    """Exact flat MIPS with the rows on the device (the counterpart of
-    TPUVectorStore's flat index). `add` accepts numpy arrays or tensors
-    (a tensor already on the device is never copied through the host);
-    the device matrix is rebuilt from the pending rows at the next
-    search."""
+    """Same interface; the scoring runs on the device (the counterpart of
+    TPUVectorStore). `add` accepts numpy arrays or tensors. A flat store
+    keeps its rows on the device (a tensor already there is never copied
+    through the host) and rebuilds the device matrix from the pending
+    rows at the next search; an ivf store keeps them on the host (module
+    docstring).
+
+    `index_type="flat"` (the default) is exact MIPS. `index_type="ivf"`
+    trains a k-means clustered index (ops/ivf.py) once the corpus passes
+    IVF_MIN_ROWS: searches scan only the top-`nprobe` of `nlist`
+    partitions, an add assigns its rows without retraining or moving the
+    corpus, deletes (row ids shift) and >50% growth trigger a rebuild,
+    and `quantize_int8` stores int8 rows + per-row scales. `tiered=True`
+    (ivf only) swaps in the demand-paged TieredIVFIndex (ops/tiered.py):
+    the device holds only the most-probed partitions inside
+    `hbm_budget_mb`, the rest pages through a host-RAM warm cache and an
+    mmap'd disk spill, adds land in warm tail slots, and a single-flight
+    background pass (kicked after searches) promotes and demotes
+    partitions and compacts tails. Its gauges ride `stats()`."""
 
     def __init__(self, dim: int, metric: str = "ip",
                  device: DeviceLike = None,
-                 persist_dir: Optional[str] = None):
+                 persist_dir: Optional[str] = None, *,
+                 index_type: str = "flat", nlist: int = 64,
+                 nprobe: int = 16, quantize_int8: bool = False,
+                 tiered: bool = False, hbm_budget_mb: int = 256,
+                 ram_budget_mb: int = 1024,
+                 spill_dir: Optional[str] = None,
+                 pager_ema_decay: float = 0.98):
+        if index_type not in ("flat", "ivf"):
+            raise ValueError(
+                f"index_type={index_type!r} not supported; use flat | ivf")
+        if tiered and index_type != "ivf":
+            raise ValueError(
+                "vector_store.tiered requires index_type=ivf (the tiered "
+                "index pages IVF partitions; there is no tiered flat scan)")
         self.device = resolve_device(device)
+        # Where the rows live: the device for flat (its only copy), the
+        # host for ivf (the index holds its own table on the device).
+        self._home = self.device if index_type == "flat" \
+            else torch.device("cpu")
+        # Host rows of a CUDA store are pinned: the trainer streams them
+        # through the card several times.
+        self._pin = self._home.type == "cpu" and self.device.type == "cuda"
         self._rows = torch.zeros((0, dim), dtype=torch.float32,
-                                 device=self.device)
+                                 device=self._home)
         self._pending: List[torch.Tensor] = []  # added since the refresh
-        self._flat: Optional[torch.Tensor] = None  # normalized rows
+        # The exact path's device matrix (normalized rows for cosine).
+        self._flat: Optional[torch.Tensor] = None
+        self.tiered = bool(tiered)
+        self.hbm_budget_mb = int(hbm_budget_mb)
+        self.ram_budget_mb = int(ram_budget_mb)
+        self._spill_dir_cfg = spill_dir or None
+        self._spill_dir_tmp = None  # made lazily for ephemeral stores
+        self.pager_ema_decay = float(pager_ema_decay)
+        self.index_type = index_type
+        self.nlist = int(nlist)
+        self.nprobe = int(nprobe)
+        self.quantize_int8 = bool(quantize_int8)
+        self._ivf = None
+        self._ivf_synced_rows = 0   # rows already in the index
+        self._ivf_trained_rows = 0  # corpus size when centroids trained
+        self._ivf_stale = False     # row ids shifted (delete) -> rebuild
+        self._loaded_ivf_state = None  # persisted centroids/assignments
+        self._dirty = True
+        self._ann_probes = 0
+        self._ann_scanned = 0
+        self._rebuilds = 0
+        self._recall_sum = 0.0
+        self._recall_n = 0
+        self._pending_sample = None
+        self._pending_sidecar = None
+        # Single-flight state for the dispatcher-offloaded slow work
+        # (_flush_slow_work / _kick_training_async): one worker at a
+        # time, samples dropped when busy, the latest sidecar latched.
+        self._slow_lock = threading.Lock()
+        self._slow_busy = False
+        self._slow_next_sidecar = None
+        self._train_busy = False
+        # Errors swallowed on background threads (trainer, slow worker,
+        # tier maintenance): logged AND counted, since a daemon thread
+        # has no caller to propagate to.
+        self._bg_errors = 0
+        # Serializes every ivf.npz write and unlink (the atomic-replace
+        # temporary name is fixed).
+        self._sidecar_lock = threading.Lock()
+        self.recall_sample_every = RECALL_SAMPLE_EVERY
         super().__init__(dim, metric, persist_dir)
-        self._vecs = None  # no host copy: the rows live on the device
+        self._vecs = None  # the rows are `_rows`, on `_home`
 
     def add(self, texts: Sequence[str], embeddings,
             metadatas: Optional[Sequence[Dict]] = None) -> List[int]:
-        rows = torch.as_tensor(embeddings).to(device=self.device,
-                                              dtype=torch.float32)
+        rows = self._homed(torch.as_tensor(embeddings))
         self._check_rows(texts, rows)
         metadatas = metadatas or [{} for _ in texts]
         with self._lock:
             base = len(self._docs)
             self._pending.append(rows)
-            self._flat = None
+            self._dirty = True
             self._docs.extend({"text": t, "metadata": dict(m)}
                               for t, m in zip(texts, metadatas))
             self._persist()
@@ -367,43 +482,290 @@ class DeviceVectorStore(MemoryVectorStore):
             keep = self._kept_rows(filenames)
             removed = len(self._docs) - len(keep)
             if removed:
-                self._refresh_flat()
+                self._fold_pending()
                 idx = torch.as_tensor(keep, dtype=torch.long,
-                                      device=self.device)
+                                      device=self._home)
                 self._rows = self._rows.index_select(0, idx)
                 self._docs = [self._docs[i] for i in keep]
                 self._flat = None
+                self._dirty = True
+                # Row ids shifted: every partition assignment is invalid,
+                # a not-yet-consumed persisted snapshot included. (A
+                # no-op delete keeps the index: nothing moved.)
+                self._ivf_stale = True
+                self._loaded_ivf_state = None
+            if not self._docs and self._ivf is not None:
+                # Emptied out: drop the index now (an empty store never
+                # refreshes, so stats would keep reporting a live index).
+                self._ivf = None
+                self._ivf_stale = False
+                self._ivf_synced_rows = 0
             self._persist()
             return removed
 
     def _host_rows(self) -> np.ndarray:
-        self._refresh_flat()
+        self._fold_pending()
         return self._rows.cpu().numpy()
 
     def _set_rows(self, rows: np.ndarray) -> None:
-        self._rows = torch.from_numpy(rows).to(self.device)
+        self._rows = torch.from_numpy(rows).to(self._home)
         self._pending = []
         self._flat = None
+        self._dirty = True
 
     def rows(self) -> torch.Tensor:
-        """The stored rows [N, D] f32 on the device (pending adds folded
-        in), as added: not normalized."""
+        """The stored rows [N, D] f32 (pending adds folded in), as added:
+        not normalized. On the device for a flat store, on the host for
+        an ivf one."""
         with self._lock:
-            self._refresh_flat()
+            self._fold_pending()
             return self._rows
 
     # -- device index lifecycle -------------------------------------------
 
-    def _refresh_flat(self) -> None:
-        """Lock held. Fold pending rows into the device matrix and
-        (re)build the normalized search matrix after a mutation."""
+    def _homed(self, rows: torch.Tensor) -> torch.Tensor:
+        """`rows` as f32 on `_home` (pinned host memory for a CUDA ivf
+        store)."""
+        if not self._pin:
+            return rows.to(device=self._home, dtype=torch.float32)
+        out = torch.empty(rows.shape, dtype=torch.float32, pin_memory=True)
+        return out.copy_(rows)
+
+    def _fold_pending(self) -> None:
+        """Lock held. Fold pending rows into the rows. `_rows` is
+        replaced, never written in place, so a reference taken earlier
+        (the trainer's, the recall sample's) stays a consistent
+        snapshot."""
         if self._pending:
-            self._rows = torch.cat([self._rows, *self._pending])
+            parts = [p for p in (self._rows, *self._pending) if len(p)]
+            if not parts:
+                pass  # only empty adds
+            elif self._pin and len(parts) == 1:
+                self._rows = parts[0]  # already a copy of its own
+            elif self._pin:
+                out = torch.empty((sum(len(p) for p in parts), self.dim),
+                                  dtype=torch.float32, pin_memory=True)
+                self._rows = torch.cat(parts, out=out)
+            else:
+                self._rows = torch.cat(parts)
             self._pending = []
+            self._flat = None
+
+    def _refresh_flat(self) -> None:
+        """Lock held. The exact path's device matrix (normalized rows for
+        cosine): the rows themselves for a flat store, a device mirror of
+        the host rows for an ivf store (dropped when the index installs,
+        as the JAX store drops its `_device_index`)."""
+        self._fold_pending()
         if self._flat is None:
-            self._flat = (self._rows / torch.linalg.vector_norm(
-                self._rows, dim=1, keepdim=True).clamp(min=1e-12)
-                if self.metric == "cosine" else self._rows)
+            self._flat = self._normalized(self._rows.to(self.device))
+
+    def _normalized(self, rows: torch.Tensor) -> torch.Tensor:
+        if self.metric == "cosine":
+            return rows / torch.linalg.vector_norm(
+                rows, dim=1, keepdim=True).clamp(min=1e-12)
+        return rows
+
+    def _refresh(self) -> None:
+        """Lock held (the search paths call it inside the store lock);
+        everything here stays cheap: slow (re)builds go through the
+        off-lock trainer."""
+        if not self._dirty:
+            return
+        self._fold_pending()
+        wants_ivf = (self.index_type == "ivf"
+                     and len(self._docs) >= IVF_MIN_ROWS)
+        if wants_ivf and self._ivf is not None and not self._ivf_stale:
+            self._sync_ivf_incremental()
+        if wants_ivf and self._ivf is not None and not self._ivf_stale:
+            self._flat = None  # the exact mirror is superseded: freed
+            self._dirty = False
+            return
+        # Exact path: no index wanted, corpus below the floor, or the
+        # index is stale or untrained (training happens outside the lock
+        # in _maybe_train_ivf; this is the correct fallback meanwhile).
+        if wants_ivf and self._ivf is not None:
+            # Dropping a live index (overflow or a raced mutation): the
+            # retrain happens at the next search's trainer; count the
+            # rebuild here, where it is forced.
+            self._rebuilds += 1
+        self._ivf = None
+        self._ivf_stale = False
+        self._ivf_synced_rows = 0
+        self._refresh_flat()
+        self._dirty = False
+
+    def _sync_ivf_incremental(self) -> None:
+        """Lock held. Fold rows added since the last sync into the index
+        (one assign matmul + a tail-slot scatter, or tail slots of the
+        tiered index). An add that would skew a partition past the
+        table's growth cap is refused by the index: mark stale so the
+        next search retrains off-lock."""
+        n = len(self._docs)
+        if n <= self._ivf_synced_rows:
+            return
+        new = self._normalized(self._rows[self._ivf_synced_rows:])
+        if not self._ivf.add(new):
+            self._ivf_stale = True  # rebuild at the next search
+            return
+        self._ivf_synced_rows = n
+        if self.persist_dir:
+            # The add-time save removed the lagging sidecar; it is current
+            # again now (written after the lock drops).
+            self._pending_sidecar = self._ivf.state()
+
+    def _ivf_needs_train(self) -> bool:
+        """Lock held. True when a (re)train is due: no index yet, row ids
+        shifted (delete or overflow), >50% growth since training, or a
+        skewed table (padding = wasted refine bandwidth)."""
+        n = len(self._docs)
+        if self.index_type != "ivf" or n < IVF_MIN_ROWS:
+            return False
+        if self._ivf is None or self._ivf_stale:
+            return True
+        if self._ivf_trained_rows and \
+                (n - self._ivf_trained_rows) / self._ivf_trained_rows \
+                > IVF_REBUILD_GROWTH:
+            return True
+        return self._ivf.max_list_len > 4 * max(1, n // self._ivf.nlist)
+
+    def _kick_training_async(self) -> None:
+        """Run _maybe_train_ivf on a background thread (single-flight).
+        The micro-batcher's one dispatcher thread must not stall every
+        queued search behind k-means; until the install lands, searches
+        serve the exact or stale path (always correct)."""
+        with self._lock:
+            needed = self._ivf_needs_train()
+        if not needed:
+            return
+        with self._slow_lock:
+            if self._train_busy:
+                return
+            self._train_busy = True
+
+        def run():
+            try:
+                self._maybe_train_ivf()
+            except Exception:
+                # No caller to propagate to: log + count; the next search
+                # kicks training again.
+                _LOG.exception("background IVF training failed")
+                with self._slow_lock:
+                    self._bg_errors += 1
+            finally:
+                with self._slow_lock:
+                    self._train_busy = False
+
+        threading.Thread(target=run, name="vectorstore-ivf-train",
+                         daemon=True).start()
+
+    def _maybe_train_ivf(self) -> None:
+        """Train or rebuild the IVF index WITHOUT holding the store lock:
+        k-means over a snapshot of the device rows runs for seconds at
+        scale, and concurrent searches and ingests must not queue behind
+        it; the result installs under the lock. A delete racing the build
+        voids the snapshot's assignments (seen through _ivf_stale) and is
+        retried; adds during the build are fine (the next search folds
+        them in)."""
+        from generativeaiexamples_tpu_torch.ops.ivf import IVFIndex
+
+        if self.index_type != "ivf":
+            return
+        sidecar = None
+        for _ in range(3):
+            with self._lock:
+                if not self._ivf_needs_train():
+                    break
+                rebuilding = self._ivf is not None
+                self._fold_pending()
+                rows = self._rows
+                n = len(rows)
+                if rebuilding:
+                    self._loaded_ivf_state = None
+                    state = {}
+                else:
+                    state = self._loaded_ivf_state or {}
+                    if state.get("assignments") is not None and \
+                            len(state["assignments"]) != n:
+                        state = {}  # snapshot predates later mutations
+                self._ivf_stale = False  # building against this snapshot
+            # -- slow part: no lock held --------------------------------
+            norm = self._normalized(rows)
+            # Partitions need enough rows to be worth probing: clamp
+            # nlist so the average list holds >= 8 rows.
+            nlist = max(1, min(self.nlist, n // 8))
+            kw = dict(nprobe=self.nprobe, quantize_int8=self.quantize_int8,
+                      centroids=state.get("centroids"),
+                      assignments=state.get("assignments"))
+            if self.tiered:
+                from generativeaiexamples_tpu_torch.ops.tiered import (
+                    TieredIVFIndex)
+
+                built = TieredIVFIndex(
+                    norm, nlist, hbm_budget_bytes=self.hbm_budget_mb << 20,
+                    ram_budget_bytes=self.ram_budget_mb << 20,
+                    spill_dir=self._tier_spill_dir(),
+                    ema_decay=self.pager_ema_decay, device=self.device,
+                    **kw)
+            else:
+                built = IVFIndex(norm, nlist, device=self.device, **kw)
+            with self._lock:
+                if self._ivf_stale or len(self._docs) < n:
+                    continue  # a delete raced the build: retry
+                self._ivf = built
+                self._ivf_synced_rows = n
+                self._ivf_trained_rows = n
+                self._flat = None
+                # Rows added during the build are not in the snapshot:
+                # the next refresh folds them in.
+                self._dirty = True
+                if rebuilding:
+                    self._rebuilds += 1
+                if self.persist_dir:
+                    # Training happens at search time, not mutation time:
+                    # persist the sidecar (outside the lock, below) so a
+                    # restart reloads the centroids.
+                    sidecar = built.state()
+                break
+        else:
+            # Deletes keep racing the trainer: this query serves the
+            # exact path; a later search tries again.
+            return
+        if sidecar is not None:
+            self._write_sidecar(sidecar)
+
+    def _tier_spill_dir(self) -> str:
+        """Where the tiered index spills cold partition blocks: the
+        configured spill_dir > a `tiered/` subdirectory of persist_dir >
+        a per-store temporary directory, removed when the store is
+        collected (an ephemeral corpus still needs a cold tier)."""
+        if self._spill_dir_cfg:
+            return self._spill_dir_cfg
+        if self.persist_dir:
+            return os.path.join(self.persist_dir, "tiered")
+        if self._spill_dir_tmp is None:
+            import shutil
+            import tempfile
+            import weakref
+
+            self._spill_dir_tmp = tempfile.mkdtemp(prefix="gaie_tiered_")
+            weakref.finalize(self, shutil.rmtree, self._spill_dir_tmp,
+                             ignore_errors=True)
+        return self._spill_dir_tmp
+
+    def _maybe_kick_tier_maintenance(self) -> None:
+        """Hand the tiered index's pager and compactor one single-flight
+        background pass when it says work is due. Called after the store
+        lock drops (the pass installs under the index's own tier
+        lock)."""
+        ivf = self._ivf
+        if ivf is not None and hasattr(ivf, "maintenance_due") \
+                and ivf.maintenance_due():
+            ivf.kick_maintenance(on_error=self._note_bg_error)
+
+    def _note_bg_error(self) -> None:
+        with self._slow_lock:
+            self._bg_errors += 1
 
     # -- search ------------------------------------------------------------
 
@@ -415,46 +777,245 @@ class DeviceVectorStore(MemoryVectorStore):
         return q
 
     def _device_search(self, qs: torch.Tensor, k: int):
-        """One device dispatch for [Q, D] queries -> host (scores, ids)."""
+        """Lock held. One device search of [Q, D] queries -> host
+        (scores, ids); updates the ANN counters. Every
+        recall_sample_every-th search queues a recall sample that the
+        caller runs after releasing the lock."""
+        if self._ivf is not None:
+            scores, idx, scanned = self._ivf.search(qs, k)
+            idx = to_host(idx)
+            self._ann_probes += len(qs) * self._ivf.nprobe
+            self._ann_scanned += scanned
+            if self._n_searches % self.recall_sample_every == 0:
+                # _rows (host) is replaced on mutation, never written in
+                # place: the reference is a snapshot to scan off the lock.
+                self._pending_sample = (qs[0].clone(), idx[0].copy(), k,
+                                        self._rows)
+            return to_host(scores), idx
         scores, idx = mips_topk(qs, self._flat, k)
         return scores.cpu().numpy(), idx.cpu().numpy()
+
+    def _pop_pending(self):
+        """Lock held. The queued recall sample and sidecar, cleared."""
+        out = self._pending_sample, self._pending_sidecar
+        self._pending_sample = self._pending_sidecar = None
+        return out
 
     def _collect(self, scores, idx, score_threshold) -> List[SearchResult]:
         out = []
         for s, i in zip(scores, idx):
+            i = int(i)
+            # IVF pads short candidate sets with id -1 / -inf.
+            if i < 0 or i >= len(self._docs) or not np.isfinite(s):
+                continue
             if score_threshold is not None and float(s) < score_threshold:
                 continue
-            d = self._docs[int(i)]
+            d = self._docs[i]
             out.append(SearchResult(d["text"], float(s), dict(d["metadata"])))
         return out
 
     def _search_one(self, query_embedding: np.ndarray, top_k: int = 4,
-                    score_threshold: Optional[float] = None
-                    ) -> List[SearchResult]:
+                    score_threshold: Optional[float] = None,
+                    defer_async: bool = False) -> List[SearchResult]:
+        # Slow k-means runs before the lock; from the micro-batcher's
+        # dispatcher it goes to a background thread instead.
+        if defer_async:
+            self._kick_training_async()
+        else:
+            self._maybe_train_ivf()
         with self._lock:
             if not self._docs:
                 return []
-            self._refresh_flat()
+            self._refresh()
             self._n_searches += 1
             q = self._prep_query(query_embedding)
             k = min(top_k, len(self._docs))
             scores, idx = self._device_search(q[None, :], k)
-            return self._collect(scores[0], idx[0], score_threshold)
+            out = self._collect(scores[0], idx[0], score_threshold)
+            sample, sidecar = self._pop_pending()
+        self._flush_slow_work(sample, sidecar, asynchronously=defer_async)
+        self._maybe_kick_tier_maintenance()
+        return out
 
     def _search_batch_direct(self, qs: np.ndarray, top_k: int,
-                             score_threshold: Optional[float]
+                             score_threshold: Optional[float],
+                             defer_async: bool = False
                              ) -> List[List[SearchResult]]:
-        """All queries scored in ONE device dispatch."""
+        """All queries scored in ONE device search (one matmul for flat,
+        one probe + refine for IVF)."""
+        if defer_async:
+            self._kick_training_async()
+        else:
+            self._maybe_train_ivf()
         with self._lock:
             if not self._docs:
                 return [[] for _ in qs]
-            self._refresh_flat()
+            self._refresh()
             self._n_batched += 1
             self._n_searches += len(qs)
             k = min(top_k, len(self._docs))
             scores, idx = self._device_search(self._prep_query(qs), k)
-            return [self._collect(s, i, score_threshold)
-                    for s, i in zip(scores, idx)]
+            out = [self._collect(s, i, score_threshold)
+                   for s, i in zip(scores, idx)]
+            sample, sidecar = self._pop_pending()
+        self._flush_slow_work(sample, sidecar, asynchronously=defer_async)
+        self._maybe_kick_tier_maintenance()
+        return out
+
+    # -- slow post-search work ---------------------------------------------
+
+    def _flush_slow_work(self, sample, sidecar, *,
+                         asynchronously: bool = False) -> None:
+        """The recall sample's exact scan and the ivf.npz write: inline on
+        a caller's thread, on a SINGLE-FLIGHT worker from the
+        micro-batcher's dispatcher (which must keep draining searches).
+        While a worker runs, new samples are dropped (a sampled gauge
+        loses nothing) and the newest sidecar is latched for it."""
+        if sample is None and sidecar is None:
+            return
+        if asynchronously:
+            with self._slow_lock:
+                if self._slow_busy:
+                    if sidecar is not None:
+                        self._slow_next_sidecar = sidecar  # latest wins
+                    return
+                self._slow_busy = True
+            threading.Thread(
+                target=self._slow_worker, args=(sample, sidecar),
+                name="vectorstore-slow-work", daemon=True).start()
+            return
+        if sidecar is not None:
+            self._write_sidecar(sidecar)
+        if sample:
+            self._run_recall_sample(*sample)
+
+    def _slow_worker(self, sample, sidecar) -> None:
+        try:
+            while True:
+                self._flush_slow_work(sample, sidecar)
+                with self._slow_lock:
+                    sidecar = self._slow_next_sidecar
+                    self._slow_next_sidecar = None
+                    if sidecar is None:
+                        self._slow_busy = False
+                        return
+                sample = None  # only the latched sidecar remains
+        except BaseException as e:
+            with self._slow_lock:
+                self._slow_busy = False
+                # Drop the latch too: a later worker must not write this
+                # now-stale sidecar over a newer one.
+                self._slow_next_sidecar = None
+                if isinstance(e, Exception):
+                    self._bg_errors += 1
+            if not isinstance(e, Exception):
+                raise  # KeyboardInterrupt / SystemExit: never swallowed
+            _LOG.exception("vectorstore slow worker failed "
+                           "(recall sample / sidecar write dropped)")
+
+    def _run_recall_sample(self, q: torch.Tensor, ann_idx: np.ndarray,
+                           k: int, rows: torch.Tensor) -> None:
+        """Fold one exact-vs-ANN overlap@k sample into the recall gauge:
+        the exact scan runs where the rows snapshot lies (the host, as in
+        the JAX store), outside the store lock (row norms divide the
+        scores for cosine; no normalized copy of the corpus)."""
+        scores = torch.matmul(rows, q.to(rows.device))
+        if self.metric == "cosine":
+            scores = scores / torch.linalg.vector_norm(
+                rows, dim=1).clamp(min=1e-12)
+        kk = min(k, len(scores))
+        truth = set(torch.topk(scores, kk).indices.cpu().tolist())
+        got = [int(i) for i in ann_idx[:kk] if 0 <= int(i) < len(scores)]
+        with self._lock:
+            self._recall_sum += len(truth.intersection(got)) \
+                / max(1, len(truth))
+            self._recall_n += 1
+
+    # -- persistence -------------------------------------------------------
+
+    def _dump_ivf_state(self, path: str, state: Dict) -> None:
+        """The one ivf.npz writer (atomic, serialized by _sidecar_lock):
+        save(), the deferred search-path writer and the trainer all go
+        through it, in the JAX store's format."""
+        with self._sidecar_lock:
+            os.makedirs(path, exist_ok=True)
+
+            def write(tmp):
+                with open(tmp, "wb") as fh:
+                    np.savez_compressed(fh, **state)
+
+            _atomic_replace(os.path.join(path, "ivf.npz"), write)
+
+    def _write_sidecar(self, state: Dict) -> None:
+        """Persist IVF training state (no store lock: `state` is a
+        snapshot). A racing mutation-save may remove or replace the file:
+        benign, the loader checks row counts."""
+        if self.persist_dir:
+            self._dump_ivf_state(self.persist_dir, state)
+
+    def _save_extra(self, path: str) -> None:
+        """Lock held. The trained IVF state next to the corpus, so a
+        reload skips k-means; removed instead when the index lags the
+        corpus (the loader would mis-assign)."""
+        ip = os.path.join(path, "ivf.npz")
+        if self._ivf is None or self._ivf_synced_rows != len(self._docs):
+            with self._sidecar_lock:  # vs an in-flight sidecar write
+                if os.path.exists(ip):
+                    os.unlink(ip)
+            return
+        self._dump_ivf_state(path, self._ivf.state())
+
+    def _load_extra(self, path: str) -> None:
+        """Lock held. Accept a persisted ivf.npz that matches the corpus
+        and the configured index geometry (the index takes nlist from the
+        loaded centroids, so a stale shape would pin an old nlist)."""
+        ip = os.path.join(path, "ivf.npz")
+        if self.index_type != "ivf" or not os.path.isfile(ip):
+            return
+        with np.load(ip) as z:
+            state = {"centroids": z["centroids"].astype(np.float32),
+                     "assignments": z["assignments"].astype(np.int32)}
+        expected_nlist = max(1, min(self.nlist, len(self._docs) // 8))
+        if len(state["assignments"]) == len(self._docs) and \
+                state["centroids"].shape == (expected_nlist, self.dim):
+            self._loaded_ivf_state = state
+
+    # -- observability -----------------------------------------------------
+
+    def stats(self) -> Dict:
+        # _bg_errors is guarded by _slow_lock; read it under that lock,
+        # taken before (never inside) the store lock.
+        with self._slow_lock:
+            bg_errors = self._bg_errors
+        with self._lock:
+            out = super().stats()
+            live = "ivf" if self._ivf is not None else "flat"
+            if self.index_type == "ivf" and live == "flat":
+                live = "flat(ivf pending)"  # corpus below IVF_MIN_ROWS
+            out.update({
+                "index": live,
+                "nlist": self._ivf.nlist if self._ivf is not None else None,
+                "nprobe": self.nprobe,
+                "quantize_int8": self.quantize_int8,
+                "ann_probes": self._ann_probes,
+                "ann_scanned_rows": self._ann_scanned,
+                "ann_recall_est": (round(self._recall_sum / self._recall_n, 4)
+                                   if self._recall_n else None),
+                "index_rebuilds": self._rebuilds,
+                "background_errors": bg_errors,
+                "tiered": self.tiered,
+            })
+            ivf = self._ivf
+        # Pager gauges read OFF the store lock: the index has its own tier
+        # lock, and searches take store -> tier.
+        if ivf is not None and hasattr(ivf, "tier_stats"):
+            ts = ivf.tier_stats()
+            out.update({"index": "ivf_tiered", **{key: ts[key] for key in (
+                "hbm_resident_fraction", "pager_hbm_hit_rate",
+                "tier_promotions", "tier_demotions", "tier_compactions",
+                "tier_tail_rows", "tier_warm_bytes", "tier_spill_bytes",
+                "tier_hot_slots", "hbm_resident_rows")}})
+        return out
 
 
 def create_vector_store(config, dim: Optional[int] = None,
@@ -463,16 +1024,20 @@ def create_vector_store(config, dim: Optional[int] = None,
                         ephemeral: bool = False):
     """Factory from AppConfig.vector_store. `memory` is the host store;
     `tpu` and `native` (the JAX config's names, kept so configs are
-    shared) are the device store; either is durable at `persist_dir`
-    (usually config.vector_store.persist_dir). `milvus` and `pgvector`
-    are external servers at `vector_store.url` (durable server-side) and
-    fail loudly without one. Anything else, and every knob the port does
-    not honour (`check_supported`), is refused by name.
+    shared) are the device store, with every index knob of the config
+    (`index_type`, `nlist`, `nprobe`, `quantize_int8`, `tiered`,
+    `hbm_budget_mb`, `ram_budget_mb`, `spill_dir`, `pager_ema_decay`);
+    either is durable at `persist_dir` (usually
+    config.vector_store.persist_dir). `milvus` and `pgvector` are
+    external servers at `vector_store.url` (durable server-side) and fail
+    loudly without one. Anything else, and every knob the port does not
+    honour (`check_supported`), is refused by name.
 
     `ephemeral=True` marks a per-process scratch store (conversation
-    memory): it is never persisted, and under milvus or pgvector it stays
-    in-process as a `MemoryVectorStore`, so private conversation turns
-    never land in the shared document collection."""
+    memory): it is never persisted, stays on the exact flat path (far
+    below IVF scale), and under milvus or pgvector it stays in-process as
+    a `MemoryVectorStore`, so private conversation turns never land in
+    the shared document collection."""
     vs = check_supported(config).vector_store
     dim = dim or config.embeddings.dimensions
     if ephemeral:
@@ -488,7 +1053,15 @@ def create_vector_store(config, dim: Optional[int] = None,
 
         return PgVectorStore(vs.url, dim)
     if vs.name in ("tpu", "native"):
-        return DeviceVectorStore(dim, device=device, persist_dir=persist_dir)
+        if ephemeral:
+            return DeviceVectorStore(dim, device=device)
+        return DeviceVectorStore(
+            dim, device=device, persist_dir=persist_dir,
+            index_type=vs.index_type, nlist=vs.nlist, nprobe=vs.nprobe,
+            quantize_int8=vs.quantize_int8, tiered=vs.tiered,
+            hbm_budget_mb=vs.hbm_budget_mb, ram_budget_mb=vs.ram_budget_mb,
+            spill_dir=vs.spill_dir or None,
+            pager_ema_decay=vs.pager_ema_decay)
     if vs.name in ("memory", "milvus", "pgvector"):
         return MemoryVectorStore(dim, persist_dir=persist_dir)
     raise ValueError(f"vector_store.name={vs.name!r} is not a bundled "

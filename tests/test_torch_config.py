@@ -103,9 +103,15 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
                  id="fleet-autoscale-True-A.16"),
     pytest.param("fleet", {"disagg": True, "chaos": True, "chaos_seed": 7},
                  None, id="fleet-chaos-True-A.16"),
-    pytest.param("vector_store", {"tiered": True}, "A.18",
+    # The ANN indexes are ported (A.18): the IVF, int8 and tiered knobs
+    # are read as the JAX wizard reads them.
+    pytest.param("vector_store", {"tiered": True, "hbm_budget_mb": 512,
+                                  "ram_budget_mb": 2048,
+                                  "spill_dir": "/var/spill",
+                                  "pager_ema_decay": 0.9}, None,
                  id="vector_store-tiered-True-A.18"),
-    pytest.param("vector_store", {"index_type": "ivf"}, "A.18",
+    pytest.param("vector_store", {"index_type": "ivf", "quantize_int8": True,
+                                  "nlist": 128}, None,
                  id="vector_store-index_type-ivf-A.18"),
 ])
 def test_config_file_refuses_unported_fields(tmp_path, kind, section, fields,
@@ -223,13 +229,34 @@ def _off_default(value):
     return "x" if isinstance(value, str) else value
 
 
-@pytest.mark.parametrize("key", sorted(UNSUPPORTED_APP), ids=".".join)
+# The chain fields once refused (the ANN knobs, A.18), beside any still
+# refused.
+CHAIN_KEYS = sorted({*UNSUPPORTED_APP, ("vector_store", "index_type"),
+                     ("vector_store", "quantize_int8"),
+                     ("vector_store", "tiered")})
+
+
+@pytest.mark.parametrize("key", CHAIN_KEYS, ids=".".join)
 def test_remaining_chain_refusals_name_their_item(key):
+    """A field still unported is refused naming its item; a ported one
+    (the test keeps the name it had when all were refused) is read from
+    overrides and the env as the JAX wizard reads it."""
     section, name = key
     default = getattr(getattr(AppConfig(), section), name)
-    with pytest.raises(ValueError, match=UNSUPPORTED_APP[key].split(":")[0]):
-        load_config(env={}, overrides={section: {name: _off_default(
-            default)}})
+    value = _off_default(default)
+    if key in UNSUPPORTED_APP:
+        with pytest.raises(ValueError,
+                           match=UNSUPPORTED_APP[key].split(":")[0]):
+            load_config(env={}, overrides={section: {name: value}})
+        return
+    port = load_config(env={}, overrides={section: {name: value}})
+    assert getattr(getattr(port, section), name) == value
+    env = {f"APP_{section.replace('_', '').upper()}_"
+           f"{name.replace('_', '').upper()}": str(value)}
+    port, theirs = load_config(env=env), jax_load(env=env)
+    assert getattr(getattr(port, section), name) == getattr(
+        getattr(theirs, section), name) == value
+    _assert_same(port, theirs)
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
@@ -496,5 +523,40 @@ def test_pacer_and_planner_fields_read_as_jax(tmp_path, source):
             defaults.planner_headroom_fraction) == (16, False, 0.0, 0.1)
     assert not set(PACER_PLANNER_FIELDS) & set(UNSUPPORTED)
     assert set(UNSUPPORTED) == {"multihost"}
-    assert {name for _, name in UNSUPPORTED_APP} == {
-        "index_type", "quantize_int8", "tiered"}
+    assert not UNSUPPORTED_APP  # the ANN knobs are ported (A.18)
+
+
+# The ANN indexes (A.18): every vector_store knob the JAX store honours.
+ANN_FIELDS = {"index_type": "ivf", "nlist": 256, "nprobe": 24,
+              "quantize_int8": True, "tiered": True, "hbm_budget_mb": 1024,
+              "ram_budget_mb": 4096, "spill_dir": "/var/spill",
+              "pager_ema_decay": 0.95}
+ANN_ENV = {"APP_VECTORSTORE_INDEXTYPE": "ivf", "APP_VECTORSTORE_NLIST": "256",
+           "APP_VECTORSTORE_NPROBE": "24",
+           "APP_VECTORSTORE_QUANTIZEINT8": "true",
+           "APP_VECTORSTORE_TIERED": "1",
+           "APP_VECTORSTORE_HBMBUDGETMB": "1024",
+           "APP_VECTORSTORE_RAMBUDGETMB": "4096",
+           "APP_VECTORSTORE_SPILLDIR": "/var/spill",
+           "APP_VECTORSTORE_PAGEREMADECAY": "0.95"}
+
+
+@pytest.mark.parametrize("source", ["env", "json", "yaml"])
+def test_ann_fields_match_jax_wizard(tmp_path, source):
+    """The IVF, int8 and tiered knobs, from the env or the file, read as
+    the JAX wizard reads them (defaults included); a bad value raises in
+    both."""
+    default, theirs = load_config(env={}), jax_load(env={})
+    assert {n: getattr(default.vector_store, n) for n in ANN_FIELDS} == {
+        n: getattr(theirs.vector_store, n) for n in ANN_FIELDS}
+    env = (dict(ANN_ENV) if source == "env" else {
+        "APP_CONFIG_FILE": _write(tmp_path, source,
+                                  {"vector_store": ANN_FIELDS})})
+    port = load_config(env=env)
+    _assert_same(port, jax_load(env=env))
+    assert {n: getattr(port.vector_store, n) for n in ANN_FIELDS} == \
+        ANN_FIELDS
+    bad = {"APP_VECTORSTORE_HBMBUDGETMB": "lots"}
+    for load in (load_config, jax_load):
+        with pytest.raises(ValueError, match="HBMBUDGETMB"):
+            load(env=bad)

@@ -53,7 +53,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', "
         "'checkpoint_streams', 'phase_checkpoint', 'phase_chain', "
         "'phase_flight', 'phase_fused_prefill', 'phase_fused_prefill_int8', "
-        "'phase_fleet', 'phase_pacer', "
+        "'phase_fleet', 'phase_pacer', 'phase_ann', "
         "'paged_int8_sdpa_gathered_ms', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
@@ -72,6 +72,14 @@ def test_fleet_and_planner_modules_are_covered():
     those imported with jax blocked and scanned below."""
     for name in ("autoscaler", "chaos", "memory_plan"):
         assert f"generativeaiexamples_tpu_torch.serving.{name}" in MODULES
+
+
+def test_ann_modules_are_covered():
+    """The ANN indexes' modules (ops/ivf.py, ops/tiered.py) are among
+    those imported with jax blocked and scanned below."""
+    for name in ("ivf", "tiered"):
+        assert f"generativeaiexamples_tpu_torch.ops.{name}" in MODULES
+        assert PORT / "ops" / f"{name}.py" in PORT_FILES
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],

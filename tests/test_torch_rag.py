@@ -329,11 +329,19 @@ def test_app_config_defaults_and_env_overlay_match_jax():
                       ("engine", "prefill_buckets")):
         assert getattr(getattr(ours, sec), name) == getattr(
             getattr(theirs, sec), name), (sec, name)
-    for var, item in (("APP_VECTORSTORE_INDEXTYPE", "A.18"),
-                      ("APP_ENGINE_MULTIHOST", "A.17")):
-        value = "ivf" if "INDEX" in var else "true"
-        with pytest.raises(ValueError, match=item):
-            load_config(env={var: value})
+    # Multi-host is refused naming A.17; the ANN knobs (A.18) are ported
+    # and read as the JAX wizard reads them.
+    with pytest.raises(ValueError, match="A.17"):
+        load_config(env={"APP_ENGINE_MULTIHOST": "true"})
+    env = {"APP_VECTORSTORE_INDEXTYPE": "ivf",
+           "APP_VECTORSTORE_QUANTIZEINT8": "true",
+           "APP_VECTORSTORE_TIERED": "true"}
+    ours, theirs = load_config(env=env), jload(path="", env=env)
+    assert dataclasses.asdict(ours.vector_store) == {
+        k: v for k, v in dataclasses.asdict(theirs.vector_store).items()
+        if k in dataclasses.asdict(ours.vector_store)}
+    assert (ours.vector_store.index_type, ours.vector_store.quantize_int8,
+            ours.vector_store.tiered) == ("ivf", True, True)
     # Query augmentation, fact check, micro-batching, tracing, the decode
     # K cap and step plans are ported: read as the JAX wizard reads them.
     env = {"APP_RETRIEVER_QUERYAUGMENTATION": "rewrite,hyde",

@@ -281,7 +281,11 @@ def _port_generate(base, headers):
         return r.read().decode()
 
 
-def _jax_generate(tmp_path, headers):
+def _jax_generate(tmp_path, headers, exporter=None):
+    """One knowledge-base /generate on the JAX server: the raw body. With
+    `exporter`, the client stays open until the `generate` span has
+    ended: the server ends it after `write_eof()`, and closing the client
+    first can cancel the handler before it does."""
     from aiohttp.test_utils import TestClient, TestServer
 
     import aiohttp
@@ -310,7 +314,13 @@ def _jax_generate(tmp_path, headers):
             r = await client.post("/generate", json={
                 "messages": [{"role": "user", "content": "what text?"}],
                 "use_knowledge_base": True}, headers=headers)
-            return (await r.read()).decode()
+            raw = (await r.read()).decode()
+            deadline = time.time() + 10
+            while exporter is not None and time.time() < deadline and not [
+                    s for s in exporter.get_finished_spans()
+                    if s.name == "generate"]:
+                await asyncio.sleep(0.005)
+            return raw
         finally:
             await client.close()
 
@@ -327,12 +337,26 @@ def _pieces(raw):
              f["choices"][0]["finish_reason"]) for f in _frames(raw)]
 
 
+def _await_spans(exporter, names):
+    """The finished spans by name, once every one of `names` is among
+    them (or after 10 s). Both servers end `generate` only after the last
+    frame (JAX after `write_eof()`, the port in its frame generator's
+    exit), so a client that has read the whole body can reach the
+    exporter first."""
+    deadline = time.time() + 10
+    while True:
+        spans = {s.name: s for s in exporter.get_finished_spans()}
+        if set(names) <= set(spans) or time.time() >= deadline:
+            return spans
+        time.sleep(0.005)
+
+
 def test_chain_server_generate_spans_match_jax(both, tmp_path):
     """/generate on echo + hash with a traceparent: the same spans as the
     JAX server (generate with its attributes, retriever.retrieve with
     n_results) in the caller's trace, and the same frames."""
     jexp, texp = both
-    want_raw = _jax_generate(tmp_path, HEADER)
+    want_raw = _jax_generate(tmp_path, HEADER, jexp)
     app, httpd, th, base = _port_server(tmp_path)
     try:
         got_raw = _port_generate(base, HEADER)
@@ -345,7 +369,7 @@ def test_chain_server_generate_spans_match_jax(both, tmp_path):
     assert _pieces(got_raw) == strip
     spans = {}
     for name, exp in (("jax", jexp), ("port", texp)):
-        spans[name] = {s.name: s for s in exp.get_finished_spans()}
+        spans[name] = _await_spans(exp, ("generate", "retriever.retrieve"))
         gen = spans[name]["generate"]
         assert f"{gen.context.trace_id:032x}" == TRACE
         assert gen.attributes["use_knowledge_base"] is True

@@ -146,13 +146,29 @@ def test_create_vector_store_names_and_refusals(tmp_path):
             cfg.vector_store, name=name))
         with pytest.raises(RuntimeError, match="vector_store.url"):
             create_vector_store(c, 8, device="cpu")
-    for over, item in (({"name": "weaviate"}, "not a bundled store"),
-                       ({"index_type": "ivf"}, "A.18"),
-                       ({"tiered": True}, "A.18")):
-        c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
-            cfg.vector_store, **over))
-        with pytest.raises(ValueError, match=item):
-            create_vector_store(c, 8, device="cpu")
+    c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
+        cfg.vector_store, name="weaviate"))
+    with pytest.raises(ValueError, match="not a bundled store"):
+        create_vector_store(c, 8, device="cpu")
+    # The ANN knobs (A.18) are ported: the factory hands every one to the
+    # device store, as the JAX factory does; conversation memory stays
+    # flat; tiered without ivf is refused by the store, in JAX's words.
+    knobs = {"index_type": "ivf", "nlist": 32, "nprobe": 4,
+             "quantize_int8": True, "tiered": True, "hbm_budget_mb": 8,
+             "ram_budget_mb": 16, "spill_dir": str(tmp_path / "spill"),
+             "pager_ema_decay": 0.9}
+    c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
+        cfg.vector_store, name="tpu", **knobs))
+    store = create_vector_store(c, 8, device="cpu")
+    assert {k: getattr(store, k) for k in knobs if k != "spill_dir"} == {
+        k: v for k, v in knobs.items() if k != "spill_dir"}
+    assert store._tier_spill_dir() == knobs["spill_dir"]
+    conv = create_vector_store(c, 8, device="cpu", ephemeral=True)
+    assert (conv.index_type, conv.tiered) == ("flat", False)
+    c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
+        cfg.vector_store, name="tpu", tiered=True))
+    with pytest.raises(ValueError, match="requires index_type=ivf"):
+        create_vector_store(c, 8, device="cpu")
     # persist_dir is ported: the config is accepted and the factory hands
     # the directory to the store it builds.
     c = dataclasses.replace(cfg, vector_store=dataclasses.replace(
