@@ -261,7 +261,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
               layer 0, to the JAX loader's numpy arithmetic; peak device
               memory at most the int8 tree plus one bf16 layer of the
               largest leaf) and the int8 deployment from the path (K6,
-              K4, no K2). The snapshots are removed at the end
+              K4, no K2). The snapshots are removed at the end, after
+  13c. tp     tensor-parallel serving over two rank processes on cuda:0
+              (gloo; the launcher's rank path: init_ranks, build_mesh,
+              build_engine(mesh=...), run_follower) from the same
+              snapshot, loaded sharded (time, each rank's peak device
+              memory against its shard's bytes), bf16 then int8-at-load
+              (each rank's codes and scales bit-identical to the slice of
+              the single-device int8 tree, compared over CUDA IPC) with
+              the int8 pool; the rank engines' teacher-forced logits
+              (the prefill, then TP_TEACHER_STEPS decode steps over the
+              pool, fed the single-device engine's tokens) against a
+              single-device engine's under the same forcing (within
+              TP_LOGIT_RTOL of its largest), and (bf16) a planted fault,
+              rank 1's kv heads swapped, that the bound must catch; the
+              four checkpoint completions behind rank 0's
+              OpenAI server (one prefill group; 64 tokens bf16, 32
+              int8; tokens against the single-device engine's: the share
+              equal and the first divergence, a finding), two session
+              requests over the prefix cache and pager (hits, demotions,
+              a promotion), the longest prompt's pages exported whole
+              (every rank's kv heads) against the forward's k/v, then a
+              second engine whose 16 tokens must equal the first run's;
+              the ranks start when the
+              checkpoint phase does, behind its snapshot write; each rank's
+              launches (K1, K2 bf16; K1, K4, K6 int8; K2/K4 at least
+              layers x decode steps), the records rank 0 published equal
+              to those rank 1 read, no divergence, tokens/s beside the
+              single-device engine's and the collectives' time per decode
+              step; both ranks exit 0 after the stop record
   14. timing  the seconds of each phase and the total
   15. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
@@ -274,7 +302,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               kernel its fleet launches (fleet_launches); K4's entry
               also carries its verify cases and its spec_int8 launches,
               K1's and K2's their prefix launches, every kernel its
-              launches on the checkpoint phase's loaded models
+              launches on the checkpoint phase's loaded models, and K1,
+              K2, K4 and K6 their launches in each tensor-parallel rank
+              (tp_launches)
   16. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
@@ -606,6 +636,10 @@ def phase_flash():
         flash_case("hd64", 2, 32, 8, 256, 256, 64, [256, 77], [0, 0], seed=6),
         flash_case("noncausal", 2, 8, 8, 96, 160, 128, [160, 33], [0, 0],
                    causal=False, seed=7),
+        # A tensor-parallel rank's prefill group at 8B, tensor 2
+        # (phase_tp): 16 query and 4 kv heads.
+        flash_case("8b_tp2_s128", 4, 16, 4, 128, 128, 128,
+                   [66, 94, 38, 99], [0] * 4, seed=12),
     ]
     for c in cases:
         emit(c)
@@ -774,6 +808,10 @@ def phase_paged():
         paged_case("sharp_late_max", 8, 32, 8, 128, 128, 64,
                    [129, 700, 1500, 2048, 3000, 4097, 6000, 8191], seed=17,
                    q_scale=PAGED_INT8_Q_SCALE, late_max=True),
+        # A tensor-parallel rank's decode at 8B, tensor 2 (phase_tp): 16
+        # query and 4 kv heads, batch 4, pages of 16 up to 1,024 tokens.
+        paged_case("8b_tp2_ps16", 4, 16, 4, 128, 16, 64, [67, 130, 203, 1024],
+                   seed=18),
     ]
     for c in cases:
         emit(c)
@@ -1163,6 +1201,9 @@ def phase_paged_int8():
                         seed=29, late_max=True, q_rep=13, tree=(3, 4)),
         paged_int8_case("tree28_hd64_ps16", 4, 8, 2, 64, 16, 64,
                         [1, 50, 300, 1000], seed=30, q_rep=17, tree=(2, 8)),
+        # A tensor-parallel rank's decode at 8B, tensor 2 (phase_tp).
+        paged_int8_case("8b_tp2_ps16", 4, 16, 4, 128, 16, 64,
+                        [67, 130, 203, 1024], seed=31),
     ]
     for c in cases:
         emit(c)
@@ -1350,15 +1391,23 @@ K6_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
 # Rows K6 meets on the int8 paths: decode at batch 8 and 128, the linear
 # (k = 1) and tree ((3, 4)) verify steps at batch 128, a 4096 prefill.
 K6_ROWS = (8, 128, 256, 1664, 4096)
+# A tensor-parallel rank's shard of each projection at 8B, tensor 2
+# (phase_tp): q, k|v, gate|up and the head split their outputs, wo and
+# w_down their inputs; rows of a decode step at batch 4 and of the
+# 4-prompt prefill group in the 128 bucket.
+K6_TP_SHAPES = {"wq_tp2": (4096, 2048), "wk_wv_tp2": (4096, 512),
+                "w_gate_up_tp2": (4096, 7168), "wo_tp2": (2048, 4096),
+                "w_down_tp2": (7168, 4096), "lm_head_tp2": (4096, 64128)}
+K6_TP_ROWS = (4, 512)
 
 
-def int8_mm_case(name, R, K, M, seed=0):
+def int8_mm_case(name, R, K, M, seed=0, timed=True):
     """K6 against `int8_matmul_reference` in f32 (INT8_MM_RTOL of max |y|),
-    then timed with enough copies of the weight in rotation that none is
-    in L2 when it is read (the path reads each weight once per forward):
-    the kernel, the plain version, and torch.matmul over a pre-dequantized
-    bf16 copy (a yardstick that moves twice the weight bytes; the port
-    never calls it)."""
+    then, when `timed`, timed with enough copies of the weight in rotation
+    that none is in L2 when it is read (the path reads each weight once
+    per forward): the kernel, the plain version, and torch.matmul over a
+    pre-dequantized bf16 copy (a yardstick that moves twice the weight
+    bytes; the port never calls it)."""
     import torch
 
     from generativeaiexamples_tpu_torch.ops.int8_matmul import (
@@ -1392,6 +1441,9 @@ def int8_mm_case(name, R, K, M, seed=0):
            "splits": plan.splits, "ctas": plan.tiles * plan.splits,
            "ok": ok}
     rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
+    if not timed:
+        del got, qt, x
+        return rec
     copies = [qt.q] + [qt.q.clone() for _ in range(
         min(15, int(150e6 // (K * M))))]
     turn = [0]
@@ -1434,6 +1486,11 @@ def phase_int8_matmul():
                           ("ragged_m1000", 128, 4096, 1000)):
         cases.append(int8_mm_case(name, R, K, M, seed=40))
         emit(cases[-1])
+    for wname, (K, M) in K6_TP_SHAPES.items():
+        for R in K6_TP_ROWS:
+            cases.append(int8_mm_case(f"{wname}_r{R}", R, K, M, seed=50,
+                                      timed=False))
+            emit(cases[-1])
     return cases
 
 
@@ -2530,6 +2587,7 @@ def phase_fused_prefill(card: str, served: ServedEngine,
                                       SPEC_BF16_KERNELS)):
         alone = None  # each group's streams alone on its first engine
         for name, knobs in group:
+            time_mark(f"fused_{name}")
             rec, got, alone = _fused_engine_run(
                 name, src.params, src.cfg, src.tokenizer,
                 {**base_cfg, **knobs}, pages, device, prompt, shorts,
@@ -3198,6 +3256,17 @@ def phase_chain(card: str, served: ServedEngine, keep: dict,
         res = app.example.res
         calls = []
         real_eq = res.embedder.embed_queries
+        # A depth cut: every LLM call of an augmented answer (HyDE,
+        # multi-query, the answer, the fact check; 512 tokens each by
+        # default, which random weights always fill) stops at max_tokens.
+        real_chat = res.llm.stream_chat
+
+        def capped(messages, **kw):
+            kw["max_tokens"] = min(kw.get("max_tokens", max_tokens),
+                                   max_tokens)
+            return real_chat(messages, **kw)
+
+        res.llm.stream_chat = capped
 
         def counted(texts_):
             calls.append(len(texts_))
@@ -5172,8 +5241,9 @@ FLEET_POOL_PAGES = 129
 QOS_POOL_PAGES = 385
 # bursty_trace(seed=0) with long batch prompts (bounded Pareto 1,024 to
 # 5,000 tokens: beyond the largest bucket they go through the chunked
-# lane, which the latency tier's TTFT phase pauses).
-QOS_TRACE = {"batch_prompt": (1.4, 1024, 5000)}
+# lane, which the latency tier's TTFT phase pauses), over 4 s of
+# arrivals (6 s by default; cut for the smoke's time).
+QOS_TRACE = {"batch_prompt": (1.4, 1024, 5000), "horizon_s": 4.0}
 # The edge's bounds in the 429 check (each tier's in-flight limit).
 QOS_EDGE_BOUNDS = {"latency": 2, "standard": 2, "batch": 1}
 
@@ -5194,12 +5264,16 @@ class _DispatchTally:
             self.k1 += layers
             return group(*a, **kw)
 
-        def exec_plan(p, *a, **kw):
+        def exec_plan(rec):
+            from generativeaiexamples_tpu_torch.serving.engine_model import (
+                plan_from_record)
+
+            p = plan_from_record(rec)
             if p.rider_width:
                 self.k1 += layers
             if p.decode_k and not p.spec_k:
                 self.k2 += layers * p.decode_k
-            return plan(p, *a, **kw)
+            return plan(rec)
 
         engine._prefill_group = prefill_group
         engine._exec_plan = exec_plan
@@ -5759,6 +5833,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
             and all(t["status"] == 200 and t["same_replica"]
                     and t["router_prefix_hit"] == 1
                     and t["engine_prefix_hits"] >= 1 for t in turn2))
+        time_mark("fleet_routing")
         rec["routing"] = {"chats": n_chats, "sessions": n_sessions,
                           "prompt_tokens": [len(chat_ids(m)) for m in chats],
                           "turn1": turn1, "turn2": turn2,
@@ -5811,6 +5886,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
                     and fleet.router._affinity[users[0]][0] == survivor
                     and v_eng._running
                     and fleet.metrics.snapshot()["router_requeued"] == 1)
+        time_mark("fleet_lifecycle")
         rec["lifecycle"] = {
             "drain": {"replica": rid, "emptied": drained,
                       "state": state_drained, "finish": finish,
@@ -5883,6 +5959,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
                      or d["kv_transfer_device_pages"] == full)
                 and (name == "device" or d["kv_transfer_device_pages"] == 0))
             runs[name] = run
+        time_mark("fleet_disagg")
         rec["disagg"] = {"runs": runs, "chunk_pages": chunk_pages}
         disagg_ok = all(r["ok"] for r in runs.values())
 
@@ -5918,6 +5995,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
                    and finish == want_finish and proxied == want_toks
                    and wire_equal and imported == len(ids) // ps
                    and seated_equal)
+        time_mark("fleet_http")
         rec["http"] = {"sse_status": status, "sse_text_equal": text
                        == want_text, "finish": finish,
                        "proxied_tokens_equal_served": proxied == want_toks,
@@ -5929,11 +6007,13 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
         hfleet.stop()
         part_s["http"] = time.perf_counter() - t_part
         t_part = time.perf_counter()
+        time_mark("fleet_elastic")
         rec["elastic"] = _fleet_elastic(
             src, engines, fleet_of, letters, chat_ids, ecfg, n_pages, device,
             elastic_chats, elastic_tokens, elastic_gap_s)
         part_s["elastic"] = time.perf_counter() - t_part
         t_part = time.perf_counter()
+        time_mark("fleet_chaos")
         rec["chaos"] = _fleet_chaos(
             src, engines, fleet_of, rng, ecfg, n_pages, device,
             disagg_tokens, chaos_trace or CHAOS_TRACE)
@@ -5960,6 +6040,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
     qeng.warmup(buckets=list(qos_warmup[0]), group_sizes=list(qos_warmup[1]))
     qos_warm_s = time.perf_counter() - t0
     qeng.start()
+    time_mark("fleet_qos")
     trace = qos_mod.bursty_trace(seed=0, **(qos_trace or QOS_TRACE))
     scheduler = qeng.qos
     qos_runs = {}
@@ -6289,11 +6370,13 @@ def checkpoint_streams(served: ServedEngine, max_tokens: int = 64):
             and time.perf_counter() < deadline:
         time.sleep(0.01)
     grouped = len(engine.waiting) == len(prompts)
+    t0 = time.perf_counter()
     engine.start()
     for t in threads:
         t.join(timeout=600)
     return {"chat": chat, "chat_tokens": chat_tokens, "grouped": grouped,
-            "completions": results,
+            "completions": results, "prompts": prompts,
+            "completions_wall_s": time.perf_counter() - t0,
             "tokens": [app.streams.get(tuple(p)) for p in prompts]}
 
 
@@ -6489,7 +6572,8 @@ def _checkpoint_chain(engine, emb, rr, keep, root, device):
 def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
                      device: str = "cuda", engine_cfg=None,
                      int8_cfg=None, int8_pages: int = 1025,
-                     n_requests: int = 32, max_tokens: int = 32) -> dict:
+                     n_requests: int = 32, max_tokens: int = 32,
+                     tp_kw=None) -> dict:
     """Serve from disk. The served bf16 8B engine's own weights
     (`src_params`, kept when its engine went) are written as an HF
     snapshot (four shards, an index, config.json at the published
@@ -6551,6 +6635,8 @@ def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
     launches = {}
     old_env = os.environ.pop("GAIE_BYTE_TOKENIZER_FALLBACK", None)
     rec = {"phase": "checkpoint", "card": card, "disk_free_gb": free / 1e9}
+    # phase_tp's ranks start now, their start-up behind this phase's work.
+    tp_ranks = tp_spawn((tp_kw or {}).get("device", "cuda:0"))
     try:
         t0 = time.perf_counter()
         _write_snapshot(llm_dir, llm_entries, _llama_hf_config(src_cfg),
@@ -6686,9 +6772,7 @@ def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
         qmismatch += _tree_mismatches(
             {k: qparams["layers"][k] for k in ("ln1", "ln2")},
             {k: src_params["layers"][k] for k in ("ln1", "ln2")})
-        del qparams
-        gc.collect()
-        torch.cuda.empty_cache()
+        # qparams stays for phase_tp: the codes the ranks' shards slice.
         rec["int8"] = {"load_s": qload_s,
                        "read_gb_per_s": tree_bytes / qload_s / 1e9,
                        "int8_tree_bytes": int8_bytes, "peak_bytes": qpeak,
@@ -6712,6 +6796,9 @@ def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
             wall = time.perf_counter() - t0
             torch.cuda.synchronize()
             launches["int8"] = dict(kernels.LAUNCHES)
+            # The int8 engine's grouped checkpoint completions: what the
+            # tensor-parallel int8 ranks are held against.
+            int8_ref = checkpoint_streams(served, max_tokens=32)
         finally:
             served.close()
         tokens = sum(r["completion_tokens"] for r in results if r)
@@ -6725,7 +6812,14 @@ def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
         del served
         gc.collect()
         torch.cuda.empty_cache()
+        # Tensor parallelism over the same snapshot, while it is on disk.
+        tp = phase_tp(card, llm_dir, src_cfg, ref, src_params, qparams,
+                      int8_ref, ranks=tp_ranks, **(tp_kw or {}))
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
+        tp_kill(tp_ranks)
         shutil.rmtree(root, ignore_errors=True)
         if old_env is None:
             os.environ.pop("GAIE_BYTE_TOKENIZER_FALLBACK", None)
@@ -6747,7 +6841,636 @@ def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
           and launches["int8"]["paged_attention"] == 0)
     rec.update({"launches": total, "launches_by_model": launches,
                 "snapshot_removed": not os.path.exists(root),
-                "seconds": time.perf_counter() - t_phase, "ok": ok})
+                "seconds": time.perf_counter() - t_phase, "ok": ok,
+                "tp_seconds": tp["seconds"]})
+    emit(rec)
+    rec["tp"] = tp
+    return rec
+
+
+# -- tensor-parallel serving over two rank processes ------------------------
+
+# The rank engines: the prefix cache and the KV pager on, with a tree of
+# at most 2% of the pool (5 pages) and one host page record, so the
+# finished prompts' pages demote to the host and the spill and a session
+# request promotes them back.
+TP_ENGINE = {"page_size": 16, "max_batch_size": 4, "max_seq_len": 1024,
+             "prefill_buckets": [128], "prefix_cache": True,
+             "kv_pager": True, "prefix_cache_capacity": 0.02,
+             "kv_host_budget_mb": 1, "multihost": True}
+TP_INT8 = {"quantize_weights": "int8", "kv_dtype": "int8"}
+# The rank engines' teacher-forced logits (the prefill's last position,
+# then TP_TEACHER_STEPS decode steps over the pool, every rank fed the
+# single-device engine's tokens) against the single-device engine's, as
+# a share of the largest |logit|: each all-reduce rounds a bf16 sum of
+# two partial products where one GEMM rounds once, layer after layer.
+TP_LOGIT_RTOL = 5e-2
+TP_TEACHER_STEPS = 4
+TP_RANK_TIMEOUT_S = 600
+
+
+def _teacher_forced(engine, prompts, forced, steps, leader=True):
+    """Teacher-forced logits of `engine`'s own serving path: each prompt
+    alone (slot 0 of an idle engine), its sampler calls (the prefill's,
+    then each decode step's) answered with forced[i][k] instead of a
+    draw, the logits row of the first steps + 1 calls recorded. A
+    follower rank (leader=False) replays the leader's records under the
+    same forcing. Returns [len(prompts), steps + 1, V] f32 (leader)."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import engine_model as em
+    from generativeaiexamples_tpu_torch.serving.multihost import (
+        run_follower)
+
+    real_prefill, real_sample = em.prefill_batch_step, em.sample
+    at = {"req": -1, "k": 0}
+    rows = [[] for _ in prompts]
+
+    def prefill(*a, **kw):
+        at["req"], at["k"] = at["req"] + 1, 0
+        return real_prefill(*a, **kw)
+
+    def sample(logits, *a, **kw):
+        j, k = at["req"], at["k"]
+        at["k"] += 1
+        if leader and k <= steps:
+            rows[j].append(logits[0].float().cpu().numpy())
+        tok = forced[j][min(k, len(forced[j]) - 1)]
+        return torch.full((logits.shape[0],), tok, dtype=torch.int32,
+                          device=logits.device)
+
+    em.prefill_batch_step, em.sample = prefill, sample
+    try:
+        if not leader:
+            run_follower(engine, timeout_s=TP_RANK_TIMEOUT_S)
+            return None
+        engine.start()
+        for p in prompts:
+            list(engine.generate_stream(p, max_new_tokens=steps + 1,
+                                        temperature=0.0))
+        engine.stop()
+    finally:
+        em.prefill_batch_step, em.sample = real_prefill, real_sample
+    if any(len(r) != steps + 1 for r in rows):
+        raise RuntimeError(f"teacher-forced run recorded "
+                           f"{[len(r) for r in rows]} logits rows, not "
+                           f"{steps + 1} a prompt")
+    return np.stack([np.stack(r) for r in rows])
+
+
+def _tp_swap_kv_heads(params, head_dim: int):
+    """A planted fault: `params` with the k and v projections of its
+    first two kv heads swapped, so the pool holds each head's k/v in the
+    other's place (the teacher-forced gate must see it); a shard of one
+    kv head swaps its k and v instead."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.ops.quant import QuantizedTensor
+
+    def swap(t):
+        idx = torch.arange(t.shape[-1], device=t.device)
+        idx[:2 * head_dim] = torch.cat([idx[head_dim:2 * head_dim],
+                                        idx[:head_dim]])
+        return t.index_select(t.dim() - 1, idx)
+
+    def swapped(w):
+        return (QuantizedTensor(swap(w.q), swap(w.s))
+                if isinstance(w, QuantizedTensor) else swap(w))
+
+    layers = dict(params["layers"])
+    if layers["wk"].shape[-1] >= 2 * head_dim:
+        layers["wk"], layers["wv"] = (swapped(layers["wk"]),
+                                      swapped(layers["wv"]))
+    else:
+        layers["wk"], layers["wv"] = layers["wv"], layers["wk"]
+    return {**params, "layers": layers}
+
+
+def _tp_teacher_ecfg(ecfg, multihost: bool) -> dict:
+    """The teacher-forced engines' config: the leg's, without the prefix
+    cache (every prompt prefills whole) and with one decode block of
+    TP_TEACHER_STEPS steps a request."""
+    return {**ecfg, "prefix_cache": False, "kv_pager": False,
+            "multihost": multihost,
+            "decode_steps_per_dispatch": TP_TEACHER_STEPS}
+
+
+def _tp_leaves(params) -> dict:
+    """path -> tensor of a (quantized) tree's int8 leaves (.q and .s)."""
+    from generativeaiexamples_tpu_torch.ops.quant import QuantizedTensor
+
+    out = {}
+    for key, leaf in params.items():
+        for k, v in (leaf.items() if key == "layers" else [(None, leaf)]):
+            if isinstance(v, QuantizedTensor):
+                name = f"{key}.{k}" if k else key
+                out[name + ".q"], out[name + ".s"] = v.q, v.s
+    return out
+
+
+def _tp_leader_run(engine, prompts, max_tokens, session) -> dict:
+    """Rank 0: the four completions behind the OpenAI server, held until
+    all four wait so they prefill as one group (the same batch shapes in
+    every run), then the session request (the first prompt continued by
+    the second: a prefix-cache hit on pages the pager demoted); stop()
+    publishes the stop record."""
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        make_http_server)
+
+    engine.start()
+    app = _recording_server(engine)
+    httpd = make_http_server(app, "127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    held, grouped = threading.Event(), {}
+
+    def hold():
+        held.set()
+        deadline = time.perf_counter() + 60
+        while len(engine.waiting) < len(prompts) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        grouped["ok"] = len(engine.waiting) == len(prompts)
+
+    holder = threading.Thread(target=engine.run_control_op,
+                              args=(hold, 120))
+    holder.start()
+    held.wait(60)
+    results = [None] * len(prompts)
+
+    def run(i):
+        results[i] = _complete(base, prompts[i], max_tokens)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    holder.join(timeout=60)
+    rec = {"grouped": grouped.get("ok", False), "wall_s": wall,
+           "completion_tokens": [r and r["completion_tokens"]
+                                 for r in results],
+           "tokens": [app.streams.get(tuple(p)) for p in prompts]}
+    if session:
+        # Two sessions: the first resumes the second prompt (its insert
+        # trims the tree, demoting the other prompts' pages), the second
+        # resumes the first prompt, whose pages come back from the host
+        # or the spill.
+        before = engine.metrics.snapshot()
+        sess = [_complete(base, prompts[i] + prompts[j], 8)
+                for i, j in ((1, 2), (0, 3))]
+        after = engine.metrics.snapshot()
+        rec["session"] = {k: after[k] - before[k] for k in (
+            "prefix_hits", "prefix_hit_tokens", "kv_demotions",
+            "kv_promotions")}
+        rec["session"]["completion_tokens"] = [
+            r["completion_tokens"] for r in sess]
+        # The disagg export of the longest prompt's cached pages: every
+        # rank's kv heads gathered into whole pages (a demoted tail
+        # through the cold_out record), dequantized to f32 for the
+        # parent's reference.
+        ids = max(prompts, key=len)
+        n_cold = engine.run_control_op(
+            lambda: len(engine._cached_page_runs(ids)[1]))
+        got = engine.run_control_op(lambda: engine.export_prefix_pages(ids))
+        if got is None:
+            rec["kv_export"] = {"ids": ids, "pages": None}
+        else:
+            codes, scales, n_tok = got
+            pages = codes.float()
+            if scales is not None:
+                pages = pages * scales[..., None]
+            rec["kv_export"] = {"ids": ids, "n_tokens": n_tok,
+                                "cold_pages": n_cold,
+                                "pages": pages.numpy()}
+    httpd.shutdown()
+    httpd.server_close()
+    engine.stop()  # the final digest and the stop record
+    m = engine.metrics.snapshot()
+    rec["metrics"] = {k: m[k] for k in (
+        "decode_steps", "prefill_tokens", "prefix_hits", "kv_demotions",
+        "kv_promotions", "kv_spill_writes", "multihost_processes",
+        "replay_records_published", "replay_divergence")}
+    return rec
+
+
+def _tp_rank_main(rank, coordinator, device, cmds, out) -> None:
+    """One rank process of phase_tp (spawned; both ranks on `device`):
+    the launcher's rank path, driven by (kind, args) commands until
+    None."""
+    import traceback
+
+    import torch
+
+    try:
+        from generativeaiexamples_tpu_torch import kernels
+        from generativeaiexamples_tpu_torch.config.schema import MeshConfig
+        from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
+        from generativeaiexamples_tpu_torch.serving.__main__ import (
+            build_engine)
+        from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+        from generativeaiexamples_tpu_torch.serving.multihost import (
+            run_follower)
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        devices = [device, device]
+        cuda = torch.device(device).type == "cuda"
+
+        def sync():
+            if cuda:
+                torch.cuda.synchronize()
+
+        mesh_lib.init_ranks(coordinator, 2, rank, devices)
+        mesh = mesh_lib.build_mesh(MeshConfig(ici_tensor=2), devices)
+        engine = None
+        while True:
+            cmd = cmds.get()
+            if cmd is None:
+                break
+            kind, arg = cmd
+            rep: dict = {"backend": mesh.backend}
+            if kind == "load":
+                # The parent's environment as of this load (the ranks may
+                # have started before it set the tokenizer fallback).
+                os.environ.update(arg["env"])
+                engine = None
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                sync()
+                t0 = time.perf_counter()
+                engine = build_engine(warmup=False, engine_cfg=arg["ecfg"],
+                                      weights_path=arg["path"], mesh=mesh)
+                sync()
+                rep["load_s"] = time.perf_counter() - t0
+                rep["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                     if cuda else 0)
+                rep["shard_bytes"] = _tree_bytes(engine.params)
+                if arg["share"]:
+                    rep["leaves"] = _tp_leaves(engine.params)
+                    out.put((rank, kind, rep))
+                    cmds.get()  # the parent compared them
+                    continue
+            elif kind == "teacher":
+                params = engine.params
+                if arg["fault"] and rank == 1:
+                    params = _tp_swap_kv_heads(params, engine.cfg.head_dim)
+                eng = LLMEngine(params, engine.model_cfg, engine.tokenizer,
+                                arg["ecfg"], mesh=mesh)
+                rep["logits"] = _teacher_forced(
+                    eng, arg["prompts"], arg["forced"], TP_TEACHER_STEPS,
+                    leader=rank == 0)
+                del eng, params
+            elif kind == "serve":
+                if arg["first"]:
+                    eng = engine.warmup(buckets=[128])
+                else:
+                    # A second engine over the same shards: this process
+                    # already ran every shape it launches.
+                    eng = LLMEngine(engine.params, engine.model_cfg,
+                                    engine.tokenizer, arg["ecfg"], mesh=mesh)
+                mesh_lib.COLLECTIVE_TIMING = arg["timing"]
+                mesh_lib.reset_collective_stats()
+                sync()
+                kernels.reset_launches()
+                if rank == 0:
+                    rep.update(_tp_leader_run(eng, arg["prompts"],
+                                              arg["max_tokens"],
+                                              arg["session"]))
+                else:
+                    rep["replayed"] = run_follower(
+                        eng, timeout_s=TP_RANK_TIMEOUT_S)
+                    eng.stop()
+                    rep["consumed"] = eng._mh_log.consumed
+                    rep["metrics"] = {
+                        k: eng.metrics.snapshot()[k] for k in (
+                            "multihost_processes", "replay_divergence")}
+                sync()
+                rep["launches"] = dict(kernels.LAUNCHES)
+                rep["collectives"] = dict(mesh_lib.COLLECTIVE_STATS)
+                mesh_lib.COLLECTIVE_TIMING = False
+                del eng
+            out.put((rank, kind, rep))
+        engine = None
+        mesh_lib.shutdown()
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()[-4000:]))
+        raise
+
+
+def tp_spawn(device: str = "cuda:0"):
+    """Start phase_tp's two rank processes (`spawn`) on `device`; they
+    join their process group and wait for commands, so their start-up
+    (interpreter, torch, the card, the group) can overlap other work.
+    Returns (procs, cmds, out) for phase_tp."""
+    import torch.multiprocessing as tmp
+
+    from generativeaiexamples_tpu_torch.serving.__main__ import (
+        free_coordinator)
+
+    ctx = tmp.get_context("spawn")
+    cmds, out = [ctx.Queue(), ctx.Queue()], ctx.Queue()
+    coordinator = free_coordinator()
+    procs = [ctx.Process(target=_tp_rank_main, name=f"tp-rank{r}",
+                         args=(r, coordinator, device, cmds[r], out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs, cmds, out
+
+
+def tp_kill(ranks) -> None:
+    """Kill phase_tp's rank processes that are still alive."""
+    for p in ranks[0]:
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def _tp_ask(procs, cmds, out, kind, arg, timeout_s=TP_RANK_TIMEOUT_S):
+    """Send (kind, arg) to both ranks; their replies by rank. A rank that
+    dies, reports an error or runs past the limit fails the call."""
+    import queue
+
+    for q in cmds:
+        q.put((kind, arg))
+    got = {}
+    deadline = time.perf_counter() + timeout_s
+    while len(got) < 2:
+        try:
+            rank, what, rep = out.get(timeout=1.0)
+        except queue.Empty:
+            dead = [p.name for p in procs if not p.is_alive()]
+            if dead or time.perf_counter() > deadline:
+                raise RuntimeError(f"phase_tp {kind}: ranks {dead} dead or "
+                                   f"past {timeout_s} s")
+            continue
+        if what == "error":
+            raise RuntimeError(f"phase_tp rank {rank} failed:\n{rep}")
+        got[rank] = rep
+    return got
+
+
+def _tp_check_export(kv: dict, tree, cfg, device) -> dict:
+    """A rank engine's exported pages ([n, 2, L, KH, ps, Hd] f32, whole
+    pages) against the k/v the single-device forward writes for the same
+    tokens, as a share of the largest |k|, |v| (TP_LOGIT_RTOL)."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch.models import llama
+
+    pages = kv.pop("pages")
+    if pages is None:
+        return {**kv, "ok": False}
+    n, _, L, KH, ps, Hd = pages.shape
+    cache = llama.KVCache.zeros(cfg, 1, max_len=n * ps, device=device)
+    with torch.no_grad():
+        llama.forward(tree, cfg, torch.tensor([kv["ids"][:n * ps]],
+                                              device=device),
+                      kv_cache=cache)
+    want = torch.stack([cache.k[:, 0], cache.v[:, 0]]).reshape(
+        2, L, KH, n, ps, Hd).permute(3, 0, 1, 2, 4, 5).float().cpu().numpy()
+    err = float(np.abs(pages - want).max())
+    scale = float(np.abs(want).max())
+    return {"pages": n, "kv_heads": KH, "n_tokens": kv["n_tokens"],
+            "cold_pages": kv["cold_pages"], "max_abs_err": err,
+            "max_abs_ref": scale, "rtol": TP_LOGIT_RTOL,
+            "ok": KH == cfg.n_kv_heads and err <= TP_LOGIT_RTOL * scale}
+
+
+def _tp_share(got, want) -> dict:
+    """Greedy tokens of the rank engine equal to the single-device
+    engine's: the share, and the first divergence (prompt, position)."""
+    same = total = 0
+    first = None
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g or [], w or []
+        total += max(len(g), len(w))
+        for j, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                first = first or [i, j]
+                break
+            same += 1
+        if first is None and len(g) != len(w):
+            first = [i, min(len(g), len(w))]
+    return {"equal_share": same / total if total else None,
+            "first_divergence": first}
+
+
+def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
+             int8_params, int8_ref: dict, max_tokens: int = 64,
+             int8_tokens: int = 32, second_tokens: int = 16,
+             device: str = "cuda:0", engine_cfg=None, ranks=None) -> dict:
+    """Tensor parallelism: two rank processes on cuda:0 serve the 8B
+    snapshot at `llm_dir` sharded, bf16 then int8 (see the docstring's
+    13c). `ref` / `int8_ref` are the single-device engines' grouped
+    completions of the same prompts (checkpoint_streams; max_tokens and
+    int8_tokens long), `bf16_params` / `int8_params` the single-device
+    trees (the teacher-forced engine's and the export's references and,
+    for int8, the codes the ranks' shards must slice). Each leg's second
+    engine serves second_tokens of each completion, held to the first
+    run's tokens. `ranks` are
+    processes tp_spawn started (default: started here)."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch.config.schema import MeshConfig
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+    from generativeaiexamples_tpu_torch.serving.sharding import (
+        shard_slices)
+    from generativeaiexamples_tpu_torch.utils.tokenizer import (
+        load_tokenizer)
+
+    t_phase = time.perf_counter()
+    prompts = ref["prompts"]
+    tokenizer = load_tokenizer(llm_dir)
+    eos = tokenizer.eos_id
+    ranks = ranks or tp_spawn(device)
+    procs, cmds, out = ranks
+    rec = {"phase": "tp", "card": card, "tensor": 2, "devices":
+           [device, device], "legs": {}}
+    base_cfg = {**TP_ENGINE, **(engine_cfg or {})}
+    oks = []
+    try:
+        for leg, ecfg, tree, want, n_tokens in (
+                ("bf16", dict(base_cfg), bf16_params, ref, max_tokens),
+                ("int8", {**base_cfg, **TP_INT8}, int8_params, int8_ref,
+                 int8_tokens)):
+            time_mark(f"tp_{leg}")
+            lrec = {}
+            got = _tp_ask(procs, cmds, out, "load",
+                          {"path": llm_dir, "ecfg": ecfg,
+                           "share": leg == "int8",
+                           "env": {k: v for k, v in os.environ.items()
+                                   if k.startswith("GAIE_")}})
+            lrec["backend"] = got[0]["backend"]
+            lrec["ranks"] = {r: {k: got[r][k] for k in (
+                "load_s", "peak_bytes", "shard_bytes")} for r in got}
+            mismatch = []
+            if leg == "int8":
+                for r in (0, 1):
+                    mesh = mesh_lib.build_mesh(MeshConfig(ici_tensor=2),
+                                               [device, device], rank=r)
+                    mine = _tp_leaves(int8_params)
+                    spec_of = {**{k: v for k, v in llama.param_specs(
+                        cfg).items() if k != "layers"},
+                        **{f"layers.{k}": v for k, v in llama.param_specs(
+                            cfg)["layers"].items()}}
+                    for path, t in got[r]["leaves"].items():
+                        name, part = path.rsplit(".", 1)
+                        spec = tuple(spec_of[name])
+                        if part == "s" and len(spec) >= 2:
+                            spec = spec[:-2] + (spec[-1],)
+                        full = mine[path]
+                        want_t = full[shard_slices(full.shape, spec, mesh)]
+                        if not (want_t.shape == t.shape
+                                and torch.equal(want_t, t)):
+                            mismatch.append(f"rank{r}:{path}")
+                    got[r]["leaves"] = None
+                # Every reference to the ranks' shared tensors goes before
+                # they may free them.
+                del got, t, want_t
+                for q in cmds:
+                    q.put("ack")
+                lrec["codes_scales_mismatched"] = mismatch
+            # The rank engines' own serving path against one device's:
+            # teacher-forced logits of the prefill and of the decode steps
+            # over the pool, both fed the single-device engine's tokens
+            # (never EOS, which would end a request early).
+            forced = [[t for t in list(w or []) + list(p) if t != eos][
+                :TP_TEACHER_STEPS + 1] for w, p in zip(want["tokens"],
+                                                      prompts)]
+            single = LLMEngine(tree, cfg, tokenizer,
+                               _tp_teacher_ecfg(ecfg, False), device=device)
+            ref_logits = _teacher_forced(single, prompts, forced,
+                                         TP_TEACHER_STEPS)
+            del single
+            gc.collect()
+            torch.cuda.empty_cache()
+            teach = {"ecfg": _tp_teacher_ecfg(ecfg, True),
+                     "prompts": prompts, "forced": forced, "fault": False}
+            got = _tp_ask(procs, cmds, out, "teacher", teach)
+            scale = float(np.abs(ref_logits).max())
+            err = np.abs(got[0]["logits"] - ref_logits).max(axis=(0, 2))
+            lrec["logits"] = {
+                "steps": ["prefill"] + [f"decode_{k}" for k in range(
+                    1, TP_TEACHER_STEPS + 1)],
+                "max_abs_err_by_step": err.tolist(), "max_abs_ref": scale,
+                "rtol": TP_LOGIT_RTOL,
+                "ok": float(err.max()) <= TP_LOGIT_RTOL * scale,
+                "argmax_equal_share": float(np.mean(
+                    got[0]["logits"].argmax(-1) == ref_logits.argmax(-1)))}
+            if leg == "bf16":
+                # The gate against a planted fault: rank 1's first two kv
+                # heads swapped, on two prompts.
+                got = _tp_ask(procs, cmds, out, "teacher", {
+                    **teach, "prompts": prompts[:2], "forced": forced[:2],
+                    "fault": True})
+                ferr = np.abs(got[0]["logits"] - ref_logits[:2]).max(
+                    axis=(0, 2))
+                lrec["logits"]["planted_fault"] = {
+                    "max_abs_err_by_step": ferr.tolist(),
+                    "caught": float(ferr.max()) > TP_LOGIT_RTOL * scale}
+                lrec["logits"]["ok"] &= lrec["logits"]["planted_fault"][
+                    "caught"]
+            del got
+            runs = {}
+            # The second engine: bit-identical tokens and the timed
+            # collectives.
+            for run, first, timing, tokens in (
+                    ("A", True, False, n_tokens),
+                    ("B", False, True, second_tokens)):
+                runs[run] = _tp_ask(procs, cmds, out, "serve", {
+                    "ecfg": ecfg, "first": first, "timing": timing,
+                    "prompts": prompts, "max_tokens": tokens,
+                    "session": first})
+            a0 = runs["A"][0]
+            b0 = runs["B"][0] if "B" in runs else None
+            layers = cfg.n_layers
+            paged = ("paged_attention_int8" if leg == "int8"
+                     else "paged_attention")
+            need = ["flash_attention", paged] + (
+                ["int8_matmul"] if leg == "int8" else [])
+            launches = {r: {run: runs[run][r]["launches"] for run in runs}
+                        for r in (0, 1)}
+            steps = a0["metrics"]["decode_steps"]
+            launch_ok = all(
+                launches[r]["A"][k] > 0 for r in (0, 1) for k in need) and \
+                all(launches[r]["A"][paged] >= layers * steps
+                    for r in (0, 1)) and \
+                (leg == "int8" or all(launches[r]["A"][
+                    "int8_matmul"] == 0 for r in (0, 1)))
+            replay_ok = all(
+                runs[run][0]["metrics"]["replay_records_published"]
+                == runs[run][1]["consumed"] > 0
+                and runs[run][0]["metrics"]["replay_divergence"] == 0
+                and runs[run][1]["metrics"]["replay_divergence"] == 0
+                and runs[run][1]["metrics"]["multihost_processes"] == 2
+                for run in runs)
+            n_tok = sum(len(t or []) for t in a0["tokens"])
+            sess = a0["session"]
+            lrec["kv_export"] = _tp_check_export(a0.pop("kv_export"), tree,
+                                                 cfg, device)
+            lrec.update({
+                "grouped": [r[0]["grouped"] for r in runs.values()],
+                "completion_tokens": a0["completion_tokens"],
+                # The second engine's tokens against the first run's
+                # leading second_tokens (greedy: a shorter run is a
+                # prefix of a longer one).
+                "tokens_equal_second_run": (
+                    [t[:second_tokens] for t in a0["tokens"]]
+                    == b0["tokens"] if b0 else None),
+                "vs_single_device": _tp_share(a0["tokens"], want["tokens"]),
+                "tokens_per_s": n_tok / a0["wall_s"],
+                "single_device_tokens_per_s": (
+                    sum(len(t or []) for t in want["tokens"])
+                    / want["completions_wall_s"]),
+                "session": sess, "metrics": a0["metrics"],
+                "replay": {run: {
+                    "published": runs[run][0]["metrics"][
+                        "replay_records_published"],
+                    "read_by_rank1": runs[run][1]["consumed"],
+                    "dispatches_replayed": runs[run][1]["replayed"]}
+                    for run in runs},
+                "launches": launches,
+                "collectives_run_A": a0["collectives"],
+                "launch_ok": launch_ok, "replay_ok": replay_ok})
+            if b0:
+                coll_b = b0["collectives"]
+                lrec.update({
+                    "collectives_run_B_timed": coll_b,
+                    "collective_ms_per_decode_step": (
+                        1e3 * coll_b["seconds"]
+                        / b0["metrics"]["decode_steps"])})
+            ok = (lrec["logits"]["ok"] and launch_ok and replay_ok
+                  and not mismatch and all(lrec["grouped"])
+                  and lrec["tokens_equal_second_run"] is True
+                  and all(t and t >= 1 for t in a0["completion_tokens"])
+                  and lrec["kv_export"]["ok"]
+                  and sess["prefix_hits"] >= 2
+                  and sess["kv_demotions"] > 0
+                  and sess["kv_promotions"] > 0)
+            lrec["ok"] = ok
+            oks.append(ok)
+            rec["legs"][leg] = lrec
+        for q in cmds:
+            q.put(None)
+        for p in procs:
+            p.join(timeout=120)
+        rec["exitcodes"] = [p.exitcode for p in procs]
+    finally:
+        tp_kill(ranks)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = all(oks) and len(oks) == 2 and rec["exitcodes"] == [0, 0]
     emit(rec)
     return rec
 
@@ -7278,6 +8001,14 @@ def main() -> int:
         # Launches on the models loaded from their snapshots (K5 is not
         # on that path).
         e["checkpoint_launches"] = checkpoint["launches"][e["name"]]
+        # Each tensor-parallel rank's launches, run A of each leg (K1,
+        # K2: bf16; K1, K4, K6: int8).
+        tp_launches = {
+            f"{leg}_rank{r}": lrec["launches"][r]["A"][e["name"]]
+            for leg, lrec in checkpoint["tp"]["legs"].items()
+            for r in (0, 1) if lrec["launches"][r]["A"][e["name"]]}
+        if tp_launches:
+            e["tp_launches"] = tp_launches
         if e["name"] in ("flash_attention", "paged_attention",
                          "encoder_attention"):
             # The chain phase: coalesced search, traced and augmented
@@ -7300,7 +8031,7 @@ def main() -> int:
           and serving_int8["ok"] and spec_bf16["ok"]
           and prefix["ok"] and fleet["ok"]
           and all(r["ok"] for r in spec_int8)
-          and checkpoint["ok"])
+          and checkpoint["ok"] and checkpoint["tp"]["ok"])
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

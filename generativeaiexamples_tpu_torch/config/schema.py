@@ -13,25 +13,32 @@ defaults:
   weights, `qos_preempt_prefill`), the emission pacer
   (`pace_emission_max_streams`) and the memory planner
   (`auto_pool_pages`, `hbm_gb_per_device`,
-  `planner_headroom_fraction`). Flags of the JAX engine that the port
-  does not have yet (multi-host) are listed in `UNSUPPORTED` with the
-  ROADMAP item that brings them;
+  `planner_headroom_fraction`) and tensor-parallel serving over rank
+  processes (`multihost`: rank 0 publishes dispatch records that the
+  follower ranks replay, serving/multihost.py). Flags of the JAX engine
+  that the port does not have yet would be listed in `UNSUPPORTED` with
+  the ROADMAP item that brings them (none is left);
   `EngineConfig.coerce` refuses any of them set away from its default.
   `weights_path` names an HF safetensors snapshot (empty: random weights
   at a named geometry).
+- `MeshConfig`: the device mesh (parallel/mesh.py) and the rank
+  processes' coordinator, with the JAX `[mesh]` section's fields and
+  defaults.
 - `FleetConfig`: the serving fleet (serving/fleet.py): local replicas,
   remote replica URLs, the router policy, health probes and
   disaggregated prefill/decode, the autoscaler (`autoscale*`) and the
   chaos harness (`chaos`, `chaos_seed`).
 - `AppConfig`: the sections the chain's pipelines and the engine server
   read (llm, embeddings, reranker, retriever, vlm, prompts,
-  text_splitter, vector_store, serving, engine, fleet, tracing).
+  text_splitter, vector_store, serving, mesh, engine, fleet, tracing).
   `load_config()` reads the YAML or JSON file that
   `APP_CONFIG_FILE` names, overlays `APP_<SECTION>_<FIELD>` environment
   variables (the JAX config wizard's contract) and refuses fields that
   name unported features when they are set away from their defaults
   (`check_supported`), in the file as in the env, and `auto_pool_pages`
-  beside more than one engine on a device (`AUTO_POOL_SHARED`).
+  beside more than one engine on a device (`AUTO_POOL_SHARED`: a
+  fleet's local replicas, the autoscaler's spawns, or tensor-parallel
+  rank processes that share one device).
 """
 
 from __future__ import annotations
@@ -162,6 +169,15 @@ class EngineConfig:
     # fragmentation, transients beyond its estimate);
     # planner_headroom_bytes in /metrics.
     planner_headroom_fraction: float = 0.1
+    # Tensor-parallel serving over rank processes (serving/multihost.py):
+    # rank 0 runs the scheduler and the OpenAI surface and publishes a
+    # record of each device dispatch before launching it; the follower
+    # ranks replay the records through the same executors, so the
+    # collectives pair up by launch order. The prefix cache and the KV
+    # pager replay; speculation, step plans and the fused rider are
+    # refused by validate_multihost_profile (ROADMAP A.17). Off: one
+    # process, one device.
+    multihost: bool = False
 
     @staticmethod
     def coerce(cfg: Any = None) -> "EngineConfig":
@@ -203,10 +219,35 @@ class EngineConfig:
 
 
 # JAX EngineConfig flags outside this slice: name -> (default, where the
-# port will gain it).
-UNSUPPORTED = {
-    "multihost": (False, "ROADMAP A.17: multi-host"),
-}
+# port will gain it). Empty: every JAX engine flag the port reads is
+# honoured (the JAX-only tuning knobs are logged and ignored).
+UNSUPPORTED: Dict[str, Tuple[Any, str]] = {}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (parallel/mesh.py), the JAX `[mesh]` section
+    with its fields and defaults. Axis sizes multiply to the device count
+    of the mesh; -1 fills an axis with the remaining devices (the default
+    puts every device on the tensor axis). The port serves a tensor axis
+    over rank processes, one a device: with no coordinator the launcher
+    starts the follower ranks itself on this host; with
+    `coordinator_address` every process passes the same value and its
+    own `process_id` in [0, `num_processes`) (the env variables
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the
+    launcher's --coordinator / --num-processes / --process-id, override
+    these fields, as in the JAX package)."""
+
+    ici_data: int = 1
+    ici_fsdp: int = 1
+    ici_tensor: int = -1
+    ici_sequence: int = 1
+    ici_expert: int = 1
+    dcn_data: int = 1
+    dcn_pipeline: int = 1
+    coordinator_address: str = ""  # "host:port" of process 0
+    num_processes: int = 0  # 0 = single process
+    process_id: int = -1  # -1 = single process
 
 
 # -- the chain's sections ------------------------------------------------
@@ -456,6 +497,7 @@ class AppConfig:
     vlm: VLMConfig = field(default_factory=VLMConfig)
     prompts: PromptsConfig = field(default_factory=PromptsConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
@@ -469,7 +511,8 @@ UNSUPPORTED_APP: Dict[Tuple[str, str], str] = {}
 
 # The planner sizes one engine's pool from its device's whole memory, so
 # engines that share a device (a fleet's local replicas, the autoscaler's
-# spawns: all on the launcher's device) cannot each plan.
+# spawns: all on the launcher's device; tensor-parallel rank processes
+# placed on one device) cannot each plan.
 AUTO_POOL_SHARED = (
     "engine.auto_pool_pages plans one engine per device from the device's "
     "whole memory; with more than one engine on the device ({}) the second "

@@ -1,8 +1,7 @@
 """HF safetensors snapshots -> the port's Llama and BERT parameter trees.
 
-Counterpart of generativeaiexamples_tpu/models/hf_loader.py without a
-mesh (sharded loads come with multi-host, ROADMAP A.17). The name tables
-are the JAX file's; the trees are the ones `models/llama.py` and
+Counterpart of generativeaiexamples_tpu/models/hf_loader.py. The name
+tables are the JAX file's; the trees are the ones `models/llama.py` and
 `models/bert.py` take (stacked `[L, ...]` layer weights, `[in, out]`
 projections, so HF's `[out, in]` linears are transposed).
 
@@ -20,6 +19,17 @@ checkpoint's stored values, with the JAX loader's arithmetic
 (`ops.quant.quantize_for_load`): a chunk's rows are whole output
 channels, so its scales are those of the whole leaf, and device memory
 stays at the int8 tree plus one chunk.
+
+Sharded loads (`mesh`, a tensor-parallel rank): each rank allocates only
+its shard of each leaf (`llama.param_specs` at its mesh coordinates,
+serving/sharding.py) and reads only the source rows it holds; a leaf
+sharded on its input dimension (`wo`, `w_down`: the source's columns)
+is read row by row and cut to the rank's columns on the host before the
+copy to the device. int8-at-load quantizes such a row-parallel leaf
+over its FULL input axis first (the whole source row goes to the
+device) and keeps the rank's columns of the codes and every scale, so
+each rank's codes and scales are bit-identical to the matching slice of
+the single-device int8 tree (the JAX loader's rule).
 
 Unlike the JAX loader, `load_llama` and `load_bert` return the config
 with the dtype they loaded in: the port's models compute in `cfg.dtype`.
@@ -162,19 +172,30 @@ class _Stager:
 
 
 def _load_leaf(src, stager: _Stager, names: List[str], transpose: bool,
-               dtype, stacked: bool, quantize: bool):
+               dtype, stacked: bool, quantize: bool,
+               shard: Optional[tuple] = None):
     """One leaf: source tensor `names[l]` is layer l of a stacked leaf
     (or the whole of a flat one), transposed when `transpose`, cast to
     `dtype`, or quantized to int8 codes and f32 scales per output channel
     when `quantize` (transposed leaves only: a source row is one output
     channel). Written chunk by chunk into tensors allocated once on the
-    stager's device."""
+    stager's device. `shard` is the slice of each dimension of one
+    layer's leaf (our layout) that this rank holds (default: all)."""
     if quantize and not transpose:
         raise ValueError(f"{names[0]}: only [out, in] linears quantize")
     src_shape = src.shape(names[0])
     if transpose and len(src_shape) != 2:
         raise ValueError(f"{names[0]}: shape {src_shape} is not a matrix")
-    shape = src_shape[::-1] if transpose else src_shape
+    # The rank's rows and (2-D sources) columns, in source coordinates.
+    if shard is None:
+        shard = tuple(slice(0, n) for n in src_shape[::-1 if transpose
+                                                     else 1])
+    src_sl = shard[::-1] if transpose else shard
+    rows = src_sl[0]
+    cols = src_sl[1] if len(src_shape) == 2 else None
+    cut = cols is not None and (cols.start, cols.stop) != (0, src_shape[1])
+    src_shard = tuple(sl.stop - sl.start for sl in src_sl)
+    shape = src_shard[::-1] if transpose else src_shard
     full = ((len(names),) + shape) if stacked else shape
     dev = stager.device
     if quantize:
@@ -190,31 +211,45 @@ def _load_leaf(src, stager: _Stager, names: List[str], transpose: bool,
                              f"{names[0]} has {src_shape}")
         row_bytes = row_elems * src.read(name).element_size()
         step = max(1, CHUNK_BYTES // max(1, row_bytes))
-        for r0 in range(0, src_shape[0], step):
-            x = stager.put(src.read(name, slice(r0, r0 + step)))
-            r1 = r0 + x.shape[0]
+        for r0 in range(rows.start, rows.stop, step):
+            host = src.read(name, slice(r0, min(r0 + step, rows.stop)))
+            if cut and not quantize:
+                # The rank's columns only cross to the device; a
+                # quantized leaf takes whole rows (its scales are over
+                # the full input axis) and keeps its columns after.
+                host = host[:, cols]
+            x = stager.put(host)
+            a, b = r0 - rows.start, r0 - rows.start + x.shape[0]
             if quantize:
                 part = quantize_for_load(x, contract_axis=-1)
-                (q[layer] if stacked else q)[:, r0:r1].copy_(part.q.t())
-                (s[layer] if stacked else s)[r0:r1].copy_(part.s)
+                codes = part.q[:, cols] if cut else part.q
+                (q[layer] if stacked else q)[:, a:b].copy_(codes.t())
+                (s[layer] if stacked else s)[a:b].copy_(part.s)
             elif transpose:
-                (out[layer] if stacked else out)[:, r0:r1].copy_(x.t())
+                (out[layer] if stacked else out)[:, a:b].copy_(x.t())
             else:
-                (out[layer] if stacked else out)[r0:r1].copy_(x)
+                (out[layer] if stacked else out)[a:b].copy_(x)
     return QuantizedTensor(q, s) if quantize else out
 
 
 def _stream_tree(src, leaves, device: torch.device, dtype,
                  progress: Optional[Callable[[str, int, int], None]],
-                 label: str) -> Dict[str, Any]:
+                 label: str, shards: Optional[Callable] = None
+                 ) -> Dict[str, Any]:
     """Load `leaves` [(key path, source names, transpose, stacked,
-    quantize)] into a nested dict, leaf by leaf."""
+    quantize)] into a nested dict, leaf by leaf. `shards(path, shape)`
+    gives the slices of one layer's leaf (our layout) a rank holds."""
     stager = _Stager(device)
     tree: Dict[str, Any] = {}
     placed = 0
     for i, (path, names, transpose, stacked, quantize) in enumerate(leaves):
+        shard = None
+        if shards is not None:
+            src_shape = src.shape(names[0])
+            shard = shards(path, src_shape[::-1] if transpose
+                           else src_shape)
         val = _load_leaf(src, stager, names, transpose, dtype, stacked,
-                         quantize)
+                         quantize, shard)
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -294,29 +329,54 @@ def llama_params_from_state_dict(sd: Mapping[str, Any],
                         progress=lambda *a: None, label="state dict")
 
 
+def _llama_shards(cfg: llama_lib.LlamaConfig, mesh):
+    """shards(path, shape) for `_stream_tree`: one layer's slices of each
+    leaf at this rank's mesh coordinates (`llama.param_specs`)."""
+    from generativeaiexamples_tpu_torch.serving.sharding import (
+        shard_slices, validate_tp)
+
+    validate_tp(cfg, mesh)
+    specs = llama_lib.param_specs(cfg)
+
+    def shards(path, shape):
+        spec = specs[path[0]] if len(path) == 1 else specs[path[0]][path[1]]
+        if len(path) > 1:
+            spec = spec[1:]  # stacked: one layer's dimensions
+        return shard_slices(shape, spec, mesh)
+
+    return shards
+
+
 def stream_load_llama(path: str, cfg: llama_lib.LlamaConfig,
                       device: DeviceLike = None, dtype=None,
                       quantize: bool = False,
                       progress: Optional[Callable[[str, int, int], None]]
-                      = None) -> Dict[str, Any]:
+                      = None, mesh=None) -> Dict[str, Any]:
     """Layer-streaming HF Llama load onto `device` (CUDA unless the caller
     asks for the CPU) in `dtype` (default cfg.dtype), weight-only int8
-    when `quantize`. `progress(leaf, i, total)` fires after each placed
-    leaf (default: one log line each)."""
+    when `quantize`; with a tensor-parallel `mesh` of more than one rank,
+    this rank's shard only. `progress(leaf, i, total)` fires after each
+    placed leaf (default: one log line each)."""
+    shards = (_llama_shards(cfg, mesh)
+              if mesh is not None and mesh.size > 1 else None)
     return _stream_tree(SnapshotReader(path), _llama_leaves(cfg, quantize),
                         resolve_device(device), dtype or cfg.dtype,
-                        progress, os.path.basename(path.rstrip("/")))
+                        progress, os.path.basename(path.rstrip("/")),
+                        shards=shards)
 
 
 def load_llama(path: str, cfg: Optional[llama_lib.LlamaConfig] = None,
                device: DeviceLike = None, dtype=None, quantize: bool = False,
-               progress=None) -> Tuple[Dict[str, Any], llama_lib.LlamaConfig]:
+               progress=None, mesh=None
+               ) -> Tuple[Dict[str, Any], llama_lib.LlamaConfig]:
     """Load an HF Llama snapshot through the streaming path: (params, cfg
-    with the dtype loaded in)."""
+    with the dtype loaded in; the whole model's config, also when `mesh`
+    makes the params this rank's shard)."""
     cfg = cfg or llama_config_from_hf(path)
     dtype = dtype or cfg.dtype
     params = stream_load_llama(path, cfg, device=device, dtype=dtype,
-                               quantize=quantize, progress=progress)
+                               quantize=quantize, progress=progress,
+                               mesh=mesh)
     return params, dataclasses.replace(cfg, dtype=dtype)
 
 

@@ -12,6 +12,16 @@ RMSNorm, RoPE (optionally llama3-scaled), GQA, SwiGLU MLP, optional tied
 embeddings. Projections go through `ops.quant.mm`, so the same code runs
 a weight-only int8 tree (`ops.quant.quantize_llama_params`): K6 on CUDA,
 the plain route on the CPU.
+
+Tensor parallelism (serving/sharding.py): a rank process holds its slice
+of every leaf and runs this code on a config of local head counts
+(`sharding.local_config`). The collectives sit in three helpers, which
+do nothing without an active tensor-parallel mesh
+(parallel/mesh.py), so the single-device forward is unchanged bit for
+bit: `embed` (the vocab-parallel embedding: each rank looks up the ids
+of its vocabulary slice, the rest are zeros, one all-reduce),
+`finish_block` (one all-reduce after `wo` and one after `w_down`) and
+`logits_from_hidden` (vocab-sharded logits gathered before sampling).
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import torch.nn.functional as F
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
 from generativeaiexamples_tpu_torch.ops.quant import mm
+from generativeaiexamples_tpu_torch.parallel.mesh import (
+    tensor_all_gather, tensor_all_reduce, tensor_shard)
 
 Params = Dict[str, Any]
 
@@ -274,21 +286,47 @@ def project_qkv(cfg: LlamaConfig, h: torch.Tensor, w: Dict[str, torch.Tensor],
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Token ids [...] -> embeddings [..., D] in `dtype`. Under tensor
+    parallelism the table holds this rank's vocabulary slice: ids outside
+    it read zeros and one all-reduce sums the ranks' rows (exactly one
+    rank contributes each row, so the sum is exact)."""
+    emb = params["tok_emb"]
+    rank, tp = tensor_shard()
+    if tp == 1:
+        return emb[tokens.long()].to(dtype)
+    n = emb.shape[0]
+    local = tokens.long() - rank * n
+    inside = (local >= 0) & (local < n)
+    x = emb[local.clamp(0, n - 1)].to(dtype)
+    return tensor_all_reduce(torch.where(inside[..., None], x,
+                                         torch.zeros_like(x)))
+
+
 def finish_block(cfg: LlamaConfig, x: torch.Tensor, out: torch.Tensor,
                  w: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Attention output projection + residual, then the SwiGLU MLP."""
+    """Attention output projection + residual, then the SwiGLU MLP. Under
+    tensor parallelism `wo` and `w_down` contract this rank's heads and
+    MLP columns: each partial is summed over the ranks (one all-reduce
+    each) before the residual."""
     B, S, _ = x.shape
-    x = x + mm(out.transpose(1, 2).reshape(B, S, -1), w["wo"])
+    x = x + tensor_all_reduce(mm(out.transpose(1, 2).reshape(B, S, -1),
+                                 w["wo"]))
     h = rms_norm(x, w["ln2"], cfg.rms_eps)
-    return x + mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
+    return x + tensor_all_reduce(
+        mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"]))
 
 
 def logits_from_hidden(cfg: LlamaConfig, params: Params,
                        x: torch.Tensor) -> torch.Tensor:
+    """Final norm and head -> f32 logits over the whole vocabulary (under
+    tensor parallelism each rank's vocabulary slice, gathered in rank
+    order)."""
     x = rms_norm(x, params["ln_f"], cfg.rms_eps)
     if cfg.tie_embeddings:
-        return (x @ params["tok_emb"].T.to(x.dtype)).float()
-    return mm(x, params["lm_head"]).float()
+        return tensor_all_gather((x @ params["tok_emb"].T.to(x.dtype))
+                                 .float())
+    return tensor_all_gather(mm(x, params["lm_head"]).float())
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
@@ -323,7 +361,7 @@ def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
         base = (kv_cache.lengths[:, None].long() if kv_cache is not None
                 else 0)
         positions = base + torch.arange(S, device=dev)[None, :]
-    x = params["tok_emb"][tokens].to(cfg.dtype)
+    x = embed(params, tokens, cfg.dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     new_len = (lengths.to(torch.int32) if lengths is not None

@@ -1,8 +1,8 @@
 """Engine server launcher: `python -m generativeaiexamples_tpu_torch.serving`.
 
-Counterpart of generativeaiexamples_tpu/serving/__main__.py without
-multi-host. The config comes from `load_config()` (the APP_CONFIG_FILE
-file and APP_<SECTION>_<FIELD> variables):
+Counterpart of generativeaiexamples_tpu/serving/__main__.py. The config
+comes from `load_config()` (the APP_CONFIG_FILE file and
+APP_<SECTION>_<FIELD> variables):
 
 - `engine.weights_path`: an HF Llama snapshot (safetensors, config.json
   and, for real text, tokenizer.json), loaded in `engine.dtype` and
@@ -22,7 +22,29 @@ file and APP_<SECTION>_<FIELD> variables):
   engine servers (with `fleet.replicas` 0 the process only routes, with
   no engine and no encoders); `fleet.replica_roles` and `fleet.disagg`
   split prefill and decode across replicas.
-- `ENGINE_WARMUP=0` skips the engine warmup (the JAX launcher's knob).
+- `[mesh]` (parallel/mesh.py): tensor-parallel serving over rank
+  processes, one a device. The mesh spans `--devices` (one entry per
+  rank; default: every CUDA device of this host, or the one --device);
+  JAX's default `ici_tensor=-1` puts them all on the tensor axis, so on
+  one card the mesh is one device and nothing changes. A config that
+  rank processes cannot serve (a replica fleet; speculation, step plans
+  or the fused rider) stays on the first card when neither --devices
+  nor a `[mesh]` axis size asks for more, and is refused when one does
+  (JAX shards such a config over the mesh in one process). With more than
+  one device and no coordinator, this process is rank 0 and starts the
+  follower ranks itself (`spawn`), with `engine.multihost` on. With
+  `--coordinator host:port --num-processes N --process-id R` (or
+  `mesh.coordinator_address` / `num_processes` / `process_id`, or the
+  JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID env) each
+  rank is started by hand and `engine.multihost=true` is required. Every
+  rank loads only its shard; rank 0 runs the scheduler, the encoders and
+  the HTTP surface and publishes its dispatch records, the followers
+  build no encoders, serve no HTTP and replay them
+  (serving/multihost.py) until rank 0 stops (SIGTERM or Ctrl-C). The
+  backend is NCCL when every rank has a card of its own, gloo when they
+  share one or run on the CPU (`--devices cpu,cpu`).
+- `ENGINE_WARMUP=0` skips the engine warmup (the JAX launcher's knob);
+  it must match across ranks (warmup's collectives pair up too).
 
     APP_ENGINE_WEIGHTSPATH=/models/llama3-8b-instruct \\
         python -m generativeaiexamples_tpu_torch.serving
@@ -37,6 +59,8 @@ file and APP_<SECTION>_<FIELD> variables):
         python -m generativeaiexamples_tpu_torch.serving
     python -m generativeaiexamples_tpu_torch.serving --model-size tiny \\
         --device cpu --port 8099
+    python -m generativeaiexamples_tpu_torch.serving --model-size tiny \\
+        --devices cpu,cpu --port 8099
 
 Serves /v1/chat/completions, /v1/completions, /v1/embeddings,
 /v1/ranking, /v1/models, /health, /metrics, /debug/timeline and
@@ -49,25 +73,28 @@ import argparse
 import dataclasses
 import logging
 import os
-from typing import Any, List, Optional, Tuple
+import socket
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from generativeaiexamples_tpu_torch.config.schema import (
-    AUTO_POOL_SHARED, EngineConfig)
+    AUTO_POOL_SHARED, EngineConfig, MeshConfig)
+from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models import bert, hf_loader, llama
 from generativeaiexamples_tpu_torch.ops.quant import quantize_llama_params
 from generativeaiexamples_tpu_torch.serving.encoders import (
     EmbeddingEngine, RerankEngine)
+from generativeaiexamples_tpu_torch.serving import sharding as shd
 from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
-from generativeaiexamples_tpu_torch.utils.tokenizer import (
-    ByteTokenizer, load_tokenizer)
+from generativeaiexamples_tpu_torch.utils.tokenizer import load_tokenizer
 
 GEOMETRIES = {
-    # The tiny test geometry's vocabulary covers the byte tokenizer's
-    # specials (<bos> is 257), so every prompt id has an embedding row.
-    "tiny": lambda: llama.LlamaConfig.tiny(vocab_size=ByteTokenizer().vocab_size),
+    # The tiny test geometry's vocabulary covers the byte tokenizer's 259
+    # ids (<bos> is 257), so every prompt id has an embedding row, and is
+    # even, so a tensor axis of 2 splits it.
+    "tiny": lambda: llama.LlamaConfig.tiny(vocab_size=260),
     "1b": llama.LlamaConfig.llama3_2_1b,
     "8b": llama.LlamaConfig.llama3_8b,
 }
@@ -102,7 +129,7 @@ def build_engines(model_size: str = "8b", device: DeviceLike = None,
 def build_engine(model_size: str = "8b", device: DeviceLike = None,
                  seed: int = 0, warmup: bool = True, engine_cfg: Any = None,
                  n_pages: Optional[int] = None,
-                 weights_path: str = "") -> LLMEngine:
+                 weights_path: str = "", mesh=None) -> LLMEngine:
     """An LLMEngine at `engine_cfg` (default: the default EngineConfig)
     on `device` (CUDA unless asked otherwise) with `n_pages` pool pages
     (default: the engine's sizing), warmed up (not started).
@@ -113,15 +140,28 @@ def build_engine(model_size: str = "8b", device: DeviceLike = None,
     the snapshot's tokenizer (`load_tokenizer`'s gate applies). Without,
     the model is random-init at the named geometry (in its own dtype:
     f32 for tiny, bf16 otherwise), drawn from `seed`, quantized after
-    init for int8, with the byte tokenizer."""
+    init for int8, with the byte tokenizer.
+
+    With a tensor-parallel `mesh` (parallel/mesh.py) of more than one
+    rank, this is the calling rank's engine on its own device: the
+    snapshot is loaded sharded, or the random tree drawn whole (the same
+    seed on every rank) and cut to the rank's shard; the mesh's tensor
+    axis is clamped to the model's dims first (`compatible_mesh`)."""
+    if mesh is not None and mesh.size > 1:
+        device = mesh.device
+    else:
+        mesh = None
     dev = resolve_device(device)
     ecfg = EngineConfig.coerce(engine_cfg)
     weights_path = weights_path or ecfg.weights_path
     quantize = ecfg.quantize_weights == "int8"
     if weights_path:
+        cfg = hf_loader.llama_config_from_hf(weights_path)
+        if mesh is not None:
+            mesh = shd.compatible_mesh(cfg, mesh)
         params, cfg = hf_loader.load_llama(
-            weights_path, device=dev, dtype=DTYPES[ecfg.dtype],
-            quantize=quantize)
+            weights_path, cfg=cfg, device=dev, dtype=DTYPES[ecfg.dtype],
+            quantize=quantize, mesh=mesh)
         tokenizer = load_tokenizer(weights_path)
     else:
         cfg = GEOMETRIES[model_size]()
@@ -131,9 +171,12 @@ def build_engine(model_size: str = "8b", device: DeviceLike = None,
             cfg, dev, torch.Generator(device=dev).manual_seed(seed))
         if quantize:
             params = quantize_llama_params(params, dev)
+        if mesh is not None:
+            mesh = shd.compatible_mesh(cfg, mesh)
+            params = shd.shard_llama_params(params, cfg, mesh)
         tokenizer = load_tokenizer("byte")
     engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
-                       device=dev)
+                       device=dev, mesh=mesh)
     return engine.warmup() if warmup else engine
 
 
@@ -231,6 +274,178 @@ def build_llm(config, model_size: str = "8b", device: DeviceLike = None,
                         engine_cfg=config.engine).start()
 
 
+MULTIHOST_FLEET = (
+    "engine.multihost=true serves ONE engine spanning all hosts "
+    "behind rank 0; it cannot combine with a replica fleet "
+    "(fleet.replicas={}, replica_urls={!r}). Run fleets as separate "
+    "single-slice processes, or drop fleet config for multi-host.")
+
+
+MESH_FLEET = (
+    "a mesh of {} devices serves ONE engine over rank processes behind "
+    "rank 0; it cannot combine with a replica fleet (fleet.replicas={}, "
+    "replica_urls={!r}). Serve the fleet on one device (--device cuda:0, "
+    "with no --devices and no [mesh] axis sizes), or drop the fleet "
+    "config for tensor-parallel serving.")
+
+
+def _has_fleet(config) -> bool:
+    return config.fleet.replicas > 1 or bool(
+        (config.fleet.replica_urls or "").strip())
+
+
+def check_mesh_config(config, n_devices: int) -> None:
+    """The JAX launcher's refusal of engine.multihost beside a replica
+    fleet, and the port's own of a mesh of more than one device beside
+    one (the port serves a mesh over rank processes, one engine behind
+    rank 0)."""
+    if not _has_fleet(config):
+        return
+    urls = (config.fleet.replica_urls or "").strip()
+    if config.engine.multihost:
+        raise ValueError(MULTIHOST_FLEET.format(config.fleet.replicas, urls))
+    if n_devices > 1:
+        raise ValueError(MESH_FLEET.format(n_devices, config.fleet.replicas,
+                                           urls))
+
+
+def _rank_profile_refusal(config) -> str:
+    """Why `config` cannot be served over rank processes (a replica
+    fleet, or an engine profile the dispatch records do not replay:
+    serving/multihost.py), or "" when it can."""
+    from generativeaiexamples_tpu_torch.serving import multihost as mh
+
+    if _has_fleet(config):
+        return "a replica fleet serves its engines on one device"
+    try:
+        mh.validate_multihost_profile(EngineConfig.coerce(config.engine))
+    except mh.MultihostError as e:
+        return str(e)
+    return ""
+
+
+def mesh_devices(device: DeviceLike = None, devices: str = "",
+                 config=None) -> List[str]:
+    """The mesh's devices, one per rank: `devices` ("cuda:0,cuda:1",
+    "cpu,cpu", ...), else the one `device`, else every CUDA device of
+    this host. With `config`, that default holds only where rank
+    processes can serve it: a config with the [mesh] defaults and
+    engine.multihost off that they cannot (a replica fleet, speculation,
+    step plans, the fused rider) serves on the first device, as the
+    launcher did before it had a mesh, and the log says why. An explicit
+    mesh is held to the rules (check_mesh_config, the engine's
+    validate_multihost_profile)."""
+    if devices:
+        return [d.strip() for d in devices.split(",") if d.strip()]
+    if device is not None:
+        return [str(resolve_device(device))]
+    local = [str(d) for d in mesh_lib.local_devices()]
+    if (len(local) > 1 and config is not None
+            and not config.engine.multihost
+            and dataclasses.replace(config.mesh, coordinator_address="",
+                                    num_processes=0, process_id=-1)
+            == MeshConfig()):
+        why = _rank_profile_refusal(config)
+        if why:
+            logging.info("serving on %s alone, not a mesh of the %d local "
+                         "devices: %s", local[0], len(local), why)
+            return local[:1]
+    return local
+
+
+def free_coordinator() -> str:
+    """A coordinator address on this host with a free port."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+
+def with_mesh_process(config, coordinator: str, n: int, rank: int):
+    """`config` with the mesh's coordinator and this rank's id set, and
+    replay on (rank processes of one engine)."""
+    return dataclasses.replace(
+        config,
+        mesh=dataclasses.replace(config.mesh, coordinator_address=coordinator,
+                                 num_processes=n, process_id=rank),
+        engine=dataclasses.replace(config.engine, multihost=True))
+
+
+def run_rank(config, devices: Sequence[str], model_size: str = "8b",
+             host: str = "0.0.0.0", port: int = 8000,
+             model_name: str = "llama3-8b-instruct",
+             warmup: bool = True) -> None:
+    """One rank process of a tensor-parallel engine (the process group
+    already up): build the mesh and this rank's engine (warmed up on
+    every rank: warmup's collectives pair up too). Rank 0 starts it
+    behind the OpenAI server with the encoders; a follower replays rank
+    0's dispatch records until the stop record. Tears the process group
+    down at the end."""
+    from generativeaiexamples_tpu_torch.serving.multihost import run_follower
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        OpenAIServer, run_server)
+
+    mesh = mesh_lib.build_mesh(config.mesh, devices)
+    try:
+        engine = build_engine(model_size, warmup=warmup,
+                              engine_cfg=config.engine, mesh=mesh)
+        if mesh.rank != 0:
+            logging.info("rank %d/%d: follower replay loop (rank 0 serves "
+                         "the OpenAI surface)", mesh.rank, mesh.size)
+            try:
+                run_follower(engine)
+            finally:
+                engine.stop()
+            return
+        emb, rr = build_encoders(
+            mesh.device, embed_path=config.embeddings.weights_path,
+            rerank_path=config.reranker.weights_path,
+            random_init=not config.engine.weights_path)
+        engine.start()
+        logging.info("engine server on %s:%d (rank 0 of %d, mesh %s, %s)",
+                     host, port, mesh.size, mesh.shape, mesh.backend)
+        try:
+            run_server(OpenAIServer(engine, emb, rr, model_name=model_name,
+                                    serving_cfg=config.serving), host, port)
+        finally:
+            engine.stop()
+    finally:
+        mesh_lib.shutdown()
+
+
+def _follower_main(config, devices, model_size, warmup) -> None:
+    """A spawned follower rank: join the process group, then run_rank."""
+    logging.basicConfig(level=logging.INFO)
+    m = config.mesh
+    mesh_lib.init_ranks(m.coordinator_address, m.num_processes,
+                        m.process_id, devices)
+    run_rank(config, devices, model_size, warmup=warmup)
+
+
+def spawn_followers(config, devices: Sequence[str], model_size: str,
+                    warmup: bool = True) -> list:
+    """Start ranks 1..n-1 of a local mesh as child processes (`spawn`:
+    CUDA needs a fresh interpreter), each with its process id set; the
+    caller is rank 0 and `config` already names the coordinator."""
+    import importlib
+    import multiprocessing as mp
+
+    # The entry point by its module's own name: run as `python -m`, this
+    # module is __main__, which a spawned child cannot look it up in.
+    entry = importlib.import_module(
+        "generativeaiexamples_tpu_torch.serving.__main__")._follower_main
+    ctx = mp.get_context("spawn")
+    procs = []
+    for rank in range(1, len(devices)):
+        cfg = with_mesh_process(config, config.mesh.coordinator_address,
+                                len(devices), rank)
+        p = ctx.Process(target=entry,
+                        args=(cfg, list(devices), model_size, warmup),
+                        name=f"gaie-rank{rank}")
+        p.start()
+        procs.append(p)
+    return procs
+
+
 def main() -> None:
     from generativeaiexamples_tpu_torch.config.schema import load_config
     from generativeaiexamples_tpu_torch.serving.openai_server import (
@@ -244,11 +459,67 @@ def main() -> None:
                     help="geometry when engine.weights_path is empty")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--devices", default="",
+                    help="the mesh's devices, one per rank process "
+                         "(e.g. cuda:0,cuda:1 or cpu,cpu; default: every "
+                         "CUDA device, or the one --device)")
+    ap.add_argument("--coordinator", default="",
+                    help="rank-0 address host:port of the rank processes "
+                         "(overrides mesh.coordinator_address)")
+    ap.add_argument("--num-processes", type=int, default=0,
+                    help="total rank processes (overrides "
+                         "mesh.num_processes)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank, 0..num_processes-1 "
+                         "(overrides mesh.process_id)")
     ap.add_argument("--model-name", default="llama3-8b-instruct",
                     help="served model id")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
     config = load_config()
+    if args.coordinator or args.num_processes or args.process_id is not None:
+        config = dataclasses.replace(config, mesh=dataclasses.replace(
+            config.mesh,
+            coordinator_address=(args.coordinator
+                                 or config.mesh.coordinator_address),
+            num_processes=args.num_processes or config.mesh.num_processes,
+            process_id=(args.process_id if args.process_id is not None
+                        else config.mesh.process_id)))
+    warmup = os.environ.get("ENGINE_WARMUP", "1") != "0"
+    devices = mesh_devices(args.device, args.devices, config)
+    check_mesh_config(config, len(devices))
+    if mesh_lib.maybe_initialize_distributed(config.mesh, devices):
+        if not config.engine.multihost:
+            raise ValueError(
+                f"the process group spans {len(devices)} processes but "
+                "engine.multihost=false — the ranks would not replay rank "
+                "0's dispatches. Set engine.multihost=true (and see "
+                "serving/multihost.py for the supported profile), or "
+                "launch without a coordinator for single-host serving.")
+        run_rank(config, devices, args.model_size, args.host, args.port,
+                 args.model_name, warmup)
+        return
+    if len(devices) > 1:
+        # One host, several devices: this process is rank 0 and starts
+        # the followers (the counterpart of JAX's single-process mesh).
+        config = with_mesh_process(config, free_coordinator(),
+                                   len(devices), 0)
+        procs = spawn_followers(config, devices, args.model_size, warmup)
+        try:
+            mesh_lib.init_ranks(config.mesh.coordinator_address,
+                                len(devices), 0, devices)
+            run_rank(config, devices, args.model_size, args.host,
+                     args.port, args.model_name, warmup)
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        bad = {p.name: p.exitcode for p in procs if p.exitcode != 0}
+        if bad:
+            raise RuntimeError(f"follower rank processes failed: {bad}")
+        return
     router_only = (config.fleet.replicas <= 0
                    and bool(config.fleet.replica_urls.strip()))
     emb = rr = None
@@ -257,8 +528,7 @@ def main() -> None:
             args.device, embed_path=config.embeddings.weights_path,
             rerank_path=config.reranker.weights_path,
             random_init=not config.engine.weights_path)
-    llm = build_llm(config, args.model_size, args.device,
-                    warmup=os.environ.get("ENGINE_WARMUP", "1") != "0")
+    llm = build_llm(config, args.model_size, args.device, warmup=warmup)
     logging.info("engine server on %s:%d (device %s)", args.host, args.port,
                  getattr(llm, "device", None))
     try:

@@ -127,8 +127,19 @@ weights, the scratch and activation estimates and the headroom;
 Chaos (serving/chaos.py): `chaos_beat_delay_s` sleeps at the top of each
 scheduler iteration (a slow replica); 0.0 costs one float compare.
 
-Not ported yet, and refused at construction (see config/schema.py):
-multi-host.
+Tensor parallelism over rank processes (`mesh`, `engine.multihost`;
+serving/sharding.py, serving/multihost.py): each rank process builds an
+engine over its shard of the params, with the rank's local head counts
+(`sharding.local_config`) and a pool of its kv heads. Rank 0 runs this
+scheduler and publishes a record of every device dispatch before
+launching it; the follower ranks replay the records through the same
+executors (`_exec_prefill`, `_exec_plan`, `_exec_seed`, `_exec_commit`,
+`_exec_pages_out`, `_exec_pages_in`, `_exec_publish_pages`, and the
+pager's `_exec_pager_out` / `_exec_pager_in`; `_mh_replay_table`), so the
+model's collectives pair up by launch order. Each executor builds its
+device inputs from the record alone. Sampling runs on the gathered
+logits with the same generator seed on every rank, so every rank draws
+the same token.
 """
 
 from __future__ import annotations
@@ -150,7 +161,9 @@ from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models.llama import KVCache, LlamaConfig
 from generativeaiexamples_tpu_torch.obs import tracing
 from generativeaiexamples_tpu_torch.ops.quant import is_quantized
+from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
 from generativeaiexamples_tpu_torch.serving import engine_model
+from generativeaiexamples_tpu_torch.serving import sharding as shd
 from generativeaiexamples_tpu_torch.serving.disagg import page_geometry
 from generativeaiexamples_tpu_torch.serving.fleet import (
     CHAOS_KEYS, FLEET_OPS_KEYS)
@@ -162,7 +175,7 @@ from generativeaiexamples_tpu_torch.serving.flight import (
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
     PageAllocator, PagePool, SequencePages)
 from generativeaiexamples_tpu_torch.serving.kv_pager import (
-    KV_PAGER_KEYS, KVPager, PagedPrefixCache, gather_spans)
+    _RAW_DTYPES, KV_PAGER_KEYS, KVPager, PagedPrefixCache, gather_spans)
 from generativeaiexamples_tpu_torch.serving.prefix_cache import (
     TIER_DEVICE, TIER_DISK, TIER_HOST, RadixPrefixCache)
 from generativeaiexamples_tpu_torch.serving.qos import (
@@ -407,6 +420,13 @@ class EngineMetrics:
         # Per-device bytes the memory planner left unallocated (0 without
         # a plan). Always present.
         self.planner_headroom_bytes = 0
+        # Tensor-parallel replay (serving/multihost.py; always present, 0
+        # on one process): the rank processes the engine spans, records
+        # rank 0 published (digests and stop included), and divergences
+        # the replay detector raised on this rank.
+        self.multihost_processes = 0
+        self.replay_records_published = 0
+        self.replay_divergence = 0
         # The pager's stats() (KV_PAGER_KEYS); None when it is off.
         self.kv_pager_stats = None
         # The flight recorder's stats() (FLIGHT_KEYS); None emits zeros.
@@ -476,6 +496,9 @@ class EngineMetrics:
             "qos_preemptions": self.qos_preemptions,
             "qos_queue_depth": dict(self.qos_queue_depth),
             "planner_headroom_bytes": self.planner_headroom_bytes,
+            "multihost_processes": self.multihost_processes,
+            "replay_records_published": self.replay_records_published,
+            "replay_divergence": self.replay_divergence,
         }
         # The router's and the fleet's keys, zeros for one engine, so
         # /metrics has one schema whether an engine or a fleet serves it.
@@ -497,20 +520,58 @@ class EngineMetrics:
 
 
 class LLMEngine:
-    """Single-device engine. `params` must already live on `device`
-    (CUDA unless the caller passes device="cpu")."""
+    """The engine on one device, or one rank's engine of a tensor-parallel
+    mesh. `params` must already live on `device` (CUDA unless the caller
+    passes device="cpu"; with a mesh, default the rank's device); with a
+    `mesh` of more than one rank they are this rank's shard
+    (`sharding.shard_llama_params`) and `cfg` the whole model's."""
 
     def __init__(self, params, cfg: LlamaConfig, tokenizer,
                  engine_cfg: Any = None, n_pages: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        self.mesh = mesh if shd.is_sharded(mesh) else None
+        if device is None and self.mesh is not None:
+            device = self.mesh.device
         self.device = resolve_device(device)
         if params["tok_emb"].device.type != self.device.type:
             raise ValueError(f"params on {params['tok_emb'].device}, engine "
                              f"on {self.device}")
         self.params = params
-        self.cfg = cfg
         self.tokenizer = tokenizer
         self.ecfg = EngineConfig.coerce(engine_cfg)
+        # Tensor-parallel replay: rank 0 runs the scheduler and publishes
+        # each device dispatch as a record; follower ranks replay them so
+        # the collectives pair up by launch order. Validated first, so an
+        # unsupported config fails before any allocation.
+        self._mh_log = None
+        self._mh_leader = True
+        if self.ecfg.multihost:
+            from generativeaiexamples_tpu_torch.serving import multihost as mh
+
+            if not mesh_lib.is_multihost():
+                raise mh.MultihostError(
+                    "engine.multihost=true but the process group spans 1 "
+                    "process; start the rank processes "
+                    "(mesh.coordinator_address/num_processes/process_id, "
+                    "JAX_COORDINATOR_ADDRESS, or the launcher's local "
+                    "ranks) before building the engine, or turn the knob "
+                    "off")
+            mh.validate_multihost_profile(self.ecfg, self.mesh)
+            self._mh_log = mh.DispatchLog(namespace=mh.next_namespace())
+            self._mh_leader = torch.distributed.get_rank() == 0
+        elif self.mesh is not None:
+            raise ValueError(
+                f"a tensor-parallel mesh of {self.mesh.size} ranks needs "
+                f"engine.multihost=true: rank 0 publishes the dispatch "
+                f"records the follower ranks replay (serving/multihost.py)")
+        self._mh_stop_sent = False
+        # The whole model's config; the engine computes on the rank's
+        # local head counts (the same config on one device).
+        self.model_cfg = cfg
+        if self.mesh is not None:
+            cfg = shd.local_config(cfg, self.mesh)
+            mesh_lib.activate(self.mesh)
+        self.cfg = cfg
         ps = self.ecfg.page_size
         kv_int8 = self.ecfg.kv_dtype == "int8"
         if self.device.type == "cuda" and (
@@ -538,10 +599,10 @@ class LLMEngine:
         self.memory_plan = None
         if n_pages is None and self.ecfg.auto_pool_pages:
             from generativeaiexamples_tpu_torch.serving.memory_plan import (
-                plan_engine_memory)
+                plan_rank_memory)
 
-            self.memory_plan = plan_engine_memory(cfg, self.ecfg,
-                                                  device=self.device)
+            self.memory_plan = plan_rank_memory(self.model_cfg, self.ecfg,
+                                                self.mesh, self.device)
             n_pages = self.memory_plan.pool_pages
             _LOG.info("auto_pool_pages: %d pages\n%s", n_pages,
                       self.memory_plan.breakdown())
@@ -569,7 +630,13 @@ class LLMEngine:
                 self.kv_pager = KVPager(
                     self.pool, host_budget_mb=self.ecfg.kv_host_budget_mb,
                     spill_dir=self.ecfg.kv_spill_dir,
-                    max_batch_pages=self.max_pages)
+                    max_batch_pages=self.max_pages, mesh=self.mesh)
+                # Under replay the leader's pager publishes its demote
+                # gathers and promote scatters (pager_out / pager_in)
+                # before launching them; followers replay them from their
+                # own cold store (_exec_pager_*).
+                self.kv_pager.mh_log = (self._mh_log if self._mh_leader
+                                        else None)
                 self.prefix_cache = PagedPrefixCache(
                     self.allocator, ps, cap, self.kv_pager,
                     lambda: self.pool)
@@ -585,6 +652,16 @@ class LLMEngine:
                 self.memory_plan.headroom_bytes)
         if self.kv_pager is not None:
             self.metrics.kv_pager_stats = self.kv_pager.stats
+        if self._mh_log is not None:
+            self.metrics.multihost_processes = \
+                torch.distributed.get_world_size()
+            if self._mh_leader:
+                m = self.metrics
+
+                def _on_publish(kind: str) -> None:
+                    m.replay_records_published += 1
+
+                self._mh_log.on_publish = _on_publish
         # Flight recorder: always constructed (its stats and the timeline
         # exist either way); flight_recorder=False makes every append one
         # branch. The beat bookkeeping: the previous beat's host-ready
@@ -791,6 +868,13 @@ class LLMEngine:
         return self
 
     def stop(self) -> None:
+        # The leader tells the followers to leave their replay loop first
+        # (a follower blocked in next_record would otherwise wait), once
+        # across repeated stop() calls.
+        if (self._mh_log is not None and self._mh_leader
+                and not self._mh_stop_sent):
+            self._mh_stop_sent = True
+            self._mh_log.publish("stop")
         self._running = False
         self._wake.set()
         self._pace_wake.set()
@@ -947,7 +1031,7 @@ class LLMEngine:
         n_pages = hi - lo
         if n_pages <= 0:
             return None
-        codes_shape, codes_dtype, scales_shape = page_geometry(self.pool)
+        codes_shape, codes_dtype, scales_shape = self._page_geometry()
         codes = self._host_buffer((n_pages,) + codes_shape, codes_dtype)
         scales = (self._host_buffer((n_pages,) + scales_shape,
                                     torch.float32)
@@ -957,13 +1041,18 @@ class LLMEngine:
             batch = dev_w[s_lo:s_hi]
             row = np.zeros((_pow2_ceil(len(batch)),), np.int64)  # pad: sink
             row[:len(batch)] = [n.page for n in batch]
-            got, got_s = engine_model.pool_to_pages(self.pool,
-                                                    self._put(row))
+            got, got_s = self._exec_pages_out({"row": row})
             codes[s_lo:s_hi].copy_(got[:len(batch)])
             if scales is not None:
                 scales[s_lo:s_hi].copy_(got_s[:len(batch)])
         cold_w = cold[max(lo - len(dev), 0): max(hi - len(dev), 0)]
-        if cold_w:
+        if cold_w and self.mesh is not None:
+            got, got_s = self._exec_cold_out({"keys": np.asarray(
+                [n.cold_key for n in cold_w], np.int64)}, cold_w)
+            codes[len(dev_w):].copy_(got)
+            if scales is not None:
+                scales[len(dev_w):].copy_(got_s)
+        elif cold_w:
             tail = codes[len(dev_w):]
             self.kv_pager.read_pages(
                 cold_w, tail.view(self.kv_pager._raw_dtype).numpy(),
@@ -996,7 +1085,7 @@ class LLMEngine:
             return None
         row = np.zeros((_pow2_ceil(n_pages),), np.int64)  # pad: sink
         row[:n_pages] = [n.page for n in dev[lo:hi]]
-        got, got_s = engine_model.pool_to_pages(self.pool, self._put(row))
+        got, got_s = self._exec_pages_out({"row": row})
         return (got[:n_pages], None if got_s is None else got_s[:n_pages],
                 hi * self.pool.page_size)
 
@@ -1027,9 +1116,8 @@ class LLMEngine:
             if covered > done:
                 row = np.zeros((lp.s_total // ps,), np.int32)  # sink 0
                 row[done:covered] = lp.seq.pages[done:covered]
-                engine_model.cache_to_pool(
-                    self.pool, self._scratch_caches[lp.slot_idx], self.cfg,
-                    self._put(row))
+                self._exec_publish_pages({"slot": np.int32(lp.slot_idx),
+                                          "row": row})
             if covered > lp.published:
                 self.prefix_cache.insert(ids[: covered * ps],
                                          lp.seq.pages[:covered])
@@ -1060,7 +1148,7 @@ class LLMEngine:
         thread only (run_control_op)."""
         if self.prefix_cache is None:
             raise RuntimeError("KV import needs engine.prefix_cache")
-        codes_shape, codes_dtype, scales_shape = page_geometry(self.pool)
+        codes_shape, codes_dtype, scales_shape = self._page_geometry()
         if (tuple(codes.shape[1:]) != codes_shape
                 or codes.dtype != codes_dtype
                 or (scales is None) != (scales_shape is None)
@@ -1117,8 +1205,7 @@ class LLMEngine:
                                    device=self.device)
                 sbuf[:m].copy_(scales[have - first: n - first],
                                non_blocking=True)
-            self.pool = engine_model.pages_to_pool(self.pool, buf, sbuf,
-                                                   self._put(row))
+            self._exec_pages_in({"row": row}, buf, sbuf)
             # The leading `have` chunks are present (re-verified above,
             # and nothing evicts between here and the insert on this
             # thread), so the insert dedups them: only the fresh suffix
@@ -1594,8 +1681,8 @@ class LLMEngine:
                 s_total = -(-plen // chunk) * chunk
             row = np.zeros((s_total // ps,), np.int32)
             row[:len(pages)] = pages
-            self._scratch_caches[slot_idx] = engine_model.pool_to_cache(
-                self.pool, self.cfg, self._put(row), m)
+            self._exec_seed({"slot": np.int32(slot_idx), "row": row,
+                             "m": np.int32(m)})
         finally:
             self._release_hit_pin((pages, m))
         placeholder.prefilling = True
@@ -1663,9 +1750,9 @@ class LLMEngine:
                     lp.s_total - lp.pos)
         final = lp.pos + n_part >= len(lp.ids)
         fuse_sample = final and self._fused_sampling
-        self._exec_plan(engine_model.StepPlan(
+        self._exec_plan(self._plan_record(engine_model.StepPlan(
             rider_width=width, rider_s_total=lp.s_total,
-            rider_sample=fuse_sample), lp, n_part)
+            rider_sample=fuse_sample), lp, n_part))
         if fuse_sample:
             self.metrics.fused_sample_dispatches += 1
         lp.pos += n_part
@@ -1686,32 +1773,108 @@ class LLMEngine:
             buf.fill(0)
         return buf
 
-    def _exec_plan(self, plan: "engine_model.StepPlan",
-                   lp: Optional[_LongPrefill] = None, n_part: int = 0,
-                   **kw) -> dict:
-        """Run one StepPlan through engine_model.plan_step and fold the
-        device state it returns back into the engine. A plan with a chunk
-        feeds lp's next n_part prompt tokens, padded to rider_width,
-        through lp's scratch cache (made, zeroed, for the prompt's first
-        chunk) and stashes the chunk's logits, or the first token a
-        rider_sample plan drew, in _chunk_res for the commit."""
+    def _plan_record(self, plan: "engine_model.StepPlan",
+                     lp: Optional[_LongPrefill] = None, n_part: int = 0,
+                     **arrays) -> Dict[str, Any]:
+        """The `plan` dispatch record of `plan`: its lattice point, the
+        decode batch's host arrays (`arrays`), and for a plan with a
+        chunk, lp's next n_part prompt tokens padded to rider_width, the
+        slot, whether this is the prompt's first chunk (the scratch cache
+        is made, zeroed, there) and, for a rider_sample plan, the
+        finishing request's sampling scalars."""
+        rec = engine_model.plan_to_record(plan)
+        rec.update(arrays)
         if plan.rider_width:
-            slot = lp.slot_idx
             tok = self._chunk_buf(plan.rider_width)
             tok[0, :n_part] = lp.ids[lp.pos:lp.pos + n_part]
-            if lp.pos == 0:
+            rec.update(slot=np.int32(lp.slot_idx), chunk_tokens=tok,
+                       chunk_valid=np.int32(n_part),
+                       fresh=np.bool_(lp.pos == 0))
+        if plan.rider_sample:
+            req = lp.req
+            rec.update(r_temp=np.float32(req.temperature),
+                       r_top_p=np.float32(req.top_p),
+                       r_top_k=np.int32(req.top_k),
+                       r_flags=np.asarray(_sampling_flags(
+                           req.temperature <= 0.0)))
+        return rec
+
+    # -- dispatch-record executors (the replay vocabulary) -----------------
+    #
+    # Every scheduler-reachable device launch lives in one of the _exec_*
+    # methods below (and the pager's demote / promote). Each builds its
+    # device inputs FROM THE RECORD alone, publishes the record right
+    # before launching (leader only: followers run the same executor via
+    # _mh_replay_table with _mh_leader False) and folds the device state
+    # back into the engine. Leader-only state (slots, the radix tree, the
+    # allocator, QoS) never enters an executor.
+
+    def _publish(self, kind: str, rec: Dict[str, Any]) -> None:
+        if self._mh_log is not None and self._mh_leader:
+            self._mh_log.publish(kind, **rec)
+
+    def _exec_prefill(self, rec: Dict[str, Any]) -> torch.Tensor:
+        """One `prefill` record: the batched prefill forward with its
+        first-token sample on the device, the scatter of the first tokens
+        into the token buffer (padding rows' indices are dropped) and, on
+        a speculative engine, the history rows. Returns the tokens."""
+        self._publish("prefill", rec)
+        flags = tuple(bool(f) for f in rec["flags"])
+        d_tokens, d_lengths = self._put(rec["tokens"]), self._put(
+            rec["lengths"])
+        toks = engine_model.prefill_batch_step(
+            self.params, self.cfg, self.pool, d_tokens, d_lengths,
+            self._put(rec["rows"]), self._put(rec["temps"]),
+            self._put(rec["top_ps"]), self._put(rec["top_ks"]),
+            self._generator, sampling_flags=flags)
+        engine_model.set_last_tokens(self._last_tokens, rec["idxs"], toks)
+        if self._spec_k:
+            engine_model.set_history_rows(self._history, self._dev_lengths,
+                                          rec["idxs"], d_tokens, d_lengths,
+                                          toks)
+        return toks
+
+    def _exec_plan(self, rec: Dict[str, Any]) -> dict:
+        """One `plan` record (`_plan_record`): the StepPlan lowered
+        through engine_model.plan_step, with the device state it returns
+        folded back into the engine. A plan with a chunk runs it through
+        the slot's scratch cache (made, zeroed, for the prompt's first
+        chunk) and stashes the chunk's logits, or the first token a
+        rider_sample plan drew, in _chunk_res for the commit."""
+        self._publish("plan", rec)
+        plan = engine_model.plan_from_record(rec)
+        kw: Dict[str, Any] = {}
+        if plan.decode_k:
+            kw.update(pool=self.pool, last_tokens=self._last_tokens,
+                      page_tables=self._put(rec["tables"]),
+                      active=self._put(rec["active_mask"]))
+            if self._spec_k:
+                kw.update(history=self._history,
+                          dev_lengths=self._dev_lengths)
+            if not plan.spec_k:
+                kw.update(lengths=self._put(rec["lengths"]),
+                          temperature=self._put(rec["temps"]),
+                          top_p=self._put(rec["top_ps"]),
+                          top_k=self._put(rec["top_ks"]),
+                          generator=self._generator,
+                          sampling_flags=tuple(bool(f)
+                                               for f in rec["flags"]))
+        slot = int(rec["slot"]) if plan.rider_width else -1
+        if plan.rider_width:
+            if bool(rec["fresh"]) or slot not in self._scratch_caches:
                 self._scratch_caches[slot] = KVCache.zeros(
                     self.cfg, 1, max_len=plan.rider_s_total,
                     dtype=self._scratch_dtype, device=self.device)
                 self._chunk_res.pop(slot, None)
             kw.update(cache=self._scratch_caches[slot],
-                      chunk_tokens=self._put(tok), chunk_valid=n_part)
+                      chunk_tokens=self._put(rec["chunk_tokens"]),
+                      chunk_valid=int(rec["chunk_valid"]))
         if plan.rider_sample:
-            req = lp.req
-            kw.update(last_tokens=self._last_tokens, slot_idx=lp.slot_idx,
-                      temperature=req.temperature, top_p=req.top_p,
-                      top_k=req.top_k, generator=self._generator,
-                      sampling_flags=_sampling_flags(req.temperature <= 0.0))
+            kw.update(last_tokens=self._last_tokens, slot_idx=slot,
+                      temperature=float(rec["r_temp"]),
+                      top_p=float(rec["r_top_p"]), top_k=int(rec["r_top_k"]),
+                      generator=self._generator,
+                      sampling_flags=tuple(bool(f) for f in rec["r_flags"]))
         res = engine_model.plan_step(self.params, self.cfg, plan, **kw)
         if "last_tokens" in res:
             self._last_tokens = res["last_tokens"]
@@ -1719,10 +1882,232 @@ class LLMEngine:
             self._dev_lengths = res["dev_lengths"]
             self._history = res["history"]
         if plan.rider_width:
-            self._scratch_caches[lp.slot_idx] = res["cache"]
-            self._chunk_res[lp.slot_idx] = (res.get("chunk_logits"),
-                                            res.get("tok0"))
+            self._scratch_caches[slot] = res["cache"]
+            self._chunk_res[slot] = (res.get("chunk_logits"),
+                                     res.get("tok0"))
         return res
+
+    def _exec_seed(self, rec: Dict[str, Any]) -> None:
+        """One `seed` record: a prefix hit's scratch cache, ONE
+        pool_to_cache gather of the matched pages (the row rides the
+        record, so followers launch the same gather without the radix
+        tree)."""
+        self._publish("seed", rec)
+        slot = int(rec["slot"])
+        self._scratch_caches[slot] = engine_model.pool_to_cache(
+            self.pool, self.cfg, self._put(rec["row"]), int(rec["m"]))
+        self._chunk_res.pop(slot, None)
+
+    def _exec_commit(self, rec: Dict[str, Any]) -> torch.Tensor:
+        """One `commit` record, the chunked-prefill finish: ONE
+        cache_to_pool scatter of the slot's scratch cache (rows the leader
+        sank to page 0 are never rewritten), the first-token sample unless
+        the last chunk drew it (sample_token_into, or with fused_sampling
+        off the sample_token + set_last_token pair) and, on a speculative
+        engine, the history row. Consumes the slot's scratch state on
+        every rank. Returns the first token [1]."""
+        self._publish("commit", rec)
+        slot = int(rec["slot"])
+        cache = self._scratch_caches.pop(slot)
+        engine_model.cache_to_pool(self.pool, cache, self.cfg,
+                                   self._put(rec["row"]))
+        logits, tok0 = self._chunk_res.pop(slot)
+        if tok0 is None:
+            sampling = (float(rec["temp"]), float(rec["top_p"]),
+                        int(rec["top_k"]), self._generator,
+                        *(bool(f) for f in rec["flags"]))
+            if self._fused_sampling:
+                tok0, self._last_tokens = engine_model.sample_token_into(
+                    self._last_tokens, slot, logits, *sampling)
+                self.metrics.fused_sample_dispatches += 1
+            else:
+                tok0 = engine_model.sample_token(logits, *sampling)
+                self._last_tokens = engine_model.set_last_token(
+                    self._last_tokens, slot, tok0)
+        tok0 = tok0.reshape(1)
+        if self._spec_k:
+            ids = np.asarray(rec["h_ids"], np.int32)
+            hist = np.zeros((1, self.ecfg.max_seq_len), np.int32)
+            hist[0, :len(ids)] = ids
+            engine_model.set_history_rows(
+                self._history, self._dev_lengths, [slot], self._put(hist),
+                self._put(np.asarray([len(ids)], np.int32)), tok0)
+        return tok0
+
+    def _exec_pages_out(self, rec: Dict[str, Any]):
+        """One `pages_out` record: a batched pool_to_pages gather (the
+        page export), its kv-head slices gathered over the tensor axis
+        into whole pages. The leader reads the bytes, a follower drops
+        them."""
+        self._publish("pages_out", rec)
+        return self._gather_heads(*engine_model.pool_to_pages(
+            self.pool, self._put(rec["row"])))
+
+    def _exec_pages_in(self, rec: Dict[str, Any], buf=None,
+                       sbuf=None) -> None:
+        """One `pages_in` record: ONE pages_to_pool scatter of imported
+        page bytes. The record carries the padded whole pages (raw bytes
+        with their dtype's name) and scales, so followers rebuild the
+        same device inputs; the leader passes its buffers. Each rank of
+        a tensor-parallel mesh scatters its kv heads' slice."""
+        if self._mh_log is not None and self._mh_leader:
+            codes = buf.cpu()
+            rec = {**rec, "codes": codes.view(
+                _RAW_DTYPES.get(codes.dtype, codes.dtype)).numpy(),
+                "codes_dtype": np.asarray(str(codes.dtype))}
+            if sbuf is not None:
+                rec["scales"] = sbuf.cpu().numpy()
+            self._publish("pages_in", rec)
+        if buf is None:
+            dtype = getattr(torch, str(rec["codes_dtype"]).split(".")[-1])
+            buf = self._put(rec["codes"]).view(dtype)
+            if "scales" in rec:
+                sbuf = self._put(rec["scales"])
+        if self.mesh is not None:
+            heads = shd.pool_shard_heads(buf.shape[3], self.mesh)
+            buf = buf[:, :, :, heads].contiguous()
+            if sbuf is not None:
+                sbuf = sbuf[:, :, :, heads].contiguous()
+        self.pool = engine_model.pages_to_pool(self.pool, buf, sbuf,
+                                               self._put(rec["row"]))
+
+    def _exec_publish_pages(self, rec: Dict[str, Any]) -> None:
+        """One `publish_pages` record: the pipelined export's partial
+        cache_to_pool scatter of an in-flight chunked prefill's completed
+        pages (the scratch cache stays registered)."""
+        self._publish("publish_pages", rec)
+        engine_model.cache_to_pool(
+            self.pool, self._scratch_caches[int(rec["slot"])], self.cfg,
+            self._put(rec["row"]))
+
+    def _exec_pager_out(self, rec: Dict[str, Any]) -> None:
+        """Follower half of KVPager.demote (`pager_out`; the leader's
+        publish is in the pager, before ITS gather): the record's freed
+        keys released, the same pool_to_pages gather, then this rank's
+        slices parked in its own pager's tiers under the record's cold
+        keys (a rank's pool holds only its kv heads)."""
+        from generativeaiexamples_tpu_torch.serving import multihost as mh
+
+        self.kv_pager.release_parked(rec["free"])
+        codes, scales = engine_model.pool_to_pages(self.pool,
+                                                   self._put(rec["row"]))
+        codes = mh.fetch_addressable(codes.view(
+            _RAW_DTYPES.get(codes.dtype, codes.dtype)),
+            "pager demote gather (codes)")
+        if scales is not None:
+            scales = mh.fetch_addressable(scales,
+                                          "pager demote gather (scales)")
+        self.kv_pager.park(rec["keys"][:int(rec["n"])], codes, scales)
+
+    def _read_cold(self, nodes):
+        """The pager's bytes of cold `nodes` (tree nodes, or a follower's
+        parked pages) as (codes [n, ...] in the pool dtype, scales or
+        None) host tensors."""
+        codes_shape, codes_dtype, scales_shape = page_geometry(self.pool)
+        codes = torch.zeros((len(nodes),) + codes_shape, dtype=codes_dtype)
+        scales = (torch.zeros((len(nodes),) + scales_shape,
+                              dtype=torch.float32) if scales_shape else None)
+        self.kv_pager.read_pages(
+            nodes, codes.view(_RAW_DTYPES.get(codes_dtype,
+                                              codes_dtype)).numpy(),
+            None if scales is None else scales.numpy())
+        return codes, scales
+
+    def _read_parked(self, keys, kind: str):
+        """This rank's parked slices under `keys` (_read_cold). A cold key
+        this rank never parked means the streams diverged: raise by
+        name."""
+        from generativeaiexamples_tpu_torch.serving import multihost as mh
+
+        nodes = self.kv_pager.parked(keys)
+        for key, node in zip(keys, nodes):
+            if node is None:
+                raise mh.MultihostError(
+                    f"{kind} references cold key {int(key)} this rank "
+                    "never parked (pager_out) — leader and follower "
+                    "replay streams have diverged")
+        return self._read_cold(nodes)
+
+    def _exec_pager_in(self, rec: Dict[str, Any]) -> None:
+        """Follower half of KVPager.promote_into (`pager_in`): the
+        promoted pages rebuilt from this rank's parked slices (released
+        after, with the record's freed keys) and the same pages_to_pool
+        scatter the leader launched."""
+        row = np.asarray(rec["row"])
+        n = int(rec["n"])
+        keys = rec["keys"][:n]
+        got, got_s = self._read_parked(keys, "pager_in")
+        codes_shape, codes_dtype, scales_shape = page_geometry(self.pool)
+        w = int(row.shape[0])
+        codes = torch.zeros((w,) + codes_shape, dtype=codes_dtype)
+        codes[:n] = got
+        scales = None
+        if got_s is not None:
+            scales = torch.zeros((w,) + scales_shape, dtype=torch.float32)
+            scales[:n] = got_s
+        self.kv_pager.release_parked(np.concatenate(
+            [np.asarray(keys, np.int64), rec["free"]]))
+        self.pool = engine_model.pages_to_pool(
+            self.pool, codes.to(self.device),
+            None if scales is None else scales.to(self.device),
+            self._put(row))
+
+    def _exec_cold_out(self, rec: Dict[str, Any], nodes=None):
+        """One `cold_out` record (a tensor-parallel export's demoted
+        tail): every rank reads its slices of the named cold pages (the
+        leader from its tree's `nodes`, a follower from its parked store)
+        and the slices are gathered over the tensor axis. Returns whole
+        pages (codes, scales or None) on the device."""
+        self._publish("cold_out", rec)
+        codes, scales = (self._read_parked(rec["keys"], "cold_out")
+                         if nodes is None else self._read_cold(nodes))
+        return self._gather_heads(
+            codes.to(self.device),
+            None if scales is None else scales.to(self.device))
+
+    def _gather_heads(self, codes: torch.Tensor,
+                      scales: Optional[torch.Tensor]):
+        """Page-major pages ([n, 2, L, KH, ...]) holding this rank's kv
+        heads -> whole pages, every rank's heads in order (one all-gather
+        of the raw bytes over the tensor axis); as given on one device."""
+        if self.mesh is None:
+            return codes, scales
+
+        def gather(x):
+            return mesh_lib.tensor_all_gather(
+                x.contiguous().view(torch.uint8), dim=3).view(x.dtype)
+
+        return gather(codes), None if scales is None else gather(scales)
+
+    def _page_geometry(self):
+        """(codes shape, dtype, scales shape or None) of one page as it
+        leaves or enters the engine: whole pages with every kv head, also
+        under a tensor-parallel mesh, whose ranks' pools hold a slice."""
+        codes_shape, codes_dtype, scales_shape = page_geometry(self.pool)
+        if self.mesh is None:
+            return codes_shape, codes_dtype, scales_shape
+
+        def whole(shape):
+            return shape[:2] + (self.model_cfg.n_kv_heads,) + shape[3:]
+
+        return (whole(codes_shape), codes_dtype,
+                None if scales_shape is None else whole(scales_shape))
+
+    def _mh_replay_table(self) -> Dict[str, Any]:
+        """kind -> executor for multihost.run_follower: the whole launch
+        vocabulary a leader publishes. Followers call the executors the
+        leader's scheduler calls (with _mh_leader False, so the publish
+        inside each is skipped)."""
+        return {"prefill": self._exec_prefill,
+                "plan": self._exec_plan,
+                "seed": self._exec_seed,
+                "commit": self._exec_commit,
+                "pages_out": self._exec_pages_out,
+                "pages_in": self._exec_pages_in,
+                "publish_pages": self._exec_publish_pages,
+                "pager_out": self._exec_pager_out,
+                "pager_in": self._exec_pager_in,
+                "cold_out": self._exec_cold_out}
 
     @staticmethod
     def _pick_chunk_width(n: int, chunk: int) -> int:
@@ -1756,31 +2141,14 @@ class LLMEngine:
         # Pages publish_prefill_pages already scattered sink too: each
         # page is written once.
         row[:max(lp.seq.n_shared, lp.published)] = 0
-        cache = self._scratch_caches.pop(lp.slot_idx)
-        engine_model.cache_to_pool(self.pool, cache, self.cfg,
-                                   self._put(row))
-        logits, tok0 = self._chunk_res.pop(lp.slot_idx)
-        if tok0 is None:
-            req = lp.req
-            sampling = (req.temperature, req.top_p, req.top_k,
-                        self._generator,
-                        *_sampling_flags(req.temperature <= 0.0))
-            if self._fused_sampling:
-                tok0, self._last_tokens = engine_model.sample_token_into(
-                    self._last_tokens, lp.slot_idx, logits, *sampling)
-                self.metrics.fused_sample_dispatches += 1
-            else:
-                tok0 = engine_model.sample_token(logits, *sampling)
-                self._last_tokens = engine_model.set_last_token(
-                    self._last_tokens, lp.slot_idx, tok0)
-        tok0 = tok0.reshape(1)
+        req = lp.req
+        rec = {"slot": np.int32(lp.slot_idx), "row": row,
+               "temp": np.float32(req.temperature),
+               "top_p": np.float32(req.top_p), "top_k": np.int32(req.top_k),
+               "flags": np.asarray(_sampling_flags(req.temperature <= 0.0))}
         if self._spec_k:
-            hist = np.zeros((1, self.ecfg.max_seq_len), np.int32)
-            hist[0, :len(lp.ids)] = lp.ids
-            engine_model.set_history_rows(
-                self._history, self._dev_lengths, [lp.slot_idx],
-                self._put(hist), self._put(np.asarray([len(lp.ids)],
-                                                      np.int32)), tok0)
+            rec["h_ids"] = np.asarray(lp.ids, np.int32)
+        tok0 = self._exec_commit(rec)
         self._insert_prefix(lp.ids, lp.seq)
         span = tracing.ManualSpan(
             "engine.generate", context=lp.req.trace_context,
@@ -1842,15 +2210,10 @@ class LLMEngine:
             top_ks[j] = req.top_k
             idxs[j] = slot_idx
         flags = _sampling_flags(bool(all(temps[:n] <= 0.0)))
-        d_tokens, d_lengths = self._put(tokens), self._put(lengths)
-        toks = engine_model.prefill_batch_step(
-            self.params, self.cfg, self.pool, d_tokens, d_lengths,
-            self._put(rows), self._put(temps), self._put(top_ps),
-            self._put(top_ks), self._generator, sampling_flags=flags)
-        engine_model.set_last_tokens(self._last_tokens, idxs, toks)
-        if self._spec_k:
-            engine_model.set_history_rows(self._history, self._dev_lengths,
-                                          idxs, d_tokens, d_lengths, toks)
+        toks = self._exec_prefill({
+            "tokens": tokens, "lengths": lengths, "rows": rows,
+            "temps": temps, "top_ps": top_ps, "top_ks": top_ks,
+            "idxs": idxs, "flags": np.asarray(flags)})
         metas = []
         for req, slot_idx, seq, ids in entries:
             span = tracing.ManualSpan(
@@ -1996,17 +2359,12 @@ class LLMEngine:
             return False
         flags = _sampling_flags(all(temps[i] <= 0.0 for i in active))
         plan, lp = self._select_plan(K, spec_mode)
-        kw = dict(pool=self.pool, last_tokens=self._last_tokens,
-                  page_tables=self._put(tables),
-                  active=self._put(active_mask))
-        if self._spec_k:
-            kw.update(history=self._history, dev_lengths=self._dev_lengths)
+        arrays = {"tables": tables, "active_mask": active_mask}
         if not spec_mode:
-            kw.update(lengths=self._put(lengths), temperature=self._put(temps),
-                      top_p=self._put(top_ps), top_k=self._put(top_ks),
-                      generator=self._generator, sampling_flags=flags)
+            arrays.update(lengths=lengths, temps=temps, top_ps=top_ps,
+                          top_ks=top_ks, flags=np.asarray(flags))
         n_part = min(plan.rider_width, len(lp.ids) - lp.pos) if lp else 0
-        res = self._exec_plan(plan, lp, n_part, **kw)
+        res = self._exec_plan(self._plan_record(plan, lp, n_part, **arrays))
         if lp is not None:
             self._rider_bookkeeping(lp, n_part)
         self.metrics.decode_steps += K

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from generativeaiexamples_tpu_torch.models.llama import (
-    KVCache, LlamaConfig, Params, finish_block, forward_hidden,
+    KVCache, LlamaConfig, Params, embed, finish_block, forward_hidden,
     layer_weights, logits_from_hidden, project_qkv, rms_norm, rope_cos_sin)
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
@@ -141,7 +141,7 @@ def _prefill_logits(params: Params, cfg: LlamaConfig, pool: Pool,
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     table_flat = table_rows.reshape(-1).long()
-    x = params["tok_emb"][tokens.long()].to(cfg.dtype)
+    x = embed(params, tokens, cfg.dtype)
     for layer in range(cfg.n_layers):
         w = layer_weights(params, layer)
         h = rms_norm(x, w["ln1"], cfg.rms_eps)
@@ -258,7 +258,7 @@ def _decode_once(params: Params, cfg: LlamaConfig, pool: Pool,
     offset = pos % ps
     cos, sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
-    x = params["tok_emb"][tokens.long()[:, None]].to(cfg.dtype)  # [B, 1, D]
+    x = embed(params, tokens[:, None], cfg.dtype)  # [B, 1, D]
     for layer in range(cfg.n_layers):
         w = layer_weights(params, layer)
         h = rms_norm(x, w["ln1"], cfg.rms_eps)
@@ -428,7 +428,7 @@ def _decode_verify_once(params: Params, cfg: LlamaConfig, pool: Pool,
     cos, sin = rope_cos_sin(positions, Hd, cfg.rope_theta, cfg.rope_scaling)
     flat_tables = page_tables.repeat_interleave(r, dim=0)        # [B*r, maxp]
     flat_lengths = (lengths[:, None] + offs).reshape(-1).to(torch.int32)
-    x = params["tok_emb"][tokens.long()].to(cfg.dtype)           # [B, r, D]
+    x = embed(params, tokens, cfg.dtype)           # [B, r, D]
     for layer in range(cfg.n_layers):
         w = layer_weights(params, layer)
         h = rms_norm(x, w["ln1"], cfg.rms_eps)
@@ -488,7 +488,7 @@ def _tree_verify_once(params: Params, cfg: LlamaConfig, pool: Pool,
     page_idx, offset = _slot_pages(page_tables, slots, pool.page_size)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
-    x = params["tok_emb"][tokens.long()].to(cfg.dtype)           # [B, r, D]
+    x = embed(params, tokens, cfg.dtype)           # [B, r, D]
     for layer in range(cfg.n_layers):
         w = layer_weights(params, layer)
         h = rms_norm(x, w["ln1"], cfg.rms_eps)
@@ -899,6 +899,34 @@ class StepPlan(NamedTuple):
     rider_s_total: int = 0
     spec_state: bool = False
     rider_sample: bool = False
+
+
+def plan_to_record(plan: StepPlan) -> dict:
+    """The plan's dispatch-record form (serving/multihost.py): every
+    lattice coordinate as an int32 scalar under the JAX record's names,
+    so a follower rebuilds the exact StepPlan (`plan_from_record`)
+    instead of re-deriving it from scheduler state it does not have."""
+    return {
+        "plan_decode_k": np.int32(plan.decode_k),
+        "plan_spec_k": np.int32(plan.spec_k),
+        "plan_tree": np.int32(plan.tree_branches),
+        "plan_rw": np.int32(plan.rider_width),
+        "plan_rs": np.int32(plan.rider_s_total),
+        "plan_spec_state": np.int32(plan.spec_state),
+        "plan_rider_sample": np.int32(plan.rider_sample),
+    }
+
+
+def plan_from_record(rec: dict) -> StepPlan:
+    """Inverse of `plan_to_record` (follower side)."""
+    return StepPlan(
+        decode_k=int(rec["plan_decode_k"]),
+        spec_k=int(rec["plan_spec_k"]),
+        tree_branches=int(rec["plan_tree"]),
+        rider_width=int(rec["plan_rw"]),
+        rider_s_total=int(rec["plan_rs"]),
+        spec_state=bool(int(rec["plan_spec_state"])),
+        rider_sample=bool(int(rec["plan_rider_sample"])))
 
 
 def plan_step(params: Params, cfg: LlamaConfig, plan: StepPlan,

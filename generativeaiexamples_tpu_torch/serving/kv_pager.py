@@ -1,7 +1,20 @@
 """Session KV pager: tier prefix-cache pages device -> host RAM -> disk.
 
-Counterpart of generativeaiexamples_tpu/serving/kv_pager.py, without its
-multi-host slice mode and dispatch log (ROADMAP A.17).
+Counterpart of generativeaiexamples_tpu/serving/kv_pager.py.
+
+Tensor parallelism (serving/multihost.py): a rank's pool holds only its
+kv heads, so each rank's host and disk tiers park only its slice of a
+page (slice mode, `_arm_slice_mode`: the slice's place in the global
+page record, restored through `multihost.put_local_slice`). On the
+leader the dispatch log (`mh_log`) gets a `pager_out` record before each
+demotion gather and a `pager_in` record before each promotion scatter,
+naming the pages by monotone cold keys (slot numbers are leader-local);
+each record also names the keys whose cold copy the leader let go of
+since the last one (`free`: a destroyed node, a reattach). A follower
+replays them (`LLMEngine._exec_pager_out` / `_exec_pager_in`) against
+its own pager: `park` stores its slice under the leader's key in the
+same host budget and spill file, `release_parked` frees it, so its cold
+storage is bounded as the leader's is.
 
 Every cached prefix page pins a page of the device pool; with the pager
 the device becomes the hot tier of three, so a paused conversation costs
@@ -85,6 +98,15 @@ SPILL_MIN_SLOTS = 64
 _RAW_DTYPES = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
 
 
+class _Parked:
+    """A follower's parked page: what the tiers keep of a node."""
+
+    __slots__ = ("cold_key", "tier", "handle")
+
+    def __init__(self, cold_key: int):
+        self.cold_key, self.tier, self.handle = cold_key, None, None
+
+
 def _pow2(n: int) -> int:
     w = 1
     while w < n:
@@ -116,7 +138,7 @@ class KVPager:
     """
 
     def __init__(self, pool, *, host_budget_mb: int = 256,
-                 spill_dir: str = "", max_batch_pages: int = 0):
+                 spill_dir: str = "", max_batch_pages: int = 0, mesh=None):
         # Page geometry from the live pool: codes [2, L, KH, ps, Hd] per
         # page ([0] = k, [1] = v) in the pool dtype (int8 codes for a
         # quantized pool, which also carries [2, L, KH, ps] f32 scales).
@@ -142,6 +164,17 @@ class KVPager:
         # Largest gather/scatter per dispatch (0 = unbounded): the engine
         # passes max_pages.
         self.max_batch_pages = max(0, int(max_batch_pages))
+        # The dispatch log (set by the engine on the leader only), the
+        # next cold key, and slice mode under a tensor-parallel mesh.
+        self.mh_log = None
+        self._next_cold_key = 0
+        self._freed_keys: List[int] = []  # leader: for the next record
+        self._parked: dict = {}           # follower: cold key -> _Parked
+        self._local_index: Optional[tuple] = None
+        self._global_codes_shape = self.codes_shape
+        self._global_scales_shape = self.scales_shape
+        if mesh is not None and mesh.tensor > 1:
+            self._arm_slice_mode(mesh)
         n_host = max(0, int(host_budget_mb) * (1 << 20) // self._rec_bytes)
         self.n_host_slots = n_host
         self._host_codes = np.zeros((n_host,) + self.codes_shape,
@@ -184,6 +217,40 @@ class KVPager:
         if self._ephemeral:
             weakref.finalize(self, shutil.rmtree, self._spill_dir,
                              ignore_errors=True)
+
+    def _arm_slice_mode(self, mesh) -> None:
+        """Per-rank records: this rank's page record is its kv-head slice
+        of the global one ([2, L, KH, ps, Hd], heads on axis 2). The tiers
+        are sized on the local record (the pool already is); promotion
+        restores the slice through put_local_slice."""
+        from generativeaiexamples_tpu_torch.serving.sharding import (
+            pool_shard_heads)
+
+        kh = self.codes_shape[2] * mesh.tensor
+        heads = pool_shard_heads(kh, mesh)
+        self._global_codes_shape = (self.codes_shape[:2] + (kh,)
+                                    + self.codes_shape[3:])
+        self._local_index = tuple(slice(0, n) for n in self.codes_shape[:2]) \
+            + (heads,) + tuple(slice(0, n) for n in self.codes_shape[3:])
+        if self.scales_shape is not None:
+            self._global_scales_shape = (self.scales_shape[:2] + (kh,)
+                                         + self.scales_shape[3:])
+
+    def _restore(self, host: np.ndarray,
+                 global_shape: tuple) -> torch.Tensor:
+        """A promotion batch's host block [w, ...] as the tensor the
+        scatter takes: in slice mode this rank's slice, checked against
+        the global record's geometry (put_local_slice; the block stays in
+        its pinned staging buffer)."""
+        if self._local_index is None:
+            return torch.from_numpy(host)
+        from generativeaiexamples_tpu_torch.serving.multihost import (
+            put_local_slice)
+
+        w = host.shape[0]
+        index = (slice(0, w),) + self._local_index[:host.ndim - 1]
+        return put_local_slice(host, index, (w,) + tuple(global_shape),
+                               index)
 
     # -- host <-> device ----------------------------------------------------
 
@@ -232,6 +299,16 @@ class KVPager:
             batch = nodes[lo:hi]
             row = np.zeros((_pow2(len(batch)),), np.int64)  # pad: sink 0
             row[:len(batch)] = [n.page for n in batch]
+            # Wire names, then the record BEFORE the gather launch: the
+            # followers replay the same gather from the record alone.
+            for node in batch:
+                node.cold_key = self._next_cold_key
+                self._next_cold_key += 1
+            if self.mh_log is not None:
+                self.mh_log.publish(
+                    "pager_out", row=row, n=np.int32(len(batch)),
+                    keys=np.asarray([n.cold_key for n in batch], np.int64),
+                    free=self.take_freed_keys())
             codes, scales = engine_model.pool_to_pages(
                 pool, torch.from_numpy(row).to(self.device))
             fetched = self._to_host(codes)
@@ -305,6 +382,15 @@ class KVPager:
                 else:
                     raise RuntimeError(
                         f"promote of a tier-{node.tier} node")
+        if self.mh_log is not None:
+            self.mh_log.publish(
+                "pager_in", row=row, n=np.int32(n),
+                keys=np.asarray([node.cold_key for node in nodes], np.int64),
+                free=self.take_freed_keys())
+        if self._local_index is not None:
+            codes_t = self._restore(codes, self._global_codes_shape)
+            if scales is not None:
+                scales_t = self._restore(scales, self._global_scales_shape)
         dev = self.device
         pool = engine_model.pages_to_pool(
             pool,
@@ -316,6 +402,7 @@ class KVPager:
             for node, page in zip(nodes, pages):
                 self._free_cold_locked(node)
                 node.tier, node.page, node.handle = TIER_DEVICE, page, None
+                node.cold_key = None  # the followers took it (pager_in)
             self._promotions += n
             self._promote_tokens += n * self.page_size
         # Promotions free spill slots without a demotion to kick the
@@ -354,6 +441,7 @@ class KVPager:
             if node.tier not in (TIER_HOST, TIER_DISK):
                 return False
             self._free_cold_locked(node)
+            self._forget_key_locked(node)
             node.tier, node.page, node.handle = TIER_DEVICE, page, None
         self._maybe_kick()
         return True
@@ -363,7 +451,60 @@ class KVPager:
         failed); device and pending nodes are a no-op."""
         with self._lock:
             self._free_cold_locked(node)
+            self._forget_key_locked(node)
             node.handle = None
+
+    def _forget_key_locked(self, node) -> None:
+        """Lock held. The node's cold copy is gone for good: under replay
+        its key goes out with the next pager record, so the followers
+        free their slices too."""
+        if self.mh_log is not None and node.cold_key is not None:
+            self._freed_keys.append(node.cold_key)
+        node.cold_key = None
+
+    def take_freed_keys(self) -> np.ndarray:
+        """The cold keys let go of since the last call (leader)."""
+        with self._lock:
+            keys, self._freed_keys = self._freed_keys, []
+        return np.asarray(keys, np.int64)
+
+    # -- parked pages: a follower rank's cold store ------------------------
+
+    def park(self, keys, codes: np.ndarray,
+             scales: Optional[np.ndarray]) -> None:
+        """Store this rank's slices of demoted pages under the leader's
+        cold keys, in the warmest tier with room (the follower's half of
+        the leader's demote; `codes` in the raw dtype, page-major). A
+        compaction holding the spill file is waited out: a follower may
+        not drop a page the leader can still promote."""
+        for i, key in enumerate(keys):
+            node = _Parked(int(key))
+            while True:
+                with self._lock:
+                    if not self._compacting:
+                        self._store_locked(node, codes[i], None
+                                           if scales is None else scales[i])
+                        self._parked[node.cold_key] = node
+                        break
+                self.wait_maintenance()
+        self._maybe_kick()
+
+    def parked(self, keys) -> List:
+        """The parked pages under `keys` (None for a key never parked),
+        for read_pages."""
+        with self._lock:
+            return [self._parked.get(int(k)) for k in keys]
+
+    def release_parked(self, keys) -> None:
+        """Free the parked pages under `keys`; an unknown key is a no-op
+        (a page the leader dropped before this rank parked it)."""
+        with self._lock:
+            for key in keys:
+                node = self._parked.pop(int(key), None)
+                if node is not None:
+                    self._free_cold_locked(node)
+                    node.tier, node.handle = None, None
+        self._maybe_kick()
 
     def _free_cold_locked(self, node) -> None:
         """Lock held. Release a cold node's slot: host slab back to the

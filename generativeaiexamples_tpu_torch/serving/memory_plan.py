@@ -9,7 +9,9 @@ headroom, and gives the largest page count that fits beside them.
 
 With `engine.auto_pool_pages` the engine sizes its `PagePool` from the
 plan; a plan that cannot hold one max-length sequence fails at build with
-the breakdown and the smallest tensor-parallel mesh that would fit.
+the breakdown and the smallest tensor-parallel mesh that would fit. A
+tensor-parallel rank plans its own shard (`plan_rank_memory`): the mesh's
+axis sizes over its own device, the pager's host tier per rank process.
 
 The accounting is analytic over `models.llama.param_shapes` and
 `param_specs`: per-device shard bytes come from each leaf's mesh axes and
@@ -28,7 +30,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from generativeaiexamples_tpu_torch.config.schema import EngineConfig
+from generativeaiexamples_tpu_torch.config.schema import (
+    AUTO_POOL_SHARED, EngineConfig)
 from generativeaiexamples_tpu_torch.device import DeviceLike
 from generativeaiexamples_tpu_torch.models.llama import LlamaConfig
 
@@ -316,6 +319,25 @@ def plan_engine_memory(
             f"(max_seq_len={ecfg.max_seq_len}, page_size={ecfg.page_size})."
             f"\n{plan.breakdown()}\n{hint}", plan)
     return plan
+
+
+def plan_rank_memory(lcfg: LlamaConfig, ecfg: EngineConfig, mesh=None,
+                     device: DeviceLike = None) -> MemoryPlan:
+    """The plan of one engine: on one device, `plan_engine_memory`; as a
+    rank of a tensor-parallel mesh, its shard of the weights and of every
+    pool page against its own device's budget, with the pager's host
+    tier per rank process (each parks only its kv-head slice). Ranks
+    that share a device cannot each plan its whole memory
+    (AUTO_POOL_SHARED)."""
+    if mesh is None or mesh.size <= 1:
+        return plan_engine_memory(lcfg, ecfg, device=device)
+    if mesh.shared_device:
+        raise ValueError(AUTO_POOL_SHARED.format(
+            f"{mesh.size} tensor-parallel rank processes on "
+            f"{sorted({str(d) for d in mesh.devices})}"))
+    return plan_engine_memory(lcfg, ecfg, axis_sizes=dict(mesh.shape),
+                              n_processes=mesh.size, devices_per_host=1,
+                              device=device)
 
 
 def smallest_fitting_mesh(lcfg: LlamaConfig, ecfg: EngineConfig,

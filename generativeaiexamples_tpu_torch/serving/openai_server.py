@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import json
 import logging
+import signal
+import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -622,8 +624,18 @@ def make_http_server(app: OpenAIServer, host: str = "0.0.0.0",
 
 def run_server(app: OpenAIServer, host: str = "0.0.0.0",
                port: int = 8000) -> None:
+    """Serve until interrupted. SIGTERM (from the main thread) ends the
+    loop like Ctrl-C does, so the caller's cleanup runs: the launcher
+    stops the engine, and a tensor-parallel rank 0 publishes the stop
+    record that ends its followers' replay."""
     httpd = make_http_server(app, host, port)
+    old = None
+    if threading.current_thread() is threading.main_thread():
+        old = signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+            target=httpd.shutdown, daemon=True).start())
     try:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        if old is not None:
+            signal.signal(signal.SIGTERM, old)

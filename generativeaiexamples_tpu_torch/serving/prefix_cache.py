@@ -57,7 +57,7 @@ TIER_PENDING = 3
 
 class _Node:
     __slots__ = ("key", "page", "children", "parent", "last_used",
-                 "tier", "handle", "dev_children")
+                 "tier", "handle", "dev_children", "cold_key")
 
     def __init__(self, key, page, parent):
         self.key = key          # tuple of page_size token ids (root: None)
@@ -73,6 +73,9 @@ class _Node:
         # with no device children — so the resident set stays closed
         # under ancestors and a matched path promotes contiguously).
         self.tier = TIER_DEVICE
+        # The pager's wire name of the node's demoted bytes (the
+        # dispatch log's pager_out / pager_in records); None until then.
+        self.cold_key = None
         self.handle = None
         self.dev_children = 0
 

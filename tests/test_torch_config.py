@@ -11,7 +11,6 @@ and ignored.
 import dataclasses
 import json
 import logging
-import re
 
 import pytest
 import yaml
@@ -86,16 +85,18 @@ def test_config_file_matches_jax_wizard(tmp_path, kind, with_env):
 
 @pytest.mark.parametrize("kind", ["json", "yaml"])
 @pytest.mark.parametrize("section, fields, item", [
-    # The prefix cache and the pager are ported; beside multi-host (the
-    # pager's slice mode is ROADMAP A.17) the file is still refused.
+    # The prefix cache, the pager and multi-host tensor-parallel serving
+    # (A.17, the pager's slice mode included) are ported: read as the JAX
+    # wizard reads them (item None: accepted).
     pytest.param("engine", {"prefix_cache": True, "kv_pager": True,
-                            "multihost": True}, "A.17",
+                            "multihost": True}, None,
                  id="engine-prefix_cache-True-A.15"),
-    # Step plans, QoS and the memory planner are ported: beside them,
-    # multi-host (A.17) is still refused.
+    # Step plans, QoS, the memory planner and multi-host are ported: the
+    # file reads. (The engine refuses step plans beside multi-host at
+    # build, serving/multihost.py.)
     pytest.param("engine", {"step_plans": True, "qos": True,
                             "auto_pool_pages": True, "multihost": True},
-                 r"A\.17", id="engine-step_plans-True-A.14"),
+                 None, id="engine-step_plans-True-A.14"),
     # The fleet's autoscaler and chaos harness are ported (A.16): read
     # as the JAX wizard reads them (item None: accepted).
     pytest.param("fleet", {"replicas": 2, "autoscale": True,
@@ -177,7 +178,8 @@ def test_config_file_jax_only_keys_logged(tmp_path, caplog):
     with caplog.at_level(logging.WARNING):
         load_config(env={"APP_CONFIG_FILE": path})
     assert "enable_pallas_kernels" in caplog.text
-    assert "[mesh]" in caplog.text
+    # The [mesh] section is read since multi-host serving is ported.
+    assert "[mesh]" not in caplog.text
     # The flight recorder's, the pacer's and the planner's knobs are
     # ported: read, not logged.
     for name in ("flight_ring_size", "pace_emission_max_streams",
@@ -259,13 +261,16 @@ def test_remaining_chain_refusals_name_their_item(key):
     _assert_same(port, theirs)
 
 
-@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
+@pytest.mark.parametrize("name", ["multihost"])
 def test_remaining_engine_refusals_name_their_item(name):
-    default, item = UNSUPPORTED[name]
-    env = {f"APP_ENGINE_{name.replace('_', '').upper()}":
-           "true" if isinstance(default, bool) else "x"}
-    with pytest.raises(ValueError, match=re.escape(item.split(":")[0])):
-        load_config(env=env)
+    """No engine flag is refused any more: multihost, the last one, is
+    read from the env as the JAX wizard reads it (the engine refuses it
+    at build without rank processes, serving/multihost.py)."""
+    assert name not in UNSUPPORTED and not UNSUPPORTED
+    env = {f"APP_ENGINE_{name.replace('_', '').upper()}": "true"}
+    port, theirs = load_config(env=env), jax_load(env=env)
+    assert getattr(port.engine, name) is getattr(theirs.engine, name) is True
+    _assert_same(port, theirs)
 
 
 # The chain's tracing section, the micro-batch knobs, query augmentation,
@@ -522,7 +527,7 @@ def test_pacer_and_planner_fields_read_as_jax(tmp_path, source):
             defaults.hbm_gb_per_device,
             defaults.planner_headroom_fraction) == (16, False, 0.0, 0.1)
     assert not set(PACER_PLANNER_FIELDS) & set(UNSUPPORTED)
-    assert set(UNSUPPORTED) == {"multihost"}
+    assert set(UNSUPPORTED) == set()  # multihost is ported (A.17)
     assert not UNSUPPORTED_APP  # the ANN knobs are ported (A.18)
 
 

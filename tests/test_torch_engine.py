@@ -122,14 +122,14 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
 
 
 @pytest.mark.parametrize("flag,value,beside", [
-    # The fused rider, step plans beside speculation, QoS and the memory
-    # planner are ported: beside them, multi-host (A.17) is refused.
+    # Multi-host tensor-parallel serving is ported (A.17): without rank
+    # processes (a process group spanning more than one) the engine
+    # refuses the flag at build, before any allocation, whatever it is
+    # beside; speculation, step plans and the fused rider beside it are
+    # refused by validate_multihost_profile (tests/test_torch_multihost.py).
     pytest.param("multihost", True, {
         "fused_prefill": True, "step_plans": True, "speculative_k": 2,
         "qos": True, "auto_pool_pages": True}, id="fused_prefill-True"),
-    # The prefix cache and the pager are ported: beside them, the
-    # features still missing are refused (the pager's multi-host slice
-    # mode, A.17).
     pytest.param("multihost", True, {"prefix_cache": True,
                                      "kv_pager": True}, id="kv_pager-True"),
     pytest.param("multihost", True, {"prefix_cache": True, "qos": True},
@@ -139,12 +139,16 @@ def test_prompt_longer_than_largest_bucket_is_refused(engines):
                                      "pace_emission_max_streams": 4},
                  id="step_plans-True")])
 def test_unported_engine_flags_are_refused(flag, value, beside):
+    from generativeaiexamples_tpu_torch.serving.multihost import (
+        MultihostError)
+
     cfg = tl.LlamaConfig.tiny()
     params = tl.init_params(cfg, "cpu")
-    with pytest.raises(ValueError, match="ROADMAP A"):
+    match = "engine.multihost=true but the process group spans 1 process"
+    with pytest.raises(MultihostError, match=match):
         LLMEngine(params, cfg, ByteTokenizer(),
                   {**ECFG, **beside, flag: value}, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A"):
+    with pytest.raises(MultihostError, match=match):
         LLMEngine(params, cfg, ByteTokenizer(),
                   JConfig(**{**ECFG, **beside, flag: value}), device="cpu")
 

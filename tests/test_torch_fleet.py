@@ -308,11 +308,11 @@ def test_fleet_surfaces_key_sets_equal_jax():
 
 
 def test_single_engine_surfaces_cover_jax_keys():
-    """One engine: /metrics carries every JAX key but the unported ones
-    (multi-host, compiled plan variants), and /health has the
+    """One engine: /metrics carries every JAX key but the unported one
+    (compiled plan variants; the multi-host keys are always present since
+    tensor-parallel serving is ported), and /health has the
     always-present fleet and qos sections."""
-    unported = {"multihost_processes", "plan_variants_compiled",
-                "replay_divergence", "replay_records_published"}
+    unported = {"plan_variants_compiled"}
     j = set(jeng_mod.EngineMetrics().snapshot())
     t = set(teng_mod.EngineMetrics().snapshot())
     assert j - t == unported

@@ -53,7 +53,7 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_spec_int8', 'phase_spec_bf16', 'phase_prefix', "
         "'checkpoint_streams', 'phase_checkpoint', 'phase_chain', "
         "'phase_flight', 'phase_fused_prefill', 'phase_fused_prefill_int8', "
-        "'phase_fleet', 'phase_pacer', 'phase_ann', "
+        "'phase_fleet', 'phase_pacer', 'phase_ann', 'phase_tp', "
         "'paged_int8_sdpa_gathered_ms', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"

@@ -329,10 +329,9 @@ def test_app_config_defaults_and_env_overlay_match_jax():
                       ("engine", "prefill_buckets")):
         assert getattr(getattr(ours, sec), name) == getattr(
             getattr(theirs, sec), name), (sec, name)
-    # Multi-host is refused naming A.17; the ANN knobs (A.18) are ported
-    # and read as the JAX wizard reads them.
-    with pytest.raises(ValueError, match="A.17"):
-        load_config(env={"APP_ENGINE_MULTIHOST": "true"})
+    # Multi-host (A.17) and the ANN knobs (A.18) are ported and read as
+    # the JAX wizard reads them.
+    assert load_config(env={"APP_ENGINE_MULTIHOST": "true"}).engine.multihost
     env = {"APP_VECTORSTORE_INDEXTYPE": "ivf",
            "APP_VECTORSTORE_QUANTIZEINT8": "true",
            "APP_VECTORSTORE_TIERED": "true"}
