@@ -84,7 +84,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               64-token completions (one of them sampled with temperature,
               top-k and top-p); K1's and K2's launch counts must rise.
               Then, outside the counted window, torch.profiler over one
-              more 64-token completion: device idle share and device
+              more 32-token completion: device idle share and device
               time by kernel name
   9b. flight  the flight recorder on the same server (on by default):
               /debug/timeline must round-trip as JSON and its spans nest;
@@ -110,7 +110,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the rider at a 512-token budget, C the lane with the
               unfused finish; tree engines, k = 3 and M = 4: D the rider
               knob without step plans, E composed plans, the rider inside
-              the verify steps), each with three greedy 64-token streams
+              the verify steps), each with three greedy 32-token streams
               decoding while a 6,000-token prompt prefills; every stream
               must equal the same request run alone (on A for A-C, on D
               for D-E), B and E must ride (fused_steps, rider + lane
@@ -158,7 +158,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               file): 4 rounds of 64 queries skewed to 16 centers with a
               pager pass between rounds (hit rate, promotions, ms),
               ids equal to plain IVF's but for near-ties, 4,096 added
-              rows found before and after a compaction
+              rows found before and after a compaction; (e) the sharded
+              indexes over the same 1M rows on a mesh of two entries of
+              the card (["cuda:0", "cuda:0"], one process):
+              ShardedMIPSIndex against exact MIPS and ShardedIVFIndex
+              (the IVF store's training state) against the store's
+              index, ids equal but for near-ties, alone = batch, search
+              ms (1 and 64 queries)
   11d. pipelines  (right after ann) the other pipelines the chain
               server registers, over the same encoders, store and engine:
               multi_turn_rag over HTTP with its conversation memory a
@@ -192,15 +198,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               pages_to_pool: codes and scales must come back bit-identical
   11b. spec_bf16  (before the bf16 engine goes) a tree engine (k = 3,
               M = 4, batch 8) over the same bf16 weights: 8 concurrent
-              64-token completions, one sampled, so dispatches fall back
+              32-token completions, one sampled, so dispatches fall back
               to plain decode while it is live; K5 must launch, K2 only
               through the fallback
   11c. prefix  (before the bf16 engine goes) an engine with the prefix
               cache and the KV pager (batch 8, page 128, 257 pool pages,
               a quarter of them cacheable, 512 MB of host tier) over the
-              same weights: a 1,536-token shared prefix with 8 questions
+              same weights: a 1,536-token shared prefix with 4 questions
               (each hit prefills only its suffix through K1's q_offset
-              form; TTFT cold against hits; then all 8 at once), and 12
+              form; TTFT cold against hits; then all 4 at once), and 12
               1,024-token sessions run twice each, the first three
               resumed from host RAM and the spill file: promoted pages
               must equal their copy taken before demotion bit for bit and
@@ -208,8 +214,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               launch
   11e. fleet  (after prefix, before the bf16 engine goes) two replica
               engines over the served weights (prefix cache on, 129 pool
-              pages each) behind the port's OpenAI server: 8 greedy
-              64-token chats over 4 sessions, each equal to the same
+              pages each) behind the port's OpenAI server: 4 greedy
+              32-token chats over 4 sessions, each equal to the same
               request alone on the served engine, K1 and K2 launches equal
               to what the replicas' dispatches imply; each session's
               second turn on its replica with a router and an engine
@@ -231,12 +237,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
               K6 must launch, K2 and K5 not; spec_tokens_per_step,
               tokens/s, TTFT, peak memory and the share of streams equal
               to serving_int8's are printed; the tree engine's burst
-              runs again under the profiler (outside the counted window)
-              for the split of a verify step between K4, K6, the other
-              device work and the host
+              runs again (16 tokens a request) under the profiler
+              (outside the counted window) for the split of a verify step
+              between K4, K6, the other device work and the host
   13c. fused_prefill_int8  run B again over the int8 deployment's
               weights (batch 4, 128 pool pages, buckets up to 1,024): a
-              2,000-token prompt rides beside three streams; the streams
+              2,000-token prompt rides beside three 32-token streams; the
+              streams
               must equal the same requests run alone; K1, K4 and K6 must
               launch, K2 not. Then the int8 tree composition (k = 3,
               M = 4, step plans): the same traffic, the rider inside the
@@ -252,7 +259,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               in-memory ones; K3); load_llama in bf16 (time, GB/s, peak
               device memory; every leaf bit-identical), build_engine from
               the path behind the OpenAI server (a streaming chat and 4
-              concurrent 64-token greedy completions equal to the served
+              concurrent 32-token greedy completions equal to the served
               engine's tokens; K1, K2), the chain over it (PDF and HTML
               through /documents into a persisted store, reloaded; the
               RAG phase's 2,001-chunk store saved and reloaded, equal
@@ -276,20 +283,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
               TP_LOGIT_RTOL of its largest), and (bf16) a planted fault,
               rank 1's kv heads swapped, that the bound must catch; the
               four checkpoint completions behind rank 0's
-              OpenAI server (one prefill group; 64 tokens bf16, 32
-              int8; tokens against the single-device engine's: the share
+              OpenAI server (one prefill group; 16 tokens; tokens
+              against the single-device engine's: the share
               equal and the first divergence, a finding), two session
               requests over the prefix cache and pager (hits, demotions,
               a promotion), the longest prompt's pages exported whole
               (every rank's kv heads) against the forward's k/v, then a
-              second engine whose 16 tokens must equal the first run's;
+              second engine whose 4 tokens must equal the first run's;
               the ranks start when the
               checkpoint phase does, behind its snapshot write; each rank's
               launches (K1, K2 bf16; K1, K4, K6 int8; K2/K4 at least
               layers x decode steps), the records rank 0 published equal
               to those rank 1 read, no divergence, tokens/s beside the
               single-device engine's and the collectives' time per decode
-              step; both ranks exit 0 after the stop record
+              step. Then the speculative leg over the int8 shards (no new
+              load): tree speculation (k = 3, M = 4) with composed step
+              plans and the fused rider at batch 8; the four completions
+              (12 tokens) and a 512-token prompt admitted in one pass, the
+              prompt's 128-token chunks riding the verify steps, then a
+              sampled request alone (the plain fallback); each rank
+              launches K1, K4 (tree form) and K6, neither K2 nor K5; the
+              plans replayed by kind equal those run; the token chain,
+              history and device lengths equal across the ranks; a
+              second engine's tokens bit-identical; the tokens equal to a
+              single-device engine of the same config (a share, a
+              finding). Both ranks exit 0 after the stop record
   14. timing  the seconds of each phase and the total
   15. kernels one line {"kernels": [...]} with each kernel's parity,
               launches on its path (K1, K2: serving; K3: rag; K4, K6:
@@ -640,6 +658,11 @@ def phase_flash():
         # (phase_tp): 16 query and 4 kv heads.
         flash_case("8b_tp2_s128", 4, 16, 4, 128, 128, 128,
                    [66, 94, 38, 99], [0] * 4, seed=12),
+        # The same rank's rider (phase_tp's speculative leg): the last
+        # 128-wide chunk, at q_offset 384, of a 512-token prompt over its
+        # scratch cache.
+        flash_case("8b_tp2_rider_q_offset", 1, 16, 4, 128, 512, 128, [512],
+                   [384], seed=13),
     ]
     for c in cases:
         emit(c)
@@ -1204,6 +1227,11 @@ def phase_paged_int8():
         # A tensor-parallel rank's decode at 8B, tensor 2 (phase_tp).
         paged_int8_case("8b_tp2_ps16", 4, 16, 4, 128, 16, 64,
                         [67, 130, 203, 1024], seed=31),
+        # The same rank's (3, 4) tree verify at batch 8 (phase_tp's
+        # speculative leg).
+        paged_int8_case("8b_tp2_tree34_ps16", 8, 16, 4, 128, 16, 64,
+                        [1, 50, 67, 130, 203, 512, 900, 1011], seed=32,
+                        q_rep=13, tree=(3, 4)),
     ]
     for c in cases:
         emit(c)
@@ -1375,6 +1403,10 @@ def phase_tree():
         tree_case("late_max", 8, 32, 8, 128, 128, 65,
                   [129, 700, 1500, 2048, 3000, 4097, 6000, 8180], (3, 4),
                   seed=54, late_max=True),
+        # A tensor-parallel rank's bf16 tree verify at 8B, tensor 2: 16
+        # query and 4 kv heads, pages of 16, batch 8.
+        tree_case("8b_tp2_tree34_ps16", 8, 16, 4, 128, 16, 64,
+                  [1, 50, 67, 130, 203, 512, 900, 1011], (3, 4), seed=56),
     ]
     for c in cases:
         emit(c)
@@ -1393,12 +1425,14 @@ K6_SHAPES = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
 K6_ROWS = (8, 128, 256, 1664, 4096)
 # A tensor-parallel rank's shard of each projection at 8B, tensor 2
 # (phase_tp): q, k|v, gate|up and the head split their outputs, wo and
-# w_down their inputs; rows of a decode step at batch 4 and of the
+# w_down their inputs; rows of a decode step at batch 4, of the (3, 4)
+# tree verify (13 nodes a slot) over 4 and 8 slots, of the rider's
+# 128-token chunk, a ragged count in the 256-row tile, and of the
 # 4-prompt prefill group in the 128 bucket.
 K6_TP_SHAPES = {"wq_tp2": (4096, 2048), "wk_wv_tp2": (4096, 512),
                 "w_gate_up_tp2": (4096, 7168), "wo_tp2": (2048, 4096),
                 "w_down_tp2": (7168, 4096), "lm_head_tp2": (4096, 64128)}
-K6_TP_ROWS = (4, 512)
+K6_TP_ROWS = (4, 52, 104, 128, 180, 512)
 
 
 def int8_mm_case(name, R, K, M, seed=0, timed=True):
@@ -1898,7 +1932,7 @@ def phase_serving(card: str, served: ServedEngine):
     with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
         metrics = json.loads(r.read())
     profile = _profile_window(lambda: _complete(
-        base, "Profile window", 64)["completion_tokens"])
+        base, "Profile window", 32)["completion_tokens"])
     conc_tokens = sum(r["completion_tokens"] for r in results if r)
 
     def finished_ok(r, want):
@@ -2325,7 +2359,7 @@ def _k_cap_run(served, prompt, shorts, chunks_per_block: int,
 
 
 def _k_cap_check(served, prompt, long_alone, n_short: int = 3,
-                 max_tokens: int = 64):
+                 max_tokens: int = 32):
     """engine.prefill_decode_k_cap on the card: `n_short` greedy streams
     decode while the ~6k-token prompt prefills in chunks. Three streams,
     not two: at most a quarter of the batch decoding already caps K at 2
@@ -2557,7 +2591,7 @@ def _fused_engine_run(name, params, cfg, tokenizer, ecfg, n_pages, device,
 
 def phase_fused_prefill(card: str, served: ServedEngine,
                         device: str = "cuda", prompt_len: int = 6000,
-                        n_short: int = 3, max_tokens: int = 64,
+                        n_short: int = 3, max_tokens: int = 32,
                         long_tokens: int = 8, engine_cfg=None):
     """engine.fused_prefill over the served bf16 8B weights: unpaced
     engines of batch 4 with a pool for the prompt and three 256-token streams,
@@ -2617,7 +2651,7 @@ def phase_fused_prefill(card: str, served: ServedEngine,
 
 def phase_fused_prefill_int8(card: str, params, cfg, tokenizer,
                              device: str = "cuda", prompt_len: int = 2000,
-                             n_short: int = 3, max_tokens: int = 64,
+                             n_short: int = 3, max_tokens: int = 32,
                              long_tokens: int = 8, n_pages: int = 128,
                              engine_cfg=None):
     """Run B of phase_fused_prefill at a smaller size over the int8
@@ -3357,7 +3391,7 @@ ANN_TIERED_ROWS = 262_144
 # (b)'s f32 recall@10 bound: below the readings of k-means seeds 0-2 on
 # this corpus (0.881-0.928), which (b) also prints.
 ANN_F32_RECALL = 0.86
-ANN_SEEDS = (0, 1, 2)
+ANN_SEEDS = (0,)
 # Device bytes a store may hold beyond its index's table (or tiered
 # budget) and centroids.
 ANN_SLACK_BYTES = 16 << 20
@@ -3702,6 +3736,73 @@ def _ann_big(device, rows, dim, n_centers, noise, nlist, nprobe):
     return rec, store, corpus, centers, cents, assign
 
 
+def _ann_sharded(device, store, corpus, cents, assign, qs, nprobe):
+    """(e) The sharded indexes over a mesh of two entries of the card
+    (["cuda:0", "cuda:0"]: one process, as JAX runs them): a
+    ShardedMIPSIndex (contiguous row blocks) against exact `mips_topk`
+    over the same rows, and a ShardedIVFIndex (rows round-robin, one
+    table a shard) from the IVF store's training state against that
+    store's index; ids equal (in order but for near-ties), scanned rows
+    equal, alone equal to batch; search ms for 1 and 64 queries."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.config.schema import MeshConfig
+    from generativeaiexamples_tpu_torch.ops.ivf import ShardedIVFIndex
+    from generativeaiexamples_tpu_torch.ops.topk import (
+        ShardedMIPSIndex, mips_topk)
+    from generativeaiexamples_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(MeshConfig(ici_tensor=2), [device, device])
+    rec = {"devices": [str(d) for d in mesh.devices]}
+    t0 = time.perf_counter()
+    flat = ShardedMIPSIndex(corpus, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s, i = flat.search(qs, 10)
+    ws, wi = mips_topk(qs, corpus, 10)
+    alone = torch.cat([flat.search(qs[r:r + 1], 10)[1] for r in range(8)])
+    rec["mips"] = {
+        "shards": flat.n_shards, "shard_rows": flat.shard_rows,
+        "build_s": build_s, "shard_gb": flat.nbytes() / 1e9,
+        "same_as_unsharded": _same_up_to_ties(
+            i.cpu().numpy(), s.cpu().numpy(), wi.cpu().numpy(),
+            ws.cpu().numpy()),
+        "alone_equals_batch": bool(torch.equal(alone, i[:8])),
+        "search_1_ms": time_ms(lambda: flat.search(qs[:1], 10), 10),
+        "search_64_ms": time_ms(lambda: flat.search(qs, 10), 5)}
+    del flat
+    index = store._ivf
+    t0 = time.perf_counter()
+    sharded = ShardedIVFIndex(corpus, index.nlist, mesh, nprobe=nprobe,
+                              centroids=cents, assignments=assign)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s, i, scanned = sharded.search(qs, 10)
+    ws, wi, want_scanned = index.search(qs, 10)
+    alone = torch.cat([sharded.search(qs[r:r + 1], 10)[1]
+                       for r in range(8)])
+    rec["ivf"] = {
+        "shards": sharded.n_shards, "max_list_len": sharded.max_list_len,
+        "unsharded_max_list_len": index.max_list_len,
+        "build_s": build_s, "table_gb": sharded.table_bytes() / 1e9,
+        "same_as_unsharded": _same_up_to_ties(
+            i.cpu().numpy(), s.cpu().numpy(), wi.cpu().numpy(),
+            ws.cpu().numpy()),
+        "scanned_equal": scanned == want_scanned,
+        "alone_equals_batch": bool(torch.equal(alone, i[:8])),
+        "search_1_ms": time_ms(lambda: sharded.search(qs[:1], 10), 10),
+        "search_64_ms": time_ms(lambda: sharded.search(qs, 10), 5),
+        "unsharded_search_1_ms": time_ms(lambda: index.search(qs[:1], 10),
+                                         10)}
+    del sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["ok"] = all(rec[k]["same_as_unsharded"] and rec[k][
+        "alone_equals_batch"] for k in ("mips", "ivf")) and rec["ivf"][
+        "scanned_equal"]
+    return rec
+
+
 def _ann_stores(device, store_1m, corpus, qs, n_rows, nlist, nprobe,
                 budget_mb, spill):
     """(d) The store's int8 and tiered paths as a deployment turns them
@@ -3947,6 +4048,8 @@ def phase_ann(card: str, served: ServedEngine, keep: dict,
         device memory) paths as a config turns them on, over the first
         `tiered_rows` rows: the card holds the index's table or its
         budget and the centroids, never the rows; recall@10 >= 0.8.
+    (e) the sharded indexes over the same rows on a mesh of two entries
+        of the card (`_ann_sharded`), against the unsharded ones.
     No kernel is new: the ANN search is plain torch."""
     import tempfile
 
@@ -3977,13 +4080,20 @@ def phase_ann(card: str, served: ServedEngine, keep: dict,
             max(1, tier_budget_mb // 4), spill)
     finally:
         shutil.rmtree(spill, ignore_errors=True)
+    time_mark("ann_e")
+    sharded = _ann_sharded(
+        device, store, corpus, cents, assign,
+        _near(centers, torch.arange(64, device=device), ANN_NOISE, seed=6),
+        nprobe)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del store, corpus, centers, cents
     gc.collect()
     torch.cuda.empty_cache()
-    ok = chain["ok"] and big["ok"] and tiered["ok"] and stores["ok"]
+    ok = (chain["ok"] and big["ok"] and tiered["ok"] and stores["ok"]
+          and sharded["ok"])
     rec = {"phase": "ann", "card": card, "chain": chain, "store_1m": big,
-           "tiered": tiered, "stores": stores, "launches": chain["launches"],
+           "tiered": tiered, "stores": stores, "sharded": sharded,
+           "launches": chain["launches"],
            "peak_mem_gb": peak_gb, "ok": ok}
     emit(rec)
     return rec
@@ -4643,8 +4753,8 @@ def phase_serving_int8(card: str, model_size: str = "8b",
     try:
         prompts = _int8_prompts(n_requests)
 
-        def burst():
-            return _burst(served.base, prompts, max_tokens)
+        def burst(tokens=max_tokens):
+            return _burst(served.base, prompts, tokens)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4660,10 +4770,10 @@ def phase_serving_int8(card: str, model_size: str = "8b",
         launches = dict(kernels.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         pool = engine.pool
-        # Outside the counted window: the same burst again under the
-        # profiler, for where its time goes.
+        # Outside the counted window: the same burst again (16 tokens a
+        # request) under the profiler, for where its time goes.
         profile = _profile_window(lambda: sum(
-            r["completion_tokens"] for r in burst() if r))
+            r["completion_tokens"] for r in burst(16) if r))
     finally:
         served.close()
     # With the engine stopped, a few free pages of its int8 pool make
@@ -4766,7 +4876,7 @@ def _first_divergence(got, want):
 def phase_spec_int8(card: str, int8_served, device: str = "cuda",
                     n_requests: int = 128, max_tokens: int = 64,
                     n_pages=None, engine_cfg=None,
-                    configs=SPEC_INT8_CONFIGS):
+                    configs=SPEC_INT8_CONFIGS, profile_tokens: int = 16):
     """Speculative engines on the int8 deployment, over serving_int8's
     quantized weights (its engine and pool are released first; n_pages
     None: as many pages as its planned pool), each
@@ -4816,7 +4926,7 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
                 steps0 = engine.metrics.snapshot()["decode_steps"]
                 profile = _profile_window(lambda: sum(
                     r["completion_tokens"] for r in _burst(
-                        served.base, prompts, max_tokens) if r))
+                        served.base, prompts, profile_tokens) if r))
                 steps = engine.metrics.snapshot()["decode_steps"] - steps0
                 window = profile["wall_ms"]
                 profile["decode_steps"] = steps
@@ -4885,7 +4995,7 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
 
 
 def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
-                    n_requests: int = 8, max_tokens: int = 64,
+                    n_requests: int = 8, max_tokens: int = 32,
                     spec=(3, 4)):
     """A tree engine (k = 3, M = 4, default batch 8) over the bf16 8B
     weights the serving phases used, behind the OpenAI server:
@@ -5033,9 +5143,9 @@ def _metric_delta(engine, before, keys):
 
 def phase_prefix(card: str, bf16_served, device: str = "cuda",
                  prefix_len: int = 1536, question_len: int = 40,
-                 n_questions: int = 8, session_len: int = 1024,
+                 n_questions: int = 4, session_len: int = 1024,
                  n_sessions: int = 12, n_resume: int = 3,
-                 max_tokens: int = 16, n_pages: int = PREFIX_POOL_PAGES,
+                 max_tokens: int = 8, n_pages: int = PREFIX_POOL_PAGES,
                  engine_cfg=None, warmup_buckets=(128, 1024, 2048)):
     """An engine with the prefix cache and the KV pager (PREFIX_ENGINE,
     batch 8, page 128, n_pages pool pages) over the bf16 8B weights the
@@ -5243,7 +5353,7 @@ QOS_POOL_PAGES = 385
 # 5,000 tokens: beyond the largest bucket they go through the chunked
 # lane, which the latency tier's TTFT phase pauses), over 4 s of
 # arrivals (6 s by default; cut for the smoke's time).
-QOS_TRACE = {"batch_prompt": (1.4, 1024, 5000), "horizon_s": 4.0}
+QOS_TRACE = {"batch_prompt": (1.4, 1024, 3000), "horizon_s": 3.0}
 # The edge's bounds in the 429 check (each tier's in-flight limit).
 QOS_EDGE_BOUNDS = {"latency": 2, "standard": 2, "batch": 1}
 
@@ -5641,7 +5751,7 @@ def _fleet_chaos(src, engines, fleet_of, rng, ecfg, n_pages, device,
 
 
 def phase_fleet(card: str, bf16_served, device: str = "cuda",
-                n_chats: int = 8, n_sessions: int = 4, chat_chars: int = 300,
+                n_chats: int = 4, n_sessions: int = 4, chat_chars: int = 300,
                 max_tokens: int = 32, disagg_prompt: int = 4136,
                 disagg_tokens: int = 32, chunk_pages: int = 8,
                 n_pages: int = FLEET_POOL_PAGES, engine_cfg=None,
@@ -6344,7 +6454,7 @@ def _checkpoint_prompts(vocab: int):
             for n in rng.integers(20, 101, 4)]
 
 
-def checkpoint_streams(served: ServedEngine, max_tokens: int = 64):
+def checkpoint_streams(served: ServedEngine, max_tokens: int = 32):
     """Token streams of the checkpoint prompts through `served`'s OpenAI
     server: one streaming chat completion, then four concurrent greedy
     completions admitted as ONE prefill group (the scheduler is stopped
@@ -6591,7 +6701,7 @@ def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
     - bf16: `load_llama(device="cuda")` (time, GB/s, peak device memory
       against the tree's bytes) bit-identical leaf by leaf; then
       `build_engine(weights_path=...)` behind the OpenAI server: its
-      streaming chat and four concurrent 64-token greedy completions
+      streaming chat and four concurrent 32-token greedy completions
       must equal the served engine's tokens (`ref`); K1 and K2 must
       launch; the chain over it: PDF and HTML through /documents into a
       persisted store, and the RAG store saved and reloaded;
@@ -6865,7 +6975,7 @@ TP_INT8 = {"quantize_weights": "int8", "kv_dtype": "int8"}
 # a share of the largest |logit|: each all-reduce rounds a bf16 sum of
 # two partial products where one GEMM rounds once, layer after layer.
 TP_LOGIT_RTOL = 5e-2
-TP_TEACHER_STEPS = 4
+TP_TEACHER_STEPS = 2
 TP_RANK_TIMEOUT_S = 600
 
 
@@ -7156,6 +7266,34 @@ def _tp_rank_main(rank, coordinator, device, cmds, out) -> None:
                 rep["collectives"] = dict(mesh_lib.COLLECTIVE_STATS)
                 mesh_lib.COLLECTIVE_TIMING = False
                 del eng
+            elif kind == "spec":
+                # A new engine over the loaded (int8) shards.
+                eng = LLMEngine(engine.params, engine.model_cfg,
+                                engine.tokenizer, arg["ecfg"], mesh=mesh)
+                plans = _count_plans(eng)
+                mesh_lib.COLLECTIVE_TIMING = arg["timing"]
+                mesh_lib.reset_collective_stats()
+                sync()
+                kernels.reset_launches()
+                if rank == 0:
+                    rep.update(_tp_spec_run(eng, arg["prompts"], arg["long"],
+                                            arg["max_tokens"]))
+                else:
+                    rep["replayed"] = run_follower(
+                        eng, timeout_s=TP_RANK_TIMEOUT_S)
+                    eng.stop()
+                    rep["consumed"] = eng._mh_log.consumed
+                    rep["metrics"] = {
+                        k: eng.metrics.snapshot()[k] for k in (
+                            "multihost_processes", "replay_divergence")}
+                sync()
+                rep["launches"] = dict(kernels.LAUNCHES)
+                rep["collectives"] = dict(mesh_lib.COLLECTIVE_STATS)
+                rep["plans"] = dict(plans)
+                rep["state"] = _spec_state(eng)
+                mesh_lib.COLLECTIVE_TIMING = False
+                eng.pool = None
+                del eng
             out.put((rank, kind, rep))
         engine = None
         mesh_lib.shutdown()
@@ -7264,9 +7402,207 @@ def _tp_share(got, want) -> dict:
             "first_divergence": first}
 
 
+# The speculative leg of phase_tp: the int8 leg's shards under tree
+# speculation (k = 3, M = 4) with composed step plans and the fused
+# rider, at batch 8 without the prefix cache. The four checkpoint prompts
+# and a TP_SPEC_LONG-token prompt are admitted in one pass, so the long
+# prompt's 128-token chunks ride the verify steps; then a sampled request
+# runs the plain fallback alone.
+TP_SPEC = {**TP_INT8, "speculative_k": 3, "speculative_tree_branches": 4,
+           "step_plans": True, "fused_prefill": True, "max_batch_size": 8,
+           "prefix_cache": False, "kv_pager": False}
+TP_SPEC_LONG = 512
+TP_SPEC_LONG_TOKENS = 4
+TP_SPEC_SAMPLED_TOKENS = 4
+
+
+def _plan_kind(plan) -> str:
+    """A StepPlan's lattice point by name."""
+    if not plan.decode_k:
+        return "chunk_sample" if plan.rider_sample else "chunk"
+    rider = "+rider" if plan.rider_width else ""
+    if plan.spec_k:
+        return ("tree" if plan.tree_branches > 1 else "linear") + rider
+    return "fallback" if plan.spec_state else "decode" + rider
+
+
+def _count_plans(engine) -> dict:
+    """Count the plans `engine` runs (a leader) or replays (a follower)
+    by lattice point: the returned dict fills as it runs."""
+    from collections import Counter
+
+    from generativeaiexamples_tpu_torch.serving import engine_model as em
+
+    counts = Counter()
+    run = engine._exec_plan
+
+    def counted(rec):
+        counts[_plan_kind(em.plan_from_record(rec))] += 1
+        return run(rec)
+
+    engine._exec_plan = counted
+    return counts
+
+
+def _spec_state(engine) -> dict:
+    """A speculative engine's replicated device state: the token chain,
+    the draft history and the device lengths (host copies)."""
+    return {name: getattr(engine, attr).cpu().numpy() for name, attr in (
+        ("last_tokens", "_last_tokens"), ("history", "_history"),
+        ("dev_lengths", "_dev_lengths"))}
+
+
+def _tp_spec_run(engine, prompts, long_prompt, max_tokens) -> dict:
+    """The speculative leg's traffic on `engine` (rank 0's, or one
+    device's), started here and stopped at the end: the prompts (greedy,
+    max_tokens) and the long prompt (greedy, TP_SPEC_LONG_TOKENS) held
+    until all wait, so one pass admits them (the prompts prefill as one
+    group, the long one chunks beside their verify steps); then, alone,
+    a sampled request (temperature 0.8) that runs the plain fallback on
+    the generator's draws."""
+    from generativeaiexamples_tpu_torch.serving.engine import GenRequest
+
+    engine.start()
+    todo = [(list(p), max_tokens) for p in prompts] + [
+        (list(long_prompt), TP_SPEC_LONG_TOKENS)]
+    held, grouped = threading.Event(), {}
+
+    def hold():
+        held.set()
+        deadline = time.perf_counter() + 60
+        while len(engine.waiting) < len(todo) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        grouped["ok"] = len(engine.waiting) == len(todo)
+
+    holder = threading.Thread(target=engine.run_control_op,
+                              args=(hold, 120))
+    holder.start()
+    held.wait(60)
+    t0 = time.perf_counter()
+    reqs = [engine.submit(GenRequest(prompt_ids=p, max_new_tokens=n))
+            for p, n in todo]
+    got = [_collect_req(r) for r in reqs]
+    wall = time.perf_counter() - t0
+    holder.join(timeout=60)
+    sampled = engine.submit(GenRequest(
+        prompt_ids=list(prompts[0]), max_new_tokens=TP_SPEC_SAMPLED_TOKENS,
+        temperature=0.8))
+    s_toks, s_finish, _ = _collect_req(sampled)
+    engine.stop()  # the final digest and the stop record
+    m = engine.metrics.snapshot()
+    return {"grouped": grouped.get("ok", False), "wall_s": wall,
+            "tokens": [g[0] for g in got], "finish": [g[1] for g in got],
+            "sampled": s_toks, "sampled_finish": s_finish,
+            "metrics": {k: m[k] for k in (
+                "decode_steps", "prefill_tokens", "fused_steps",
+                "fused_prefill_tokens", "spec_slot_steps",
+                "spec_fallback_steps", "spec_committed",
+                "spec_tokens_per_step", "multihost_processes",
+                "replay_records_published", "replay_divergence")}}
+
+
+def _tp_spec_leg(ranks, ecfg, int8_params, cfg, tokenizer, prompts,
+                 n_tokens, n_long, device) -> dict:
+    """phase_tp's speculative leg (TP_SPEC over the int8 leg's shards,
+    no new load): a single-device engine of the same config runs the
+    same traffic first (the share of equal tokens is a finding), then
+    the ranks twice, each run a new engine (A; B, the second engine,
+    with the collectives timed). Gates: each rank launches K1 (the
+    prefill group and the riders), K4 (the tree verify, the fallback's
+    decode) and K6, and neither K2 nor K5; the plans replayed equal the
+    plans run, tree verify with a rider and the fallback among them;
+    every record read, no divergence; the token chain, history and
+    device lengths equal across the ranks; run B's tokens, the sampled
+    stream's included, bit-identical to run A's."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+
+    procs, cmds, out = ranks
+    long_prompt = np.random.default_rng(19).integers(
+        0, min(cfg.vocab_size, 128000), n_long).tolist()
+    single = LLMEngine(int8_params, cfg, tokenizer,
+                       {**ecfg, "multihost": False}, device=device)
+    one = _tp_spec_run(single, prompts, long_prompt, n_tokens)
+    single.pool = None
+    del single
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    runs = {run: _tp_ask(procs, cmds, out, "spec", {
+        "ecfg": ecfg, "timing": timing, "prompts": prompts,
+        "long": long_prompt, "max_tokens": n_tokens})
+        for run, timing in (("A", False), ("B", True))}
+    a0, b0 = runs["A"][0], runs["B"][0]
+    m = a0["metrics"]
+    launches = {r: {run: runs[run][r]["launches"] for run in runs}
+                for r in (0, 1)}
+    launch_ok = all(
+        launches[r]["A"][k] > 0 for r in (0, 1)
+        for k in ("flash_attention", "paged_attention_int8",
+                  "int8_matmul")) and all(
+        launches[r]["A"][k] == 0 for r in (0, 1)
+        for k in ("paged_attention", "paged_attention_tree")) and all(
+        launches[r]["A"]["paged_attention_int8"]
+        >= cfg.n_layers * m["decode_steps"] for r in (0, 1))
+    replay_ok = all(
+        runs[run][0]["metrics"]["replay_records_published"]
+        == runs[run][1]["consumed"] > 0
+        and runs[run][0]["metrics"]["replay_divergence"] == 0
+        and runs[run][1]["metrics"]["replay_divergence"] == 0
+        and runs[run][1]["metrics"]["multihost_processes"] == 2
+        for run in runs)
+    state_equal = {run: {k: bool(np.array_equal(v, runs[run][1]["state"][k]))
+                         for k, v in runs[run][0]["state"].items()}
+                   for run in runs}
+    plans = {run: {r: runs[run][r]["plans"] for r in (0, 1)} for run in runs}
+    plans_ok = all(p[0] == p[1] for p in plans.values()) and all(
+        plans["A"][0].get(k, 0) > 0 for k in ("tree+rider", "fallback"))
+    coll_b = b0["collectives"]
+    steps_b = b0["metrics"]["decode_steps"]
+    n_tok = sum(len(t) for t in a0["tokens"])
+    lrec = {
+        "engine": ecfg, "long_prompt_tokens": n_long,
+        "grouped": [r[0]["grouped"] for r in runs.values()],
+        "finish": a0["finish"], "sampled_tokens": len(a0["sampled"]),
+        "metrics": m, "plans_by_kind": plans,
+        "vs_single_device": _tp_share(a0["tokens"], one["tokens"]),
+        "sampled_equal_single_device": a0["sampled"] == one["sampled"],
+        "single_device_metrics": one["metrics"],
+        "tokens_per_s": n_tok / a0["wall_s"],
+        "single_device_tokens_per_s": (sum(len(t) for t in one["tokens"])
+                                       / one["wall_s"]),
+        "tokens_equal_second_run": (b0["tokens"] == a0["tokens"]
+                                    and b0["sampled"] == a0["sampled"]),
+        "state_equal_across_ranks": state_equal,
+        "replay": {run: {"published": runs[run][0]["metrics"][
+            "replay_records_published"], "read_by_rank1": runs[run][1][
+            "consumed"], "dispatches_replayed": runs[run][1]["replayed"]}
+            for run in runs},
+        "launches": launches, "collectives_run_A": a0["collectives"],
+        "collectives_run_B_timed": coll_b,
+        "collectives_per_decode_step": (
+            (coll_b["all_reduce"] + coll_b["all_gather"]) / steps_b
+            if steps_b else None),
+        "collective_ms_per_decode_step": (1e3 * coll_b["seconds"] / steps_b
+                                          if steps_b else None),
+        "launch_ok": launch_ok, "replay_ok": replay_ok, "plans_ok": plans_ok}
+    lrec["ok"] = (launch_ok and replay_ok and plans_ok
+                  and all(lrec["grouped"])
+                  and all(all(v.values()) for v in state_equal.values())
+                  and lrec["tokens_equal_second_run"]
+                  and all(t for t in a0["tokens"]) and a0["sampled"]
+                  and m["fused_steps"] > 0 and m["spec_slot_steps"] > 0
+                  and m["spec_fallback_steps"] > 0)
+    return lrec
+
+
 def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
-             int8_params, int8_ref: dict, max_tokens: int = 64,
-             int8_tokens: int = 32, second_tokens: int = 16,
+             int8_params, int8_ref: dict, max_tokens: int = 16,
+             int8_tokens: int = 16, second_tokens: int = 8,
+             spec_tokens: int = 16, spec_long: int = TP_SPEC_LONG,
              device: str = "cuda:0", engine_cfg=None, ranks=None) -> dict:
     """Tensor parallelism: two rank processes on cuda:0 serve the 8B
     snapshot at `llm_dir` sharded, bf16 then int8 (see the docstring's
@@ -7276,7 +7612,9 @@ def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
     trees (the teacher-forced engine's and the export's references and,
     for int8, the codes the ranks' shards must slice). Each leg's second
     engine serves second_tokens of each completion, held to the first
-    run's tokens. `ranks` are
+    run's tokens. Then the speculative leg over the int8 shards
+    (`_tp_spec_leg`, spec_tokens a completion, a spec_long-token
+    prompt riding). `ranks` are
     processes tp_spawn started (default: started here)."""
     import numpy as np
     import torch
@@ -7429,7 +7767,10 @@ def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
                 "tokens_equal_second_run": (
                     [t[:second_tokens] for t in a0["tokens"]]
                     == b0["tokens"] if b0 else None),
-                "vs_single_device": _tp_share(a0["tokens"], want["tokens"]),
+                # The single-device runs served more tokens: their
+                # leading n_tokens (greedy: a prefix of the longer run).
+                "vs_single_device": _tp_share(a0["tokens"], [
+                    (w or [])[:n_tokens] for w in want["tokens"]]),
                 "tokens_per_s": n_tok / a0["wall_s"],
                 "single_device_tokens_per_s": (
                     sum(len(t or []) for t in want["tokens"])
@@ -7462,6 +7803,12 @@ def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
             lrec["ok"] = ok
             oks.append(ok)
             rec["legs"][leg] = lrec
+        time_mark("tp_spec_int8")
+        lrec = _tp_spec_leg(ranks, {**base_cfg, **TP_SPEC}, int8_params, cfg,
+                            tokenizer, prompts, spec_tokens, spec_long,
+                            device)
+        oks.append(lrec["ok"])
+        rec["legs"]["spec_int8"] = lrec
         for q in cmds:
             q.put(None)
         for p in procs:
@@ -7470,7 +7817,7 @@ def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
     finally:
         tp_kill(ranks)
     rec["seconds"] = time.perf_counter() - t_phase
-    rec["ok"] = all(oks) and len(oks) == 2 and rec["exitcodes"] == [0, 0]
+    rec["ok"] = all(oks) and len(oks) == 3 and rec["exitcodes"] == [0, 0]
     emit(rec)
     return rec
 

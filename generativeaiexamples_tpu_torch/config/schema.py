@@ -173,10 +173,10 @@ class EngineConfig:
     # rank 0 runs the scheduler and the OpenAI surface and publishes a
     # record of each device dispatch before launching it; the follower
     # ranks replay the records through the same executors, so the
-    # collectives pair up by launch order. The prefix cache and the KV
-    # pager replay; speculation, step plans and the fused rider are
-    # refused by validate_multihost_profile (ROADMAP A.17). Off: one
-    # process, one device.
+    # collectives pair up by launch order. The whole serving profile
+    # replays (speculation, step plans, the fused rider, the prefix
+    # cache and the KV pager); validate_multihost_profile refuses only a
+    # batch-sharded mesh. Off: one process, one device.
     multihost: bool = False
 
     @staticmethod

@@ -170,9 +170,9 @@ def param_specs(cfg: LlamaConfig) -> Params:
     rules; None = replicated). Megatron layout: q/k/v and the MLP's
     inputs shard their output dimension on "tensor", wo and w_down their
     input dimension, the embeddings their vocabulary; the hidden
-    dimension of the weights is the "fsdp" axis. The port runs on one
-    device today: the memory planner reads this table to plan other
-    geometries (ROADMAP A.17)."""
+    dimension of the weights is the "fsdp" axis. Each rank's shard
+    (serving/sharding.py, the sharded load of models/hf_loader.py) and
+    the memory planner's per-device bytes follow this table."""
     specs: Params = {
         "tok_emb": ("tensor", "fsdp"),
         "ln_f": (None,),

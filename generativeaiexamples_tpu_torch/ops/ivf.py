@@ -18,6 +18,17 @@ Storage is partition-blocked, `db3 [nlist, max_len, D]` with a
 local->global row-id map `g3` (pad = -1); int8 rows (per-row symmetric
 amax/127 scales) store the corpus at 1/4 of the f32 bytes.
 
+Two layouts, mirroring `ops/topk.py`:
+- `IVFIndex`: single-device; `add()` assigns new rows with one
+  [M,D]x[D,nlist] matmul and scatters them into partition tail slots.
+- `ShardedIVFIndex`: corpus rows round-robin over a mesh axis
+  (parallel/mesh.py `axis_devices`, one process as in JAX), every shard
+  holding a full [nlist, max_len_local, D] table of its rows (shared
+  centroids and assignments). Each shard probes the same `nprobe`
+  partitions over its rows and keeps a local top-k; the
+  [Q, n_shards * k] candidates are copied to the first shard's device,
+  concatenated and reduced, as `ShardedMIPSIndex` does.
+
 What differs from the JAX arithmetic, and why:
 - The segment sum of a Lloyd step is a chunked one-hot matmul, not an
   `index_add_`: CUDA adds with atomics in no fixed order, so two
@@ -32,14 +43,12 @@ What differs from the JAX arithmetic, and why:
   alone and the same query in a coalesced batch probe the same
   partitions and score the same rows with the same arithmetic. The
   refine gathers only the real queries' probed blocks.
-- `torch.topk` leaves ties unordered; `_topk` orders them by the lower
-  index, as `lax.top_k` does.
+- `torch.topk` leaves ties unordered; `_topk` (`ops.topk.ordered_topk`)
+  orders them by the lower index, as `lax.top_k` does.
 - The corpus need not lie on the device: training, assignment and the
   table build take it in SCAN_ROWS chunks from wherever it lies (a host
   corpus streams through the device, never held there whole), and the
   index keeps only its table.
-
-`ShardedIVFIndex` waits for the parallel layer (ROADMAP A.17).
 """
 
 from __future__ import annotations
@@ -51,7 +60,9 @@ import torch
 
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops.quant import div127
-from generativeaiexamples_tpu_torch.ops.topk import QUERY_TILE
+from generativeaiexamples_tpu_torch.ops.topk import (
+    ordered_topk as _topk, stored_rows, tiled_scores as _tiled_scores,
+    tiled_topk as _tiled_topk)
 
 # Balanced-assignment capacity: cap each partition at this multiple of
 # the mean list size (padding bound + incremental-add headroom).
@@ -62,17 +73,6 @@ BALANCE_CANDIDATES = 8
 # [rows, nlist] distance block, the one-hot block of a Lloyd step and the
 # chunk a host corpus streams to the device in).
 SCAN_ROWS = 65536
-
-
-def stored_rows(x) -> torch.Tensor:
-    """`x` ([N, D] numpy or tensor) as an f32 tensor where it lies: numpy
-    stays on the host (no copy when already f32 and writable)."""
-    if isinstance(x, torch.Tensor):
-        return x.float()
-    arr = np.ascontiguousarray(x, np.float32)
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    return torch.from_numpy(arr)
 
 
 def compute_device(x, device: DeviceLike = None) -> torch.device:
@@ -100,42 +100,6 @@ def _chunks(data: torch.Tensor, device: torch.device, rows: int = SCAN_ROWS):
 def to_host(x) -> np.ndarray:
     """A tensor (any device) or array as a host numpy array."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis, ties ordered by the lower index (the
-    `lax.top_k` order; `torch.topk` leaves them unordered on CUDA)."""
-    vals, idx = torch.topk(x, k, dim=-1)
-    idx, perm = idx.sort(dim=-1)
-    vals, perm2 = vals.gather(-1, perm).sort(dim=-1, descending=True,
-                                             stable=True)
-    return vals, idx.gather(-1, perm2)
-
-
-def _tiled_topk(x: torch.Tensor, k: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`_topk` of each row of x [Q, L], in QUERY_TILE-row tiles of one
-    shape (the last padded with -inf), so the selection does not depend
-    on how many queries share the call."""
-    n = x.shape[0]
-    pad = -n % QUERY_TILE
-    if pad:
-        x = torch.cat([x, x.new_full((pad, x.shape[1]), -torch.inf)])
-    vals, idx = zip(*(_topk(t, k) for t in x.split(QUERY_TILE)))
-    return torch.cat(vals)[:n], torch.cat(idx)[:n]
-
-
-def _tiled_scores(q: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """q [Q, D] x table [L, D] -> [Q, L], scored in QUERY_TILE-row tiles
-    of one shape (the last padded), so a query's scores do not depend on
-    how many queries share its call."""
-    n = q.shape[0]
-    pad = -n % QUERY_TILE
-    if pad:
-        q = torch.cat([q, q.new_zeros((pad, q.shape[1]))])
-    t = table.T
-    return torch.cat([torch.matmul(tile, t)
-                      for tile in q.split(QUERY_TILE)])[:n]
 
 
 # -- k-means training --------------------------------------------------------
@@ -177,6 +141,20 @@ def assign_partitions(data: torch.Tensor, centroids: torch.Tensor
     return torch.cat([torch.argmin(_sq_dists(x, centroids), dim=1)
                       for _, x in _chunks(data, dev)]).to(torch.int32) \
         if len(data) else torch.zeros((0,), dtype=torch.int32, device=dev)
+
+
+def extend_assignments(new_rows, centroids: torch.Tensor, assignments,
+                       cap: float) -> Optional[np.ndarray]:
+    """`assignments` with `new_rows` appended, each to its nearest
+    centroid (one matmul, no retraining), or None when a partition would
+    then hold more than `cap` rows: hot-partition skew, on which the
+    caller retrains. ShardedIVFIndex.add and the store's re-layout of a
+    lagging index share it, each with its own cap (JAX's two rules)."""
+    tail = to_host(assign_partitions(new_rows, centroids)).astype(np.int32)
+    out = np.concatenate([np.asarray(assignments, np.int32), tail])
+    if np.bincount(out, minlength=len(centroids)).max() > cap:
+        return None
+    return out
 
 
 def kmeans_fit(data, nlist: int, *, iters: int = 8, seed: int = 0,
@@ -497,5 +475,122 @@ class IVFIndex:
     def state(self) -> dict:
         """Persistable training state (the corpus itself lives with the
         owning store)."""
+        return {"centroids": to_host(self.centroids).copy(),
+                "assignments": np.asarray(self._assign).copy()}
+
+
+# -- sharded variant ---------------------------------------------------------
+
+
+class ShardedIVFIndex:
+    """IVF with corpus rows round-robin over the mesh axis `axis`.
+
+    Every shard holds the full partition structure (shared centroids and
+    assignments) over ITS rows: a local [nlist, max_len_local, D] table
+    (f32, or int8 codes with scales) on its device. A search runs the
+    two-stage search on each shard (the same coarse scan, so the same
+    `nprobe` partitions, over ~1/n_shards of each list), keeps a local
+    top-k, and reduces the [Q, n_shards * k] candidates with a final
+    top-k on the first shard's device. The candidate set equals the
+    single-device index's on the same centroids and assignments, so the
+    results match up to float ordering. `vectors` may lie on the host or
+    a device; the shards' tables are gathered from it in chunks."""
+
+    def __init__(self, vectors, nlist: int, mesh, axis: str = "tensor", *,
+                 nprobe: int = 16, quantize_int8: bool = False,
+                 train_iters: int = 8, seed: int = 0, centroids=None,
+                 assignments=None):
+        from generativeaiexamples_tpu_torch.parallel.mesh import (
+            axis_devices)
+
+        self.mesh, self.axis = mesh, axis
+        self.devices = axis_devices(mesh, axis)
+        self.device = self.devices[0]
+        self.n_shards = len(self.devices)
+        rows = stored_rows(vectors)
+        self.dim = int(rows.shape[1])
+        self.nprobe = int(nprobe)
+        self.quantize_int8 = bool(quantize_int8)
+        if centroids is None or assignments is None:
+            centroids, _ = kmeans_fit(rows, nlist, iters=train_iters,
+                                      seed=seed, device=self.device)
+            assignments = balanced_assign(rows, centroids)
+        self.centroids = as_rows(centroids, self.device)
+        self.nlist = int(self.centroids.shape[0])
+        self._assign = np.asarray(to_host(assignments), np.int32)
+        self.n_rows = int(rows.shape[0])
+        self._build_layout(rows)
+
+    def _build_layout(self, rows: torch.Tensor) -> None:
+        """Each shard's table from `rows` (the whole corpus, old rows
+        first): rows s, s + S, s + 2S, ... bucketed by partition, padded
+        to the longest list of any shard."""
+        S, nlist = self.n_shards, self.nlist
+        ml = 1
+        per_shard_lists = []
+        for s in range(S):
+            ids = np.arange(s, self.n_rows, S)  # round-robin split
+            local_lists, local_ml = _partition_lists(self._assign[ids], nlist)
+            per_shard_lists.append([ids[l] for l in local_lists])
+            ml = max(ml, local_ml)
+        self.max_list_len = ml
+        self._shards = []
+        for dev, lists in zip(self.devices, per_shard_lists):
+            g3 = np.full((nlist, ml), -1, np.int32)
+            for p, l in enumerate(lists):
+                g3[p, :len(l)] = l
+            db3, scales3 = _gather_blocks(rows, g3, self.quantize_int8, dev)
+            self._shards.append((self.centroids.to(dev), db3, scales3,
+                                 torch.from_numpy(g3).to(dev)))
+
+    def table_bytes(self) -> int:
+        """Device bytes of every shard's table (rows, scales, id map)."""
+        return sum(t.numel() * t.element_size()
+                   for shard in self._shards for t in shard[1:]
+                   if t is not None)
+
+    def add(self, new_vectors, all_vectors,
+            max_grow_factor: float = 4.0) -> bool:
+        """Assign new rows WITHOUT retraining (one matmul), then rebuild
+        the sharded layout from the whole corpus (`all_vectors`, old rows
+        first): the per-shard tables change shape under the round-robin
+        split, so unlike `IVFIndex.add` this re-gathers the corpus, while
+        centroids and assignments are kept. Returns False without
+        mutating when a partition would grow past max_grow_factor x the
+        mean list size (the store retrains instead)."""
+        new = stored_rows(new_vectors)
+        if not len(new):
+            return True
+        n_total = self.n_rows + len(new)
+        grown = extend_assignments(
+            new, self.centroids, self._assign,
+            max_grow_factor * max(1.0, n_total / self.nlist))
+        if grown is None:
+            return False
+        self._assign = grown
+        rows = stored_rows(all_vectors)
+        self.n_rows = int(rows.shape[0])
+        self._build_layout(rows)
+        return True
+
+    def search(self, queries, k: int, nprobe: Optional[int] = None):
+        """queries [Q,D] -> (scores [Q,kk], global row ids [Q,kk] int64,
+        both on the first shard's device; n_scanned_rows int summed over
+        the shards). Padded slots: -inf score, id -1."""
+        nprobe = int(nprobe or self.nprobe)
+        q = stored_rows(queries)
+        best, ids, scanned = [], [], 0
+        for centroids, db3, scales3, g3 in self._shards:
+            b, g, n = _score_probed(q.to(centroids.device), centroids, db3,
+                                    scales3, g3, k, nprobe)
+            best.append(b.to(self.device))
+            ids.append(g.to(self.device))
+            scanned += n
+        top, pos = _tiled_topk(torch.cat(best, dim=1),
+                               min(k, self.n_shards * best[0].shape[1]))
+        return top, torch.cat(ids, dim=1).gather(1, pos), scanned
+
+    def state(self) -> dict:
+        """Persistable training state: the JAX index's format."""
         return {"centroids": to_host(self.centroids).copy(),
                 "assignments": np.asarray(self._assign).copy()}

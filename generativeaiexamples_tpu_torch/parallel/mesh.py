@@ -236,6 +236,29 @@ def _tensor_group(shape: Dict[str, int]):
     return mine
 
 
+def axis_devices(mesh: Mesh, axis: str = "tensor") -> List[torch.device]:
+    """The devices along `axis` of `mesh`, in axis order, with every
+    other axis at this rank's coordinate: where one process places the
+    shards of an array sharded on `axis` (the sharded indexes of
+    ops/topk.py and ops/ivf.py, which run in one process as JAX's do).
+    Each is resolved (`device.resolve_device`), so a CUDA device on a
+    host without one raises."""
+    from generativeaiexamples_tpu_torch.device import resolve_device
+
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}; axes: "
+                         f"{list(mesh.shape)}")
+    coords = mesh.coords
+    stride = 1
+    for name in reversed(MESH_AXIS_NAMES):
+        if name == axis:
+            break
+        stride *= mesh.shape[name]
+    base = mesh.rank - coords[axis] * stride
+    return [resolve_device(mesh.devices[base + i * stride])
+            for i in range(mesh.shape[axis])]
+
+
 def single_device_mesh(device=None) -> Mesh:
     """Trivial 1-device mesh (all axes size 1)."""
     device = torch.device(device) if device is not None else \

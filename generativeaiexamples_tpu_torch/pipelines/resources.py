@@ -6,7 +6,9 @@ memory's) can be injected; otherwise they are built from the config
 (over `hub`'s in-process engines for `model_engine: tpu`). With
 `serving.microbatch_enabled` the embedder, the reranker and the
 document store coalesce concurrent callers into one dispatch each
-(serving/batcher.py); the conversation-memory store never does.
+(serving/batcher.py); the conversation-memory store never does. A
+`mesh` (parallel/mesh.py) shards both device stores' indexes over its
+"tensor" axis, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from generativeaiexamples_tpu_torch.serving import batcher as mb
 class Resources:
     def __init__(self, config: AppConfig, *, hub: Optional[factory.EngineHub]
                  = None, llm=None, embedder=None, reranker=None, store=None,
-                 conv_store=None):
+                 conv_store=None, mesh=None):
         self.config = check_supported(config)
         self.hub = hub if hub is not None else factory.EngineHub(config)
         self.llm = llm if llm is not None else factory.get_llm(config,
@@ -52,14 +54,14 @@ class Resources:
         # (loads existing data now, saves on every mutation).
         self.store = store if store is not None else create_vector_store(
             config, dim=dim, device=self.hub.device,
-            persist_dir=config.vector_store.persist_dir)
+            persist_dir=config.vector_store.persist_dir, mesh=mesh)
         # The conversation-memory store (multi_turn_rag) is ephemeral: in
         # this process, never persisted, even when the document store is
         # an external server.
         self.conv_store = (conv_store if conv_store is not None else
                            create_vector_store(config, dim=dim,
                                                device=self.hub.device,
-                                               ephemeral=True))
+                                               ephemeral=True, mesh=mesh))
         if sv.microbatch_enabled and hasattr(self.store,
                                              "enable_microbatch"):
             # Document store only: conversation memory is per-request

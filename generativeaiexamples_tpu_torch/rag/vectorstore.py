@@ -39,7 +39,15 @@ external milvus (rag/milvus_store.py) and pgvector
 conversation memory (always flat, as in JAX). With an IVF index the
 store also writes `ivf.npz` (centroids and assignments) beside the
 snapshot, in the JAX store's format, so a reload in either package skips
-k-means. `ShardedIVFIndex` (a mesh) waits for ROADMAP A.17.
+k-means.
+
+With a `mesh` (parallel/mesh.py) the device store shards its index over
+the mesh axis `shard_axis`, in this process, as the JAX store does: flat
+search is `ops.topk.ShardedMIPSIndex` (contiguous row blocks), ivf
+`ops.ivf.ShardedIVFIndex` (rows round-robin; rows added to a live
+sharded index are folded in by an off-lock re-layout, not a scatter).
+The rows then live on the host, and the shards hold the device copies.
+The tiered index is single-device and refused beside a mesh.
 """
 
 from __future__ import annotations
@@ -57,7 +65,8 @@ import torch
 from generativeaiexamples_tpu_torch.config.schema import check_supported
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops.ivf import to_host
-from generativeaiexamples_tpu_torch.ops.topk import mips_topk
+from generativeaiexamples_tpu_torch.ops.topk import (
+    ShardedMIPSIndex, mips_topk)
 from generativeaiexamples_tpu_torch.serving.batcher import (
     MicroBatcher, MicroBatcherClosed, MicroBatchHost)
 
@@ -391,11 +400,14 @@ class DeviceVectorStore(MemoryVectorStore):
     `hbm_budget_mb`, the rest pages through a host-RAM warm cache and an
     mmap'd disk spill, adds land in warm tail slots, and a single-flight
     background pass (kicked after searches) promotes and demotes
-    partitions and compacts tails. Its gauges ride `stats()`."""
+    partitions and compacts tails. Its gauges ride `stats()`. With a
+    `mesh` the index is sharded over its `shard_axis` (module docstring)
+    and the store's device defaults to that axis's first device."""
 
     def __init__(self, dim: int, metric: str = "ip",
                  device: DeviceLike = None,
-                 persist_dir: Optional[str] = None, *,
+                 persist_dir: Optional[str] = None, *, mesh=None,
+                 shard_axis: str = "tensor",
                  index_type: str = "flat", nlist: int = 64,
                  nprobe: int = 16, quantize_int8: bool = False,
                  tiered: bool = False, hbm_budget_mb: int = 256,
@@ -409,10 +421,22 @@ class DeviceVectorStore(MemoryVectorStore):
             raise ValueError(
                 "vector_store.tiered requires index_type=ivf (the tiered "
                 "index pages IVF partitions; there is no tiered flat scan)")
+        if tiered and mesh is not None:
+            raise ValueError(
+                "vector_store.tiered is single-device (HBM is the hot "
+                "CACHE tier); unset the mesh or tiered")
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        if device is None and mesh is not None:
+            from generativeaiexamples_tpu_torch.parallel.mesh import (
+                axis_devices)
+
+            device = axis_devices(mesh, shard_axis)[0]
         self.device = resolve_device(device)
-        # Where the rows live: the device for flat (its only copy), the
-        # host for ivf (the index holds its own table on the device).
-        self._home = self.device if index_type == "flat" \
+        # Where the rows live: the device for an unsharded flat store (its
+        # only copy), else the host (the index holds its own tables, or
+        # the shards their blocks, on the devices).
+        self._home = self.device if index_type == "flat" and mesh is None \
             else torch.device("cpu")
         # Host rows of a CUDA store are pinned: the trainer streams them
         # through the card several times.
@@ -420,8 +444,9 @@ class DeviceVectorStore(MemoryVectorStore):
         self._rows = torch.zeros((0, dim), dtype=torch.float32,
                                  device=self._home)
         self._pending: List[torch.Tensor] = []  # added since the refresh
-        # The exact path's device matrix (normalized rows for cosine).
-        self._flat: Optional[torch.Tensor] = None
+        # The exact path's device matrix (normalized rows for cosine), or
+        # with a mesh its ShardedMIPSIndex.
+        self._flat = None
         self.tiered = bool(tiered)
         self.hbm_budget_mb = int(hbm_budget_mb)
         self.ram_budget_mb = int(ram_budget_mb)
@@ -555,10 +580,15 @@ class DeviceVectorStore(MemoryVectorStore):
         """Lock held. The exact path's device matrix (normalized rows for
         cosine): the rows themselves for a flat store, a device mirror of
         the host rows for an ivf store (dropped when the index installs,
-        as the JAX store drops its `_device_index`)."""
+        as the JAX store drops its `_device_index`); with a mesh, a
+        ShardedMIPSIndex over them."""
         self._fold_pending()
         if self._flat is None:
-            self._flat = self._normalized(self._rows.to(self.device))
+            if self.mesh is not None:
+                self._flat = ShardedMIPSIndex(
+                    self._normalized(self._rows), self.mesh, self.shard_axis)
+            else:
+                self._flat = self._normalized(self._rows.to(self.device))
 
     def _normalized(self, rows: torch.Tensor) -> torch.Tensor:
         if self.metric == "cosine":
@@ -579,7 +609,10 @@ class DeviceVectorStore(MemoryVectorStore):
             self._sync_ivf_incremental()
         if wants_ivf and self._ivf is not None and not self._ivf_stale:
             self._flat = None  # the exact mirror is superseded: freed
-            self._dirty = False
+            # A sharded index lagging the corpus (its re-layout is
+            # off-lock work) keeps the dirty flag: this query serves the
+            # rows it has; the next search's trainer folds the tail in.
+            self._dirty = self._ivf_synced_rows < len(self._docs)
             return
         # Exact path: no index wanted, corpus below the floor, or the
         # index is stale or untrained (training happens outside the lock
@@ -600,9 +633,14 @@ class DeviceVectorStore(MemoryVectorStore):
         (one assign matmul + a tail-slot scatter, or tail slots of the
         tiered index). An add that would skew a partition past the
         table's growth cap is refused by the index: mark stale so the
-        next search retrains off-lock."""
+        next search retrains off-lock. A sharded index's sync re-gathers
+        the corpus, so it runs through the off-lock trainer instead
+        (_ivf_wants_relayout): a no-op here."""
+        from generativeaiexamples_tpu_torch.ops.ivf import ShardedIVFIndex
+
         n = len(self._docs)
-        if n <= self._ivf_synced_rows:
+        if n <= self._ivf_synced_rows or isinstance(self._ivf,
+                                                    ShardedIVFIndex):
             return
         new = self._normalized(self._rows[self._ivf_synced_rows:])
         if not self._ivf.add(new):
@@ -629,13 +667,23 @@ class DeviceVectorStore(MemoryVectorStore):
             return True
         return self._ivf.max_list_len > 4 * max(1, n // self._ivf.nlist)
 
+    def _ivf_wants_relayout(self) -> bool:
+        """Lock held. A live SHARDED index lagging the corpus: folding
+        rows in means rebuilding the per-shard tables (a corpus
+        re-gather), which happens off-lock like training."""
+        from generativeaiexamples_tpu_torch.ops.ivf import ShardedIVFIndex
+
+        return (isinstance(self._ivf, ShardedIVFIndex)
+                and not self._ivf_stale
+                and self._ivf_synced_rows < len(self._docs))
+
     def _kick_training_async(self) -> None:
         """Run _maybe_train_ivf on a background thread (single-flight).
         The micro-batcher's one dispatcher thread must not stall every
         queued search behind k-means; until the install lands, searches
         serve the exact or stale path (always correct)."""
         with self._lock:
-            needed = self._ivf_needs_train()
+            needed = self._ivf_needs_train() or self._ivf_wants_relayout()
         if not needed:
             return
         with self._slow_lock:
@@ -666,21 +714,31 @@ class DeviceVectorStore(MemoryVectorStore):
         it; the result installs under the lock. A delete racing the build
         voids the snapshot's assignments (seen through _ivf_stale) and is
         retried; adds during the build are fine (the next search folds
-        them in)."""
-        from generativeaiexamples_tpu_torch.ops.ivf import IVFIndex
+        them in). A live sharded index lagging the corpus is re-laid out
+        here from its own centroids and assignments (the tail assigned,
+        a full retrain on skew)."""
+        from generativeaiexamples_tpu_torch.ops.ivf import (
+            IVFIndex, ShardedIVFIndex, as_rows, extend_assignments)
 
         if self.index_type != "ivf":
             return
         sidecar = None
         for _ in range(3):
             with self._lock:
-                if not self._ivf_needs_train():
+                needs = self._ivf_needs_train()
+                relayout = not needs and self._ivf_wants_relayout()
+                if not needs and not relayout:
                     break
-                rebuilding = self._ivf is not None
+                rebuilding = needs and self._ivf is not None
                 self._fold_pending()
                 rows = self._rows
                 n = len(rows)
-                if rebuilding:
+                trained_rows = self._ivf_trained_rows
+                if relayout:
+                    # The live index's training, as it is; only the tail
+                    # rows need assigning.
+                    state = dict(self._ivf.state())
+                elif rebuilding:
                     self._loaded_ivf_state = None
                     state = {}
                 else:
@@ -691,6 +749,17 @@ class DeviceVectorStore(MemoryVectorStore):
                 self._ivf_stale = False  # building against this snapshot
             # -- slow part: no lock held --------------------------------
             norm = self._normalized(rows)
+            if relayout:
+                grown = extend_assignments(
+                    norm[len(state["assignments"]):],
+                    as_rows(state["centroids"], self.device),
+                    state["assignments"],
+                    4 * max(1, n // len(state["centroids"])))
+                if grown is None:
+                    # Hot-partition skew: a full retrain instead.
+                    state, relayout, rebuilding = {}, False, True
+                else:
+                    state["assignments"] = grown
             # Partitions need enough rows to be worth probing: clamp
             # nlist so the average list holds >= 8 rows.
             nlist = max(1, min(self.nlist, n // 8))
@@ -707,6 +776,9 @@ class DeviceVectorStore(MemoryVectorStore):
                     spill_dir=self._tier_spill_dir(),
                     ema_decay=self.pager_ema_decay, device=self.device,
                     **kw)
+            elif self.mesh is not None:
+                built = ShardedIVFIndex(norm, nlist, self.mesh,
+                                        self.shard_axis, **kw)
             else:
                 built = IVFIndex(norm, nlist, device=self.device, **kw)
             with self._lock:
@@ -714,7 +786,8 @@ class DeviceVectorStore(MemoryVectorStore):
                     continue  # a delete raced the build: retry
                 self._ivf = built
                 self._ivf_synced_rows = n
-                self._ivf_trained_rows = n
+                self._ivf_trained_rows = (trained_rows or n) if relayout \
+                    else n
                 self._flat = None
                 # Rows added during the build are not in the snapshot:
                 # the next refresh folds them in.
@@ -792,7 +865,10 @@ class DeviceVectorStore(MemoryVectorStore):
                 self._pending_sample = (qs[0].clone(), idx[0].copy(), k,
                                         self._rows)
             return to_host(scores), idx
-        scores, idx = mips_topk(qs, self._flat, k)
+        if self.mesh is not None:
+            scores, idx = self._flat.search(qs, k)
+        else:
+            scores, idx = mips_topk(qs, self._flat, k)
         return scores.cpu().numpy(), idx.cpu().numpy()
 
     def _pop_pending(self):
@@ -1021,7 +1097,8 @@ class DeviceVectorStore(MemoryVectorStore):
 def create_vector_store(config, dim: Optional[int] = None,
                         device: DeviceLike = None,
                         persist_dir: Optional[str] = None,
-                        ephemeral: bool = False):
+                        ephemeral: bool = False, *, mesh=None,
+                        shard_axis: str = "tensor"):
     """Factory from AppConfig.vector_store. `memory` is the host store;
     `tpu` and `native` (the JAX config's names, kept so configs are
     shared) are the device store, with every index knob of the config
@@ -1031,7 +1108,8 @@ def create_vector_store(config, dim: Optional[int] = None,
     config.vector_store.persist_dir). `milvus` and `pgvector` are
     external servers at `vector_store.url` (durable server-side) and fail
     loudly without one. Anything else, and every knob the port does not
-    honour (`check_supported`), is refused by name.
+    honour (`check_supported`), is refused by name. A `mesh` shards the
+    device store's index over `shard_axis` (DeviceVectorStore).
 
     `ephemeral=True` marks a per-process scratch store (conversation
     memory): it is never persisted, stays on the exact flat path (far
@@ -1054,9 +1132,11 @@ def create_vector_store(config, dim: Optional[int] = None,
         return PgVectorStore(vs.url, dim)
     if vs.name in ("tpu", "native"):
         if ephemeral:
-            return DeviceVectorStore(dim, device=device)
+            return DeviceVectorStore(dim, device=device, mesh=mesh,
+                                     shard_axis=shard_axis)
         return DeviceVectorStore(
-            dim, device=device, persist_dir=persist_dir,
+            dim, device=device, persist_dir=persist_dir, mesh=mesh,
+            shard_axis=shard_axis,
             index_type=vs.index_type, nlist=vs.nlist, nprobe=vs.nprobe,
             quantize_int8=vs.quantize_int8, tiered=vs.tiered,
             hbm_budget_mb=vs.hbm_budget_mb, ram_budget_mb=vs.ram_budget_mb,

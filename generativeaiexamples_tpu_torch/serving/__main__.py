@@ -26,11 +26,11 @@ APP_<SECTION>_<FIELD> variables):
   processes, one a device. The mesh spans `--devices` (one entry per
   rank; default: every CUDA device of this host, or the one --device);
   JAX's default `ici_tensor=-1` puts them all on the tensor axis, so on
-  one card the mesh is one device and nothing changes. A config that
-  rank processes cannot serve (a replica fleet; speculation, step plans
-  or the fused rider) stays on the first card when neither --devices
-  nor a `[mesh]` axis size asks for more, and is refused when one does
-  (JAX shards such a config over the mesh in one process). With more than
+  one card the mesh is one device and nothing changes. A replica fleet,
+  which rank processes cannot serve, stays on the first card when
+  neither --devices nor a `[mesh]` axis size asks for more, and is
+  refused when one does (JAX shards a fleet's replicas over the mesh in
+  one process). With more than
   one device and no coordinator, this process is rank 0 and starts the
   follower ranks itself (`spawn`), with `engine.multihost` on. With
   `--coordinator host:port --num-processes N --process-id R` (or
@@ -309,31 +309,15 @@ def check_mesh_config(config, n_devices: int) -> None:
                                            urls))
 
 
-def _rank_profile_refusal(config) -> str:
-    """Why `config` cannot be served over rank processes (a replica
-    fleet, or an engine profile the dispatch records do not replay:
-    serving/multihost.py), or "" when it can."""
-    from generativeaiexamples_tpu_torch.serving import multihost as mh
-
-    if _has_fleet(config):
-        return "a replica fleet serves its engines on one device"
-    try:
-        mh.validate_multihost_profile(EngineConfig.coerce(config.engine))
-    except mh.MultihostError as e:
-        return str(e)
-    return ""
-
-
 def mesh_devices(device: DeviceLike = None, devices: str = "",
                  config=None) -> List[str]:
     """The mesh's devices, one per rank: `devices` ("cuda:0,cuda:1",
     "cpu,cpu", ...), else the one `device`, else every CUDA device of
     this host. With `config`, that default holds only where rank
-    processes can serve it: a config with the [mesh] defaults and
-    engine.multihost off that they cannot (a replica fleet, speculation,
-    step plans, the fused rider) serves on the first device, as the
-    launcher did before it had a mesh, and the log says why. An explicit
-    mesh is held to the rules (check_mesh_config, the engine's
+    processes can serve it: a replica fleet with the [mesh] defaults and
+    engine.multihost off serves on the first device, as the launcher did
+    before it had a mesh, and the log says why. An explicit mesh is held
+    to the rules (check_mesh_config, the engine's
     validate_multihost_profile)."""
     if devices:
         return [d.strip() for d in devices.split(",") if d.strip()]
@@ -345,10 +329,10 @@ def mesh_devices(device: DeviceLike = None, devices: str = "",
             and dataclasses.replace(config.mesh, coordinator_address="",
                                     num_processes=0, process_id=-1)
             == MeshConfig()):
-        why = _rank_profile_refusal(config)
-        if why:
+        if _has_fleet(config):
             logging.info("serving on %s alone, not a mesh of the %d local "
-                         "devices: %s", local[0], len(local), why)
+                         "devices: a replica fleet serves its engines on "
+                         "one device", local[0], len(local))
             return local[:1]
     return local
 

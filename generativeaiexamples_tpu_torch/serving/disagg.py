@@ -18,13 +18,15 @@ prefill's KV pages between them.
 
 Transfer paths, selected per window by `KVPageTransfer`:
 
-* **device path**: when both replicas' pools live on one device (two
-  LocalReplicas on one card, or on the CPU in the tests), pages move as
-  tensors straight from the source's `engine_model.pool_to_pages`
-  gather into the target's `pages_to_pool` scatter: a device-to-device
-  copy, no host bounce, int8 codes + f32 scales verbatim so the route
-  is bit-identical to the host bounce. Pools on two different cards
-  take the host bounce (a peer copy between cards is ROADMAP A.17). Any
+* **device path**: when both replicas' pools live on devices this
+  process addresses (parallel/mesh.py `devices_colocated`, JAX's rule:
+  two LocalReplicas on one card or on two cards of this host, or on the
+  CPU in the tests), pages move as tensors straight from the source's
+  `engine_model.pool_to_pages` gather into the target's `pages_to_pool`
+  scatter: no host bounce, int8 codes + f32 scales verbatim so the route
+  is bit-identical to the host bounce. Between two cards the target
+  replica moves them with a peer copy on its pool's stream first
+  (fleet.py `LocalReplica.import_kv_pages_device`). Any
   device-path failure marks the replica pair broken and falls back to
   the host bounce on the SAME window (counted, never fatal).
 * **host bounce** (GKVT: the universal fallback, and the
@@ -235,17 +237,11 @@ def deserialize_kv_transfer(buf: bytes) -> Tuple[
     return ids, codes, scales
 
 
-def devices_colocated(a, b) -> bool:
-    """Do two replicas' pools live on the same single device (the
-    device path's condition)? Each argument is a set of torch.devices."""
-    a, b = set(a), set(b)
-    return len(a) == 1 and a == b
-
-
 class KVPageTransfer:
     """Page mover between two fleet replicas: per-window transport
-    selection (device path when both pools live on one device, GKVT
-    host bounce otherwise; see the module docstring), optional chunking, and the background
+    selection (device path when both pools live on devices this
+    process addresses, GKVT host bounce otherwise; see the module
+    docstring), optional chunking, and the background
     tail-ship that lets decode admission overtake the last chunk.
     The fleet owns fallback-to-colocated policy; `ops` (FleetOps,
     optional) receives the device-fallback count.
@@ -381,9 +377,10 @@ class KVPageTransfer:
         """May this pair take the device path right now? Both replicas
         must expose the device surface (LocalReplicas; an HttpReplica
         never does: its engine lives in another process, so the wire
-        is the only route), their pools must live on one device (a
-        copy between two cards is ROADMAP A.17), and the pair must not
-        have failed the fast path before."""
+        is the only route), their pools' devices must be addressable
+        from this process (parallel/mesh.py devices_colocated, JAX's
+        rule: one card, or a peer copy between two cards of this host),
+        and the pair must not have failed the fast path before."""
         if not (hasattr(src, "export_kv_pages_device")
                 and hasattr(dst, "import_kv_pages_device")
                 and hasattr(src, "transfer_page_size")):
@@ -392,6 +389,9 @@ class KVPageTransfer:
             if (getattr(src, "rid", ""),
                     getattr(dst, "rid", "")) in self._device_broken:
                 return False
+        from generativeaiexamples_tpu_torch.parallel.mesh import (
+            devices_colocated)
+
         try:
             return devices_colocated(src.transfer_device_set(),
                                      dst.transfer_device_set())

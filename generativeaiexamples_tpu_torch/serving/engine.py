@@ -139,7 +139,11 @@ pager's `_exec_pager_out` / `_exec_pager_in`; `_mh_replay_table`), so the
 model's collectives pair up by launch order. Each executor builds its
 device inputs from the record alone. Sampling runs on the gathered
 logits with the same generator seed on every rank, so every rank draws
-the same token.
+the same token. Every StepPlan replays: verify blocks (linear and tree),
+the sampled request's plain fallback, composed plans and the fused
+rider, whose scratch cache each rank makes at the record's `fresh` mark
+with its own kv heads; the history rows a speculative engine keeps are
+set by the `prefill` and `commit` records on every rank alike.
 """
 
 from __future__ import annotations
@@ -1137,7 +1141,9 @@ class LLMEngine:
         pages_to_pool scatter, then insert the prefix into the tree so
         the next admission of `ids` takes the normal prefix-cache hit
         path. `codes` / `scales` are host tensors (the GKVT wire) or, with
-        `on_device`, device tensors from export_prefix_pages_device;
+        `on_device`, device tensors from export_prefix_pages_device, on
+        this pool's card or another (the copy_ into this pool's device
+        is then the peer copy, ordered against both streams by torch);
         `first_page` says which page of ids' prefix codes[0] covers, so a
         chunked transfer imports window by window, each import deduping
         against what already landed. Returns pages imported (0 when the

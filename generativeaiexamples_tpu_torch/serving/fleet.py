@@ -369,7 +369,9 @@ class LocalReplica:
                                timeout_s: float = 60.0,
                                first_page: int = 0) -> int:
         """Device-path import: scatter the device tensors into this
-        engine's pool (control op). Returns pages imported."""
+        engine's pool (control op; import_prefix_pages' copy_ into the
+        pool's device is the peer copy when they lie on another card).
+        Returns pages imported."""
         eng = self.engine
         return eng.run_control_op(
             lambda: eng.import_prefix_pages(ids, codes, scales,
@@ -381,7 +383,7 @@ class LocalReplica:
 
     def transfer_device_set(self):
         """Devices holding this engine's KV pool: the device path's
-        colocation check's input (disagg.devices_colocated)."""
+        colocation check's input (parallel/mesh.py devices_colocated)."""
         pool = self.engine.pool
         arr = pool.kv if getattr(pool, "quantized", False) else pool.k
         return {arr.device}

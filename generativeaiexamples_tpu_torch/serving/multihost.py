@@ -34,11 +34,15 @@ its own, so `fetch_replicated` / `fetch_addressable` are host copies and
 `fetch_addressable_slice` / `put_local_slice` carry the global index of
 the rank's slice (the KV pager's per-rank host and disk tiers).
 
-The profile this slice replays: plain decode, chunked prefill,
-fused-sampling finishes, the prefix cache and the KV pager
-(`MULTIHOST_ACCEPTED`). Speculation, step plans and the fused rider are
-refused by name (ROADMAP A.17), as are batch-sharded meshes (the JAX
-text).
+The replayed profile is the whole serving feature set
+(`MULTIHOST_ACCEPTED`): plain decode, chunked prefill, fused-sampling
+finishes, speculative verify (linear and tree, with the sampled
+request's plain fallback), composed step plans, the fused prefill rider,
+the prefix cache and the KV pager. Every StepPlan crosses the wire whole
+in its `plan` record; the speculation's device state (the token history,
+the device lengths) and the sampler's generator move in step on every
+rank because every rank runs the same launches on the same gathered
+logits. The one refusal left is the JAX package's: a batch-sharded mesh.
 """
 
 from __future__ import annotations
@@ -365,16 +369,25 @@ class DispatchLog:
 
 
 # Features the replay protocol carries in this port, each with the
-# mechanism that keeps the ranks in lockstep.
+# mechanism that keeps the ranks in lockstep (the JAX table's names and
+# mechanisms; the port has no graftlint check ids).
 MULTIHOST_ACCEPTED = (
+    ("speculative_k",
+     "draft/verify widths ride the plan record (plan_to_record); "
+     "acceptance state is device state, identical on every rank"),
+    ("step_plans",
+     "the chosen StepPlan lattice point crosses the wire in full — "
+     "followers never re-derive it from scheduler state"),
+    ("fused_prefill",
+     "rider chunk tokens/width/slot ride the plan record, published "
+     "before the fused launch"),
     ("fused_sampling",
-     "the finish's sampling scalars ride the commit record, published "
-     "before the sample launch; the gathered logits and one generator "
-     "seed make every rank draw the same token"),
+     "sample_token_into params ride the commit record, published "
+     "before the fused sample launch"),
     ("prefix_cache",
-     "seed/commit records carry the leader's page-index rows; followers "
-     "launch the identical gather/scatter without running the radix "
-     "tree"),
+     "seed/commit records carry the leader's page-index rows; "
+     "followers launch the identical gather/scatter without running "
+     "the radix tree"),
     ("kv_pager",
      "demote parks each rank's own kv-head slice "
      "(fetch_addressable_slice); promote scatters it back "
@@ -384,20 +397,13 @@ MULTIHOST_ACCEPTED = (
      "published pager_out/pager_in stream in launch order"),
 )
 
-# Features whose dispatches this port's records do not replay yet:
-# (EngineConfig field, what is missing). validate_multihost_profile
-# refuses them by name rather than running them unreplayed.
-MULTIHOST_REFUSED = (
-    ("speculative_k", "speculative verify plans"),
-    ("step_plans", "composed step plans"),
-    ("fused_prefill", "fused prefill riders"),
-)
-
 
 def validate_multihost_profile(ecfg, mesh=None) -> None:
     """Reject engine configs the replay protocol cannot keep in lockstep,
     each with the reason and the fix — a silently-diverging dispatch
-    sequence deadlocks the group, which is strictly worse."""
+    sequence deadlocks the group, which is strictly worse. The whole
+    serving feature set is accepted (MULTIHOST_ACCEPTED); the only
+    rejection is a batch-sharded mesh."""
     bad = []
     if mesh is not None:
         for ax in ("data", "fsdp"):
@@ -408,13 +414,6 @@ def validate_multihost_profile(ecfg, mesh=None) -> None:
                     f"cannot read sampled tokens through the replicated "
                     f"fetch seam (fetch-seam, GL702); keep {ax}=1 and "
                     f"put devices on tensor/sequence")
-    for name, what in MULTIHOST_REFUSED:
-        value = getattr(ecfg, name)
-        if value:
-            bad.append(
-                f"engine.{name}={value!r}: the port's dispatch records do "
-                f"not replay {what} yet (ROADMAP A.17); turn it off for "
-                f"tensor-parallel serving")
     if bad:
         raise MultihostError(
             "engine.multihost=true rejects this config:\n  - "

@@ -16,7 +16,7 @@ and `DeviceVectorStore` (torch on the CPU). Stated tolerances:
   packages without training.
 
 Then every case of tests/test_ann.py on the port's store (the sharded
-index waits for the parallel layer, ROADMAP A.17).
+index's: tests/test_torch_sharded_index.py).
 """
 
 import json

@@ -31,6 +31,7 @@ from generativeaiexamples_tpu.serving import disagg as jd
 from generativeaiexamples_tpu.serving import kv_cache as jkv
 from generativeaiexamples_tpu_torch.models import llama as tl
 from generativeaiexamples_tpu_torch.ops.quant import quantize_llama_params
+from generativeaiexamples_tpu_torch.parallel import mesh as tm
 from generativeaiexamples_tpu_torch.serving import disagg as td
 from generativeaiexamples_tpu_torch.serving import engine_model as tem
 from generativeaiexamples_tpu_torch.serving import kv_cache as tkv
@@ -370,8 +371,75 @@ def test_device_failure_falls_back_to_host_and_marks_the_pair():
     assert ops.snapshot()["disagg_device_fallbacks"] == 1
     assert mover.transfer(src, dst, list(range(3 * PS)), PS)[0] == 3
     assert ops.snapshot()["disagg_device_fallbacks"] == 1
-    assert not td.devices_colocated({torch.device("cpu")},
+    assert not tm.devices_colocated({torch.device("cpu")},
                                     {torch.device("cuda", 1)})
+
+
+class _Sets(_DeviceSrc, _DeviceDst):
+    """A replica exposing the device surface over a given device set."""
+
+    def __init__(self, devices):
+        super().__init__(1)
+        self.devices = devices
+
+    def transfer_device_set(self):
+        return self.devices
+
+
+@pytest.mark.parametrize("cards,a,b,want", [
+    (0, {"cpu"}, {"cpu"}, True),
+    (0, {"cuda:0"}, {"cuda:0"}, False),
+    (0, {"cuda:0"}, {"cuda:1"}, False),
+    (2, {"cuda:0"}, {"cuda:0"}, True),
+    (2, {"cuda:0"}, {"cuda:1"}, True),
+    (2, {"cuda:0"}, {"cuda:2"}, False),
+    (2, set(), {"cuda:0"}, False),
+])
+def test_device_ok_follows_mesh_devices_colocated(monkeypatch, cards, a, b,
+                                                  want):
+    """JAX's rule (every device addressable from this process), on
+    torch.device sets: pools on two cards of this host take the device
+    path (a peer copy), a card this process cannot see does not. The
+    cards are faked; nothing touches CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    da, db = ({torch.device(d) for d in x} for x in (a, b))
+    mover = td.KVPageTransfer(device_path=True)
+    assert tm.devices_colocated(da, db) is want
+    assert mover.device_ok(_Sets(da), _Sets(db)) is want
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_device_path_windows_equal_host_bounce(params, kind):
+    """Two LocalReplicas on the CPU: the device path's windows (the
+    replica's move to its pool device, then the scatter) seat the same
+    pages, page for page, as the host bounce into a twin replica."""
+    from generativeaiexamples_tpu_torch.serving.fleet import LocalReplica
+
+    src = LocalReplica("src", _engine(params, kind).start())
+    dsts = [LocalReplica(r, _engine(params, kind).start())
+            for r in ("host", "device")]
+    try:
+        ps = src.engine.pool.page_size
+        prompt = _prompt(5 * ps + 3, seed=4)
+        _run(src.engine, prompt)
+        got = {}
+        for dst, device_path in zip(dsts, (False, True)):
+            mover = td.KVPageTransfer(device_path=device_path,
+                                      chunk_pages=2)
+            assert mover.device_ok(src, dst)
+            got[dst.rid] = mover.transfer(src, dst, prompt, ps)[0]
+        assert got == {"host": 5, "device": 5}
+        assert dsts[1].engine.metrics.kv_transfer_device_pages == 5
+        assert dsts[0].engine.metrics.kv_transfer_device_pages == 0
+        for a, b in zip(_pool_pages(dsts[0].engine, prompt),
+                        _pool_pages(dsts[1].engine, prompt)):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert np.array_equal(_raw(a), _raw(b))
+    finally:
+        for r in [src] + dsts:
+            r.engine.stop()
 
 
 def test_ship_async_lands_before_drain():

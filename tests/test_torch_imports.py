@@ -17,6 +17,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -298,6 +299,24 @@ def test_rag_entry_points_raise_without_cuda_or_explicit_device(
     monkeypatch.setattr("sys.argv", ["serving", "--port", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.main()
+    # A sharded index (and a store over a mesh) places its shards on the
+    # mesh's devices: CUDA ones raise here; a mesh of CPUs builds.
+    from generativeaiexamples_tpu_torch.config.schema import MeshConfig
+    from generativeaiexamples_tpu_torch.ops.ivf import ShardedIVFIndex
+    from generativeaiexamples_tpu_torch.ops.topk import ShardedMIPSIndex
+    from generativeaiexamples_tpu_torch.parallel.mesh import build_mesh
+
+    rows = np.ones((16, 8), np.float32)
+    for devices in (["cuda:0", "cuda:0"], ["cuda:0", "cuda:1"]):
+        mesh = build_mesh(MeshConfig(ici_tensor=2), devices)
+        for make in (lambda: ShardedMIPSIndex(rows, mesh),
+                     lambda: ShardedIVFIndex(rows, 2, mesh),
+                     lambda: DeviceVectorStore(8, mesh=mesh)):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
+    mesh = build_mesh(MeshConfig(ici_tensor=2), ["cpu", "cpu"])
+    assert ShardedMIPSIndex(rows, mesh).device.type == "cpu"
+    assert DeviceVectorStore(8, mesh=mesh).device.type == "cpu"
     # Asked for the CPU, they build.
     assert DeviceVectorStore(8, device="cpu").device.type == "cpu"
     assert launcher.default_encoder_size("cpu") == "tiny"

@@ -299,23 +299,205 @@ def test_profile_rejects_batch_sharded_mesh_with_jax_text():
 
 
 def test_profile_accepts_the_replayed_feature_set():
-    """Plain decode, chunked prefill, fused-sampling finishes, the prefix
-    cache and the KV pager replay in the port; each accepted name is an
-    engine config field."""
-    mh.validate_multihost_profile(EngineConfig(
-        fused_sampling=True, prefix_cache=True, kv_pager=True, qos=True))
+    """Plain decode, chunked prefill, fused-sampling finishes,
+    speculation (linear and tree), composed step plans, the fused rider,
+    the prefix cache and the KV pager replay in the port, together, as
+    in JAX; each accepted name is an engine config field."""
+    full = dict(fused_sampling=True, prefix_cache=True, kv_pager=True,
+                qos=True, speculative_k=3, speculative_tree_branches=4,
+                step_plans=True, fused_prefill=True)
+    mh.validate_multihost_profile(EngineConfig(**full))
+    jmh.validate_multihost_profile(JConfig(**full))
     fields = set(EngineConfig.__dataclass_fields__)
     assert {name for name, _ in mh.MULTIHOST_ACCEPTED} <= fields
-    assert {name for name, _ in mh.MULTIHOST_REFUSED} <= fields
 
 
 @pytest.mark.parametrize("name,value", [("speculative_k", 2),
                                         ("step_plans", True),
                                         ("fused_prefill", True)])
-def test_profile_refuses_unreplayed_plans_naming_a17(name, value):
-    """Speculation, step plans and the fused rider are refused by name
-    (the JAX package replays them; the port's records do not yet)."""
-    with pytest.raises(mh.MultihostError,
-                       match=rf"engine\.{name}=.*ROADMAP A\.17"):
-        mh.validate_multihost_profile(EngineConfig(**{name: value}))
+def test_profile_accepts_full_feature_set(name, value):
+    """Speculation, step plans and the fused rider are accepted on both
+    packages, and the port's table names the same fields as JAX's, each
+    with JAX's mechanism."""
+    mh.validate_multihost_profile(EngineConfig(**{name: value}))
     jmh.validate_multihost_profile(JConfig(**{name: value}))
+    ours = [(n, why) for n, why in mh.MULTIHOST_ACCEPTED]
+    theirs = [(n, why) for n, _, why in jmh.MULTIHOST_ACCEPTED]
+    assert [n for n, _ in ours] == [n for n, _ in theirs]
+    assert dict(ours)[name] == dict(theirs)[name]
+
+
+def test_plan_records_equal_jax_key_for_key():
+    """Every StepPlan lattice point the scheduler launches crosses the
+    wire as the JAX record (same keys, dtypes and values) and comes back
+    whole on either side."""
+    from generativeaiexamples_tpu.serving import engine_model as jem
+    from generativeaiexamples_tpu_torch.serving import engine_model as tem
+
+    plans = [dict(decode_k=8), dict(decode_k=4, rider_width=16,
+                                    rider_s_total=48),
+             dict(decode_k=2, spec_k=3), dict(decode_k=2, spec_k=3,
+                                              tree_branches=4),
+             dict(decode_k=2, spec_k=2, tree_branches=3, rider_width=16,
+                  rider_s_total=208),
+             dict(decode_k=4, spec_state=True),
+             dict(rider_width=16, rider_s_total=48),
+             dict(rider_width=8, rider_s_total=48, rider_sample=True)]
+    for kw in plans:
+        ours = tem.plan_to_record(tem.StepPlan(**kw))
+        theirs = jem.plan_to_record(jem.StepPlan(**kw))
+        assert list(ours) == list(theirs)
+        for k in ours:
+            assert ours[k].dtype == theirs[k].dtype and ours[k] == theirs[k]
+        _, wire = mh._decode(mh._encode("plan", ours))
+        assert tem.plan_from_record(wire) == tem.StepPlan(**kw)
+        assert jem.plan_from_record(wire) == jem.StepPlan(**kw)
+
+
+# -- leader / follower replay of the engine -----------------------------------
+#
+# JAX tests/test_multihost.py's replay cases on the port's engine: a
+# leader serves with a stub log injected (stepped inline, so the dispatch
+# schedule is a function of the engine state alone), then a fresh
+# follower replays only the records. Both must end with the same device
+# state, byte for byte; the leader's greedy streams equal the offline
+# JAX oracle on the same weights.
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    import jax
+
+    from generativeaiexamples_tpu.models import llama as jl
+    from generativeaiexamples_tpu_torch.models import convert
+
+    jcfg = jl.LlamaConfig.tiny()
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, jparams, convert.llama_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu", torch.float32)
+
+
+def _tiny_engine(params, **overrides):
+    from generativeaiexamples_tpu_torch.models import llama as tl
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+    from generativeaiexamples_tpu_torch.utils.tokenizer import (
+        ByteTokenizer)
+
+    ecfg = dict(max_batch_size=2, max_seq_len=64, page_size=8,
+                prefill_buckets=(16,), pace_emission_max_streams=0,
+                dtype="float32", kv_dtype="float32", **overrides)
+    return LLMEngine(params, tl.LlamaConfig.tiny(), ByteTokenizer(), ecfg,
+                     device="cpu")
+
+
+def _serve_and_replay(params, prompts, concurrent=False, **features):
+    """The leader serves `prompts` ((ids, max_new, temperature) each) with
+    `features` on, publishing to a stub log; a fresh follower replays the
+    records. `concurrent` submits everything up front (decode traffic
+    beside a long prefill: the rider lane). Returns (leader, follower,
+    the leader's streams)."""
+    from test_torch_fused_prefill import _ids, _run_to_idle
+
+    from generativeaiexamples_tpu_torch.serving.engine import GenRequest
+
+    client = _StubClient()
+    leader = _tiny_engine(params, **features)
+    leader._mh_log = mh.DispatchLog(client=client)
+    leader._mh_leader = True
+    if leader.kv_pager is not None:
+        leader.kv_pager.mh_log = leader._mh_log
+    streams = []
+
+    def serve(batch):
+        reqs = [leader.submit(GenRequest(prompt_ids=list(ids),
+                                         max_new_tokens=n, temperature=t))
+                for ids, n, t in batch]
+        _run_to_idle(leader)
+        streams.extend(_ids(r) for r in reqs)
+
+    if concurrent:
+        serve(prompts)
+    else:
+        for p in prompts:
+            serve([p])
+    leader.stop()  # publishes the stop record
+
+    follower = _tiny_engine(params, **features)
+    follower._mh_log = mh.DispatchLog(client=client)
+    replayed = mh.run_follower(follower, timeout_s=5)
+    follower.stop()
+    assert replayed > 0
+    assert follower._mh_log.consumed == len(client.kv)
+    return leader, follower, streams
+
+
+def _assert_device_state_identical(leader, follower, spec=False):
+    assert torch.equal(leader._last_tokens, follower._last_tokens)
+    assert torch.equal(leader.pool.k, follower.pool.k)
+    assert torch.equal(leader.pool.v, follower.pool.v)
+    if spec:
+        assert torch.equal(leader._history, follower._history)
+        assert torch.equal(leader._dev_lengths, follower._dev_lengths)
+
+
+def _oracle(tiny, ids, n_new):
+    import jax.numpy as jnp
+
+    from generativeaiexamples_tpu.models import llama as jl
+
+    jcfg, jparams, _ = tiny
+    out = jl.greedy_generate(jparams, jcfg, jnp.asarray([ids], jnp.int32),
+                             n_new, use_pallas=False)
+    return np.asarray(out)[0, len(ids):].tolist()
+
+
+def test_replay_speculative_tree_with_step_plans(tiny):
+    """Spec-tree + step-plan serving: every plan-lattice point the
+    scheduler picks (tree verify, and the sampled request's plain
+    spec-state fallback, drawn with the generator) rides the plan record
+    and replays to byte-identical device state INCLUDING the draft
+    history and device lengths the next round reads."""
+    prompts = [([(7 * i + j) % 250 + 1 for j in range(10)], 6, 0.0)
+               for i in range(2)]
+    prompts.append(([3, 1, 4, 1, 5, 9, 2, 6], 6, 0.8))
+    leader, follower, streams = _serve_and_replay(
+        tiny[2], prompts, speculative_k=2, speculative_tree_branches=2,
+        step_plans=True)
+    assert leader.metrics.spec_slot_steps > 0
+    assert leader.metrics.spec_fallback_steps > 0
+    _assert_device_state_identical(leader, follower, spec=True)
+    for (ids, n, _), got in zip(prompts[:2], streams):
+        assert got == _oracle(tiny, ids, n)
+    assert len(streams[2]) == 6
+
+
+def test_replay_fused_prefill_prefix_cache_and_pager(tiny):
+    """Chunked fused prefill (prompt > largest bucket) with fused
+    sampling, then the SAME prompt again for a warm prefix hit (the seed
+    record): the follower replays the chunks, the fused-sample commit and
+    the seed gather byte-identically, with the pager wired into the
+    record stream."""
+    ids = [(3 * j) % 250 + 1 for j in range(40)]
+    leader, follower, streams = _serve_and_replay(
+        tiny[2], [(ids, 4, 0.0), (ids, 4, 0.0)], fused_prefill=True,
+        fused_sampling=True, step_plans=True, prefix_cache=True,
+        kv_pager=True)
+    assert leader.metrics.prefix_hits > 0
+    assert leader.metrics.fused_sample_dispatches > 0
+    _assert_device_state_identical(leader, follower)
+    assert streams == [_oracle(tiny, ids, 4)] * 2
+
+
+def test_replay_fused_rider_on_decode(tiny):
+    """A short prompt decoding WHILE a long prompt prefills: the long
+    prompt's chunks ride inside decode dispatches (the
+    fused_decode_prefill plan points) and the follower replays the
+    combined launches."""
+    short = ([5, 6, 7, 8], 24, 0.0)
+    long = ([(3 * j) % 250 + 1 for j in range(40)], 4, 0.0)
+    leader, follower, streams = _serve_and_replay(
+        tiny[2], [short, long], concurrent=True, fused_prefill=True,
+        step_plans=True)
+    assert leader.metrics.fused_steps > 0
+    _assert_device_state_identical(leader, follower)
+    assert streams == [_oracle(tiny, ids, n) for ids, n, _ in (short, long)]

@@ -8,9 +8,14 @@ equal the single-device port engine's and the JAX package's offline
 oracles (`greedy_generate`; for int8, the jitted steps on a JAX
 QuantPagePool, tests/test_torch_engine_model_int8.py's `_oracle`), on
 the prompts the single-device parity tests use; the follower must have
-read every record rank 0 published, with no divergence. Legs: f32
-weights and pool, int8 weights and the fused int8 pool, and the prefix
-cache with the KV pager (hits, demotions and promotions replayed). A
+read every record rank 0 published, with no divergence, and rank 1's
+replicated device state (the token chain; on a speculative engine the
+draft history and device lengths) must equal rank 0's. Legs: f32
+weights and pool, int8 weights and the fused int8 pool, the prefix
+cache with the KV pager (hits, demotions and promotions replayed), and
+tree speculation with composed step plans and the fused rider (f32 and
+int8; a long prompt rides the verify dispatches, then a sampled request
+runs the plain fallback on the generator's draws). A
 two-rank launcher run (`--devices cpu,cpu`) answers /v1/chat/completions
 as the single-process launcher does, and both exit 0 after SIGTERM.
 
@@ -19,6 +24,7 @@ own time limit, and teardown kills any rank still alive. No JAX
 `LLMEngine` is built; the ranks never import JAX.
 """
 
+import functools
 import json
 import os
 import signal
@@ -45,6 +51,9 @@ ECFG = dict(max_batch_size=4, max_seq_len=64, page_size=8,
 INT8 = dict(kv_dtype="int8", quantize_weights="int8")
 PAGER = dict(prefix_cache=True, kv_pager=True, prefix_cache_capacity=0.1,
              kv_host_budget_mb=0)
+# Tree speculation with composed step plans and the fused rider.
+SPEC = dict(speculative_k=2, speculative_tree_branches=2, step_plans=True,
+            fused_prefill=True)
 # The single-device parity tests' prompts (tests/test_torch_engine.py),
 # and the int8 engine test's (tests/test_torch_engine_model_int8.py: one
 # of 45 tokens takes the chunked lane past the 32 bucket).
@@ -104,6 +113,51 @@ def _kv_leg(eng, kv, n_new):
     return out
 
 
+def _mix_leg(eng, mix):
+    """A long prompt arrives while a greedy short stream decodes (its
+    chunks can ride the short stream's dispatches), then, once the long
+    prompt has its first token, a sampled request (which forces the
+    plain fallback while it is live). Returns the greedy streams (short,
+    long) and the sampled stream's length."""
+    out = {}
+    first = {name: threading.Event() for name in ("short", "long")}
+
+    def run(name, temperature):
+        toks = []
+        for ev in eng.generate_stream(mix[name], temperature=temperature,
+                                      max_new_tokens=mix[name + "_new"]):
+            if ev["token_id"] >= 0:
+                toks.append(ev["token_id"])
+                if name in first:
+                    first[name].set()
+        out[name] = toks
+
+    threads = []
+    for name, temperature, after in (("short", 0.0, None),
+                                     ("long", 0.0, "short"),
+                                     ("sampled", 0.8, "long")):
+        if after:
+            first[after].wait(LIMIT_S)
+        threads.append(threading.Thread(target=run, args=(name,
+                                                          temperature)))
+        threads[-1].start()
+    for t in threads:
+        t.join(timeout=LIMIT_S)
+    return {"short": out["short"], "long": out["long"],
+            "sampled": len(out["sampled"])}
+
+
+def _device_state(eng):
+    """The replicated device state every rank must hold alike: the
+    token chain and, on a speculative engine, the draft history and the
+    device lengths."""
+    out = {"last_tokens": eng._last_tokens.numpy().copy()}
+    if eng._spec_k:
+        out.update(history=eng._history.numpy().copy(),
+                   dev_lengths=eng._dev_lengths.numpy().copy())
+    return out
+
+
 def _rank_main(rank: int, coordinator: str, cmds, results) -> None:
     """A rank process: join the group, then serve each command's engine
     (rank 0 drives the prompts and any KV page moves, rank 1 replays)
@@ -120,7 +174,7 @@ def _rank_main(rank: int, coordinator: str, cmds, results) -> None:
         if cmd is None:
             break
         try:
-            params, ecfg, prompts, n_new, kv = cmd
+            params, ecfg, prompts, n_new, kv, mix = cmd
             cfg = tl.LlamaConfig.tiny(vocab_size=VOCAB)
             eng = LLMEngine(shd.shard_llama_params(params, cfg, mesh), cfg,
                             ByteTokenizer(), {**ecfg, "multihost": True},
@@ -130,6 +184,7 @@ def _rank_main(rank: int, coordinator: str, cmds, results) -> None:
                 first = _streams(eng, prompts, n_new)
                 again = _streams(eng, prompts, n_new)
                 moved = _kv_leg(eng, kv, n_new) if kv else None
+                mixed = _mix_leg(eng, mix) if mix else None
                 # The pager's tiers before stop() closes it.
                 pager = eng.kv_pager
                 cold = 0 if pager is None else sum(pager.stats()[k] for k in (
@@ -137,6 +192,7 @@ def _rank_main(rank: int, coordinator: str, cmds, results) -> None:
                 unsent = 0 if pager is None else len(pager._freed_keys)
                 eng.stop()
                 out = {"first": first, "again": again, "kv": moved,
+                       "mix": mixed, "state": _device_state(eng),
                        "metrics": eng.metrics.snapshot(),
                        "pool_heads": eng.pool.k.shape[1]
                        if not eng.pool.quantized else eng.pool.kv.shape[2],
@@ -145,6 +201,7 @@ def _rank_main(rank: int, coordinator: str, cmds, results) -> None:
                 n = mh.run_follower(eng, timeout_s=LIMIT_S)
                 pager = eng.kv_pager
                 out = {"replayed": n, "consumed": eng._mh_log.consumed,
+                       "state": _device_state(eng),
                        "divergence": eng.metrics.replay_divergence,
                        "processes": eng.metrics.multihost_processes,
                        "parked": 0 if pager is None else len(pager._parked),
@@ -180,10 +237,10 @@ def ranks():
             p.join()
 
 
-def _serve(ranks, params, ecfg, prompts, n_new, kv=None):
+def _serve(ranks, params, ecfg, prompts, n_new, kv=None, mix=None):
     cmds, results, procs = ranks
     for q in cmds:
-        q.put((params, ecfg, prompts, n_new, kv))
+        q.put((params, ecfg, prompts, n_new, kv, mix))
     got = {}
     deadline = time.monotonic() + LIMIT_S
     while len(got) < 2:
@@ -210,6 +267,10 @@ def _serve(ranks, params, ecfg, prompts, n_new, kv=None):
     # leader has not sent yet, and nothing else.
     assert follower["parked"] == follower["parked_in_tiers"] == (
         leader["cold_pages"] + leader["unsent_frees"])
+    # The replicated device state is the same on both ranks.
+    assert set(leader["state"]) == set(follower["state"])
+    for key, value in leader["state"].items():
+        assert np.array_equal(value, follower["state"][key]), key
     return leader
 
 
@@ -275,6 +336,38 @@ def test_tp_int8_streams_equal_single_device_and_jax_oracle(ranks, model):
     single = _single(params, ecfg, INT8_PROMPTS, 9)
     assert got["first"] == got["again"] == single
     assert single == [_oracle(model["int8"], p, 9) for p in INT8_PROMPTS]
+
+
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+def test_tp_tree_spec_step_plans_and_rider(ranks, model, pool):
+    """Tree speculation with composed step plans and the fused rider at
+    tensor 2: the greedy streams equal the one-device engine with the
+    same features and the JAX oracles; then a long prompt rides the
+    verify dispatches of a decoding stream while a sampled request
+    forces the plain fallback (the generator's draws), and rank 1's
+    token chain, history and device lengths still equal rank 0's
+    (checked in _serve)."""
+    from test_torch_engine_model_int8 import _oracle
+
+    params = model[pool][3]
+    ecfg = {**ECFG, **SPEC, **(INT8 if pool == "int8" else {})}
+    prompts = INT8_PROMPTS if pool == "int8" else PROMPTS
+    n_new = 9 if pool == "int8" else 10
+    mix = {"short": [257, 10, 11, 12], "short_new": 40,
+           "long": list(range(100, 145)), "long_new": 12,
+           "sampled": [257] + list(b"sampled"), "sampled_new": 12}
+    got = _serve(ranks, params, ecfg, prompts, n_new, mix=mix)
+    single = _single(params, ecfg, prompts, n_new)
+    assert got["first"] == got["again"] == single
+    oracle = (functools.partial(_oracle, model["int8"]) if pool == "int8"
+              else functools.partial(_greedy, model["f32"]))
+    assert single == [oracle(p, n_new) for p in prompts]
+    want = [oracle(mix[k], mix[k + "_new"]) for k in ("short", "long")]
+    assert [got["mix"]["short"], got["mix"]["long"]] == want
+    assert got["mix"]["sampled"] == 12
+    m = got["metrics"]
+    assert m["spec_slot_steps"] > 0 and m["spec_fallback_steps"] > 0
+    assert m["fused_steps"] > 0
 
 
 def test_tp_prefix_hits_and_pager_replay(ranks, model):
@@ -438,19 +531,20 @@ def test_launcher_refuses_rank_processes_beside_a_fleet():
     ({"APP_FLEET_REPLICAS": "2"}, 1),
     ({"APP_FLEET_REPLICAURLS": "http://127.0.0.1:1", "APP_FLEET_REPLICAS":
       "0"}, 1),
-    ({"APP_ENGINE_SPECULATIVEK": "3"}, 1),
-    ({"APP_ENGINE_FUSEDPREFILL": "true"}, 1),
+    ({"APP_ENGINE_SPECULATIVEK": "3"}, 2),
+    ({"APP_ENGINE_FUSEDPREFILL": "true"}, 2),
     ({"APP_FLEET_REPLICAS": "2", "APP_MESH_ICITENSOR": "2"}, 2),
     ({"APP_FLEET_REPLICAS": "2", "APP_ENGINE_MULTIHOST": "true"}, 2),
 ])
 def test_launcher_default_devices_on_a_multi_card_host(monkeypatch, env,
                                                        want):
     """On a host of two cards with no --devices, the mesh spans both
-    only where rank processes can serve the config: a replica fleet or
-    an engine profile the records do not replay stays on the first card
-    (as before the launcher had a mesh), unless a [mesh] axis size or
-    engine.multihost asks for the mesh, which check_mesh_config and the
-    engine then hold to their rules."""
+    only where rank processes can serve the config: a replica fleet
+    stays on the first card (as before the launcher had a mesh), unless
+    a [mesh] axis size or engine.multihost asks for the mesh, which
+    check_mesh_config and the engine then hold to their rules. Every
+    engine profile replays (speculation and the rider included), so
+    those span the mesh."""
     from generativeaiexamples_tpu_torch.config.schema import load_config
     from generativeaiexamples_tpu_torch.parallel import mesh as tm
     from generativeaiexamples_tpu_torch.serving import __main__ as launcher
