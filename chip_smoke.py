@@ -4273,7 +4273,7 @@ PIPELINES_KG_SCRIPT = [
 
 
 def phase_pipelines(card: str, served: ServedEngine, keep: dict,
-                    device: str = "cuda", n_sessions: int = 4,
+                    device: str = "cuda", n_sessions: int = 2,
                     n_turns: int = 2, max_tokens: int = 16):
     """The other pipelines the chain server registers, over phase_rag's
     encoders and 2,001-chunk device store (`keep`) and the served 8B
@@ -4720,7 +4720,7 @@ def _page_round_trip(pool, pages):
 
 def phase_serving_int8(card: str, model_size: str = "8b",
                        device: str = "cuda", n_requests: int = 128,
-                       max_tokens: int = 64, long_prompt: int = 6000,
+                       max_tokens: int = 32, long_prompt: int = 6000,
                        n_pages=None, engine_cfg=None):
     """The int8 engine behind the OpenAI server: n_requests concurrent
     greedy completions of max_tokens with prompts of 20-400 bytes (seed
@@ -4874,7 +4874,7 @@ def _first_divergence(got, want):
 
 
 def phase_spec_int8(card: str, int8_served, device: str = "cuda",
-                    n_requests: int = 128, max_tokens: int = 64,
+                    n_requests: int = 128, max_tokens: int = 32,
                     n_pages=None, engine_cfg=None,
                     configs=SPEC_INT8_CONFIGS, profile_tokens: int = 16):
     """Speculative engines on the int8 deployment, over serving_int8's
@@ -6249,6 +6249,707 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
     return rec
 
 
+# -- phases 15a-15d: the framework-neutral modules and training -------------
+
+# The K1 / K2 / K3 launch counts a phase line prints.
+K123 = ("flash_attention", "paged_attention", "encoder_attention")
+# Logits of the trained LoRA model through K1 against the training route
+# (plain attention) on the same tokens, relative to the largest |logit|:
+# both bf16 over 32 layers, where K1 rounds P to bf16 before P.V (the
+# budget of phase_tp's teacher-forced logits, TP_LOGIT_RTOL, which the
+# same depth met at 1.9-2.3%); a fault in the merge or the route gives
+# O(1).
+TRAIN_LOGIT_RTOL = 5e-2
+
+
+def _k123() -> dict:
+    from generativeaiexamples_tpu_torch import kernels
+
+    return {k: kernels.LAUNCHES[k] for k in K123}
+
+
+def _ingest_sources(root: str, n_chunks: int, n_events: int):
+    """A generated directory of text, HTML and PDF files from the RAG
+    corpus (seed 4) and the queue events beside it: (file patterns,
+    events)."""
+    import html as html_mod
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    paras = _rag_corpus(4, n_chunks).split("\n\n")
+    events, paras = paras[:n_events], paras[n_events:]
+    groups = [paras[i::24] for i in range(24)]
+    for i, group in enumerate(groups):
+        if i < 16:
+            with open(os.path.join(root, f"doc{i:02d}.txt"), "w",
+                      encoding="utf-8") as fh:
+                fh.write("\n\n".join(group))
+        elif i < 22:
+            with open(os.path.join(root, f"page{i:02d}.html"), "w",
+                      encoding="utf-8") as fh:
+                fh.write("<html><head><style>p {}</style><script>var x;"
+                         "</script></head><body>" + "".join(
+                             f"<p>{html_mod.escape(p)}</p>" for p in group)
+                         + "</body></html>")
+        else:
+            pages = ["".join(c for c in p if c.isascii() and c not in "()\\")
+                     for p in group]
+            with open(os.path.join(root, f"deck{i:02d}.pdf"), "wb") as fh:
+                fh.write(_pdf_bytes(pages))
+    pats = [os.path.join(root, p) for p in ("*.txt", "*.html", "*.pdf")]
+    return pats, events
+
+
+def phase_ingest(card: str, keep: dict, device: str = "cuda",
+                 n_chunks: int = 2000, n_events: int = 64,
+                 embed_batch: int = 64):
+    """ingest/pipeline.py on the card: FileSource over a generated
+    directory of text, HTML and PDF files plus a QueueSource of events
+    (~2,000 chunks at the default splitter) through the arctic embedder
+    (K3) into a fresh device store, with embed and store pipelined. The
+    same sources through a host run (hash embedder, memory store) must
+    give the same document and chunk counts; the store's first batch of
+    rows must be within BF16_ATOL of a direct embedder call on its texts;
+    K3 must launch once a layer a forward. The overlap of the embed and
+    store stages is printed (seconds of store.add that ran while a batch
+    embedded)."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.config.schema import load_config
+    from generativeaiexamples_tpu_torch.connectors.fakes import HashEmbedder
+    from generativeaiexamples_tpu_torch.connectors.local import LocalEmbedder
+    from generativeaiexamples_tpu_torch.ingest.pipeline import (
+        FileSource, IngestPipeline, QueueSource)
+    from generativeaiexamples_tpu_torch.rag.splitter import get_text_splitter
+    from generativeaiexamples_tpu_torch.rag.vectorstore import (
+        DeviceVectorStore, MemoryVectorStore)
+
+    emb = keep["emb"]
+    root = os.path.join("build", "ingest_smoke")
+    pats, events = _ingest_sources(root, n_chunks, n_events)
+    splitter = get_text_splitter(load_config(env={}))
+    spans = {"embed": [], "store": []}
+
+    class TimedEmbedder:
+        def __init__(self, inner):
+            self.inner, self.dim = inner, inner.dim
+
+        def embed_documents(self, texts):
+            t0 = time.perf_counter()
+            out = self.inner.embed_documents(texts)
+            spans["embed"].append((t0, time.perf_counter()))
+            return out
+
+    class TimedStore:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def add(self, *a):
+            t0 = time.perf_counter()
+            out = self.inner.add(*a)
+            torch.cuda.synchronize()
+            spans["store"].append((t0, time.perf_counter()))
+            return out
+
+        def stats(self):
+            return self.inner.stats()
+
+    def sources():
+        q = QueueSource(source_name="events")
+        for i, text in enumerate(events):
+            q.push(text, {"event": i})
+        q.close()
+        return [FileSource(pats, source_name="files"), q]
+
+    host = IngestPipeline(sources(), splitter, HashEmbedder(emb.dim),
+                          MemoryVectorStore(emb.dim),
+                          embed_batch=embed_batch).run()
+    store = DeviceVectorStore(emb.dim, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    emb.forwards = 0
+    t0 = time.perf_counter()
+    stats = IngestPipeline(sources(), splitter,
+                           TimedEmbedder(LocalEmbedder(emb)),
+                           TimedStore(store), embed_batch=embed_batch).run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, forwards = _k123(), emb.forwards
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    overlap = sum(max(0.0, min(e1, s1) - max(e0, s0))
+                  for e0, e1 in spans["embed"] for s0, s1 in spans["store"])
+    texts = [d["text"] for d in store.snapshot_docs()][:embed_batch]
+    direct = LocalEmbedder(emb).embed_documents(texts)
+    rows = store.rows()[:len(texts)].float().cpu().numpy()
+    row_err = float(np.abs(rows - np.asarray(direct, np.float32)).max())
+    ok = (stats["documents"] == host["documents"]
+          and stats["chunks"] == host["chunks"] == stats["embeddings"]
+          == len(store) and stats["store"]["ntotal"] == len(store)
+          and row_err <= BF16_ATOL
+          and launches["encoder_attention"] == forwards * emb.cfg.n_layers
+          > 0)
+    shutil.rmtree(root, ignore_errors=True)
+    rec = {"phase": "ingest", "card": card, "embedder": "arctic_embed_l bf16",
+           "store": "DeviceVectorStore", "embed_batch": embed_batch,
+           "files": {"txt": 16, "html": 6, "pdf": 2}, "events": len(events),
+           "stats": stats, "host_counts": {k: host[k] for k in (
+               "documents", "chunks")},
+           "run_s": run_s, "chunks_per_s": stats["chunks"] / run_s,
+           "embed_s": sum(b - a for a, b in spans["embed"]),
+           "store_s": sum(b - a for a, b in spans["store"]),
+           "embed_store_overlap_s": overlap, "batches": len(spans["embed"]),
+           "first_batch_row_err": row_err, "tol": BF16_ATOL,
+           "forwards": forwards, "launches": launches,
+           "peak_mem_gb": peak_gb, "ok": ok}
+    emit(rec)
+    return rec
+
+
+class _QAFromChunk:
+    """A ChatLLM that answers the harness's QA prompt extractively: the
+    question names the passage's first words, the answer is its first
+    sentence (a random-weight engine writes no JSON)."""
+
+    def chat(self, messages, **kw):
+        chunk = messages[-1]["content"].split("Passage:\n", 1)[1].split(
+            "\n\nReply with one JSON object", 1)[0]
+        first = chunk.split(". ")[0].strip()
+        return json.dumps({
+            "question": "What does the passage say about "
+                        f"{' '.join(chunk.split()[:6])}?",
+            "answer": first if first.endswith(".") else first + "."})
+
+
+class _ShortLLM:
+    """A ChatLLM whose replies are capped at `cap` tokens (the harness
+    asks for up to 256)."""
+
+    def __init__(self, llm, cap: int):
+        self.llm, self.cap = llm, cap
+
+    def chat(self, messages, **kw):
+        kw["max_tokens"] = min(kw.get("max_tokens", self.cap), self.cap)
+        return self.llm.chat(messages, **kw)
+
+
+# The report keys of the JAX harness (eval/harness.py run_eval,
+# eval/metrics.py): ragas, llm_judge, retrieval and n.
+EVAL_REPORT_KEYS = {
+    "ragas": {"faithfulness", "context_relevancy", "answer_relevancy",
+              "context_recall", "context_precision", "answer_similarity",
+              "ragas_score"},
+    "llm_judge": {"mean_rating", "rated", "total", "details"},
+    "retrieval": {"n_scored", "hit_at_1", "hit_at_k", "hit_at_k_min", "k",
+                  "k_min", "mrr", "match_threshold"}}
+
+
+def phase_eval(card: str, served: ServedEngine, keep: dict,
+               device: str = "cuda", n_rows: int = 2, max_tokens: int = 16):
+    """eval/harness.py end to end beside a chain server (developer_rag
+    over the served 8B engine, phase_rag's encoders and a fresh device
+    store): the corpus uploaded through ChainServerClient,
+    generate_synthetic_qa (the engine first; a random-weight model
+    writes no JSON, so the rows it cannot give come from an extractive
+    generator over the same chunks), generate_answers through the
+    client (answers of `max_tokens`), run_eval with the engine as the
+    grader (replies capped at `max_tokens`) and the arctic embedder, and
+    save_report. The report's keys must be the JAX harness's, every
+    ragas and retrieval metric a number in [0, 1] or None, the
+    model-free retrieval metrics and answer_similarity numbers (JAX's
+    rules give numbers there: every row has a ground-truth context and
+    answer), and K1, K2 and K3 must launch."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.config.schema import load_config
+    from generativeaiexamples_tpu_torch.connectors.factory import EngineHub
+    from generativeaiexamples_tpu_torch.connectors.local import (
+        LocalEmbedder, LocalEngineLLM)
+    from generativeaiexamples_tpu_torch.eval import harness
+    from generativeaiexamples_tpu_torch.rag.splitter import get_text_splitter
+    from generativeaiexamples_tpu_torch.rag.vectorstore import (
+        DeviceVectorStore)
+
+    emb, rr = keep["emb"], keep["rr"]
+    # Chunks of ~120 approx-tokens: with the byte tokenizer a probe's
+    # prompt (four chunks of context) stays inside the engine's 8,191.
+    config = load_config(env={}, overrides={
+        "vector_store": {"name": "tpu"},
+        "embeddings": {"dimensions": emb.dim},
+        "text_splitter": {"chunk_size": 120, "chunk_overlap": 20}})
+    hub = EngineHub(config, llm=served.engine, embed=emb, rerank=rr,
+                    device=device)
+    root = os.path.join("build", "eval_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    corpus = os.path.join(root, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as fh:
+        fh.write(_rag_corpus(5, 12))
+    chunks = get_text_splitter(config).split(open(corpus).read())
+
+    class ShortAnswers(harness.ChainServerClient):
+        def generate(self, question, use_kb=True, **settings):
+            return super().generate(question, use_kb, max_tokens=max_tokens,
+                                    **settings)
+
+    app, httpd, base, th = _chain_server(
+        config, hub, DeviceVectorStore(emb.dim, device=device))
+    llm = _ShortLLM(LocalEngineLLM(served.engine), max_tokens)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        client = ShortAnswers(base, timeout=600)
+        client.upload(corpus)
+        from_engine = harness.generate_synthetic_qa(llm, chunks[:n_rows])
+        qa = (from_engine + harness.generate_synthetic_qa(
+            _QAFromChunk(), chunks[len(from_engine):n_rows]))[:n_rows]
+        rows = harness.generate_answers(client, qa)
+        report = harness.run_eval(llm, LocalEmbedder(emb), rows)
+        report["environment"] = {"mode": "chain-server", "server": base,
+                                 "grader_llm": "LocalEngineLLM (8b, random)",
+                                 "embedder": "LocalEmbedder (arctic)"}
+        report["rows"] = rows
+        path = os.path.join(root, "report.json")
+        harness.save_report(report, path)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _k123()
+        with open(path) as fh:
+            saved = json.load(fh)
+    finally:
+        _stop_server(app, httpd, th)
+        shutil.rmtree(root, ignore_errors=True)
+
+    def unit(v):
+        return v is None or (isinstance(v, (int, float)) and 0 <= v <= 1)
+
+    metrics = {**saved["ragas"], **{k: saved["retrieval"][k] for k in (
+        "hit_at_1", "hit_at_k", "hit_at_k_min", "mrr")}}
+    keys_ok = (all(set(saved[k]) == v for k, v in EVAL_REPORT_KEYS.items())
+               and saved["n"] == len(rows) == n_rows)
+    ok = (keys_ok and all(unit(v) for v in metrics.values())
+          and all(saved["retrieval"][k] is not None for k in (
+              "hit_at_1", "hit_at_k", "mrr"))
+          and saved["retrieval"]["n_scored"] == n_rows
+          and saved["ragas"]["answer_similarity"] is not None
+          and all(r["retrieved_context"] for r in rows)
+          and launches["flash_attention"] > 0
+          and launches["paged_attention"] > 0
+          and launches["encoder_attention"] > 0)
+    rec = {"phase": "eval", "card": card, "rows": n_rows,
+           "qa_from_engine": len(from_engine), "answer_tokens": max_tokens,
+           "metrics": metrics, "llm_judge": {
+               k: saved["llm_judge"][k] for k in ("mean_rating", "rated",
+                                                  "total")},
+           "retrieval": saved["retrieval"], "keys_ok": keys_ok,
+           "run_s": run_s, "launches": launches, "ok": ok}
+    emit(rec)
+    return rec
+
+
+def _serve_aiohttp(app):
+    """An aiohttp app on 127.0.0.1 in a thread of its own: (base url,
+    stop)."""
+    import asyncio
+
+    from aiohttp import web
+
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(app)
+    loop.run_until_complete(runner.setup())
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    loop.run_until_complete(site.start())
+    port = site._server.sockets[0].getsockname()[1]
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+
+    def stop():
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=30)
+        loop.close()
+
+    return f"http://127.0.0.1:{port}", stop
+
+
+def _voice_stub():
+    """An OpenAI-audio stub on 127.0.0.1: /v1/audio/transcriptions
+    answers with the upload's size, /v1/audio/speech with a 24 kHz tone
+    of a word's length per word. (base url, stop)."""
+    import numpy as np
+
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from generativeaiexamples_tpu_torch.streaming.asr import (
+        pcm_to_wav_bytes)
+
+    class H(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers["Content-Length"]))
+            if self.path.endswith("/transcriptions"):
+                out, ctype = json.dumps(
+                    {"text": f"heard {len(body)} bytes"}).encode(), \
+                    "application/json"
+            else:
+                n = len(json.loads(body)["input"].split())
+                t = np.arange(int(0.05 * max(n, 1) * 24000)) / 24000
+                out = pcm_to_wav_bytes(
+                    (np.sin(2 * np.pi * 330 * t) * 12000).astype(np.int16),
+                    24000)
+                ctype = "audio/wav"
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), H)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+
+    def stop():
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+
+    return f"http://127.0.0.1:{httpd.server_address[1]}", stop
+
+
+def phase_ui(card: str, served: ServedEngine, keep: dict,
+             device: str = "cuda", max_tokens: int = 16):
+    """The playground (ui/server.py, aiohttp) in front of a chain server
+    whose LLM decodes greedily (the served 8B engine at temperature 0,
+    each call's token ids recorded): one streamed /api/chat with
+    use_knowledge_base false, then the same request straight to the
+    chain server's /generate; the texts and the token ids must be equal,
+    and K1 and K2 must launch. /api/voice, /api/transcribe and
+    /api/speech run against stub ASR and TTS servers in this process
+    through the HTTP voice clients (the TTS reply resampled from 24 kHz
+    to the asked 16 kHz)."""
+    import urllib.request as ureq
+
+    import torch
+
+    from generativeaiexamples_tpu_torch.api.server import (
+        ChainServer, make_http_server)
+    from generativeaiexamples_tpu_torch.config.schema import load_config
+    from generativeaiexamples_tpu_torch.connectors.factory import EngineHub
+    from generativeaiexamples_tpu_torch.connectors.local import (
+        LocalEngineLLM)
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.pipelines.base import (
+        get_example_class)
+    from generativeaiexamples_tpu_torch.pipelines.resources import Resources
+    from generativeaiexamples_tpu_torch.rag.vectorstore import (
+        DeviceVectorStore)
+    from generativeaiexamples_tpu_torch.streaming.asr import (
+        HTTPASRClient, HTTPTTSClient, pcm_to_wav_bytes, wav_bytes_to_pcm)
+    from generativeaiexamples_tpu_torch.ui.chat_client import ChatClient
+    from generativeaiexamples_tpu_torch.ui.server import PlaygroundServer
+
+    class Recorder:
+        def __init__(self, engine):
+            self.engine, self.calls = engine, []
+
+        def generate_stream(self, ids, **kw):
+            toks = []
+            self.calls.append(toks)
+            for ev in self.engine.generate_stream(ids, **kw):
+                if ev["token_id"] >= 0:
+                    toks.append(ev["token_id"])
+                yield ev
+
+    class Greedy(LocalEngineLLM):
+        def stream_chat(self, messages, **kw):
+            return super().stream_chat(messages, **{**kw,
+                                                    "temperature": 0.0})
+
+    emb = keep["emb"]
+    config = load_config(env={}, overrides={
+        "vector_store": {"name": "tpu"},
+        "embeddings": {"dimensions": emb.dim}})
+    hub = EngineHub(config, llm=served.engine, embed=emb, rerank=keep["rr"],
+                    device=device)
+    rec_engine = Recorder(served.engine)
+    res = Resources(config, hub=hub, llm=Greedy(
+        rec_engine, served.engine.tokenizer),
+        store=DeviceVectorStore(emb.dim, device=device))
+    app = ChainServer(config, example=get_example_class("developer_rag")(res))
+    httpd = make_http_server(app, "127.0.0.1", 0)
+    chain = f"http://127.0.0.1:{httpd.server_address[1]}"
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    voice, stop_voice = _voice_stub()
+    ui, stop_ui = _serve_aiohttp(PlaygroundServer(
+        ChatClient(chain, "llama3-8b"), asr=HTTPASRClient(voice),
+        tts=HTTPTTSClient(voice), feedback_path=os.path.join(
+            "build", "ui_smoke_feedback.jsonl")).app)
+    query = "Name three things a paged KV cache keeps."
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _post(ui + "/api/chat", {"query": query,
+                                      "use_knowledge_base": False,
+                                      "max_tokens": max_tokens}) as r:
+            ui_frames = [json.loads(ln[6:]) for ln in
+                         r.read().decode().split("\n\n")
+                         if ln.startswith("data: ")]
+        ui_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _post(chain + "/generate", {
+                "messages": [{"role": "user", "content": query}],
+                "use_knowledge_base": False,
+                "max_tokens": max_tokens}) as r:
+            direct = [json.loads(ln[6:])["choices"][0] for ln in
+                      r.read().decode().split("\n\n")
+                      if ln.startswith("data: ")]
+        direct_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _k123()
+        with ureq.urlopen(ui + "/api/voice", timeout=60) as r:
+            caps = json.loads(r.read())
+        tone = (torch.sin(torch.arange(8000) / 9.0) * 9000).to(
+            torch.int16).numpy()
+        req = ureq.Request(ui + "/api/transcribe",
+                           data=pcm_to_wav_bytes(tone, 16000),
+                           headers={"Content-Type": "audio/wav"})
+        with ureq.urlopen(req, timeout=60) as r:
+            heard = json.loads(r.read())
+        with _post(ui + "/api/speech", {"text": "a paged cache keeps keys",
+                                        "sample_rate": 16000}) as r:
+            ctype = r.headers["Content-Type"]
+            pcm, rate = wav_bytes_to_pcm(r.read())
+    finally:
+        stop_ui()
+        stop_voice()
+        _stop_server(app, httpd, th)
+    ui_text = "".join(f.get("content", "") for f in ui_frames)
+    direct_text = "".join(c["message"]["content"] for c in direct
+                          if c["finish_reason"] != "[DONE]")
+    ok = (len(rec_engine.calls) == 2
+          and rec_engine.calls[0] == rec_engine.calls[1]
+          and 1 <= len(rec_engine.calls[0]) <= max_tokens
+          and ui_text == direct_text
+          and ui_frames[-1] == {"done": True, "context": []}
+          and direct[-1]["finish_reason"] == "[DONE]"
+          and launches["flash_attention"] > 0
+          and launches["paged_attention"] > 0
+          and caps == {"asr": True, "tts": True}
+          and heard.get("text", "").startswith("heard ")
+          and ctype == "audio/wav" and rate == 16000
+          and len(pcm) == int(0.05 * 5 * 24000) * 2 // 3)
+    rec = {"phase": "ui", "card": card, "query": query,
+           "max_tokens": max_tokens, "token_ids": rec_engine.calls,
+           "ui_text": ui_text, "direct_text": direct_text,
+           "ui_frames": len(ui_frames), "ui_s": ui_s, "direct_s": direct_s,
+           "voice": {"caps": caps, "transcribe": heard,
+                     "speech_rate": rate, "speech_samples": len(pcm)},
+           "launches": launches, "ok": ok}
+    emit(rec)
+    return rec
+
+
+def phase_train(card: str, params, cfg, keep: dict, device: str = "cuda",
+                seq: int = 512, steps: int = 3, lora_rank: int = 8,
+                trainer_layers: int = 2, ft_pairs: int = 16,
+                ft_len: int = 64):
+    """Single-device training (training/{lora,trainer,retriever_ft}.py)
+    on the checkpoint phase's bf16 8B weights and phase_rag's arctic
+    embedder, all on the differentiable route (plain attention, autograd
+    through it):
+
+    (a) LoRA rank 8 on wq and wv over all layers, B=1, S=seq, remat on,
+        `steps` steps (lr 1e-3, warmup 1: the first step runs at lr 0).
+        The first update must be zero and the later ones not, wq and wv
+        bit-equal afterwards and every other base leaf's checksum
+        unchanged; the merged model's logits through K1 within
+        TRAIN_LOGIT_RTOL of the training route's on the same tokens.
+    (b) The full trainer at full width over `trainer_layers` layers (a
+        clone of the first layers with the embeddings and head), B=1,
+        S=seq, warmup 1, `steps` steps: loss and grad_norm finite.
+    (c) The retriever fine-tune at arctic width, `ft_pairs` pairs from
+        the RAG corpus, max_len `ft_len`, `steps` steps: the fine-tuned
+        encoder's pooled output through K3 within BF16_ATOL of the
+        training route's.
+
+    K1 and K3 must raise on a CUDA operand that requires grad. Peak
+    memory above the phase's start is printed for each part."""
+    import dataclasses
+
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.models import bert, llama
+    from generativeaiexamples_tpu_torch.ops import attention as attn_ops
+    from generativeaiexamples_tpu_torch.ops import encoder_attention as enc
+    from generativeaiexamples_tpu_torch.training import (
+        lora, retriever_ft, trainer)
+
+    def peak_gb(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def finite(x):
+        return bool(torch.isfinite(torch.as_tensor(x)).all())
+
+    # K1 and K3 have no backward: an operand that requires grad raises.
+    q = torch.randn((1, 4, 64, 64), device=device).bfloat16() \
+        .requires_grad_(True)
+    k = torch.randn((1, 4, 64, 64), device=device).bfloat16()
+    refused = {}
+    for name, fn in (("flash_attention", attn_ops.flash_attention),
+                     ("encoder_attention", enc.encoder_attention)):
+        try:
+            fn(q, k, k)
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "requires grad" in str(e)
+    del q, k
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    batch = trainer.synthetic_batch(cfg, 1, seq, seed=0, device=device)
+    base_mem = torch.cuda.memory_allocated()
+
+    # (a) LoRA.
+    time_mark("train_lora")
+    torch.cuda.reset_peak_memory_stats()
+    lcfg = lora.LoraConfig(rank=lora_rank, targets=("wq", "wv"))
+    targets = {n: params["layers"][n].clone() for n in lcfg.targets}
+
+    def checksums():
+        """An int64 sum of each base leaf's bits (as int16) a layer."""
+        def one(t):
+            bits = t.view(torch.int16)
+            if t.dim() > 2:
+                return bits.flatten(1).sum(1, dtype=torch.int64).tolist()
+            return [int(bits.sum(dtype=torch.int64))]
+
+        return {k: one(v) for k, v in params.items()
+                if not isinstance(v, dict)} | {
+            f"layers.{k}": one(v) for k, v in params["layers"].items()}
+
+    sums = checksums()
+    ad = lora.init_lora(cfg, lcfg, torch.Generator(device).manual_seed(0),
+                        device=device)
+    opt = trainer.make_optimizer(trainer.TrainConfig(learning_rate=1e-3,
+                                                     warmup_steps=1))
+    step = lora.make_lora_train_step(cfg, lcfg, opt, remat=True)
+    state, hist, moved = opt.init(ad), [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        prev = ad
+        ad, state, m = step(ad, state, params, batch)
+        moved.append(any(not torch.equal(prev[n][x], ad[n][x])
+                         for n in ad for x in ("a", "b")))
+        hist.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    lora_s = time.perf_counter() - t0
+    lora_peak = peak_gb(base_mem)
+    with torch.no_grad():
+        merged = lora.merge(params, ad, lcfg)
+        k1_before = kernels.LAUNCHES["flash_attention"]
+        kern, _ = llama.forward(merged, cfg, batch["tokens"])
+        k1_merged = kernels.LAUNCHES["flash_attention"] - k1_before
+        plain, _ = llama.forward(merged, cfg, batch["tokens"],
+                                 attention="plain")
+        logit_err = float((kern - plain).abs().max()
+                          / plain.abs().max())
+    del merged, kern, plain
+    base_same = (all(torch.equal(params["layers"][n], targets[n])
+                     for n in targets) and checksums() == sums)
+    del targets
+    lora_ok = (moved[0] is False and all(moved[1:]) and base_same
+               and all(finite(h["loss"]) and finite(h["lora_grad_norm"])
+                       for h in hist)
+               and logit_err <= TRAIN_LOGIT_RTOL
+               and k1_merged == cfg.n_layers)
+    lora_rec = {"rank": lora_rank, "targets": list(lcfg.targets),
+                "steps": hist, "moved": moved, "base_unchanged": base_same,
+                "logit_err_rel": logit_err, "tol": TRAIN_LOGIT_RTOL,
+                "k1_launches_merged_forward": k1_merged, "s": lora_s,
+                "peak_gb": lora_peak, "ok": lora_ok}
+
+    # (b) The full trainer over a clone of the first layers.
+    time_mark("train_full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg2 = dataclasses.replace(cfg, n_layers=trainer_layers)
+    small = {**{k: v for k, v in params.items() if k != "layers"},
+             "layers": {k: v[:trainer_layers].clone()
+                        for k, v in params["layers"].items()}}
+    tcfg = trainer.TrainConfig(learning_rate=1e-5, warmup_steps=1)
+    topt = trainer.make_optimizer(tcfg)
+    tstep = trainer.make_train_step(cfg2, tcfg, topt)
+    tstate, thist = topt.init(small), []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        small, tstate, m = tstep(small, tstate, batch)
+        thist.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_peak = peak_gb(base_mem)
+    del small, tstate
+    full_ok = all(finite(h["loss"]) and finite(h["grad_norm"])
+                  for h in thist)
+    full_rec = {"layers": trainer_layers, "steps": thist, "s": full_s,
+                "peak_gb": full_peak, "ok": full_ok}
+
+    # (c) The retriever fine-tune.
+    time_mark("train_retriever")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    emb = keep["emb"]
+    paras = _rag_corpus(6, 40).split("\n\n")[:ft_pairs]
+    pairs = [(" ".join(p.split()[:8]), p) for p in paras]
+    fhist = []
+    t0 = time.perf_counter()
+    tuned = retriever_ft.finetune(
+        emb.params, emb.cfg, emb.tokenizer, pairs, epochs=steps,
+        batch_size=ft_pairs, ft=retriever_ft.RetrieverFTConfig(
+            learning_rate=1e-4), log=fhist.append, device=device)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    ft_peak = peak_gb(base_mem)
+    b = retriever_ft.tokenize_pairs(emb.tokenizer, pairs, ft_len,
+                                    device=device)
+    with torch.no_grad():
+        k3_before = kernels.LAUNCHES["encoder_attention"]
+        _, via_k3 = bert.forward(tuned, emb.cfg, b["p_tokens"],
+                                 lengths=b["p_lengths"])
+        k3_tuned = kernels.LAUNCHES["encoder_attention"] - k3_before
+        _, via_plain = bert.forward(tuned, emb.cfg, b["p_tokens"],
+                                    lengths=b["p_lengths"],
+                                    attention="plain")
+        pooled_err = float((via_k3.float() - via_plain.float()).abs().max())
+        changed = not torch.equal(tuned["tok_emb"], emb.params["tok_emb"])
+    del tuned
+    ft_ok = (len(fhist) == steps and all(finite(h["loss"]) for h in fhist)
+             and pooled_err <= BF16_ATOL and changed
+             and k3_tuned == emb.cfg.n_layers)
+    ft_rec = {"pairs": ft_pairs, "max_len": ft_len, "steps": fhist,
+              "pooled_err": pooled_err, "tol": BF16_ATOL,
+              "k3_launches_tuned_forward": k3_tuned, "s": ft_s,
+              "peak_gb": ft_peak, "ok": ft_ok}
+    launches = _k123()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = lora_ok and full_ok and ft_ok and all(refused.values())
+    rec = {"phase": "train", "card": card, "seq": seq, "batch": 1,
+           "refuse_grad": refused, "lora": lora_rec, "full": full_rec,
+           "retriever_ft": ft_rec, "launches": launches, "ok": ok}
+    emit(rec)
+    return rec
+
+
 # -- phase 15: serve from disk (checkpoints, tokenizer gate, store) ---------
 
 # Where the phase writes its snapshots (inside the ignored build/), and
@@ -6682,7 +7383,7 @@ def _checkpoint_chain(engine, emb, rr, keep, root, device):
 def phase_checkpoint(card: str, src_params, src_cfg, ref: dict, keep: dict,
                      device: str = "cuda", engine_cfg=None,
                      int8_cfg=None, int8_pages: int = 1025,
-                     n_requests: int = 32, max_tokens: int = 32,
+                     n_requests: int = 32, max_tokens: int = 16,
                      tp_kw=None) -> dict:
     """Serve from disk. The served bf16 8B engine's own weights
     (`src_params`, kept when its engine went) are written as an HF
@@ -7600,9 +8301,9 @@ def _tp_spec_leg(ranks, ecfg, int8_params, cfg, tokenizer, prompts,
 
 
 def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
-             int8_params, int8_ref: dict, max_tokens: int = 16,
-             int8_tokens: int = 16, second_tokens: int = 8,
-             spec_tokens: int = 16, spec_long: int = TP_SPEC_LONG,
+             int8_params, int8_ref: dict, max_tokens: int = 8,
+             int8_tokens: int = 8, second_tokens: int = 4,
+             spec_tokens: int = 12, spec_long: int = TP_SPEC_LONG,
              device: str = "cuda:0", engine_cfg=None, ranks=None) -> dict:
     """Tensor parallelism: two rank processes on cuda:0 serve the 8B
     snapshot at `llm_dir` sharded, bf16 then int8 (see the docstring's
@@ -8220,7 +8921,10 @@ def main() -> int:
         chunked = timed("chunked", phase_chunked, served)
         fused = timed("fused_prefill", phase_fused_prefill, card, served)
         rag = timed("rag", phase_rag, card, served, keep=rag_keep)
+        ingest = timed("ingest", phase_ingest, card, rag_keep)
         chain = timed("chain", phase_chain, card, served, rag_keep)
+        eval_rec = timed("eval", phase_eval, card, served, rag_keep)
+        ui = timed("ui", phase_ui, card, served, rag_keep)
         ann = timed("ann", phase_ann, card, served, rag_keep)
         pipelines = timed("pipelines", phase_pipelines, card, served,
                           rag_keep)
@@ -8251,6 +8955,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     checkpoint = timed("checkpoint", phase_checkpoint, card, bf16_params,
                        bf16_cfg, ckpt_ref, rag_keep)
+    train = timed("train", phase_train, card, bf16_params, bf16_cfg,
+                  rag_keep)
     del bf16_params, rag_keep
     phase_s["total"] = time.perf_counter() - t0
     emit({"phase": "timing", "seconds": phase_s, "marks": _MARKS})
@@ -8356,8 +9062,14 @@ def main() -> int:
             for r in (0, 1) if lrec["launches"][r]["A"][e["name"]]}
         if tp_launches:
             e["tp_launches"] = tp_launches
-        if e["name"] in ("flash_attention", "paged_attention",
-                         "encoder_attention"):
+        if e["name"] in K123:
+            # This slice's phases: the ingest pipeline (K3), the eval
+            # harness, the playground and the training parts' kernel-route
+            # checks.
+            for tag, prec in (("ingest", ingest), ("eval", eval_rec),
+                              ("ui", ui), ("train", train)):
+                if prec["launches"][e["name"]]:
+                    e[f"{tag}_launches"] = prec["launches"][e["name"]]
             # The chain phase: coalesced search, traced and augmented
             # answers.
             e["chain_launches"] = sum(
@@ -8375,6 +9087,7 @@ def main() -> int:
           and pacer["ok"] and chunked["ok"]
           and fused["ok"] and fused_int8["ok"]
           and rag["ok"] and chain["ok"] and ann["ok"] and pipelines["ok"]
+          and ingest["ok"] and eval_rec["ok"] and ui["ok"] and train["ok"]
           and serving_int8["ok"] and spec_bf16["ok"]
           and prefix["ok"] and fleet["ok"]
           and all(r["ok"] for r in spec_int8)

@@ -28,9 +28,10 @@ defaults:
   remote replica URLs, the router policy, health probes and
   disaggregated prefill/decode, the autoscaler (`autoscale*`) and the
   chaos harness (`chaos`, `chaos_seed`).
-- `AppConfig`: the sections the chain's pipelines and the engine server
-  read (llm, embeddings, reranker, retriever, vlm, prompts,
-  text_splitter, vector_store, serving, mesh, engine, fleet, tracing).
+- `AppConfig`: the sections the chain's pipelines, the engine server
+  and the playground read (vector_store, llm, text_splitter, embeddings,
+  reranker, retriever, vlm, voice, prompts, mesh, engine, serving,
+  fleet, tracing: the JAX tree's order).
   `load_config()` reads the YAML or JSON file that
   `APP_CONFIG_FILE` names, overlays `APP_<SECTION>_<FIELD>` environment
   variables (the JAX config wizard's contract) and refuses fields that
@@ -368,6 +369,20 @@ class VLMConfig:
 
 
 @dataclass(frozen=True)
+class VoiceConfig:
+    """ASR and TTS endpoints of the playground's voice path (any
+    OpenAI-audio-compatible server: streaming/asr.py's clients); empty
+    URLs leave the playground text-only."""
+
+    asr_server_url: str = ""
+    asr_model: str = "whisper-1"
+    tts_server_url: str = ""
+    tts_model: str = "tts-1"
+    tts_voice: str = "alloy"
+    sample_rate: int = 16000
+
+
+@dataclass(frozen=True)
 class ServingConfig:
     # Coalesce concurrent embed / rerank / vector-search callers into one
     # device dispatch (serving/batcher.py). Off by default.
@@ -495,10 +510,11 @@ class AppConfig:
     reranker: RerankerConfig = field(default_factory=RerankerConfig)
     retriever: RetrieverConfig = field(default_factory=RetrieverConfig)
     vlm: VLMConfig = field(default_factory=VLMConfig)
+    voice: VoiceConfig = field(default_factory=VoiceConfig)
     prompts: PromptsConfig = field(default_factory=PromptsConfig)
-    serving: ServingConfig = field(default_factory=ServingConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
 
@@ -673,8 +689,9 @@ def load_config(path: Optional[str] = None,
     `APP_<SECTION>_<FIELD>` environment variables (default: os.environ),
     checked with `check_supported`. Unknown sections or fields in
     `overrides` raise; those of the file and unknown APP_* variables are
-    logged and ignored (the file may carry the JAX package's other knobs,
-    and other services may share the env namespace)."""
+    logged and ignored: the file may carry the JAX package's other knobs,
+    and other services may share the env namespace (the variables are
+    logged with the JAX wizard's text, `wizard._warn_unrecognized_env`)."""
     env = dict(os.environ if env is None else env)
     overrides = dict(overrides or {})
     hints = typing.get_type_hints(AppConfig)
@@ -688,7 +705,6 @@ def load_config(path: Optional[str] = None,
         layer = _file_layer(read_config_file(path), path, hints)
     elif path:
         _LOG.warning("config file %s not found; using defaults + env", path)
-    known_env = {"APP_CONFIG_FILE"}
     sections: Dict[str, Any] = {}
     for sec, cls in hints.items():
         node = cls()
@@ -700,20 +716,18 @@ def load_config(path: Optional[str] = None,
         given = {**layer.get(sec, {}), **given}
         for name in names:
             env_name = env_var_name(sec, name)
-            known_env.add(env_name)
             if env_name in env:
                 given[name] = _coerce_env(env[env_name],
                                           getattr(node, name), env_name)
         sections[sec] = dataclasses.replace(node, **given)
     for name, (default, item) in UNSUPPORTED.items():
         env_name = env_var_name("engine", name)
-        known_env.add(env_name)
         if env_name in env and _coerce_env(env[env_name], default,
                                            env_name) != default:
             raise ValueError(f"{env_name}: engine.{name} is not supported "
                              f"by the PyTorch port yet ({item})")
-    for key in env:
-        if key.startswith("APP_") and key not in known_env:
-            _LOG.warning("env var %s matches no config field of the port "
-                         "and is ignored", key)
+    from generativeaiexamples_tpu_torch.config.wizard import (
+        _warn_unrecognized_env)
+
+    _warn_unrecognized_env(env)
     return check_supported(AppConfig(**sections))

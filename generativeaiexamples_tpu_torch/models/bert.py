@@ -11,7 +11,9 @@ weights across leaf by leaf. One encoder serves both roles:
 
 Attention at S <= 512 goes to `ops.encoder_attention` (the K3 CUDA
 kernel on the card, its plain version on the CPU); longer inputs go to
-`ops.attention.attention(causal=False, lengths=...)`.
+`ops.attention.attention(causal=False, lengths=...)`. `forward(...,
+attention="plain")` takes the plain versions on any device, with
+autograd on: the route the retriever fine-tune trains through.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
 from generativeaiexamples_tpu_torch.ops.encoder_attention import (
-    MAX_SEQ, encoder_attention)
+    MAX_SEQ, encoder_attention, encoder_attention_reference)
 
 Params = Dict[str, Any]
 
@@ -135,13 +137,28 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
-@torch.no_grad()
 def forward(params: Params, cfg: BertConfig, tokens: torch.Tensor, *,
             lengths: Optional[torch.Tensor] = None,
             token_types: Optional[torch.Tensor] = None,
+            attention: str = "kernel",
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (hidden [B, S, D], pooled [B, D] or scores
-    [B, n_labels]). `lengths` [B] int32 masks padding keys."""
+    [B, n_labels]). `lengths` [B] int32 masks padding keys.
+
+    attention "kernel": K3 (S <= 512) or K1 on CUDA tensors, their plain
+    versions on CPU tensors, under no_grad. "plain": the plain versions
+    on any device with autograd on (the differentiable route training
+    asks for; the JAX package's `use_pallas=False`)."""
+    if attention == "kernel":
+        with torch.no_grad():
+            return _forward(params, cfg, tokens, lengths, token_types,
+                            attention)
+    if attention != "plain":
+        raise ValueError(f"attention {attention!r}: kernel or plain")
+    return _forward(params, cfg, tokens, lengths, token_types, attention)
+
+
+def _forward(params, cfg, tokens, lengths, token_types, route):
     B, S = tokens.shape
     H, Hd = cfg.n_heads, cfg.head_dim
     dev = tokens.device
@@ -162,9 +179,11 @@ def forward(params: Params, cfg: BertConfig, tokens: torch.Tensor, *,
         qkv = (x @ w["wqkv"] + w["bqkv"]).view(B, S, 3, H, Hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         if S <= MAX_SEQ:
-            out = encoder_attention(q, k, v, lengths)
+            out = (encoder_attention(q, k, v, lengths) if route == "kernel"
+                   else encoder_attention_reference(q, k, v, lengths))
         else:
-            out = attn_ops.attention(q, k, v, causal=False, lengths=lengths)
+            out = attn_ops.attention(q, k, v, causal=False, lengths=lengths,
+                                     route=route)
         out = out.transpose(1, 2).reshape(B, S, H * Hd)
         x = layer_norm(x + out @ w["wo"] + w["bo"], w["ln1_w"], w["ln1_b"],
                        cfg.ln_eps)

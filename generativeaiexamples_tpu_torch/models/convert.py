@@ -80,3 +80,22 @@ def llama_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
         return _to_numpy(v)
 
     return {k: leaf(v) for k, v in params.items()}
+
+
+def bert_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's BERT params (a retriever fine-tune's result included)
+    -> numpy leaves, the same leaf-by-leaf copy as the Llama tree."""
+    return llama_params_to_numpy(params)
+
+
+def lora_params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
+                           dtype=torch.float32) -> Dict[str, Any]:
+    """JAX-package LoRA adapters ({target: {"a": [L, in, r], "b": [L, r,
+    out]}}, numpy leaves) -> the port's adapters (f32, as `init_lora`
+    makes them)."""
+    return llama_params_from_numpy(tree, device, dtype)
+
+
+def lora_params_to_numpy(lora: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's LoRA adapters -> numpy leaves for the JAX side."""
+    return llama_params_to_numpy(lora)

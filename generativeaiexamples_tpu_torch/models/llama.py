@@ -6,7 +6,8 @@ carry a leading layer axis ([L, ...]) and projections are stored
 [in, out] so that `x @ w` applies them. One converter
 (models/convert.py) therefore serves both packages. Attention goes
 through ops.attention: the K1 CUDA kernel for CUDA tensors, the plain
-reference for CPU tensors.
+reference for CPU tensors, or, on the route training asks for
+(`attention="plain"`), the plain reference on any device.
 
 RMSNorm, RoPE (optionally llama3-scaled), GQA, SwiGLU MLP, optional tied
 embeddings. Projections go through `ops.quant.mm`, so the same code runs
@@ -33,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
@@ -333,6 +335,7 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             kv_cache: Optional[KVCache] = None,
             lengths: Optional[torch.Tensor] = None,
+            attention: str = "kernel", remat: bool = False,
             ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Token ids [B, S] -> (logits [B, S, V] f32, cache or None).
 
@@ -340,21 +343,45 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
     2. Fresh cache (lengths 0): k/v written at absolute positions.
     3. Decode: new k/v appended after the cached prefix.
     Unlike the JAX version, the cache's k/v tensors are updated IN PLACE;
-    the returned KVCache shares them and carries the new lengths."""
+    the returned KVCache shares them and carries the new lengths.
+
+    `attention="plain"` is the differentiable route (the JAX package's
+    `use_pallas=False`): attention runs `mha_reference` on any device, so
+    autograd sees it; the default "kernel" launches K1 on CUDA, which
+    raises on operands that require grad. `remat` recomputes each
+    layer's activations in the backward (torch.utils.checkpoint), a
+    training option; it takes no cache."""
     x, new_cache = forward_hidden(params, cfg, tokens, positions=positions,
-                                  kv_cache=kv_cache, lengths=lengths)
+                                  kv_cache=kv_cache, lengths=lengths,
+                                  attention=attention, remat=remat)
     return logits_from_hidden(cfg, params, x), new_cache
+
+
+def _block(cfg: LlamaConfig, x: torch.Tensor, w: Dict[str, torch.Tensor],
+           cos: torch.Tensor, sin: torch.Tensor, attn_lengths: torch.Tensor,
+           route: str) -> torch.Tensor:
+    """One decoder layer without a cache: norm, q/k/v, causal attention,
+    output projection and MLP."""
+    h = rms_norm(x, w["ln1"], cfg.rms_eps)
+    q, k, v = project_qkv(cfg, h, w, cos, sin)
+    out = attn_ops.attention(q, k, v, causal=True, lengths=attn_lengths,
+                             route=route)
+    return finish_block(cfg, x, out, w)
 
 
 def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
                    positions: Optional[torch.Tensor] = None,
                    kv_cache: Optional[KVCache] = None,
                    lengths: Optional[torch.Tensor] = None,
+                   attention: str = "kernel", remat: bool = False,
                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """`forward` up to the last block: (hidden [B, S, D] before the final
     norm, cache or None). Callers that need the logits of a few positions
     (a prefill chunk's last valid token) take them from here instead of
     materialising [B, S, V]."""
+    if remat and kv_cache is not None:
+        raise ValueError("remat recomputes layers in the backward; it "
+                         "takes no KV cache (written in place)")
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
@@ -376,19 +403,24 @@ def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
 
     for layer in range(cfg.n_layers):
         w = layer_weights(params, layer)
+        if kv_cache is None:
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _block, cfg, x, w, cos, sin, attn_lengths, attention,
+                    use_reentrant=False)
+            else:
+                x = _block(cfg, x, w, cos, sin, attn_lengths, attention)
+            continue
         h = rms_norm(x, w["ln1"], cfg.rms_eps)
         q, k, v = project_qkv(cfg, h, w, cos, sin)
-        if kv_cache is None:
-            out = attn_ops.attention(q, k, v, causal=True,
-                                     lengths=attn_lengths)
-        else:
-            kc, vc = kv_cache.k[layer], kv_cache.v[layer]
-            # Scatter the S new tokens at [len, len + S) per row:
-            # kc[bidx, :, idx] addresses [B, S, KH, Hd].
-            kc[bidx, :, idx] = k.transpose(1, 2).to(kc.dtype)
-            vc[bidx, :, idx] = v.transpose(1, 2).to(vc.dtype)
-            out = attn_ops.attention(q, kc, vc, causal=True,
-                                     lengths=attn_lengths, q_offset=q_offset)
+        kc, vc = kv_cache.k[layer], kv_cache.v[layer]
+        # Scatter the S new tokens at [len, len + S) per row:
+        # kc[bidx, :, idx] addresses [B, S, KH, Hd].
+        kc[bidx, :, idx] = k.transpose(1, 2).to(kc.dtype)
+        vc[bidx, :, idx] = v.transpose(1, 2).to(vc.dtype)
+        out = attn_ops.attention(q, kc, vc, causal=True,
+                                 lengths=attn_lengths, q_offset=q_offset,
+                                 route=attention)
         x = finish_block(cfg, x, out, w)
 
     new_cache = None

@@ -4,12 +4,16 @@ Counterpart of generativeaiexamples_tpu/ops/attention.py.
 
 - `mha_reference`: scaled-dot-product attention with GQA, causal and
   padding masks and an f32 softmax, in plain torch. The numerics oracle
-  for the kernel and the path a CPU tensor takes.
+  for the kernel, the path a CPU tensor takes, and the differentiable
+  route the training modules ask for (`attention(..., route="plain")`).
+- `decode_attention_reference`: one decode step against a contiguous
+  cache, on `mha_reference`.
 - `flash_attention`: wrapper of the hand-written CUDA kernel
   `csrc/flash_attention.cu` (it replaces the Pallas `_flash_kernel`).
-  A CUDA tensor launches the kernel or raises; a CPU tensor runs
+  A CUDA tensor launches the kernel or raises (also when an operand
+  requires grad: the kernel has no backward); a CPU tensor runs
   `mha_reference`.
-- `attention`: the dispatcher the model code calls.
+- `attention`: the dispatcher the model code calls, with its `route`.
 
 All shapes are [batch, heads, seq, head_dim]; `lengths` is [batch] valid
 kv counts and `q_offset` [batch] the absolute position of q[0].
@@ -73,6 +77,18 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, lengths: torch.Tensor,
+                               *, scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """Single-step decode attention against a contiguous KV cache: q
+    [B, H, D] (one new token a sequence), k/v caches [B, KH, S_max, D],
+    lengths [B] tokens in the cache including the current one."""
+    out = mha_reference(q[:, :, None, :], k_cache, v_cache, causal=False,
+                        lengths=lengths, scale=scale)
+    return out[:, :, 0, :]
+
+
 def _check_cuda_operand(name: str, t: torch.Tensor, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
@@ -83,6 +99,17 @@ def _check_cuda_operand(name: str, t: torch.Tensor, device) -> None:
             or t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel needs a contiguous last dim and "
                          f"16-byte aligned rows (strides {t.stride()})")
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """A kernel bound with ctypes is invisible to autograd: an operand
+    that requires grad would silently get no gradient, so it raises.
+    Training asks for the differentiable route (`route="plain"`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an operand requires grad, and the CUDA kernel has "
+            f"no backward; differentiate through the plain route "
+            f"(attention=\"plain\" in models/llama.py and models/bert.py)")
 
 
 def _int32_vector(name: str, t: Optional[torch.Tensor], fill: int, n: int,
@@ -122,6 +149,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"H a multiple of KH)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda_operand(name, t, q.device)
+    refuse_grad("flash_attention", q, k, v)
     lengths = _int32_vector("lengths", lengths, Sk, B, q.device)
     q_offset = _int32_vector("q_offset", q_offset, 0, B, q.device)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype,
@@ -137,9 +165,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+ROUTES = ("kernel", "plain")
+
+
 def attention(q, k, v, *, causal=True, lengths=None, q_offset=None,
-              scale=None):
-    """Dispatch: the K1 kernel for CUDA tensors, `mha_reference` for CPU
-    tensors (the choice is made inside `flash_attention`)."""
+              scale=None, route: str = "kernel"):
+    """Dispatch. route "kernel": the K1 kernel for CUDA tensors,
+    `mha_reference` for CPU tensors (the choice is made inside
+    `flash_attention`). route "plain": `mha_reference` on any device,
+    the differentiable route a caller asks for (the JAX package's
+    `use_pallas=False`), never a fallback."""
+    if route == "plain":
+        return mha_reference(q, k, v, causal=causal, lengths=lengths,
+                             q_offset=q_offset, scale=scale)
+    if route != "kernel":
+        raise ValueError(f"attention route {route!r}: one of {ROUTES}")
     return flash_attention(q, k, v, causal=causal, lengths=lengths,
                            q_offset=q_offset, scale=scale)

@@ -10,7 +10,8 @@ Counterpart of generativeaiexamples_tpu/ops/encoder_attention.py.
   uniform).
 - `encoder_attention`: wrapper of the hand-written CUDA kernel
   `csrc/encoder_attention.cu` (it replaces the Pallas `_encoder_kernel`).
-  A CUDA tensor launches the kernel or raises; a CPU tensor runs the
+  A CUDA tensor launches the kernel or raises (also when an operand
+  requires grad: the kernel has no backward); a CPU tensor runs the
   plain version.
 
 Shapes are [batch, heads, seq, head_dim] with seq <= 512 and head_dim 64
@@ -25,7 +26,7 @@ import torch
 
 from generativeaiexamples_tpu_torch import kernels
 from generativeaiexamples_tpu_torch.ops.attention import (
-    NEG_INF, _check_cuda_operand, _int32_vector)
+    NEG_INF, _check_cuda_operand, _int32_vector, refuse_grad)
 
 MAX_SEQ = 512
 HEAD_DIM = 64
@@ -74,6 +75,7 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda_operand(name, t, q.device)
+    refuse_grad("encoder_attention", q, k, v)
     lengths = _int32_vector("lengths", lengths, S, B, q.device)
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)

@@ -139,3 +139,23 @@ def test_flash_kernel_matches_reference_on_cuda():
         assert float(got[empty].float().abs().sum()) == 0.0
         torch.testing.assert_close(got[~empty].float(), want[~empty],
                                    atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_decode_attention_reference_matches_jax(kv_heads):
+    """One decode step against a contiguous cache, ragged lengths (one of
+    them the whole cache)."""
+    rng = np.random.default_rng(7)
+    B, H, S, D = 3, 4, 24, 16
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, kv_heads, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, kv_heads, S, D)).astype(np.float32)
+    lengths = np.asarray([5, 24, 1], np.int32)
+    want = np.asarray(jattn.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lengths), scale=0.3))
+    got = tattn.decode_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lengths), scale=0.3)
+    assert tuple(got.shape) == (B, H, D)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)

@@ -55,7 +55,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "'checkpoint_streams', 'phase_checkpoint', 'phase_chain', "
         "'phase_flight', 'phase_fused_prefill', 'phase_fused_prefill_int8', "
         "'phase_fleet', 'phase_pacer', 'phase_ann', 'phase_tp', "
-        "'paged_int8_sdpa_gathered_ms', 'main'):",
+        "'paged_int8_sdpa_gathered_ms', 'phase_ingest', 'phase_eval', "
+        "'phase_ui', 'phase_train', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
@@ -73,6 +74,18 @@ def test_fleet_and_planner_modules_are_covered():
     those imported with jax blocked and scanned below."""
     for name in ("autoscaler", "chaos", "memory_plan"):
         assert f"generativeaiexamples_tpu_torch.serving.{name}" in MODULES
+
+
+def test_framework_neutral_and_training_modules_are_covered():
+    """The wizard, ingest, eval, CVE agent, playground, SSE, voice and
+    training modules are among those imported with jax blocked and
+    scanned below (the playground rides aiohttp, the clients urllib)."""
+    for name in ("config.wizard", "ingest.pipeline", "eval.metrics",
+                 "eval.harness", "eval.__main__", "agents.cve",
+                 "ui.server", "ui.chat_client", "ui.__main__", "utils.sse",
+                 "utils.http", "streaming.asr", "training.trainer",
+                 "training.lora", "training.retriever_ft"):
+        assert f"generativeaiexamples_tpu_torch.{name}" in MODULES, name
 
 
 def test_ann_modules_are_covered():

@@ -494,5 +494,8 @@ def test_multi_turn_template_and_vlm_config_match_jax(tmp_path, caplog):
                 dataclasses.asdict(theirs.prompts), (file_, e)
     assert theirs.vlm.deplot_model_name == "my-deplot"
     assert "[vlm] deplot_model_name has no counterpart" in caplog.text
-    # voice stays a JAX-only section: logged and ignored.
-    assert "section [voice]" in caplog.text
+    # voice is the port's too (the playground's voice path): read, not
+    # logged and ignored.
+    assert "section [voice]" not in caplog.text
+    assert dataclasses.asdict(ours.voice) == dataclasses.asdict(theirs.voice)
+    assert ours.voice.asr_server_url == "http://x"
