@@ -4012,7 +4012,7 @@ def _probed_reference(corpus, centroids, assign, qs, pids, k: int):
 
 def phase_ann(card: str, served: ServedEngine, keep: dict,
               device: str = "cuda", n_search: int = 64,
-              max_tokens: int = 32, top_k: int = 5,
+              max_tokens: int = 16, top_k: int = 5,
               rows: int = ANN_ROWS, dim: int = ANN_DIM,
               n_centers: int = ANN_CENTERS, nlist: int = ANN_NLIST,
               nprobe: int = ANN_NPROBE, tiered_rows: int = ANN_TIERED_ROWS,
@@ -4720,7 +4720,7 @@ def _page_round_trip(pool, pages):
 
 def phase_serving_int8(card: str, model_size: str = "8b",
                        device: str = "cuda", n_requests: int = 128,
-                       max_tokens: int = 32, long_prompt: int = 6000,
+                       max_tokens: int = 16, long_prompt: int = 6000,
                        n_pages=None, engine_cfg=None):
     """The int8 engine behind the OpenAI server: n_requests concurrent
     greedy completions of max_tokens with prompts of 20-400 bytes (seed
@@ -5351,9 +5351,9 @@ FLEET_POOL_PAGES = 129
 QOS_POOL_PAGES = 385
 # bursty_trace(seed=0) with long batch prompts (bounded Pareto 1,024 to
 # 5,000 tokens: beyond the largest bucket they go through the chunked
-# lane, which the latency tier's TTFT phase pauses), over 4 s of
+# lane, which the latency tier's TTFT phase pauses), over 2 s of
 # arrivals (6 s by default; cut for the smoke's time).
-QOS_TRACE = {"batch_prompt": (1.4, 1024, 3000), "horizon_s": 3.0}
+QOS_TRACE = {"batch_prompt": (1.4, 1024, 3000), "horizon_s": 2.0}
 # The edge's bounds in the 429 check (each tier's in-flight limit).
 QOS_EDGE_BOUNDS = {"latency": 2, "standard": 2, "batch": 1}
 
@@ -5464,7 +5464,7 @@ def _pages_of(engine, ids):
 
 # The chaos kill's trace: bursty_trace(seed=3) cut to 3 s with 4 batch
 # prompts of 128-1,024 tokens.
-CHAOS_TRACE = {"horizon_s": 3.0, "latency_rps": 2.0, "batch_requests": 4,
+CHAOS_TRACE = {"horizon_s": 2.0, "latency_rps": 2.0, "batch_requests": 4,
                "batch_prompt": (1.4, 128, 1024), "batch_out": (1.6, 16, 48)}
 # The kill's time into that trace (s); the slowed prefill's prompt (40
 # full pages of 128 and a 40-token suffix) and its delay a beat (s); the
@@ -5752,8 +5752,8 @@ def _fleet_chaos(src, engines, fleet_of, rng, ecfg, n_pages, device,
 
 def phase_fleet(card: str, bf16_served, device: str = "cuda",
                 n_chats: int = 4, n_sessions: int = 4, chat_chars: int = 300,
-                max_tokens: int = 32, disagg_prompt: int = 4136,
-                disagg_tokens: int = 32, chunk_pages: int = 8,
+                max_tokens: int = 16, disagg_prompt: int = 4136,
+                disagg_tokens: int = 16, chunk_pages: int = 8,
                 n_pages: int = FLEET_POOL_PAGES, engine_cfg=None,
                 warmups=(((512, 1024), None), ((4096,), (1,))),
                 qos_pages: int = QOS_POOL_PAGES, qos_trace=None,
@@ -6753,6 +6753,305 @@ def phase_ui(card: str, served: ServedEngine, keep: dict,
            "voice": {"caps": caps, "transcribe": heard,
                      "speech_rate": rate, "speech_samples": len(pcm)},
            "launches": launches, "ok": ok}
+    emit(rec)
+    return rec
+
+
+STREAM_FS_AUDIO = 16_000
+STREAM_FS_IQ = 250_000
+# Paced UDP sends: a slice of IQ bytes, then wait until the ring holds it
+# (a loopback socket's default receive buffer, ~208 KB, holds about a
+# dozen 8 KB datagrams: each takes more than its payload).
+STREAM_UDP_SLICE = 64 << 10
+STREAM_UDP_PACKET = 8192
+STREAM_TRANSCRIPTS = (
+    "breaking news the launch window for the weather satellite opens "
+    "tonight at nine",
+    "engineers at the pad report that all systems are go for the liftoff "
+    "this evening",
+    "the harbour pilots expect calm seas and clear skies along the coast "
+    "until morning",
+    "in sports the home team won the final by two goals after extra time",
+)
+# (label, question, the intent the scripted classifier gives, the
+# recency it gives, the breadcrumb the chain must stream first).
+STREAM_QUESTIONS = (
+    ("recent", "Summarize what was said in the last 5 minutes.",
+     "RecentSummary", (5, "minutes"), "entries from the last 300s"),
+    ("past", "What were they talking about 30 seconds ago?",
+     "TimeWindow", (30, "seconds"), "entries from 30s ago (+/- 90s)"),
+    ("topic", "What did the engineers say about the launch?",
+     "SpecificTopic", None, "related entries"),
+)
+
+
+class _StreamLLM:
+    """The streaming chain's LLM on the card: the served engine answers
+    (greedy, `max_tokens` capped); the intent and recency classifiers
+    are scripted, as the JAX tests script them, since random weights
+    write no JSON."""
+
+    def __init__(self, engine, max_tokens: int):
+        from generativeaiexamples_tpu_torch.connectors.local import (
+            LocalEngineLLM)
+        from generativeaiexamples_tpu_torch.streaming import prompts
+
+        self.llm = LocalEngineLLM(engine)
+        self.max_tokens = max_tokens
+        self.prompts = prompts
+        self.routes: list = []
+
+    def _scripted(self, messages):
+        system = messages[0]["content"] if messages else ""
+        question = messages[-1]["content"]
+        for label, q, intent, recency, _ in STREAM_QUESTIONS:
+            if q != question:
+                continue
+            if system == self.prompts.INTENT_PROMPT:
+                self.routes.append((label, intent))
+                return json.dumps({"intentType": intent})
+            if system == self.prompts.RECENCY_PROMPT and recency:
+                return json.dumps({"timeNum": recency[0],
+                                   "timeUnit": recency[1]})
+        return None
+
+    def chat(self, messages, **kw):
+        out = self._scripted(messages)
+        return out if out is not None else "".join(
+            self.stream_chat(messages, **kw))
+
+    def stream_chat(self, messages, **kw):
+        kw = {**kw, "temperature": 0.0,
+              "max_tokens": min(kw.get("max_tokens", self.max_tokens),
+                                self.max_tokens)}
+        yield from self.llm.stream_chat(messages, **kw)
+
+
+def _udp_receive(iq: "np.ndarray") -> tuple:
+    """Send complex64 IQ over loopback UDP (`replay.udp_send_iq`, one
+    64 KB slice a millisecond, from a thread) and receive it through
+    `replay.udp_receive_iq` (its socket's receive buffer and the native
+    ring): (the samples received, bytes sent, received and lost,
+    datagrams, seconds)."""
+    import socket
+
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.streaming import replay
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    step = STREAM_UDP_SLICE // 8
+    packets = []
+
+    def send():
+        time.sleep(0.5)  # the receiver binds first
+        for i in range(0, len(iq), step):
+            packets.append(replay.udp_send_iq(
+                iq[i:i + step], ("127.0.0.1", port),
+                pkt_size=STREAM_UDP_PACKET))
+            time.sleep(0.001)
+
+    sender = threading.Thread(target=send, daemon=True)
+    sender.start()
+    t0 = time.perf_counter()
+    try:
+        got = replay.udp_receive_iq(port, iq.nbytes, timeout=3.0).copy()
+        err = None
+    except TimeoutError as e:
+        got, err = np.zeros((0,), np.complex64), str(e)
+    sender.join(timeout=10)
+    return got, {"bytes_sent": iq.nbytes, "packets": sum(packets),
+                 "bytes_received": got.nbytes,
+                 "bytes_lost": iq.nbytes - got.nbytes, "error": err,
+                 "seconds": time.perf_counter() - t0 - 0.5}
+
+
+def phase_streaming(card: str, served: ServedEngine, keep: dict,
+                    device: str = "cuda", audio_s: float = 4.0,
+                    max_tokens: int = 16):
+    """The fm-asr streaming RAG path (streaming/, native/) on the card:
+
+    (a) `synth_speech_like` (audio_s seconds at 16 kHz) goes through
+        `fm_modulate` on `device` to 250 kHz complex64 IQ;
+    (b) the IQ goes over loopback UDP, one 64 KB slice a millisecond,
+        into `replay.udp_receive_iq` (its socket's 4 MB receive buffer
+        and the native SPSC ring: the port's sdr_ring.c, built into
+        build/native/; the card's machine must have a C compiler): every
+        byte must arrive;
+    (c) `FMReceiver.process` on `device`, one 1 s chunk at a time, timed
+        warm (DSP ms a chunk: its real-time factor);
+    (d) `replay.StreamPump.run_iq` pushes the received chunks through its
+        own FMReceiver on `device`, the port's FakeASR (whose PCM is held
+        to the port's CPU route within 1 LSB and to the input audio:
+        best-lag correlation over 0 to 4 samples above 0.95 on the first
+        chunk) and a sink that posts each transcript to the
+        StreamingServer's /storeStreamingText; /flush ends the stream.
+        The store embeds through the arctic embedder (K3);
+    (e) three /generate questions over SSE, on the served 8B engine
+        (greedy, max_tokens a call; K1, K2): a recent summary (through
+        the chain's summarization when the window holds more than 4
+        entries), a past time window (truncated to the closest entries)
+        and a topic; the intent and recency classifiers are
+        scripted (random weights write no JSON), each answer must stream
+        its route's breadcrumb, then text frames, then {"done": true}.
+
+    Prints the DSP ms a chunk, bytes received and lost, transcripts
+    and indexed documents, each answer's first-frame ms, and the K1, K2
+    and K3 launches of (d)-(e)."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch.connectors.local import (
+        LocalEmbedder)
+    from generativeaiexamples_tpu_torch.native import ring as native_ring
+    from generativeaiexamples_tpu_torch.streaming import dsp, replay
+    from generativeaiexamples_tpu_torch.streaming.asr import FakeASR
+    from generativeaiexamples_tpu_torch.streaming.server import (
+        StreamingServer)
+    from generativeaiexamples_tpu_torch import kernels
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    rec: dict = {"phase": "streaming", "card": card, "audio_s": audio_s,
+                 "fs_audio": STREAM_FS_AUDIO, "fs_iq": STREAM_FS_IQ}
+    audio = replay.synth_speech_like(audio_s, fs=STREAM_FS_AUDIO, seed=0)
+    sync()
+    t0 = time.perf_counter()
+    iq = dsp.fm_modulate(audio, STREAM_FS_AUDIO, STREAM_FS_IQ, device=device)
+    sync()
+    rec["modulate_s"] = time.perf_counter() - t0
+    iq_np = iq.cpu().numpy()
+    rec["native_available"] = native_ring.native_available()
+    got, rec["udp"] = _udp_receive(iq_np)
+    rec["udp"]["iq_equal"] = bool(got.shape == iq_np.shape
+                                  and np.array_equal(got, iq_np))
+    time_mark("streaming_dsp")
+
+    # The DSP's time a chunk and its PCM against the CPU route, on the
+    # received samples.
+    chunk = STREAM_FS_IQ
+    parts = [torch.from_numpy(got[i:i + chunk].copy())
+             for i in range(0, len(got) - chunk + 1, chunk)]
+    receiver = dsp.FMReceiver(STREAM_FS_IQ, STREAM_FS_AUDIO, device=device)
+    cpu_receiver = dsp.FMReceiver(STREAM_FS_IQ, STREAM_FS_AUDIO,
+                                  device="cpu")
+    dsp_ms = []
+    for part in parts:
+        dev_part = part.to(device)
+        receiver.process(dev_part)  # the first call's allocations
+        sync()
+        t0 = time.perf_counter()
+        receiver.process(dev_part)
+        sync()
+        dsp_ms.append(1e3 * (time.perf_counter() - t0))
+    time_mark("streaming_receiver")
+
+    llm = _StreamLLM(served.engine, max_tokens)
+    srv = StreamingServer(llm, LocalEmbedder(keep["emb"]), chunk_size=128,
+                          chunk_overlap=16)
+    base, stop = _serve_aiohttp(srv.app)
+    pcms = []
+
+    class RecordingASR(FakeASR):
+        """The port's FakeASR, keeping the PCM the pump hands it."""
+
+        def transcribe(self, pcm, sample_rate):
+            pcms.append(pcm)
+            return super().transcribe(pcm, sample_rate)
+
+    asr = RecordingASR(script=list(STREAM_TRANSCRIPTS))
+    stores = []
+
+    def store(source_id, text):
+        with _post(base + "/storeStreamingText",
+                   {"transcript": text, "source_id": source_id}) as r:
+            stores.append(json.loads(r.read()))
+
+    pump = replay.StreamPump(asr, store, fs_audio=STREAM_FS_AUDIO,
+                             fs_iq=STREAM_FS_IQ, source_id="fm",
+                             device=device)
+    answers = {}
+    try:
+        sync()
+        kernels.reset_launches()
+        # The received IQ through the pump: FMReceiver on `device`, the
+        # ASR, /storeStreamingText; then the stream's end.
+        delivered = pump.run_iq(got[i:i + chunk]
+                                for i in range(0, len(got), chunk))
+        with _post(base + "/flush", {"source_id": "fm"}) as r:
+            stores.append(json.loads(r.read()))
+        rec["ingest"] = {"asr_calls": asr.calls, "delivered": delivered,
+                         "stores": stores,
+                         "transcripts": len(STREAM_TRANSCRIPTS)
+                         - len(asr.script),
+                         "indexed_documents": len(srv.accumulator
+                                                  .timestamp_db),
+                         "store_rows": len(srv.store.store)}
+        for label, question, _, _, crumb in STREAM_QUESTIONS:
+            tokens0 = served.engine.metrics.snapshot()["tokens_generated"]
+            t0 = time.perf_counter()
+            first_ms = None
+            frames = []
+            # The past window truncates to the closest entries; the
+            # recent summary summarizes (both of the chain's budgets).
+            with _post(base + "/generate", {
+                    "question": question,
+                    "allow_summary": label != "past"}) as r:
+                status = r.status
+                buf = b""
+                while True:
+                    piece = r.read1(65536) if hasattr(r, "read1") \
+                        else r.read(65536)
+                    if not piece:
+                        break
+                    if first_ms is None:
+                        first_ms = 1e3 * (time.perf_counter() - t0)
+                    buf += piece
+            frames = [json.loads(ln[6:]) for ln in buf.decode().split("\n\n")
+                      if ln.startswith("data: ")]
+            text = "".join(f.get("content", "") for f in frames)
+            answers[label] = {
+                "status": status, "first_frame_ms": first_ms,
+                "total_ms": 1e3 * (time.perf_counter() - t0),
+                "frames": len(frames), "breadcrumb": crumb in text,
+                "done": bool(frames) and frames[-1] == {"done": True},
+                "tokens": served.engine.metrics.snapshot()[
+                    "tokens_generated"] - tokens0,
+                "text_head": text[:160]}
+        sync()
+        launches = _k123()
+    finally:
+        stop()
+    lsb = [int(np.abs(pcm.astype(np.int32) - cpu_receiver.process(
+        part).numpy().astype(np.int32)).max())
+        for pcm, part in zip(pcms, parts)]
+    n = len(pcms[0]) - 128
+    corr = max(float(np.corrcoef(pcms[0][64 + lag:64 + lag + n].astype(
+        np.float32), audio[64:64 + n])[0, 1]) for lag in range(5))
+    rec["receiver"] = {"chunks": len(pcms), "dsp_ms_per_chunk": dsp_ms,
+                       "real_time_factor": max(dsp_ms) / 1e3,
+                       "max_lsb_vs_cpu": lsb, "tol_lsb": 1,
+                       "audio_corr_best_lag": corr}
+    rec["answers"] = answers
+    rec["routes"] = llm.routes
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(
+        rec["native_available"] and rec["udp"]["iq_equal"]
+        and rec["udp"]["bytes_lost"] == 0
+        and len(pcms) == len(parts) == int(audio_s)
+        and all(v <= 1 for v in lsb) and corr > 0.95
+        and rec["ingest"]["transcripts"] == len(STREAM_TRANSCRIPTS)
+        and rec["ingest"]["indexed_documents"] > 0
+        and [r[0] for r in llm.routes] == [q[0] for q in STREAM_QUESTIONS]
+        and all(a["status"] == 200 and a["breadcrumb"] and a["done"]
+                and a["tokens"] > 0 for a in answers.values())
+        and all(launches[k] > 0 for k in K123))
     emit(rec)
     return rec
 
@@ -7995,6 +8294,12 @@ def _tp_rank_main(rank, coordinator, device, cmds, out) -> None:
                 mesh_lib.COLLECTIVE_TIMING = False
                 eng.pool = None
                 del eng
+            elif kind == "warm":
+                rep.update(_train_warmup(device))
+            elif kind == "train":
+                engine = None
+                rep.update(_train_rank_leg(rank, mesh_lib, device,
+                                           arg["leg"], arg["dims"]))
             out.put((rank, kind, rep))
         engine = None
         mesh_lib.shutdown()
@@ -8033,12 +8338,19 @@ def tp_kill(ranks) -> None:
 
 
 def _tp_ask(procs, cmds, out, kind, arg, timeout_s=TP_RANK_TIMEOUT_S):
-    """Send (kind, arg) to both ranks; their replies by rank. A rank that
-    dies, reports an error or runs past the limit fails the call."""
-    import queue
-
+    """Send (kind, arg) to both ranks; their replies by rank
+    (`_tp_replies`)."""
     for q in cmds:
         q.put((kind, arg))
+    return _tp_replies(procs, out, kind, timeout_s)
+
+
+def _tp_replies(procs, out, kind, timeout_s=TP_RANK_TIMEOUT_S):
+    """Both ranks' replies to a (kind, ...) command already sent, by
+    rank. A rank that dies, reports an error or runs past the limit
+    fails the call."""
+    import queue
+
     got = {}
     deadline = time.perf_counter() + timeout_s
     while len(got) < 2:
@@ -8300,10 +8612,384 @@ def _tp_spec_leg(ranks, ecfg, int8_params, cfg, tokenizer, prompts,
     return lrec
 
 
+# The training legs on phase_tp's two rank processes (cuda:0 each): the
+# Llama-3-8B width at TRAIN_RANKS_LAYERS layers, batch x seq tokens. The
+# bytes gloo moves through host memory a step (bf16): the FSDP leg
+# gathers every leaf (each rank's half of ~2.94 GB) and all-reduces
+# every gradient whole (~2.94 GB; gloo has no reduce-scatter); the
+# pipeline leg sums the embedding's and the head's gradients over the two
+# stages (~2.1 GB) and sends 2 x (n_micro + 1) activations of
+# [mb, seq, 4096] each way; the tensor leg all-reduces [batch, seq, 4096]
+# activations (4 a layer forward, as many again recomputed and backward)
+# and gathers [batch, seq, 64128] f32 logits (~0.13 GB a rank).
+TRAIN_RANKS_LAYERS = 2
+TRAIN_RANKS_BATCH = 2
+TRAIN_RANKS_SEQ = 256
+TRAIN_RANKS_MICRO = 2
+# A sharded step against the one-device step, both bf16: each gradient
+# leaf's largest difference within TRAIN_RANKS_RTOL of the reference
+# leaf's largest magnitude; the loss and the grad norm within
+# TRAIN_RANKS_LOSS_RTOL. The updated parameters: AdamW's first step moves
+# each element by lr x sign(g) (|g| >> eps), so where a near-zero
+# gradient's sign differs the two steps part by 2 lr; each element within
+# 2 lr plus one bf16 ulp of the leaf's largest magnitude, and at least
+# TRAIN_RANKS_SAME_SHARE of all elements within lr / 2 (a step that moved
+# nothing, or by another gradient, fails both).
+TRAIN_RANKS_RTOL = 5e-2
+TRAIN_RANKS_LOSS_RTOL = 1e-2
+TRAIN_RANKS_LR = 1e-3
+TRAIN_RANKS_SAME_SHARE = 0.9
+# Ring attention at 8B's attention shape over the 2-way sequence axis:
+# the forward at RING_SEQ (each rank's half of the queries against the
+# plain attention, in RING_REF_ROWS-query blocks), gradients at
+# RING_GRAD_SEQ.
+RING_SEQ = 8192
+RING_GRAD_SEQ = 2048
+RING_REF_ROWS = 2048
+
+
+TRAIN_RANKS_DIMS = {"model": "8b", "layers": TRAIN_RANKS_LAYERS,
+                    "batch": TRAIN_RANKS_BATCH, "seq": TRAIN_RANKS_SEQ,
+                    "n_micro": TRAIN_RANKS_MICRO, "ring_seq": RING_SEQ,
+                    "ring_grad_seq": RING_GRAD_SEQ,
+                    "ring_ref_rows": RING_REF_ROWS,
+                    "ring_heads": (32, 8, 128)}
+
+
+def _train_ranks_cfg(dims):
+    import dataclasses
+
+    from generativeaiexamples_tpu_torch.models import llama
+
+    base = (llama.LlamaConfig.llama3_8b() if dims["model"] == "8b"
+            else llama.LlamaConfig.tiny())
+    return dataclasses.replace(base, n_layers=dims["layers"])
+
+
+class _CudaMem:
+    """Peak device bytes above a start point (zeros off CUDA)."""
+
+    def __init__(self, device):
+        import torch
+
+        self.torch = torch
+        self.cuda = torch.device(device).type == "cuda"
+
+    def sync(self):
+        if self.cuda:
+            self.torch.cuda.synchronize()
+
+    def start(self):
+        self.sync()
+        if not self.cuda:
+            return 0
+        self.torch.cuda.reset_peak_memory_stats()
+        return self.torch.cuda.memory_allocated()
+
+    def peak_gb(self, base):
+        self.sync()
+        if not self.cuda:
+            return 0.0
+        return (self.torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _ring_leg(rank, mesh_lib, device, dims) -> dict:
+    """Ring attention over the 2-way sequence axis (bf16 q, k, v at
+    B=1, H=32, KH=8, D=128, from seed 0 on both ranks) against the plain
+    attention (`mha_reference`) on one device: each rank checks its half
+    of the gathered output, then the gradients of out.float().sum() at
+    RING_GRAD_SEQ."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.config.schema import MeshConfig
+    from generativeaiexamples_tpu_torch.ops.attention import mha_reference
+    from generativeaiexamples_tpu_torch.ops.ring_attention import (
+        ring_attention_sharded)
+
+    mesh = mesh_lib.build_mesh(MeshConfig(ici_sequence=2, ici_tensor=1),
+                               [device, device])
+    H, KH, D = dims["ring_heads"]
+    seq, rows_n = dims["ring_seq"], dims["ring_ref_rows"]
+    mem = _CudaMem(device)
+
+    def qkv(S, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        shapes = ((1, H, S, D), (1, KH, S, D), (1, KH, S, D))
+        return [torch.randn(s, generator=g, device=device).to(torch.bfloat16)
+                for s in shapes]
+
+    rep: dict = {"S": seq, "grad_S": dims["ring_grad_seq"], "ranks": 2,
+                 "B_H_KH_D": [1, H, KH, D], "tol": BF16_ATOL}
+    q, k, v = qkv(seq, 0)
+    base = mem.start()
+    mesh_lib.reset_collective_stats()
+    mesh_lib.COLLECTIVE_TIMING = True
+    t0 = time.perf_counter()
+    out = ring_attention_sharded(q, k, v, mesh)
+    mem.sync()
+    rep["ring_s"] = time.perf_counter() - t0
+    mesh_lib.COLLECTIVE_TIMING = False
+    rep["collectives"] = dict(mesh_lib.COLLECTIVE_STATS)
+    rep["collective_ms"] = 1e3 * rep["collectives"]["seconds"]
+    rep["peak_gb_above_start"] = mem.peak_gb(base)
+    half = seq // 2
+    err = 0.0
+    t0 = time.perf_counter()
+    for r0 in range(rank * half, (rank + 1) * half, rows_n):
+        rows = slice(r0, r0 + rows_n)
+        ref = mha_reference(q[:, :, rows], k[:, :, :r0 + rows_n],
+                            v[:, :, :r0 + rows_n], causal=True,
+                            q_offset=torch.full((1,), r0, device=device))
+        err = max(err, float((out[:, :, rows].float()
+                              - ref.float()).abs().max()))
+    mem.sync()
+    rep["plain_half_s"] = time.perf_counter() - t0
+    rep["max_abs_err"] = err
+    del out, q, k, v
+    q, k, v = (t.requires_grad_(True) for t in qkv(dims["ring_grad_seq"], 1))
+    with torch.enable_grad():
+        g_ring = torch.autograd.grad(
+            ring_attention_sharded(q, k, v, mesh).float().sum(), (q, k, v))
+        g_ref = torch.autograd.grad(
+            mha_reference(q, k, v, causal=True).float().sum(), (q, k, v))
+    rep["grad_rel_err"] = [
+        float((a.float() - b.float()).abs().max()
+              / b.float().abs().max()) for a, b in zip(g_ring, g_ref)]
+    rep["ok"] = bool(err <= BF16_ATOL and max(rep["grad_rel_err"])
+                     <= TRAIN_RANKS_RTOL)
+    return rep
+
+
+def _shard_errs(got_leaves, ref_leaves, specs, mesh) -> list:
+    """Each leaf's largest |shard - the reference's slice| over the
+    reference leaf's largest magnitude."""
+    from generativeaiexamples_tpu_torch.serving.sharding import shard_slices
+
+    out = []
+    for g, r, s in zip(got_leaves, ref_leaves, specs):
+        ref = r[shard_slices(r.shape, s, mesh)]
+        # In the leaves' dtype: a difference of two close bf16 values is
+        # exact, and no f32 copy of a 1 GB leaf is made.
+        out.append(float((g - ref).abs().max())
+                   / max(float(ref.abs().max()), 1e-30))
+    return out
+
+
+def _param_errs(got_leaves, ref_leaves, specs, mesh, lr) -> dict:
+    """Updated shards against the one-device update: the largest
+    difference over (2 lr + one bf16 ulp of the leaf's largest
+    magnitude), worst leaf, and the share of elements within lr / 2."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving.sharding import shard_slices
+
+    worst, close, total = 0.0, 0, 0
+    for g, r, s in zip(got_leaves, ref_leaves, specs):
+        ref = r[shard_slices(r.shape, s, mesh)]
+        diff = (g - ref).abs()
+        allowed = 2 * lr + float(ref.abs().max()) * 2.0 ** -7
+        worst = max(worst, float(diff.max()) / allowed)
+        close += int(torch.count_nonzero(diff <= lr / 2))
+        total += diff.numel()
+    return {"worst_over_allowed": worst, "share_within_half_lr":
+            close / total}
+
+
+def _step_leg(rank, mesh_lib, device, leg: str, dims) -> dict:
+    """One sharded train step (bf16, Llama-3-8B width, remat) at fsdp 2,
+    tensor 2 or pipeline 2 against the one-device step on the same
+    weights (seed 0 on both ranks) and batch: the loss, the grad norm,
+    every gradient and every updated leaf (each rank's shards)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.config.schema import MeshConfig
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.parallel import pipeline as pp
+    from generativeaiexamples_tpu_torch.training import trainer
+
+    cfg = _train_ranks_cfg(dims)
+    mem = _CudaMem(device)
+    tcfg = trainer.TrainConfig(learning_rate=TRAIN_RANKS_LR, warmup_steps=0,
+                               remat=True)
+    part_s = {}
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, device)
+    batch = trainer.synthetic_batch(cfg, dims["batch"], dims["seq"],
+                                    seed=0, device=device)
+    opt = trainer.make_optimizer(tcfg)
+    mem.sync()
+    part_s["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # The one-device step: loss and gradients first, then the update.
+    ref_loss, ref_grads = trainer.value_and_grad(
+        lambda p: trainer.loss_fn(p, cfg, batch["tokens"], batch["targets"],
+                                  batch["mask"], remat=True), params)
+    ref_norm = trainer.global_norm(ref_grads)
+    ref_new, _ = opt.update(ref_grads, opt.init(params), params)
+    ref_new = trainer.tree_leaves(ref_new)
+    mem.sync()
+    part_s["one_device_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = mesh_lib.build_mesh(MeshConfig(**{
+        "fsdp": dict(ici_fsdp=2, ici_tensor=1),
+        "tensor": dict(ici_tensor=2),
+        "pipeline": dict(dcn_pipeline=2, ici_tensor=1)}[leg]),
+        [device, device])
+    if leg == "pipeline":
+        local, state, specs = pp.shard_pp_train_state(params, cfg, opt, mesh)
+
+        def loss_of(p):
+            return pp.pipeline_loss(p, cfg, batch["tokens"],
+                                    batch["targets"], batch["mask"],
+                                    mesh=mesh, n_micro=dims["n_micro"],
+                                    remat=True)
+    else:
+        local, state, specs = trainer.shard_train_state(params, cfg, opt,
+                                                        mesh)
+
+        def loss_of(p):
+            return trainer.loss_fn(p, cfg, batch["tokens"],
+                                   batch["targets"], batch["mask"],
+                                   remat=True, mesh=mesh)
+    leaf_specs = trainer.aligned_specs(specs, local)
+    full_gb = 3 * sum(t.numel() * t.element_size()
+                      for t in trainer.tree_leaves(params)) / 2**30
+    del params  # the shards are copies; the references are ref_*
+    mem.sync()
+    part_s["shard"] = time.perf_counter() - t0
+    shard_bytes = sum(t.numel() * t.element_size()
+                      for t in trainer.tree_leaves(local)
+                      + state["mu"] + state["nu"])
+    base = mem.start()
+    mesh_lib.reset_collective_stats()
+    mesh_lib.COLLECTIVE_TIMING = True
+    t0 = time.perf_counter()
+    with mesh_lib.active(mesh):
+        loss, grads = trainer.value_and_grad(loss_of, local)
+    grads = trainer.sync_grads(grads, leaf_specs, mesh)
+    gnorm = trainer.sharded_global_norm(grads, leaf_specs, mesh)
+    new, state = opt.update(grads, state, local, g_norm=gnorm)
+    mem.sync()
+    step_s = time.perf_counter() - t0
+    mesh_lib.COLLECTIVE_TIMING = False
+    coll = dict(mesh_lib.COLLECTIVE_STATS)
+    peak_gb = mem.peak_gb(base)
+    t0 = time.perf_counter()
+    grad_err = max(_shard_errs(grads, ref_grads, leaf_specs, mesh))
+    param_err = _param_errs(trainer.tree_leaves(new), ref_new, leaf_specs,
+                            mesh, TRAIN_RANKS_LR)
+    part_s["compare"] = time.perf_counter() - t0
+    rep = {
+        "leg": leg, "layers": cfg.n_layers, "dim": cfg.dim,
+        "vocab": cfg.vocab_size, "batch": dims["batch"],
+        "seq": dims["seq"], "mesh": {a: n for a, n in mesh.shape.items()
+                                         if n > 1},
+        "loss": float(loss), "ref_loss": float(ref_loss),
+        "grad_norm": float(gnorm), "ref_grad_norm": float(ref_norm),
+        "grad_rel_err": grad_err, "params": param_err,
+        # bf16 norm weights at 1.0 do not move by lr 1e-3 (their ulp is
+        # 2^-7): the count is printed, not held.
+        "moved": sum(not torch.equal(a, b) for a, b in zip(
+            trainer.tree_leaves(new), trainer.tree_leaves(local))),
+        "leaves": len(leaf_specs), "step_s": step_s, "part_s": part_s,
+        "collectives": coll,
+        "collective_ms": 1e3 * coll["seconds"],
+        "shard_gb": shard_bytes / 2**30,
+        "full_gb": full_gb,
+        "step_peak_gb_above_start": peak_gb,
+        "tol": {"loss_rtol": TRAIN_RANKS_LOSS_RTOL,
+                "grad_leaf_rtol": TRAIN_RANKS_RTOL,
+                "param_within": "2 lr + 1 bf16 ulp of max|p|",
+                "param_share_within_half_lr": TRAIN_RANKS_SAME_SHARE}}
+    if leg == "pipeline":
+        rep["n_micro"] = dims["n_micro"]
+    rep["ok"] = bool(
+        abs(rep["loss"] - rep["ref_loss"])
+        <= TRAIN_RANKS_LOSS_RTOL * abs(rep["ref_loss"])
+        and abs(rep["grad_norm"] - rep["ref_grad_norm"])
+        <= TRAIN_RANKS_LOSS_RTOL * rep["ref_grad_norm"]
+        and rep["grad_rel_err"] <= TRAIN_RANKS_RTOL
+        and param_err["worst_over_allowed"] <= 1.0
+        and param_err["share_within_half_lr"] >= TRAIN_RANKS_SAME_SHARE)
+    return rep
+
+
+def _train_warmup(device) -> dict:
+    """One step of the tiny model in bf16 on `device`: the first launch
+    of each op the legs run (module loads, library handles) happens here,
+    while the smoke's checkpoint phase runs, not inside a timed leg."""
+    import dataclasses
+
+    import torch
+
+    from generativeaiexamples_tpu_torch.models import llama
+    from generativeaiexamples_tpu_torch.training import trainer
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.bfloat16)
+    tcfg = trainer.TrainConfig(warmup_steps=0, remat=True)
+    opt = trainer.make_optimizer(tcfg)
+    params = llama.init_params(cfg, device)
+    step = trainer.make_train_step(cfg, tcfg, opt)
+    step(params, opt.init(params), trainer.synthetic_batch(
+        cfg, 2, 16, device=device))
+    _CudaMem(device).sync()
+    return {"warmup_s": time.perf_counter() - t0}
+
+
+def _train_rank_leg(rank, mesh_lib, device, leg: str, dims) -> dict:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = _ring_leg(rank, mesh_lib, device, dims) if leg == "ring" else \
+        _step_leg(rank, mesh_lib, device, leg, dims)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_train_ranks(card: str, ranks, device: str = "cuda:0",
+                      dims=None) -> dict:
+    """The sharded training rest on two rank processes that `tp_spawn`
+    started (phase_tp's rank program; both on `device`, gloo through host
+    memory), to which the caller sent a "warm" command at spawn (its
+    replies are read first), and which it shuts down at its end: ring
+    attention over the sequence axis, then one step each of the pipeline (GPipe, n_micro
+    TRAIN_RANKS_MICRO), FSDP and tensor-parallel trainers, each against
+    the one-device computation in the same rank. It exercises the math,
+    not the memory a second card would give. Each leg prints its
+    tolerance, seconds, collectives and their ms, and each rank's peak
+    memory against its shard's bytes."""
+    procs, cmds, out = ranks
+    dims = dims or TRAIN_RANKS_DIMS
+    rec: dict = {"phase": "train_ranks", "card": card, "device": device,
+                 "dims": dims, "legs": {}}
+    t0 = time.perf_counter()
+    got = _tp_replies(procs, out, "warm")
+    rec["warmup_s"] = [got[r]["warmup_s"] for r in (0, 1)]
+    for leg in ("ring", "pipeline", "fsdp", "tensor"):
+        time_mark(f"train_ranks_{leg}")
+        got = _tp_ask(procs, cmds, out, "train", {"leg": leg,
+                                                   "dims": dims})
+        rec["legs"][leg] = {"ok": all(got[r]["ok"] for r in (0, 1)),
+                            "ranks": [got[0], got[1]]}
+    for q in cmds:
+        q.put(None)
+    for p in procs:
+        p.join(timeout=120)
+    rec["exitcodes"] = [p.exitcode for p in procs]
+    rec["seconds"] = time.perf_counter() - t0
+    rec["ok"] = (all(v["ok"] for v in rec["legs"].values())
+                 and rec["exitcodes"] == [0, 0])
+    emit(rec)
+    return rec
+
+
 def phase_tp(card: str, llm_dir: str, cfg, ref: dict, bf16_params,
              int8_params, int8_ref: dict, max_tokens: int = 8,
              int8_tokens: int = 8, second_tokens: int = 4,
-             spec_tokens: int = 12, spec_long: int = TP_SPEC_LONG,
+             spec_tokens: int = 8, spec_long: int = TP_SPEC_LONG,
              device: str = "cuda:0", engine_cfg=None, ranks=None) -> dict:
     """Tensor parallelism: two rank processes on cuda:0 serve the 8B
     snapshot at `llm_dir` sharded, bf16 then int8 (see the docstring's
@@ -8925,6 +9611,8 @@ def main() -> int:
         chain = timed("chain", phase_chain, card, served, rag_keep)
         eval_rec = timed("eval", phase_eval, card, served, rag_keep)
         ui = timed("ui", phase_ui, card, served, rag_keep)
+        streaming = timed("streaming", phase_streaming, card, served,
+                          rag_keep)
         ann = timed("ann", phase_ann, card, served, rag_keep)
         pipelines = timed("pipelines", phase_pipelines, card, served,
                           rag_keep)
@@ -8953,11 +9641,24 @@ def main() -> int:
     del int8_served, int8_engine
     gc.collect()
     torch.cuda.empty_cache()
-    checkpoint = timed("checkpoint", phase_checkpoint, card, bf16_params,
-                       bf16_cfg, ckpt_ref, rag_keep)
-    train = timed("train", phase_train, card, bf16_params, bf16_cfg,
-                  rag_keep)
-    del bf16_params, rag_keep
+    # The sharded training legs' rank processes start now, so their
+    # start-up overlaps the checkpoint phase; they run last, when this
+    # process has freed the weights (each rank holds ~25 GB at its peak).
+    train_procs = tp_spawn("cuda:0")
+    for q in train_procs[1]:
+        q.put(("warm", None))
+    try:
+        checkpoint = timed("checkpoint", phase_checkpoint, card,
+                           bf16_params, bf16_cfg, ckpt_ref, rag_keep)
+        train = timed("train", phase_train, card, bf16_params, bf16_cfg,
+                      rag_keep)
+        del bf16_params, rag_keep
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_ranks = timed("train_ranks", phase_train_ranks, card,
+                            train_procs)
+    finally:
+        tp_kill(train_procs)
     phase_s["total"] = time.perf_counter() - t0
     emit({"phase": "timing", "seconds": phase_s, "marks": _MARKS})
 
@@ -9067,7 +9768,8 @@ def main() -> int:
             # harness, the playground and the training parts' kernel-route
             # checks.
             for tag, prec in (("ingest", ingest), ("eval", eval_rec),
-                              ("ui", ui), ("train", train)):
+                              ("ui", ui), ("streaming", streaming),
+                              ("train", train)):
                 if prec["launches"][e["name"]]:
                     e[f"{tag}_launches"] = prec["launches"][e["name"]]
             # The chain phase: coalesced search, traced and augmented
@@ -9088,10 +9790,12 @@ def main() -> int:
           and fused["ok"] and fused_int8["ok"]
           and rag["ok"] and chain["ok"] and ann["ok"] and pipelines["ok"]
           and ingest["ok"] and eval_rec["ok"] and ui["ok"] and train["ok"]
+          and streaming["ok"]
           and serving_int8["ok"] and spec_bf16["ok"]
           and prefix["ok"] and fleet["ok"]
           and all(r["ok"] for r in spec_int8)
-          and checkpoint["ok"] and checkpoint["tp"]["ok"])
+          and checkpoint["ok"] and checkpoint["tp"]["ok"]
+          and train_ranks["ok"])
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

@@ -23,6 +23,12 @@ bit: `embed` (the vocab-parallel embedding: each rank looks up the ids
 of its vocabulary slice, the rest are zeros, one all-reduce),
 `finish_block` (one all-reduce after `wo` and one after `w_down`) and
 `logits_from_hidden` (vocab-sharded logits gathered before sampling).
+On the inference route autograd does not see those collectives. The
+training route (`attention="plain"`) takes Megatron's autograd-aware
+ones instead (parallel/mesh.py): the embedding's and each row-parallel
+output's sum has the identity backward, each column-parallel input
+(q/k/v, the MLP, the head) sums its gradient over the tensor axis, and
+the gathered logits' backward keeps this rank's vocabulary slice.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch.utils.checkpoint
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
 from generativeaiexamples_tpu_torch.ops.quant import mm
+from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
 from generativeaiexamples_tpu_torch.parallel.mesh import (
     tensor_all_gather, tensor_all_reduce, tensor_shard)
 
@@ -276,10 +283,36 @@ class KVCache:
                        torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
+def _reduce(x: torch.Tensor, route: str) -> torch.Tensor:
+    """Sum a row-parallel partial over the active tensor axis (the
+    identity backward on the training route)."""
+    m = mesh_lib.active_mesh()
+    if route == "plain" and m is not None:
+        return mesh_lib.reduce_from_tensor_region(x, m)
+    return tensor_all_reduce(x)
+
+
+def _copy_in(x: torch.Tensor, route: str) -> torch.Tensor:
+    """A column-parallel input: on the training route under an active
+    tensor axis its gradient is summed over the ranks."""
+    m = mesh_lib.active_mesh()
+    if route == "plain" and m is not None:
+        return mesh_lib.copy_to_tensor_region(x, m)
+    return x
+
+
+def _gather_vocab(x: torch.Tensor, route: str) -> torch.Tensor:
+    m = mesh_lib.active_mesh()
+    if route == "plain" and m is not None:
+        return mesh_lib.gather_from_region(x, m, "tensor", x.dim() - 1)
+    return tensor_all_gather(x)
+
+
 def project_qkv(cfg: LlamaConfig, h: torch.Tensor, w: Dict[str, torch.Tensor],
-                cos: torch.Tensor, sin: torch.Tensor):
+                cos: torch.Tensor, sin: torch.Tensor, route: str = "kernel"):
     """h [B, S, D] -> rotated q [B, H, S, Hd], rotated k and v
     [B, KH, S, Hd] (views in head-major order)."""
+    h = _copy_in(h, route)
     B, S, _ = h.shape
     H, KH, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = mm(h, w["wq"]).view(B, S, H, Hd).transpose(1, 2)
@@ -288,7 +321,8 @@ def project_qkv(cfg: LlamaConfig, h: torch.Tensor, w: Dict[str, torch.Tensor],
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def embed(params: Params, tokens: torch.Tensor, dtype,
+          route: str = "kernel") -> torch.Tensor:
     """Token ids [...] -> embeddings [..., D] in `dtype`. Under tensor
     parallelism the table holds this rank's vocabulary slice: ids outside
     it read zeros and one all-reduce sums the ranks' rows (exactly one
@@ -301,34 +335,36 @@ def embed(params: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     local = tokens.long() - rank * n
     inside = (local >= 0) & (local < n)
     x = emb[local.clamp(0, n - 1)].to(dtype)
-    return tensor_all_reduce(torch.where(inside[..., None], x,
-                                         torch.zeros_like(x)))
+    return _reduce(torch.where(inside[..., None], x, torch.zeros_like(x)),
+                   route)
 
 
 def finish_block(cfg: LlamaConfig, x: torch.Tensor, out: torch.Tensor,
-                 w: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 w: Dict[str, torch.Tensor],
+                 route: str = "kernel") -> torch.Tensor:
     """Attention output projection + residual, then the SwiGLU MLP. Under
     tensor parallelism `wo` and `w_down` contract this rank's heads and
     MLP columns: each partial is summed over the ranks (one all-reduce
     each) before the residual."""
     B, S, _ = x.shape
-    x = x + tensor_all_reduce(mm(out.transpose(1, 2).reshape(B, S, -1),
-                                 w["wo"]))
-    h = rms_norm(x, w["ln2"], cfg.rms_eps)
-    return x + tensor_all_reduce(
-        mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"]))
+    x = x + _reduce(mm(out.transpose(1, 2).reshape(B, S, -1), w["wo"]),
+                    route)
+    h = _copy_in(rms_norm(x, w["ln2"], cfg.rms_eps), route)
+    return x + _reduce(
+        mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"]),
+        route)
 
 
 def logits_from_hidden(cfg: LlamaConfig, params: Params,
-                       x: torch.Tensor) -> torch.Tensor:
+                       x: torch.Tensor, route: str = "kernel") -> torch.Tensor:
     """Final norm and head -> f32 logits over the whole vocabulary (under
     tensor parallelism each rank's vocabulary slice, gathered in rank
     order)."""
-    x = rms_norm(x, params["ln_f"], cfg.rms_eps)
+    x = _copy_in(rms_norm(x, params["ln_f"], cfg.rms_eps), route)
     if cfg.tie_embeddings:
-        return tensor_all_gather((x @ params["tok_emb"].T.to(x.dtype))
-                                 .float())
-    return tensor_all_gather(mm(x, params["lm_head"]).float())
+        return _gather_vocab((x @ params["tok_emb"].T.to(x.dtype)).float(),
+                             route)
+    return _gather_vocab(mm(x, params["lm_head"]).float(), route)
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
@@ -354,7 +390,7 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
     x, new_cache = forward_hidden(params, cfg, tokens, positions=positions,
                                   kv_cache=kv_cache, lengths=lengths,
                                   attention=attention, remat=remat)
-    return logits_from_hidden(cfg, params, x), new_cache
+    return logits_from_hidden(cfg, params, x, attention), new_cache
 
 
 def _block(cfg: LlamaConfig, x: torch.Tensor, w: Dict[str, torch.Tensor],
@@ -363,10 +399,27 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, w: Dict[str, torch.Tensor],
     """One decoder layer without a cache: norm, q/k/v, causal attention,
     output projection and MLP."""
     h = rms_norm(x, w["ln1"], cfg.rms_eps)
-    q, k, v = project_qkv(cfg, h, w, cos, sin)
+    q, k, v = project_qkv(cfg, h, w, cos, sin, route)
     out = attn_ops.attention(q, k, v, causal=True, lengths=attn_lengths,
                              route=route)
-    return finish_block(cfg, x, out, w)
+    return finish_block(cfg, x, out, w, route)
+
+
+def run_blocks(layers: Dict[str, Any], cfg: LlamaConfig, x: torch.Tensor,
+               cos, sin, lengths, attention: str = "kernel",
+               remat: bool = False) -> torch.Tensor:
+    """`x` through the stacked `layers` ([n, ...] leaves: the whole stack,
+    or a pipeline stage's slice) with no KV cache. Under `remat` each
+    block is recomputed in the backward (`torch.utils.checkpoint`)."""
+    for i in range(layers["ln1"].shape[0]):
+        w = {k: v[i] for k, v in layers.items()}
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, cfg, x, w, cos, sin, lengths, attention,
+                use_reentrant=False)
+        else:
+            x = _block(cfg, x, w, cos, sin, lengths, attention)
+    return x
 
 
 def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
@@ -388,7 +441,7 @@ def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
         base = (kv_cache.lengths[:, None].long() if kv_cache is not None
                 else 0)
         positions = base + torch.arange(S, device=dev)[None, :]
-    x = embed(params, tokens, cfg.dtype)
+    x = embed(params, tokens, cfg.dtype, attention)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     new_len = (lengths.to(torch.int32) if lengths is not None
@@ -401,18 +454,13 @@ def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
     else:
         attn_lengths, q_offset = new_len, None
 
+    if kv_cache is None:
+        return run_blocks(params["layers"], cfg, x, cos, sin, attn_lengths,
+                          attention, remat), None
     for layer in range(cfg.n_layers):
         w = layer_weights(params, layer)
-        if kv_cache is None:
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    _block, cfg, x, w, cos, sin, attn_lengths, attention,
-                    use_reentrant=False)
-            else:
-                x = _block(cfg, x, w, cos, sin, attn_lengths, attention)
-            continue
         h = rms_norm(x, w["ln1"], cfg.rms_eps)
-        q, k, v = project_qkv(cfg, h, w, cos, sin)
+        q, k, v = project_qkv(cfg, h, w, cos, sin, attention)
         kc, vc = kv_cache.k[layer], kv_cache.v[layer]
         # Scatter the S new tokens at [len, len + S) per row:
         # kc[bidx, :, idx] addresses [B, S, KH, Hd].
@@ -421,7 +469,7 @@ def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
         out = attn_ops.attention(q, kc, vc, causal=True,
                                  lengths=attn_lengths, q_offset=q_offset,
                                  route=attention)
-        x = finish_block(cfg, x, out, w)
+        x = finish_block(cfg, x, out, w, attention)
 
     new_cache = None
     if kv_cache is not None:

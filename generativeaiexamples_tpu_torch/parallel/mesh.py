@@ -20,11 +20,28 @@ memory, so two ranks on one card run the same program, only slower.
 The tensor-parallel collectives of the model (`tensor_all_reduce`,
 `tensor_all_gather`) act on the ACTIVE mesh (`activate`), one a process:
 with none active, or a tensor axis of 1, they return their input, so a
-single-device forward is unchanged bit for bit.
+single-device forward is unchanged bit for bit. They are the inference
+route's and autograd does not see them.
+
+Training (ops/ring_attention.py, parallel/pipeline.py, the sharded train
+state of training/trainer.py) takes the collectives below, each a
+`torch.autograd.Function` over one mesh axis's process group
+(`Mesh.groups`, one per axis of size > 1): `ppermute` (send to the next
+rank on the axis, receive from the previous; the backward sends the
+gradient the other way round), Megatron's `copy_to_tensor_region`
+(identity, all-reduce backward) and `reduce_from_tensor_region`
+(all-reduce, identity backward), `gather_from_region` (all-gather, the
+backward takes this rank's slice), `scatter_to_region` (this rank's
+slice, all-gather backward), `fsdp_gather` (all-gather, reduce-scatter
+backward) and `all_reduce_sum` (all-reduce, identity backward). gloo
+has no reduce-scatter: there it is an all-reduce and a slice. gloo's
+send and receive take CPU tensors only: there `ppermute` stages a CUDA
+tensor through a host buffer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import logging
@@ -144,6 +161,9 @@ class Mesh:
     rank: int = 0
     group: Any = None
     backend: str = ""
+    # The process group of this rank's line along each axis of size > 1
+    # (training's collectives; `group` is groups["tensor"]).
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -170,12 +190,32 @@ class Mesh:
     @property
     def coords(self) -> Dict[str, int]:
         """This rank's coordinate on every axis."""
-        out, r = {}, self.rank
-        for name in reversed(MESH_AXIS_NAMES):
-            n = self.shape[name]
-            out[name] = r % n
-            r //= n
-        return {name: out[name] for name in MESH_AXIS_NAMES}
+        return _coords(self.shape, self.rank)
+
+    def axis_ranks(self, axis: str) -> List[int]:
+        """The global ranks along `axis` through this rank, in axis
+        order."""
+        return _line(self.shape, self.rank, axis)
+
+
+def _coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
+    out, r = {}, rank
+    for name in reversed(MESH_AXIS_NAMES):
+        n = shape[name]
+        out[name] = r % n
+        r //= n
+    return {name: out[name] for name in MESH_AXIS_NAMES}
+
+
+def _line(shape: Dict[str, int], rank: int, axis: str) -> List[int]:
+    """The ranks that share every coordinate of `rank` but `axis`'s."""
+    stride = 1
+    for name in reversed(MESH_AXIS_NAMES):
+        if name == axis:
+            break
+        stride *= shape[name]
+    base = rank - _coords(shape, rank)[axis] * stride
+    return [base + i * stride for i in range(shape[axis])]
 
 
 def _rank_devices(devices: Sequence) -> List[torch.device]:
@@ -214,26 +254,37 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
             raise RuntimeError(
                 f"the process group spans {dist.get_world_size()} ranks but "
                 f"the mesh lists {len(devs)} devices")
-        mesh.group = _tensor_group(shape)
+        mesh.groups = _axis_groups(shape)
+        mesh.group = mesh.groups.get("tensor")
     return mesh
 
 
-def _tensor_group(shape: Dict[str, int]):
-    """The process group of this rank's tensor axis: the world when every
-    other axis is 1, else one new group per tensor line (made by every
-    rank in the same order, as torch.distributed requires)."""
+def _axis_groups(shape: Dict[str, int]) -> Dict[str, Any]:
+    """The process group of this rank's line along every axis of size >
+    1: the world when the axis spans it, else one new group per line
+    (made by every rank in the same order, axis by axis, as
+    torch.distributed requires)."""
     dist = torch.distributed
-    tp = shape["tensor"]
     n = math.prod(shape.values())
-    if tp == n:
-        return dist.group.WORLD
-    mine = None
-    for start in range(0, n, tp):
-        ranks = list(range(start, start + tp))
-        g = dist.new_group(ranks)
-        if dist.get_rank() in ranks:
-            mine = g
-    return mine
+    me = dist.get_rank()
+    out: Dict[str, Any] = {}
+    for axis in MESH_AXIS_NAMES:
+        size = shape[axis]
+        if size == 1:
+            continue
+        if size == n:
+            out[axis] = dist.group.WORLD
+            continue
+        seen = set()
+        for r in range(n):
+            ranks = _line(shape, r, axis)
+            if ranks[0] in seen:
+                continue
+            seen.add(ranks[0])
+            g = dist.new_group(ranks)
+            if me in ranks:
+                out[axis] = g
+    return out
 
 
 def axis_devices(mesh: Mesh, axis: str = "tensor") -> List[torch.device]:
@@ -248,15 +299,7 @@ def axis_devices(mesh: Mesh, axis: str = "tensor") -> List[torch.device]:
     if axis not in mesh.shape:
         raise ValueError(f"mesh has no axis {axis!r}; axes: "
                          f"{list(mesh.shape)}")
-    coords = mesh.coords
-    stride = 1
-    for name in reversed(MESH_AXIS_NAMES):
-        if name == axis:
-            break
-        stride *= mesh.shape[name]
-    base = mesh.rank - coords[axis] * stride
-    return [resolve_device(mesh.devices[base + i * stride])
-            for i in range(mesh.shape[axis])]
+    return [resolve_device(mesh.devices[r]) for r in mesh.axis_ranks(axis)]
 
 
 def single_device_mesh(device=None) -> Mesh:
@@ -443,8 +486,8 @@ _ACTIVE: Optional[Mesh] = None
 # seconds only while COLLECTIVE_TIMING is set (a measurement's switch),
 # which synchronizes the device around each call so the time is the
 # collective's alone.
-COLLECTIVE_STATS = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
-                    "seconds": 0.0}
+COLLECTIVE_STATS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+                    "ppermute": 0, "bytes": 0, "seconds": 0.0}
 COLLECTIVE_TIMING = False
 
 
@@ -457,6 +500,19 @@ def activate(mesh: Optional[Mesh]) -> None:
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE
+
+
+@contextlib.contextmanager
+def active(mesh: Optional[Mesh]):
+    """`activate(mesh)` for the block, then the mesh that was active
+    before. A training step holds it over its forward AND backward: a
+    layer recomputed under remat re-issues its collectives."""
+    prev = _ACTIVE
+    activate(mesh)
+    try:
+        yield
+    finally:
+        activate(prev)
 
 
 def tensor_shard() -> tuple:
@@ -518,3 +574,253 @@ def reset_collective_stats() -> None:
     for k in COLLECTIVE_STATS:
         COLLECTIVE_STATS[k] = 0.0 if k == "seconds" else 0
 
+
+
+# ---------------------------------------------------------------------------
+# Training's collectives: one mesh axis each, seen by autograd
+# ---------------------------------------------------------------------------
+
+
+def _group(mesh: Mesh, axis: str):
+    g = mesh.groups.get(axis)
+    if g is None:
+        raise RuntimeError(
+            f"mesh axis {axis!r} of size {mesh.shape[axis]} has no process "
+            f"group: build the mesh after the rank processes' group "
+            f"exists (init_ranks)")
+    return g
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def all_reduce_raw(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Sum of `x` over `axis` as a new tensor (`x` is left as it was)."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+
+    def run():
+        torch.distributed.all_reduce(out, group=_group(mesh, axis))
+        return out
+
+    return _timed(run, out, "all_reduce", _nbytes(out))
+
+
+def all_gather_raw(x: torch.Tensor, mesh: Mesh, axis: str,
+                   dim: int) -> torch.Tensor:
+    """Every rank's `x` on `axis`, concatenated along `dim` in axis
+    order."""
+    n = mesh_axis_size(mesh, axis)
+    if n == 1:
+        return x
+    x = x.detach().contiguous()
+
+    def run():
+        parts = [torch.empty_like(x) for _ in range(n)]
+        torch.distributed.all_gather(parts, x, group=_group(mesh, axis))
+        return torch.cat(parts, dim=dim)
+
+    return _timed(run, x, "all_gather", n * _nbytes(x))
+
+
+def axis_slice(x: torch.Tensor, mesh: Mesh, axis: str,
+               dim: int) -> torch.Tensor:
+    """This rank's block of `x` along `dim` when `dim` splits over
+    `axis`, as a tensor of its own."""
+    n = mesh_axis_size(mesh, axis)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {x.shape[dim]} does not split over "
+                         f"the {n}-way {axis} axis")
+    step = x.shape[dim] // n
+    return x.narrow(dim, mesh.coords[axis] * step, step).contiguous()
+
+
+def reduce_scatter_raw(x: torch.Tensor, mesh: Mesh, axis: str,
+                       dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of `x` over `axis`. gloo
+    has no reduce-scatter: there it is an all-reduce and a slice."""
+    n = mesh_axis_size(mesh, axis)
+    if n == 1:
+        return x
+    x = x.detach()
+    if mesh.backend == "nccl":
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+
+        def run():
+            torch.distributed.reduce_scatter_tensor(
+                out, src, group=_group(mesh, axis))
+            return out.movedim(0, dim).contiguous()
+
+        return _timed(run, src, "reduce_scatter", _nbytes(src))
+    full = x.clone(memory_format=torch.contiguous_format)
+
+    def run():
+        torch.distributed.all_reduce(full, group=_group(mesh, axis))
+        return axis_slice(full, mesh, axis, dim)
+
+    return _timed(run, full, "reduce_scatter", _nbytes(full))
+
+
+def ppermute_raw(x: torch.Tensor, mesh: Mesh, axis: str,
+                 shift: int = 1) -> torch.Tensor:
+    """Send `x` to the rank `shift` steps on along `axis` (cyclically)
+    and return what the rank `shift` steps back sent. On gloo, whose
+    send and receive take CPU tensors only, a CUDA tensor goes through a
+    host buffer."""
+    n = mesh_axis_size(mesh, axis)
+    if n == 1 or shift % n == 0:
+        return x
+    ranks = mesh.axis_ranks(axis)
+    me = mesh.coords[axis]
+    dst, src = ranks[(me + shift) % n], ranks[(me - shift) % n]
+    group = _group(mesh, axis)
+    stage = mesh.backend != "nccl" and x.device.type != "cpu"
+    send = x.detach().contiguous()
+    if stage:
+        send = send.cpu()
+    recv = torch.empty_like(send)
+
+    def run():
+        works = [torch.distributed.isend(send, dst, group=group),
+                 torch.distributed.irecv(recv, src, group=group)]
+        for w in works:
+            w.wait()
+        return recv.to(x.device) if stage else recv
+
+    return _timed(run, x, "ppermute", _nbytes(send))
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return ppermute_raw(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute_raw(g, ctx.mesh, ctx.axis, -ctx.shift), None, None, \
+            None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_raw(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce_raw(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather_raw(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return axis_slice(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return axis_slice(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_raw(g, ctx.mesh, ctx.axis, ctx.dim), None, None, \
+            None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather_raw(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_raw(g, ctx.mesh, ctx.axis, ctx.dim), None, \
+            None, None
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str,
+             shift: int = 1) -> torch.Tensor:
+    """`ppermute_raw` seen by autograd: the backward sends the gradient
+    `shift` steps back (JAX's `lax.ppermute` transpose)."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _Ppermute.apply(x, mesh, axis, shift)
+
+
+def copy_to_tensor_region(x: torch.Tensor, mesh: Mesh,
+                          axis: str = "tensor") -> torch.Tensor:
+    """Megatron's f: the identity, whose backward sums the gradient over
+    `axis` (the input of a column-parallel matmul)."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from_tensor_region(x: torch.Tensor, mesh: Mesh,
+                              axis: str = "tensor") -> torch.Tensor:
+    """Megatron's g: the sum over `axis`, whose backward is the identity
+    (the output of a row-parallel matmul)."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """The sum of `x` over each axis of `axes` (a name or a sequence),
+    with the identity backward: every rank differentiates the same
+    global sum through its own part."""
+    for axis in (axes,) if isinstance(axes, str) else tuple(axes):
+        x = reduce_from_tensor_region(x, mesh, axis)
+    return x
+
+
+def gather_from_region(x: torch.Tensor, mesh: Mesh, axis: str,
+                       dim: int) -> torch.Tensor:
+    """All-gather along `dim` over `axis`; the backward takes this rank's
+    slice (what follows is replicated over `axis`)."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim)
+
+
+def scatter_to_region(x: torch.Tensor, mesh: Mesh, axis: str,
+                      dim: int) -> torch.Tensor:
+    """This rank's slice along `dim` of a tensor replicated over `axis`;
+    the backward all-gathers the slices' gradients."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _ScatterTo.apply(x, mesh, axis, dim)
+
+
+def fsdp_gather(x: torch.Tensor, mesh: Mesh, dim: int,
+                axis: str = "fsdp") -> torch.Tensor:
+    """A shard gathered whole along `dim` over `axis`; the backward
+    reduce-scatters (sums) the gradient back to this rank's shard."""
+    if mesh_axis_size(mesh, axis) == 1:
+        return x
+    return _FsdpGather.apply(x, mesh, axis, dim)

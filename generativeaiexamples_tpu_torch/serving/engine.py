@@ -431,6 +431,9 @@ class EngineMetrics:
         self.multihost_processes = 0
         self.replay_records_published = 0
         self.replay_divergence = 0
+        # Plan variants compiled at warmup (JAX's jitted step lattice).
+        # Always present, 0: an eager engine compiles none.
+        self.plan_variants_compiled = 0
         # The pager's stats() (KV_PAGER_KEYS); None when it is off.
         self.kv_pager_stats = None
         # The flight recorder's stats() (FLIGHT_KEYS); None emits zeros.
@@ -503,6 +506,7 @@ class EngineMetrics:
             "multihost_processes": self.multihost_processes,
             "replay_records_published": self.replay_records_published,
             "replay_divergence": self.replay_divergence,
+            "plan_variants_compiled": self.plan_variants_compiled,
         }
         # The router's and the fleet's keys, zeros for one engine, so
         # /metrics has one schema whether an engine or a fleet serves it.

@@ -5,16 +5,15 @@ WAV packing, HTTP clients for any OpenAI-audio-compatible endpoint
 (`/v1/audio/transcriptions`, `/v1/audio/speech`) and scripted fakes for
 hermetic tests. The HTTP clients ride `urllib` (utils/http.py) and send
 the multipart and JSON bodies of the JAX clients' `requests` calls; the
-TTS reply is resampled to the asked rate with a numpy copy of the JAX
-package's polyphase resampler (streaming/dsp.py `resample_poly`).
+TTS reply is resampled to the asked rate by `dsp.resample_poly` and
+`dsp.float_to_pcm`, as the JAX client does, on the CPU (a host audio
+buffer of one reply).
 """
 
 from __future__ import annotations
 
-import functools
 import io
 import json
-import math
 import wave
 from typing import List, Optional, Protocol
 
@@ -59,32 +58,6 @@ def wav_bytes_to_pcm(data: bytes) -> "tuple[np.ndarray, int]":
     if nch > 1:
         pcm = pcm.reshape(-1, nch).mean(axis=1).astype(np.int16)
     return pcm, rate
-
-
-@functools.lru_cache(maxsize=64)
-def _resample_filter(up: int, down: int, ntaps_per_phase: int = 16
-                     ) -> np.ndarray:
-    """Hamming-windowed sinc lowpass at the tighter Nyquist, gain `up`."""
-    max_rate = max(up, down)
-    numtaps = 2 * ntaps_per_phase * max_rate + 1
-    n = np.arange(numtaps) - (numtaps - 1) / 2.0
-    fc = 1.0 / max_rate
-    taps = np.sinc(fc * n) * fc * np.hamming(numtaps)
-    return (taps / taps.sum()).astype(np.float32) * up
-
-
-def _resample_poly(x: np.ndarray, up: int, down: int) -> np.ndarray:
-    """Rational-rate resampler; output length ceil(len(x) * up / down)."""
-    g = math.gcd(up, down)
-    up, down = up // g, down // g
-    if up == 1 and down == 1:
-        return x
-    taps = _resample_filter(up, down)
-    xs = np.zeros((x.shape[0] * up,), x.dtype)
-    xs[::up] = x
-    delay = (taps.shape[0] - 1) // 2
-    y = np.convolve(xs, taps.astype(x.dtype), mode="full")
-    return y[delay: delay + xs.shape[0]][::down]
 
 
 def create_voice_clients(cfg):
@@ -151,10 +124,15 @@ class HTTPTTSClient:
             frames = w.readframes(w.getnframes())
         pcm = np.frombuffer(frames, np.int16)
         if got_rate != sample_rate:
-            audio = np.asarray(pcm, np.float32) / 32768.0
-            audio = _resample_poly(audio, sample_rate, got_rate)
-            pcm = np.clip(np.clip(audio, -1.0, 1.0) * 32768.0, -32768,
-                          32767).astype(np.int16)
+            # Endpoints pick their own rate (commonly 24 kHz): resample
+            # so callers get the rate they asked for.
+            import torch
+
+            from generativeaiexamples_tpu_torch.streaming import dsp
+
+            audio = torch.from_numpy(np.asarray(pcm, np.float32) / 32768.0)
+            audio = dsp.resample_poly(audio, sample_rate, got_rate)
+            pcm = dsp.float_to_pcm(torch.clamp(audio, -1.0, 1.0)).numpy()
         return pcm
 
 

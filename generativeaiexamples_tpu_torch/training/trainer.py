@@ -1,8 +1,7 @@
-"""Next-token SFT / pretraining step for the Llama models, on one device.
+"""Next-token SFT / pretraining step for the Llama models, on one device
+or sharded over rank processes.
 
-Counterpart of generativeaiexamples_tpu/training/trainer.py (its
-single-device part; the mesh-sharded train state, `shard_train_state`,
-is not ported yet: ROADMAP A.19). The loss runs the model on the
+Counterpart of generativeaiexamples_tpu/training/trainer.py. The loss runs the model on the
 differentiable route (`llama.forward(..., attention="plain")`, JAX's
 `use_pallas=False`): K1 has no backward and refuses operands that
 require grad. Remat is `torch.utils.checkpoint` per layer where JAX
@@ -25,12 +24,39 @@ not torch.optim's:
 
 A step returns new parameter tensors; the ones it was given are left
 as they were.
+
+The sharded train state (JAX `shard_train_state`, `_opt_state_shardings`,
+`batch_specs`). JAX places the tree on a mesh and GSPMD inserts the
+collectives; here each rank process keeps only its shard of every leaf,
+sliced by `llama.param_specs` (the hidden dimension on "fsdp",
+Megatron's on "tensor"), its AdamW moments are shards of the same shape,
+and the step calls the collectives itself (parallel/mesh.py):
+
+- the global batch splits over ("data", "fsdp"), JAX's `batch` rule;
+- every FSDP leaf is gathered whole in the forward, and its gradient is
+  reduce-scattered (summed) back to the shard in the backward;
+- the forward runs on the rank's Megatron shard (local heads and MLP
+  columns, a vocabulary-parallel embedding and head) with autograd-aware
+  collectives (models/llama.py's training route);
+- the loss is the global masked mean: each rank's CE sum is summed over
+  the batch axes, then divided once by the global mask count;
+- a gradient is summed over every batch axis its leaf is not sharded
+  on; the clip's global norm sums each leaf's squared shard over the
+  axes that leaf is sharded on, and only those.
+
+One step serves both cases: with no mesh every collective is the
+identity and it is the one-device step; sharded, it equals that step up
+to summation order. A mesh
+whose "sequence" or "expert" axis is above 1 is refused (JAX reaches
+those through GSPMD; the port shards neither here), and a "pipeline"
+axis goes through parallel/pipeline.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -38,8 +64,19 @@ import torch
 
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.models import llama
+from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
+from generativeaiexamples_tpu_torch.parallel.mesh import (
+    LLM_RULES, MESH_AXIS_NAMES, Mesh, logical_to_spec)
 
 Tree = Dict[str, Any]
+
+# The differentiable route the training losses take (K1 has no
+# backward); parallel/pipeline.py passes it on to the model's blocks.
+ROUTE = "plain"
+# The axes a gradient is summed over unless its leaf is sharded on them.
+REDUCE_AXES = ("pipeline", "data", "fsdp")
+# Axes the sharded steps do not shard.
+UNSHARDED_AXES = ("sequence", "expert")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,11 +160,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict[str, Any],
-               params: Tree) -> Tuple[Tree, Dict[str, Any]]:
+               params: Tree, g_norm: Optional[torch.Tensor] = None
+               ) -> Tuple[Tree, Dict[str, Any]]:
         """(new params, new state) from gradients in `tree_leaves`
-        order."""
+        order. `g_norm` is the gradients' global norm when they are a
+        rank's shards (default: computed from `grads`)."""
         if self.grad_clip is not None:
-            g_norm = global_norm(grads)
+            g_norm = global_norm(grads) if g_norm is None else g_norm
             if not bool(g_norm < self.grad_clip):
                 grads = [g / g_norm.to(g.dtype) * self.grad_clip
                          for g in grads]
@@ -170,31 +209,246 @@ def value_and_grad(fn: Callable[[Tree], Any], params: Tree, has_aux=False):
 # -- loss and step ------------------------------------------------------------
 
 
-def loss_fn(params: Tree, cfg: llama.LlamaConfig, tokens, targets, mask,
-            remat: bool = False) -> torch.Tensor:
-    """Mean next-token cross-entropy over mask == 1 positions, through the
-    differentiable route."""
-    logits, _ = llama.forward(params, cfg, tokens, attention="plain",
-                              remat=remat)
+def masked_ce_sum(logits: torch.Tensor, targets, mask) -> torch.Tensor:
+    """The SUM of the masked next-token cross-entropy (f32)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, targets.long()[..., None])[..., 0]
-    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -(ll * mask).sum()
+
+
+def loss_fn(params: Tree, cfg: llama.LlamaConfig, tokens, targets, mask,
+            remat: bool = False, mesh: Optional[Mesh] = None
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy over mask == 1 positions, through the
+    differentiable route. With a `mesh`, `params` are this rank's shards
+    (`shard_train_state`) and the batch is the GLOBAL one, which every
+    rank passes whole: its rows, FSDP gathers, the Megatron forward, the
+    CE sum over the batch axes, divided once by the global mask count.
+    Call (and differentiate) under `mesh_lib.active(mesh)`. Without one,
+    the whole tree on the batch's device (a one-device mesh)."""
+    if mesh is None:
+        mesh = mesh_lib.single_device_mesh(tokens.device)
+    local = shard_batch({"tokens": tokens, "targets": targets,
+                         "mask": mask}, mesh)
+    full = gather_fsdp(params, llama.param_specs(cfg), mesh)
+    logits, _ = llama.forward(full, local_train_config(cfg, mesh),
+                              local["tokens"], attention="plain",
+                              remat=remat)
+    total = mesh_lib.all_reduce_sum(
+        masked_ce_sum(logits, local["targets"], local["mask"]), mesh,
+        REDUCE_AXES)
+    return total / torch.clamp(mask.sum().to(total.device), min=1.0)
 
 
 def make_train_step(cfg: llama.LlamaConfig, tcfg: TrainConfig,
-                    optimizer: AdamW) -> Callable:
+                    optimizer: AdamW, mesh: Optional[Mesh] = None
+                    ) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
-    Batch: {tokens, targets, mask} each [B, S]."""
+    Batch: {tokens, targets, mask} each [B, S]. With a `mesh`, `params`
+    and `opt_state` are this rank's shards (`shard_train_state`) and the
+    batch is the global one, which every rank passes whole; without one,
+    the whole tree on one device."""
+    if mesh is not None:
+        check_train_mesh(mesh)
+    specs = llama.param_specs(cfg)
 
     def step(params, opt_state, batch):
-        loss, grads = value_and_grad(
+        params, opt_state, loss, gnorm = sharded_update(
             lambda p: loss_fn(p, cfg, batch["tokens"], batch["targets"],
-                              batch["mask"], remat=tcfg.remat), params)
-        gnorm = global_norm(grads)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+                              batch["mask"], remat=tcfg.remat, mesh=mesh),
+            params, aligned_specs(specs, params), opt_state, optimizer,
+            mesh)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+# -- the sharded train state ---------------------------------------------------
+
+
+def check_train_mesh(mesh: Mesh, pipeline: bool = False) -> None:
+    """Refuse the axes the sharded steps do not shard, naming the axis."""
+    axes = UNSHARDED_AXES + (() if pipeline else ("pipeline",))
+    for axis in axes:
+        n = mesh_lib.mesh_axis_size(mesh, axis)
+        if n > 1:
+            hint = (" (a pipeline axis goes through parallel/pipeline.py "
+                    "make_pp_train_step)" if axis == "pipeline" else "")
+            raise ValueError(
+                f"the sharded train step does not shard the {axis!r} mesh "
+                f"axis (size {n}); use the data, fsdp and tensor axes"
+                + hint)
+
+
+def batch_specs(rules: dict = LLM_RULES) -> Dict[str, tuple]:
+    """The batch's layout: rows over ("data", "fsdp"), the sequence over
+    "sequence" (JAX's `batch_specs`)."""
+    s = logical_to_spec(("batch", "seq"), rules)
+    return {"tokens": s, "targets": s, "mask": s}
+
+
+def spec_axes(spec) -> List[str]:
+    """The mesh axes a leaf's spec shards it on, in mesh order."""
+    named = set()
+    for entry in spec:
+        if entry is not None:
+            named.update((entry,) if isinstance(entry, str) else entry)
+    return [a for a in MESH_AXIS_NAMES if a in named]
+
+
+def aligned_specs(specs: Tree, params: Tree) -> List[tuple]:
+    """The spec of every leaf of `params`, in `tree_leaves` order (the
+    two trees may hold their keys in different orders)."""
+    def go(p, s):
+        out = []
+        for k, v in p.items():
+            out.extend(go(v, s[k]) if isinstance(v, dict) else [s[k]])
+        return out
+
+    return go(params, specs)
+
+
+def shard_tree(params: Tree, specs: Tree, mesh: Mesh) -> Tree:
+    """This rank's shard of every leaf, each a contiguous tensor of its
+    own on the rank's device."""
+    from generativeaiexamples_tpu_torch.serving.sharding import shard_leaf
+
+    return tree_rebuild(params, [
+        shard_leaf(leaf, spec, mesh)
+        for leaf, spec in zip(tree_leaves(params),
+                              aligned_specs(specs, params))])
+
+
+def shard_batch(batch: Tree, mesh: Mesh) -> Tree:
+    """This rank's rows of a global batch."""
+    from generativeaiexamples_tpu_torch.serving.sharding import shard_leaf
+
+    specs = batch_specs()
+    return {k: shard_leaf(v, specs[k], mesh) for k, v in batch.items()}
+
+
+def local_train_config(cfg: llama.LlamaConfig,
+                       mesh: Optional[Mesh]) -> llama.LlamaConfig:
+    """The rank's Megatron view: heads, kv heads and MLP columns divided
+    by the tensor axis (the vocabulary is gathered before the loss)."""
+    tp = mesh_lib.mesh_axis_size(mesh, "tensor")
+    if tp == 1:
+        return cfg
+    bad = {name: dim for name, dim in (
+        ("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+        ("mlp_dim", cfg.mlp_dim), ("vocab_size", cfg.vocab_size))
+        if dim % tp}
+    if bad:
+        raise ValueError(f"tensor axis {tp} does not divide model dims "
+                         f"{bad}")
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp,
+                               mlp_dim=cfg.mlp_dim // tp)
+
+
+def shard_train_state(params: Tree, cfg: llama.LlamaConfig,
+                      optimizer: AdamW, mesh: Mesh):
+    """(this rank's parameter shards, fresh optimizer state over them,
+    the spec tree): the moments shard exactly like their parameters."""
+    check_train_mesh(mesh)
+    local_train_config(cfg, mesh)
+    specs = llama.param_specs(cfg)
+    local = shard_tree(params, specs, mesh)
+    return local, optimizer.init(local), specs
+
+
+def _opt_state_shardings(optimizer: AdamW, params: Tree,
+                         specs: Tree) -> Dict[str, Any]:
+    """The spec of every optimizer-state leaf: a moment takes its
+    parameter's, the step count is replicated."""
+    leaf_specs = aligned_specs(specs, params)
+    return {"count": (), "mu": list(leaf_specs), "nu": list(leaf_specs)}
+
+
+def gather_fsdp(params: Tree, specs: Tree, mesh: Mesh) -> Tree:
+    """Every leaf gathered whole along its "fsdp" dimension; the
+    gathers' backward reduce-scatters each gradient to its shard."""
+    out = []
+    for leaf, spec in zip(tree_leaves(params), aligned_specs(specs, params)):
+        for dim, entry in enumerate(spec):
+            if entry == "fsdp":
+                leaf = mesh_lib.fsdp_gather(leaf, mesh, dim)
+            elif entry is not None and not isinstance(entry, str) \
+                    and "fsdp" in entry:
+                raise ValueError(f"spec {spec}: fsdp inside a compound "
+                                 f"axis is not gathered")
+        out.append(leaf)
+    return tree_rebuild(params, out)
+
+
+def _coalesced_all_reduce(tensors: List[torch.Tensor], mesh: Mesh,
+                          axis: str) -> List[torch.Tensor]:
+    """Sum each tensor over `axis` with one collective per dtype."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype: Dict[Any, List[int]] = OrderedDict()
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = mesh_lib.all_reduce_raw(
+            torch.cat([tensors[i].reshape(-1) for i in idx]), mesh, axis)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view_as(tensors[i])
+            off += n
+    return out
+
+
+def sync_grads(grads: List[torch.Tensor], leaf_specs: List[tuple],
+               mesh: Optional[Mesh]) -> List[torch.Tensor]:
+    """Sum each rank's gradient shards over every `REDUCE_AXES` axis its
+    leaf is not sharded on (the batch axes; "pipeline" for the leaves
+    every stage holds). FSDP leaves took their fsdp sum in the
+    reduce-scatter; tensor-replicated leaves already agree."""
+    grads = list(grads)
+    for axis in REDUCE_AXES:
+        if mesh_lib.mesh_axis_size(mesh, axis) == 1:
+            continue
+        idx = [i for i, s in enumerate(leaf_specs)
+               if axis not in spec_axes(s)]
+        for i, g in zip(idx, _coalesced_all_reduce(
+                [grads[i] for i in idx], mesh, axis)):
+            grads[i] = g
+    return grads
+
+
+def sharded_global_norm(grads: List[torch.Tensor], leaf_specs: List[tuple],
+                        mesh: Optional[Mesh]) -> torch.Tensor:
+    """The global norm of gradients held as shards: each leaf's sum of
+    squares is summed over the axes its leaf is sharded on, and only
+    those, so a replicated leaf counts once."""
+    by_axes: Dict[tuple, torch.Tensor] = OrderedDict()
+    for g, spec in zip(grads, leaf_specs):
+        axes = tuple(a for a in spec_axes(spec)
+                     if mesh_lib.mesh_axis_size(mesh, a) > 1)
+        sq = g.float().pow(2).sum()
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    total = None
+    for axes, sq in by_axes.items():
+        for a in axes:
+            sq = mesh_lib.all_reduce_raw(sq, mesh, a)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def sharded_update(loss_of: Callable[[Tree], torch.Tensor], params: Tree,
+                   leaf_specs: List[tuple], opt_state, optimizer: AdamW,
+                   mesh: Optional[Mesh]):
+    """One step over shards (the whole tree when `mesh` is None): value
+    and gradients under the active mesh, the gradients summed, the global
+    norm, the optimizer update."""
+    with mesh_lib.active(mesh):
+        loss, grads = value_and_grad(loss_of, params)
+    grads = sync_grads(grads, leaf_specs, mesh)
+    gnorm = sharded_global_norm(grads, leaf_specs, mesh)
+    params, opt_state = optimizer.update(grads, opt_state, params,
+                                         g_norm=gnorm)
+    return params, opt_state, loss, gnorm
 
 
 def synthetic_batch(cfg: llama.LlamaConfig, batch: int, seq: int,

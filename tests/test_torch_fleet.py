@@ -308,14 +308,13 @@ def test_fleet_surfaces_key_sets_equal_jax():
 
 
 def test_single_engine_surfaces_cover_jax_keys():
-    """One engine: /metrics carries every JAX key but the unported one
-    (compiled plan variants; the multi-host keys are always present since
-    tensor-parallel serving is ported), and /health has the
+    """One engine: /metrics carries every JAX key (compiled plan variants
+    included: always 0 on the eager engine), and /health has the
     always-present fleet and qos sections."""
-    unported = {"plan_variants_compiled"}
     j = set(jeng_mod.EngineMetrics().snapshot())
     t = set(teng_mod.EngineMetrics().snapshot())
-    assert j - t == unported
+    assert j - t == set()
+    assert teng_mod.EngineMetrics().snapshot()["plan_variants_compiled"] == 0
     srv = jserver.OpenAIServer()
     j_health = json.loads(asyncio.run(srv.handle_health(_Query())).text)
     _, t_health = OpenAIServer().health()

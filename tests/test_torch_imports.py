@@ -56,7 +56,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_flight', 'phase_fused_prefill', 'phase_fused_prefill_int8', "
         "'phase_fleet', 'phase_pacer', 'phase_ann', 'phase_tp', "
         "'paged_int8_sdpa_gathered_ms', 'phase_ingest', 'phase_eval', "
-        "'phase_ui', 'phase_train', 'main'):",
+        "'phase_ui', 'phase_train', 'phase_streaming', "
+        "'phase_train_ranks', '_train_rank_leg', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
@@ -86,6 +87,46 @@ def test_framework_neutral_and_training_modules_are_covered():
                  "utils.http", "streaming.asr", "training.trainer",
                  "training.lora", "training.retriever_ft"):
         assert f"generativeaiexamples_tpu_torch.{name}" in MODULES, name
+
+
+def test_sharded_training_and_streaming_modules_are_covered():
+    """Ring attention, the GPipe pipeline, the whole streaming package
+    and the native ring are among the modules imported with jax and the
+    JAX package blocked and scanned below; the native ring's C source is
+    the port's own copy, beside its binding."""
+    for name in ("ops.ring_attention", "parallel.pipeline",
+                 "streaming", "streaming.__main__", "streaming.dsp",
+                 "streaming.replay", "streaming.timestamps",
+                 "streaming.accumulator", "streaming.prompts",
+                 "streaming.chains", "streaming.server", "streaming.asr",
+                 "native", "native.ring"):
+        assert f"generativeaiexamples_tpu_torch.{name}" in MODULES, name
+    assert (PORT / "native" / "sdr_ring.c").is_file()
+    src = (PORT / "native" / "ring.py").read_text()
+    assert "_sdr_ring.so" not in src and "generativeaiexamples_tpu/" \
+        not in src.split('"""', 2)[2]
+
+
+def test_streaming_entry_points_raise_without_cuda_or_explicit_device(
+        monkeypatch):
+    """The DSP, the receiver, the pump and the IQ source run on CUDA
+    unless the caller asks for the CPU; with no CUDA they raise."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.streaming import dsp, replay
+    from generativeaiexamples_tpu_torch.streaming.asr import FakeASR
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    audio = np.zeros(160, np.float32)
+    for call in (lambda: dsp.FMReceiver(250_000),
+                 lambda: dsp.firwin(33, 0.2),
+                 lambda: dsp.fm_modulate(audio, 16_000, 250_000),
+                 lambda: dsp.resample_poly(audio, 2, 1),
+                 lambda: replay.StreamPump(FakeASR(), lambda s, t: None),
+                 lambda: list(replay.iq_chunks(audio, 16_000, 250_000))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert dsp.FMReceiver(250_000, device="cpu").taps.device.type == "cpu"
 
 
 def test_ann_modules_are_covered():
