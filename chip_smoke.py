@@ -2651,7 +2651,7 @@ def phase_fused_prefill(card: str, served: ServedEngine,
 
 def phase_fused_prefill_int8(card: str, params, cfg, tokenizer,
                              device: str = "cuda", prompt_len: int = 2000,
-                             n_short: int = 3, max_tokens: int = 32,
+                             n_short: int = 3, max_tokens: int = 24,
                              long_tokens: int = 8, n_pages: int = 128,
                              engine_cfg=None):
     """Run B of phase_fused_prefill at a smaller size over the int8
@@ -4011,7 +4011,7 @@ def _probed_reference(corpus, centroids, assign, qs, pids, k: int):
 
 
 def phase_ann(card: str, served: ServedEngine, keep: dict,
-              device: str = "cuda", n_search: int = 64,
+              device: str = "cuda", n_search: int = 32,
               max_tokens: int = 16, top_k: int = 5,
               rows: int = ANN_ROWS, dim: int = ANN_DIM,
               n_centers: int = ANN_CENTERS, nlist: int = ANN_NLIST,
@@ -6447,7 +6447,7 @@ EVAL_REPORT_KEYS = {
 
 
 def phase_eval(card: str, served: ServedEngine, keep: dict,
-               device: str = "cuda", n_rows: int = 2, max_tokens: int = 16):
+               device: str = "cuda", n_rows: int = 1, max_tokens: int = 16):
     """eval/harness.py end to end beside a chain server (developer_rag
     over the served 8B engine, phase_rag's encoders and a fresh device
     store): the corpus uploaded through ChainServerClient,
@@ -8621,7 +8621,11 @@ def _tp_spec_leg(ranks, ecfg, int8_params, cfg, tokenizer, prompts,
 # stages (~2.1 GB) and sends 2 x (n_micro + 1) activations of
 # [mb, seq, 4096] each way; the tensor leg all-reduces [batch, seq, 4096]
 # activations (4 a layer forward, as many again recomputed and backward)
-# and gathers [batch, seq, 64128] f32 logits (~0.13 GB a rank).
+# and gathers [batch, seq, 64128] f32 logits (~0.13 GB a rank); the
+# sequence leg (each rank half of the sequence, attention a ring over it)
+# all-reduces every gradient whole (~2.94 GB, as FSDP's: no leaf is
+# sharded on "sequence") and hops each layer's stacked [2, batch, 8,
+# seq / 2, 128] K/V once forward, once recomputed and once backward.
 TRAIN_RANKS_LAYERS = 2
 TRAIN_RANKS_BATCH = 2
 TRAIN_RANKS_SEQ = 256
@@ -8789,7 +8793,13 @@ def _param_errs(got_leaves, ref_leaves, specs, mesh, lr) -> dict:
         diff = (g - ref).abs()
         allowed = 2 * lr + float(ref.abs().max()) * 2.0 ** -7
         worst = max(worst, float(diff.max()) / allowed)
-        close += int(torch.count_nonzero(diff <= lr / 2))
+        # count_nonzero widens to int64: a whole 8B embedding's mask
+        # would take 3.9 GB, so count in slices of <= 2^26 elements.
+        rows = max(1, 2 ** 26 // max(1, diff[0].numel())) \
+            if diff.dim() else 1
+        close += sum(int(torch.count_nonzero(part <= lr / 2))
+                     for part in (diff.split(rows) if diff.dim()
+                                  else (diff,)))
         total += diff.numel()
     return {"worst_over_allowed": worst, "share_within_half_lr":
             close / total}
@@ -8797,9 +8807,9 @@ def _param_errs(got_leaves, ref_leaves, specs, mesh, lr) -> dict:
 
 def _step_leg(rank, mesh_lib, device, leg: str, dims) -> dict:
     """One sharded train step (bf16, Llama-3-8B width, remat) at fsdp 2,
-    tensor 2 or pipeline 2 against the one-device step on the same
-    weights (seed 0 on both ranks) and batch: the loss, the grad norm,
-    every gradient and every updated leaf (each rank's shards)."""
+    tensor 2, pipeline 2 or sequence 2 against the one-device step on
+    the same weights (seed 0 on both ranks) and batch: the loss, the grad
+    norm, every gradient and every updated leaf (each rank's shards)."""
     import torch
 
     from generativeaiexamples_tpu_torch.config.schema import MeshConfig
@@ -8833,7 +8843,8 @@ def _step_leg(rank, mesh_lib, device, leg: str, dims) -> dict:
     mesh = mesh_lib.build_mesh(MeshConfig(**{
         "fsdp": dict(ici_fsdp=2, ici_tensor=1),
         "tensor": dict(ici_tensor=2),
-        "pipeline": dict(dcn_pipeline=2, ici_tensor=1)}[leg]),
+        "pipeline": dict(dcn_pipeline=2, ici_tensor=1),
+        "sequence": dict(ici_sequence=2, ici_tensor=1)}[leg]),
         [device, device])
     if leg == "pipeline":
         local, state, specs = pp.shard_pp_train_state(params, cfg, opt, mesh)
@@ -8903,6 +8914,11 @@ def _step_leg(rank, mesh_lib, device, leg: str, dims) -> dict:
                 "param_share_within_half_lr": TRAIN_RANKS_SAME_SHARE}}
     if leg == "pipeline":
         rep["n_micro"] = dims["n_micro"]
+    if leg == "sequence":
+        # K/V rotations of the ring: one a layer forward, one recomputed
+        # (remat), one backward.
+        rep["ring_hops"] = coll["ppermute"]
+        rep["seq_local"] = dims["seq"] // 2
     rep["ok"] = bool(
         abs(rep["loss"] - rep["ref_loss"])
         <= TRAIN_RANKS_LOSS_RTOL * abs(rep["ref_loss"])
@@ -8955,9 +8971,10 @@ def phase_train_ranks(card: str, ranks, device: str = "cuda:0",
     started (phase_tp's rank program; both on `device`, gloo through host
     memory), to which the caller sent a "warm" command at spawn (its
     replies are read first), and which it shuts down at its end: ring
-    attention over the sequence axis, then one step each of the pipeline (GPipe, n_micro
-    TRAIN_RANKS_MICRO), FSDP and tensor-parallel trainers, each against
-    the one-device computation in the same rank. It exercises the math,
+    attention over the sequence axis, then one step each of the pipeline
+    (GPipe, n_micro TRAIN_RANKS_MICRO), FSDP, tensor-parallel and
+    sequence-parallel (ring attention inside the blocks) trainers, each
+    against the one-device computation in the same rank. It exercises the math,
     not the memory a second card would give. Each leg prints its
     tolerance, seconds, collectives and their ms, and each rank's peak
     memory against its shard's bytes."""
@@ -8968,7 +8985,7 @@ def phase_train_ranks(card: str, ranks, device: str = "cuda:0",
     t0 = time.perf_counter()
     got = _tp_replies(procs, out, "warm")
     rec["warmup_s"] = [got[r]["warmup_s"] for r in (0, 1)]
-    for leg in ("ring", "pipeline", "fsdp", "tensor"):
+    for leg in ("ring", "pipeline", "fsdp", "tensor", "sequence"):
         time_mark(f"train_ranks_{leg}")
         got = _tp_ask(procs, cmds, out, "train", {"leg": leg,
                                                    "dims": dims})

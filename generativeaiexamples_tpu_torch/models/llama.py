@@ -29,6 +29,11 @@ ones instead (parallel/mesh.py): the embedding's and each row-parallel
 output's sum has the identity backward, each column-parallel input
 (q/k/v, the MLP, the head) sums its gradient over the tensor axis, and
 the gathered logits' backward keeps this rank's vocabulary slice.
+Under an active mesh whose "sequence" axis is above 1 the training
+route's tokens are this rank's sequence shard (its `positions` carry
+the global offset) and attention is ring attention over that axis
+(ops/ring_attention.py): causal on global positions, its K/V rotations
+autograd-aware, so the backward is exact.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch.utils.checkpoint
 from generativeaiexamples_tpu_torch.device import DeviceLike, resolve_device
 from generativeaiexamples_tpu_torch.ops import attention as attn_ops
 from generativeaiexamples_tpu_torch.ops.quant import mm
+from generativeaiexamples_tpu_torch.ops.ring_attention import ring_attention
 from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
 from generativeaiexamples_tpu_torch.parallel.mesh import (
     tensor_all_gather, tensor_all_reduce, tensor_shard)
@@ -400,8 +406,15 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, w: Dict[str, torch.Tensor],
     output projection and MLP."""
     h = rms_norm(x, w["ln1"], cfg.rms_eps)
     q, k, v = project_qkv(cfg, h, w, cos, sin, route)
-    out = attn_ops.attention(q, k, v, causal=True, lengths=attn_lengths,
-                             route=route)
+    m = mesh_lib.active_sequence_mesh()
+    if route == "plain" and m is not None:
+        # A sequence shard of full rows (training pads nothing): the ring
+        # masks by global position, so `attn_lengths` has nothing to add.
+        out = ring_attention(q, k, v, mesh=m, axis_name="sequence",
+                             causal=True)
+    else:
+        out = attn_ops.attention(q, k, v, causal=True,
+                                 lengths=attn_lengths, route=route)
     return finish_block(cfg, x, out, w, route)
 
 

@@ -398,6 +398,7 @@ class TieredIVFIndex:
 
     # -- search ------------------------------------------------------------
 
+    # graftlint: hot-path
     def search(self, queries, k: int, nprobe: Optional[int] = None):
         """queries [Q,D] -> (scores [Q,kk], global ids [Q,kk], scanned
         rows). One device pass refines the resident probed
@@ -445,7 +446,7 @@ class TieredIVFIndex:
         scores, ids = self._merge(best, gids, host_sc, host_id, k)
         with self._lock:
             self._host_scanned += host_rows
-        return scores, ids, int(hot_rows) + host_rows
+        return scores, ids, hot_rows + host_rows
 
     def _host_refine(self, qs, pids, hit_mask, tails, mm, off, base_gids,
                      warm, epoch):
@@ -520,11 +521,12 @@ class TieredIVFIndex:
 
     # -- demand pager / compaction (single-flight background) --------------
 
-    def maintenance_due(self) -> bool:
+    def maintenance_due(self) -> bool:  # graftlint: ignore[GL202]
         """Cheap, lock-free peek (racy reads of ints are fine — worst
         case one extra no-op kick, and kick_maintenance re-checks
         single-flight under the lock): compaction or a pager rebalance
-        is warranted."""
+        is warranted. The lock-free reads are the point, hence the
+        GL202 suppression."""
         if self._mnt_busy:
             return False
         if self._tail_rows_total > max(COMPACT_MIN_ROWS,

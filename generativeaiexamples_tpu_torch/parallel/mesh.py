@@ -481,6 +481,7 @@ def shutdown() -> None:
 # ---------------------------------------------------------------------------
 
 _ACTIVE: Optional[Mesh] = None
+_ACTIVE_SEQ: Optional[Mesh] = None
 
 # Counters of the collectives (this process): calls and bytes always;
 # seconds only while COLLECTIVE_TIMING is set (a measurement's switch),
@@ -493,26 +494,35 @@ COLLECTIVE_TIMING = False
 
 def activate(mesh: Optional[Mesh]) -> None:
     """Make `mesh` this process's tensor-parallel mesh (None or a tensor
-    axis of 1: no collectives)."""
-    global _ACTIVE
+    axis of 1: no collectives), and, when its "sequence" axis is above 1,
+    the mesh the training route's ring attention runs over
+    (`active_sequence_mesh`)."""
+    global _ACTIVE, _ACTIVE_SEQ
     _ACTIVE = mesh if mesh is not None and mesh.tensor > 1 else None
+    _ACTIVE_SEQ = mesh if mesh_axis_size(mesh, "sequence") > 1 else None
 
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE
 
 
+def active_sequence_mesh() -> Optional[Mesh]:
+    """The active mesh when its "sequence" axis is above 1, else None."""
+    return _ACTIVE_SEQ
+
+
 @contextlib.contextmanager
 def active(mesh: Optional[Mesh]):
-    """`activate(mesh)` for the block, then the mesh that was active
+    """`activate(mesh)` for the block, then the meshes that were active
     before. A training step holds it over its forward AND backward: a
     layer recomputed under remat re-issues its collectives."""
-    prev = _ACTIVE
+    global _ACTIVE, _ACTIVE_SEQ
+    prev = (_ACTIVE, _ACTIVE_SEQ)
     activate(mesh)
     try:
         yield
     finally:
-        activate(prev)
+        _ACTIVE, _ACTIVE_SEQ = prev
 
 
 def tensor_shard() -> tuple:

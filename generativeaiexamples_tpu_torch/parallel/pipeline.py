@@ -8,7 +8,9 @@ Counterpart of generativeaiexamples_tpu/parallel/pipeline.py:
   are held by every stage (`pp_param_specs`); the other axes follow
   `llama.param_specs`, so the pipeline composes with "data", "fsdp" and
   "tensor" on one mesh (the batch splits over ("data", "fsdp"), each
-  stage runs its Megatron shard).
+  stage runs its Megatron shard), and with "sequence" (each stage runs
+  its sequence shard at its global positions, attention as a ring over
+  that axis, as trainer.loss_fn does).
 - `pipeline_loss` runs the classic GPipe fill-drain: n_micro
   microbatches flow through S stages in n_micro + S - 1 ticks. Stage 0
   injects the embeddings; every stage runs its local layers through
@@ -66,13 +68,12 @@ def pipeline_loss(params, cfg: llama.LlamaConfig, tokens, targets, mask, *,
     n_stages = mesh_lib.mesh_axis_size(mesh, "pipeline")
     if n_stages == 1:
         return trainer.loss_fn(params, cfg, tokens, targets, mask)
-    B, S = tokens.shape
+    B = tokens.shape[0]
     if B % n_micro:
         raise ValueError(f"batch {B} not divisible by n_micro {n_micro}")
     if cfg.n_layers % n_stages:
         raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
                          f"pipeline stages {n_stages}")
-    trainer.check_train_mesh(mesh, pipeline=True)
     rows = mesh_lib.mesh_axis_size(mesh, "data") * mesh_lib.mesh_axis_size(mesh, "fsdp")
     if (B // rows) % n_micro:
         raise ValueError(
@@ -85,11 +86,12 @@ def pipeline_loss(params, cfg: llama.LlamaConfig, tokens, targets, mask, *,
     lcfg = trainer.local_train_config(cfg, mesh)
     mb = B // rows // n_micro
     dev = local["tokens"].device
+    S = local["tokens"].shape[1]  # this rank's sequence shard
     stage = mesh.coords["pipeline"]
     last = n_stages - 1
     is_first = torch.tensor(stage == 0, device=dev)
     is_last = torch.tensor(stage == last, device=dev)
-    positions = torch.arange(S, device=dev)[None, :]
+    positions = trainer.sequence_positions(mesh, S, dev)
     cos, sin = llama.rope_cos_sin(positions, lcfg.head_dim, lcfg.rope_theta,
                                   lcfg.rope_scaling)
     lengths = torch.full((mb,), S, dtype=torch.int32, device=dev)
@@ -146,7 +148,6 @@ def shard_pp_train_state(params, cfg: llama.LlamaConfig,
     if cfg.n_layers % n_stages:
         raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
                          f"pipeline stages {n_stages}")
-    trainer.check_train_mesh(mesh, pipeline=True)
     trainer.local_train_config(cfg, mesh)
     specs = pp_param_specs(cfg)
     local = trainer.shard_tree(params, specs, mesh)

@@ -529,14 +529,23 @@ class DeviceVectorStore(MemoryVectorStore):
             return removed
 
     def _host_rows(self) -> np.ndarray:
-        self._fold_pending()
-        return self._rows.cpu().numpy()
+        """Lock held. The rows [N, D] f32 (pending adds folded in) as a
+        host array. The base class's save calls it inside `self._lock`;
+        taking the RLock again costs nothing and keeps the fold's writes
+        provably locked from this class's side too."""
+        with self._lock:
+            self._fold_pending()
+            return self._rows.cpu().numpy()
 
     def _set_rows(self, rows: np.ndarray) -> None:
-        self._rows = torch.from_numpy(rows).to(self._home)
-        self._pending = []
-        self._flat = None
-        self._dirty = True
+        """Lock held. Replace the rows with `rows` [N, D] f32 (the base
+        class's load calls it inside `self._lock`, re-taken here as in
+        `_host_rows`)."""
+        with self._lock:
+            self._rows = torch.from_numpy(rows).to(self._home)
+            self._pending = []
+            self._flat = None
+            self._dirty = True
 
     def rows(self) -> torch.Tensor:
         """The stored rows [N, D] f32 (pending adds folded in), as added:

@@ -182,6 +182,7 @@ class MicroBatcher:
 
     # -- dispatcher thread -------------------------------------------------
 
+    # graftlint: hot-path
     def _loop(self) -> None:
         while True:
             with self._cond:

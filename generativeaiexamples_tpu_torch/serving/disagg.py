@@ -276,6 +276,7 @@ class KVPageTransfer:
         self._device_broken: set = set()
         self._inflight = 0  # background tail ships not yet landed
 
+    # graftlint: hot-path
     def transfer(self, src, dst, ids: Sequence[int],
                  page_size: int = 0) -> Tuple[int, float]:
         """Export `ids`' cached prefix from `src` and import it into
@@ -301,6 +302,7 @@ class KVPageTransfer:
             total, _ = self.transfer_window(src, dst, ids, 0, 0)
         return total, (time.perf_counter() - t0) * 1e3
 
+    # graftlint: hot-path
     def transfer_window(self, src, dst, ids: Sequence[int],
                         start_page: int = 0, max_pages: int = 0
                         ) -> Tuple[int, int]:
@@ -421,6 +423,7 @@ class KVPageTransfer:
         t.start()
         return t
 
+    # graftlint: hot-path
     def _ship_tail(self, src, dst, ids: List[int],
                    start_page: int) -> None:
         try:

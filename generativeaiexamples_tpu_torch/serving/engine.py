@@ -1067,6 +1067,7 @@ class LLMEngine:
                 None if scales is None else scales[len(dev_w):].numpy())
         return codes, scales, hi * self.pool.page_size
 
+    # graftlint: hot-path
     def export_prefix_pages_device(self, ids: Sequence[int],
                                    start_page: int = 0,
                                    max_pages: int = 0):
@@ -1256,6 +1257,7 @@ class LLMEngine:
         tier = request_tier(req)
         d[tier] = max(0, d[tier] + delta)
 
+    # graftlint: hot-path
     def _qos_pop_waiting(self) -> GenRequest:
         """Weighted-fair admission pop (QoS on; self._lock held): the
         least-served-per-weight tier, the least-served tenant in it, then
@@ -1265,6 +1267,7 @@ class LLMEngine:
         del self.waiting[idx]
         return req
 
+    # graftlint: hot-path
     def _qos_refresh_preemption(self) -> None:
         """Pause or resume long prefills at the beat boundary (QoS with
         qos_preempt_prefill): while an admitted latency-tier request is
@@ -1279,7 +1282,7 @@ class LLMEngine:
         for lp in self._long_prefills:
             should = pressure and lp.tier != "latency"
             if should != lp.paused and self.flight.enabled:
-                now = now or time.perf_counter()
+                now = now or time.perf_counter()  # graftlint: ignore[GL703] timestamp feeds flight-recorder events only; the pause decision itself reads queue state, not the clock
                 self.flight.record_event(
                     EV_QOS_PAUSE if should else EV_QOS_RESUME, now,
                     rid=lp.req.request_id, tier=tier_id(lp.tier),
@@ -1288,6 +1291,7 @@ class LLMEngine:
                 self.metrics.qos_preemptions += 1
             lp.paused = should
 
+    # graftlint: hot-path
     def _qos_latency_pressure(self) -> bool:
         """True while an ADMITTED latency-tier request is prefilling or
         awaiting its first token (a merely waiting one does not count:
@@ -1350,6 +1354,7 @@ class LLMEngine:
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()
 
+    # graftlint: hot-path
     def _land_next_block(self) -> None:
         """Land the oldest in-flight block: wait for it, emit / retire,
         release the pages parked on it, advance the beat and write its
@@ -1373,6 +1378,7 @@ class LLMEngine:
         self._note_prefill_stalls()
         self._record_beat(fl, t_ready, self.metrics.tokens_out - tokens_before)
 
+    # graftlint: hot-path
     def _record_beat(self, fl: _InFlight, t_ready: float,
                      emitted: int) -> None:
         """One beat record (and the beat-gap histogram sample) for a
@@ -1581,6 +1587,7 @@ class LLMEngine:
                 self.flight.record_event(EV_KV_DEMOTE, time.perf_counter(),
                                          a=float(freed))
 
+    # graftlint: hot-path
     def _lookup_prefix(self, ids: List[int], promote: bool = True):
         """Longest cached page-granular prefix of this prompt, capped at
         len(ids) - 1 so at least one suffix token runs through the model
@@ -1613,7 +1620,7 @@ class LLMEngine:
             n_cold = sum(n.tier != TIER_DEVICE for n in nodes)
             promoted = False
             if n_cold and promote:
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # graftlint: ignore[GL703] times the host-side promote for kv_promote_ms_per_page; the prefix-hit decision is made from tree state above
                 try:
                     self.pool = self.prefix_cache.promote(self.pool, nodes)
                     promoted = True
@@ -1622,7 +1629,7 @@ class LLMEngine:
                 if promoted:
                     # Host time of the promotion: tier reads, staging and
                     # the copy to the card (the scatter is queued).
-                    dt_ms = (time.perf_counter() - t0) * 1e3
+                    dt_ms = (time.perf_counter() - t0) * 1e3  # graftlint: ignore[GL703] metrics-only read (see t0 above)
                     self.metrics.kv_promote_ms += dt_ms
                     self.metrics.hists["kv_promote_ms_per_page"].observe(
                         dt_ms / n_cold)
@@ -1961,12 +1968,17 @@ class LLMEngine:
         same device inputs; the leader passes its buffers. Each rank of
         a tensor-parallel mesh scatters its kv heads' slice."""
         if self._mh_log is not None and self._mh_leader:
-            codes = buf.cpu()
-            rec = {**rec, "codes": codes.view(
-                _RAW_DTYPES.get(codes.dtype, codes.dtype)).numpy(),
-                "codes_dtype": np.asarray(str(codes.dtype))}
+            from generativeaiexamples_tpu_torch.serving import multihost as mh
+
+            # The leader's import buffers hold the whole pages (each rank
+            # slices its heads below): its own tensors, fetched whole.
+            rec = {**rec, "codes": mh.fetch_addressable(
+                buf.view(_RAW_DTYPES.get(buf.dtype, buf.dtype)),
+                "pages_in record (codes)"),
+                "codes_dtype": np.asarray(str(buf.dtype))}
             if sbuf is not None:
-                rec["scales"] = sbuf.cpu().numpy()
+                rec["scales"] = mh.fetch_addressable(
+                    sbuf, "pages_in record (scales)")
             self._publish("pages_in", rec)
         if buf is None:
             dtype = getattr(torch, str(rec["codes_dtype"]).split(".")[-1])
@@ -2267,6 +2279,7 @@ class LLMEngine:
             and self._advance_capacity(s, self._slot_used(s))[0] >= 1
             for s in self.slots)
 
+    # graftlint: hot-path
     def _dispatch_decode(self) -> bool:
         """Dispatch ONE K-step block over the slot batch (device sampling
         or verification, device-chained tokens, no host wait): build the
@@ -2405,6 +2418,7 @@ class LLMEngine:
                                         res["t_dispatch"]))
         return True
 
+    # graftlint: hot-path
     def _rider_candidate(self) -> Optional[_LongPrefill]:
         """The in-progress long prefill whose next chunk can ride the
         next decode dispatch (a rider width, prompt tokens left, a
@@ -2419,6 +2433,7 @@ class LLMEngine:
                 return lp
         return None
 
+    # graftlint: hot-path
     def _select_plan(self, K: int, spec_mode: bool):
         """The StepPlan of this decode dispatch: K steps; the verify
         width on a speculative engine unless a live sampled request
@@ -2440,6 +2455,7 @@ class LLMEngine:
             rider_s_total=lp.s_total if lp else 0,
             spec_state=spec_state), lp
 
+    # graftlint: hot-path
     def _fuse_ready(self, lp: _LongPrefill) -> bool:
         """True when the next decode dispatch will carry lp's next chunk
         as a rider: lp is the rider candidate and at least one slot will
@@ -2455,6 +2471,7 @@ class LLMEngine:
             and not s.no_capacity and s.req.max_new_tokens - s.scheduled > 0
             for s in self.slots)
 
+    # graftlint: hot-path
     def _rider_bookkeeping(self, lp: _LongPrefill, n_part: int) -> None:
         """After a rider plan ran: advance the prefill's cursor, meter its
         tokens (real ones, not the rider's padding), mark this beat's
@@ -2473,6 +2490,7 @@ class LLMEngine:
             self._long_prefills.remove(lp)
             self._finish_long_prefill(lp)
 
+    # graftlint: hot-path
     def _note_prefill_stalls(self) -> None:
         """One landed decode block is one beat: a chunked prefill that fed
         no prompt token over it counts one prefill_stall_beats."""
@@ -2750,6 +2768,7 @@ class LLMEngine:
 
     # -- flight-recorder lifecycle hooks (scheduler thread only) ---------
 
+    # graftlint: hot-path
     def _flight_note_pop(self, req: GenRequest) -> None:
         """Record the request's submit, retroactively (stamped with its
         submit_time: server threads never write the ring), once, and
@@ -2771,6 +2790,7 @@ class LLMEngine:
             self.flight.record_event(EV_QOS_PICK, time.perf_counter(),
                                      rid=req.request_id, tier=tier)
 
+    # graftlint: hot-path
     def _flight_admit(self, req: GenRequest, slot_idx: int) -> None:
         """Slot reserved: the queue-wait histogram (always live) and the
         admit event."""
@@ -2783,6 +2803,7 @@ class LLMEngine:
                                      tier=tier_id(tier), slot=slot_idx,
                                      a=wait_ms)
 
+    # graftlint: hot-path
     def _flight_retire(self, slot: _Slot, reason: str) -> None:
         """Slot retired: the e2e histogram and the retire event (reason
         code, tokens, e2e ms and the span's trace id)."""

@@ -229,6 +229,7 @@ def set_last_token(last_tokens: torch.Tensor, idx: int,
 
 
 @torch.no_grad()
+# graftlint: hot-path
 def sample_token_into(last_tokens: torch.Tensor, idx: int,
                       logits: torch.Tensor, temperature: float, top_p: float,
                       top_k: int, generator: Optional[torch.Generator] = None,
@@ -725,6 +726,7 @@ def prefill_chunk_step(params: Params, cfg: LlamaConfig, cache: KVCache,
 
 
 @torch.no_grad()
+# graftlint: hot-path
 def prefill_chunk_sample_step(params: Params, cfg: LlamaConfig,
                               cache: KVCache,
                               tokens: torch.Tensor,       # [1, C] final chunk

@@ -324,6 +324,7 @@ class LocalReplica:
 
     # -- disagg KV page transfer (serving/disagg.py) -----------------------
 
+    # graftlint: hot-path
     def export_kv_pages(self, ids, timeout_s: float = 60.0,
                         start_page: int = 0, max_pages: int = 0):
         """Cached full-page prefix of `ids` (or the
@@ -335,6 +336,7 @@ class LocalReplica:
             lambda: eng.export_prefix_pages(ids, start_page, max_pages),
             timeout_s=timeout_s)
 
+    # graftlint: hot-path
     def import_kv_pages(self, ids, codes, scales,
                         timeout_s: float = 60.0,
                         first_page: int = 0) -> int:
@@ -346,6 +348,7 @@ class LocalReplica:
                                             first_page),
             timeout_s=timeout_s)
 
+    # graftlint: hot-path
     def publish_kv_pages(self, ids, timeout_s: float = 60.0) -> int:
         """Make an in-flight chunked prefill's completed pages
         exportable now (control op) — the pipelined-transfer probe.
@@ -354,6 +357,7 @@ class LocalReplica:
         return eng.run_control_op(
             lambda: eng.publish_prefill_pages(ids), timeout_s=timeout_s)
 
+    # graftlint: hot-path
     def export_kv_pages_device(self, ids, timeout_s: float = 60.0,
                                start_page: int = 0, max_pages: int = 0):
         """Device-path export: the window's device-resident pages as
@@ -365,6 +369,7 @@ class LocalReplica:
                                                    max_pages),
             timeout_s=timeout_s)
 
+    # graftlint: hot-path
     def import_kv_pages_device(self, ids, codes, scales,
                                timeout_s: float = 60.0,
                                first_page: int = 0) -> int:
@@ -511,6 +516,7 @@ class HttpReplica:
 
     # -- disagg KV page transfer (serving/disagg.py over HTTP) -------------
 
+    # graftlint: hot-path
     def export_kv_pages(self, ids, timeout_s: float = 60.0,
                         start_page: int = 0, max_pages: int = 0):
         """Fetch the remote replica's cached prefix for `ids` (or the
@@ -538,6 +544,7 @@ class HttpReplica:
         got_ids, codes, scales = deserialize_kv_transfer(payload)
         return codes, scales, len(got_ids)
 
+    # graftlint: hot-path
     def import_kv_pages(self, ids, codes, scales,
                         timeout_s: float = 60.0,
                         first_page: int = 0) -> int:
@@ -560,6 +567,7 @@ class HttpReplica:
         with urllib.request.urlopen(http_req, timeout=timeout_s) as resp:
             return int(json.load(resp).get("pages", 0))
 
+    # graftlint: hot-path
     def publish_kv_pages(self, ids, timeout_s: float = 60.0) -> int:
         """Probe/advance the remote prefill's exportable coverage via
         /v1/kv/export {"publish": true, "probe": true} — pages only,
@@ -1044,6 +1052,7 @@ class EngineFleet:
                 raise FleetUnavailableError(str(e2)) from e2
         return self._dispatch_to(rid, req)
 
+    # graftlint: hot-path
     def _dispatch_to(self, rid: str, req):
         """Track + dispatch one placed request onto replica `rid`
         (the post-placement half of submit(), shared with the disagg
@@ -1119,6 +1128,7 @@ class EngineFleet:
 
     # -- disaggregated prefill/decode (serving/disagg.py) ------------------
 
+    # graftlint: hot-path
     def _run_disagg_stages(self, prid: str, drid: str, req) -> bool:
         """Prefill `req`'s prompt on the prefill-role replica `prid`,
         then ship the KV pages to the decode replica `drid` via
@@ -1151,6 +1161,7 @@ class EngineFleet:
             self.ops.note_disagg_fallback()
         return ok
 
+    # graftlint: hot-path
     def _run_disagg_pipelined(self, prid: str, drid: str, req) -> bool:
         """Pipelined two-stage run: submit the prefill stage
         NON-blocking, then poll its stream while publishing the
@@ -1249,6 +1260,7 @@ class EngineFleet:
             self.ops.note_disagg_transfer(transfer_ms, overlap_ms)
             self.router.note_finished(prid, 1, tier)
 
+    # graftlint: hot-path
     def _disagg_prefill(self, prid: str, req) -> bool:
         """Run the prefill stage: an internal single-token greedy
         request on the prefill replica populates its radix prefix
@@ -1354,6 +1366,7 @@ class EngineFleet:
     # -- stream hook (engine scheduler/pacer threads) ----------------------
 
     # Rides every engine scheduler/pacer emission via _TrackedStream.put.
+    # graftlint: hot-path
     def _on_event(self, rec: _ReqRecord, ev: Dict[str, Any]) -> None:
         rec.started = True
         if ev.get("token_id", -1) >= 0:

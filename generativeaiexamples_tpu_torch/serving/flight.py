@@ -201,6 +201,7 @@ class ExpHistogram:
         self.count = 0
         self.total = 0.0
 
+    # graftlint: hot-path
     def observe(self, value: float) -> None:
         self.counts[bisect.bisect_left(self.bounds, value)] += 1
         self.count += 1
@@ -318,6 +319,7 @@ class FlightRecorder:
 
     # -- writers (engine scheduler thread ONLY) ----------------------------
 
+    # graftlint: hot-path
     def record_beat(self, t_dispatch: float, t_ready: float,
                     t_prev_ready: float, decode_k: int, spec_k: int,
                     tree_branches: int, rider_width: int,
@@ -350,6 +352,7 @@ class FlightRecorder:
         row["seq2"] = seq         # ... and LAST: readers drop torn rows
         self._n_beats = seq + 1
 
+    # graftlint: hot-path
     def record_event(self, kind: int, ts: float, rid: str = "",
                      tier: int = 1, code: int = 0, slot: int = -1,
                      a: float = 0.0, b: float = 0.0,

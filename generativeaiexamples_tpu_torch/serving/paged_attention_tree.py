@@ -106,6 +106,7 @@ def _kernel_tree(q, anc_mask, k, n_branches, who):
     return tree
 
 
+# graftlint: hot-path
 def paged_tree_attention_dispatch(q, k_pages, v_pages, page_table, lengths,
                                   anc_mask, k: int, n_branches: int, *,
                                   scale=None):
@@ -120,6 +121,7 @@ def paged_tree_attention_dispatch(q, k_pages, v_pages, page_table, lengths,
                                 tree, scale=scale)
 
 
+# graftlint: hot-path
 def paged_tree_attention_int8_dispatch(q, kv_pages, kv_scales, page_table,
                                        lengths, anc_mask, k: int,
                                        n_branches: int, layer, *,

@@ -143,8 +143,7 @@ class TierScheduler:
                 break
             by_tier.setdefault(request_tier(req), []).append(i)
         present = frozenset(by_tier)
-        # Order-independent: each tier's credit is reset on its own.
-        for t in present - self._backlogged:
+        for t in present - self._backlogged:  # graftlint: ignore[GL703] order-independent: each tier's credit is reset in isolation, so set iteration order cannot change any pick
             # Idle -> backlogged: no credit for the idle period.
             self.served[t] = max(self.served[t],
                                  self.vtime * self.weights[t])
@@ -157,6 +156,7 @@ class TierScheduler:
                        i))
 
     # Runs under the engine's waiting lock on the scheduler thread.
+    # graftlint: hot-path
     def note_admitted(self, req) -> None:
         """Charge one admission's estimated tokens to its tier+tenant."""
         est = max(1, len(getattr(req, "prompt_ids", []) or [])
@@ -192,6 +192,7 @@ class EdgeAdmission:
         self._shed = {t: 0 for t in TIERS}
 
     # Runs on every server request thread before engine submit.
+    # graftlint: hot-path
     def try_admit(self, tier: str) -> Optional[float]:
         """None = admitted (caller MUST release()); a float = shed,
         the Retry-After hint in seconds."""

@@ -330,6 +330,7 @@ class PrefixLocalityRouter:
         return sum(n * TIER_LOAD_WEIGHT.get(t, 1)
                    for t, n in st.inflight_tier.items())
 
+    # graftlint: hot-path
     def place(self, ids: Sequence[int], session: str = "") -> str:
         """Pick the replica for a prompt. Raises LookupError when no
         replica admits (the fleet maps it to 503). Prefill-role
@@ -344,6 +345,7 @@ class PrefixLocalityRouter:
                 raise LookupError("no admitting decode-capable replica")
             return self._place_locked(cands, ids, session)
 
+    # graftlint: hot-path
     def place_disagg(self, ids: Sequence[int], session: str = ""):
         """Two-stage disagg plan: (prefill_rid, decode_rid). The
         decode replica is chosen by the NORMAL scoring (affinity,

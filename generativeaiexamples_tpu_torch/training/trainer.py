@@ -32,24 +32,31 @@ sliced by `llama.param_specs` (the hidden dimension on "fsdp",
 Megatron's on "tensor"), its AdamW moments are shards of the same shape,
 and the step calls the collectives itself (parallel/mesh.py):
 
-- the global batch splits over ("data", "fsdp"), JAX's `batch` rule;
+- the global batch splits over ("data", "fsdp"), JAX's `batch` rule,
+  and its sequence dimension over "sequence" (JAX's "seq" rule): a rank
+  runs its contiguous shard at its global RoPE positions, and attention
+  is ring attention over that axis (models/llama.py), so the sequence
+  length must divide by the axis;
 - every FSDP leaf is gathered whole in the forward, and its gradient is
   reduce-scattered (summed) back to the shard in the backward;
 - the forward runs on the rank's Megatron shard (local heads and MLP
   columns, a vocabulary-parallel embedding and head) with autograd-aware
   collectives (models/llama.py's training route);
 - the loss is the global masked mean: each rank's CE sum is summed over
-  the batch axes, then divided once by the global mask count;
-- a gradient is summed over every batch axis its leaf is not sharded
-  on; the clip's global norm sums each leaf's squared shard over the
-  axes that leaf is sharded on, and only those.
+  the batch and sequence axes, then divided once by the global mask
+  count;
+- a gradient is summed over every batch or sequence axis its leaf is
+  not sharded on (no leaf is sharded on "sequence"); the clip's global
+  norm sums each leaf's squared shard over the axes that leaf is
+  sharded on, and only those.
+
+The "expert" axis shards nothing, as in JAX, where no Llama leaf and no
+batch dimension names it: the ranks along it hold the same state, take
+the same step, and no collective runs over it.
 
 One step serves both cases: with no mesh every collective is the
 identity and it is the one-device step; sharded, it equals that step up
-to summation order. A mesh
-whose "sequence" or "expert" axis is above 1 is refused (JAX reaches
-those through GSPMD; the port shards neither here), and a "pipeline"
-axis goes through parallel/pipeline.py.
+to summation order. A "pipeline" axis goes through parallel/pipeline.py.
 """
 
 from __future__ import annotations
@@ -74,9 +81,7 @@ Tree = Dict[str, Any]
 # backward); parallel/pipeline.py passes it on to the model's blocks.
 ROUTE = "plain"
 # The axes a gradient is summed over unless its leaf is sharded on them.
-REDUCE_AXES = ("pipeline", "data", "fsdp")
-# Axes the sharded steps do not shard.
-UNSHARDED_AXES = ("sequence", "expert")
+REDUCE_AXES = ("pipeline", "data", "fsdp", "sequence")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,8 +237,11 @@ def loss_fn(params: Tree, cfg: llama.LlamaConfig, tokens, targets, mask,
                          "mask": mask}, mesh)
     full = gather_fsdp(params, llama.param_specs(cfg), mesh)
     logits, _ = llama.forward(full, local_train_config(cfg, mesh),
-                              local["tokens"], attention="plain",
-                              remat=remat)
+                              local["tokens"],
+                              positions=sequence_positions(
+                                  mesh, local["tokens"].shape[1],
+                                  local["tokens"].device),
+                              attention="plain", remat=remat)
     total = mesh_lib.all_reduce_sum(
         masked_ce_sum(logits, local["targets"], local["mask"]), mesh,
         REDUCE_AXES)
@@ -266,18 +274,15 @@ def make_train_step(cfg: llama.LlamaConfig, tcfg: TrainConfig,
 # -- the sharded train state ---------------------------------------------------
 
 
-def check_train_mesh(mesh: Mesh, pipeline: bool = False) -> None:
-    """Refuse the axes the sharded steps do not shard, naming the axis."""
-    axes = UNSHARDED_AXES + (() if pipeline else ("pipeline",))
-    for axis in axes:
-        n = mesh_lib.mesh_axis_size(mesh, axis)
-        if n > 1:
-            hint = (" (a pipeline axis goes through parallel/pipeline.py "
-                    "make_pp_train_step)" if axis == "pipeline" else "")
-            raise ValueError(
-                f"the sharded train step does not shard the {axis!r} mesh "
-                f"axis (size {n}); use the data, fsdp and tensor axes"
-                + hint)
+def check_train_mesh(mesh: Mesh) -> None:
+    """Refuse a "pipeline" axis, which parallel/pipeline.py's step
+    takes, naming it."""
+    n = mesh_lib.mesh_axis_size(mesh, "pipeline")
+    if n > 1:
+        raise ValueError(
+            f"the sharded train step does not shard the 'pipeline' mesh "
+            f"axis (size {n}); a pipeline axis goes through "
+            f"parallel/pipeline.py make_pp_train_step")
 
 
 def batch_specs(rules: dict = LLM_RULES) -> Dict[str, tuple]:
@@ -320,11 +325,26 @@ def shard_tree(params: Tree, specs: Tree, mesh: Mesh) -> Tree:
 
 
 def shard_batch(batch: Tree, mesh: Mesh) -> Tree:
-    """This rank's rows of a global batch."""
+    """This rank's rows of a global batch, and its shard of their
+    sequence."""
     from generativeaiexamples_tpu_torch.serving.sharding import shard_leaf
 
+    n = mesh_lib.mesh_axis_size(mesh, "sequence")
+    seq = batch["tokens"].shape[1]
+    if seq % n:
+        raise ValueError(f"sequence length {seq} does not split over the "
+                         f"{n}-way 'sequence' mesh axis")
     specs = batch_specs()
     return {k: shard_leaf(v, specs[k], mesh) for k, v in batch.items()}
+
+
+def sequence_positions(mesh: Mesh, s_local: int,
+                       device) -> torch.Tensor:
+    """[1, s_local] global positions of this rank's sequence shard:
+    its coordinate on "sequence" times the shard's length, onward."""
+    n = mesh_lib.mesh_axis_size(mesh, "sequence")
+    base = mesh.coords["sequence"] * s_local if n > 1 else 0
+    return base + torch.arange(s_local, device=device)[None, :]
 
 
 def local_train_config(cfg: llama.LlamaConfig,
@@ -402,8 +422,8 @@ def _coalesced_all_reduce(tensors: List[torch.Tensor], mesh: Mesh,
 def sync_grads(grads: List[torch.Tensor], leaf_specs: List[tuple],
                mesh: Optional[Mesh]) -> List[torch.Tensor]:
     """Sum each rank's gradient shards over every `REDUCE_AXES` axis its
-    leaf is not sharded on (the batch axes; "pipeline" for the leaves
-    every stage holds). FSDP leaves took their fsdp sum in the
+    leaf is not sharded on (the batch and sequence axes; "pipeline" for
+    the leaves every stage holds). FSDP leaves took their fsdp sum in the
     reduce-scatter; tensor-replicated leaves already agree."""
     grads = list(grads)
     for axis in REDUCE_AXES:

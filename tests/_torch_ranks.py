@@ -213,17 +213,38 @@ def job_lora(mesh, np_params, np_lora, cfg_kw, lora_kw, np_batch, lr,
         trainer.aligned_specs(specs, local), mesh)}
 
 
-def job_refused(mesh, np_params, cfg_kw):
-    """The sharded step's refusal text on this mesh."""
+_MESHES: dict = {}
+
+
+def job_on_mesh(mesh, mesh_kw, fn, *args):
+    """`fn(m, *args)` on the mesh of `MeshConfig(**mesh_kw)` over the
+    same ranks, built the first time a geometry is asked for (every rank
+    runs the same jobs in the same order, so the axis groups are made in
+    the same order everywhere)."""
+    from generativeaiexamples_tpu_torch.config.schema import MeshConfig
+    from generativeaiexamples_tpu_torch.parallel import mesh as tm
+
+    key = tuple(sorted(mesh_kw.items()))
+    if key not in _MESHES:
+        _MESHES[key] = tm.build_mesh(MeshConfig(**mesh_kw), mesh.devices)
+    return fn(_MESHES[key], *args)
+
+
+def job_positions(mesh, np_params, cfg_kw, np_batch):
+    """This rank's coordinates, the RoPE positions and batch shard its
+    loss runs on, and its parameter and moment bytes."""
     from generativeaiexamples_tpu_torch.training import trainer
 
     cfg, params = _port_setup(np_params, cfg_kw)
     opt = trainer.make_optimizer(trainer.TrainConfig())
-    try:
-        trainer.shard_train_state(params, cfg, opt, mesh)
-    except ValueError as e:
-        return str(e)
-    return None
+    local, state, _ = trainer.shard_train_state(params, cfg, opt, mesh)
+    shard = trainer.shard_batch(_batch(np_batch), mesh)
+    s_local = shard["tokens"].shape[1]
+    return {"coords": mesh.coords,
+            "positions": trainer.sequence_positions(
+                mesh, s_local, "cpu").numpy(),
+            "tokens": shard["tokens"].numpy(),
+            "bytes": _state_bytes(local, state)}
 
 
 # -- pipeline ---------------------------------------------------------------

@@ -107,6 +107,22 @@ def test_sharded_training_and_streaming_modules_are_covered():
         not in src.split('"""', 2)[2]
 
 
+def test_lint_modules_are_covered():
+    """graftlint's torch side, file for file with the JAX package's
+    lint/, is among the modules imported with jax and the JAX package
+    blocked and scanned below (it imports neither torch nor jax: it
+    parses source)."""
+    jax_lint = ROOT / "generativeaiexamples_tpu" / "lint"
+    names = sorted(".".join(p.relative_to(jax_lint).with_suffix("").parts)
+                   for p in jax_lint.rglob("*.py"))
+    assert len(names) == 17
+    for name in names:
+        mod = "generativeaiexamples_tpu_torch.lint" + (
+            "" if name == "__init__" else "." + name.removesuffix(
+                ".__init__"))
+        assert mod in MODULES, mod
+
+
 def test_streaming_entry_points_raise_without_cuda_or_explicit_device(
         monkeypatch):
     """The DSP, the receiver, the pump and the IQ source run on CUDA

@@ -11,7 +11,8 @@ rtol 5e-3 (JAX's own tolerances, tests/test_pipeline.py). Two
 `make_pp_train_step` steps move the parameters as JAX's do. A
 single-stage mesh falls through to `loss_fn`, the bad microbatch and
 stage splits are refused with JAX's texts, and the serving engine still
-refuses a pipeline mesh.
+refuses a pipeline mesh. The same ranks also form pipeline 2 x sequence
+2 x tensor 2, held against JAX's `pipeline_loss` on that mesh.
 """
 
 import jax
@@ -225,3 +226,35 @@ def test_serving_engine_refuses_a_pipeline_mesh_as_jax():
     with pytest.raises(ValueError) as want:
         jsh.validate_tp(TINY, jmesh)
     assert str(got.value) == str(want.value)
+
+
+PP_SEQ_KW = dict(dcn_pipeline=2, ici_sequence=2, ici_tensor=2)
+
+
+def test_pipeline_with_a_sequence_axis_equals_jax(eight_devices, pool,
+                                                  params):
+    """Pipeline 2 x sequence 2 x tensor 2 on the same ranks: each stage
+    runs its half of the sequence through ring attention. The loss and
+    every gradient leaf equal JAX's `pipeline_loss` on the same mesh at
+    the tolerances above."""
+    mesh = build_mesh(MeshConfig(**PP_SEQ_KW), devices=jax.devices()[:8])
+    batch = jtr.synthetic_batch(TINY, batch=8, seq=16)
+    sparams, _, _ = jpp.shard_pp_train_state(
+        params, TINY, jtr.make_optimizer(jtr.TrainConfig()), mesh)
+    with jax.set_mesh(mesh):
+        want_loss, want_grads = jax.jit(jax.value_and_grad(
+            lambda p, t, y, m: jpp.pipeline_loss(
+                p, TINY, t, y, m, mesh=mesh, n_micro=4)))(
+            sparams, batch["tokens"], batch["targets"], batch["mask"])
+    np_params = _numpy(params)
+    outs = pool.run(ranks_lib.job_on_mesh, PP_SEQ_KW, ranks_lib.job_pp_grads,
+                    np_params, {}, _np_batch(batch), 4)
+    for rank, o in enumerate(outs):
+        np.testing.assert_allclose(o["loss"], float(want_loss), rtol=2e-5,
+                                   err_msg=f"rank {rank}")
+    got = _gathered(outs, np_params)
+    want = _numpy(want_grads)
+    for path, arr in got.items():
+        np.testing.assert_allclose(arr, _at(want, path), atol=5e-4,
+                                   rtol=5e-3, err_msg="/".join(path))
+        assert np.abs(arr).max() > 0, path
