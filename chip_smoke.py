@@ -36,6 +36,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
               rescale); a second launch must give the same bits;
               SDPA with a key-padding mask and K1's head_dim 64
               non-causal form timed beside it (loop and device time)
+  5a. tools   (encoders) the port's attribution tools at arctic-embed-l
+              (bf16, random weights), B = 32, S = 512:
+              scripts/decompose_bert_forward's full, no_attn and
+              fused_qkv forwards (least of 5, each with a host read; the
+              tool's fused_qkv loop within BF16_ATOL of bert.forward),
+              the full forward's device time by kernel class under
+              torch.profiler (K3's own must show), and one
+              scripts/decompose_encoders batch size (tokenize,
+              pack, device chain and sync, readback, docs/s and
+              queries/s, against the forward's roofline bound); K3 must
+              launch
   6. paged_int8  K4 (csrc/paged_attention_int8.cu) against
               `paged_attention_int8_reference_fused` in f32 on the same
               codes and scales, row by row relative to each row's output,
@@ -196,6 +207,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
               not. Then, with the engine stopped, four free pages of its
               int8 pool through pool_to_pages, host memory and
               pages_to_pool: codes and scales must come back bit-identical
+  12a. tools  (int8) on the same deployment, its engine stopped:
+              scripts/ttft_breakdown's stage table of every request the
+              phase served (each row whole, no stage negative, its total
+              within TTFT_AGREE_MS of the TTFT hist_ttft observed, the
+              histogram's count and sum those of the rows, each first
+              token's wait on the host after its block landed within
+              its stage); with the pool freed,
+              scripts/decompose_decode at B = 128, int8 KV: full,
+              stub_attn, stub_quant and both, interleaved over
+              DECOMPOSE_ROUNDS rounds of one K = 8 block each, plus one
+              profiled block each (the full block's tokens equal after
+              the stubs' context manager as before it, the bindings the
+              same objects; K4 and K6 launch, K4's device time shows);
+              scripts/profile_card's dispatch
+              overhead and bandwidth rows (bf16 torch.matmul against K6
+              at [16, 4096] x [4096, 14336], and K6 over 8 layers)
+  12b. tutorial_02  the port's tutorial 02 in a subprocess on the card
+              (a bf16 model of Llama-3.2-1B geometry): it must exit 0 and
+              its printed metrics show K1 and K2 launches above 0 on its
+              served requests (the counts zeroed after warmup); its
+              speculative against greedy tokens are printed (bf16
+              near-ties may part them)
   11b. spec_bf16  (before the bf16 engine goes) a tree engine (k = 3,
               M = 4, batch 8) over the same bf16 weights: 8 concurrent
               32-token completions, one sampled, so dispatches fall back
@@ -322,7 +355,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               K1's and K2's their prefix launches, every kernel its
               launches on the checkpoint phase's loaded models, and K1,
               K2, K4 and K6 their launches in each tensor-parallel rank
-              (tp_launches)
+              (tp_launches), and every kernel its launches by the
+              attribution tools and tutorial 02 (tools_launches)
   16. the card's name and power limit, then the last line
               {"ok": true, "device": {...}}
 
@@ -358,9 +392,7 @@ import urllib.error
 import urllib.request
 import zlib
 
-# H100 SXM peaks (NVIDIA data sheet) for the roofline bound.
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
+
 # bf16 parity tolerance for unit-scale inputs: the kernels round their
 # output to bf16 (half an ulp is 2^-9 ~ 2e-3 at |x| < 1) and K1 also
 # rounds the softmax probabilities to bf16 before the P.V product; 2e-2
@@ -445,6 +477,26 @@ def n_sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
+def _shared():
+    """The port's attribution-tools package, the one owner of the
+    roofline peaks and bound rule, the kernels' CUDA function names and
+    the profiler's device rows. Imported when first needed, not with
+    this file, so `--time-kernels DIR` loads DIR's package (a tree from
+    the tools' first slice on)."""
+    from generativeaiexamples_tpu_torch import scripts
+    return scripts
+
+
+def bound(n_bytes: float, flops: float):
+    """(least ms, "bytes" or "operations"): scripts.bound_ms."""
+    return _shared().bound_ms(n_bytes, flops)
+
+
+def _kernel_fn(name: str) -> str:
+    """A port kernel's CUDA function name, as a profile shows it."""
+    return _shared().KERNEL_FUNCTIONS[name]
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -517,12 +569,6 @@ def device_ms(fn, kernel_function: str = "", iters: int = 10) -> float:
             us += getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0.0))
     return us / 1e3 / iters
-
-
-def bound(n_bytes: float, flops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # -- phase 3: K1 ------------------------------------------------------------
@@ -765,7 +811,7 @@ def paged_case(name, B, H, KH, Hd, ps, maxp, lengths, seed=0, timed=False,
 
         rec["ms"] = time_ms(alternating)
         rec["device_ms"] = device_ms(alternating,
-                                     KERNEL_FUNCTIONS["paged_attention"])
+                                     _kernel_fn("paged_attention"))
         rec["host_ms"] = host_ms(alternating)
         rec["host_profile"] = host_profile(alternating)
         rec["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(
@@ -918,8 +964,8 @@ def encoder_case(name, B, H, S, lengths, seed=0, fused=False, timed=False,
             ea.encoder_attention(q, k, v, ln)
 
         rec["ms"] = time_ms(kernel)
-        rec["device_ms"] = device_ms(kernel, KERNEL_FUNCTIONS[
-            "encoder_attention"])
+        rec["device_ms"] = device_ms(kernel, _kernel_fn(
+            "encoder_attention"))
         rec["plain_ms"] = time_ms(
             lambda: ea.encoder_attention_reference(q, k, v, ln), iters=5)
         mask = (torch.arange(S, device=q.device)[None, :]
@@ -1121,8 +1167,8 @@ def paged_int8_case(name, B, H, KH, Hd, ps, maxp, lengths, L=2, layer=1,
             kernel(turn[0])
 
         rec["ms"] = time_ms(alternating)
-        rec["device_ms"] = device_ms(alternating, KERNEL_FUNCTIONS[
-            "paged_attention_int8"])
+        rec["device_ms"] = device_ms(alternating, _kernel_fn(
+            "paged_attention_int8"))
         rec["plain_ms"] = time_ms(lambda: plain(q), iters=3, warmup=1)
         # No single torch call takes a page table and int8 pages; SDPA
         # over K/V gathered and dequantized beforehand (neither timed) is
@@ -1348,7 +1394,7 @@ def tree_case(name, B, H, KH, Hd, ps, maxp, lengths, tree, seed=0,
 
         rec["ms"] = time_ms(alternating)
         rec["device_ms"] = device_ms(alternating,
-                                     KERNEL_FUNCTIONS["paged_attention_tree"])
+                                     _kernel_fn("paged_attention_tree"))
         rec["host_ms"] = host_ms(alternating)
         rec["plain_ms"] = time_ms(lambda: pa.paged_tree_attention_reference(
             q, kp, vp, table, ln.clamp(min=1), anc), iters=3, warmup=1)
@@ -1742,14 +1788,6 @@ def _complete(base, prompt, max_tokens, **sampling):
 
 # Device function names of the port's kernels, for the profile windows.
 # K2 and K5 share one body (csrc/paged_bf16.cuh) under two kernel names.
-KERNEL_FUNCTIONS = {"flash_attention": "flash_fwd_kernel",
-                    "paged_attention": "paged_decode_kernel",
-                    "encoder_attention": "encoder_attention_kernel",
-                    "paged_attention_int8": "paged_int8_kernel",
-                    "paged_attention_tree": "paged_tree_kernel",
-                    "int8_matmul": "int8_matmul_kernel"}
-
-
 def _profile_window(run, check_key_averages: bool = False):
     """Where served time goes: torch.profiler around `run()` (which
     returns the completion tokens it produced), after the main path's
@@ -1757,7 +1795,7 @@ def _profile_window(run, check_key_averages: bool = False):
     activity's self time (one stream, so activities do not overlap); the
     idle share is the rest of the window's wall time. `port_kernels_ms`
     sums the device time of each port kernel's instantiations. The rows
-    come from the raw kineto events (`_device_rows`);
+    come from the raw kineto events (`scripts.device_rows`);
     `check_key_averages` also builds `key_averages()` (~20 s for the
     serving window, ~40 s for a 128-stream burst) and records whether
     its device-time rows are the same."""
@@ -1771,7 +1809,8 @@ def _profile_window(run, check_key_averages: bool = False):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time_mark("profile_window_run")
-    rows = _device_rows(prof)
+    shared = _shared()
+    rows = shared.device_rows(prof)
     time_mark("profile_window_processed")
     check = None
     if check_key_averages:
@@ -1790,31 +1829,14 @@ def _profile_window(run, check_key_averages: bool = False):
             "device_activities": sum(n for _, n, _ in rows),
             "port_kernels_ms": {
                 name: sum(ms for ms, _, k in rows if fn in k)
-                for name, fn in KERNEL_FUNCTIONS.items()},
+                for name, fn in shared.KERNEL_FUNCTIONS.items()},
             "port_kernel_instances": {
                 name: [{"name": k[:120], "ms": ms, "count": n}
                        for ms, n, k in rows if fn in k]
-                for name, fn in KERNEL_FUNCTIONS.items()},
+                for name, fn in shared.KERNEL_FUNCTIONS.items()},
             "top": [{"name": k[:90], "ms": ms, "count": n}
                     for ms, n, k in rows[:10]],
             **({"key_averages_check": check} if check else {})}
-
-
-def _device_rows(prof) -> list:
-    """(ms, count, name) of each device activity name in a finished
-    profile, summed from the raw kineto events, largest first. The same
-    rows as the device-time rows of `key_averages()` (whose FunctionEvent
-    tree costs ~60 us an event, minutes for a serving window's ~500k)."""
-    from torch.autograd import DeviceType
-
-    agg = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CPU:
-            continue
-        ms, n = agg.get(e.name(), (0.0, 0))
-        agg[e.name()] = (ms + (e.end_ns() - e.start_ns()) / 1e6, n + 1)
-    return sorted(((ms, n, k) for k, (ms, n) in agg.items() if ms > 0),
-                  reverse=True)
 
 
 def _key_average_rows(prof) -> list:
@@ -4854,6 +4876,255 @@ def phase_serving_int8(card: str, model_size: str = "8b",
                      and n_pool == plan.pool_pages)
     emit(rec)
     return rec, served
+
+
+# -- the attribution tools (generativeaiexamples_tpu_torch/scripts/) --------
+
+# A request's first-token stage (stage_rows: submit to the first-token
+# event) against the TTFT its engine's histogram observed: the engine
+# reads one clock, per slot at its emission, for both.
+TTFT_AGREE_MS = 1.0
+# decompose_decode's interleaved rounds at B = 128 (one K = 8 block of
+# each variant a round, after one untimed block each): eight paired
+# differences for the median and its range, ~15 s in all.
+DECOMPOSE_ROUNDS = 8
+DECOMPOSE_B = 128
+TUTORIAL_02 = os.path.join("generativeaiexamples_tpu_torch", "examples",
+                           "tutorials", "02_serving_engine.py")
+
+
+def _ttft_table(engine) -> dict:
+    """ttft_breakdown.stage_rows over every request the (stopped) engine
+    served: each row must hold every stage, none negative, its total
+    within TTFT_AGREE_MS of the TTFT the histogram observed for it (the
+    first-token event's value), and the histogram must hold exactly
+    these requests. Also reports how long each first token waited on the
+    host after its block landed (the event's `b`: the earlier slots'
+    emission), which must lie within the request's first-token stage."""
+    import statistics
+
+    from generativeaiexamples_tpu_torch.scripts import ttft_breakdown
+    from generativeaiexamples_tpu_torch.serving import flight
+
+    events = engine.flight.snapshot_events()
+    rids = [e["rid"] for e in events if e["kind"] == flight.EV_SUBMIT]
+    observed = {e["rid"]: e["a"] for e in events
+                if e["kind"] == flight.EV_FIRST_TOKEN}
+    after_landing = {e["rid"]: e["b"] for e in events
+                     if e["kind"] == flight.EV_FIRST_TOKEN}
+    rows = ttft_breakdown.stage_rows(engine.flight, rids)
+    stages = ttft_breakdown.STAGES
+    whole = all(all(s in r for s in stages) for r in rows)
+    monotone = all(r[s] >= 0 for r in rows for s in stages if s in r)
+    gaps = [abs(r["total"] - observed[rid]) for rid, r in zip(rids, rows)
+            if rid in observed]
+    hist = engine.metrics.hists["ttft_ms"].snapshot()
+    totals = [r["total"] for r in rows]
+    waits = sorted(after_landing[rid] for rid in rids
+                   if rid in after_landing)
+    waits_within = all(0.0 <= after_landing[rid] <= r["first_token"]
+                       for rid, r in zip(rids, rows) if rid in after_landing)
+    ok = (bool(rows) and whole and monotone and len(gaps) == len(rows)
+          and max(gaps) <= TTFT_AGREE_MS and hist["count"] == len(rows)
+          and abs(hist["sum"] - sum(totals)) <= TTFT_AGREE_MS * len(rows)
+          and waits_within)
+    return {"requests": len(rows),
+            "median": ttft_breakdown.median_row(rows),
+            "p95_total_ms": sorted(totals)[int(0.95 * (len(totals) - 1))]
+            if totals else None,
+            "max_total_ms": max(totals, default=None),
+            "worst_vs_hist_ms": max(gaps, default=None),
+            "hist_count": hist["count"], "hist_sum_ms": hist["sum"],
+            "rows_sum_ms": sum(totals),
+            "hist_p50_ms": hist["p50"], "rows_p50_ms": statistics.median(
+                totals) if totals else None,
+            "emitted_after_landing_ms": {
+                "p50": statistics.median(waits) if waits else None,
+                "max": max(waits, default=None)},
+            "whole": whole, "monotone": monotone,
+            "waits_within_stage": waits_within, "ok": ok}
+
+
+def phase_tools_int8(card: str, int8_served, device: str = "cuda",
+                     B: int = DECOMPOSE_B, n_rounds: int = DECOMPOSE_ROUNDS,
+                     mm_shape=None):
+    """The attribution tools on serving_int8's deployment, after its
+    engine stopped: ttft_breakdown's stage table of the phase's own
+    requests (_ttft_table); with the engine's pool released,
+    decompose_decode's four variants over its int8 weights at batch B,
+    int8 KV, interleaved over n_rounds, with the profiler's device times
+    (the full variant's tokens must be the same after the stubs' context
+    manager as before it, the bindings the same objects, and K4's device
+    time must show in the full block's profile); then
+    profile_card's dispatch and bandwidth rows (bf16 torch.matmul against
+    K6 at 8B decode widths). Returns (the record, the pool's page count,
+    for spec_int8)."""
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.scripts import (
+        decompose_decode, profile_card)
+
+    engine = int8_served.engine
+    t0 = time.perf_counter()
+    ttft = _ttft_table(engine)
+    t_ttft = time.perf_counter() - t0
+    n_pages = engine.pool.n_pages
+    engine.pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    setup = decompose_decode.decode_setup(engine.cfg, B, "int8", device)
+    kernels.reset_launches()
+    dec = decompose_decode.decompose(engine.params, engine.cfg, setup,
+                                     n_rounds)
+    dec_launches = dict(kernels.LAUNCHES)
+    t_dec = time.perf_counter() - t0
+    for line in decompose_decode.format_rows(dec):
+        print(line, flush=True)
+    del setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    bandwidth = profile_card.bandwidth_rows(
+        device, mm_shape or profile_card.MM_SHAPE)
+    bw_launches = dict(kernels.LAUNCHES)
+    dispatch = profile_card.dispatch_overhead(device)
+    t_prof = time.perf_counter() - t0
+    full_dev = dec["variants"]["full"]["device"]
+    dec_ok = (dec["full_tokens_equal_after_stubs"] and dec["bindings_restored"]
+              and dec_launches["paged_attention_int8"] > 0
+              and dec_launches["int8_matmul"] > 0
+              and full_dev is not None
+              and full_dev["paged_attention_int8_ms"] > 0)
+    rec = {"phase": "tools", "part": "int8", "card": card,
+           "ttft_breakdown": ttft,
+           "decompose_decode": {**dec, "launches": dec_launches,
+                                "ok": dec_ok},
+           "profile_card": {"bandwidth": bandwidth, "dispatch": dispatch,
+                            "launches": bw_launches},
+           "seconds": {"ttft": t_ttft, "decompose": t_dec,
+                       "profile": t_prof},
+           "ok": ttft["ok"] and dec_ok and bw_launches["int8_matmul"] > 0}
+    emit(rec)
+    return rec, n_pages
+
+
+def phase_tools_encoders(card: str, device: str = "cuda", B: int = 32,
+                         S: int = 512, cfg=None, n_docs=None):
+    """decompose_bert_forward's three variants, its profiler split of
+    the full forward's device time by kernel class, and one
+    decompose_encoders batch size at arctic-embed-l (bf16, random
+    weights from seed 0), B = 32, S = 512: the full forward launches K3,
+    the tool's fused_qkv loop (the same math in bf16) must agree with it
+    within BF16_ATOL relative to max |out|, every time must be
+    positive, and the split must hold K3's device time."""
+    import dataclasses
+
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.models import bert
+    from generativeaiexamples_tpu_torch.scripts import (
+        decompose_bert_forward, decompose_encoders)
+    from generativeaiexamples_tpu_torch.serving.encoders import (
+        EmbeddingEngine)
+    from generativeaiexamples_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    cfg = cfg or dataclasses.replace(bert.BertConfig.arctic_embed_l(),
+                                     dtype=torch.bfloat16)
+    params = bert.init_params(
+        cfg, device, torch.Generator(device=device).manual_seed(0))
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    fwd = decompose_bert_forward.decompose(params, cfg, B, S, device)
+    fwd_launches = dict(kernels.LAUNCHES)
+    rng = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=rng,
+                         device=device, dtype=torch.int32)
+    lens = torch.full((B,), S, dtype=torch.int32, device=device)
+    full, fused = (decompose_bert_forward.forward_variant(
+        params, cfg, toks, lens, m).float() for m in ("full", "fused_qkv"))
+    rel = float((full - fused).abs().max() / full.abs().max())
+    kernels.reset_launches()
+    split = decompose_bert_forward.device_split(params, cfg, B, S, device)
+    split_launches = dict(kernels.LAUNCHES)
+    t_fwd = time.perf_counter() - t0
+    print(decompose_bert_forward.format_row("arctic-embed-l", fwd),
+          flush=True)
+    t0 = time.perf_counter()
+    emb = EmbeddingEngine(params, cfg, ByteTokenizer(), max_batch=B,
+                          buckets=decompose_encoders.BUCKETS, device=device)
+    n = n_docs or decompose_encoders.N_DOCS
+    kernels.reset_launches()
+    enc = decompose_encoders.measure(
+        emb, decompose_encoders.mktexts(n, 500),
+        decompose_encoders.mktexts(n, 48, seed=1))
+    enc_launches = dict(kernels.LAUNCHES)
+    t_enc = time.perf_counter() - t0
+    print(decompose_encoders.format_row(enc), flush=True)
+    ok = (fwd_launches["encoder_attention"] > 0 and rel <= BF16_ATOL
+          and split_launches["encoder_attention"] > 0
+          and split["by_class_ms"]["K3"] > 0
+          and enc_launches["encoder_attention"] > 0
+          and all(r["ms"] > 0 for r in fwd["modes"].values())
+          and enc["batch_chain_ms"] > 0 and enc["docs_per_s"] > 0)
+    rec = {"phase": "tools", "part": "encoders", "card": card,
+           "decompose_bert_forward": {
+               **fwd, "launches": fwd_launches,
+               "fused_qkv_vs_full_rel_err": rel,
+               "device_split": {**split, "launches": split_launches}},
+           "decompose_encoders": {**enc, "launches": enc_launches},
+           "seconds": {"bert_forward": t_fwd, "encoders": t_enc}, "ok": ok}
+    emit(rec)
+    return rec
+
+
+def phase_tutorial(card: str, device_args=(), timeout_s: float = 300):
+    """The port's tutorial 02 (the serving engine) in a subprocess on the
+    card: it must exit 0, and its printed metrics must show K1 and K2
+    launches above 0 (its own process counts them, zeroed after the
+    engine's warmup, so only served requests count). Its speculative and
+    greedy token lines are compared and the first divergent position
+    printed (a finding: bf16 near-ties on random weights)."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, TUTORIAL_02, *device_args], capture_output=True,
+        text=True, cwd=ROOT_DIR, timeout=timeout_s)
+    secs = time.perf_counter() - t0
+    out = proc.stdout
+
+    def count(name):
+        m = re.search(rf"'kernel_launches_{name}': (\d+)", out)
+        return int(m.group(1)) if m else None
+
+    def tokens(prefix):
+        line = next((ln for ln in out.splitlines()
+                     if ln.startswith(prefix)), "")
+        return [int(t) for t in re.findall(r"-?\d+", line.split(":", 1)[-1])]
+
+    launches = {n: count(n) for n in ("flash_attention", "paged_attention",
+                                      "paged_attention_tree",
+                                      "paged_attention_int8", "int8_matmul",
+                                      "encoder_attention")}
+    spec, greedy = tokens("speculative tokens:"), tokens("greedy tokens:")
+    chunked = tokens("long-prompt continuation:")
+    rec = {"phase": "tools", "part": "tutorial_02", "card": card,
+           "returncode": proc.returncode, "seconds": secs,
+           "launches": launches, "speculative": spec, "greedy": greedy,
+           "speculative_equals_greedy": spec == greedy,
+           "first_divergence": _first_divergence(spec, greedy),
+           "chunked_tokens": len(chunked),
+           "stderr_tail": proc.stderr[-1500:] if proc.returncode else "",
+           "ok": (proc.returncode == 0
+                  and (launches["flash_attention"] or 0) > 0
+                  and (launches["paged_attention"] or 0) > 0
+                  and len(chunked) == 4 and len(greedy) == 12)}
+    emit(rec)
+    return rec
 
 
 # -- phase 13: greedy self-speculation at 8B ------------------------------
@@ -9278,8 +9549,8 @@ def time_kernels() -> dict:
             pa.paged_attention(q, kp[turn[0]], vp[turn[0]], table, ln)
 
         ms[f"k2_{name}"] = time_ms(k2)
-        ms[f"k2_{name}_device"] = device_ms(k2, KERNEL_FUNCTIONS[
-            "paged_attention"])
+        ms[f"k2_{name}_device"] = device_ms(k2, _kernel_fn(
+            "paged_attention"))
         ms[f"k2_{name}_host"] = host_ms(k2)
         if name == "8b_short":  # host-bound: where a call's time goes
             ms[f"k2_{name}_host_profile"] = host_profile(k2)
@@ -9296,8 +9567,8 @@ def time_kernels() -> dict:
                                     tree)
 
         ms[f"k5_{name}"] = time_ms(k5)
-        ms[f"k5_{name}_device"] = device_ms(k5, KERNEL_FUNCTIONS[
-            "paged_attention_tree"])
+        ms[f"k5_{name}_device"] = device_ms(k5, _kernel_fn(
+            "paged_attention_tree"))
         ms[f"k5_{name}_host"] = host_ms(k5)
         del kp, vp
         torch.cuda.empty_cache()
@@ -9308,8 +9579,8 @@ def time_kernels() -> dict:
             ea.encoder_attention(q, k, v, ln)
 
         ms[f"k3_{name}"] = time_ms(k3)
-        ms[f"k3_{name}_device"] = device_ms(k3, KERNEL_FUNCTIONS[
-            "encoder_attention"])
+        ms[f"k3_{name}_device"] = device_ms(k3, _kernel_fn(
+            "encoder_attention"))
     for name, B, maxp, lengths, seed, R, tree in _paged_int8_timed_cases():
         q, kv, sc, table, ln, _ = _paged_int8_inputs(
             B, 32, 8, 128, 128, maxp, lengths, 2, 1, seed, False, R)
@@ -9321,8 +9592,8 @@ def time_kernels() -> dict:
                                      tree=tree)
 
         ms[f"k4_{name}"] = time_ms(alternating)
-        ms[f"k4_{name}_device"] = device_ms(alternating, KERNEL_FUNCTIONS[
-            "paged_attention_int8"])
+        ms[f"k4_{name}_device"] = device_ms(alternating, _kernel_fn(
+            "paged_attention_int8"))
         del kv, sc
         torch.cuda.empty_cache()
     for wname, (K, M) in K6_SHAPES.items():
@@ -9408,8 +9679,8 @@ def kernel_variants() -> list:
                                       n_sms())._asdict(),
                          "shipped_plan": not override,
                          "max_row_rel_err": rel, "ms": time_ms(kernel),
-                         "device_ms": device_ms(kernel, KERNEL_FUNCTIONS[
-                             "paged_attention_int8"])})
+                         "device_ms": device_ms(kernel, _kernel_fn(
+                             "paged_attention_int8"))})
         finally:
             pa8.paged_int8_plan = shipped
         del kv, sc
@@ -9519,8 +9790,8 @@ def bf16_variants() -> list:
                                       n_sms())._asdict(),
                          "shipped_plan": not override, **err,
                          "ms": time_ms(kernel),
-                         "device_ms": device_ms(kernel, KERNEL_FUNCTIONS[
-                             kernel_name]),
+                         "device_ms": device_ms(kernel,
+                                                _kernel_fn(kernel_name)),
                          "host_ms": host_ms(kernel)})
         finally:
             pa.paged_bf16_plan = shipped
@@ -9600,6 +9871,9 @@ def main() -> int:
     flash = phase_flash()
     paged = phase_paged()
     encoder = phase_encoder()
+    t_tools = time.perf_counter()
+    tools_enc = phase_tools_encoders(card)
+    t_tools = time.perf_counter() - t_tools
     paged_int8 = phase_paged_int8()
     tree = phase_tree()
     int8_mm = phase_int8_matmul()
@@ -9608,7 +9882,8 @@ def main() -> int:
     rag_keep = {}
     # Seconds per phase since the build began (the build, the kernel
     # phases, phase_model and the served engine's set-up come first).
-    phase_s = {"build_to_served": time.perf_counter() - t0}
+    phase_s = {"build_to_served": time.perf_counter() - t0,
+               "tools_encoders": t_tools}
 
     def timed(name, fn, *args, **kw):
         t = time.perf_counter()
@@ -9650,7 +9925,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_int8, int8_served = timed("serving_int8", phase_serving_int8,
                                       card)
-    spec_int8 = timed("spec_int8", phase_spec_int8, card, int8_served)
+    tools_int8, int8_pages = timed("tools_int8", phase_tools_int8, card,
+                                   int8_served)
+    tutorial = timed("tutorial_02", phase_tutorial, card)
+    spec_int8 = timed("spec_int8", phase_spec_int8, card, int8_served,
+                      n_pages=int8_pages)
     int8_engine = int8_served.engine
     fused_int8 = timed("fused_prefill_int8", phase_fused_prefill_int8,
                        card, int8_engine.params, int8_engine.cfg,
@@ -9800,6 +10079,23 @@ def main() -> int:
             # The pipelines phase: multi_turn_rag, api_catalog,
             # multimodal, query_decomposition and knowledge_graph.
             e["pipelines_launches"] = pipelines["launches"][e["name"]]
+    # The attribution tools' launches (outside every counted window of
+    # the main path): decompose_decode and profile_card on the int8
+    # deployment, the BERT tools at arctic-embed-l, tutorial 02's own
+    # process.
+    tool_launches = {
+        "decompose_decode": tools_int8["decompose_decode"]["launches"],
+        "profile_card": tools_int8["profile_card"]["launches"],
+        "decompose_bert_forward": tools_enc["decompose_bert_forward"][
+            "launches"],
+        "decompose_encoders": tools_enc["decompose_encoders"]["launches"],
+        "tutorial_02": tutorial["launches"]}
+    for e in line:
+        launched = {tool: counts[e["name"]]
+                    for tool, counts in tool_launches.items()
+                    if counts.get(e["name"])}
+        if launched:
+            e["tools_launches"] = launched
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and flight["ok"]
@@ -9812,7 +10108,8 @@ def main() -> int:
           and prefix["ok"] and fleet["ok"]
           and all(r["ok"] for r in spec_int8)
           and checkpoint["ok"] and checkpoint["tp"]["ok"]
-          and train_ranks["ok"])
+          and train_ranks["ok"] and tools_enc["ok"] and tools_int8["ok"]
+          and tutorial["ok"])
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

@@ -61,7 +61,8 @@ EV_QOS_PICK = 2        # weighted-fair scheduler picked it (engine.qos)
 EV_ADMIT = 3           # slot reserved; a = queue wait ms, slot set
 EV_PREFILL_DISPATCH = 4  # bucketed prefill group dispatched; a = prompt len
 EV_PREFILL_CHUNK = 5   # one chunk fed (a = tokens; b = 1 on a fused rider)
-EV_FIRST_TOKEN = 6     # first token emitted; a = ttft ms
+EV_FIRST_TOKEN = 6     # first token emitted; a = ttft ms, b = ms after
+#                        its block landed on the host
 EV_RETIRE = 7          # slot retired; code = reason, a = tokens, b = e2e ms
 EV_ADMIT_RETRY = 8     # admission failed on page exhaustion (requeued)
 EV_QOS_PAUSE = 9       # long prefill paused for a latency-tier TTFT phase

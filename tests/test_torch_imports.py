@@ -24,9 +24,12 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "generativeaiexamples_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py"))
+# The hello world and the tutorials are scripts (jupytext percent files
+# run at import, argv parsed there): scanned below, never imported.
+EXAMPLES = sorted((PORT / "examples").rglob("*.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
-        ".__init__") for p in PORT_FILES)
+        ".__init__") for p in PORT_FILES if p not in EXAMPLES)
 
 
 def _imports(path: Path):
@@ -57,7 +60,8 @@ def test_every_port_module_imports_with_jax_blocked():
         "'phase_fleet', 'phase_pacer', 'phase_ann', 'phase_tp', "
         "'paged_int8_sdpa_gathered_ms', 'phase_ingest', 'phase_eval', "
         "'phase_ui', 'phase_train', 'phase_streaming', "
-        "'phase_train_ranks', '_train_rank_leg', 'main'):",
+        "'phase_train_ranks', '_train_rank_leg', 'phase_tools_int8', "
+        "'phase_tools_encoders', 'phase_tutorial', 'main'):",
         "    getattr(chip_smoke, name)",
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
         " if v is not None}",
@@ -143,6 +147,20 @@ def test_streaming_entry_points_raise_without_cuda_or_explicit_device(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert dsp.FMReceiver(250_000, device="cpu").taps.device.type == "cpu"
+
+
+def test_scripts_and_examples_are_covered():
+    """The attribution tools are among the modules imported with jax and
+    the JAX package blocked; the hello world and the seven tutorials
+    among the files scanned (not imported) below."""
+    for name in ("ttft_breakdown", "decompose_decode",
+                 "decompose_bert_forward", "decompose_encoders",
+                 "profile_card"):
+        assert f"generativeaiexamples_tpu_torch.scripts.{name}" in MODULES
+    names = [p.name for p in EXAMPLES]
+    assert "5_mins_rag.py" in names and len(names) == 8
+    assert set(EXAMPLES) <= set(PORT_FILES)
+    assert not any(".examples" in m for m in MODULES)
 
 
 def test_ann_modules_are_covered():
