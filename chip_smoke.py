@@ -234,6 +234,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
               32-token completions, one sampled, so dispatches fall back
               to plain decode while it is live; K5 must launch, K2 only
               through the fallback
+  11g. graphs  (after spec_bf16; its int8 legs after fused_prefill_int8)
+              the warmed engine: each of three deployments at 8B width,
+              the default bf16 engine at batch 8, the int8 deployment at
+              batch 128 and its speculative tree form (k = 3, M = 4),
+              served twice over the same weights by two engines warmed
+              alike at K in GRAPH_KS: one replays its decode lattice as
+              CUDA graphs (serving/step_graphs.py), the other has its
+              graphs dropped after warmup (every block eager), each fed
+              the same greedy requests submitted before it starts (bf16
+              8 x 257 tokens, int8 128 x 129, tree 128 x 65). The
+              streams must be byte-identical and
+              K2's, K4's, K5's and K6's launches equal (a replay counts
+              what its graph captured); each prints its graphs, their
+              capture seconds and pool bytes, tokens/s, TTFT p50 and the
+              flight recorder's device-busy share. The bf16 leg warms the
+              sampled variants too and replays the sampled K = 1 graph
+              16 times: every draw inside the top-k / top-p mask of the
+              same step's eager logits, not all one token
   11c. prefix  (before the bf16 engine goes) an engine with the prefix
               cache and the KV pager (batch 8, page 128, 257 pool pages,
               a quarter of them cacheable, 512 MB of host tier) over the
@@ -375,11 +393,17 @@ and prints the four times per case.
 times K4, K2 and K5 under other launch plans (key slices, stage size,
 pages per split) beside the shipped plan, each checked against its plain
 version, in one process.
+
+    python3 chip_smoke.py --graphs
+
+runs the graphs phase (11g) alone, over the same random weights, and
+exits non-zero unless every deployment's leg passed.
 """
 
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -1618,10 +1642,10 @@ def _paged_steps(params, cfg, pool, toks, prompt_len, n_decode, dev,
     length = torch.tensor([L], dtype=torch.int32, device=dev)
     lin = engine_model._decode_verify_once(
         params, cfg, pool, toks[:, L - 1:L + VERIFY_K].to(dev), table, length)
-    depth, anc = engine_model._tree_layout(k, m)
+    anc = engine_model._tree_layout(k, m)[1]
     tree = engine_model._tree_verify_once(
         params, cfg, pool, toks[:, L - 1:L + k * m].to(dev), table, length,
-        depth, anc, k, m)
+        engine_model._tree_depths(k, m, dev), anc, k, m)
     return out, lin[0].float().cpu(), tree[0].float().cpu()
 
 
@@ -2295,7 +2319,7 @@ def phase_chunked(served: ServedEngine, prompt_len: int = 6000):
     t0 = time.perf_counter()
     for pos in range(0, prompt_len, chunk):
         part = prompt[pos:pos + chunk]
-        width = engine._pick_chunk_width(len(part), chunk)
+        width = engine._pick_chunk_width(len(part), chunk, s_total)
         tok = torch.zeros((1, width), dtype=torch.int32)
         tok[0, :len(part)] = torch.tensor(part)
         chunked, cache = engine_model.prefill_chunk_step(
@@ -2334,25 +2358,26 @@ def _k_cap_run(served, prompt, shorts, chunks_per_block: int,
     lane while they decode, with engine.prefill_chunks_per_block set to
     `chunks_per_block` for the run. Returns each plain decode block's K
     with whether a chunked prefill was in progress at its dispatch (a spy
-    on engine_model.decode_multi_step, removed after) and the streams'
-    tokens (shorts, then prompt)."""
+    on engine_model.plan_step, which sees every block, replayed as a
+    CUDA graph or not; removed after) and the streams' tokens (shorts,
+    then prompt)."""
     import dataclasses
 
     from generativeaiexamples_tpu_torch.serving import engine_model
 
     engine, streams = served.engine, served.app.streams
-    real = engine_model.decode_multi_step
+    real = engine_model.plan_step
     log = []
 
-    def spy(*args, **kw):
-        n_steps = args[11] if len(args) > 11 else kw["n_steps"]
-        log.append((n_steps, bool(engine._long_prefills)))
-        return real(*args, **kw)
+    def spy(params, cfg, plan, **kw):
+        if plan.decode_k and not plan.spec_k:
+            log.append((plan.decode_k, bool(engine._long_prefills)))
+        return real(params, cfg, plan, **kw)
 
     saved = engine.ecfg
     engine.ecfg = dataclasses.replace(
         saved, prefill_chunks_per_block=chunks_per_block)
-    engine_model.decode_multi_step = spy
+    engine_model.plan_step = spy
     threads = []
     try:
         for p in shorts:
@@ -2369,7 +2394,7 @@ def _k_cap_run(served, prompt, shorts, chunks_per_block: int,
         for t in threads:
             t.join(timeout=600)
     finally:
-        engine_model.decode_multi_step = real
+        engine_model.plan_step = real
         engine.ecfg = saved
     live = [k for k, lv in log if lv]
     return {"chunks_per_block": chunks_per_block,
@@ -4870,6 +4895,15 @@ def phase_serving_int8(card: str, model_size: str = "8b",
            "long_prompt": {"tokens": long_prompt, **long_rec},
            "launches": launches, "peak_mem_gb": peak_gb,
            "page_round_trip": round_trip, "profile": profile, "ok": ok}
+    graphs = engine._graphs.stats() if engine._graphs is not None else None
+    rec["graphs"] = graphs
+    if planner is not None and graphs is not None:
+        # The warmed engine's CUDA graphs reserve their pool on top of the
+        # plan, out of its headroom.
+        planner["graph_pool_bytes"] = graphs["pool_bytes"]
+        planner["graph_pool_over_headroom"] = (
+            graphs["pool_bytes"] / plan.headroom_bytes
+            if plan.headroom_bytes else None)
     if planner is not None:
         rec["ok"] = (ok and planner["weights_line_equals_tree"]
                      and planner["pool_line_equals_tensors"]
@@ -4885,9 +4919,9 @@ def phase_serving_int8(card: str, model_size: str = "8b",
 # reads one clock, per slot at its emission, for both.
 TTFT_AGREE_MS = 1.0
 # decompose_decode's interleaved rounds at B = 128 (one K = 8 block of
-# each variant a round, after one untimed block each): eight paired
-# differences for the median and its range, ~15 s in all.
-DECOMPOSE_ROUNDS = 8
+# each variant a round, after one untimed block each): two paired
+# differences for the median and their range.
+DECOMPOSE_ROUNDS = 2
 DECOMPOSE_B = 128
 TUTORIAL_02 = os.path.join("generativeaiexamples_tpu_torch", "examples",
                            "tutorials", "02_serving_engine.py")
@@ -5354,6 +5388,284 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
 
 
 # -- phase 11c: the prefix cache and the KV pager at 8B --------------------
+
+# -- the warmed engine: decode blocks replayed as CUDA graphs ---------------
+
+# Both engines of a leg are warmed alike (the same lattice, so the same
+# dispatch limits) and serve the same greedy requests, all submitted
+# before the engine starts, so each admits them in the same prefill
+# groups; max_tokens - 1 is a multiple of 8, and both warm every power
+# of two up to K = 8, so both pick the same block lengths and the
+# kernels' launches a token must be equal. Only the replay differs: the
+# eager engine's graphs are dropped after its warmup.
+GRAPH_KS = (1, 2, 4, 8)
+GRAPH_SPEC_TREE = {"speculative_k": 3, "speculative_tree_branches": 4}
+GRAPH_PROMPT_CHARS = (20, 100)
+
+
+def _graph_prompts(tokenizer, n: int):
+    """n prompts of 20-100 random letters (seed 5), as token ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return [tokenizer.encode("".join(chr(c) for c in rng.integers(97, 123, m)),
+                             add_bos=True)
+            for m in rng.integers(*GRAPH_PROMPT_CHARS, n)]
+
+
+def _request_ids(req, timeout_s: float = 600) -> list:
+    out = []
+    while True:
+        ev = req.stream.get(timeout=timeout_s)
+        if ev["token_id"] >= 0:
+            out.append(int(ev["token_id"]))
+        if ev.get("finished"):
+            return out
+
+
+def _sampled_replay_check(engine, n_draws: int = 16) -> dict:
+    """Replays of the warmed engine's sampled K = 1 graph, row 0 active
+    (one token on page 1 of the fresh engine, temperature 1.0, top-k 40,
+    top-p 0.9): every draw must lie inside the top-k / top-p mask of the
+    same step's logits computed eagerly (the draws come from the engine's
+    generator, registered with the graph), and the draws must not repeat
+    one value (each replay draws fresh numbers)."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving import engine_model
+    from generativeaiexamples_tpu_torch.serving.sampling import (
+        _mask_top_k, _mask_top_p)
+    from generativeaiexamples_tpu_torch.serving.step_graphs import SAMPLED
+
+    g = engine._graphs
+    B, maxp = engine.ecfg.max_batch_size, engine.max_pages
+    arrays = {"tables": np.zeros((B, maxp), np.int32),
+              "lengths": np.ones(B, np.int32),
+              "temps": np.zeros(B, np.float32),
+              "top_ps": np.ones(B, np.float32),
+              "top_ks": np.zeros(B, np.int32),
+              "active_mask": np.zeros(B, bool)}
+    arrays["tables"][0, 0] = 1
+    arrays["temps"][0], arrays["top_ps"][0], arrays["top_ks"][0] = 1.0, 0.9, 40
+    arrays["active_mask"][0] = True
+    tok = 65
+    dev = engine.device
+    with torch.no_grad():
+        toks = torch.full((B,), tok, dtype=torch.int32, device=dev)
+        logits = engine_model._decode_once(
+            engine.params, engine.cfg, engine.pool, toks,
+            torch.from_numpy(arrays["tables"]).to(dev),
+            torch.from_numpy(arrays["lengths"]).to(dev))[:1].float()
+        masked = _mask_top_p(_mask_top_k(
+            logits, torch.tensor([40], device=dev)),
+            torch.tensor([0.9], device=dev))
+        allowed = torch.isfinite(masked)[0]
+    draws = []
+    plan = engine_model.StepPlan(decode_k=1)
+    for _ in range(n_draws):
+        engine._last_tokens[0] = tok
+        res = g.replay(plan, pool=engine.pool, last_tokens=engine._last_tokens,
+                       arrays=arrays, sampling_flags=SAMPLED)
+        draws.append(int(res["block"][0, 1]))
+    engine._last_tokens[0] = 0
+    inside = all(bool(allowed[d]) for d in draws)
+    return {"draws": draws, "mask_size": int(allowed.sum()),
+            "inside_mask": inside, "distinct": len(set(draws)),
+            "ok": inside and len(set(draws)) > 1}
+
+
+def _graph_leg(card: str, name: str, params, cfg, tokenizer, ecfg: dict,
+               n_pages: int, n_requests: int, max_tokens: int,
+               warm_kw: dict, device: str = "cuda",
+               sampled_check: bool = False) -> dict:
+    """One deployment served twice over the same weights, by two engines
+    warmed alike (`warm_kw`), one after the other, each fed the same
+    greedy requests: the first replays its decode lattice as CUDA graphs,
+    the second has its graphs dropped after warmup, so every block runs
+    eagerly under the same dispatch limits. Streams must be
+    byte-identical and the decode kernels' launches a token equal; each
+    stream runs to max_tokens or ends at EOS."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving import engine_model
+    from generativeaiexamples_tpu_torch.serving.engine import (
+        GenRequest, LLMEngine)
+    from generativeaiexamples_tpu_torch.serving.openai_server import (
+        OpenAIServer)
+
+    prompts = _graph_prompts(tokenizer, n_requests)
+    real = engine_model.plan_step
+    host_us = []
+
+    def timed_plan(params, cfg, plan, **kw):
+        # Host time of each decode block's plan_step call: the replay
+        # (input copy, graph launch) or the eager launches.
+        t = time.perf_counter()
+        out = real(params, cfg, plan, **kw)
+        if plan.decode_k:
+            host_us.append((time.perf_counter() - t) * 1e6)
+        return out
+
+    runs = {}
+    for mode in ("graphs", "eager"):
+        engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
+                           device=device)
+        try:
+            t0 = time.perf_counter()
+            engine.warmup(**warm_kw)
+            warm_s = time.perf_counter() - t0
+            if mode == "eager":
+                # Warmed alike, and every block through the eager path.
+                engine._graphs = None
+            time_mark(f"graphs_{name}_{mode}_warm")
+            stats = (engine._graphs.stats() if engine._graphs is not None
+                     else None)
+            sampled = (_sampled_replay_check(engine)
+                       if mode == "graphs" and sampled_check else None)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            host_us.clear()
+            reqs = [engine.submit(GenRequest(prompt_ids=list(ids),
+                                             max_new_tokens=max_tokens))
+                    for ids in prompts]
+            engine_model.plan_step = timed_plan
+            try:
+                t1 = time.perf_counter()
+                engine.start()
+                streams = [_request_ids(r) for r in reqs]
+                wall = time.perf_counter() - t1
+            finally:
+                engine_model.plan_step = real
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            metrics = engine.metrics.snapshot()
+            flight = _flight_report(OpenAIServer(engine).timeline()[1],
+                                    f"graphs_{name}_{mode}")
+        finally:
+            engine.stop()
+            engine.pool = None
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        tokens = sum(len(s) for s in streams)
+        runs[mode] = {
+            "warmup_s": warm_s, "graphs": stats, "sampled_replay": sampled,
+            "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall if wall else None,
+            "ttft_p50_ms": metrics["ttft_p50_ms"],
+            "plan_variants_compiled": metrics["plan_variants_compiled"],
+            "decode_steps": metrics["decode_steps"],
+            "blocks": len(host_us),
+            "block_host_us_p50": (float(np.median(host_us)) if host_us
+                                  else None),
+            "block_host_us_max": max(host_us) if host_us else None,
+            "launches": launches,
+            "launches_per_token": {k: n / tokens for k, n in launches.items()
+                                   if n} if tokens else {},
+            "device_busy_pct": flight.get("device_busy_pct"),
+            "idle_share": (1.0 - flight["device_busy_pct"] / 100.0
+                           if "device_busy_pct" in flight else None),
+            "flight_ok": flight["ok"], "streams": streams}
+        time_mark(f"graphs_{name}_{mode}")
+    g, e = runs["graphs"], runs["eager"]
+    decode_kernels = ("paged_attention", "paged_attention_int8",
+                      "paged_attention_tree", "int8_matmul")
+    equal_streams = g["streams"] == e["streams"]
+    first = None
+    if not equal_streams:
+        first = next(({"request": i, "token": _first_divergence(a, b)}
+                      for i, (a, b) in enumerate(zip(g["streams"],
+                                                     e["streams"]))
+                      if a != b), None)
+    same_launches = all(g["launches"][k] == e["launches"][k]
+                        for k in decode_kernels)
+    eos = {tokenizer.eos_id} | set(getattr(tokenizer, "eos_ids", None) or ())
+    whole = all(len(s) == max_tokens or (s and s[-1] in eos)
+                for s in g["streams"])
+    for run in runs.values():
+        # The streams, printed as a digest and the first request's ids.
+        streams = run.pop("streams")
+        run["streams_sha256"] = hashlib.sha256(
+            json.dumps(streams).encode()).hexdigest()
+        run["first_stream"] = streams[0]
+    ok = (equal_streams and same_launches and whole
+          and g["graphs"] is not None and g["graphs"]["graphs"] > 0
+          and g["graphs"]["pool_bytes"] > 0 and e["graphs"] is None
+          and g["flight_ok"] and e["flight_ok"]
+          and any(g["launches"][k] for k in decode_kernels)
+          and (g["sampled_replay"] is None or g["sampled_replay"]["ok"]))
+    rec = {"phase": "graphs", "deployment": name, "card": card,
+           "engine": ecfg, "layers": cfg.n_layers, "requests": n_requests,
+           "max_tokens": max_tokens, "warmup": warm_kw,
+           "reduced": {"n_pages": n_pages},
+           "streams_equal": equal_streams, "first_divergence": first,
+           "decode_launches_equal": same_launches, "runs": runs, "ok": ok}
+    emit(rec)
+    return rec
+
+
+def phase_graphs_bf16(card: str, bf16_served, device: str = "cuda",
+                      n_requests: int = 8, max_tokens: int = 257,
+                      n_pages: int = 97) -> dict:
+    """The default bf16 engine at B = 8 over the served engine's weights,
+    warmed with the sampled variants too (as serving/__main__.py warms)
+    and one sampled replay checked against its mask."""
+    eng = bf16_served.engine
+    return _graph_leg(card, "bf16_b8", eng.params, eng.cfg, eng.tokenizer,
+                      {}, n_pages, n_requests, max_tokens,
+                      {"buckets": [128], "ks": GRAPH_KS, "sampled": True},
+                      device, sampled_check=True)
+
+
+def phase_graphs_int8(card: str, params, cfg, tokenizer,
+                      device: str = "cuda", n_requests: int = 128,
+                      max_tokens: int = 129, tree_tokens: int = 65,
+                      n_pages: int = 577, engine_cfg=None) -> list:
+    """The int8 deployment (docs/deployment.md:62) at B = 128, then its
+    speculative tree form (k = 3, M = 4), over the int8 weights."""
+    base = dict(engine_cfg or INT8_DEPLOYMENT)
+    return [_graph_leg(card, name, params, cfg, tokenizer,
+                       {**base, **spec}, n_pages, n_requests, n_tokens,
+                       {"buckets": [128], "ks": GRAPH_KS, "sampled": False},
+                       device)
+            for name, spec, n_tokens in (
+                ("int8_b128", {}, max_tokens),
+                ("spec_int8_tree", GRAPH_SPEC_TREE, tree_tokens))]
+
+
+def graphs_only(card: str) -> dict:
+    """The graphs phase alone (`chip_smoke.py --graphs`): the kernels
+    built, the random 8B bf16 engine (seed 0, as the served engine) for
+    its leg, then the int8 deployment's weights (seed 0, quantized, as
+    serving_int8's) for the int8 and tree legs, each freed before the
+    next."""
+    import types
+
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving.__main__ import build_engine
+
+    t0 = time.perf_counter()
+    kernels.build()
+    out = {"build_s": time.perf_counter() - t0}
+    eng = build_engine("8b", "cuda", seed=0, warmup=False, n_pages=97)
+    bf16 = phase_graphs_bf16(card, types.SimpleNamespace(engine=eng))
+    eng.pool = None
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = build_engine("8b", "cuda", seed=0, warmup=False,
+                       engine_cfg=INT8_DEPLOYMENT, n_pages=65)
+    legs = [bf16] + phase_graphs_int8(card, eng.params, eng.cfg,
+                                      eng.tokenizer)
+    out.update(seconds=time.perf_counter() - t0,
+               ok={r["deployment"]: r["ok"] for r in legs})
+    return out
+
 
 PREFIX_ENGINE = {"prefix_cache": True, "kv_pager": True,
                  "prefix_cache_capacity": 0.25, "kv_host_budget_mb": 512}
@@ -6030,8 +6342,8 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
                 qos_pages: int = QOS_POOL_PAGES, qos_trace=None,
                 qos_warmup=((128,), (1,)),
                 edge_requests: int = 6, edge_tokens: int = 64,
-                elastic_chats: int = 10, elastic_tokens: int = 16,
-                elastic_gap_s: float = 0.3, chaos_trace=None):
+                elastic_chats: int = 16, elastic_tokens: int = 64,
+                elastic_gap_s: float = 0.15, chaos_trace=None):
     """The serving fleet over the bf16 8B weights the served engine holds:
     two LocalReplica engines (the served engine's config with the prefix
     cache on, n_pages pool pages each) sharing that one weight tree,
@@ -9843,9 +10155,13 @@ def main() -> int:
         emit({"card": nvidia_smi(),
               "variants": kernel_variants() + bf16_variants()})
         return 0
+    if args == ["--graphs"]:
+        rec = graphs_only(nvidia_smi())
+        emit({"phase": "graphs_only", **rec})
+        return 0 if all(rec["ok"].values()) else 1
     if args:
         print("usage: chip_smoke.py [--compare-parent DIR | "
-              "--time-kernels DIR | --variants]",
+              "--time-kernels DIR | --variants | --graphs]",
               file=sys.stderr)
         return 2
     try:
@@ -9909,6 +10225,7 @@ def main() -> int:
         pipelines = timed("pipelines", phase_pipelines, card, served,
                           rag_keep)
         spec_bf16 = timed("spec_bf16", phase_spec_bf16, card, served)
+        graphs_bf16 = timed("graphs_bf16", phase_graphs_bf16, card, served)
         prefix = timed("prefix", phase_prefix, card, served)
         fleet = timed("fleet", phase_fleet, card, served)
         # What the engine loaded from the snapshot of these weights must
@@ -9934,6 +10251,9 @@ def main() -> int:
     fused_int8 = timed("fused_prefill_int8", phase_fused_prefill_int8,
                        card, int8_engine.params, int8_engine.cfg,
                        int8_engine.tokenizer)
+    graphs_int8 = timed("graphs_int8", phase_graphs_int8, card,
+                        int8_engine.params, int8_engine.cfg,
+                        int8_engine.tokenizer)
     del int8_served, int8_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -10096,6 +10416,13 @@ def main() -> int:
                     if counts.get(e["name"])}
         if launched:
             e["tools_launches"] = launched
+        # The graphs phase: each deployment's warmed engine, whose decode
+        # blocks were CUDA graph replays (the eager twin launched as many).
+        launched = {rec["deployment"]: rec["runs"]["graphs"]["launches"][
+            e["name"]] for rec in [graphs_bf16] + graphs_int8
+            if rec["runs"]["graphs"]["launches"][e["name"]]}
+        if launched:
+            e["graphs_launches"] = launched
     emit({"kernels": line})
     ok = (all(c["ok"] for c in flash + paged + encoder + paged_int8 + tree
               + int8_mm) and model["ok"] and serving["ok"] and flight["ok"]
@@ -10109,7 +10436,8 @@ def main() -> int:
           and all(r["ok"] for r in spec_int8)
           and checkpoint["ok"] and checkpoint["tp"]["ok"]
           and train_ranks["ok"] and tools_enc["ok"] and tools_int8["ok"]
-          and tutorial["ok"])
+          and tutorial["ok"] and graphs_bf16["ok"]
+          and all(r["ok"] for r in graphs_int8))
     print(card, flush=True)
     if not ok:
         print("chip_smoke: FAILED (see the phase lines above)",

@@ -42,9 +42,11 @@ DEVICE = resolve_device(_ap.parse_known_args()[0].device)
 # ## Build and warm an engine
 # The kernels take bf16 and a head_dim of 64 or 128, so the card gets a
 # bf16 geometry; the CPU the tiny f32 one. `warmup()` runs every
-# (bucket, group-size) prefill variant and the decode K-buckets once, so
-# live traffic never waits on a first launch. The kernel launch counts
-# the metrics print are then zeroed, so they count the served traffic
+# (bucket, group-size) prefill variant once and, on the card, captures
+# each decode K-bucket as a CUDA graph that later blocks replay, so live
+# traffic never waits on a first launch; from then on the engine picks
+# only the block lengths it warmed. The kernel launch counts the
+# metrics print are then zeroed, so they count the served traffic
 # alone.
 
 # %%

@@ -14,13 +14,16 @@ bad shape) never passes silently. A failed build raises too: nothing in
 the port falls back to a plain version on a CUDA tensor.
 
 `LAUNCHES` counts, per kernel, the launches made through `launch` in
-this process. It exists so a run can show that the main path went
-through the kernels (`chip_smoke.py` zeroes it with `reset_launches`
-before driving the path and reads it after).
+this process, and those a replayed CUDA graph makes (`add_launches`).
+It exists so a run can show that the main path went through the
+kernels (`chip_smoke.py` zeroes it with `reset_launches` before driving
+the path and reads it after). A launch recorded into a CUDA graph runs
+nothing: `capture_launches` counts those of its thread apart.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -103,6 +106,35 @@ def tickets(name: str, device, n: int):
                 t = _TICKETS[key] = torch.zeros(
                     max(n, 4096), dtype=torch.int32, device=device)
     return t
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add `counts` (kernel -> launches, either sign) to LAUNCHES: a CUDA
+    graph's replay launches the kernels it captured without a call
+    through `launch` (serving/step_graphs.py)."""
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+# Per thread: the counts of a CUDA graph capture running on it
+# (capture_launches), which its launches go to instead of LAUNCHES.
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Count the launches this thread makes inside the block in a dict of
+    their own (kernel -> launches), which it yields, and not in
+    LAUNCHES: a stream capture records them and runs none. Launches of
+    other threads (fleet replicas serving meanwhile) still count in
+    LAUNCHES."""
+    counts: Dict[str, int] = {}
+    _CAPTURE.counts = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURE.counts = None
 
 
 def reset_launches() -> None:
@@ -194,5 +226,9 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {rc}")
+    captured = getattr(_CAPTURE, "counts", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + 1
+        return
     with _COUNT_LOCK:
         LAUNCHES[name] += 1

@@ -226,11 +226,13 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def rope_freqs(head_dim: int, theta: float,
                scaling: Optional[RopeScaling] = None,
                device=None) -> torch.Tensor:
-    """Inverse frequencies [Hd/2] (f32), with optional llama3 scaling."""
+    """Inverse frequencies [Hd/2] (f32), with optional llama3 scaling.
+    The base is a device fill, not a host-to-device copy (a decode block
+    captured as a CUDA graph calls this once a forward)."""
     exps = -torch.arange(0, head_dim, 2, dtype=torch.float32,
                          device=device) / head_dim
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=device), exps)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=device), exps)
     if scaling is None:
         return freqs
     s = scaling

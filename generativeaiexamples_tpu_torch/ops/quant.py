@@ -66,8 +66,9 @@ def div127(x: torch.Tensor) -> torch.Tensor:
     divisor is a tensor on x's device: CUDA divides by a host scalar as a
     product with its reciprocal, which differs in the last bit for some
     values (chip_smoke.py's checkpoint phase counts them), and then so
-    can the codes."""
-    return x / torch.tensor(127.0, dtype=torch.float32, device=x.device)
+    can the codes. The divisor is a device fill, not a host-to-device
+    copy, which a CUDA graph capture refuses."""
+    return x / torch.full((), 127.0, dtype=torch.float32, device=x.device)
 
 
 def quantize_for_load(w: torch.Tensor, contract_axis: int = -2

@@ -44,7 +44,12 @@ APP_<SECTION>_<FIELD> variables):
   backend is NCCL when every rank has a card of its own, gloo when they
   share one or run on the CPU (`--devices cpu,cpu`).
 - `ENGINE_WARMUP=0` skips the engine warmup (the JAX launcher's knob);
-  it must match across ranks (warmup's collectives pair up too).
+  it must match across ranks (warmup's collectives pair up too). The
+  server warms as the JAX launcher does (`serving_warmup_kw`): the
+  sampled variants too, and the long-prompt lattice (chunk widths, the
+  fused rider) with `ENGINE_WARMUP_LONG=1`. A warmed engine dispatches
+  only the shapes it warmed; on one card its decode blocks replay as
+  CUDA graphs (serving/step_graphs.py).
 
     APP_ENGINE_WEIGHTSPATH=/models/llama3-8b-instruct \\
         python -m generativeaiexamples_tpu_torch.serving
@@ -74,7 +79,7 @@ import dataclasses
 import logging
 import os
 import socket
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,36 +108,49 @@ GEOMETRIES = {
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def serving_warmup_kw() -> Dict[str, Any]:
+    """LLMEngine.warmup's arguments for the server, as the JAX launcher
+    passes them: the sampled variants too (temperature > 0 is the API's
+    default, so the first real request must find them warm), and the
+    long-prompt lattice only with ENGINE_WARMUP_LONG=1."""
+    return {"sampled": True,
+            "long_prompts": os.environ.get("ENGINE_WARMUP_LONG", "0") == "1"}
+
+
 def build_engines(model_size: str = "8b", device: DeviceLike = None,
                   seed: int = 0, warmup: bool = True, engine_cfg: Any = None,
                   n_pages: Optional[int] = None, weights_path: str = "",
-                  replicas: int = 1) -> List[LLMEngine]:
+                  replicas: int = 1,
+                  warmup_kw: Optional[Dict[str, Any]] = None
+                  ) -> List[LLMEngine]:
     """`replicas` LLMEngines over ONE weight tree (loaded or random, as
     `build_engine` makes it), each with its own pool of `n_pages` pages,
-    warmed up (not started): a fleet's local replicas. They share the
-    device, so more than one refuses `auto_pool_pages` without
-    `n_pages`."""
+    warmed up with `warmup_kw` (not started): a fleet's local replicas.
+    They share the device, so more than one refuses `auto_pool_pages`
+    without `n_pages`."""
     if (replicas > 1 and n_pages is None
             and EngineConfig.coerce(engine_cfg).auto_pool_pages):
         raise ValueError(AUTO_POOL_SHARED.format(f"replicas={replicas}"))
     first = build_engine(model_size, device, seed=seed, warmup=warmup,
                          engine_cfg=engine_cfg, n_pages=n_pages,
-                         weights_path=weights_path)
+                         weights_path=weights_path, warmup_kw=warmup_kw)
     out = [first]
     for _ in range(max(1, replicas) - 1):
         eng = LLMEngine(first.params, first.cfg, first.tokenizer, first.ecfg,
                         n_pages=n_pages, device=first.device)
-        out.append(eng.warmup() if warmup else eng)
+        out.append(eng.warmup(**(warmup_kw or {})) if warmup else eng)
     return out
 
 
 def build_engine(model_size: str = "8b", device: DeviceLike = None,
                  seed: int = 0, warmup: bool = True, engine_cfg: Any = None,
                  n_pages: Optional[int] = None,
-                 weights_path: str = "", mesh=None) -> LLMEngine:
+                 weights_path: str = "", mesh=None,
+                 warmup_kw: Optional[Dict[str, Any]] = None) -> LLMEngine:
     """An LLMEngine at `engine_cfg` (default: the default EngineConfig)
     on `device` (CUDA unless asked otherwise) with `n_pages` pool pages
-    (default: the engine's sizing), warmed up (not started).
+    (default: the engine's sizing), warmed up with `warmup_kw` (default:
+    LLMEngine.warmup's defaults), not started.
 
     With `weights_path` (default: `engine_cfg.weights_path`) the HF
     snapshot there is loaded in `engine_cfg.dtype`, weight-only int8
@@ -177,7 +195,7 @@ def build_engine(model_size: str = "8b", device: DeviceLike = None,
         tokenizer = load_tokenizer("byte")
     engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
                        device=dev, mesh=mesh)
-    return engine.warmup() if warmup else engine
+    return engine.warmup(**(warmup_kw or {})) if warmup else engine
 
 
 ENCODER_GEOMETRIES = {
@@ -238,7 +256,8 @@ def build_encoders(device: DeviceLike = None, seed: int = 1,
 
 def build_llm(config, model_size: str = "8b", device: DeviceLike = None,
               warmup: bool = True):
-    """The LLM surface the server fronts, from the config: one started
+    """The LLM surface the server fronts, from the config, warmed as the
+    server warms (`serving_warmup_kw`): one started
     LLMEngine, or with `fleet.replicas` > 1 or `fleet.replica_urls` a
     started EngineFleet (`fleet.replicas` 0 with URLs: router-only, the
     tokenizer from `engine.weights_path` or the byte tokenizer). A fleet's
@@ -257,7 +276,8 @@ def build_llm(config, model_size: str = "8b", device: DeviceLike = None,
     n = max(1, config.fleet.replicas)
     if n > 1 or urls:
         engines = build_engines(model_size, device, warmup=warmup,
-                                engine_cfg=config.engine, replicas=n)
+                                engine_cfg=config.engine, replicas=n,
+                                warmup_kw=serving_warmup_kw())
         first = engines[0]
 
         def engine_factory() -> LLMEngine:
@@ -271,7 +291,8 @@ def build_llm(config, model_size: str = "8b", device: DeviceLike = None,
             spawn_kw={"model_size": model_size,
                       "device": str(first.device.type)}).start()
     return build_engine(model_size, device, warmup=warmup,
-                        engine_cfg=config.engine).start()
+                        engine_cfg=config.engine,
+                        warmup_kw=serving_warmup_kw()).start()
 
 
 MULTIHOST_FLEET = (
@@ -371,7 +392,8 @@ def run_rank(config, devices: Sequence[str], model_size: str = "8b",
     mesh = mesh_lib.build_mesh(config.mesh, devices)
     try:
         engine = build_engine(model_size, warmup=warmup,
-                              engine_cfg=config.engine, mesh=mesh)
+                              engine_cfg=config.engine, mesh=mesh,
+                              warmup_kw=serving_warmup_kw())
         if mesh.rank != 0:
             logging.info("rank %d/%d: follower replay loop (rank 0 serves "
                          "the OpenAI surface)", mesh.rank, mesh.size)

@@ -124,6 +124,16 @@ Memory planner (`auto_pool_pages`, serving/memory_plan.py): with no
 weights, the scratch and activation estimates and the headroom;
 `memory_plan` keeps the plan and `/metrics` its headroom.
 
+Warmup (`warmup`, the JAX engine's lattice): prefill per bucket, group
+size and sampling flags, the decode / verify / sampled-fallback blocks
+per K, with `long_prompts` the chunked lane's shapes and the rider's;
+the warmed points are recorded (`_warm_*`; `plan_variants_compiled`)
+and from then on the dispatcher picks only warmed block lengths, chunk
+widths and rider shapes, as the JAX engine does (an engine never warmed
+picks any). On one CUDA device the decode lattice is captured as CUDA
+graphs (serving/step_graphs.py) that `engine_model.plan_step` replays;
+prefill, chunks and riders stay eager.
+
 Chaos (serving/chaos.py): `chaos_beat_delay_s` sleeps at the top of each
 scheduler iteration (a slow replica); 0.0 costs one float compare.
 
@@ -168,6 +178,7 @@ from generativeaiexamples_tpu_torch.ops.quant import is_quantized
 from generativeaiexamples_tpu_torch.parallel import mesh as mesh_lib
 from generativeaiexamples_tpu_torch.serving import engine_model
 from generativeaiexamples_tpu_torch.serving import sharding as shd
+from generativeaiexamples_tpu_torch.serving import step_graphs
 from generativeaiexamples_tpu_torch.serving.disagg import page_geometry
 from generativeaiexamples_tpu_torch.serving.fleet import (
     CHAOS_KEYS, FLEET_OPS_KEYS)
@@ -212,10 +223,13 @@ def _pow2_ceil(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
+_GREEDY, _SAMPLED = step_graphs.GREEDY, step_graphs.SAMPLED
+
+
 def _sampling_flags(all_greedy: bool):
     """sample()'s (all_greedy, any_top_k, any_top_p) for a batch: an
     all-greedy batch skips the sorts and the draw."""
-    return (True, False, False) if all_greedy else (False, True, True)
+    return _GREEDY if all_greedy else _SAMPLED
 
 
 class PromptTooLongError(ValueError):
@@ -784,22 +798,56 @@ class LLMEngine:
                 and self.ecfg.fused_token_budget > 0):
             self._fused_width = _pow2_floor(
                 min(self.buckets[-1], self.ecfg.fused_token_budget))
+        # The lattice warmup() warmed, as in the JAX engine: block lengths
+        # (_warm_ks), rider shapes (S_total, K) of the fused and composed
+        # plans, the chunked lane's (S_total, width) shapes and those
+        # whose first-token tail was warmed, and every StepPlan (their
+        # count is plan_variants_compiled). Empty (never warmed): any
+        # shape dispatches. _graphs holds the decode lattice's CUDA
+        # graphs on a warmed single-device CUDA engine.
+        self._warm_ks: set = set()
+        self._warm_fused: set = set()
+        self._warm_spec_fused: set = set()
+        self._warm_chunk_widths: set = set()
+        self._warm_sample_chunks: set = set()
+        self._warm_plans: set = set()
+        self._graphs: Optional[step_graphs.StepGraphs] = None
 
     # -- lifecycle ---------------------------------------------------------
 
-    def warmup(self, buckets=None, group_sizes=None) -> "LLMEngine":
-        """Run every prefill (bucket, group) shape and one decode step
-        before serving, all against the page-0 sink, so the first live
-        burst does not pay first-call costs (kernel builds, cuBLAS
-        heuristics, allocator growth). Eager decode launches the same
-        shapes at every K, so one step covers every block length. With
-        the prefix cache, one hit chain per bucket (the gather into a
-        bucket-sized scratch, a suffix chunk at every bucket width that
-        fits, the finish scatter); with the pager, its gather and
-        scatter at every power-of-two width up to max_pages. Call before
-        start()."""
+    def warmup(self, buckets=None, group_sizes=None, ks=None,
+               sampled: Optional[bool] = None, long_prompts: bool = False,
+               long_prompt_lengths=None) -> "LLMEngine":
+        """Run the JAX engine's warmup lattice (its `warmup`, whose
+        signature, defaults and lattice this keeps) before serving, all
+        against the page-0 sink: prefill for each (bucket, group size,
+        sampling flags); on a speculative engine a verify block per K,
+        and with `sampled` (default: speculative engines) the sampled
+        fallback's plain block per K; else a plain decode block per (K,
+        flags), where `ks` defaults to {1, 2, decode_steps_per_dispatch
+        rounded down to a power of two} and always holds 1; with
+        `long_prompts`, the chunked lane's (scratch length, chunk width)
+        shapes (restricted to `long_prompt_lengths` when given), their
+        first-token tails and the fused rider variants; the prefix-cache
+        hit chain per bucket and the pager's page moves.
+
+        Each warmed point is recorded (`_warm_ks`, `_warm_plans`,
+        `_warm_fused`, `_warm_spec_fused`, `_warm_chunk_widths`,
+        `_warm_sample_chunks`; `plan_variants_compiled` counts
+        `_warm_plans`), and from then on the dispatcher picks only warmed
+        block lengths, chunk widths and rider shapes, as the JAX engine
+        does; an engine never warmed keeps any shape. On one CUDA device
+        (no mesh) every decode lattice point is captured as a CUDA graph
+        (serving/step_graphs.py) that plan_step replays; elsewhere each
+        runs once eagerly, which pays its first-call costs (kernel
+        builds, cuBLAS heuristics, allocator growth). A capture that fails
+        raises. Call before start()."""
         if self._running:
             raise RuntimeError("warmup() must run before start()")
+        if sampled is None:
+            # As in the JAX engine: any temperature > 0 request demotes a
+            # speculative engine's dispatch to the sampled fallback.
+            sampled = self._spec_k > 0
         ps = self.pool.page_size
         if group_sizes is None:
             group_sizes, n = [], 1
@@ -808,45 +856,66 @@ class LLMEngine:
                 group_sizes.append(n)
                 n *= 2
             group_sizes.append(n)
+        if ks is None:
+            ks = {1, 2, _pow2_floor(self.ecfg.decode_steps_per_dispatch)}
+        # K = 1 is always warm, so a warmed block length exists under any
+        # page-capacity bound.
+        ks = sorted(set(ks) | {1})
+        self._warm_ks = set(ks)
+        flag_sets = [_GREEDY] + ([_SAMPLED] if sampled else [])
         for bucket in (buckets or self.buckets):
             for n in group_sizes:
-                toks = engine_model.prefill_batch_step(
-                    self.params, self.cfg, self.pool,
-                    self._put(np.zeros((n, bucket), np.int32)),
-                    self._put(np.ones((n,), np.int32)),
-                    self._put(np.zeros((n, bucket // ps), np.int32)),
-                    self._put(np.zeros((n,), np.float32)),
-                    self._put(np.ones((n,), np.float32)),
-                    self._put(np.zeros((n,), np.int32)),
-                    self._generator, sampling_flags=(True, False, False))
-                engine_model.set_last_tokens(
-                    self._last_tokens, np.full((n,), len(self.slots)), toks)
-        B = self.ecfg.max_batch_size
-        tables = self._put(np.zeros((B, self.max_pages), np.int32))
-        inactive = self._put(np.zeros((B,), bool))
-        sampling = (self._put(np.zeros((B,), np.float32)),
-                    self._put(np.ones((B,), np.float32)),
-                    self._put(np.zeros((B,), np.int32)), self._generator)
+                for flags in flag_sets:
+                    toks = engine_model.prefill_batch_step(
+                        self.params, self.cfg, self.pool,
+                        self._put(np.zeros((n, bucket), np.int32)),
+                        self._put(np.ones((n,), np.int32)),
+                        self._put(np.zeros((n, bucket // ps), np.int32)),
+                        self._put(np.zeros((n,), np.float32)),
+                        self._put(np.ones((n,), np.float32)),
+                        self._put(np.zeros((n,), np.int32)),
+                        self._generator, sampling_flags=flags)
+                    engine_model.set_last_tokens(
+                        self._last_tokens, np.full((n,), len(self.slots)),
+                        toks)
+        if (self.device.type == "cuda" and self.mesh is None
+                and self._graphs is None):
+            self._graphs = step_graphs.StepGraphs(
+                self.params, self.cfg, self.pool, self._generator,
+                self.ecfg.max_batch_size, self.max_pages, self._last_tokens,
+                self._history if self._spec_k else None,
+                self._dev_lengths if self._spec_k else None)
+            # The graphs' static state is the engine's from now on.
+            self._last_tokens = self._graphs.last_tokens
+            if self._spec_k:
+                self._dev_lengths = self._graphs.dev_lengths
+        Plan = engine_model.StepPlan
         if self._spec_k:
-            # A verify step and the sampled fallback's plain step over
-            # inactive rows (sink page 0); the device state is unchanged.
-            (_, _, self._last_tokens, self._dev_lengths,
-             self._history) = engine_model.decode_spec_multi_step(
-                self.params, self.cfg, self.pool, self._history,
-                self._last_tokens, self._dev_lengths, tables, inactive, 1,
-                self._spec_k, self._tree_branches)
-            (_, self._last_tokens, self._dev_lengths, self._history) = \
-                engine_model.decode_plain_spec_state_multi_step(
-                    self.params, self.cfg, self.pool, self._history,
-                    self._last_tokens, self._dev_lengths, tables, inactive,
-                    *sampling, 1)
+            for steps in ks:
+                plan = Plan(decode_k=steps, spec_k=self._spec_k,
+                            tree_branches=self._tree_branches)
+                self._warm_block(plan, _GREEDY)
+                self._warm_plans.add(plan)
+            if sampled:
+                # The fallback always runs the general-sampling variant
+                # (_dispatch_decode), so that is the one to warm.
+                for steps in ks:
+                    plan = Plan(decode_k=steps, spec_state=True)
+                    self._warm_block(plan, _SAMPLED)
+                    self._warm_plans.add(plan)
         else:
-            _, self._last_tokens = engine_model.decode_multi_step(
-                self.params, self.cfg, self.pool, self._last_tokens, tables,
-                self._put(np.ones((B,), np.int32)), inactive, *sampling, 1,
-                sampling_flags=(True, False, False))
+            for k in ks:
+                self._warm_plans.add(Plan(decode_k=k))
+                for flags in flag_sets:
+                    self._warm_block(Plan(decode_k=k), flags)
+        if long_prompts:
+            self._warm_long_prompts(ks, flag_sets, long_prompt_lengths)
         if self.prefix_cache is not None:
+            # A hit's chain per bucket: the gather into a bucket-sized
+            # scratch, a suffix chunk at every bucket width that fits,
+            # each with its first-token tail, the finish scatter.
             bset = sorted(buckets or self.buckets)
+            logits = None
             for s_tot in bset:
                 sink_row = self._put(np.zeros((s_tot // ps,), np.int32))
                 for chunk in [b for b in bset if b <= s_tot]:
@@ -854,11 +923,14 @@ class LLMEngine:
                     # chunk's rows fit the scratch.
                     cache = engine_model.pool_to_cache(
                         self.pool, self.cfg, sink_row, s_tot - chunk)
-                    _, cache = engine_model.prefill_chunk_step(
+                    logits, cache = engine_model.prefill_chunk_step(
                         self.params, self.cfg, cache,
                         self._put(np.zeros((1, chunk), np.int32)), 1)
+                    self._warm_chunk_widths.add((s_tot, chunk))
+                    self._warm_sample_chunk(s_tot, chunk, flag_sets)
                 engine_model.cache_to_pool(self.pool, cache, self.cfg,
                                            sink_row)
+            self._warm_finish(logits, flag_sets)
         if self.kv_pager is not None:
             w = 1
             while True:
@@ -868,9 +940,174 @@ class LLMEngine:
                 if w >= self.max_pages:
                     break
                 w *= 2
+        # The chunked lane's chunk-only plans, one per warmed chunk shape.
+        for s_tot, w in self._warm_chunk_widths:
+            self._warm_plans.add(Plan(rider_width=w, rider_s_total=s_tot))
+        self.metrics.plan_variants_compiled = len(self._warm_plans)
+        if self._graphs is not None:
+            # Eager warm steps above may have rebound the device state.
+            g = self._graphs
+            if self._last_tokens is not g.last_tokens:
+                g.last_tokens.copy_(self._last_tokens)
+                self._last_tokens = g.last_tokens
+            if self._spec_k and self._dev_lengths is not g.dev_lengths:
+                g.dev_lengths.copy_(self._dev_lengths)
+                self._dev_lengths = g.dev_lengths
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
+
+    def _warm_block(self, plan: "engine_model.StepPlan", flags) -> None:
+        """One decode lattice point over inactive rows (every write lands
+        in the sink): captured as a CUDA graph on a single CUDA device,
+        else run once eagerly."""
+        if self._graphs is not None:
+            self._graphs.capture(plan, flags)
+            return
+        kw = dict(self._idle_batch(), pool=self.pool,
+                  last_tokens=self._last_tokens, generator=self._generator,
+                  sampling_flags=flags)
+        if self._spec_k:
+            kw.update(history=self._history, dev_lengths=self._dev_lengths)
+        res = engine_model.plan_step(self.params, self.cfg, plan, **kw)
+        self._last_tokens = res["last_tokens"]
+        if "dev_lengths" in res:
+            self._dev_lengths = res["dev_lengths"]
+
+    def _idle_batch(self) -> Dict[str, torch.Tensor]:
+        """A decode batch of inactive rows on sink page 0 (lengths 1,
+        greedy sampling parameters): the warmup's dummy inputs."""
+        B = self.ecfg.max_batch_size
+        return {"page_tables": self._put(np.zeros((B, self.max_pages),
+                                                  np.int32)),
+                "active": self._put(np.zeros((B,), bool)),
+                "lengths": self._put(np.ones((B,), np.int32)),
+                "temperature": self._put(np.zeros((B,), np.float32)),
+                "top_p": self._put(np.ones((B,), np.float32)),
+                "top_k": self._put(np.zeros((B,), np.int32))}
+
+    def _scratch(self, s_total: int) -> KVCache:
+        """A fresh zeroed scratch cache of s_total rows (lengths 0)."""
+        return KVCache.zeros(self.cfg, 1, max_len=s_total,
+                             dtype=self._scratch_dtype, device=self.device)
+
+    def _warm_long_prompts(self, ks, flag_sets, long_prompt_lengths) -> None:
+        """The JAX warmup's long_prompts part: one scratch shape per chunk
+        multiple up to page capacity (or the shapes `long_prompt_lengths`
+        need), a full chunk and each tail width at each (the power-of-two
+        ladder from page_size up, or the tails those lengths leave), each
+        with its first-token tail; the fused rider at every K the
+        prefill_decode_k_cap lets through (the composed verify + rider
+        plan on a speculative engine). Each chunk starts a fresh scratch
+        cache, so its rows fit."""
+        ps = self.pool.page_size
+        chunk = self.buckets[-1]
+        cap_tokens = self.max_pages * ps
+        if long_prompt_lengths is not None:
+            s_tots = sorted({min(-(-int(s) // chunk) * chunk, cap_tokens)
+                             for s in long_prompt_lengths})
+        else:
+            s_tots = list(range(chunk, cap_tokens + 1, chunk))
+        tail_widths: Dict[int, set] = {s: set() for s in s_tots}
+        if long_prompt_lengths is not None:
+            for s in long_prompt_lengths:
+                p = min(int(s), cap_tokens)
+                s_tot = min(-(-p // chunk) * chunk, cap_tokens)
+                r = p % chunk
+                if r and _pow2_ceil(r) < chunk:
+                    tail_widths[s_tot].add(_pow2_ceil(r))
+        else:
+            ladder, w = set(), _pow2_ceil(min(ps, chunk))
+            while w < chunk:
+                ladder.add(w)
+                w *= 2
+            for s_tot in s_tots:
+                tail_widths[s_tot] = set(ladder)
+        Plan = engine_model.StepPlan
+        logits = None
+        for s_tot in s_tots:
+            row = self._put(np.zeros((s_tot // ps,), np.int32))
+            if self.prefix_cache is not None:
+                # A long prompt's prefix hit seeds its scratch from the
+                # pool at this shape.
+                engine_model.pool_to_cache(self.pool, self.cfg, row, 1)
+            for w in [chunk] + sorted(tail_widths[s_tot]):
+                logits, cache = engine_model.prefill_chunk_step(
+                    self.params, self.cfg, self._scratch(s_tot),
+                    self._put(np.zeros((1, w), np.int32)), 1)
+                self._warm_chunk_widths.add((s_tot, w))
+                self._warm_sample_chunk(s_tot, w, flag_sets)
+            engine_model.cache_to_pool(self.pool, cache, self.cfg, row)
+            if not (self._fused_width and s_tot >= self._fused_width):
+                continue
+            cap = self.ecfg.prefill_decode_k_cap
+            fks = sorted({k for k in ks if cap <= 0 or k <= cap} | {1})
+            idle = self._idle_batch()
+            rider = self._put(np.zeros((1, self._fused_width), np.int32))
+            for kf in fks:
+                if self._spec_k:
+                    (_, _, self._last_tokens, self._dev_lengths, _, _,
+                     _) = engine_model.fused_spec_prefill_step(
+                        self.params, self.cfg, self.pool, self._history,
+                        self._last_tokens, self._dev_lengths,
+                        idle["page_tables"], idle["active"],
+                        self._scratch(s_tot), rider, 1, kf, self._spec_k,
+                        self._tree_branches)
+                    self._warm_spec_fused.add((s_tot, kf))
+                    self._warm_plans.add(Plan(
+                        decode_k=kf, spec_k=self._spec_k,
+                        tree_branches=self._tree_branches,
+                        rider_width=self._fused_width, rider_s_total=s_tot))
+                    continue
+                for flags in flag_sets:
+                    _, self._last_tokens, _, _ = \
+                        engine_model.fused_decode_prefill_step(
+                            self.params, self.cfg, self.pool,
+                            self._last_tokens, idle["page_tables"],
+                            idle["lengths"], idle["active"],
+                            idle["temperature"], idle["top_p"],
+                            idle["top_k"], self._generator,
+                            self._scratch(s_tot), rider, 1, kf,
+                            sampling_flags=flags)
+                    self._warm_fused.add((s_tot, kf))
+                    self._warm_plans.add(Plan(
+                        decode_k=kf, rider_width=self._fused_width,
+                        rider_s_total=s_tot))
+        self._warm_finish(logits, flag_sets)
+
+    def _warm_finish(self, logits, flag_sets) -> None:
+        """The chunked finish's samplers on warmup logits (slot 0 of the
+        idle engine): sample_token + set_last_token, and with
+        fused_sampling sample_token_into, per flag set."""
+        if logits is None:
+            return
+        tok0 = None
+        for flags in flag_sets:
+            tok0 = engine_model.sample_token(logits, 0.0, 1.0, 0,
+                                             self._generator, *flags)
+        engine_model.set_last_token(self._last_tokens, 0, tok0)
+        if self._fused_sampling:
+            for flags in flag_sets:
+                engine_model.sample_token_into(self._last_tokens, 0, logits,
+                                               0.0, 1.0, 0, self._generator,
+                                               *flags)
+
+    def _warm_sample_chunk(self, s_tot: int, width: int, flag_sets) -> None:
+        """With fused_sampling, the prompt-completing chunk's first-token
+        tail at (s_tot, width) per flag set (into slot 0 of the idle
+        engine), recorded in _warm_sample_chunks, so a warmed engine lets
+        that chunk sample in its own dispatch."""
+        if not self._fused_sampling:
+            return
+        for flags in flag_sets:
+            engine_model.prefill_chunk_sample_step(
+                self.params, self.cfg, self._scratch(s_tot),
+                self._put(np.zeros((1, width), np.int32)), 1,
+                self._last_tokens, 0, 0.0, 1.0, 0, self._generator,
+                sampling_flags=flags)
+        self._warm_sample_chunks.add((s_tot, width))
+        self._warm_plans.add(engine_model.StepPlan(
+            rider_width=width, rider_s_total=s_tot, rider_sample=True))
 
     def start(self) -> "LLMEngine":
         self._running = True
@@ -1771,10 +2008,13 @@ class LLMEngine:
         n_part = min(lp.chunk, len(lp.ids) - lp.pos)
         # A prefix hit's suffix starts at the cached length, so a chunk
         # may not fit a full width before the scratch cache ends.
-        width = min(self._pick_chunk_width(n_part, lp.chunk),
+        width = min(self._pick_chunk_width(n_part, lp.chunk, lp.s_total),
                     lp.s_total - lp.pos)
         final = lp.pos + n_part >= len(lp.ids)
-        fuse_sample = final and self._fused_sampling
+        # On a warmed engine only where that chunk's tail was warmed.
+        fuse_sample = (final and self._fused_sampling
+                       and (not self._warm_ks or (lp.s_total, width)
+                            in self._warm_sample_chunks))
         self._exec_plan(self._plan_record(engine_model.StepPlan(
             rider_width=width, rider_s_total=lp.s_total,
             rider_sample=fuse_sample), lp, n_part))
@@ -1869,7 +2109,20 @@ class LLMEngine:
         self._publish("plan", rec)
         plan = engine_model.plan_from_record(rec)
         kw: Dict[str, Any] = {}
-        if plan.decode_k:
+        flags = (tuple(bool(f) for f in rec["flags"]) if "flags" in rec
+                 else _GREEDY)
+        graphs = self._graphs
+        if graphs is not None and not graphs.covers(plan, flags):
+            graphs = None
+        if graphs is not None:
+            # A captured lattice point: replayed from the record's host
+            # arrays (serving/step_graphs.py).
+            kw.update(pool=self.pool, last_tokens=self._last_tokens,
+                      arrays=rec, sampling_flags=flags)
+            if self._spec_k:
+                kw.update(history=self._history,
+                          dev_lengths=self._dev_lengths)
+        elif plan.decode_k:
             kw.update(pool=self.pool, last_tokens=self._last_tokens,
                       page_tables=self._put(rec["tables"]),
                       active=self._put(rec["active_mask"]))
@@ -1881,9 +2134,7 @@ class LLMEngine:
                           temperature=self._put(rec["temps"]),
                           top_p=self._put(rec["top_ps"]),
                           top_k=self._put(rec["top_ks"]),
-                          generator=self._generator,
-                          sampling_flags=tuple(bool(f)
-                                               for f in rec["flags"]))
+                          generator=self._generator, sampling_flags=flags)
         slot = int(rec["slot"]) if plan.rider_width else -1
         if plan.rider_width:
             if bool(rec["fresh"]) or slot not in self._scratch_caches:
@@ -1900,7 +2151,8 @@ class LLMEngine:
                       top_p=float(rec["r_top_p"]), top_k=int(rec["r_top_k"]),
                       generator=self._generator,
                       sampling_flags=tuple(bool(f) for f in rec["r_flags"]))
-        res = engine_model.plan_step(self.params, self.cfg, plan, **kw)
+        res = engine_model.plan_step(self.params, self.cfg, plan,
+                                     graphs=graphs, **kw)
         if "last_tokens" in res:
             self._last_tokens = res["last_tokens"]
         if "dev_lengths" in res:
@@ -2139,15 +2391,28 @@ class LLMEngine:
                 "pager_in": self._exec_pager_in,
                 "cold_out": self._exec_cold_out}
 
-    @staticmethod
-    def _pick_chunk_width(n: int, chunk: int) -> int:
+    def _pick_k(self, bound: int) -> int:
+        """The largest dispatchable block length <= bound: a power of two
+        and, on a warmed engine, a warmed one (K = 1 always is), as the
+        JAX engine's _pick_k."""
+        k = _pow2_floor(bound)
+        if self._warm_ks and k not in self._warm_ks:
+            k = max(w for w in self._warm_ks if w <= k)
+        return k
+
+    def _pick_chunk_width(self, n: int, chunk: int, s_total: int) -> int:
         """Dispatch width for a chunk of n valid tokens: the smallest
-        power of two >= n, capped at the full chunk (eager torch has no
-        compiled-variant set to restrict it to)."""
-        w = 1
-        while w < n:
-            w *= 2
-        return min(w, chunk)
+        power of two >= n, capped at the full chunk. On a warmed engine,
+        the smallest warmed width for this scratch length that holds n,
+        or the full chunk, as the JAX engine's _pick_chunk_width."""
+        w = _pow2_ceil(n)
+        if w >= chunk:
+            return chunk
+        if self._warm_ks or self._warm_chunk_widths:
+            fits = sorted(x for (s, x) in self._warm_chunk_widths
+                          if s == s_total and n <= x < chunk)
+            return fits[0] if fits else chunk
+        return w
 
     def _drop_scratch(self, slot_idx: int) -> None:
         """Free the scratch cache of a long prefill that ended without a
@@ -2333,15 +2598,24 @@ class LLMEngine:
             # device queue shallow so prefill chunks interleave at a fine
             # grain.
             K = min(K, self.ecfg.prefill_decode_k_cap)
+        # Page capacity is a hard cap (steps past it would write out of
+        # bounds): round down. The token budget is soft (steps past the
+        # last requested token are dropped at emission): round up, to the
+        # nearest warmed K on a warmed engine, as the JAX engine does.
         cap_min = min(self._advance_capacity(
             self.slots[i], self._slot_used(self.slots[i]))[0] for i in live)
         max_rem = max(self.slots[i].req.max_new_tokens
                       - self.slots[i].scheduled for i in live)
-        K = _pow2_floor(min(K, max(1, (cap_min - (r_nodes - r)) // r)))
+        K = self._pick_k(min(K, max(1, (cap_min - (r_nodes - r)) // r)))
         if max_rem < K:
-            # The smallest power of two that finishes every live slot in
-            # this block (overshoot is discarded on the host).
-            K = min(K, 1 << (max_rem - 1).bit_length())
+            if self._warm_ks:
+                fits = sorted(k for k in self._warm_ks if max_rem <= k <= K)
+                K = fits[0] if fits else K
+            else:
+                # The smallest power of two that finishes every live slot
+                # in this block (overshoot is discarded on the host).
+                K = min(K, 1 << (max_rem - 1).bit_length())
+        K = _pow2_floor(K)
         worst = K * r                    # commit / token-budget bound
         alloc = (K - 1) * r + r_nodes    # page-write bound
         # ensure() moves seq.length, so take each base once: a shrink
@@ -2383,12 +2657,18 @@ class LLMEngine:
                     top_ks[i] = s.req.top_k
             if shrink_to is None:
                 break
-            K = _pow2_floor(shrink_to)
+            K = self._pick_k(shrink_to)
             worst = K * r
             alloc = (K - 1) * r + r_nodes
         if not active:
             return False
-        flags = _sampling_flags(all(temps[i] <= 0.0 for i in active))
+        # The sampled fallback always takes the general-sampling variant
+        # (the only one warmup warms for it, as in the JAX engine): the
+        # sampled slot that demoted this dispatch may have dropped out of
+        # `active`. Greedy rows still take the exact argmax in sample().
+        fallback = bool(self._spec_k) and not spec_mode
+        flags = _sampling_flags(not fallback and all(
+            temps[i] <= 0.0 for i in active))
         plan, lp = self._select_plan(K, spec_mode)
         arrays = {"tables": tables, "active_mask": active_mask}
         if not spec_mode:
@@ -2455,6 +2735,11 @@ class LLMEngine:
         spec_k = self._spec_k if spec_mode else 0
         spec_state = bool(self._spec_k) and not spec_mode
         lp = None if spec_state else self._rider_candidate()
+        if lp is not None and self._warm_ks and (lp.s_total, K) not in (
+                self._warm_spec_fused if spec_k else self._warm_fused):
+            # A warmed engine carries a rider only at a warmed (S_total,
+            # K); the lane carries this beat's chunk.
+            lp = None
         return engine_model.StepPlan(
             decode_k=K, spec_k=spec_k,
             tree_branches=self._tree_branches if spec_k else 0,
@@ -2468,8 +2753,14 @@ class LLMEngine:
         """True when the next decode dispatch will carry lp's next chunk
         as a rider: lp is the rider candidate and at least one slot will
         dispatch (else deferring would stall the prefill behind traffic
-        that never launches a block). Eager torch has no compiled-variant
-        set, so any shape may ride."""
+        that never launches a block). On a warmed engine only a scratch
+        length warmed with some K may ride: a warmup without
+        long_prompts warms no rider, so the lane carries every chunk, as
+        in the JAX engine."""
+        warm = self._warm_spec_fused if self._spec_k else self._warm_fused
+        if self._warm_ks and not any((lp.s_total, k) in warm
+                                     for k in self._warm_ks):
+            return False
         if self._spec_k and self._sampled_live():
             # The sampled fallback plan carries no rider; the lane feeds
             # the prompt while it runs.

@@ -468,11 +468,20 @@ def _tree_layout(k: int, n_branches: int):
     return depth, anc
 
 
+def _tree_depths(k: int, n_branches: int, device) -> torch.Tensor:
+    """`_tree_layout`'s depth [r] (int64) made on the device, with no
+    host-to-device copy (which a CUDA graph capture refuses): node 0 is
+    the root, node 1 + m*k + (d-1) sits at depth d."""
+    j = torch.arange(1 + n_branches * k, device=device)
+    return torch.where(j == 0, 0, (j - 1) % k + 1)
+
+
 def _tree_verify_once(params: Params, cfg: LlamaConfig, pool: Pool,
                       tokens: torch.Tensor,       # [B, r] packed tree
                       page_tables: torch.Tensor,  # [B, maxp]
                       lengths: torch.Tensor,      # [B] incl. the root
-                      depth, anc_mask, spec_k: int,
+                      depth: torch.Tensor,        # [r] (_tree_depths)
+                      anc_mask, spec_k: int,
                       n_branches: int) -> torch.Tensor:
     """One tree-verify forward over r packed nodes per sequence: node j's
     k/v are written at pool SLOT lengths-1+j, but its RoPE POSITION is
@@ -484,7 +493,7 @@ def _tree_verify_once(params: Params, cfg: LlamaConfig, pool: Pool,
     B, r = tokens.shape
     dev = tokens.device
     lm1 = (lengths.long() - 1)[:, None]
-    positions = lm1 + torch.as_tensor(depth, device=dev).long()[None, :]
+    positions = lm1 + depth[None, :]
     slots = lm1 + torch.arange(r, device=dev)[None, :]
     page_idx, offset = _slot_pages(page_tables, slots, pool.page_size)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
@@ -560,7 +569,8 @@ def decode_spec_multi_step(params: Params, cfg: LlamaConfig, pool: Pool,
     bi = torch.arange(B, device=dev)[:, None]
     tree = n_branches > 1
     if tree:
-        depth, anc = _tree_layout(k, n_branches)
+        anc = _tree_layout(k, n_branches)[1]
+        depth = _tree_depths(k, n_branches, dev)
     out_t, out_c = [], []
     for _ in range(n_steps):
         if tree:
@@ -932,11 +942,18 @@ def plan_from_record(rec: dict) -> StepPlan:
 
 
 def plan_step(params: Params, cfg: LlamaConfig, plan: StepPlan,
-              **kw) -> dict:
+              graphs=None, **kw) -> dict:
     """Every scheduler dispatch goes through here: `_plan_step`'s result
     with "t_dispatch", the host clock when the step's launches returned
-    (the flight recorder's hook)."""
-    out = _plan_step(params, cfg, plan, **kw)
+    (the flight recorder's hook). With `graphs` (serving/step_graphs.py's
+    StepGraphs of a warmed CUDA engine, which the caller passes only for
+    a captured lattice point) the block is that point's CUDA graph,
+    replayed from the dispatch's host arrays (`arrays`) instead of
+    launched op by op."""
+    if graphs is not None:
+        out = graphs.replay(plan, **kw)
+    else:
+        out = _plan_step(params, cfg, plan, **kw)
     out["t_dispatch"] = time.perf_counter()
     return out
 

@@ -1555,9 +1555,15 @@ class EngineFleet:
                 if warmup:
                     try:
                         replica.warmup(**(warmup_kw or {}))
-                    except Exception as e:
-                        _LOG.warning("upgrade warmup of %s failed: %s",
-                                     rid, e)
+                    except Exception:
+                        # A half-warmed engine (some lattice points
+                        # captured, the rest not) never serves: the
+                        # replica leaves placement unstarted and the
+                        # failure reaches the caller.
+                        _LOG.exception("upgrade warmup of %s failed; "
+                                       "evicting it", rid)
+                        self.evict(rid)
+                        raise
                 if prev == "parked":
                     with self._lock:
                         replica.state = "parked"

@@ -158,8 +158,9 @@ def test_prompt_over_page_capacity_is_refused(engine):
 
 
 def test_chunk_width_and_metrics(engine):
-    assert [LLMEngine._pick_chunk_width(n, 32) for n in (1, 13, 16, 17, 32)] \
-        == [1, 16, 16, 32, 32]
+    # The engine was never warmed: any power-of-two width up to the chunk.
+    assert [engine._pick_chunk_width(n, 32, 64)
+            for n in (1, 13, 16, 17, 32)] == [1, 16, 16, 32, 32]
     before = engine.metrics.snapshot()
     _stream_ids(engine, _prompt(40, 9), 2)
     after = engine.metrics.snapshot()

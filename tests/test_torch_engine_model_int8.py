@@ -32,7 +32,7 @@ from generativeaiexamples_tpu_torch.models import convert
 from generativeaiexamples_tpu_torch.models import llama as tl
 from generativeaiexamples_tpu_torch.ops import quant as tq
 from generativeaiexamples_tpu_torch.serving import engine_model as tem
-from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+from generativeaiexamples_tpu_torch.serving.engine import LLMEngine, _pow2_ceil
 from generativeaiexamples_tpu_torch.serving.kv_cache import (
     PagePool, QuantPagePool)
 from generativeaiexamples_tpu_torch.utils.tokenizer import ByteTokenizer
@@ -230,8 +230,8 @@ def _oracle(model, prompt, n_new):
         cache = jl.KVCache.zeros(jcfg, 1, max_len=s_total)
         for pos in range(0, n, 32):
             part = prompt[pos:pos + 32]
-            tok = np.zeros((1, LLMEngine._pick_chunk_width(len(part), 32)),
-                           np.int32)
+            # The width an unwarmed engine dispatches (_pick_chunk_width).
+            tok = np.zeros((1, min(_pow2_ceil(len(part)), 32)), np.int32)
             tok[0, :len(part)] = part
             logits, cache = jem.prefill_chunk_step(
                 jparams, jcfg, cache, jnp.asarray(tok), jnp.int32(len(part)),

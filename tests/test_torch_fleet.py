@@ -761,3 +761,41 @@ def test_rolling_upgrade_swaps_every_engine_and_writes_its_lane(models):
         fleet.stop()
         for e in engines:
             e.stop()
+
+
+def test_rolling_upgrade_never_starts_a_half_warmed_engine(models,
+                                                           monkeypatch):
+    """A warmup that fails in a rolling upgrade (here a CUDA graph
+    capture, made to raise) reaches the caller: the replica whose new
+    engine it was leaves placement evicted and unstarted, and the
+    fleet serves on the replica the roll had not reached."""
+    from generativeaiexamples_tpu_torch.serving import step_graphs
+
+    def boom(self, plan, flags):
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(step_graphs.StepGraphs, "capture", boom)
+    fleet, engines = _fleet(models)
+    try:
+        prompt = [7] * 20
+        want = run_one(fleet, prompt)
+        made = []
+
+        def factory(old):
+            e = _engine(models)
+            # The captured lattice of a warmed CUDA engine, on the CPU.
+            e._graphs = object.__new__(step_graphs.StepGraphs)
+            made.append(e)
+            return e
+
+        with pytest.raises(RuntimeError, match="capture failed"):
+            fleet.rolling_upgrade(factory, drain_timeout_s=30.0,
+                                  warmup=True)
+        assert len(made) == 1 and not made[0]._running
+        assert fleet.replicas[0].state == "evicted"
+        assert fleet.replicas[1].engine is engines[1]
+        assert run_one(fleet, prompt) == want
+    finally:
+        fleet.stop()
+        for e in engines:
+            e.stop()

@@ -81,6 +81,13 @@ def test_fleet_and_planner_modules_are_covered():
         assert f"generativeaiexamples_tpu_torch.serving.{name}" in MODULES
 
 
+def test_step_graphs_module_is_covered():
+    """The warmed engine's CUDA graphs (serving/step_graphs.py, the
+    counterpart of the JAX steps' jit) are imported with jax blocked and
+    scanned below; the module imports no CUDA-only package at import."""
+    assert "generativeaiexamples_tpu_torch.serving.step_graphs" in MODULES
+
+
 def test_framework_neutral_and_training_modules_are_covered():
     """The wizard, ingest, eval, CVE agent, playground, SSE, voice and
     training modules are among those imported with jax blocked and

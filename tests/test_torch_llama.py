@@ -54,6 +54,34 @@ def test_rope_freqs_match_jax(scaling):
         np.asarray(jl.rope_freqs(64, 500000.0, scaling)), rtol=1e-6)
 
 
+@pytest.mark.parametrize("scaling", [None, tl.RopeScaling(factor=32.0)])
+@pytest.mark.parametrize("head_dim, theta", [(64, 500000.0), (128, 10000.0),
+                                             (16, 1e6)])
+def test_rope_freqs_bit_equal_to_the_host_copy_form(scaling, head_dim,
+                                                    theta):
+    """rope_freqs makes its base with a device fill (a decode block
+    captured as a CUDA graph calls it once a forward, and a capture
+    refuses a host-to-device copy): the frequencies are bit-equal to the
+    former form, torch.pow of torch.tensor(theta) (a host copy)."""
+    exps = -torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    want = torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    if scaling is not None:
+        s = scaling
+        wavelen = 2.0 * np.pi / want
+        high_wl = s.original_max_position_embeddings / s.high_freq_factor
+        low_wl = s.original_max_position_embeddings / s.low_freq_factor
+        smooth = (s.original_max_position_embeddings / wavelen
+                  - s.low_freq_factor) / (s.high_freq_factor
+                                          - s.low_freq_factor)
+        mid = (1.0 - smooth) * want / s.factor + smooth * want
+        want = torch.where(wavelen < high_wl, want,
+                           torch.where(wavelen > low_wl, want / s.factor,
+                                       mid))
+    got = tl.rope_freqs(head_dim, theta, scaling)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_rms_norm_and_rope_match_jax():
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 4, 6, 16)).astype(np.float32)

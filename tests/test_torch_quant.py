@@ -203,3 +203,34 @@ def test_int8_matmul_plan_unaligned_columns():
     plan = int8_matmul_plan(128, 4096, 1000)
     assert plan.regime == "unaligned" and plan.splits == 1
     assert plan.workspace_bytes == 0
+
+
+@pytest.mark.parametrize("shape", [(8, 2, 5, 128), (3, 7, 64)])
+def test_quantize_kv_bit_identical_to_jax(shape):
+    """The int8 pool's quantize-on-write (paged_attention_int8.quantize_kv,
+    whose divisor is a 0-d tensor made by a device fill, not a host
+    copy): codes and scales bit-identical to the JAX quantize_kv on
+    the same numpy rows, an all-zero row (the 1e-8 clip) included."""
+    from generativeaiexamples_tpu.serving.paged_attention_int8 import (
+        quantize_kv as jquantize_kv)
+    from generativeaiexamples_tpu_torch.serving.paged_attention_int8 import (
+        quantize_kv)
+
+    x = _w(shape, 3) * 4.0
+    x[..., 0, :] = 0.0
+    for scale_dtype, jdt in ((torch.float32, jnp.float32),
+                             (torch.bfloat16, jnp.bfloat16)):
+        jq_, js = jquantize_kv(jnp.asarray(x), scale_dtype=jdt)
+        q, s = quantize_kv(torch.from_numpy(x), scale_dtype=scale_dtype)
+        assert q.dtype == torch.int8 and s.dtype == scale_dtype
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq_))
+        np.testing.assert_array_equal(s.float().numpy(),
+                                      np.asarray(js).astype(np.float32))
+
+
+def test_div127_divides_by_a_device_tensor_not_a_scalar():
+    """div127 is x / 127 correctly rounded, the same bits as numpy's f32
+    division, with the divisor a device fill (no host copy)."""
+    x = np.abs(_w((4096,), 5)) * 10.0
+    got = tq.div127(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, x / np.float32(127.0))

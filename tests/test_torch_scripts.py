@@ -347,13 +347,26 @@ def test_profile_card_rows_on_the_cpu():
     assert all(r["ms"] > 0 and r["gb_per_s"] > 0 for r in rows.values())
     over = profile_card.dispatch_overhead("cpu")
     assert over["launch_ms"] > 0 and over["launch_and_read_ms"] > 0
-    # ops/quant.mm on a CPU tensor is K6's plain version.
-    q = torch.randint(-127, 128, (64, 256), dtype=torch.int8)
-    s = torch.rand(256)
-    x = torch.randn(4, 64)
-    np.testing.assert_allclose(mm(x, QuantizedTensor(q, s)).numpy(),
-                               (x @ (q.float() * s)).numpy(), rtol=1e-5,
-                               atol=1e-4)
+    # ops/quant.mm on a CPU tensor is K6's plain version, (x @ q) * s.
+    # The inputs come from seeded numpy draws, so the result does not
+    # depend on torch's global RNG state (whatever ran before in this
+    # process); several seeds show it. Against the same association
+    # order the result is bit-equal. Against x @ (q * s) the two f32
+    # sums of 64 terms round apart by at most a few ulps of the sum of
+    # |terms|, so the tolerance is 1e-5 x (|x| @ |q * s|) per element
+    # (an atol fixed at 1e-4 fails wherever an output lands near zero).
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        q = torch.from_numpy(rng.integers(-127, 128, (64, 256),
+                                          dtype=np.int8))
+        s = torch.from_numpy(rng.random(256, dtype=np.float32))
+        x = torch.from_numpy(rng.standard_normal((4, 64),
+                                                 dtype=np.float32))
+        got = mm(x, QuantizedTensor(q, s)).numpy()
+        np.testing.assert_array_equal(got, ((x @ q.float()) * s).numpy())
+        w = q.float() * s
+        tol = 1e-5 * (x.abs() @ w.abs()).numpy()
+        assert np.all(np.abs(got - (x @ w).numpy()) <= tol), seed
 
 
 @pytest.mark.parametrize("tool", [ttft_breakdown, decompose_decode,

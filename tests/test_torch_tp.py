@@ -176,9 +176,14 @@ def _rank_main(rank: int, coordinator: str, cmds, results) -> None:
         try:
             params, ecfg, prompts, n_new, kv, mix = cmd
             cfg = tl.LlamaConfig.tiny(vocab_size=VOCAB)
+            # A warmed engine carries a rider only at a warmed shape (as
+            # the JAX engine does): the mix's long prompt is warmed.
+            warm = ({"long_prompts": True,
+                     "long_prompt_lengths": [len(mix["long"])]}
+                    if mix else {})
             eng = LLMEngine(shd.shard_llama_params(params, cfg, mesh), cfg,
                             ByteTokenizer(), {**ecfg, "multihost": True},
-                            mesh=mesh).warmup()
+                            mesh=mesh).warmup(**warm)
             if rank == 0:
                 eng.start()
                 first = _streams(eng, prompts, n_new)
