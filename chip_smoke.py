@@ -235,20 +235,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
               to plain decode while it is live; K5 must launch, K2 only
               through the fallback
   11g. graphs  (after spec_bf16; its int8 legs after fused_prefill_int8)
-              the warmed engine: each of three deployments at 8B width,
+              the warmed engine: each of four deployments at 8B width,
               the default bf16 engine at batch 8, the int8 deployment at
-              batch 128 and its speculative tree form (k = 3, M = 4),
-              served twice over the same weights by two engines warmed
-              alike at K in GRAPH_KS: one replays its decode lattice as
-              CUDA graphs (serving/step_graphs.py), the other has its
-              graphs dropped after warmup (every block eager), each fed
-              the same greedy requests submitted before it starts (bf16
-              8 x 257 tokens, int8 128 x 129, tree 128 x 65). The
-              streams must be byte-identical and
-              K2's, K4's, K5's and K6's launches equal (a replay counts
-              what its graph captured); each prints its graphs, their
-              capture seconds and pool bytes, tokens/s, TTFT p50 and the
-              flight recorder's device-busy share. The bf16 leg warms the
+              batch 128, its speculative tree form (k = 3, M = 4) and
+              the int8 deployment with the prefix cache and the rider
+              (long-prompt leg), served twice over the same weights by
+              two engines warmed alike at K in GRAPH_KS (and the chunked
+              lane for a 4,096-token prompt, in the long leg for the
+              6,000 and 6,088-token ones): one replays its lattice as
+              CUDA graphs
+              (serving/step_graphs.py: decode blocks, prefill groups,
+              chunks, the hit chain), the other has every graph dropped
+              after warmup, each fed the same greedy requests submitted
+              before it starts (bf16 8 x 257 tokens, int8 128 x 129, tree
+              128 x 65; long: 3 streams of 49 beside a 6,000-token prompt
+              in 12 riders, then a hit on its first 5,888 tokens). The
+              streams must be byte-identical, K1's, K2's, K4's, K5's and
+              K6's launches a token equal (a replay counts what its graph
+              captured), and the replayed engine must hold all three
+              graph families and dispatch no eager prefill or chunk;
+              each prints its graphs and pools by family beside the
+              planner's activation_transients, long_prefill_scratch and
+              headroom lines, tokens/s, TTFT p50/p95, the host time of a
+              prefill dispatch and of a block, the device's idle share
+              inside prefill dispatches (a profiled probe after the run)
+              and the flight recorder's device-busy share; the long leg
+              the prompt's TTFT, the hit's from its admission and the
+              streams' worst gap while the prompt prefills. The replayed
+              side checks a prefill group's first-token copy against a
+              second replay of the same graph. The bf16 leg warms the
               sampled variants too and replays the sampled K = 1 graph
               16 times: every draw inside the top-k / top-p mask of the
               same step's eager logits, not all one token
@@ -1903,19 +1918,68 @@ def _recording_server(engine):
     return RecordingServer(engine, model_name="llama3-8b-random")
 
 
+def _release_engine(engine) -> None:
+    """Drop a finished engine's device memory even if something still
+    holds the engine: its page pool, its CUDA graphs (their pools) and
+    its static scratch."""
+    engine.pool = None
+    engine._graphs = None
+    engine._scratch_store = None
+
+
+def _release_device_memory() -> dict:
+    """Before the rank processes' phase: stop and release every engine
+    an earlier phase left alive (its pool, CUDA graphs and scratch), drop
+    cuBLAS's per-stream workspaces (one for each capture stream graphs
+    were captured on) and return the cached blocks. Returns this
+    process's allocated and reserved bytes before and after, the engines
+    found and the segments still reserved by memory pool."""
+    import torch
+
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+
+    gib = 2**30
+    out = {"allocated_gib_before": torch.cuda.memory_allocated() / gib,
+           "reserved_gib_before": torch.cuda.memory_reserved() / gib}
+    engines = [o for o in gc.get_objects() if isinstance(o, LLMEngine)]
+    out["engines_found"] = len(engines)
+    for eng in engines:
+        eng.stop()
+        _release_engine(eng)
+    del engines[:]
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    pools: dict = {}
+    for seg in torch.cuda.memory_snapshot():
+        key = str(tuple(seg["segment_pool_id"]))
+        n, total, alloc = pools.get(key, (0, 0, 0))
+        pools[key] = (n + 1, total + seg["total_size"],
+                      alloc + seg["allocated_size"])
+    return {**out, "allocated_gib": torch.cuda.memory_allocated() / gib,
+            "reserved_gib": torch.cuda.memory_reserved() / gib,
+            "segments_by_pool": {k: {"segments": n, "total_gib": t / gib,
+                                     "allocated_gib": a / gib}
+                                 for k, (n, t, a) in pools.items()}}
+
+
 class ServedEngine:
     """The 8B engine behind the port's OpenAI server on a local port,
     shared by the serving, chunked-prefill and RAG phases (bf16, default
     engine config) and, on its own, by serving_int8 (`engine_cfg`,
-    `n_pages`, warmed at `warmup_buckets` only); the speculative phases
-    hand in an `engine` built over weights already on the card. The
+    `n_pages`, warmed at `warmup_buckets` only, and with `sampled` as
+    LLMEngine.warmup takes it); the speculative phases hand in an
+    `engine` built over weights already on the card. The
     server records each request's token ids (`app.streams`).
     `model_size` and `device` exist so the phases can be rehearsed on
     the CPU at tiny size; the check runs them at 8b on cuda."""
 
     def __init__(self, model_size: str = "8b", device: str = "cuda",
                  engine_cfg=None, n_pages=None, warmup_buckets=None,
-                 engine=None):
+                 engine=None, sampled=None):
         from generativeaiexamples_tpu_torch.serving.__main__ import (
             build_engine)
         from generativeaiexamples_tpu_torch.serving.openai_server import (
@@ -1927,7 +1991,7 @@ class ServedEngine:
             engine_cfg=engine_cfg, n_pages=n_pages)
         self.build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self.engine.warmup(buckets=warmup_buckets)
+        self.engine.warmup(buckets=warmup_buckets, sampled=sampled)
         self.warm_s = time.perf_counter() - t0
         time_mark("served_engine_warm")
         self.engine.start()
@@ -1943,6 +2007,9 @@ class ServedEngine:
         self.httpd.server_close()
         self._thread.join(timeout=30)
         self.engine.stop()
+        # The pool stays for the phases that read it after the close.
+        self.engine._graphs = None
+        self.engine._scratch_store = None
 
 
 def phase_serving(card: str, served: ServedEngine):
@@ -2628,7 +2695,7 @@ def _fused_engine_run(name, params, cfg, tokenizer, ecfg, n_pages, device,
         rec["rider_width"] = engine._fused_width
     finally:
         engine.stop()
-        engine.pool = None
+        _release_engine(engine)
         del engine
         gc.collect()
         if device == "cuda":
@@ -4058,7 +4125,7 @@ def _probed_reference(corpus, centroids, assign, qs, pids, k: int):
 
 
 def phase_ann(card: str, served: ServedEngine, keep: dict,
-              device: str = "cuda", n_search: int = 32,
+              device: str = "cuda", n_search: int = 16,
               max_tokens: int = 16, top_k: int = 5,
               rows: int = ANN_ROWS, dim: int = ANN_DIM,
               n_centers: int = ANN_CENTERS, nlist: int = ANN_NLIST,
@@ -4784,15 +4851,25 @@ def phase_serving_int8(card: str, model_size: str = "8b",
     times its pages the pool tensors' bytes; the peak allocated over the
     burst and the long prompt is printed beside the plan's total and the
     budget (hbm - headroom), with the bytes other phases left resident
-    counted apart. Returns (the record, the closed ServedEngine), whose
-    weights, pool size and token streams the speculative phase reuses."""
+    counted apart. The plan's hbm is the card's memory less those bytes
+    (`hbm_gb_per_device`), as if the engine had the card alone: its
+    activation line then holds the warmed engine's prefill graphs, which
+    keep their pool (serving/step_graphs.py). Returns (the record, the
+    closed ServedEngine), whose weights, pool size and token streams the
+    speculative phase reuses."""
     import torch
 
     from generativeaiexamples_tpu_torch import kernels
 
     ecfg = dict(engine_cfg or INT8_DEPLOYMENT)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
+    if ecfg.get("auto_pool_pages") and n_pages is None and torch.device(
+            device).type == "cuda" and not ecfg.get("hbm_gb_per_device"):
+        total = torch.cuda.get_device_properties(
+            torch.device(device)).total_memory
+        ecfg["hbm_gb_per_device"] = (total - resident) / 2**30
     served = ServedEngine(model_size, device, engine_cfg=ecfg,
                           n_pages=n_pages, warmup_buckets=[128, 512])
     engine = served.engine
@@ -4821,6 +4898,9 @@ def phase_serving_int8(card: str, model_size: str = "8b",
         # request) under the profiler, for where its time goes.
         profile = _profile_window(lambda: sum(
             r["completion_tokens"] for r in burst(16) if r))
+        # Read before the close drops the graphs.
+        graphs = (engine._graphs.stats() if engine._graphs is not None
+                  else None)
     finally:
         served.close()
     # With the engine stopped, a few free pages of its int8 pool make
@@ -4895,7 +4975,6 @@ def phase_serving_int8(card: str, model_size: str = "8b",
            "long_prompt": {"tokens": long_prompt, **long_rec},
            "launches": launches, "peak_mem_gb": peak_gb,
            "page_round_trip": round_trip, "profile": profile, "ok": ok}
-    graphs = engine._graphs.stats() if engine._graphs is not None else None
     rec["graphs"] = graphs
     if planner is not None and graphs is not None:
         # The warmed engine's CUDA graphs reserve their pool on top of the
@@ -5004,7 +5083,7 @@ def phase_tools_int8(card: str, int8_served, device: str = "cuda",
     ttft = _ttft_table(engine)
     t_ttft = time.perf_counter() - t0
     n_pages = engine.pool.n_pages
-    engine.pool = None
+    _release_engine(engine)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5179,7 +5258,7 @@ def _first_divergence(got, want):
 
 
 def phase_spec_int8(card: str, int8_served, device: str = "cuda",
-                    n_requests: int = 128, max_tokens: int = 32,
+                    n_requests: int = 128, max_tokens: int = 16,
                     n_pages=None, engine_cfg=None,
                     configs=SPEC_INT8_CONFIGS, profile_tokens: int = 16):
     """Speculative engines on the int8 deployment, over serving_int8's
@@ -5200,7 +5279,7 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
     params, cfg, tokenizer = old.params, old.cfg, old.tokenizer
     base_streams = int8_served.app.streams
     n_pages = n_pages or old.pool.n_pages
-    old.pool = None
+    _release_engine(old)
     del old, int8_served
     gc.collect()
     torch.cuda.empty_cache()
@@ -5210,7 +5289,9 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
         ecfg = {**(engine_cfg or INT8_DEPLOYMENT), **spec}
         engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
                            device=device)
-        served = ServedEngine(engine=engine, warmup_buckets=[128, 512])
+        # Greedy bursts only: the sampled fallback is not warmed.
+        served = ServedEngine(engine=engine, warmup_buckets=[128, 512],
+                              sampled=False)
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -5292,7 +5373,7 @@ def phase_spec_int8(card: str, int8_served, device: str = "cuda",
                "launches": launches, "profile": profile, "ok": ok}
         emit(rec)
         recs.append(rec)
-        engine.pool = None
+        _release_engine(engine)
         del engine, served
         gc.collect()
         torch.cuda.empty_cache()
@@ -5320,7 +5401,8 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
                        {"speculative_k": spec[0],
                         "speculative_tree_branches": spec[1]},
                        device=device)
-    served = ServedEngine(engine=engine)
+    # Every prompt fits the smallest bucket: only it is warmed.
+    served = ServedEngine(engine=engine, warmup_buckets=[128])
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5351,7 +5433,7 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
     finally:
         served.close()
-    engine.pool = None
+    _release_engine(engine)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5389,7 +5471,7 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
 
 # -- phase 11c: the prefix cache and the KV pager at 8B --------------------
 
-# -- the warmed engine: decode blocks replayed as CUDA graphs ---------------
+# -- the warmed engine: its lattice replayed as CUDA graphs -----------------
 
 # Both engines of a leg are warmed alike (the same lattice, so the same
 # dispatch limits) and serve the same greedy requests, all submitted
@@ -5397,10 +5479,17 @@ def phase_spec_bf16(card: str, bf16_served, device: str = "cuda",
 # groups; max_tokens - 1 is a multiple of 8, and both warm every power
 # of two up to K = 8, so both pick the same block lengths and the
 # kernels' launches a token must be equal. Only the replay differs: the
-# eager engine's graphs are dropped after its warmup.
+# eager engine's graphs (decode, prefill and chunk) are dropped after its
+# warmup. Every leg warms the chunked lane for one 4,096-token prompt (one
+# chunk width, GRAPH_LONG_WARM), so each engine holds all three graph
+# families.
 GRAPH_KS = (1, 2, 4, 8)
 GRAPH_SPEC_TREE = {"speculative_k": 3, "speculative_tree_branches": 4}
 GRAPH_PROMPT_CHARS = (20, 100)
+GRAPH_LONG_WARM = {"long_prompts": True, "long_prompt_lengths": [4096]}
+# The kernels whose launches a token must be equal, replayed and eager.
+GRAPH_KERNELS = ("flash_attention", "paged_attention", "paged_attention_int8",
+                 "paged_attention_tree", "int8_matmul")
 
 
 def _graph_prompts(tokenizer, n: int):
@@ -5475,30 +5564,200 @@ def _sampled_replay_check(engine, n_draws: int = 16) -> dict:
             "ok": inside and len(set(draws)) > 1}
 
 
+def _sink_prefill_record(engine, n: int, bucket: int, seed: int) -> dict:
+    """A `prefill` record of n random prompts filling `bucket`, every row
+    on sink page 0 with slot index len(slots), so it writes no slot and
+    no page anything reads (greedy)."""
+    import numpy as np
+
+    from generativeaiexamples_tpu_torch.serving.step_graphs import GREEDY
+
+    r = np.random.default_rng(seed)
+    return {"tokens": r.integers(1, 250, (n, bucket)).astype(np.int32),
+            "lengths": np.full((n,), bucket, np.int32),
+            "rows": np.zeros((n, bucket // engine.pool.page_size), np.int32),
+            "temps": np.zeros((n,), np.float32),
+            "top_ps": np.ones((n,), np.float32),
+            "top_ks": np.zeros((n,), np.int32),
+            "idxs": np.full((n,), len(engine.slots), np.int32),
+            "flags": np.asarray(GREEDY)}
+
+
+def _prefill_copy_check(engine, n: int, bucket: int = 128) -> dict:
+    """The first tokens' host copy of a replayed prefill group is queued
+    on the replay's stream before any later replay of the same graph can
+    overwrite its static output: two groups of the same (bucket, n)
+    replayed back to back, each followed at once by its HostCopy as
+    _prefill_group queues it, read only after both; each must equal the
+    same group's first tokens run eagerly (graphs dropped for that)."""
+    from generativeaiexamples_tpu_torch.serving.engine import HostCopy
+
+    recs = [_sink_prefill_record(engine, n, bucket, seed) for seed in (1, 2)]
+    copies = [HostCopy(engine._exec_prefill(rec)) for rec in recs]
+    got = [c.numpy().tolist() for c in copies]
+    graphs, engine._graphs = engine._graphs, None
+    try:
+        want = [engine._exec_prefill(rec).cpu().tolist() for rec in recs]
+    finally:
+        engine._graphs = graphs
+    # Distinct groups, so a copy that read the second replay's output
+    # would show.
+    return {"group": n, "bucket": bucket, "replayed": got, "eager": want,
+            "ok": got == want and want[0] != want[1]}
+
+
+def _prefill_idle_probe(engine, n: int, bucket: int = 128,
+                        reps: int = 1) -> dict:
+    """The device's idle share inside prefill dispatches: groups of n
+    prompts at `bucket` (sink rows) through the engine's own executor (a
+    replay on a warmed engine with graphs, op by op without), each from
+    an idle device. A dispatch's window runs from its host call to the
+    end of its device work (host clock, `reps` dispatches unprofiled);
+    its busy time is its device activities' time (torch.profiler over
+    `reps` more, one stream; CUPTI slows the host's launches, not the
+    kernels, so the window is not taken from those). The engine has
+    served already, so its first-call costs are paid."""
+    import numpy as np
+    import torch
+
+    rec = _sink_prefill_record(engine, n, bucket, 3)
+    host_us, wall_ms = [], []
+
+    def dispatch(log: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._exec_prefill(rec)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if log:
+            host_us.append((t1 - t0) * 1e6)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(reps):
+        dispatch(True)
+    rows = _shared().profile_device(
+        lambda: [dispatch(False) for _ in range(reps)], engine.device)
+    busy_ms = sum(ms for ms, _, _ in rows) / reps
+    wall = float(np.median(wall_ms))
+    return {"group": n, "bucket": bucket, "reps": reps,
+            "host_us_p50": float(np.median(host_us)), "wall_ms_p50": wall,
+            "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall if rows else None}
+
+
+def _planner_lines(engine) -> dict:
+    """The memory planner's activation_transients, long_prefill_scratch
+    and headroom lines for the engine's config on this card (the plan an
+    auto_pool_pages build would make), beside which the graph pools are
+    printed."""
+    from generativeaiexamples_tpu_torch.serving.memory_plan import (
+        plan_rank_memory)
+
+    try:
+        plan = engine.memory_plan or plan_rank_memory(
+            engine.model_cfg, engine.ecfg, None, engine.device)
+    except Exception as e:  # a plan that cannot fit: printed, not fatal
+        return {"error": f"{type(e).__name__}: {e}"}
+    lines = {line.name: line.bytes_per_device for line in plan.lines}
+    return {"activation_transients": lines.get("activation_transients"),
+            "long_prefill_scratch": lines.get("long_prefill_scratch"),
+            "headroom": plan.headroom_bytes}
+
+
+def _leg_engine(params, cfg, tokenizer, ecfg, n_pages, device, warm_kw,
+                mode: str):
+    """A leg's engine warmed at warm_kw; the eager one has every graph
+    dropped after its warmup. Returns (engine, warmup s, graph stats)."""
+    from generativeaiexamples_tpu_torch.serving.engine import LLMEngine
+
+    engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
+                       device=device)
+    t0 = time.perf_counter()
+    engine.warmup(**warm_kw)
+    warm_s = time.perf_counter() - t0
+    if mode == "eager":
+        # Warmed alike, and every dispatch through the eager path.
+        engine._graphs = None
+    stats = engine._graphs.stats() if engine._graphs is not None else None
+    return engine, warm_s, stats
+
+
+def _timed_prefill(engine, host_us: list) -> None:
+    """Time each prefill dispatch's host call (the replay: input copy and
+    graph launch; or the eager launches), as timed_plan times a block's."""
+    real = engine._exec_prefill
+
+    def timed(rec):
+        t = time.perf_counter()
+        out = real(rec)
+        host_us.append((time.perf_counter() - t) * 1e6)
+        return out
+
+    engine._exec_prefill = timed
+
+
+def _free_engine(engine) -> None:
+    import torch
+
+    engine.stop()
+    _release_engine(engine)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leg_checks(g: dict, e: dict) -> dict:
+    """What both sides of a leg must show: launches a token equal for
+    K1, K2, K4, K5 and K6; the replayed engine's prefill and chunk graphs
+    captured and no eager prefill or chunk dispatch; the eager one's
+    graphs gone."""
+    fam = (g["graphs"] or {}).get("by_family", {})
+    return {
+        "launches_equal": all(g["launches"][k] == e["launches"][k]
+                              for k in GRAPH_KERNELS),
+        "families_captured": all(fam.get(f, {}).get("graphs", 0) > 0
+                                 for f in ("decode", "prefill", "chunk")),
+        "no_eager_prefill_or_chunk": (g["eager_prefill_dispatches"] == 0
+                                      and g["eager_chunk_dispatches"] == 0),
+        "eager_side_eager": e["graphs"] is None}
+
+
+def _digest(run: dict) -> None:
+    """Streams printed as a digest and the first request's ids."""
+    streams = run.pop("streams")
+    run["streams_sha256"] = hashlib.sha256(
+        json.dumps(streams).encode()).hexdigest()
+    run["first_stream"] = streams[0]
+
+
 def _graph_leg(card: str, name: str, params, cfg, tokenizer, ecfg: dict,
                n_pages: int, n_requests: int, max_tokens: int,
                warm_kw: dict, device: str = "cuda",
                sampled_check: bool = False) -> dict:
     """One deployment served twice over the same weights, by two engines
     warmed alike (`warm_kw`), one after the other, each fed the same
-    greedy requests: the first replays its decode lattice as CUDA graphs,
-    the second has its graphs dropped after warmup, so every block runs
-    eagerly under the same dispatch limits. Streams must be
-    byte-identical and the decode kernels' launches a token equal; each
-    stream runs to max_tokens or ends at EOS."""
+    greedy requests: the first replays its lattice as CUDA graphs
+    (decode blocks, prefill groups; chunks where a prompt is chunked),
+    the second has every graph dropped after warmup, so every dispatch
+    runs eagerly under the same dispatch limits. Streams must be
+    byte-identical and K1's, K2's, K4's, K5's and K6's launches a token
+    equal; each stream runs to max_tokens or ends at EOS. Each side
+    prints TTFT p50/p95, the host time of its prefill dispatches and its
+    decode blocks, the device's idle share inside prefill dispatches (a
+    profiled probe after the run) and its graph pools by family beside
+    the planner's lines; the replayed side also checks a prefill group's
+    first-token copy against a second replay."""
     import numpy as np
     import torch
 
     from generativeaiexamples_tpu_torch import kernels
     from generativeaiexamples_tpu_torch.serving import engine_model
-    from generativeaiexamples_tpu_torch.serving.engine import (
-        GenRequest, LLMEngine)
+    from generativeaiexamples_tpu_torch.serving.engine import GenRequest
     from generativeaiexamples_tpu_torch.serving.openai_server import (
         OpenAIServer)
 
     prompts = _graph_prompts(tokenizer, n_requests)
     real = engine_model.plan_step
-    host_us = []
+    host_us, prefill_us = [], []
 
     def timed_plan(params, cfg, plan, **kw):
         # Host time of each decode block's plan_step call: the replay
@@ -5509,59 +5768,79 @@ def _graph_leg(card: str, name: str, params, cfg, tokenizer, ecfg: dict,
             host_us.append((time.perf_counter() - t) * 1e6)
         return out
 
+    group = min(n_requests, _prefill_group_size(ecfg))
     runs = {}
+    planner = None
     for mode in ("graphs", "eager"):
-        engine = LLMEngine(params, cfg, tokenizer, ecfg, n_pages=n_pages,
-                           device=device)
+        engine, warm_s, stats = _leg_engine(params, cfg, tokenizer, ecfg,
+                                            n_pages, device, warm_kw, mode)
         try:
-            t0 = time.perf_counter()
-            engine.warmup(**warm_kw)
-            warm_s = time.perf_counter() - t0
-            if mode == "eager":
-                # Warmed alike, and every block through the eager path.
-                engine._graphs = None
             time_mark(f"graphs_{name}_{mode}_warm")
-            stats = (engine._graphs.stats() if engine._graphs is not None
-                     else None)
+            planner = planner or _planner_lines(engine)
             sampled = (_sampled_replay_check(engine)
                        if mode == "graphs" and sampled_check else None)
             torch.cuda.synchronize()
             kernels.reset_launches()
             host_us.clear()
+            prefill_us.clear()
+            _timed_prefill(engine, prefill_us)
             reqs = [engine.submit(GenRequest(prompt_ids=list(ids),
                                              max_new_tokens=max_tokens))
                     for ids in prompts]
+            got: dict = {}
+            threads = [threading.Thread(target=_timed_request, args=(r, got),
+                                        daemon=True) for r in reqs]
+            for t in threads:
+                t.start()
             engine_model.plan_step = timed_plan
             try:
                 t1 = time.perf_counter()
                 engine.start()
-                streams = [_request_ids(r) for r in reqs]
+                for t in threads:
+                    t.join(timeout=900)
                 wall = time.perf_counter() - t1
             finally:
                 engine_model.plan_step = real
             torch.cuda.synchronize()
+            timed = [got.get(id(r), []) for r in reqs]
+            streams = [[tok for _, tok in s] for s in timed]
+            ttfts = [(s[0][0] - r.submit_time) * 1e3
+                     for s, r in zip(timed, reqs) if s]
             launches = dict(kernels.LAUNCHES)
             metrics = engine.metrics.snapshot()
+            if engine._graphs is not None:
+                stats = engine._graphs.stats()  # with the run's replays
             flight = _flight_report(OpenAIServer(engine).timeline()[1],
                                     f"graphs_{name}_{mode}")
-        finally:
             engine.stop()
-            engine.pool = None
+            del engine._exec_prefill  # the timing wrapper
+            probe = _prefill_idle_probe(engine, group)
+            copy = (_prefill_copy_check(engine, min(group, 8))
+                    if mode == "graphs" else None)
+        finally:
+            _free_engine(engine)
             del engine
-            gc.collect()
-            torch.cuda.empty_cache()
         tokens = sum(len(s) for s in streams)
         runs[mode] = {
             "warmup_s": warm_s, "graphs": stats, "sampled_replay": sampled,
             "tokens": tokens, "wall_s": wall,
             "tokens_per_s": tokens / wall if wall else None,
-            "ttft_p50_ms": metrics["ttft_p50_ms"],
+            "ttft_p50_ms": float(np.percentile(ttfts, 50)),
+            "ttft_p95_ms": float(np.percentile(ttfts, 95)),
+            "ttft_hist_p50_ms": metrics["ttft_p50_ms"],
+            "ttft_hist_p95_ms": metrics["ttft_p95_ms"],
             "plan_variants_compiled": metrics["plan_variants_compiled"],
+            "eager_prefill_dispatches": metrics["eager_prefill_dispatches"],
+            "eager_chunk_dispatches": metrics["eager_chunk_dispatches"],
             "decode_steps": metrics["decode_steps"],
             "blocks": len(host_us),
             "block_host_us_p50": (float(np.median(host_us)) if host_us
                                   else None),
             "block_host_us_max": max(host_us) if host_us else None,
+            "prefills": len(prefill_us),
+            "prefill_host_us_p50": (float(np.median(prefill_us))
+                                    if prefill_us else None),
+            "prefill_probe": probe, "prefill_copy_check": copy,
             "launches": launches,
             "launches_per_token": {k: n / tokens for k, n in launches.items()
                                    if n} if tokens else {},
@@ -5571,8 +5850,6 @@ def _graph_leg(card: str, name: str, params, cfg, tokenizer, ecfg: dict,
             "flight_ok": flight["ok"], "streams": streams}
         time_mark(f"graphs_{name}_{mode}")
     g, e = runs["graphs"], runs["eager"]
-    decode_kernels = ("paged_attention", "paged_attention_int8",
-                      "paged_attention_tree", "int8_matmul")
     equal_streams = g["streams"] == e["streams"]
     first = None
     if not equal_streams:
@@ -5580,29 +5857,207 @@ def _graph_leg(card: str, name: str, params, cfg, tokenizer, ecfg: dict,
                       for i, (a, b) in enumerate(zip(g["streams"],
                                                      e["streams"]))
                       if a != b), None)
-    same_launches = all(g["launches"][k] == e["launches"][k]
-                        for k in decode_kernels)
+    checks = _leg_checks(g, e)
     eos = {tokenizer.eos_id} | set(getattr(tokenizer, "eos_ids", None) or ())
     whole = all(len(s) == max_tokens or (s and s[-1] in eos)
                 for s in g["streams"])
     for run in runs.values():
-        # The streams, printed as a digest and the first request's ids.
-        streams = run.pop("streams")
-        run["streams_sha256"] = hashlib.sha256(
-            json.dumps(streams).encode()).hexdigest()
-        run["first_stream"] = streams[0]
-    ok = (equal_streams and same_launches and whole
-          and g["graphs"] is not None and g["graphs"]["graphs"] > 0
-          and g["graphs"]["pool_bytes"] > 0 and e["graphs"] is None
+        _digest(run)
+    ok = (equal_streams and all(checks.values()) and whole
+          and g["graphs"]["pool_bytes"] > 0
           and g["flight_ok"] and e["flight_ok"]
-          and any(g["launches"][k] for k in decode_kernels)
+          and g["prefill_copy_check"]["ok"]
+          and any(g["launches"][k] for k in GRAPH_KERNELS[1:])
           and (g["sampled_replay"] is None or g["sampled_replay"]["ok"]))
     rec = {"phase": "graphs", "deployment": name, "card": card,
            "engine": ecfg, "layers": cfg.n_layers, "requests": n_requests,
            "max_tokens": max_tokens, "warmup": warm_kw,
-           "reduced": {"n_pages": n_pages},
+           "reduced": {"n_pages": n_pages}, "planner": planner,
            "streams_equal": equal_streams, "first_divergence": first,
-           "decode_launches_equal": same_launches, "runs": runs, "ok": ok}
+           **checks, "runs": runs, "ok": ok}
+    emit(rec)
+    return rec
+
+
+def _prefill_group_size(ecfg: dict) -> int:
+    """The largest prefill group an engine of `ecfg` forms: its
+    max_prefill_group (0: max_batch_size), rounded up to a power of two
+    as _prefill_group pads it, at most max_batch_size's."""
+    from generativeaiexamples_tpu_torch.config.schema import EngineConfig
+
+    e = EngineConfig.coerce(ecfg)
+    cap = e.max_prefill_group if e.max_prefill_group > 0 else e.max_batch_size
+    n = min(cap, e.max_batch_size)
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+# The long-prompt leg (int8 deployment): a 6,000-token prompt rides three
+# greedy streams, then a request sharing its first 46 pages (5,888
+# tokens) with 200 new tokens hits the prefix cache. All are submitted
+# before the engine starts: the hit waits for the one chunked lane, so
+# both engines admit it on the same beat.
+GRAPH_LONG = {"prompt": 6000, "hit_shared": 5888, "hit_new": 200,
+              "shorts": 3, "short_tokens": 49, "long_tokens": 9,
+              "n_pages": 160}
+
+
+def _timed_request(req, out: dict, timeout_s: float = 600) -> None:
+    """Collect one request's (arrival s, token id) pairs into out[id]."""
+    got = []
+    while True:
+        ev = req.stream.get(timeout=timeout_s)
+        if ev["token_id"] >= 0:
+            got.append((time.perf_counter(), int(ev["token_id"])))
+        if ev.get("finished"):
+            out[id(req)] = got
+            return
+
+
+def _graph_long_leg(card: str, params, cfg, tokenizer, device: str = "cuda",
+                    engine_cfg=None, spec=None) -> dict:
+    """The int8 deployment (docs/deployment.md:62, batch 128) with the
+    prefix cache and the 512-token rider, warmed with long_prompts (and
+    at K in GRAPH_KS, bucket 128), served twice as _graph_leg serves it:
+    replayed, and with every graph dropped. Traffic (GRAPH_LONG): three
+    greedy streams, a 6,000-token prompt whose chunks ride their decode
+    blocks, and a prefix hit on that prompt's first 46 pages. The
+    streams must be byte-identical, K1's, K4's and K6's launches a token
+    equal, the rider must ride and the hit hit on both sides, and the
+    replayed side must dispatch no eager prefill or chunk. Prints TTFT
+    p50/p95, the long prompt's TTFT, the hit's TTFT from its admission,
+    the short streams' worst gap while the long prompt prefills, the
+    prefill host p50, the idle share inside prefill dispatches and the
+    graph pools by family beside the planner's lines."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving.engine import GenRequest
+
+    spec = {**GRAPH_LONG, **(spec or {})}
+    ecfg = {**(engine_cfg or INT8_DEPLOYMENT), "prefix_cache": True,
+            **dict(FUSED_RUNS)["B_rider"], **UNPACED}
+    # The chunked lane warmed for the two long prompts' lengths (one
+    # scratch length, 8,192: chunks of 4,096 and 2,048, the 512-wide
+    # rider), as the JAX warmup's long_prompt_lengths restricts it.
+    # Prefill groups up to 4: the three streams' group and the probe's.
+    warm_kw = {"buckets": [128], "group_sizes": [1, 2, 4], "ks": GRAPH_KS,
+               "sampled": False, "long_prompts": True, "long_prompt_lengths": [
+                   spec["prompt"], spec["hit_shared"] + spec["hit_new"]]}
+    prompt, shorts = _fused_traffic(13, spec["prompt"], spec["shorts"])
+    g = np.random.default_rng(14)
+    hit = prompt[:spec["hit_shared"]] + g.integers(
+        0, 256, spec["hit_new"]).tolist()
+    runs = {}
+    planner = None
+    for mode in ("graphs", "eager"):
+        engine, warm_s, stats = _leg_engine(
+            params, cfg, tokenizer, ecfg, spec["n_pages"], device, warm_kw,
+            mode)
+        try:
+            time_mark(f"graphs_long_{mode}_warm")
+            planner = planner or _planner_lines(engine)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            prefill_us = []
+            _timed_prefill(engine, prefill_us)
+            admitted = {}
+            real_begin = engine._begin_prefix_prefill
+
+            def begin(req, *a, _real=real_begin, _admitted=admitted):
+                _admitted[id(req)] = time.perf_counter()
+                return _real(req, *a)
+
+            engine._begin_prefix_prefill = begin
+            reqs = [engine.submit(GenRequest(prompt_ids=list(p),
+                                             max_new_tokens=spec[
+                                                 "short_tokens"]))
+                    for p in shorts]
+            reqs += [engine.submit(GenRequest(prompt_ids=list(p),
+                                              max_new_tokens=spec[
+                                                  "long_tokens"]))
+                     for p in (prompt, hit)]
+            got: dict = {}
+            threads = [threading.Thread(target=_timed_request, args=(r, got),
+                                        daemon=True) for r in reqs]
+            for t in threads:
+                t.start()
+            t1 = time.perf_counter()
+            engine.start()
+            for t in threads:
+                t.join(timeout=900)
+            wall = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            metrics = engine.metrics.snapshot()
+            if engine._graphs is not None:
+                stats = engine._graphs.stats()  # with the run's replays
+            engine.stop()
+            del engine._exec_prefill, engine._begin_prefix_prefill
+            probe = _prefill_idle_probe(engine, _prefill_group_size(
+                {**ecfg, "max_batch_size": spec["shorts"]}))
+        finally:
+            _free_engine(engine)
+            del engine
+        timed = [got.get(id(r), []) for r in reqs]
+        streams = [[tok for _, tok in s] for s in timed]
+        long_first = timed[-2][0][0] if timed[-2] else None
+        gaps = [b[0] - a[0] for s in timed[:-2] for a, b in zip(s, s[1:])
+                if long_first is not None and b[0] <= long_first]
+        tokens = sum(len(s) for s in streams)
+        hit_admit = admitted.get(id(reqs[-1]))
+        ttfts = [(s[0][0] - r.submit_time) * 1e3
+                 for s, r in zip(timed, reqs) if s]
+        runs[mode] = {
+            "warmup_s": warm_s, "graphs": stats, "tokens": tokens,
+            "wall_s": wall,
+            "ttft_p50_ms": float(np.percentile(ttfts, 50)),
+            "ttft_p95_ms": float(np.percentile(ttfts, 95)),
+            "ttft_hist_p50_ms": metrics["ttft_p50_ms"],
+            "ttft_hist_p95_ms": metrics["ttft_p95_ms"],
+            "long_ttft_ms": ((long_first - t1) * 1e3 if long_first
+                             else None),
+            "hit_ttft_from_admit_ms": (
+                (timed[-1][0][0] - hit_admit) * 1e3
+                if hit_admit and timed[-1] else None),
+            "rider_worst_gap_ms": max(gaps) * 1e3 if gaps else None,
+            "rider_gap_p50_ms": (float(np.median(gaps)) * 1e3 if gaps
+                                 else None),
+            "prefix_hits": metrics["prefix_hits"],
+            "prefix_hit_tokens": metrics["prefix_hit_tokens"],
+            "fused_steps": metrics["fused_steps"],
+            "fused_prefill_tokens": metrics["fused_prefill_tokens"],
+            "eager_prefill_dispatches": metrics["eager_prefill_dispatches"],
+            "eager_chunk_dispatches": metrics["eager_chunk_dispatches"],
+            "prefills": len(prefill_us),
+            "prefill_host_us_p50": (float(np.median(prefill_us))
+                                    if prefill_us else None),
+            "prefill_probe": probe, "launches": launches,
+            "launches_per_token": {k: n / tokens for k, n in launches.items()
+                                   if n} if tokens else {},
+            "streams": streams}
+        time_mark(f"graphs_long_{mode}")
+    g, e = runs["graphs"], runs["eager"]
+    equal_streams = g["streams"] == e["streams"]
+    checks = _leg_checks(g, e)
+    eos = {tokenizer.eos_id} | set(getattr(tokenizer, "eos_ids", None) or ())
+    want = [spec["short_tokens"]] * spec["shorts"] + [spec["long_tokens"]] * 2
+    lengths_ok = all(len(s) == n or (s and s[-1] in eos)
+                     for s, n in zip(g["streams"], want))
+    for run in runs.values():
+        _digest(run)
+    ok = (equal_streams and all(checks.values()) and lengths_ok
+          and all(r["prefix_hits"] == 1 and r["fused_steps"] > 0
+                  and r["prefix_hit_tokens"] == spec["hit_shared"]
+                  for r in runs.values())
+          and g["launches"]["flash_attention"] > 0
+          and g["launches"]["int8_matmul"] > 0)
+    rec = {"phase": "graphs", "deployment": "int8_long", "card": card,
+           "engine": ecfg, "layers": cfg.n_layers, "traffic": spec,
+           "warmup": warm_kw, "reduced": {"n_pages": spec["n_pages"]},
+           "planner": planner, "streams_equal": equal_streams,
+           "stream_lengths_ok": lengths_ok, **checks, "runs": runs,
+           "ok": ok}
     emit(rec)
     return rec
 
@@ -5616,32 +6071,36 @@ def phase_graphs_bf16(card: str, bf16_served, device: str = "cuda",
     eng = bf16_served.engine
     return _graph_leg(card, "bf16_b8", eng.params, eng.cfg, eng.tokenizer,
                       {}, n_pages, n_requests, max_tokens,
-                      {"buckets": [128], "ks": GRAPH_KS, "sampled": True},
-                      device, sampled_check=True)
+                      {"buckets": [128], "ks": GRAPH_KS, "sampled": True,
+                       **GRAPH_LONG_WARM}, device, sampled_check=True)
 
 
 def phase_graphs_int8(card: str, params, cfg, tokenizer,
                       device: str = "cuda", n_requests: int = 128,
                       max_tokens: int = 129, tree_tokens: int = 65,
-                      n_pages: int = 577, engine_cfg=None) -> list:
+                      n_pages: int = 577, engine_cfg=None,
+                      long_spec=None) -> list:
     """The int8 deployment (docs/deployment.md:62) at B = 128, then its
-    speculative tree form (k = 3, M = 4), over the int8 weights."""
+    speculative tree form (k = 3, M = 4), over the int8 weights; then the
+    long-prompt leg on the same deployment."""
     base = dict(engine_cfg or INT8_DEPLOYMENT)
-    return [_graph_leg(card, name, params, cfg, tokenizer,
+    legs = [_graph_leg(card, name, params, cfg, tokenizer,
                        {**base, **spec}, n_pages, n_requests, n_tokens,
-                       {"buckets": [128], "ks": GRAPH_KS, "sampled": False},
-                       device)
+                       {"buckets": [128], "ks": GRAPH_KS, "sampled": False,
+                        **GRAPH_LONG_WARM}, device)
             for name, spec, n_tokens in (
                 ("int8_b128", {}, max_tokens),
                 ("spec_int8_tree", GRAPH_SPEC_TREE, tree_tokens))]
+    return legs + [_graph_long_leg(card, params, cfg, tokenizer, device,
+                                   base, long_spec)]
 
 
 def graphs_only(card: str) -> dict:
     """The graphs phase alone (`chip_smoke.py --graphs`): the kernels
     built, the random 8B bf16 engine (seed 0, as the served engine) for
     its leg, then the int8 deployment's weights (seed 0, quantized, as
-    serving_int8's) for the int8 and tree legs, each freed before the
-    next."""
+    serving_int8's) for the int8, tree and long-prompt legs, each freed
+    before the next."""
     import types
 
     import torch
@@ -5654,7 +6113,7 @@ def graphs_only(card: str) -> dict:
     out = {"build_s": time.perf_counter() - t0}
     eng = build_engine("8b", "cuda", seed=0, warmup=False, n_pages=97)
     bf16 = phase_graphs_bf16(card, types.SimpleNamespace(engine=eng))
-    eng.pool = None
+    _release_engine(eng)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -5904,7 +6363,7 @@ def phase_prefix(card: str, bf16_served, device: str = "cuda",
             "launches": session_launches, "ok": sess_ok}
     finally:
         served.close()
-        engine.pool = None
+        _release_engine(engine)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -6177,7 +6636,7 @@ def _fleet_elastic(src, engines, fleet_of, letters, chat_ids, ecfg,
                   "e2e_s": (o[4] - o[3]) if o else None}
                  for i, o in enumerate(out)]
     for eng in spawned:
-        eng.pool = None
+        _release_engine(eng)
     rec = {"chats": n_chats, "max_tokens": max_tokens, "gap_s": gap_s,
            "autoscaler": {"interval_s": 0.25, "up_depth": ELASTIC_UP_DEPTH,
                           "down_depth": 0.5, "up_ticks": 2,
@@ -6282,7 +6741,7 @@ def _fleet_chaos(src, engines, fleet_of, rng, ecfg, n_pages, device,
             same_hit_equal = _alone(reng, prompt, max_tokens) == got
         finally:
             reng.stop()
-            reng.pool = None
+            _release_engine(reng)
     slow = {"prompt_tokens": CHAOS_PROMPT, "slow_s_per_beat": CHAOS_SLOW_S,
             "ttft_ms": ttft, "finish": finish,
             "disagg_early_admits": o["disagg_early_admits"],
@@ -6719,7 +7178,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
             t.join(timeout=30)
         for e in engines:
             e.stop()
-            e.pool = None
+            _release_engine(e)
         del engines
         gc.collect()
         torch.cuda.empty_cache()
@@ -6784,7 +7243,7 @@ def phase_fleet(card: str, bf16_served, device: str = "cuda",
             te.join(timeout=30)
     finally:
         qeng.stop()
-        qeng.pool = None
+        _release_engine(qeng)
         del qeng
         gc.collect()
         torch.cuda.empty_cache()
@@ -8875,7 +9334,7 @@ def _tp_rank_main(rank, coordinator, device, cmds, out) -> None:
                 rep["plans"] = dict(plans)
                 rep["state"] = _spec_state(eng)
                 mesh_lib.COLLECTIVE_TIMING = False
-                eng.pool = None
+                _release_engine(eng)
                 del eng
             elif kind == "warm":
                 rep.update(_train_warmup(device))
@@ -9122,7 +9581,7 @@ def _tp_spec_leg(ranks, ecfg, int8_params, cfg, tokenizer, prompts,
     single = LLMEngine(int8_params, cfg, tokenizer,
                        {**ecfg, "multihost": False}, device=device)
     one = _tp_spec_run(single, prompts, long_prompt, n_tokens)
-    single.pool = None
+    _release_engine(single)
     del single
     gc.collect()
     if torch.device(device).type == "cuda":
@@ -10271,6 +10730,8 @@ def main() -> int:
         del bf16_params, rag_keep
         gc.collect()
         torch.cuda.empty_cache()
+        emit({"phase": "memory", "before": "train_ranks",
+              **_release_device_memory()})
         train_ranks = timed("train_ranks", phase_train_ranks, card,
                             train_procs)
     finally:

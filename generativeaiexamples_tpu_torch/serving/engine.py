@@ -27,8 +27,9 @@ and a CUDA event recorded behind it; the host reads it only once the
 event has completed, admitting new arrivals while it waits.
 
 Chunked prefill: a long prompt's chunks run through a contiguous
-scratch KVCache with offset queries, and ONE scatter (the commit) moves
-the cache into the sequence's pages. The chunk that completes the prompt
+scratch KVCache (the first rows of the engine's static scratch) with
+offset queries, and ONE scatter (the commit) moves the cache into the
+sequence's pages. The chunk that completes the prompt
 samples the first token inside the same dispatch; a finish whose last
 chunk did not sample samples from its logits at the commit
 (`sample_token_into`, or with `fused_sampling` off the unfused
@@ -130,9 +131,16 @@ per K, with `long_prompts` the chunked lane's shapes and the rider's;
 the warmed points are recorded (`_warm_*`; `plan_variants_compiled`)
 and from then on the dispatcher picks only warmed block lengths, chunk
 widths and rider shapes, as the JAX engine does (an engine never warmed
-picks any). On one CUDA device the decode lattice is captured as CUDA
-graphs (serving/step_graphs.py) that `engine_model.plan_step` replays;
-prefill, chunks and riders stay eager.
+picks any). On one CUDA device the whole lattice is captured as CUDA
+graphs (serving/step_graphs.py): decode blocks, prefill groups, chunks
+and the hit chain's gather, scatter and finish sampler; a rider or a
+composed plan replays a chunk's graph and a block's. What stays eager,
+and why, is listed there; `metrics.eager_prefill_dispatches` and
+`eager_chunk_dispatches` count a warmed engine's eager ones.
+
+Chunked prompts and prefix hits share ONE static scratch cache of page
+capacity's rows (`_scratch`, the memory planner's long_prefill_scratch
+line); a prompt of scratch length S_total uses its first S_total rows.
 
 Chaos (serving/chaos.py): `chaos_beat_delay_s` sleeps at the top of each
 scheduler iteration (a slow replica); 0.0 costs one float compare.
@@ -448,6 +456,12 @@ class EngineMetrics:
         # Plan variants compiled at warmup (JAX's jitted step lattice).
         # Always present, 0: an eager engine compiles none.
         self.plan_variants_compiled = 0
+        # Prefill groups and chunk dispatches a warmed CUDA engine ran op
+        # by op rather than as a CUDA graph (serving/step_graphs.py): a
+        # shape outside the warmed lattice, or an engine without graphs.
+        # Always present, 0 on the CPU and on a never-warmed engine.
+        self.eager_prefill_dispatches = 0
+        self.eager_chunk_dispatches = 0
         # The pager's stats() (KV_PAGER_KEYS); None when it is off.
         self.kv_pager_stats = None
         # The flight recorder's stats() (FLIGHT_KEYS); None emits zeros.
@@ -529,6 +543,8 @@ class EngineMetrics:
             "replay_records_published": self.replay_records_published,
             "replay_divergence": self.replay_divergence,
             "plan_variants_compiled": self.plan_variants_compiled,
+            "eager_prefill_dispatches": self.eager_prefill_dispatches,
+            "eager_chunk_dispatches": self.eager_chunk_dispatches,
         }
         # The router's and the fleet's keys, zeros for one engine, so
         # /metrics has one schema whether an engine or a fleet serves it.
@@ -759,7 +775,11 @@ class LLMEngine:
         # only; MEMSTATS_SAMPLE_EVERY).
         self._memstats_cache: Optional[Dict[str, int]] = None
         self._memstats_tick = 0
+        # slot -> the scratch cache of its long prefill: a view of the
+        # engine's one static scratch (_scratch_store, made at first use;
+        # _scratch_view).
         self._scratch_caches: Dict[int, KVCache] = {}
+        self._scratch_store: Optional[KVCache] = None
         # slot -> (last chunk's logits [V] or None, tok0 or None): what
         # the commit samples from, or the token the last chunk sampled.
         self._chunk_res: Dict[int, Any] = {}
@@ -837,11 +857,14 @@ class LLMEngine:
         `_warm_plans`), and from then on the dispatcher picks only warmed
         block lengths, chunk widths and rider shapes, as the JAX engine
         does; an engine never warmed keeps any shape. On one CUDA device
-        (no mesh) every decode lattice point is captured as a CUDA graph
-        (serving/step_graphs.py) that plan_step replays; elsewhere each
+        (no mesh) every lattice point is captured as a CUDA graph
+        (serving/step_graphs.py): the decode blocks, the prefill groups,
+        the chunks and their first-token tails, and the hit chain's
+        gather, finish scatter and finish sampler; riders and composed
+        plans replay a chunk's graph and a block's. Elsewhere each point
         runs once eagerly, which pays its first-call costs (kernel
-        builds, cuBLAS heuristics, allocator growth). A capture that fails
-        raises. Call before start()."""
+        builds, cuBLAS heuristics, allocator growth). A capture that
+        fails raises. Call before start()."""
         if self._running:
             raise RuntimeError("warmup() must run before start()")
         if sampled is None:
@@ -863,9 +886,55 @@ class LLMEngine:
         ks = sorted(set(ks) | {1})
         self._warm_ks = set(ks)
         flag_sets = [_GREEDY] + ([_SAMPLED] if sampled else [])
-        for bucket in (buckets or self.buckets):
-            for n in group_sizes:
+        if (self.device.type == "cuda" and self.mesh is None
+                and self._graphs is None):
+            # Blocks other work left cached go back before the graphs'
+            # pools grow.
+            torch.cuda.empty_cache()
+            self._graphs = step_graphs.StepGraphs(
+                self.params, self.cfg, self.pool, self._generator,
+                self.ecfg.max_batch_size, self.max_pages, self._last_tokens,
+                self._history if self._spec_k else None,
+                self._dev_lengths if self._spec_k else None,
+                scratch=self._scratch(), max_chunk=self.buckets[-1])
+            # The graphs' static state is the engine's from now on.
+            self._last_tokens = self._graphs.last_tokens
+            if self._spec_k:
+                self._dev_lengths = self._graphs.dev_lengths
+        graphs = self._graphs
+        # A graphs engine captures each family from its largest shape
+        # down (step_graphs: a smaller graph reuses a larger one's
+        # memory); elsewhere the points run in the JAX warmup's order.
+        order = ((lambda xs: sorted(xs, reverse=True)) if graphs is not None
+                 else list)
+        Plan = engine_model.StepPlan
+        if self._spec_k:
+            for steps in order(ks):
+                plan = Plan(decode_k=steps, spec_k=self._spec_k,
+                            tree_branches=self._tree_branches)
+                self._warm_block(plan, _GREEDY)
+                self._warm_plans.add(plan)
+            if sampled:
+                # The fallback always runs the general-sampling variant
+                # (_dispatch_decode), so that is the one to warm.
+                for steps in order(ks):
+                    plan = Plan(decode_k=steps, spec_state=True)
+                    self._warm_block(plan, _SAMPLED)
+                    self._warm_plans.add(plan)
+        else:
+            for k in order(ks):
+                self._warm_plans.add(Plan(decode_k=k))
                 for flags in flag_sets:
+                    self._warm_block(Plan(decode_k=k), flags)
+        # The prefill lattice after the blocks (a capture that fails
+        # raises before any prefill group is captured).
+        B = len(self.slots)
+        for bucket in order(buckets or self.buckets):
+            for n in order(group_sizes):
+                for flags in flag_sets:
+                    if graphs is not None:
+                        graphs.capture_prefill(bucket, n, flags)
+                        continue
                     toks = engine_model.prefill_batch_step(
                         self.params, self.cfg, self.pool,
                         self._put(np.zeros((n, bucket), np.int32)),
@@ -876,38 +945,8 @@ class LLMEngine:
                         self._put(np.zeros((n,), np.int32)),
                         self._generator, sampling_flags=flags)
                     engine_model.set_last_tokens(
-                        self._last_tokens, np.full((n,), len(self.slots)),
-                        toks)
-        if (self.device.type == "cuda" and self.mesh is None
-                and self._graphs is None):
-            self._graphs = step_graphs.StepGraphs(
-                self.params, self.cfg, self.pool, self._generator,
-                self.ecfg.max_batch_size, self.max_pages, self._last_tokens,
-                self._history if self._spec_k else None,
-                self._dev_lengths if self._spec_k else None)
-            # The graphs' static state is the engine's from now on.
-            self._last_tokens = self._graphs.last_tokens
-            if self._spec_k:
-                self._dev_lengths = self._graphs.dev_lengths
-        Plan = engine_model.StepPlan
-        if self._spec_k:
-            for steps in ks:
-                plan = Plan(decode_k=steps, spec_k=self._spec_k,
-                            tree_branches=self._tree_branches)
-                self._warm_block(plan, _GREEDY)
-                self._warm_plans.add(plan)
-            if sampled:
-                # The fallback always runs the general-sampling variant
-                # (_dispatch_decode), so that is the one to warm.
-                for steps in ks:
-                    plan = Plan(decode_k=steps, spec_state=True)
-                    self._warm_block(plan, _SAMPLED)
-                    self._warm_plans.add(plan)
-        else:
-            for k in ks:
-                self._warm_plans.add(Plan(decode_k=k))
-                for flags in flag_sets:
-                    self._warm_block(Plan(decode_k=k), flags)
+                        self._last_tokens,
+                        self._put(np.full((n,), B, np.int32)), toks)
         if long_prompts:
             self._warm_long_prompts(ks, flag_sets, long_prompt_lengths)
         if self.prefix_cache is not None:
@@ -916,20 +955,25 @@ class LLMEngine:
             # each with its first-token tail, the finish scatter.
             bset = sorted(buckets or self.buckets)
             logits = None
-            for s_tot in bset:
+            for s_tot in order(bset):
                 sink_row = self._put(np.zeros((s_tot // ps,), np.int32))
-                for chunk in [b for b in bset if b <= s_tot]:
-                    # Seeded at s_tot - chunk cached tokens, so the
-                    # chunk's rows fit the scratch.
-                    cache = engine_model.pool_to_cache(
-                        self.pool, self.cfg, sink_row, s_tot - chunk)
-                    logits, cache = engine_model.prefill_chunk_step(
-                        self.params, self.cfg, cache,
-                        self._put(np.zeros((1, chunk), np.int32)), 1)
+                for chunk in order([b for b in bset if b <= s_tot]):
+                    if graphs is not None:
+                        graphs.capture_seed(s_tot)
+                        graphs.capture_chunk(s_tot, chunk)
+                        logits = graphs.chunk_logits
+                    else:
+                        # Seeded at s_tot - chunk cached tokens, so the
+                        # chunk's rows fit the scratch.
+                        cache = engine_model.pool_to_cache(
+                            self.pool, self.cfg, sink_row, s_tot - chunk,
+                            out=self._scratch_view(s_tot, reset=False))
+                        logits, cache = engine_model.prefill_chunk_step(
+                            self.params, self.cfg, cache,
+                            self._put(np.zeros((1, chunk), np.int32)), 1)
                     self._warm_chunk_widths.add((s_tot, chunk))
                     self._warm_sample_chunk(s_tot, chunk, flag_sets)
-                engine_model.cache_to_pool(self.pool, cache, self.cfg,
-                                           sink_row)
+                self._warm_commit(s_tot, sink_row)
             self._warm_finish(logits, flag_sets)
         if self.kv_pager is not None:
             w = 1
@@ -944,18 +988,29 @@ class LLMEngine:
         for s_tot, w in self._warm_chunk_widths:
             self._warm_plans.add(Plan(rider_width=w, rider_s_total=s_tot))
         self.metrics.plan_variants_compiled = len(self._warm_plans)
-        if self._graphs is not None:
+        if graphs is not None:
             # Eager warm steps above may have rebound the device state.
-            g = self._graphs
-            if self._last_tokens is not g.last_tokens:
-                g.last_tokens.copy_(self._last_tokens)
-                self._last_tokens = g.last_tokens
-            if self._spec_k and self._dev_lengths is not g.dev_lengths:
-                g.dev_lengths.copy_(self._dev_lengths)
-                self._dev_lengths = g.dev_lengths
+            self._adopt_graph_state(graphs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._release_scratch()
+        if graphs is not None:
+            # The captures' eager runs left their transients cached for
+            # the capture stream, which runs nothing more; the graphs
+            # hold pools of their own.
+            torch.cuda.empty_cache()
         return self
+
+    def _adopt_graph_state(self, graphs: "step_graphs.StepGraphs") -> None:
+        """Make the graphs' static token (and device length) buffers the
+        engine's state again where an eager step rebound it, copying the
+        current values in: every replay reads and writes those buffers."""
+        if self._last_tokens is not graphs.last_tokens:
+            graphs.last_tokens.copy_(self._last_tokens)
+            self._last_tokens = graphs.last_tokens
+        if self._spec_k and self._dev_lengths is not graphs.dev_lengths:
+            graphs.dev_lengths.copy_(self._dev_lengths)
+            self._dev_lengths = graphs.dev_lengths
 
     def _warm_block(self, plan: "engine_model.StepPlan", flags) -> None:
         """One decode lattice point over inactive rows (every write lands
@@ -986,20 +1041,38 @@ class LLMEngine:
                 "top_p": self._put(np.ones((B,), np.float32)),
                 "top_k": self._put(np.zeros((B,), np.int32))}
 
-    def _scratch(self, s_total: int) -> KVCache:
-        """A fresh zeroed scratch cache of s_total rows (lengths 0)."""
-        return KVCache.zeros(self.cfg, 1, max_len=s_total,
-                             dtype=self._scratch_dtype, device=self.device)
+    def _scratch(self) -> KVCache:
+        """The engine's one static scratch cache, made at first use with
+        page capacity's rows (max_pages x page_size: the memory planner's
+        long_prefill_scratch line) in the scratch dtype."""
+        if self._scratch_store is None:
+            self._scratch_store = KVCache.zeros(
+                self.cfg, 1, max_len=self.max_pages * self.pool.page_size,
+                dtype=self._scratch_dtype, device=self.device)
+        return self._scratch_store
+
+    def _scratch_view(self, s_total: int, reset: bool = True) -> KVCache:
+        """The first s_total rows of the static scratch (`_scratch`), its
+        lengths zeroed unless `reset` is False: the scratch of a long
+        prompt or a prefix hit. At most one prefill holds it
+        (_max_long_prefills)."""
+        view = engine_model.scratch_view(self._scratch(), s_total)
+        if reset:
+            view.lengths.zero_()
+        return view
 
     def _warm_long_prompts(self, ks, flag_sets, long_prompt_lengths) -> None:
         """The JAX warmup's long_prompts part: one scratch shape per chunk
         multiple up to page capacity (or the shapes `long_prompt_lengths`
         need), a full chunk and each tail width at each (the power-of-two
         ladder from page_size up, or the tails those lengths leave), each
-        with its first-token tail; the fused rider at every K the
-        prefill_decode_k_cap lets through (the composed verify + rider
-        plan on a speculative engine). Each chunk starts a fresh scratch
-        cache, so its rows fit."""
+        with its first-token tail, and the finish scatter; the fused
+        rider at every K the prefill_decode_k_cap lets through (the
+        composed verify + rider plan on a speculative engine). Every
+        shape runs in the first S_total rows of the engine's one static
+        scratch (`_scratch_view`), from length 0, so its rows fit; with
+        graphs each chunk shape is captured there, and a rider is the
+        rider-width chunk's graph and the block's."""
         ps = self.pool.page_size
         chunk = self.buckets[-1]
         cap_tokens = self.max_pages * ps
@@ -1023,6 +1096,7 @@ class LLMEngine:
                 w *= 2
             for s_tot in s_tots:
                 tail_widths[s_tot] = set(ladder)
+        graphs = self._graphs
         Plan = engine_model.StepPlan
         logits = None
         for s_tot in s_tots:
@@ -1030,29 +1104,43 @@ class LLMEngine:
             if self.prefix_cache is not None:
                 # A long prompt's prefix hit seeds its scratch from the
                 # pool at this shape.
-                engine_model.pool_to_cache(self.pool, self.cfg, row, 1)
-            for w in [chunk] + sorted(tail_widths[s_tot]):
-                logits, cache = engine_model.prefill_chunk_step(
-                    self.params, self.cfg, self._scratch(s_tot),
-                    self._put(np.zeros((1, w), np.int32)), 1)
+                if graphs is not None:
+                    graphs.capture_seed(s_tot)
+                else:
+                    engine_model.pool_to_cache(
+                        self.pool, self.cfg, row, 1,
+                        out=self._scratch_view(s_tot, reset=False))
+            for w in [chunk] + sorted(tail_widths[s_tot],
+                                      reverse=graphs is not None):
+                if graphs is not None:
+                    graphs.capture_chunk(s_tot, w)
+                    logits = graphs.chunk_logits
+                else:
+                    logits, _ = engine_model.prefill_chunk_step(
+                        self.params, self.cfg, self._scratch_view(s_tot),
+                        self._put(np.zeros((1, w), np.int32)), 1)
                 self._warm_chunk_widths.add((s_tot, w))
                 self._warm_sample_chunk(s_tot, w, flag_sets)
-            engine_model.cache_to_pool(self.pool, cache, self.cfg, row)
+            self._warm_commit(s_tot, row)
             if not (self._fused_width and s_tot >= self._fused_width):
                 continue
             cap = self.ecfg.prefill_decode_k_cap
             fks = sorted({k for k in ks if cap <= 0 or k <= cap} | {1})
+            if graphs is not None:
+                # The rider's chunk; its blocks are the decode lattice's.
+                graphs.capture_chunk(s_tot, self._fused_width)
             idle = self._idle_batch()
             rider = self._put(np.zeros((1, self._fused_width), np.int32))
             for kf in fks:
                 if self._spec_k:
-                    (_, _, self._last_tokens, self._dev_lengths, _, _,
-                     _) = engine_model.fused_spec_prefill_step(
-                        self.params, self.cfg, self.pool, self._history,
-                        self._last_tokens, self._dev_lengths,
-                        idle["page_tables"], idle["active"],
-                        self._scratch(s_tot), rider, 1, kf, self._spec_k,
-                        self._tree_branches)
+                    if graphs is None:
+                        (_, _, self._last_tokens, self._dev_lengths, _, _,
+                         _) = engine_model.fused_spec_prefill_step(
+                            self.params, self.cfg, self.pool, self._history,
+                            self._last_tokens, self._dev_lengths,
+                            idle["page_tables"], idle["active"],
+                            self._scratch_view(s_tot), rider, 1, kf,
+                            self._spec_k, self._tree_branches)
                     self._warm_spec_fused.add((s_tot, kf))
                     self._warm_plans.add(Plan(
                         decode_k=kf, spec_k=self._spec_k,
@@ -1060,26 +1148,45 @@ class LLMEngine:
                         rider_width=self._fused_width, rider_s_total=s_tot))
                     continue
                 for flags in flag_sets:
-                    _, self._last_tokens, _, _ = \
-                        engine_model.fused_decode_prefill_step(
-                            self.params, self.cfg, self.pool,
-                            self._last_tokens, idle["page_tables"],
-                            idle["lengths"], idle["active"],
-                            idle["temperature"], idle["top_p"],
-                            idle["top_k"], self._generator,
-                            self._scratch(s_tot), rider, 1, kf,
-                            sampling_flags=flags)
+                    if graphs is None:
+                        _, self._last_tokens, _, _ = \
+                            engine_model.fused_decode_prefill_step(
+                                self.params, self.cfg, self.pool,
+                                self._last_tokens, idle["page_tables"],
+                                idle["lengths"], idle["active"],
+                                idle["temperature"], idle["top_p"],
+                                idle["top_k"], self._generator,
+                                self._scratch_view(s_tot), rider, 1, kf,
+                                sampling_flags=flags)
                     self._warm_fused.add((s_tot, kf))
                     self._warm_plans.add(Plan(
                         decode_k=kf, rider_width=self._fused_width,
                         rider_s_total=s_tot))
         self._warm_finish(logits, flag_sets)
 
+    def _warm_commit(self, s_tot: int, row: torch.Tensor) -> None:
+        """The finish scatter of an s_tot-row scratch into the sink
+        pages: captured as a graph on a graphs engine (with, on a
+        speculative one, the finish's history row), else run once."""
+        if self._graphs is not None:
+            self._graphs.capture_commit(s_tot)
+            self._graphs.capture_history()
+            return
+        engine_model.cache_to_pool(self.pool,
+                                   self._scratch_view(s_tot, reset=False),
+                                   self.cfg, row)
+
     def _warm_finish(self, logits, flag_sets) -> None:
         """The chunked finish's samplers on warmup logits (slot 0 of the
         idle engine): sample_token + set_last_token, and with
-        fused_sampling sample_token_into, per flag set."""
+        fused_sampling sample_token_into, per flag set; on a graphs
+        engine the finish sampler's graph per flag set, which both
+        finishes replay."""
         if logits is None:
+            return
+        if self._graphs is not None:
+            for flags in flag_sets:
+                self._graphs.capture_finish(flags)
             return
         tok0 = None
         for flags in flag_sets:
@@ -1095,13 +1202,17 @@ class LLMEngine:
     def _warm_sample_chunk(self, s_tot: int, width: int, flag_sets) -> None:
         """With fused_sampling, the prompt-completing chunk's first-token
         tail at (s_tot, width) per flag set (into slot 0 of the idle
-        engine), recorded in _warm_sample_chunks, so a warmed engine lets
-        that chunk sample in its own dispatch."""
+        engine; a graph on a graphs engine), recorded in
+        _warm_sample_chunks, so a warmed engine lets that chunk sample in
+        its own dispatch."""
         if not self._fused_sampling:
             return
         for flags in flag_sets:
+            if self._graphs is not None:
+                self._graphs.capture_chunk(s_tot, width, flags)
+                continue
             engine_model.prefill_chunk_sample_step(
-                self.params, self.cfg, self._scratch(s_tot),
+                self.params, self.cfg, self._scratch_view(s_tot),
                 self._put(np.zeros((1, width), np.int32)), 1,
                 self._last_tokens, 0, 0.0, 1.0, 0, self._generator,
                 sampling_flags=flags)
@@ -1808,7 +1919,8 @@ class LLMEngine:
                             placeholder: _Slot) -> None:
         """Queue a chunked prefill for a prompt beyond the largest bucket:
         chunks of the largest bucket's width run through a contiguous
-        scratch KVCache (created with the first chunk) in
+        scratch KVCache (the static scratch's first rows, from length 0
+        at the first chunk) in
         _advance_long_prefills; _finish_long_prefill scatters it into the
         sequence's pages."""
         chunk = self.buckets[-1]
@@ -2081,76 +2193,95 @@ class LLMEngine:
     def _exec_prefill(self, rec: Dict[str, Any]) -> torch.Tensor:
         """One `prefill` record: the batched prefill forward with its
         first-token sample on the device, the scatter of the first tokens
-        into the token buffer (padding rows' indices are dropped) and, on
-        a speculative engine, the history rows. Returns the tokens."""
+        into the token buffer (padding rows' indices are dropped on the
+        device) and, on a speculative engine, the history rows. A warmed
+        (bucket, group, flags) point replays its CUDA graph. Returns the
+        tokens (a graph's static buffer: the caller queues its host copy
+        before the next dispatch)."""
         self._publish("prefill", rec)
         flags = tuple(bool(f) for f in rec["flags"])
+        graphs = self._graphs
+        n, bucket = rec["tokens"].shape
+        if graphs is not None and graphs.has(("prefill", bucket, n, flags)):
+            self._adopt_graph_state(graphs)
+            return graphs.replay_prefill(rec, flags)
+        if self._warm_ks and self.device.type == "cuda":
+            self.metrics.eager_prefill_dispatches += 1
         d_tokens, d_lengths = self._put(rec["tokens"]), self._put(
             rec["lengths"])
+        idxs = self._put(rec["idxs"])
         toks = engine_model.prefill_batch_step(
             self.params, self.cfg, self.pool, d_tokens, d_lengths,
             self._put(rec["rows"]), self._put(rec["temps"]),
             self._put(rec["top_ps"]), self._put(rec["top_ks"]),
             self._generator, sampling_flags=flags)
-        engine_model.set_last_tokens(self._last_tokens, rec["idxs"], toks)
+        engine_model.set_last_tokens(self._last_tokens, idxs, toks)
         if self._spec_k:
             engine_model.set_history_rows(self._history, self._dev_lengths,
-                                          rec["idxs"], d_tokens, d_lengths,
-                                          toks)
+                                          idxs, d_tokens, d_lengths, toks)
         return toks
 
     def _exec_plan(self, rec: Dict[str, Any]) -> dict:
         """One `plan` record (`_plan_record`): the StepPlan lowered
         through engine_model.plan_step, with the device state it returns
         folded back into the engine. A plan with a chunk runs it through
-        the slot's scratch cache (made, zeroed, for the prompt's first
-        chunk) and stashes the chunk's logits, or the first token a
-        rider_sample plan drew, in _chunk_res for the commit."""
+        the slot's scratch cache (the first rider_s_total rows of the
+        static scratch, from length 0 at the prompt's first chunk) and
+        stashes the chunk's logits, or the first token a rider_sample
+        plan drew, in _chunk_res for the commit. A plan whose every part
+        was warmed replays its graphs (serving/step_graphs.py)."""
         self._publish("plan", rec)
         plan = engine_model.plan_from_record(rec)
         kw: Dict[str, Any] = {}
         flags = (tuple(bool(f) for f in rec["flags"]) if "flags" in rec
                  else _GREEDY)
-        graphs = self._graphs
-        if graphs is not None and not graphs.covers(plan, flags):
-            graphs = None
-        if graphs is not None:
-            # A captured lattice point: replayed from the record's host
-            # arrays (serving/step_graphs.py).
-            kw.update(pool=self.pool, last_tokens=self._last_tokens,
-                      arrays=rec, sampling_flags=flags)
-            if self._spec_k:
-                kw.update(history=self._history,
-                          dev_lengths=self._dev_lengths)
-        elif plan.decode_k:
-            kw.update(pool=self.pool, last_tokens=self._last_tokens,
-                      page_tables=self._put(rec["tables"]),
-                      active=self._put(rec["active_mask"]))
-            if self._spec_k:
-                kw.update(history=self._history,
-                          dev_lengths=self._dev_lengths)
-            if not plan.spec_k:
-                kw.update(lengths=self._put(rec["lengths"]),
-                          temperature=self._put(rec["temps"]),
-                          top_p=self._put(rec["top_ps"]),
-                          top_k=self._put(rec["top_ks"]),
-                          generator=self._generator, sampling_flags=flags)
+        r_flags = (tuple(bool(f) for f in rec["r_flags"])
+                   if plan.rider_sample else None)
         slot = int(rec["slot"]) if plan.rider_width else -1
         if plan.rider_width:
             if bool(rec["fresh"]) or slot not in self._scratch_caches:
-                self._scratch_caches[slot] = KVCache.zeros(
-                    self.cfg, 1, max_len=plan.rider_s_total,
-                    dtype=self._scratch_dtype, device=self.device)
+                self._scratch_caches[slot] = self._scratch_view(
+                    plan.rider_s_total)
                 self._chunk_res.pop(slot, None)
-            kw.update(cache=self._scratch_caches[slot],
-                      chunk_tokens=self._put(rec["chunk_tokens"]),
-                      chunk_valid=int(rec["chunk_valid"]))
-        if plan.rider_sample:
-            kw.update(last_tokens=self._last_tokens, slot_idx=slot,
-                      temperature=float(rec["r_temp"]),
-                      top_p=float(rec["r_top_p"]), top_k=int(rec["r_top_k"]),
-                      generator=self._generator,
-                      sampling_flags=tuple(bool(f) for f in rec["r_flags"]))
+            kw["cache"] = self._scratch_caches[slot]
+        graphs = self._graphs
+        if graphs is not None and not graphs.covers(plan, flags, r_flags):
+            graphs = None
+        if graphs is not None:
+            # Every part warmed: replayed from the record's host arrays
+            # (serving/step_graphs.py).
+            kw.update(pool=self.pool, last_tokens=self._last_tokens,
+                      arrays=rec, sampling_flags=flags, chunk_flags=r_flags)
+            if self._spec_k:
+                kw.update(history=self._history,
+                          dev_lengths=self._dev_lengths)
+        else:
+            if plan.rider_width and self._warm_ks \
+                    and self.device.type == "cuda":
+                self.metrics.eager_chunk_dispatches += 1
+            if plan.decode_k:
+                kw.update(pool=self.pool, last_tokens=self._last_tokens,
+                          page_tables=self._put(rec["tables"]),
+                          active=self._put(rec["active_mask"]))
+                if self._spec_k:
+                    kw.update(history=self._history,
+                              dev_lengths=self._dev_lengths)
+                if not plan.spec_k:
+                    kw.update(lengths=self._put(rec["lengths"]),
+                              temperature=self._put(rec["temps"]),
+                              top_p=self._put(rec["top_ps"]),
+                              top_k=self._put(rec["top_ks"]),
+                              generator=self._generator,
+                              sampling_flags=flags)
+            if plan.rider_width:
+                kw.update(chunk_tokens=self._put(rec["chunk_tokens"]),
+                          chunk_valid=int(rec["chunk_valid"]))
+            if plan.rider_sample:
+                kw.update(last_tokens=self._last_tokens, slot_idx=slot,
+                          temperature=float(rec["r_temp"]),
+                          top_p=float(rec["r_top_p"]),
+                          top_k=int(rec["r_top_k"]),
+                          generator=self._generator, sampling_flags=r_flags)
         res = engine_model.plan_step(self.params, self.cfg, plan,
                                      graphs=graphs, **kw)
         if "last_tokens" in res:
@@ -2166,13 +2297,22 @@ class LLMEngine:
 
     def _exec_seed(self, rec: Dict[str, Any]) -> None:
         """One `seed` record: a prefix hit's scratch cache, ONE
-        pool_to_cache gather of the matched pages (the row rides the
-        record, so followers launch the same gather without the radix
-        tree)."""
+        pool_to_cache gather of the matched pages into the first S_total
+        rows of the static scratch (the row rides the record, so
+        followers launch the same gather without the radix tree); a
+        warmed S_total replays its graph."""
         self._publish("seed", rec)
         slot = int(rec["slot"])
-        self._scratch_caches[slot] = engine_model.pool_to_cache(
-            self.pool, self.cfg, self._put(rec["row"]), int(rec["m"]))
+        s_total = len(rec["row"]) * self.pool.page_size
+        cache = self._scratch_view(s_total, reset=False)
+        graphs = self._graphs
+        if graphs is not None and graphs.has(("seed", s_total)):
+            graphs.replay_point(("seed", s_total), rec)
+        else:
+            engine_model.pool_to_cache(self.pool, self.cfg,
+                                       self._put(rec["row"]), int(rec["m"]),
+                                       out=cache)
+        self._scratch_caches[slot] = cache
         self._chunk_res.pop(slot, None)
 
     def _exec_commit(self, rec: Dict[str, Any]) -> torch.Tensor:
@@ -2181,33 +2321,58 @@ class LLMEngine:
         sank to page 0 are never rewritten), the first-token sample unless
         the last chunk drew it (sample_token_into, or with fused_sampling
         off the sample_token + set_last_token pair) and, on a speculative
-        engine, the history row. Consumes the slot's scratch state on
-        every rank. Returns the first token [1]."""
+        engine, the history row. A warmed scratch length replays the
+        scatter's graph, and a sample from a replayed chunk's logits the
+        finish sampler's (the same math and draws). Consumes the slot's
+        scratch state on every rank. Returns the first token [1]."""
         self._publish("commit", rec)
         slot = int(rec["slot"])
         cache = self._scratch_caches.pop(slot)
-        engine_model.cache_to_pool(self.pool, cache, self.cfg,
-                                   self._put(rec["row"]))
+        self._release_scratch()
+        s_total = cache.k.shape[3]
+        graphs = self._graphs
+        if graphs is not None and graphs.has(("commit", s_total)):
+            graphs.replay_point(("commit", s_total), rec)
+        else:
+            engine_model.cache_to_pool(self.pool, cache, self.cfg,
+                                       self._put(rec["row"]))
         logits, tok0 = self._chunk_res.pop(slot)
         if tok0 is None:
-            sampling = (float(rec["temp"]), float(rec["top_p"]),
-                        int(rec["top_k"]), self._generator,
-                        *(bool(f) for f in rec["flags"]))
-            if self._fused_sampling:
-                tok0, self._last_tokens = engine_model.sample_token_into(
-                    self._last_tokens, slot, logits, *sampling)
-                self.metrics.fused_sample_dispatches += 1
+            flags = tuple(bool(f) for f in rec["flags"])
+            if (graphs is not None and logits is graphs.chunk_logits
+                    and graphs.has(("finish", flags))):
+                self._adopt_graph_state(graphs)
+                tok0 = graphs.replay_point(("finish", flags), {
+                    "slot": rec["slot"], "r_temp": rec["temp"],
+                    "r_top_p": rec["top_p"], "r_top_k": rec["top_k"]})["tok0"]
+                if self._fused_sampling:
+                    self.metrics.fused_sample_dispatches += 1
             else:
-                tok0 = engine_model.sample_token(logits, *sampling)
-                self._last_tokens = engine_model.set_last_token(
-                    self._last_tokens, slot, tok0)
+                sampling = (float(rec["temp"]), float(rec["top_p"]),
+                            int(rec["top_k"]), self._generator, *flags)
+                if self._fused_sampling:
+                    tok0, self._last_tokens = engine_model.sample_token_into(
+                        self._last_tokens, slot, logits, *sampling)
+                    self.metrics.fused_sample_dispatches += 1
+                else:
+                    tok0 = engine_model.sample_token(logits, *sampling)
+                    self._last_tokens = engine_model.set_last_token(
+                        self._last_tokens, slot, tok0)
         tok0 = tok0.reshape(1)
-        if self._spec_k:
+        if self._spec_k and graphs is not None \
+                and graphs.has(("history",)):
+            self._adopt_graph_state(graphs)
+            ids = rec["h_ids"]
+            graphs.replay_point(("history",), {
+                "h_ids": ids, "h_len": np.asarray([len(ids)], np.int32),
+                "slot": rec["slot"]})
+        elif self._spec_k:
             ids = np.asarray(rec["h_ids"], np.int32)
             hist = np.zeros((1, self.ecfg.max_seq_len), np.int32)
             hist[0, :len(ids)] = ids
             engine_model.set_history_rows(
-                self._history, self._dev_lengths, [slot], self._put(hist),
+                self._history, self._dev_lengths,
+                self._put(np.asarray([slot], np.int32)), self._put(hist),
                 self._put(np.asarray([len(ids)], np.int32)), tok0)
         return tok0
 
@@ -2419,6 +2584,14 @@ class LLMEngine:
         finish (cancel, slot failure)."""
         self._scratch_caches.pop(slot_idx, None)
         self._chunk_res.pop(slot_idx, None)
+        self._release_scratch()
+
+    def _release_scratch(self) -> None:
+        """An engine without graphs frees its static scratch while no
+        prefill holds it, as a scratch made per prompt was freed; a
+        graphs engine keeps it (its graphs address it)."""
+        if self._graphs is None and not self._scratch_caches:
+            self._scratch_store = None
 
     def _finish_long_prefill(self, lp: _LongPrefill) -> None:
         """Last chunk fed, the commit: scatter the scratch cache into the
@@ -2453,11 +2626,11 @@ class LLMEngine:
         slot = _Slot(lp.req, lp.seq, StreamDetokenizer(self.tokenizer),
                      span=span)
         self.slots[lp.slot_idx] = slot
-        # The row's copy to the device above waited for the stream to
-        # drain, so the first token is only the scatter and a 4-byte copy
-        # away: emit it now. Left pending, it would wait behind the next
-        # decode dispatches (tens of ms of host launches each). The trim
-        # comes after it, as it may demote pages to the host.
+        # The first token is only the scatter (and the finish sampler)
+        # and a 4-byte copy away: emit it now. Left pending, it would
+        # wait behind the next decode dispatches (tens of ms of host
+        # launches each). The trim comes after it, as it may demote
+        # pages to the host.
         self._emit_first_values(tok0.cpu().numpy(), [(lp.slot_idx, slot)])
         self._trim_prefix()
 

@@ -14,7 +14,8 @@ that k/v live in the serving PagePool:
   write-then-attend paged decode attention (K2 on CUDA) and on-device
   sampling, tokens chained on the device.
 - Prefix-cache hits and the KV pager: `pool_to_cache` gathers a cached
-  prefix's pages into a fresh batch-1 scratch cache (the suffix then runs
+  prefix's pages into a batch-1 scratch cache (the engine's: the first
+  rows of its static scratch, `scratch_view`; the suffix then runs
   through `prefill_chunk_step` at q_offset = the cached length);
   `pool_to_pages` / `pages_to_pool` move whole pages out of and back
   into the pool verbatim (int8 codes and scales never re-quantized).
@@ -22,8 +23,12 @@ that k/v live in the serving PagePool:
 - Chunked prefill of prompts longer than the largest bucket:
   `prefill_chunk_step` / `prefill_chunk_sample_step` run one chunk
   through a contiguous scratch `KVCache` with `q_offset = cache.lengths`
-  (K1's shifted causal diagonal on CUDA), and `cache_to_pool` scatters
-  the finished cache into the page pool once. The prompt-completing
+  (K1's shifted causal diagonal on CUDA), advancing its lengths in
+  place, and `cache_to_pool` scatters the finished cache into the page
+  pool once. The valid count, the slot and the sampling scalars may be
+  device tensors and the admission scatters (`set_last_tokens`,
+  `set_history_rows`) take device slot indices, so a CUDA graph holds
+  every step (serving/step_graphs.py). The prompt-completing
   chunk samples its first token and writes it to `last_tokens` in the
   same call; a finish whose last chunk did not sample samples from its
   logits with `sample_token_into` (or, with fused_sampling off, the
@@ -190,49 +195,80 @@ def prefill_batch_step(params: Params, cfg: LlamaConfig, pool: Pool,
                   any_top_p=any_top_p)
 
 
+def _device_idxs(idxs, device) -> torch.Tensor:
+    """Admission indices as an int64 device vector: a device tensor is
+    used as it is (a CUDA graph's static input), a host array is copied
+    in."""
+    if isinstance(idxs, torch.Tensor):
+        return idxs.to(device=device, dtype=torch.int64).reshape(-1)
+    return torch.from_numpy(np.asarray(idxs, np.int64).reshape(-1)).to(
+        device)
+
+
+def _admission_rows(idxs: torch.Tensor, n_slots: int):
+    """For each of n_slots slots, whether some admitted row targets it and
+    which (the first): (has [B] bool, src [B] int64). Rows whose index
+    lies outside [0, n_slots) target no slot, so they are dropped, as the
+    JAX scatter's mode="drop" drops them; all on the device, with no
+    host read (a CUDA graph holds it)."""
+    hit = idxs[None, :] == torch.arange(n_slots, device=idxs.device)[:, None]
+    return hit.any(dim=1), hit.to(torch.int32).argmax(dim=1)
+
+
 @torch.no_grad()
-def set_last_tokens(last_tokens: torch.Tensor, idxs: Sequence[int],
+def set_last_tokens(last_tokens: torch.Tensor, idxs,
                     toks: torch.Tensor) -> torch.Tensor:
-    """last_tokens[idxs] = toks in place (batched admission). `idxs` is a
-    host array; rows whose index is out of bounds (group padding) are
-    dropped, as the JAX scatter's mode="drop" does."""
-    idxs = np.asarray(idxs)
-    keep = np.flatnonzero((idxs >= 0) & (idxs < last_tokens.shape[0]))
-    dev = last_tokens.device
-    dst = torch.from_numpy(idxs[keep].astype(np.int64)).to(dev)
-    src = torch.from_numpy(keep.astype(np.int64)).to(dev)
-    last_tokens.index_copy_(0, dst,
-                            toks.index_select(0, src).to(last_tokens.dtype))
+    """last_tokens[idxs] = toks in place (batched admission). `idxs` is
+    an int [N] device tensor (or a host array, copied in); rows whose
+    index is out of bounds (group padding carries len(slots)) are
+    dropped on the device, as the JAX scatter's mode="drop" does."""
+    has, src = _admission_rows(_device_idxs(idxs, last_tokens.device),
+                               last_tokens.shape[0])
+    last_tokens.copy_(torch.where(
+        has, toks.index_select(0, src).to(last_tokens.dtype), last_tokens))
     return last_tokens
 
 
+def _sampling_params(temperature, top_p, top_k, device) -> SamplingParams:
+    """One row's sampling parameters: device tensors (a CUDA graph's
+    static inputs) as they are, or host scalars filled in."""
+    if isinstance(temperature, torch.Tensor):
+        return SamplingParams(temperature.reshape(1).float(),
+                              top_p.reshape(1).float(),
+                              top_k.reshape(1).to(torch.int32))
+    return SamplingParams.make(1, temperature, top_p, top_k, device=device)
+
+
 @torch.no_grad()
-def sample_token(logits: torch.Tensor, temperature: float, top_p: float,
-                 top_k: int, generator: Optional[torch.Generator] = None,
+def sample_token(logits: torch.Tensor, temperature, top_p, top_k,
+                 generator: Optional[torch.Generator] = None,
                  all_greedy: bool = True, any_top_k: bool = False,
                  any_top_p: bool = False) -> torch.Tensor:
     """Sample ONE token from [V] logits on the device (no host read): the
-    unfused finish's sampler. Returns tok [] (int32)."""
-    sp = SamplingParams.make(1, temperature, top_p, top_k,
-                             device=logits.device)
+    unfused finish's sampler. The sampling parameters are host scalars
+    or [1] device tensors. Returns tok [] (int32)."""
+    sp = _sampling_params(temperature, top_p, top_k, logits.device)
     return sample(logits[None, :], sp, generator, all_greedy=all_greedy,
                   any_top_k=any_top_k, any_top_p=any_top_p)[0]
 
 
 @torch.no_grad()
-def set_last_token(last_tokens: torch.Tensor, idx: int,
+def set_last_token(last_tokens: torch.Tensor, idx,
                    tok: torch.Tensor) -> torch.Tensor:
     """last_tokens[idx] = tok in place (a finished prefill's first
-    token)."""
-    last_tokens[idx] = tok.to(last_tokens.dtype)
+    token). `idx` is a host int or a [1] device tensor (dropped when out
+    of bounds, as set_last_tokens does)."""
+    if isinstance(idx, torch.Tensor):
+        return set_last_tokens(last_tokens, idx, tok.reshape(1))
+    last_tokens[idx:idx + 1] = tok.reshape(1).to(last_tokens.dtype)
     return last_tokens
 
 
 @torch.no_grad()
 # graftlint: hot-path
-def sample_token_into(last_tokens: torch.Tensor, idx: int,
-                      logits: torch.Tensor, temperature: float, top_p: float,
-                      top_k: int, generator: Optional[torch.Generator] = None,
+def sample_token_into(last_tokens: torch.Tensor, idx,
+                      logits: torch.Tensor, temperature, top_p, top_k,
+                      generator: Optional[torch.Generator] = None,
                       all_greedy: bool = True, any_top_k: bool = False,
                       any_top_p: bool = False):
     """sample_token + set_last_token in one call (the fused_sampling
@@ -696,42 +732,56 @@ def decode_plain_spec_state_multi_step(
 
 @torch.no_grad()
 def set_history_rows(history: torch.Tensor, dev_lengths: torch.Tensor,
-                     idxs: Sequence[int], tokens: torch.Tensor,
+                     idxs, tokens: torch.Tensor,
                      lengths: torch.Tensor, first_toks: torch.Tensor):
     """Write admitted prompts (tokens [N, S], padded) and the first token
-    sampled at prefill (at column lengths[j] < Hcap) into the history
-    rows idxs, and set dev_lengths there to lengths + 1 (the token at
-    lengths-1 is the current one), in place. `idxs` is a host array;
-    out-of-bounds rows (group padding) are dropped, as the JAX scatter's
-    mode="drop" does. Returns (history, dev_lengths)."""
-    idxs = np.asarray(idxs)
+    sampled at prefill (at column lengths[j]) into the history rows
+    idxs, and set dev_lengths there to lengths + 1 (the token at
+    lengths-1 is the current one), in place. `idxs` is an int [N] device
+    tensor (or a host array, copied in); out-of-bounds rows (group
+    padding) and columns past the history are dropped on the device, as
+    the JAX scatters' mode="drop" does. Returns (history, dev_lengths)."""
     B, Hcap = history.shape
-    keep = np.flatnonzero((idxs >= 0) & (idxs < B))
-    dev = history.device
-    dst = torch.from_numpy(idxs[keep].astype(np.int64)).to(dev)
-    src = torch.from_numpy(keep.astype(np.int64)).to(dev)
+    has, src = _admission_rows(_device_idxs(idxs, history.device), B)
     width = min(tokens.shape[1], Hcap)
-    history[dst, :width] = tokens.index_select(0, src)[:, :width].to(
-        history.dtype)
+    rows = tokens.index_select(0, src)[:, :width].to(history.dtype)
+    history[:, :width] = torch.where(has[:, None], rows, history[:, :width])
     n = lengths.index_select(0, src).long()
-    history[dst, n] = first_toks.index_select(0, src).to(history.dtype)
-    dev_lengths[dst] = (n + 1).to(dev_lengths.dtype)
+    col = n.clamp(0, Hcap - 1)[:, None]
+    put = has & (n >= 0) & (n < Hcap)
+    first = first_toks.reshape(-1).index_select(0, src).to(history.dtype)
+    history.scatter_(1, col, torch.where(
+        put, first, history.gather(1, col)[:, 0])[:, None])
+    dev_lengths.copy_(torch.where(has, (n + 1).to(dev_lengths.dtype),
+                                  dev_lengths))
     return history, dev_lengths
+
+
+def _valid_len(valid, device) -> torch.Tensor:
+    """A chunk's valid token count as an int32 [1] device tensor: a
+    device tensor (a CUDA graph's static input) as it is, a host int
+    filled in."""
+    if isinstance(valid, torch.Tensor):
+        return valid.reshape(1).to(torch.int32)
+    return torch.full((1,), int(valid), dtype=torch.int32, device=device)
 
 
 @torch.no_grad()
 def prefill_chunk_step(params: Params, cfg: LlamaConfig, cache: KVCache,
                        tokens: torch.Tensor,   # [1, C] (padded chunk)
-                       valid: int):
+                       valid):
     """One chunk of a long prompt through the scratch cache: k/v written
     in place at absolute positions cache.lengths + i, queries at
-    q_offset = cache.lengths. Returns (logits of the last valid token
-    [V], cache); only that row goes through the final norm and head."""
-    dev = tokens.device
-    new_len = torch.full((1,), valid, dtype=torch.int32, device=dev)
-    x, cache = forward_hidden(params, cfg, tokens.long(), kv_cache=cache,
-                              lengths=new_len)
-    last = x[:, valid - 1:valid]                       # [1, 1, D]
+    q_offset = cache.lengths, and cache.lengths advanced by `valid` in
+    place. `valid` is a host int or an int [1] device tensor; the last
+    valid row is picked on the device, so a CUDA graph holds the step.
+    Returns (logits of the last valid token [V], cache); only that row
+    goes through the final norm and head."""
+    new_len = _valid_len(valid, tokens.device)
+    x, advanced = forward_hidden(params, cfg, tokens.long(), kv_cache=cache,
+                                 lengths=new_len)
+    cache.lengths.copy_(advanced.lengths)
+    last = x.index_select(1, (new_len - 1).long())      # [1, 1, D]
     return logits_from_hidden(cfg, params, last)[0, 0], cache
 
 
@@ -740,23 +790,24 @@ def prefill_chunk_step(params: Params, cfg: LlamaConfig, cache: KVCache,
 def prefill_chunk_sample_step(params: Params, cfg: LlamaConfig,
                               cache: KVCache,
                               tokens: torch.Tensor,       # [1, C] final chunk
-                              valid: int,
+                              valid,
                               last_tokens: torch.Tensor,  # [B] device tokens
-                              slot_idx: int,
-                              temperature: float, top_p: float, top_k: int,
+                              slot_idx,
+                              temperature, top_p, top_k,
                               generator: Optional[torch.Generator] = None,
                               sampling_flags: Tuple[bool, bool, bool] = (
                                   True, False, False)):
     """The chunk that COMPLETES a prompt, its first-token sample and the
     last_tokens write, with no host read between them (the
-    fused_sampling tail). Returns (tok0 [1], last_tokens, cache)."""
+    fused_sampling tail). `valid`, `slot_idx` and the sampling
+    parameters are host scalars or [1] device tensors. Returns (tok0
+    [1], last_tokens, cache)."""
     logits, cache = prefill_chunk_step(params, cfg, cache, tokens, valid)
     all_greedy, any_top_k, any_top_p = sampling_flags
-    sp = SamplingParams.make(1, temperature, top_p, top_k,
-                             device=logits.device)
+    sp = _sampling_params(temperature, top_p, top_k, logits.device)
     tok0 = sample(logits[None, :], sp, generator, all_greedy=all_greedy,
                   any_top_k=any_top_k, any_top_p=any_top_p)   # [1] int32
-    last_tokens[slot_idx:slot_idx + 1] = tok0.to(last_tokens.dtype)
+    set_last_token(last_tokens, slot_idx, tok0)
     return tok0, last_tokens, cache
 
 
@@ -820,14 +871,17 @@ def cache_to_pool(pool: Pool, cache: KVCache, cfg: LlamaConfig,
 @torch.no_grad()
 def pool_to_cache(pool: Pool, cfg: LlamaConfig,
                   table_row: torch.Tensor,  # [S // page_size] page ids
-                  n_tokens: int) -> KVCache:
-    """Gather cached prefix pages into a fresh contiguous scratch cache
-    (batch 1, S = len(table_row) * page_size, the model dtype) with
-    lengths = n_tokens: the inverse of cache_to_pool, for prefix-cache
-    hits. The cache is the gather itself (rows past the prefix read sink
-    page 0); no zero-filled scratch is made. int8 pools dequantize with
-    their narrow per-token scales, code x scale in the model dtype, as
-    the JAX function does."""
+                  n_tokens, out: Optional[KVCache] = None) -> KVCache:
+    """Gather cached prefix pages into a contiguous scratch cache (batch
+    1, S = len(table_row) * page_size, the model dtype) with lengths =
+    n_tokens: the inverse of cache_to_pool, for prefix-cache hits. Rows
+    past the prefix read sink page 0. With `out` (an S-row view of the
+    engine's static scratch, `scratch_view`) the gather is written into
+    it and its lengths set in place, and `n_tokens` may be an int [1]
+    device tensor (a CUDA graph's static input); without, the cache is
+    the gather itself, as in the JAX function. int8 pools dequantize
+    with their narrow per-token scales, code x scale in the model dtype,
+    as the JAX function does."""
     ps = pool.page_size
     S = table_row.shape[0] * ps
     L, KH, Hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -842,9 +896,23 @@ def pool_to_cache(pool: Pool, cfg: LlamaConfig,
     # [L, KH, npages, ps, Hd] -> the cache's [L, B=1, KH, S, Hd]
     k = k.reshape(L, KH, S, Hd)[:, None]
     v = v.reshape(L, KH, S, Hd)[:, None]
+    if out is not None:
+        out.k.copy_(k)
+        out.v.copy_(v)
+        out.lengths.copy_(_valid_len(n_tokens, rows.device))
+        return out
     lengths = torch.full((1,), int(n_tokens), dtype=torch.int32,
                          device=rows.device)
     return KVCache(k, v, lengths)
+
+
+def scratch_view(store: KVCache, s_total: int) -> KVCache:
+    """The first s_total rows of a static scratch cache `store` (batch 1,
+    max rows): k / v views sharing its memory and its lengths tensor, so
+    a chunk's K1 call sees s_total keys, as a scratch of that length
+    would give it, and writes land in the store."""
+    return KVCache(store.k[:, :, :, :s_total], store.v[:, :, :, :s_total],
+                   store.lengths)
 
 
 @torch.no_grad()
@@ -946,10 +1014,16 @@ def plan_step(params: Params, cfg: LlamaConfig, plan: StepPlan,
     """Every scheduler dispatch goes through here: `_plan_step`'s result
     with "t_dispatch", the host clock when the step's launches returned
     (the flight recorder's hook). With `graphs` (serving/step_graphs.py's
-    StepGraphs of a warmed CUDA engine, which the caller passes only for
-    a captured lattice point) the block is that point's CUDA graph,
-    replayed from the dispatch's host arrays (`arrays`) instead of
-    launched op by op."""
+    StepGraphs of a warmed CUDA engine, which the caller passes only when
+    `graphs.covers` the plan) the plan is replayed from the dispatch's
+    host arrays (`arrays`) instead of launched op by op, family by
+    family: a decode or verify block is its decode graph; a chunk-only
+    plan of the chunked lane (with rider_sample, the prompt-completing
+    chunk under the request's flags, `chunk_flags`) is its chunk graph,
+    run in the static scratch (`cache`); a rider or composed plan is the
+    chunk graph and then the block graph, back to back on one stream, so
+    its chunk draws nothing before the block's draws, as on the eager
+    path."""
     if graphs is not None:
         out = graphs.replay(plan, **kw)
     else:
