@@ -614,7 +614,11 @@ def device_ms(fn, kernel_function: str = "", iters: int = 10) -> float:
 
 
 def flash_case(name, B, H, KH, Sq, Sk, D, lengths, q_offset, causal=True,
-               seed=0, timed=False):
+               seed=0, timed=False, nan_tail=0):
+    """K1 against `mha_reference` in f32 on the same bf16 inputs. With
+    `nan_tail`, k and v are the first Sk rows of buffers `nan_tail` rows
+    longer whose rows past Sk hold NaN (a scratch view and the store's
+    rows past it): a kernel that read past Sk would give NaN."""
     import torch
 
     from generativeaiexamples_tpu_torch.ops import attention as attn
@@ -622,8 +626,13 @@ def flash_case(name, B, H, KH, Sq, Sk, D, lengths, q_offset, causal=True,
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, Sq, D), generator=g, device=dev).bfloat16()
-    k = torch.randn((B, KH, Sk, D), generator=g, device=dev).bfloat16()
-    v = torch.randn((B, KH, Sk, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, KH, Sk + nan_tail, D), generator=g,
+                    device=dev).bfloat16()
+    v = torch.randn((B, KH, Sk + nan_tail, D), generator=g,
+                    device=dev).bfloat16()
+    k[:, :, Sk:] = float("nan")
+    v[:, :, Sk:] = float("nan")
+    k, v = k[:, :, :Sk], v[:, :, :Sk]
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     off = torch.tensor(q_offset, dtype=torch.int32, device=dev)
     got = attn.flash_attention(q, k, v, causal=causal, lengths=ln,
@@ -650,7 +659,8 @@ def flash_case(name, B, H, KH, Sq, Sk, D, lengths, q_offset, causal=True,
     ok = (finite and err <= BF16_ATOL and masked_nonzero == 0.0
           and repeat_identical)
     rec = {"phase": "flash", "case": name, "B": B, "H": H, "KH": KH,
-           "Sq": Sq, "Sk": Sk, "D": D, "max_abs_err": err, "tol": BF16_ATOL,
+           "Sq": Sq, "Sk": Sk, "D": D, "q_offset": q_offset,
+           "nan_tail": nan_tail, "max_abs_err": err, "tol": BF16_ATOL,
            "masked_rows_max_abs": masked_nonzero, "finite": finite,
            "repeat_identical": repeat_identical, "ok": ok}
     if timed:
@@ -730,6 +740,16 @@ def phase_flash():
         # the 8,192-row scratch cache.
         flash_case("8b_rider_q_offset", 1, 32, 8, 512, 8192, 128, [5632],
                    [5120], seed=11, timed=True),
+        # Chunks whose padded rows pass the scratch's end (q_offset + Sq
+        # > Sk; the graphs phase's bf16_hits leg), over views of buffers
+        # whose rows past Sk hold NaN: a long hit's 200-token suffix in
+        # a 4,096-wide chunk at q_offset 5,888 of an 8,192-row scratch
+        # (1,792 rows past it), and an exact repeat's one token in a
+        # 128-wide chunk at q_offset 1,023 of a 1,024-row scratch.
+        flash_case("8b_hit_past_end", 1, 32, 8, 4096, 8192, 128, [6088],
+                   [5888], seed=14, nan_tail=1),
+        flash_case("8b_repeat_past_end", 1, 32, 8, 128, 1024, 128, [1024],
+                   [1023], seed=15, nan_tail=129),
         flash_case("ragged", 4, 32, 8, 200, 200, 128, [200, 137, 1, 64],
                    [0] * 4, seed=3),
         flash_case("q_offset", 4, 32, 8, 128, 512, 128, [512, 128, 228, 328],
@@ -6063,7 +6083,7 @@ def _graph_long_leg(card: str, params, cfg, tokenizer, device: str = "cuda",
 
 
 def phase_graphs_bf16(card: str, bf16_served, device: str = "cuda",
-                      n_requests: int = 8, max_tokens: int = 257,
+                      n_requests: int = 8, max_tokens: int = 129,
                       n_pages: int = 97) -> dict:
     """The default bf16 engine at B = 8 over the served engine's weights,
     warmed with the sampled variants too (as serving/__main__.py warms)
@@ -6075,9 +6095,261 @@ def phase_graphs_bf16(card: str, bf16_served, device: str = "cuda",
                        **GRAPH_LONG_WARM}, device, sampled_check=True)
 
 
+# The hits leg (bf16 default engine with the prefix cache, warmed as the
+# default server warms): chunks at the JAX engine's widths past the
+# scratch's end, and a cold scratch length captured on first sight. The
+# prompts run one after another (each submitted once the one before it
+# has its first token, so a hit finds its pages in the tree) beside three
+# greedy streams: a 1,000-token prompt, then one sharing its first 640
+# tokens plus 360 new (a 512-wide chunk from 640 of a 1,024-row scratch);
+# a 1,024-token prompt, then its exact repeat (capped at 1,023 cached: a
+# 128-wide chunk from 1,023); a 6,000-token prompt (scratch 8,192, cold:
+# first sight), a second one with no shared prefix (second sight), then
+# a hit on the first one's 46 pages plus 200 new (a 4,096-wide chunk
+# from 5,888 of the 8,192 rows).
+GRAPH_HITS = {"bucketed": 1000, "bucketed_shared": 640, "repeat": 1024,
+              "long": 6000, "long_shared": 5888, "long_new": 200,
+              "shorts": 3, "short_tokens": 320, "tokens": 6, "n_pages": 257,
+              "warm_buckets": [128, 512, 1024]}
+
+
+def _hits_traffic(spec: dict):
+    """The hits leg's prompts in submission order, as (name, ids, is a
+    hit), random bytes from seeds 21-24."""
+    import numpy as np
+
+    def ids(seed, n):
+        return np.random.default_rng(seed).integers(0, 256, n).tolist()
+
+    b = ids(21, spec["bucketed"])
+    b_hit = b[:spec["bucketed_shared"]] + ids(
+        22, spec["bucketed"] - spec["bucketed_shared"])
+    r = ids(23, spec["repeat"])
+    first, second = ids(24, spec["long"]), ids(25, spec["long"])
+    l_hit = first[:spec["long_shared"]] + ids(26, spec["long_new"])
+    return [("bucketed", b, False), ("bucketed_hit", b_hit, True),
+            ("repeat_first", r, False), ("repeat", list(r), True),
+            ("long_first_sight", first, False),
+            ("long_second_sight", second, False), ("long_hit", l_hit, True)]
+
+
+def _collect_request(req, out: list, first) -> None:
+    """Collect one request's (arrival s, token id) pairs into `out`,
+    setting `first` at its first token (or its end)."""
+    while True:
+        ev = req.stream.get(timeout=600)
+        if ev["token_id"] >= 0:
+            out.append((time.perf_counter(), int(ev["token_id"])))
+            first.set()
+        if ev.get("finished"):
+            first.set()
+            return
+
+
+def phase_graphs_hits(card: str, bf16_served, device: str = "cuda",
+                      spec=None, engine_cfg=None) -> dict:
+    """The default bf16 engine (page 128, batch 8) with the prefix cache
+    over the served engine's weights, warmed as the default server warms
+    (sampled, no long prompts; at the buckets the traffic uses), served
+    twice as _graph_leg serves it: replayed, and with every graph dropped.
+    Traffic (GRAPH_HITS): three greedy streams, then seven prompts one
+    after another, three of them hits whose chunks pass the scratch's end
+    at the JAX engine's widths, and a 6,000-token prompt at a scratch
+    length the warmup did not capture. Streams must be byte-identical,
+    K1's, K2's and K6's launches a token equal (net of the live captures'
+    eager runs over sink inputs), every hit must hit on both sides; the replayed side must dispatch no eager prefill or chunk and
+    capture the cold length's chunk, seed and commit at the first long
+    prompt's admission and nothing after. Prints each hit's TTFT from its
+    admission, the streams' worst gap while each hit's chunk runs, the
+    long prompt's TTFT at first and second sight, the live captures'
+    seconds and the chunk pool's bytes after each, beside the planner's
+    lines."""
+    import numpy as np
+    import torch
+
+    from generativeaiexamples_tpu_torch import kernels
+    from generativeaiexamples_tpu_torch.serving.__main__ import (
+        serving_warmup_kw)
+    from generativeaiexamples_tpu_torch.serving.engine import GenRequest
+    from generativeaiexamples_tpu_torch.serving.step_graphs import (
+        first_sight_keys)
+
+    spec = {**GRAPH_HITS, **(spec or {})}
+    eng0 = bf16_served.engine
+    params, cfg, tokenizer = eng0.params, eng0.cfg, eng0.tokenizer
+    ecfg = {**(engine_cfg or {}), "prefix_cache": True, **UNPACED}
+    warm_kw = {**serving_warmup_kw(), "long_prompts": False,
+               "buckets": spec["warm_buckets"]}
+    traffic = _hits_traffic(spec)
+    shorts = _graph_prompts(tokenizer, spec["shorts"])
+    runs = {}
+    planner = None
+    keys = None
+    for mode in ("graphs", "eager"):
+        engine, warm_s, stats = _leg_engine(params, cfg, tokenizer, ecfg,
+                                            spec["n_pages"], device, warm_kw,
+                                            mode)
+        chunk = engine.buckets[-1]
+        s_long = -(-spec["long"] // chunk) * chunk
+        keys = first_sight_keys(s_long, chunk, True)
+        graphs = engine._graphs
+        warmed_cold = graphs is not None and any(
+            k in graphs.graphs for k in keys)
+        try:
+            time_mark(f"graphs_hits_{mode}_warm")
+            planner = planner or _planner_lines(engine)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            prefill_us = []
+            _timed_prefill(engine, prefill_us)
+            admitted, live_after = {}, []
+            for name in ("_begin_long_prefill", "_begin_prefix_prefill"):
+                def begin(req, *a, _fn=getattr(engine, name)):
+                    admitted[id(req)] = time.perf_counter()
+                    out = _fn(req, *a)
+                    g = engine._graphs
+                    live_after.append(len(g.live) if g is not None else 0)
+                    return out
+
+                setattr(engine, name, begin)
+            got: dict = {}
+            threads = []
+
+            def submit(ids, n):
+                req = engine.submit(GenRequest(prompt_ids=list(ids),
+                                               max_new_tokens=n))
+                got[id(req)] = []
+                first = threading.Event()
+                t = threading.Thread(target=_collect_request,
+                                     args=(req, got[id(req)], first),
+                                     daemon=True)
+                t.start()
+                threads.append(t)
+                return req, first
+
+            short_reqs = [submit(p, spec["short_tokens"])[0] for p in shorts]
+            t1 = time.perf_counter()
+            engine.start()
+            reqs = []
+            for _, ids, _ in traffic:
+                req, first = submit(ids, spec["tokens"])
+                reqs.append(req)
+                first.wait(timeout=600)
+            for t in threads:
+                t.join(timeout=900)
+            wall = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            metrics = engine.metrics.snapshot()
+            if engine._graphs is not None:
+                stats = engine._graphs.stats()  # with the run's replays
+            engine.stop()
+        finally:
+            _free_engine(engine)
+            del engine
+        timed = [got[id(r)] for r in short_reqs + reqs]
+        streams = [[tok for _, tok in t] for t in timed]
+        tokens = sum(len(t) for t in streams)
+        short_timed = timed[:spec["shorts"]]
+        per = {}
+        for (name, _, hit), req, t in zip(traffic, reqs,
+                                          timed[spec["shorts"]:]):
+            first_t = t[0][0] if t else None
+            start = admitted.get(id(req)) if hit else req.submit_time
+            # The streams' gaps that overlap this prompt's wait for its
+            # first token (its chunks' time for a hit).
+            gaps = [b[0] - a[0] for s in short_timed
+                    for a, b in zip(s, s[1:])
+                    if first_t is not None and b[0] >= req.submit_time
+                    and a[0] <= first_t]
+            per[name] = {
+                "ttft_ms": ((first_t - req.submit_time) * 1e3
+                            if first_t else None),
+                "ttft_from_admit_ms": ((first_t - start) * 1e3
+                                       if hit and first_t and start
+                                       else None),
+                "streams_worst_gap_ms": max(gaps) * 1e3 if gaps else None,
+                "streams_live": bool(gaps)}
+        hit_gaps = [per[n]["streams_worst_gap_ms"] for n, _, h in traffic
+                    if h and per[n]["streams_worst_gap_ms"] is not None]
+        runs[mode] = {
+            "warmup_s": warm_s, "graphs": stats, "tokens": tokens,
+            "wall_s": wall, "prompts": per,
+            "hits_streams_worst_gap_ms": max(hit_gaps) if hit_gaps else None,
+            "live_after_admissions": live_after,
+            "warmup_held_cold_points": warmed_cold,
+            "prefix_hits": metrics["prefix_hits"],
+            "prefix_hit_tokens": metrics["prefix_hit_tokens"],
+            "eager_prefill_dispatches": metrics["eager_prefill_dispatches"],
+            "eager_chunk_dispatches": metrics["eager_chunk_dispatches"],
+            "prefills": len(prefill_us),
+            "prefill_host_us_p50": (float(np.median(prefill_us))
+                                    if prefill_us else None),
+            "launches": launches,
+            "launches_per_token": {k: n / tokens for k, n in launches.items()
+                                   if n} if tokens else {},
+            "streams": streams}
+        time_mark(f"graphs_hits_{mode}")
+    g, e = runs["graphs"], runs["eager"]
+    equal_streams = g["streams"] == e["streams"]
+    gstats = g["graphs"] or {}
+    fam = gstats.get("by_family", {}).get("chunk", {})
+    # The three long-lane admissions (first sight, second sight, the long
+    # hit) each see the cold length's points captured, at the first one.
+    n = len(keys)
+    # The live captures' eager runs over sink inputs launch for real on
+    # the replayed side and serve no token: held apart.
+    warm = {k: sum(r["warm_launches"].get(k, 0)
+                   for r in (g["graphs"] or {}).get("live", []))
+            for k in GRAPH_KERNELS}
+    g["live_warm_launches"] = warm
+    checks = {
+        "launches_equal": all(g["launches"][k] - warm[k] == e["launches"][k]
+                              for k in GRAPH_KERNELS),
+        "no_eager_prefill_or_chunk": (g["eager_prefill_dispatches"] == 0
+                                      and g["eager_chunk_dispatches"] == 0),
+        "eager_side_eager": e["graphs"] is None,
+        "cold_length_not_warmed": not g["warmup_held_cold_points"],
+        "first_sight_at_admission": g["live_after_admissions"] == [
+            0, 0, n, n, n],
+        "live_graphs_counted": (fam.get("live_graphs") == n
+                                and fam.get("live_refused") == 0
+                                and [tuple(r["key"]) for r in gstats.get(
+                                    "live", [])] == list(keys)),
+        "hits_hit": all(
+            r["prefix_hits"] == 3 and r["prefix_hit_tokens"] == (
+                spec["bucketed_shared"] + spec["repeat"] - 1
+                + spec["long_shared"]) for r in runs.values()),
+        "streams_live_through_hits": all(
+            g["prompts"][name]["streams_live"]
+            for name, _, hit in traffic if hit)}
+    eos = {tokenizer.eos_id} | set(getattr(tokenizer, "eos_ids", None) or ())
+    want = [spec["short_tokens"]] * spec["shorts"] + [spec["tokens"]] * len(
+        traffic)
+    lengths_ok = all(len(s) == n_tok or (s and s[-1] in eos)
+                     for s, n_tok in zip(g["streams"], want))
+    for run in runs.values():
+        _digest(run)
+    ok = (equal_streams and all(checks.values()) and lengths_ok
+          and g["launches"]["flash_attention"] > 0
+          and g["launches"]["paged_attention"] > 0)
+    rec = {"phase": "graphs", "deployment": "bf16_hits", "card": card,
+           "engine": ecfg, "layers": cfg.n_layers, "traffic": {
+               k: v for k, v in spec.items() if k != "warm_buckets"},
+           "warmup": warm_kw, "first_sight_keys": [list(k) for k in keys],
+           "reduced": {"n_pages": spec["n_pages"],
+                       "warm_buckets": spec["warm_buckets"],
+                       "default_buckets": list(eng0.buckets)},
+           "planner": planner, "streams_equal": equal_streams,
+           "stream_lengths_ok": lengths_ok, **checks, "runs": runs,
+           "ok": ok}
+    emit(rec)
+    return rec
+
+
 def phase_graphs_int8(card: str, params, cfg, tokenizer,
                       device: str = "cuda", n_requests: int = 128,
-                      max_tokens: int = 129, tree_tokens: int = 65,
+                      max_tokens: int = 65, tree_tokens: int = 33,
                       n_pages: int = 577, engine_cfg=None,
                       long_spec=None) -> list:
     """The int8 deployment (docs/deployment.md:62) at B = 128, then its
@@ -6098,7 +6370,7 @@ def phase_graphs_int8(card: str, params, cfg, tokenizer,
 def graphs_only(card: str) -> dict:
     """The graphs phase alone (`chip_smoke.py --graphs`): the kernels
     built, the random 8B bf16 engine (seed 0, as the served engine) for
-    its leg, then the int8 deployment's weights (seed 0, quantized, as
+    its two legs (B = 8, the hits), then the int8 deployment's weights (seed 0, quantized, as
     serving_int8's) for the int8, tree and long-prompt legs, each freed
     before the next."""
     import types
@@ -6113,14 +6385,15 @@ def graphs_only(card: str) -> dict:
     out = {"build_s": time.perf_counter() - t0}
     eng = build_engine("8b", "cuda", seed=0, warmup=False, n_pages=97)
     bf16 = phase_graphs_bf16(card, types.SimpleNamespace(engine=eng))
+    hits = phase_graphs_hits(card, types.SimpleNamespace(engine=eng))
     _release_engine(eng)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     eng = build_engine("8b", "cuda", seed=0, warmup=False,
                        engine_cfg=INT8_DEPLOYMENT, n_pages=65)
-    legs = [bf16] + phase_graphs_int8(card, eng.params, eng.cfg,
-                                      eng.tokenizer)
+    legs = [bf16, hits] + phase_graphs_int8(card, eng.params, eng.cfg,
+                                            eng.tokenizer)
     out.update(seconds=time.perf_counter() - t0,
                ok={r["deployment"]: r["ok"] for r in legs})
     return out
@@ -10685,6 +10958,7 @@ def main() -> int:
                           rag_keep)
         spec_bf16 = timed("spec_bf16", phase_spec_bf16, card, served)
         graphs_bf16 = timed("graphs_bf16", phase_graphs_bf16, card, served)
+        graphs_hits = timed("graphs_hits", phase_graphs_hits, card, served)
         prefix = timed("prefix", phase_prefix, card, served)
         fleet = timed("fleet", phase_fleet, card, served)
         # What the engine loaded from the snapshot of these weights must
@@ -10880,7 +11154,7 @@ def main() -> int:
         # The graphs phase: each deployment's warmed engine, whose decode
         # blocks were CUDA graph replays (the eager twin launched as many).
         launched = {rec["deployment"]: rec["runs"]["graphs"]["launches"][
-            e["name"]] for rec in [graphs_bf16] + graphs_int8
+            e["name"]] for rec in [graphs_bf16, graphs_hits] + graphs_int8
             if rec["runs"]["graphs"]["launches"][e["name"]]}
         if launched:
             e["graphs_launches"] = launched
@@ -10897,7 +11171,7 @@ def main() -> int:
           and all(r["ok"] for r in spec_int8)
           and checkpoint["ok"] and checkpoint["tp"]["ok"]
           and train_ranks["ok"] and tools_enc["ok"] and tools_int8["ok"]
-          and tutorial["ok"] and graphs_bf16["ok"]
+          and tutorial["ok"] and graphs_bf16["ok"] and graphs_hits["ok"]
           and all(r["ok"] for r in graphs_int8))
     print(card, flush=True)
     if not ok:

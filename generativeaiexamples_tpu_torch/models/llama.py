@@ -273,11 +273,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 class KVCache:
     """Contiguous KV cache: k/v [L, B, KH, S_max, Hd], lengths [B] (tokens
     already written). Backs greedy_generate and tests; serving uses the
-    paged pool in serving.kv_cache."""
+    paged pool in serving.kv_cache.
+
+    `store` is set on a view of a static scratch store
+    (`serving.engine_model.scratch_view`): the store's own k / v, whose
+    last row is a sink past every view. `forward_hidden` writes a row at
+    or past the view's end there, where nothing reads it, as the JAX
+    package's scatter drops an index out of range; without a store such
+    a row is an index error."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    store: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @staticmethod
     def zeros(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
@@ -466,6 +474,14 @@ def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
         q_offset = kv_cache.lengths
         idx = kv_cache.lengths[:, None].long() + torch.arange(S, device=dev)
         bidx = torch.arange(B, device=dev)[:, None]
+        k_dst, v_dst = kv_cache.k, kv_cache.v
+        if kv_cache.store is not None:
+            # A padded chunk may pass the view's end: those rows go to the
+            # store's sink row (static in shape, no host read), so no row
+            # of the view is overwritten by one that JAX drops.
+            k_dst, v_dst = kv_cache.store
+            idx = torch.where(idx < kv_cache.k.shape[3], idx,
+                              k_dst.shape[3] - 1)
     else:
         attn_lengths, q_offset = new_len, None
 
@@ -479,8 +495,8 @@ def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, *,
         kc, vc = kv_cache.k[layer], kv_cache.v[layer]
         # Scatter the S new tokens at [len, len + S) per row:
         # kc[bidx, :, idx] addresses [B, S, KH, Hd].
-        kc[bidx, :, idx] = k.transpose(1, 2).to(kc.dtype)
-        vc[bidx, :, idx] = v.transpose(1, 2).to(vc.dtype)
+        k_dst[layer][bidx, :, idx] = k.transpose(1, 2).to(kc.dtype)
+        v_dst[layer][bidx, :, idx] = v.transpose(1, 2).to(vc.dtype)
         out = attn_ops.attention(q, kc, vc, causal=True,
                                  lengths=attn_lengths, q_offset=q_offset,
                                  route=attention)

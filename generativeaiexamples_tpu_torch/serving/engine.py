@@ -136,11 +136,18 @@ graphs (serving/step_graphs.py): decode blocks, prefill groups, chunks
 and the hit chain's gather, scatter and finish sampler; a rider or a
 composed plan replays a chunk's graph and a block's. What stays eager,
 and why, is listed there; `metrics.eager_prefill_dispatches` and
-`eager_chunk_dispatches` count a warmed engine's eager ones.
+`eager_chunk_dispatches` count a warmed engine's eager ones. The first
+time a long prompt or a hit arrives at a scratch length the warmup did
+not capture, its chunk, seed and commit graphs are captured at
+admission (`_capture_first_sight`), as the JAX engine compiles a cold
+shape once on first sight; the dispatcher's warmed sets do not change.
 
 Chunked prompts and prefix hits share ONE static scratch cache of page
-capacity's rows (`_scratch`, the memory planner's long_prefill_scratch
-line); a prompt of scratch length S_total uses its first S_total rows.
+capacity's rows plus one sink row (`_scratch`, the memory planner's
+long_prefill_scratch line); a prompt of scratch length S_total uses its
+first S_total rows. Chunks and riders dispatch the JAX engine's widths:
+a padded chunk that passes S_total (a hit's suffix) writes its rows past
+the end to the sink, where JAX's scatter drops them.
 
 Chaos (serving/chaos.py): `chaos_beat_delay_s` sleeps at the top of each
 scheduler iteration (a slow replica); 0.0 costs one float compare.
@@ -864,7 +871,16 @@ class LLMEngine:
         plans replay a chunk's graph and a block's. Elsewhere each point
         runs once eagerly, which pays its first-call costs (kernel
         builds, cuBLAS heuristics, allocator growth). A capture that
-        fails raises. Call before start()."""
+        fails raises. Call before start().
+
+        What the lattice leaves out is captured later, on first sight:
+        a long prompt's or a hit's scratch length that was not warmed
+        (the default server warms no long prompts) gets its chunk at the
+        largest bucket's width, its seed (with a prefix cache) and its
+        commit captured when the prompt is admitted
+        (`_capture_first_sight`), where the JAX engine compiles them
+        cold on the scheduler thread. The `_warm_*` sets stay as
+        warmed, so plans stay the JAX engine's."""
         if self._running:
             raise RuntimeError("warmup() must run before start()")
         if sampled is None:
@@ -963,10 +979,11 @@ class LLMEngine:
                         graphs.capture_chunk(s_tot, chunk)
                         logits = graphs.chunk_logits
                     else:
-                        # Seeded at s_tot - chunk cached tokens, so the
-                        # chunk's rows fit the scratch.
+                        # Seeded at 1 cached token, as in the JAX warmup
+                        # (a full-width chunk's last row lands in the
+                        # scratch's sink).
                         cache = engine_model.pool_to_cache(
-                            self.pool, self.cfg, sink_row, s_tot - chunk,
+                            self.pool, self.cfg, sink_row, 1,
                             out=self._scratch_view(s_tot, reset=False))
                         logits, cache = engine_model.prefill_chunk_step(
                             self.params, self.cfg, cache,
@@ -1044,10 +1061,13 @@ class LLMEngine:
     def _scratch(self) -> KVCache:
         """The engine's one static scratch cache, made at first use with
         page capacity's rows (max_pages x page_size: the memory planner's
-        long_prefill_scratch line) in the scratch dtype."""
+        long_prefill_scratch line) plus the sink row a chunk's rows past
+        its scratch length land in (`engine_model.scratch_view`), in the
+        scratch dtype."""
         if self._scratch_store is None:
             self._scratch_store = KVCache.zeros(
-                self.cfg, 1, max_len=self.max_pages * self.pool.page_size,
+                self.cfg, 1,
+                max_len=self.max_pages * self.pool.page_size + 1,
                 dtype=self._scratch_dtype, device=self.device)
         return self._scratch_store
 
@@ -1925,10 +1945,36 @@ class LLMEngine:
         sequence's pages."""
         chunk = self.buckets[-1]
         s_total = -(-len(ids) // chunk) * chunk
+        self._capture_first_sight(s_total, chunk)
         placeholder.prefilling = True
         self._long_prefills.append(
             _LongPrefill(req, slot_idx, seq, ids, s_total, placeholder,
                          chunk))
+
+    def _capture_first_sight(self, s_total: int, chunk: int) -> None:
+        """The JAX engine's compile-once on first sight: on a graphs
+        engine, capture the points of scratch length s_total that the
+        warmup left out (`step_graphs.first_sight_keys`: with a prefix
+        cache the hit's seed, the chunk at `chunk`, the commit) before the
+        prompt's seed or first chunk runs. At admission no prefill holds
+        the scratch (one lane, `_max_long_prefills`), which a capture's
+        eager run overwrites. A point the device cannot afford beside the
+        memory planner's headroom line (the plan's, or the fraction of
+        the device it would take) stays eager and is counted
+        (`StepGraphs.stats`). A capture that fails raises."""
+        graphs = self._graphs
+        if graphs is None:
+            return
+        if self.memory_plan is not None:
+            headroom = self.memory_plan.headroom_bytes
+        else:
+            from generativeaiexamples_tpu_torch.serving.memory_plan import (
+                device_hbm_bytes)
+
+            headroom = int(device_hbm_bytes(self.ecfg, self.device)
+                           * max(0.0, self.ecfg.planner_headroom_fraction))
+        graphs.capture_first_sight(step_graphs.first_sight_keys(
+            s_total, chunk, self.prefix_cache is not None), headroom)
 
     # -- prefix cache ------------------------------------------------------
 
@@ -2053,6 +2099,7 @@ class LLMEngine:
             else:
                 chunk = self.buckets[-1]
                 s_total = -(-plen // chunk) * chunk
+            self._capture_first_sight(s_total, chunk)
             row = np.zeros((s_total // ps,), np.int32)
             row[:len(pages)] = pages
             self._exec_seed({"slot": np.int32(slot_idx), "row": row,
@@ -2118,10 +2165,7 @@ class LLMEngine:
         it completed the prompt. Under fused_sampling that chunk samples
         the first token in the same call (rider_sample)."""
         n_part = min(lp.chunk, len(lp.ids) - lp.pos)
-        # A prefix hit's suffix starts at the cached length, so a chunk
-        # may not fit a full width before the scratch cache ends.
-        width = min(self._pick_chunk_width(n_part, lp.chunk, lp.s_total),
-                    lp.s_total - lp.pos)
+        width = self._pick_chunk_width(n_part, lp.chunk, lp.s_total)
         final = lp.pos + n_part >= len(lp.ids)
         # On a warmed engine only where that chunk's tail was warmed.
         fuse_sample = (final and self._fused_sampling
@@ -2901,9 +2945,10 @@ class LLMEngine:
         forced the plain fallback (spec_state); a prefill rider when a
         candidate can ride, beside the verify width too (a speculative
         engine has a rider width only with step_plans). The fallback plan
-        never carries a rider. The rider is narrowed where the scratch cache ends before a full width (a
-        prefix hit's suffix starts at the cached length), so every row it
-        writes lies in the cache. Returns (plan, rider _LongPrefill or
+        never carries a rider. A rider always has the full rider width,
+        as in the JAX engine: where a prefix hit's suffix leaves fewer
+        rows before the scratch's end, the padding rows past it land in
+        the scratch's sink row. Returns (plan, rider _LongPrefill or
         None)."""
         spec_k = self._spec_k if spec_mode else 0
         spec_state = bool(self._spec_k) and not spec_mode
@@ -2916,8 +2961,7 @@ class LLMEngine:
         return engine_model.StepPlan(
             decode_k=K, spec_k=spec_k,
             tree_branches=self._tree_branches if spec_k else 0,
-            rider_width=(min(self._fused_width, lp.s_total - lp.pos)
-                         if lp else 0),
+            rider_width=self._fused_width if lp else 0,
             rider_s_total=lp.s_total if lp else 0,
             spec_state=spec_state), lp
 

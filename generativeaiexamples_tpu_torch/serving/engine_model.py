@@ -908,11 +908,17 @@ def pool_to_cache(pool: Pool, cfg: LlamaConfig,
 
 def scratch_view(store: KVCache, s_total: int) -> KVCache:
     """The first s_total rows of a static scratch cache `store` (batch 1,
-    max rows): k / v views sharing its memory and its lengths tensor, so
-    a chunk's K1 call sees s_total keys, as a scratch of that length
-    would give it, and writes land in the store."""
+    max rows plus one): k / v views sharing its memory and its lengths
+    tensor, so a chunk's K1 call sees s_total keys, as a scratch of that
+    length would give it, and writes land in the store. The store's last
+    row is the sink: a chunk's padding rows at or past s_total are
+    written there (`KVCache.store`), as JAX's scatter drops them."""
+    rows = store.k.shape[3]
+    if not 0 < s_total < rows:
+        raise ValueError(f"scratch_view: {s_total} rows of a {rows}-row "
+                         f"store (its last row is the sink)")
     return KVCache(store.k[:, :, :, :s_total], store.v[:, :, :, :s_total],
-                   store.lengths)
+                   store.lengths, store=(store.k, store.v))
 
 
 @torch.no_grad()

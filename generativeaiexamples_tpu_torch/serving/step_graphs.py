@@ -32,10 +32,14 @@ graphs, replays and pool bytes by family):
 
 The scratch cache. Every chunk runs in ONE static scratch of the
 engine's full length (max_pages x page_size rows; the memory planner's
-`long_prefill_scratch` line), and a prompt of scratch length S_total
-uses its first S_total rows (`engine_model.scratch_view`): views that
-share the store's memory and its lengths tensor, advanced in place by
-each chunk. K1 therefore sees exactly the keys a fresh S_total scratch
+`long_prefill_scratch` line) plus one sink row, and a prompt of scratch
+length S_total uses its first S_total rows (`engine_model.scratch_view`):
+views that share the store's memory and its lengths tensor, advanced in
+place by each chunk. A chunk dispatches the JAX engine's width even
+where it passes S_total (a prefix hit's suffix from the cached length);
+its rows past S_total are written to the sink row (`KVCache.store`),
+where the JAX scatter drops them, with no host read, so a graph holds
+the write. K1 therefore sees exactly the keys a fresh S_total scratch
 gives it (its TMA maps are encoded over S_total rows), so replayed and
 eager streams are byte-identical by construction, and it loads no key
 tile past min(lengths, the causal limit) either way: the alternative, a
@@ -86,19 +90,38 @@ the eager path.
   thread's launches are counted apart (`kernels.capture_launches`) and
   recorded with the graph, and each replay adds them (`add_launches`);
   another engine's thread launching meanwhile counts as it always does.
+  A capture's eager run over sink inputs launches for real and counts;
+  a live capture's record also keeps those launches apart
+  (`warm_launches`), as they serve no token.
 - A sampled point registers the engine's generator with its graph, so
   every replay draws fresh numbers from it.
 
+First sight. The warmup captures the lattice it warms; a long prompt
+or a prefix hit at a scratch length it left out (the default server
+warms no long prompts) has its points captured when it is admitted
+(`capture_first_sight` over `first_sight_keys`: its chunk at the
+largest bucket's width, with a prefix cache the hit's seed, its
+commit), where the JAX engine compiles them cold once, on first sight,
+and reuses them. Admission is the one safe moment: a capture's eager
+run zeroes the scratch's lengths and writes its first rows, and no
+prefill holds the scratch then. Before each such capture the device's
+free bytes are read against the memory planner's headroom line; a point
+that would take the engine into it stays eager and is counted
+(`stats()`: `live_graphs`, `live_capture_s`, `live_refused` by family,
+and a `live` record per capture with the pool's bytes after it).
+A live capture comes in any order, not largest first: the chunk pool
+then grows where a smaller graph came first, and stays safe, since
+every graph holds its outputs, its temporaries live only inside its own
+replay and one engine replays on one stream.
+
 What stays eager, and why: a mesh engine (its all-reduces are gloo
 collectives on the host, which a stream capture cannot hold); an engine
-never warmed, and any shape outside the warmed lattice (`covers`); the
-KV pager's page moves (their widths follow the pages a demotion or a
-promotion finds); and in-process fleet replicas still share the
-default stream, so their replays serialize there. A prefix hit inside
-a bucket is the common shape outside the lattice: the engine narrows
-its suffix chunk to the scratch's end (width S_total - m), which the
-lattice's bucket widths do not hold. A capture
-that fails raises out of `LLMEngine.warmup`: nothing falls back.
+never warmed, and a point the device cannot afford beside the planner's
+headroom (`covers` is then false); the KV pager's page moves (their
+widths follow the pages a demotion or a promotion finds); and
+in-process fleet replicas still share the default stream, so their
+replays serialize there. A capture that fails raises, out of
+`LLMEngine.warmup` or out of the admission: nothing falls back.
 """
 
 from __future__ import annotations
@@ -194,6 +217,38 @@ def _family(key) -> str:
         "prefill" if key[0] == "prefill" else "chunk")
 
 
+def first_sight_keys(s_total: int, chunk: int, seed: bool
+                     ) -> Tuple[tuple, ...]:
+    """The chunk-family points a prompt of scratch length s_total
+    dispatches where the warmup captured none, in dispatch order: with a
+    prefix cache (`seed`) the hit's gather, so a later hit at s_total
+    finds it as the long-prompt warmup leaves it; the chunk at `chunk`,
+    the width `_pick_chunk_width` gives with no width warmed at s_total;
+    the commit scatter. The JAX engine compiles these cold the first
+    time it dispatches them."""
+    return ((("seed", s_total),) if seed else ()) + (
+        ("chunk", s_total, chunk, None), ("commit", s_total))
+
+
+def capture_bytes(cfg, key) -> int:
+    """A chunk-family capture's device bytes, estimated before it runs:
+    a chunk of width W, the memory planner's activation estimate for W
+    tokens (~4 hidden-width and 2 MLP-width live copies, plus the f32
+    logits row); a seed or a commit, one model-dtype copy of the k and v
+    rows of its scratch length (the gather, or the reshaped rows the
+    scatter writes). Doubled: the eager run's transients stay cached for
+    the capture stream beside the graph's pool."""
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+    if key[0] == "chunk":
+        w = key[2]
+        one = (w * (4 * cfg.dim + 2 * cfg.mlp_dim) * item
+               + cfg.vocab_size * 4)
+    else:
+        one = 2 * cfg.n_layers * cfg.n_kv_heads * key[1] * cfg.head_dim \
+            * item
+    return 2 * one
+
+
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     outputs: Dict[str, torch.Tensor]  # the static outputs a replay writes
@@ -229,6 +284,13 @@ class StepGraphs:
         self.mempools = {f: torch.cuda.graph_pool_handle() for f in FAMILIES}
         self.graphs: Dict[tuple, _Graph] = {}
         self.capture_s = dict.fromkeys(FAMILIES, 0.0)
+        # First-sight captures after warmup (capture_first_sight): graphs,
+        # seconds and points refused for want of memory, by family, and
+        # one record per capture.
+        self.live_graphs = dict.fromkeys(FAMILIES, 0)
+        self.live_capture_s = dict.fromkeys(FAMILIES, 0.0)
+        self.live_refused = dict.fromkeys(FAMILIES, 0)
+        self.live: list = []
         # The host seconds of the decode blocks' first launches (their
         # upload), part of capture_s.
         self.first_launch_s = dict.fromkeys(FAMILIES, 0.0)
@@ -362,23 +424,28 @@ class StepGraphs:
 
     # -- capture -------------------------------------------------------------
 
-    def _capture(self, key, inputs: _Inputs, body, sampled: bool) -> None:
+    def _capture(self, key, inputs: _Inputs, body,
+                 sampled: bool) -> Dict[str, int]:
         """Capture `body` as the graph of `key`: once eagerly on the
         capture stream over the inputs' fill values (sink page 0, slot
         index `batch`: every write lands where nothing reads it), then
         under capture into its family's pool; a decode block is then
         replayed once over the same inputs. A point already captured (a
-        second warmup) is kept as it is."""
+        second warmup) is kept as it is. Returns the kernel launches of
+        the eager run (counted in `kernels.LAUNCHES` too; none for a
+        point kept)."""
         if key in self.graphs:
-            return
+            return {}
         family = _family(key)
         t0 = time.perf_counter()
         inputs.load({})
         if self.scratch is not None:
             self.scratch.lengths.zero_()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.stream):
+        with torch.cuda.stream(self.stream), \
+                kernels.capture_launches() as warm:
             body()
+        kernels.add_launches(warm)
         self.stream.synchronize()
         graph = torch.cuda.CUDAGraph()
         if sampled:
@@ -409,6 +476,7 @@ class StepGraphs:
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         self.graphs[key] = _Graph(graph, outputs, launches)
         self.capture_s[family] += time.perf_counter() - t0
+        return warm
 
     def capture(self, plan: engine_model.StepPlan, flags) -> None:
         """Capture one decode lattice point (a block: no chunk)."""
@@ -430,21 +498,23 @@ class StepGraphs:
                       lambda: self._prefill_body(bucket, n, flags),
                       not flags[0])
 
-    def capture_chunk(self, s_total: int, width: int, flags=None) -> None:
+    def capture_chunk(self, s_total: int, width: int,
+                      flags=None) -> Dict[str, int]:
         """Capture a chunk of `width` at scratch length s_total; with
         `flags`, the prompt-completing chunk that samples under them."""
         flags = _flags(flags)
-        self._capture(("chunk", s_total, width, flags), self._chunk_in,
-                      lambda: self._chunk_body(s_total, width, flags),
-                      flags is not None and not flags[0])
+        return self._capture(("chunk", s_total, width, flags),
+                             self._chunk_in,
+                             lambda: self._chunk_body(s_total, width, flags),
+                             flags is not None and not flags[0])
 
-    def capture_seed(self, s_total: int) -> None:
-        self._capture(("seed", s_total), self._chunk_in,
-                      lambda: self._seed_body(s_total), False)
+    def capture_seed(self, s_total: int) -> Dict[str, int]:
+        return self._capture(("seed", s_total), self._chunk_in,
+                             lambda: self._seed_body(s_total), False)
 
-    def capture_commit(self, s_total: int) -> None:
-        self._capture(("commit", s_total), self._chunk_in,
-                      lambda: self._commit_body(s_total), False)
+    def capture_commit(self, s_total: int) -> Dict[str, int]:
+        return self._capture(("commit", s_total), self._chunk_in,
+                             lambda: self._commit_body(s_total), False)
 
     def capture_history(self) -> None:
         """On a speculative engine, the commit's history row."""
@@ -456,6 +526,43 @@ class StepGraphs:
         flags = _flags(flags)
         self._capture(("finish", flags), self._chunk_in,
                       lambda: self._finish_body(flags), not flags[0])
+
+    def capture_first_sight(self, keys, headroom_bytes: int) -> list:
+        """Capture each of `keys` (`first_sight_keys`) that has no graph
+        yet, after the warmup: the device's free bytes less the capture's
+        estimate (`capture_bytes`) must stay at or above the memory
+        planner's headroom line, else the point stays eager and counts
+        in `live_refused`. Call only while no prefill holds the scratch
+        (at a prompt's admission). Returns the keys captured."""
+        done = []
+        for key in keys:
+            if key in self.graphs:
+                continue
+            family = _family(key)
+            free, _ = torch.cuda.mem_get_info(self.device)
+            est = capture_bytes(self.cfg, key)
+            if free - est < headroom_bytes:
+                self.live_refused[family] += 1
+                continue
+            t0 = time.perf_counter()
+            if key[0] == "chunk":
+                warm = self.capture_chunk(key[1], key[2], key[3])
+            elif key[0] == "seed":
+                warm = self.capture_seed(key[1])
+            elif key[0] == "commit":
+                warm = self.capture_commit(key[1])
+            else:
+                raise ValueError(f"StepGraphs: {key} is not a first-sight "
+                                 f"point")
+            dt = time.perf_counter() - t0
+            self.live_graphs[family] += 1
+            self.live_capture_s[family] += dt
+            self.live.append({"key": key, "capture_s": dt, "est_bytes": est,
+                              "free_bytes": free,
+                              "pool_bytes": self.pool_bytes(family),
+                              "warm_launches": warm})
+            done.append(key)
+        return done
 
     # -- replay --------------------------------------------------------------
 
@@ -557,16 +664,25 @@ class StepGraphs:
         """Graphs captured, the seconds their captures took (each with its
         eager run and its first replay) and the device bytes their pools
         hold, in all and by family with the replays each made since (and
-        the decode blocks' first launches' host seconds); the static
+        the decode blocks' first launches' host seconds); of those, the
+        graphs captured after warmup on first sight and their seconds,
+        and the first-sight points refused for want of memory, by family,
+        with one record a live capture (`live`: key, seconds, estimate,
+        free bytes before, the family's pool bytes after, the kernel
+        launches of its eager run over sink inputs); the static
         scratch's bytes apart (it is the engine's, and the planner's)."""
         by = {f: {"graphs": sum(_family(k) == f for k in self.graphs),
                   "replays": self.replays[f],
                   "capture_s": self.capture_s[f],
                   "first_launch_s": self.first_launch_s[f],
-                  "pool_bytes": self.pool_bytes(f)} for f in FAMILIES}
+                  "pool_bytes": self.pool_bytes(f),
+                  "live_graphs": self.live_graphs[f],
+                  "live_capture_s": self.live_capture_s[f],
+                  "live_refused": self.live_refused[f]} for f in FAMILIES}
         return {"graphs": len(self.graphs),
                 "capture_s": sum(self.capture_s.values()),
                 "pool_bytes": sum(b["pool_bytes"] for b in by.values()),
                 "by_family": by,
+                "live": [dict(r) for r in self.live],
                 "scratch_bytes": (2 * self.scratch.k.nbytes
                                   if self.scratch is not None else 0)}

@@ -86,16 +86,26 @@ def _ids(req) -> list:
 def run_trace(eng, request_cls, trace, max_steps: int = 400) -> dict:
     """Submit each trace entry ({"at": step, "prompt": ids,
     "max_new_tokens": n}) before that inline step and step to idle.
-    Returns every `plan` record's coordinates in dispatch order and each
-    request's token ids."""
-    plans = []
+    Returns every `plan` record's coordinates in dispatch order, every
+    `seed` and `commit` record as [kind, scratch length] in dispatch
+    order ("points") and each request's token ids."""
+    plans, points = [], []
     real = eng._exec_plan
+    ps = eng.pool.page_size
 
     def spy(rec):
         plans.append([int(rec[k]) for k in PLAN_KEYS])
         return real(rec)
 
+    def point(kind, fn):
+        def run(rec):
+            points.append([kind, len(rec["row"]) * ps])
+            return fn(rec)
+        return run
+
     eng._exec_plan = spy
+    eng._exec_seed = point("seed", eng._exec_seed)
+    eng._exec_commit = point("commit", eng._exec_commit)
     reqs = [None] * len(trace)
     for i in range(max_steps):
         for j, t in enumerate(trace):
@@ -108,7 +118,8 @@ def run_trace(eng, request_cls, trace, max_steps: int = 400) -> dict:
             break
     else:
         raise AssertionError("engine did not go idle")
-    return {"plans": plans, "streams": [_ids(r) for r in reqs]}
+    return {"plans": plans, "points": points,
+            "streams": [_ids(r) for r in reqs]}
 
 
 def _main(spec: dict) -> dict:

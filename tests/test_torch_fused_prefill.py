@@ -339,9 +339,11 @@ class TestRiderEdges:
 
     def test_prefix_hit_suffix_rides_past_the_rider_width(self, monkeypatch):
         """A prefix hit's suffix starts at the cached length, so a full
-        rider (32) from there would pass the scratch cache's end (pos 24,
-        s_total 32): the rider narrows to the 8 rows left and still feeds
-        every suffix token. The stream equals the cold run's."""
+        rider (32) from there passes the scratch cache's end (pos 24,
+        s_total 32): the rider keeps the JAX engine's width, its rows
+        past the end land in the scratch's sink row (where JAX's scatter
+        drops them), and it feeds every suffix token. The stream equals
+        the cold run's."""
         widths = []
         real = engine_model.fused_decode_prefill_step
 
@@ -377,7 +379,7 @@ class TestRiderEdges:
         snap = eng.metrics.snapshot()
         assert snap["prefix_hits"] == 1 and snap["prefix_hit_tokens"] == 24
         assert snap["fused_prefill_tokens"] == 6
-        assert widths == [(8, 32)]
+        assert widths == [(32, 32)]
 
 
 class TestTailChunkBucketing:

@@ -21,10 +21,20 @@
   tests/_warm_trace.py, as in test_torch_warmup.py). On the CPU the
   port runs every step eagerly, through the same static scratch and
   device-index scatters its CUDA graphs hold.
+- Chunks at the JAX engine's widths: a chunk whose padded rows pass the
+  scratch view's end writes them to the store's sink row, and equals
+  JAX's `prefill_chunk_step` (whose scatter drops them); the engine's
+  plans over hits inside a bucket, an exact repeat and a long hit's last
+  rider equal JAX's op for op.
+- First sight: `step_graphs.first_sight_keys` gives the chunk, seed and
+  commit points the JAX engine dispatches (and compiles cold) for a long
+  prompt and a hit at a scratch length its warmup left out.
 - On a CUDA device (skipped here): a warmed tiny bf16 engine replays its
   prefill, chunk and hit graphs, with streams equal to the same engine
   with its graphs dropped, and a prefill graph's first tokens read back
-  after a second replay of the same graph are the first replay's.
+  after a second replay of the same graph are the first replay's; an
+  engine warmed without long prompts captures a cold scratch length's
+  points at the first prompt's admission, and nothing more after.
 """
 
 import dataclasses
@@ -210,6 +220,63 @@ def test_static_scratch_chunks_equal_jax_and_a_fresh_scratch(
     assert torch.equal(store.k[:, :, :, s_total:], tail)
 
 
+@pytest.mark.parametrize("s_total, pos, width, valid", [
+    (32, 24, 16, 8),    # a bucketed hit's suffix: half the width past
+    (32, 31, 16, 1),    # an exact repeat capped at len - 1
+    (48, 40, 16, 6),    # a long hit's last rider
+    (64, 60, 32, 3)])
+def test_chunk_past_the_scratch_end_equals_jax(models, s_total, pos, width,
+                                                valid):
+    """A chunk whose padded rows pass the scratch view's end (pos + width
+    > s_total), the valid count a device tensor: the last valid token's
+    logits and the k/v rows [pos, s_total) within atol of JAX's
+    prefill_chunk_step, whose scatter drops the rows past the end. The
+    rows below pos and the store's rows past s_total stay as they were;
+    only the sink (the store's last row) takes the dropped rows."""
+    jparams, tparams = models
+    rng = np.random.default_rng(pos + width)
+    store = _stale_store(97, pos)
+    view = tem.scratch_view(store, s_total)
+    view.lengths.fill_(pos)
+    before = {n: getattr(store, n).clone() for n in ("k", "v")}
+    jcache = jl.KVCache(jnp.asarray(store.k[:, :, :, :s_total].numpy()),
+                        jnp.asarray(store.v[:, :, :, :s_total].numpy()),
+                        jnp.asarray([pos], jnp.int32))
+    tok = np.zeros((1, width), np.int32)
+    tok[0, :valid] = rng.integers(0, 256, valid)
+    # The padding ids are not zeros here: every dropped row is a live
+    # token's k / v, which must not land in the view.
+    tok[0, valid:] = rng.integers(0, 256, width - valid)
+    jlogits, jcache = jem.prefill_chunk_step(
+        jparams, JCFG, jcache, jnp.asarray(tok), jnp.int32(valid),
+        use_pallas=False)
+    got, view = tem.prefill_chunk_step(
+        tparams, TCFG, view, torch.from_numpy(tok),
+        torch.tensor([valid], dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jlogits), atol=ATOL,
+                               rtol=0)
+    assert view.lengths.tolist() == [pos + valid] \
+        == np.asarray(jcache.lengths).tolist()
+    for name in ("k", "v"):
+        now, old = getattr(store, name), before[name]
+        np.testing.assert_allclose(
+            now[:, :, :, pos:s_total].numpy(),
+            np.asarray(getattr(jcache, name))[:, :, :, pos:s_total],
+            atol=ATOL, rtol=0)
+        assert torch.equal(now[:, :, :, :pos], old[:, :, :, :pos])
+        assert torch.equal(now[:, :, :, s_total:-1], old[:, :, :, s_total:-1])
+        assert not torch.equal(now[:, :, :, -1], old[:, :, :, -1])
+
+
+def test_scratch_view_keeps_the_sink_row_out():
+    """A view reaches at most the row before the store's sink."""
+    store = _stale_store(33, 0)
+    assert tem.scratch_view(store, 32).k.shape[3] == 32
+    for rows in (0, 33):
+        with pytest.raises(ValueError, match="sink"):
+            tem.scratch_view(store, rows)
+
+
 @pytest.mark.parametrize("kind", ["float32", "int8"])
 def test_hit_gather_into_the_static_scratch_equals_jax(kind):
     """pool_to_cache(out=) writes JAX's gather into the store's first
@@ -287,9 +354,16 @@ LONG = [(i * 7 + 1) % 256 for i in range(40)]   # 3 chunks of 16: 16, 16, 8
 HIT = LONG + [11, 22, 33, 44]                    # 40 cached tokens + 4
 SHORT = [5, 6, 7, 8, 9, 10, 11, 12, 13]          # 1 full page
 SHORT_HIT = SHORT[:8] + [99, 98, 97, 96]         # that page + 4
+REPEAT = [(i * 5 + 3) % 256 for i in range(16)]  # the whole bucket
+LONG_HIT = LONG[:24] + [(i * 3 + 2) % 256 for i in range(22)]  # 24 + 22
 CONFIGS = {
-    # Riders at the warmed (48, K); the hit's 4-token suffix at (48, 8);
-    # a bucketed prompt's cached first page hit inside the bucket.
+    # Riders at the warmed (48, K); the hit's 4-token suffix at (48, 8).
+    # Past the scratch's end (JAX's widths, the rows past it dropped): a
+    # bucketed prompt's cached first page hit inside the bucket (16 rows
+    # from 8, scratch 16); an exact repeat of a 16-token prompt, capped
+    # at 15 cached tokens (16 rows from 15); a long hit on LONG's first 3
+    # pages whose riders of 16 run from 24, the last from 40 (scratch
+    # 48) while REPEAT's first run decodes.
     "plain": {"ecfg": BASE,
               "warmup": {"long_prompts": True,
                          "long_prompt_lengths": [40, 44]},
@@ -298,6 +372,10 @@ CONFIGS = {
                         {"at": 2, "prompt": [3, 1, 4], "max_new_tokens": 6},
                         {"at": 9, "prompt": HIT, "max_new_tokens": 6},
                         {"at": 10, "prompt": SHORT_HIT,
+                         "max_new_tokens": 5},
+                        {"at": 11, "prompt": REPEAT, "max_new_tokens": 60},
+                        {"at": 13, "prompt": REPEAT, "max_new_tokens": 4},
+                        {"at": 14, "prompt": LONG_HIT,
                          "max_new_tokens": 5}]},
     # The same traffic on a speculative tree engine with composed plans:
     # its history rows come from the device-index scatters.
@@ -310,7 +388,20 @@ CONFIGS = {
                             {"at": 1, "prompt": LONG, "max_new_tokens": 5},
                             {"at": 7, "prompt": HIT, "max_new_tokens": 6},
                             {"at": 8, "prompt": SHORT_HIT,
+                             "max_new_tokens": 5},
+                            {"at": 9, "prompt": REPEAT,
+                             "max_new_tokens": 60},
+                            {"at": 11, "prompt": REPEAT,
+                             "max_new_tokens": 4},
+                            {"at": 12, "prompt": LONG_HIT,
                              "max_new_tokens": 5}]},
+    # Warmed as the default server warms (sampled, no long prompts): a
+    # long prompt at the unwarmed scratch length 48, then a hit on it,
+    # whose 4-token suffix runs 16 rows from 40.
+    "cold": {"ecfg": BASE, "warmup": {"sampled": True},
+             "trace": [{"at": 0, "prompt": LONG, "max_new_tokens": 5},
+                       {"at": 1, "prompt": [3, 1, 4], "max_new_tokens": 6},
+                       {"at": 6, "prompt": HIT, "max_new_tokens": 6}]},
 }
 
 
@@ -358,30 +449,66 @@ def test_warmed_lattice_with_hits_equals_jax(jax_runs, port_runs, name):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
+def _chunk_keys(run) -> list:
+    """A trace's chunk-family dispatches as step_graphs keys, in order:
+    each chunk plan ("chunk", S_total, width, sampled tail or None), then
+    each seed and commit record."""
+    return ([("chunk", p[4], p[3], "tail" if p[6] else None)
+             for p in run["plans"] if p[3]]
+            + [tuple(pt) for pt in run["points"]])
+
+
+@pytest.mark.parametrize("name", ["plain", "spec_tree"])
 def test_warmed_streams_over_hits_and_riders_equal_jax(jax_runs, port_runs,
                                                        name):
-    """The dispatched plans and every greedy stream equal the JAX
-    engine's; the trace rode a prompt and hit the cache twice (a long
-    prompt's 40 tokens, a bucketed prompt's first page), all through the
-    one static scratch."""
+    """The dispatched plans, seeds and commits and every greedy stream
+    equal the JAX engine's op for op; the trace rode a prompt and hit the
+    cache four times (a long prompt's 40 and 24 tokens, a bucketed
+    prompt's first page, an exact repeat's 15), all through the one
+    static scratch. Three of those dispatch chunks whose padded rows pass
+    the scratch's end, at the JAX engine's widths."""
     want, got = jax_runs[name], port_runs[name]
     assert got["streams"] == want["streams"]
-    # The bucketed hit's suffix chunk (scratch length 16, from the cached
-    # page at 8): the port narrows it to the scratch's end (width 8,
-    # engine._dispatch_chunk), where JAX's scatter drops the rows past
-    # it (width 16), so that one plan differs in width and tail.
-    assert [p for p in got["plans"] if p[4] != 16] == [
-        p for p in want["plans"] if p[4] != 16]
-    assert [p[4] for p in got["plans"]].count(16) == 1
+    assert got["plans"] == want["plans"]
+    assert got["points"] == want["points"]
     trace = CONFIGS[name]["trace"]
     assert all(len(s) == t["max_new_tokens"]
                for s, t in zip(got["streams"], trace))
-    assert got["hits"] == 2 and got["fused_steps"] > 0
+    assert got["hits"] == 4 and got["fused_steps"] > 0
     assert any(p[0] and p[3] for p in got["plans"])      # a rider
-    # Page capacity's rows; an engine without graphs frees the store
-    # once no prefill holds it.
-    assert got["scratch_rows"] == {BASE["max_seq_len"]}
+    # The hits inside the bucket: 16-row chunks of a 16-row scratch.
+    assert [p[3] for p in got["plans"] if p[4] == 16] == [16, 16]
+    # Riders at (48, 16): LONG's three, then the long hit's from 24 and
+    # from 40 (6 valid rows; JAX drops the 8 past 48).
+    assert [(p[3], p[4]) for p in got["plans"] if p[0] and p[3]] == [
+        (16, 48)] * 5
+    assert got["points"][-2:] == [["seed", 48], ["commit", 48]]
+    # Page capacity's rows and the sink row; an engine without graphs
+    # frees the store once no prefill holds it.
+    assert got["scratch_rows"] == {BASE["max_seq_len"] + 1}
     assert got["scratch_left"] is None
+
+
+def test_first_sight_keys_equal_the_cold_dispatch_of_jax(jax_runs,
+                                                         port_runs):
+    """On engines warmed as the default server warms (no long prompts),
+    a long prompt at the unwarmed scratch length 48 and a hit on it
+    dispatch exactly the chunk, seed and commit points
+    `step_graphs.first_sight_keys` gives for 48 (the JAX engine compiles
+    them cold there), and the port's plans, points and streams equal
+    JAX's."""
+    want, got = jax_runs["cold"], port_runs["cold"]
+    assert got["lattice"] == want["lattice"]
+    assert not any(s == 48 for s, _ in want["lattice"]["chunk_widths"])
+    assert (got["plans"], got["points"], got["streams"]) == (
+        want["plans"], want["points"], want["streams"])
+    keys = step_graphs.first_sight_keys(48, BASE["prefill_buckets"][-1],
+                                        True)
+    assert {k for k in _chunk_keys(want) if k[1] == 48} == set(keys)
+    assert [k for k in _chunk_keys(want) if k[0] == "chunk"] == [
+        ("chunk", 48, 16, None)] * 4
+    assert step_graphs.first_sight_keys(48, 16, False) == (
+        ("chunk", 48, 16, None), ("commit", 48))
 
 
 # -- on the card (skipped without one) ----------------------------------------
@@ -404,8 +531,7 @@ def test_replayed_prefill_lattice_equals_eager_on_cuda():
     params = tl.init_params(cfg, "cuda",
                             torch.Generator(device="cuda").manual_seed(0))
     spec = CONFIGS["plain"]
-    # The bucketed hit's (16, 8) chunk is not in the warmed lattice.
-    trace = spec["trace"][:4]
+    trace = spec["trace"]
     ecfg = {**spec["ecfg"], "dtype": "bfloat16", "kv_dtype": "bfloat16"}
     runs = {}
     for mode in ("graphs", "eager"):
@@ -443,3 +569,69 @@ def test_replayed_prefill_lattice_equals_eager_on_cuda():
     assert runs["graphs"]["plans"] == runs["eager"]["plans"]
     assert runs["graphs"]["eager"] == (0, 0)
     assert runs["eager"]["eager"][0] > 0 and runs["eager"]["eager"][1] > 0
+
+
+def _tiny_cuda_model():
+    # K1 takes head_dim 64 or 128: the tiny geometry at head_dim 64.
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(), dim=256, head_dim=64,
+                              dtype=torch.bfloat16)
+    return cfg, tl.init_params(cfg, "cuda",
+                               torch.Generator(device="cuda").manual_seed(0))
+
+
+def test_first_sight_captures_at_admission_on_cuda():
+    """A tiny bf16 engine with the prefix cache, warmed as the default
+    server warms (sampled, no long prompts), serves a long prompt at the
+    unwarmed scratch length 48, a second one there with no shared
+    prefix, then a hit on the first: the first admission captures
+    `first_sight_keys(48, 16, True)` before its first chunk runs, the
+    second and the hit capture nothing new, none of the three makes an
+    eager chunk dispatch and no point is refused, and the streams equal
+    the same engine's with its graphs dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs replay there")
+    cfg, params = _tiny_cuda_model()
+    other = [(i * 11 + 5) % 256 for i in range(40)]
+    trace = [{"at": 0, "prompt": [3, 1, 4], "max_new_tokens": 60},
+             {"at": 1, "prompt": LONG, "max_new_tokens": 5},
+             {"at": 8, "prompt": other, "max_new_tokens": 5},
+             {"at": 16, "prompt": HIT, "max_new_tokens": 6}]
+    ecfg = {**BASE, "dtype": "bfloat16", "kv_dtype": "bfloat16"}
+    keys = step_graphs.first_sight_keys(48, 16, True)
+    runs = {}
+    for mode in ("graphs", "eager"):
+        eng = LLMEngine(params, cfg, ByteTokenizer(), ecfg,
+                        device="cuda").warmup(sampled=True)
+        if mode == "eager":
+            eng._graphs = None
+        else:
+            assert not any(k in eng._graphs.graphs for k in keys)
+        seen = []
+        for name in ("_begin_long_prefill", "_begin_prefix_prefill"):
+            def begin(*a, _fn=getattr(eng, name), _name=name):
+                chunks = len(plans)
+                out = _fn(*a)
+                g = eng._graphs
+                seen.append((_name, [r["key"] for r in g.live] if g else [],
+                             len(plans) == chunks))
+                return out
+            setattr(eng, name, begin)
+        plans = []
+        real = eng._exec_plan
+        eng._exec_plan = lambda rec, _real=real: (plans.append(rec),
+                                                  _real(rec))[1]
+        runs[mode] = run_trace(eng, GenRequest, trace)
+        runs[mode]["eager"] = eng.metrics.eager_chunk_dispatches
+        runs[mode]["seen"] = seen
+        if mode == "graphs":
+            stats = eng._graphs.stats()
+            assert stats["by_family"]["chunk"]["live_graphs"] == len(keys)
+            assert stats["by_family"]["chunk"]["live_refused"] == 0
+            assert [r["key"] for r in stats["live"]] == list(keys)
+    assert runs["graphs"]["streams"] == runs["eager"]["streams"]
+    assert runs["graphs"]["plans"] == runs["eager"]["plans"]
+    assert runs["graphs"]["eager"] == 0 and runs["eager"]["eager"] > 0
+    assert runs["graphs"]["seen"] == [
+        ("_begin_long_prefill", list(keys), True),
+        ("_begin_long_prefill", list(keys), True),
+        ("_begin_prefix_prefill", list(keys), True)]
